@@ -1,0 +1,112 @@
+"""The port stands alone: it imports neither JAX nor anything of the JAX
+package, and its entry points run on the card unless the CPU is asked for.
+"""
+
+from __future__ import annotations
+
+import ast
+import pkgutil
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import frl_distributed_ml_scaffold_tpu_torch as port
+
+REPO = Path(__file__).resolve().parents[1]
+PORT_DIR = Path(port.__file__).resolve().parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "frl_distributed_ml_scaffold_tpu")
+
+
+def _modules() -> list[str]:
+    return sorted(
+        m.name for m in pkgutil.walk_packages([str(PORT_DIR)], port.__name__ + ".")
+    ) + [port.__name__]
+
+
+def _sources() -> list[Path]:
+    return sorted(PORT_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_every_port_module_imports_with_jax_blocked():
+    blocked = "; ".join(f"sys.modules[{m!r}] = None" for m in FORBIDDEN)
+    imports = "; ".join(f"importlib.import_module({m!r})" for m in _modules())
+    code = (
+        f"import importlib, sys; {blocked}; sys.path.insert(0, {str(REPO)!r}); "
+        f"{imports}; import chip_smoke; "
+        "assert not any(k.split('.')[0] in "
+        f"{FORBIDDEN!r} and sys.modules[k] is not None for k in sys.modules)"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=120, cwd=REPO,
+    )
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
+def test_no_jax_import_in_the_port(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: entry points do not raise")
+
+
+def test_entry_points_default_to_cuda_and_raise_without_a_card():
+    _no_card()
+    from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
+        GPTConfig,
+        ServingConfig,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.models.generation import generate
+    from frl_distributed_ml_scaffold_tpu_torch.models.gpt import GPT
+    from frl_distributed_ml_scaffold_tpu_torch.precision import get_policy
+    from frl_distributed_ml_scaffold_tpu_torch.serving import (
+        ServingEngine,
+        build_engine,
+    )
+
+    cfg = GPTConfig(vocab_size=64, num_layers=1, num_heads=2, hidden_dim=64,
+                    seq_len=32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GPT(cfg, get_policy("fp32"))
+    model = GPT(cfg, get_policy("fp32"), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate(model, [[1, 2, 3]], max_new_tokens=2, temperature=0.0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_engine(model, serving=ServingConfig())
+    out = generate(model, [[1, 2, 3]], max_new_tokens=2, temperature=0.0,
+                   device="cpu")
+    assert tuple(out.shape) == (1, 5)
+
+
+@pytest.mark.parametrize("alone", [False, True], ids=["repo", "script_alone"])
+def test_chip_smoke_fails_without_a_card(tmp_path, alone):
+    """``chip_smoke.py`` exits non-zero and prints no result on a box
+    without a card, in the repository and copied out of it alone."""
+    _no_card()
+    script = REPO / "chip_smoke.py"
+    if alone:
+        script = Path(shutil.copy(script, tmp_path / "chip_smoke.py"))
+    out = subprocess.run(
+        [sys.executable, str(script)], capture_output=True, text=True,
+        timeout=120, cwd=script.parent,
+    )
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
