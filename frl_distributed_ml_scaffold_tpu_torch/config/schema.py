@@ -26,8 +26,9 @@ class PrecisionConfig:
 @dataclass(frozen=True)
 class ServingConfig:
     """Serving knobs of the continuous-batching engine. The port runs
-    the bucketed contiguous cache only; every other knob must stay at
-    its default (``ServingEngine`` refuses the rest)."""
+    the bucketed contiguous cache, the paged pool with the prefix cache
+    and ``speculate=ngram``; ``ServingEngine`` refuses the rest
+    (``speculate=draft``, disaggregation, deadlines, load shedding)."""
 
     # Bounded admission (load shedding); 0 = unbounded.
     max_queue_depth: int = 0

@@ -1,10 +1,13 @@
 """Autoregressive generation for the port's GPT: prefill + KV-cache decode.
 
 The port of the JAX package's ``models/generation.py`` for the serving
-slice. One prefill over the (left-padded, ragged) prompt fills every
+path. One prefill over the (left-padded, ragged) prompt fills every
 layer's cache; then one single-token decode step per new token, in a
 Python loop where the JAX package scans. The cache is bucketed to the
 smallest power of two covering prompt + budget (``next_cache_bucket``).
+The serving engine's paged pool adds the speculative verify step and
+cursor rewind, and the block-pool taxonomy (``POOL_LEAF_OF``,
+``splice_pool_blocks``, ``pool_block_bytes``) at the end of the module.
 
 Sampling: greedy (``temperature=0``), temperature, top-k and nucleus
 (top-p), drawing from an explicit ``torch.Generator``. The draws differ
@@ -57,12 +60,21 @@ def next_cache_bucket(seq_len: int, needed: int, floor: int = 8) -> int:
 
 
 @torch.no_grad()
-def _prefill(model, prompt, lengths, *, cache_len: int):
+def _prefill(model, prompt, lengths, *, cache_len: int, cache=None):
     """One pass over the (possibly left-padded ragged) prompt creates and
     fills a cache of capacity ``cache_len``; returns (last-position
     logits ``[B, V]``, cache). Prompts are right-aligned, so position -1
-    is every row's real last token."""
-    cache = model.init_cache(prompt.shape[0], cache_len)
+    is every row's real last token.
+
+    ``cache`` seeds the pass instead of an empty cache: the serving
+    engine's shared-prefix path prefills only a prompt's SUFFIX against a
+    contiguous cache whose leading positions hold the shared prefix's K/V
+    (gathered from the pool) and whose ``cache_index`` / ``pos_index``
+    start at the prefix length. The model's masks and positions start
+    from those indices, so the attention is that of a full-prompt
+    prefill."""
+    if cache is None:
+        cache = model.init_cache(prompt.shape[0], cache_len)
     logits = model(prompt, cache, lengths)
     return logits[:, -1], cache
 
@@ -72,6 +84,32 @@ def _decode_step(model, cache: dict, tok: torch.Tensor):
     """One single-token decode step for every row: returns (logits
     ``[B, V]``, the cache, advanced in place)."""
     return model(tok[:, None], cache)[:, 0], cache
+
+
+@torch.no_grad()
+def _verify_step(model, cache: dict, toks: torch.Tensor):
+    """One batched speculative-verify forward: ``toks [B, T]`` is each
+    row's last accepted token followed by T-1 drafts. Returns (logits
+    ``[B, T, V]`` at every position, the cache). On a paged cache every
+    position scores causally in one pass, so position 0's logits are the
+    single-token step's and greedy acceptance is exact. The cursors
+    advance by T; ``rewind_cache_indices`` rolls rejected positions
+    back."""
+    return model(toks, cache), cache
+
+
+def rewind_cache_indices(cache: dict, new_idx) -> dict:
+    """Speculative rollback: set every row's write cursor (the per-layer
+    ``cache_index [L, B]`` rows and ``pos_index [B]``) to ``new_idx
+    [B]``, in place. Rejected positions' K/V stay in the pool past the
+    cursor, masked out of every later read and overwritten by later
+    writes; every other leaf is untouched."""
+    new_idx = torch.as_tensor(new_idx).to(
+        device=cache["pos_index"].device, dtype=torch.int32
+    )
+    cache["cache_index"].copy_(new_idx[None, :].expand_as(cache["cache_index"]))
+    cache["pos_index"].copy_(new_idx)
+    return cache
 
 
 def generate(
@@ -154,3 +192,75 @@ def cache_bytes_per_slot(cache: dict, num_slots: int) -> int:
             continue
         total += leaf.numel() // leaf.shape[ax] * leaf.element_size()
     return int(total)
+
+
+# ----------------------------------------------------- paged (block) pool
+#
+# The paged cache replaces per-slot [L, B, S, ...] stacks with per-layer
+# pools of fixed-size blocks plus per-row block tables. Pool leaves carry
+# no row axis and are told apart by NAME (a pool's [N, bs, H, hd] shape
+# is a slot cache's [B, S, H, hd] by shape alone).
+
+#: Slot-cache leaf name -> its pool counterpart.
+POOL_LEAF_OF: dict[str, str] = {
+    "cached_key": "key_pool",
+    "cached_value": "value_pool",
+    "key_scale": "key_pool_scale",
+    "value_scale": "value_pool_scale",
+}
+
+#: Pool leaf name -> slot-cache leaf name.
+SLOT_LEAF_OF: dict[str, str] = {v: k for k, v in POOL_LEAF_OF.items()}
+
+
+def blocks_for_tokens(tokens: int, block_size: int) -> int:
+    """Blocks needed to hold ``tokens`` cache positions (ceil)."""
+    if tokens <= 0:
+        return 0
+    return -(-int(tokens) // int(block_size))
+
+
+@torch.no_grad()
+def splice_pool_blocks(cache: dict, slot_cache: dict, blk_ids, m0: int,
+                       slot: int, *, block_size: int) -> dict:
+    """Write one prefilled (contiguous, one-row) slot cache's PRIVATE
+    blocks into their pool homes, in place, and set the slot's cursors.
+    ``blk_ids [n_priv]`` are the destination pool ids of the logical
+    blocks starting at ``m0``; shared prefix blocks below ``m0`` are
+    already in the pool and are not touched. Returns ``cache``."""
+    bs = block_size
+    ids = torch.as_tensor(blk_ids, dtype=torch.long)
+    n_priv = int(ids.numel())
+    for name, leaf in slot_cache.items():
+        if name in POOL_LEAF_OF:
+            pool = cache[POOL_LEAF_OF[name]]
+            n_blk = leaf.shape[2] // bs
+            chunks = leaf[:, 0].reshape(
+                (leaf.shape[0], n_blk, bs) + tuple(leaf.shape[3:])
+            )
+            pool[:, ids.to(pool.device)] = chunks[:, m0:m0 + n_priv].to(pool.dtype)
+        elif name == "cache_index":
+            cache[name][:, slot] = leaf[:, 0]
+        elif name == "pos_index":
+            cache[name][slot] = leaf[0]
+    return cache
+
+
+def pool_block_bytes(cache: dict) -> int:
+    """Device bytes of ONE pool block across all layers, from the actual
+    pool leaves (the unit paged admission is priced in)."""
+    total = 0
+    for name, leaf in cache.items():
+        if name in SLOT_LEAF_OF:
+            # [L, N, bs, ...] stacked pool leaf: bytes per all-layer block.
+            total += leaf.numel() // leaf.shape[1] * leaf.element_size()
+    return int(total)
+
+
+def estimate_pool_block_bytes(cfg, block_size: int, *,
+                              kv_dtype_bytes: int = 2) -> int:
+    """Analytic twin of ``pool_block_bytes`` (unquantized pools, the only
+    ones the port builds): one block of ``block_size`` positions costs
+    ``L x 2 x bs x H x hd x kv_dtype_bytes``."""
+    hd = cfg.hidden_dim // cfg.num_heads
+    return cfg.num_layers * 2 * block_size * cfg.num_heads * hd * kv_dtype_bytes

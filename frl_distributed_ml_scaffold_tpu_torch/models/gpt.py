@@ -7,11 +7,21 @@ projection in the policy's compute dtype, GELU in its tanh form (flax's
 default; torch's default is the exact form), weight-tied LM head.
 
 The decode cache is a dict of tensors with the JAX cache's leaf names and
-shapes, so the two compare leaf by leaf:
+shapes, so the two compare leaf by leaf. Contiguous (``init_cache``):
 
 - ``cached_key`` / ``cached_value`` ``[L, B, S, H, hd]`` (compute dtype);
 - ``cache_index`` ``[L, B]`` int32, each row's next write position;
 - ``pos_index`` ``[B]`` int32, each row's next absolute position.
+
+Paged (``init_paged_cache``): ``key_pool`` / ``value_pool``
+``[L, N, bs, H, hd]`` shared by every row, ``block_tables [B, M]`` int32
+(row b's logical block j is pool block ``block_tables[b, j]``,
+``M = ceil(seq_len / bs)``), and the same ``cache_index`` / ``pos_index``.
+Block 0 is the trash block: tables point unallocated columns at it, and
+writes past the table land there, so no row ever reads them. A paged
+call takes one token per row (``paged_decode_attention``) or a verify
+tile of t tokens (``paged_verify_attention``); prefill stays contiguous
+and the serving engine splices it into the pool block by block.
 
 ``GPT.forward`` updates the cache IN PLACE (the JAX model returns a new
 cache and the serving engine donates the old one; in place is what keeps
@@ -31,6 +41,8 @@ from frl_distributed_ml_scaffold_tpu_torch import resolve_device
 from frl_distributed_ml_scaffold_tpu_torch.config.schema import GPTConfig
 from frl_distributed_ml_scaffold_tpu_torch.ops.decode_attention import (
     decode_attention,
+    paged_decode_attention,
+    paged_verify_attention,
 )
 from frl_distributed_ml_scaffold_tpu_torch.precision import Policy
 
@@ -122,6 +134,9 @@ class CausalSelfAttention(nn.Module):
         q = self._dense(self.query, x).view(b, t, h, hd)
         k_w = self._dense(self.key, x).view(b, t, h, hd)
         v_w = self._dense(self.value, x).view(b, t, h, hd)
+        if "key_pool" in cache:
+            y = self._paged(q, k_w, v_w, cache, layer)
+            return self._dense(self.out, y.reshape(b, t, d))
         ck = cache["cached_key"][layer]  # [B, S, H, hd] view
         cv = cache["cached_value"][layer]
         idx = cache["cache_index"][layer]  # [B] view, advanced last
@@ -153,6 +168,38 @@ class CausalSelfAttention(nn.Module):
             y = _masked_dense_attention(q, ck, cv, mask)
         idx.add_(lens)
         return self._dense(self.out, y.reshape(b, t, d))
+
+    def _paged(self, q, k_w, v_w, cache: dict, layer: int):
+        """The paged branch: column j of row b writes logical position
+        ``idx + j``, i.e. pool block ``tbl[(idx + j) // bs]`` at offset
+        ``(idx + j) % bs``. A column past the table (a retired row's
+        cursor, or verify-tile padding at the end of the context) goes to
+        the trash block 0 instead: dropped, where the JAX model clamps it
+        onto the row's last table column. Then t == 1 attends through
+        ``paged_decode_attention`` at occupancy ``idx + 1``, t > 1 through
+        ``paged_verify_attention`` at ``idx + t``."""
+        b, t = q.shape[:2]
+        kp = cache["key_pool"][layer]  # [N, bs, H, hd] view
+        vp = cache["value_pool"][layer]
+        tbl = cache["block_tables"]  # [B, M] int32
+        idx = cache["cache_index"][layer]  # [B] view, advanced last
+        bs, m_tbl = kp.shape[1], tbl.shape[1]
+        offs = idx[:, None].long() + torch.arange(t, device=q.device)
+        col = offs // bs
+        phys = torch.gather(tbl, 1, col.clamp(max=m_tbl - 1)).long()
+        phys = torch.where(col < m_tbl, phys, torch.zeros_like(phys))
+        off = offs % bs
+        # Active rows never collide; duplicates land only in block 0.
+        kp[phys, off] = k_w
+        vp[phys, off] = v_w
+        impl = self.cfg.decode_attention
+        if t == 1:
+            y = paged_decode_attention(q[:, 0], kp, vp, idx + 1, tbl,
+                                       impl=impl)[:, None]
+        else:
+            y = paged_verify_attention(q, kp, vp, idx + t, tbl, impl=impl)
+        idx.add_(t)
+        return y
 
 
 class GptMlp(nn.Module):
@@ -238,12 +285,44 @@ class GPT(nn.Module):
             "pos_index": torch.zeros((batch,), dtype=torch.int32, device=dev),
         }
 
+    def init_paged_cache(
+        self, num_slots: int, block_size: int, pool_blocks: int
+    ) -> dict:
+        """An empty paged decode cache: a pool of ``pool_blocks`` blocks of
+        ``block_size`` positions per layer, and all-zero tables (every row
+        pointing at the trash block 0)."""
+        cfg = self.config
+        h = cfg.num_heads
+        pool = (cfg.num_layers, pool_blocks, block_size, h, cfg.hidden_dim // h)
+        dev, cd = self.device, self.policy.compute_dtype
+        m_blocks = -(-cfg.seq_len // block_size)
+        return {
+            "key_pool": torch.zeros(pool, dtype=cd, device=dev),
+            "value_pool": torch.zeros(pool, dtype=cd, device=dev),
+            "block_tables": torch.zeros(
+                (num_slots, m_blocks), dtype=torch.int32, device=dev
+            ),
+            "cache_index": torch.zeros(
+                (cfg.num_layers, num_slots), dtype=torch.int32, device=dev
+            ),
+            "pos_index": torch.zeros(
+                (num_slots,), dtype=torch.int32, device=dev
+            ),
+        }
+
     def forward(self, tokens, cache: dict, lengths=None):
         """tokens ``[B, t]`` (LEFT-padded when ``lengths [B]`` is given)
         against ``cache``, which advances in place by each row's length.
         Returns logits ``[B, t, vocab]`` in the compute dtype."""
         cfg, cd = self.config, self.policy.compute_dtype
         b, t = tokens.shape
+        if "key_pool" in cache and t > 1 and lengths is not None:
+            raise NotImplementedError(
+                "paged multi-token decode is the dense verify tile "
+                "(speculative decoding): ragged lengths do not apply; "
+                "prefill stays contiguous and the engine grafts it "
+                "block-wise into the pool"
+            )
         lens = (
             torch.full((b,), t, dtype=torch.int32, device=tokens.device)
             if lengths is None

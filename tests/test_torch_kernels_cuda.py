@@ -49,3 +49,56 @@ def test_cuda_kernel_matches_plain_version(dtype):
     torch.testing.assert_close(
         got.float(), want.float(), atol=TOL[dtype], rtol=0
     )
+
+
+def _paged_inputs(dtype, t=None, bs=16, m=8):
+    """q, pools [B*m + 1, bs, H, D] (block 0 trash), shuffled tables,
+    occupancies 1, a block edge + 1, m*bs and past m*bs (a retired
+    row)."""
+    rng = np.random.default_rng(6)
+    n = B * m + 1
+    qshape = (B, H, D) if t is None else (B, t, H, D)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to("cuda", dtype)
+               for s in (qshape, (n, bs, H, D), (n, bs, H, D)))
+    tables = torch.from_numpy(
+        (rng.permutation(n - 1) + 1).reshape(B, m).astype(np.int32)).cuda()
+    kv_len = torch.tensor([1 if t is None else t, bs + 1, m * bs,
+                           m * bs + 7], dtype=torch.int32, device="cuda")
+    return q, k, v, kv_len, tables
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["decode", "verify"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_kernels_match_plain_versions(op, dtype):
+    """On the card: the paged decode and verify kernels against their
+    plain versions, with occupancy past the table; unreferenced blocks
+    full of NaN leave the output bit-identical; verify query 0 is the
+    decode kernel's output bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    tdt = getattr(torch, dtype)
+    t = 5 if op == "verify" else None
+    router = getattr(tda, f"paged_{op}_attention")
+    plain = getattr(tda, f"dense_paged_{op}_attention")
+    q, k, v, kv_len, tables = _paged_inputs(tdt, t)
+    before = router.launches
+    got = router(q, k, v, kv_len, tables)
+    want = plain(q, k, v, kv_len, tables)
+    torch.cuda.synchronize()
+    assert router.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=0)
+    # NaN in every block no row's occupancy reaches.
+    bs = k.shape[1]
+    used = torch.zeros(k.shape[0], dtype=torch.bool, device="cuda")
+    for row, n in enumerate(kv_len.clamp(max=tables.shape[1] * bs).tolist()):
+        used[tables[row, : (n - 1) // bs + 1].long()] = True
+    kd, vd = k.clone(), v.clone()
+    kd[~used], vd[~used] = float("nan"), float("nan")
+    assert torch.equal(router(q, kd, vd, kv_len, tables), got)
+    if op == "verify":
+        dec = tda.paged_decode_attention(q[:, 0].contiguous(), k, v,
+                                         kv_len - 4, tables)
+        assert torch.equal(got[:, 0], dec)

@@ -137,7 +137,9 @@ def test_engine_refuses_zero_slots(pair):
 @pytest.mark.parametrize(
     "override",
     [
-        {"kv_block_size": 16},
+        # The paged engine is ported; its draft-model tier is not.
+        {"kv_block_size": 16, "speculate": "draft"},
+        # Speculation without the paged cache is refused as JAX does.
         {"speculate": "ngram"},
         {"disaggregate": True},
         {"max_queue_depth": 4},
@@ -146,7 +148,18 @@ def test_engine_refuses_zero_slots(pair):
     ids=["paged", "speculate", "disaggregate", "queue_bound", "deadline"],
 )
 def test_unported_serving_options_raise(pair, override):
-    _, _, tm = pair
+    jm, params, tm = pair
+    if override == {"speculate": "ngram"}:
+        from frl_distributed_ml_scaffold_tpu.config.schema import (
+            ServingConfig as JaxServingConfig,
+        )
+
+        with pytest.raises(ValueError) as jinfo:
+            JaxEngine(jm, params, serving=JaxServingConfig(**override))
+        with pytest.raises(ValueError) as info:
+            build_engine(tm, serving=ServingConfig(**override), device="cpu")
+        assert str(info.value) == str(jinfo.value)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item"):
         build_engine(tm, serving=ServingConfig(**override), device="cpu")
 
