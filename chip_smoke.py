@@ -20,26 +20,44 @@ no final line):
      16, 64-column tables into a 513-block pool with shuffled tables,
      occupancies 1, 16, 17, 1024, > 1024 (a retired row) and random;
      verify query 0 must equal the paged decode kernel bit for bit.
+   - quantized cache (``csrc/quant_attention.cu``): the three kernels in
+     int8, fp8_e4m3 and fp8_e5m2, bf16 and fp32 q, at the same shapes
+     (contiguous S in {128, 1024}; the paged pool and T = 5), each against
+     its plain version; NaN in the scales (and 0x7F in the payloads) of
+     every position no row's occupancy reaches leaves the output
+     bit-identical; quantized verify query 0 equals the quantized paged
+     decode bit for bit. Timed in the format its path runs.
 4. path: GPT-2-medium at full width (``gpt2_medium_serve``, seeded random
    weights, bf16_mixed) serving 16 requests through ``build_engine`` with
    8 slots over the bucketed cache; the decode kernel must launch 24 times
-   per decode step. One decode step's logits through the kernel against
-   ``impl="dense"``. Then a few steady decode steps under
-   ``torch.profiler``: device busy time, idle share and the kernels that
-   take the device time.
+   per decode step, and no other kernel. One decode step's logits through
+   the kernel against ``impl="dense"``. Then a few steady decode steps
+   under ``torch.profiler``: device busy time, idle share and the kernels
+   that take the device time.
 5. paged_path: the same model with ``serving.kv_block_size=16
    serving.speculate=ngram serving.speculate_k=4`` serving 16 requests (8
    sharing a 256-token system prompt, 2 repeating a 32-token pattern, 6
    random); the paged decode and verify kernels must launch 24 times per
-   paged decode and verify step and the contiguous kernel never; prefix
-   hits, block appends and drafts must happen, and every reservation
-   unwinds. Then a profiled window of the paged engine.
-6. fp32 check: the same requests under the fp32 policy, two of them
+   paged decode and verify step and no other kernel; prefix hits, block
+   appends and drafts must happen, every reservation unwinds, and the
+   pool block's bytes equal the estimate. Then a profiled window.
+6. quant_path and quant_paged_path: phases 4 and 5 again with
+   ``model.kv_cache_quant=int8`` (contiguous) and ``fp8_e4m3`` (paged),
+   through the quantized kernels, the unquantized ones launching never;
+   the cache's bytes per slot and the pool block's bytes (811008) equal
+   their estimates.
+7. fp32 checks: the same requests under the fp32 policy, two of them
    re-run alone through ``generate()``, token for token; and the paged
    requests through the fp32 paged + ngram engine against the fp32
-   contiguous engine, token for token. A differing greedy pick passes
-   only where the top-2 logit gap there is below ``FP32_GAP_TOL``.
-7. the ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
+   contiguous engine, token for token; both again over the int8
+   contiguous and the fp8_e4m3 paged cache (``fp32_quant_check``). A
+   differing greedy pick passes only where the top-2 logit gap there is
+   below ``FP32_GAP_TOL``.
+8. the ``kernels`` line (six kernels) and, last, ``{"ok": true, "device":
+   ...}``.
+
+Every launch count is set to 0 just before each path runs and read just
+after it; a kernel's ``launches`` in the kernels line is that of its path.
 
 Nothing here imports JAX. The CUDA check comes first: without a card the
 script exits non-zero and prints no result.
@@ -370,6 +388,218 @@ def time_paged(gen, op: str) -> dict:
     }
 
 
+# -------------------------------------------------------- quantized kernels
+
+QUANT_FORMATS = ("int8", "fp8_e4m3", "fp8_e5m2")
+# The format each serving path runs: int8 contiguous, fp8_e4m3 paged.
+QUANT_TIMED = {"decode": "int8", "paged_decode": "fp8_e4m3",
+               "paged_verify": "fp8_e4m3"}
+
+
+def quantized(x, fmt: str):
+    """``x [..., D]`` quantized as the model writes its cache: one scale
+    per vector over D, stored in bf16. Returns (payload, scales)."""
+    from frl_distributed_ml_scaffold_tpu_torch.ops.quantization import quantize
+
+    q, s = quantize(x, fmt, channel_axes=tuple(range(x.dim() - 1)))
+    return q, s[..., 0].to(torch.bfloat16)
+
+
+def poisoned(payload, scale, dead):
+    """Copies with NaN scales and payload byte 0x7F (NaN in both fp8
+    formats; int8 has no NaN, 0x7F is its largest value) where ``dead``
+    (the leading dims) is True."""
+    from frl_distributed_ml_scaffold_tpu_torch.ops.quantization import byte_view
+
+    p = byte_view(payload).clone()
+    p[dead] = 0x7F
+    s = scale.clone()
+    s[dead] = float("nan")
+    return p.view(payload.dtype), s
+
+
+def quant_decode_inputs(gen, fmt, dtype, s, *, layers=1, b=8, h=16, d=64):
+    """q [L, B, H, D] in ``dtype``; quantized caches [L, B, S, H, D] and
+    scales [L, B, S, H], strided views into 2S-capacity buffers; kv_len
+    [B] as ``decode_inputs``."""
+    dev = "cuda"
+    q = torch.randn((layers, b, h, d), generator=gen, device=dev).to(dtype)
+    k, ks = quantized(
+        torch.randn((layers, b, 2 * s, h, d), generator=gen, device=dev), fmt)
+    v, vs = quantized(
+        torch.randn((layers, b, 2 * s, h, d), generator=gen, device=dev), fmt)
+    mid = torch.randint(2, s, (b - 3,), generator=gen, device=dev)
+    kv_len = torch.cat([
+        torch.tensor([1, s, s + 37], device=dev), mid,
+    ]).to(torch.int32)
+    return (q, k[:, :, :s], ks[:, :, :s], v[:, :, :s], vs[:, :, :s], kv_len)
+
+
+def quant_paged_inputs(gen, fmt, dtype, *, t=None, layers=1):
+    """``paged_inputs`` with the pools quantized: q in ``dtype``, payload
+    pools [L, N, bs, H, D], scale pools [L, N, bs, H]."""
+    q, k, v, kv_len, tables = paged_inputs(gen, torch.float32, t=t,
+                                           layers=layers)
+    (k, ks), (v, vs) = quantized(k, fmt), quantized(v, fmt)
+    return q.to(dtype), k, ks, v, vs, kv_len, tables
+
+
+def quant_kernel_phase(gen) -> dict:
+    """The three quantized kernels against their plain versions on the
+    card, in every payload format and q dtype, at the serving paths'
+    shapes; NaN-dirty caches; verify query 0 against the paged decode
+    bit for bit. Then timed (``time_quant``)."""
+    from frl_distributed_ml_scaffold_tpu_torch.ops import decode_attention as da
+
+    checks = []
+    worst = {op: 0.0 for op in QUANT_TIMED}
+
+    def held(name, got, want, dirty, dtype, entry):
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        check(math.isfinite(err) and err <= TOL[dtype],
+              f"{name} {entry['format']} {dtype}: max abs err {err} > "
+              f"{TOL[dtype]}")
+        check(torch.equal(dirty, got),
+              f"{name} {entry['format']} {dtype}: output changed with NaN "
+              "where no row's occupancy reaches")
+        entry[f"{name}_max_abs_err"] = err
+        if dtype == torch.bfloat16:
+            op = name.split("_S")[0]
+            worst[op] = max(worst[op], err)
+
+    for fmt in QUANT_FORMATS:
+        for dtype in (torch.bfloat16, torch.float32):
+            entry = {"format": fmt, "dtype": str(dtype).replace("torch.", ""),
+                     "tol": TOL[dtype]}
+            for s in (128, 1024):
+                q, k, ks, v, vs, kv_len = (
+                    x[0] if x.dim() > 1 else x
+                    for x in quant_decode_inputs(gen, fmt, dtype, s))
+                got = da.decode_attention(q, k, v, kv_len, k_scale=ks,
+                                          v_scale=vs)
+                want = da.dense_decode_attention_quant(
+                    q, k, v, kv_len.clamp_min(1), ks, vs)
+                dead = (torch.arange(s, device="cuda")[None, :]
+                        >= kv_len[:, None])
+                kd, ksd = poisoned(k, ks, dead)
+                vd, vsd = poisoned(v, vs, dead)
+                dirty = da.decode_attention(q, kd, vd, kv_len, k_scale=ksd,
+                                            v_scale=vsd)
+                held(f"decode_S{s}", got, want, dirty, dtype, entry)
+            q, k, ks, v, vs, kv_len, tables = (
+                x[0] if i < 5 else x
+                for i, x in enumerate(quant_paged_inputs(gen, fmt, dtype)))
+            qt = torch.randn((8, VERIFY_T, 16, 64), generator=gen,
+                             device="cuda").to(dtype)
+            dead = ~_used_positions(kv_len, tables, k.shape[0])
+            kd, ksd = poisoned(k, ks, dead)
+            vd, vsd = poisoned(v, vs, dead)
+            entry.update(block_size=PAGED_BS, table_cols=PAGED_COLS,
+                         pool_blocks=k.shape[0], kv_len=kv_len.tolist())
+            for op, qq in (("decode", q), ("verify", qt)):
+                router = getattr(da, f"paged_{op}_attention")
+                plain = getattr(da, f"dense_paged_{op}_attention")
+                got = router(qq, k, v, kv_len, tables, k_scale=ks, v_scale=vs)
+                want = plain(qq, k, v, kv_len, tables, ks, vs)
+                dirty = router(qq, kd, vd, kv_len, tables, k_scale=ksd,
+                               v_scale=vsd)
+                held(f"paged_{op}", got, want, dirty, dtype, entry)
+            dec0 = da.paged_decode_attention(
+                qt[:, 0].contiguous(), k, v, kv_len - (VERIFY_T - 1), tables,
+                k_scale=ks, v_scale=vs)
+            torch.cuda.synchronize()
+            check(torch.equal(got[:, 0], dec0),
+                  f"quantized paged verify {fmt} {dtype}: query 0 differs "
+                  "from the quantized paged decode kernel")
+            entry["dirty_cache_equal"] = True
+            entry["verify_query0_bit_equal_decode"] = True
+            checks.append(entry)
+    emit("quant_kernel_checks", checks)
+    timings = {op: time_quant(gen, op, fmt) for op, fmt in QUANT_TIMED.items()}
+    emit("quant_kernel_timings", timings)
+    return {op: {"max_abs_err": worst[op], "timing": timings[op]}
+            for op in QUANT_TIMED}
+
+
+def time_quant(gen, op: str, fmt: str) -> dict:
+    """A quantized kernel and its plain version at its path's shapes
+    (bf16 q; the contiguous cache at S = 1024, or the 513-block pool with
+    64-column tables), 24 layers swept per timed call as a step does.
+    Bytes: the 1-byte K and V payloads and their 2-byte scales at every
+    occupied (position, head), the table columns the occupancy reaches,
+    q, o and kv_len."""
+    from frl_distributed_ml_scaffold_tpu_torch.ops import decode_attention as da
+
+    layers, dtype = 24, torch.bfloat16
+    t = VERIFY_T if op == "paged_verify" else None
+    if op == "decode":
+        s = 1024
+        q, k, ks, v, vs, kv_len = quant_decode_inputs(gen, fmt, dtype, s,
+                                                      layers=layers)
+        lens = kv_len.clamp_min(1)
+        cap, blocks, tq = s, 0, 1
+
+        def kernel(i):
+            da.decode_attention(q[i], k[i], v[i], kv_len, k_scale=ks[i],
+                                v_scale=vs[i])
+
+        def plain(i):
+            da.dense_decode_attention_quant(q[i], k[i], v[i], lens, ks[i],
+                                            vs[i])
+    else:
+        q, k, ks, v, vs, kv_len, tables = quant_paged_inputs(
+            gen, fmt, dtype, t=t, layers=layers)
+        cap, tq = PAGED_COLS * PAGED_BS, t or 1
+        n = kv_len.clamp(1, cap).long()
+        blocks = int(((n - 1) // PAGED_BS + 1).sum())
+        router = getattr(da, f"{op}_attention")
+        reference = getattr(da, f"dense_{op}_attention")
+
+        def kernel(i):
+            router(q[i], k[i], v[i], kv_len, tables, k_scale=ks[i],
+                   v_scale=vs[i])
+
+        def plain(i):
+            reference(q[i], k[i], v[i], kv_len, tables, ks[i], vs[i])
+
+    def run(fn):
+        def sweep():
+            for i in range(layers):
+                fn(i)
+        return sweep
+
+    ms = {}
+    for name, fn in (("plain", plain), ("kernel", kernel), ("kernel2", kernel),
+                     ("plain2", plain)):
+        ms[name] = cuda_time_ms(run(fn), per_call=layers)
+    enqueue_ms = cuda_time_ms(run(kernel), per_call=layers, queued=False)
+    b, h, d = q.shape[1], q.shape[-2], q.shape[-1]
+    elem = torch.finfo(dtype).bits // 8
+    pos_heads = int(kv_len.clamp(1, cap).sum()) * h
+    nbytes = (2 * pos_heads * d * 1 + 2 * pos_heads * 2
+              + 2 * b * tq * h * d * elem + 4 * blocks + 4 * b)
+    n_q = sum(int((kv_len - (tq - 1) + j).clamp(1, cap).sum())
+              for j in range(tq))
+    flops = 4 * n_q * h * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return {
+        "op": op, "format": fmt, "T": tq, "kv_len": kv_len.tolist(),
+        "ms": statistics.median([ms["kernel"], ms["kernel2"]]),
+        "plain_ms": statistics.median([ms["plain"], ms["plain2"]]),
+        "library_ms": None,
+        "library_note": "no single PyTorch call attends over a 1-byte cache "
+                        "with per-position scales",
+        "unqueued_ms": enqueue_ms,
+        "order_plain_kernel_kernel_plain": [
+            ms["plain"], ms["kernel"], ms["kernel2"], ms["plain2"]],
+        "bytes": nbytes, "flops": flops,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+
+
 # --------------------------------------------------------------------- path
 
 
@@ -406,12 +636,77 @@ def serve(model, cfg, reqs, new_tokens: int):
     return eng, [done[i] for i in ids], wall
 
 
-def path_phase(cfg, sd, seed: int, card: str) -> dict:
+# Launch counters: (name in the kernels line, router, attribute).
+COUNTERS = [
+    ("decode_attention", "decode_attention", "launches"),
+    ("paged_decode_attention", "paged_decode_attention", "launches"),
+    ("paged_verify_attention", "paged_verify_attention", "launches"),
+    ("decode_attention_quant", "decode_attention", "quant_launches"),
+    ("paged_decode_attention_quant", "paged_decode_attention",
+     "quant_launches"),
+    ("paged_verify_attention_quant", "paged_verify_attention",
+     "quant_launches"),
+]
+
+
+def reset_launches() -> None:
+    from frl_distributed_ml_scaffold_tpu_torch.ops import decode_attention as da
+
+    for _, router, attr in COUNTERS:
+        setattr(getattr(da, router), attr, 0)
+
+
+def read_launches() -> dict:
+    from frl_distributed_ml_scaffold_tpu_torch.ops import decode_attention as da
+
+    return {name: getattr(getattr(da, router), attr)
+            for name, router, attr in COUNTERS}
+
+
+def check_launches(counts: dict, per_step: dict, layers: int, what: str):
+    """Each kernel in ``per_step`` (name -> steps of its kind) launched
+    once per layer per step and at least once; every other kernel
+    never."""
+    for name, n in counts.items():
+        if name in per_step:
+            steps = per_step[name]
+            check(n == steps * layers and n > 0,
+                  f"{what}: {name} launched {n} times in {steps} steps of "
+                  f"{layers} layers")
+        else:
+            check(n == 0, f"{what}: {name} launched {n} times")
+
+
+def _suffix(cfg) -> str:
+    return "" if cfg.model.kv_cache_quant == "none" else "_quant"
+
+
+def _latencies(comps, wall) -> dict:
+    n_tok = sum(len(c.tokens) - c.prompt_len for c in comps)
+    tpot = [x for c in comps for x in c.token_latencies_s[1:]]
+    ttft = [c.ttft_s for c in comps]
+    return {
+        "generated_tokens": n_tok, "wall_s": wall,
+        "tokens_per_s": n_tok / wall,
+        "ttft_mean_s": statistics.mean(ttft),
+        "ttft_p50_s": statistics.median(ttft),
+        "tpot_mean_s": statistics.mean(tpot),
+        "tpot_p50_s": statistics.median(tpot),
+    }
+
+
+def path_phase(cfg, sd, seed: int, card: str) -> tuple:
+    """The bucketed contiguous path of ``cfg`` (quantized cache or not):
+    16 requests, 8 slots; the decode kernel of the cache's kind launches
+    24 times per decode step and no other kernel runs; one decode step's
+    logits through the kernel against ``impl="dense"``; a profiled
+    window."""
+    import dataclasses
+
     import numpy as np
 
     from frl_distributed_ml_scaffold_tpu_torch.models import generation
     from frl_distributed_ml_scaffold_tpu_torch.models.gpt import GPT
-    from frl_distributed_ml_scaffold_tpu_torch.ops import decode_attention as da
     from frl_distributed_ml_scaffold_tpu_torch.precision import get_policy
 
     model = GPT(cfg.model, get_policy(cfg.precision), device="cuda")
@@ -419,22 +714,20 @@ def path_phase(cfg, sd, seed: int, card: str) -> dict:
     reqs = requests(seed, cfg.model.vocab_size)
     serve(model, cfg, reqs[:2], 4)  # warm-up: cuBLAS handles, kernel load
     torch.cuda.reset_peak_memory_stats()
-    da.decode_attention.launches = 0
+    reset_launches()
     eng, comps, wall = serve(model, cfg, reqs, 64)
-    launches = da.decode_attention.launches
-    steps = eng.stats["decode_steps"]
-    check(launches == steps * cfg.model.num_layers,
-          f"decode kernel launched {launches} times in {steps} decode steps "
-          f"of {cfg.model.num_layers} layers")
+    counts = read_launches()
+    steps, layers = eng.stats["decode_steps"], cfg.model.num_layers
+    kernel = "decode_attention" + _suffix(cfg)
+    check_launches(counts, {kernel: steps}, layers, "path")
     grows = {k: v for k, v in eng.stats.items() if k.startswith("grow_")}
     check(bool(grows), "the run crossed no bucket growth")
-    n_tok = sum(len(c.tokens) - c.prompt_len for c in comps)
-    tpot = [x for c in comps for x in c.token_latencies_s[1:]]
-    ttft = [c.ttft_s for c in comps]
+    slot_bytes = generation.cache_bytes_per_slot(eng.cache, eng.num_slots)
+    est = generation.estimate_cache_bytes_per_slot(cfg.model, eng.bucket)
+    check(slot_bytes == est,
+          f"cache bytes per slot {slot_bytes} != estimate {est}")
 
     # One decode step's logits: kernel vs impl="dense", same weights.
-    import dataclasses
-
     dense = GPT(dataclasses.replace(cfg.model, decode_attention="dense"),
                 model.policy, device="cuda")
     dense.load_state_dict(sd)
@@ -459,25 +752,29 @@ def path_phase(cfg, sd, seed: int, card: str) -> dict:
     profile = profile_phase(model, cfg, reqs)
     return {
         "card": card, "config": cfg.name, "policy": cfg.precision.policy,
-        "layers": cfg.model.num_layers, "d_model": cfg.model.hidden_dim,
+        "kv_cache_quant": cfg.model.kv_cache_quant,
+        "layers": layers, "d_model": cfg.model.hidden_dim,
         "slots": eng.num_slots, "requests": len(comps),
         "prompt_lens": [len(p) for p in reqs], "new_tokens_max": 64,
         "finish": {k: v for k, v in eng.stats.items() if k.startswith("finish_")},
-        "decode_steps": steps, "kernel_launches": launches,
+        "decode_steps": steps, "kernel_launches": counts[kernel],
+        "launches": counts,
         "bucket_growth": grows, "final_bucket": eng.bucket,
-        "generated_tokens": n_tok, "wall_s": wall,
-        "tokens_per_s": n_tok / wall,
-        "ttft_mean_s": statistics.mean(ttft),
-        "ttft_p50_s": statistics.median(ttft),
-        "tpot_mean_s": statistics.mean(tpot),
-        "tpot_p50_s": statistics.median(tpot),
+        **_latencies(comps, wall),
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "cache_bytes_per_slot": slot_bytes,
+        "estimate_cache_bytes_per_slot": est,
         "decode_logits_kernel_vs_dense": {"max_abs_err": err, "tol": tol},
-    }, launches, profile
+    }, counts, profile
 
 
 PAGED_OVERRIDES = ["serving.kv_block_size=16", "serving.speculate=ngram",
                    "serving.speculate_k=4"]
+INT8_OVERRIDES = ["model.kv_cache_quant=int8"]
+FP8_OVERRIDES = ["model.kv_cache_quant=fp8_e4m3"]
+# GPT-2-medium's fp8 pool block of 16 positions: 24 layers x (K + V
+# payloads 2*16*16*64 bytes + bf16 scales 2*16*16*2 bytes).
+FP8_BLOCK_BYTES = 811008
 
 
 def paged_requests(seed: int, vocab: int):
@@ -499,9 +796,14 @@ def paged_requests(seed: int, vocab: int):
 
 
 def paged_path_phase(cfg, sd, seed: int, card: str) -> tuple:
+    """The paged + ngram path of ``cfg`` (quantized pools or not): the
+    paged decode and verify kernels of the pool's kind launch 24 times
+    per step of their kind and no other kernel runs; prefix hits, block
+    appends and drafts happen; every reservation unwinds; the live block
+    bytes equal the estimate. Then a profiled window."""
     from frl_distributed_ml_scaffold_tpu_torch.config import apply_overrides
+    from frl_distributed_ml_scaffold_tpu_torch.models import generation
     from frl_distributed_ml_scaffold_tpu_torch.models.gpt import GPT
-    from frl_distributed_ml_scaffold_tpu_torch.ops import decode_attention as da
     from frl_distributed_ml_scaffold_tpu_torch.precision import get_policy
 
     cfgp = apply_overrides(cfg, PAGED_OVERRIDES)
@@ -510,56 +812,47 @@ def paged_path_phase(cfg, sd, seed: int, card: str) -> tuple:
     reqs = paged_requests(seed, cfgp.model.vocab_size)
     serve(model, cfgp, reqs[:2], 4)  # warm-up
     torch.cuda.reset_peak_memory_stats()
-    counters = (da.decode_attention, da.paged_decode_attention,
-                da.paged_verify_attention)
-    for c in counters:
-        c.launches = 0
+    reset_launches()
     eng, comps, wall = serve(model, cfgp, reqs, 64)
-    contiguous, paged, verify = (c.launches for c in counters)
+    counts = read_launches()
     st, layers = eng.stats, cfgp.model.num_layers
-    check(paged == st["decode_paged"] * layers and paged > 0,
-          f"paged decode kernel launched {paged} times in "
-          f"{st['decode_paged']} paged decode steps of {layers} layers")
-    check(verify == st["decode_verify"] * layers and verify > 0,
-          f"paged verify kernel launched {verify} times in "
-          f"{st['decode_verify']} verify steps of {layers} layers")
-    check(contiguous == 0,
-          f"the contiguous decode kernel launched {contiguous} times")
+    sfx = _suffix(cfgp)
+    check_launches(counts, {"paged_decode_attention" + sfx: st["decode_paged"],
+                            "paged_verify_attention" + sfx: st["decode_verify"]},
+                   layers, "paged path")
     for key in ("prefix_hits", "block_append", "spec_proposed"):
         check(st[key] > 0, f"paged path: stats[{key!r}] is 0")
     check(eng._reserved_future == 0 and not any(eng._slot_blocks),
           "paged path: reservations or slot blocks left after the run")
-    n_tok = sum(len(c.tokens) - c.prompt_len for c in comps)
-    tpot = [x for c in comps for x in c.token_latencies_s[1:]]
-    ttft = [c.ttft_s for c in comps]
+    est = generation.estimate_pool_block_bytes(cfgp.model, PAGED_BS)
+    check(eng.block_bytes() == est,
+          f"pool block bytes {eng.block_bytes()} != estimate {est}")
+    if sfx:
+        check(est == FP8_BLOCK_BYTES,
+              f"quantized pool block {est} bytes, not {FP8_BLOCK_BYTES}")
     report = {
-        "card": card, "config": cfgp.name, "overrides": PAGED_OVERRIDES,
+        "card": card, "config": cfgp.name,
+        "overrides": PAGED_OVERRIDES + (
+            [f"model.kv_cache_quant={cfgp.model.kv_cache_quant}"] if sfx else []),
         "policy": cfgp.precision.policy, "layers": layers,
         "d_model": cfgp.model.hidden_dim, "slots": eng.num_slots,
         "requests": len(comps), "prompt_lens": [len(p) for p in reqs],
         "new_tokens_max": 64,
         "finish": {k: v for k, v in st.items() if k.startswith("finish_")},
         "stats": dict(st),
-        "launches": {"decode_attention": contiguous,
-                     "paged_decode_attention": paged,
-                     "paged_verify_attention": verify},
-        "generated_tokens": n_tok, "wall_s": wall,
-        "tokens_per_s": n_tok / wall,
-        "ttft_mean_s": statistics.mean(ttft),
-        "ttft_p50_s": statistics.median(ttft),
-        "tpot_mean_s": statistics.mean(tpot),
-        "tpot_p50_s": statistics.median(tpot),
+        "launches": counts,
+        **_latencies(comps, wall),
         "spec_accept_rate": st["spec_accepted"] / st["spec_proposed"],
         "tokens_per_slot_step": st["step_tokens"] / st["slot_steps"],
         "pool_blocks": eng.pool_blocks,
         "pool_peak_blocks": st["pool_peak_blocks"],
         "block_bytes": eng.block_bytes(),
+        "estimate_pool_block_bytes": est,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
     }
     profile = profile_phase(model, cfgp, reqs)
     del model
-    return report, {"paged_decode_attention": paged,
-                    "paged_verify_attention": verify}, profile
+    return report, counts, profile
 
 
 def _short_kernel_name(name: str) -> str:
@@ -608,6 +901,8 @@ def profile_phase(model, cfg, reqs, steps: int = 8) -> dict:
             end = b
     busy /= 1e6  # profiler times are microseconds
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    # The host side: operators and runtime calls by self CPU time.
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
     return {
         "decode_steps": steps, "slots": 8, "wall_s": wall,
         "step_s": wall / steps,
@@ -615,6 +910,8 @@ def profile_phase(model, cfg, reqs, steps: int = 8) -> dict:
         "device_idle_share": 1 - busy / wall if spans else "not measured",
         "cuda_events": len(spans),
         "top_device_s": [[name, t] for name, t in top],
+        "top_host_self_s": [[a.key[:80], a.self_cpu_time_total / 1e6, a.count]
+                            for a in host[:12]],
     }
 
 
@@ -734,7 +1031,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from frl_distributed_ml_scaffold_tpu_torch.config import get_config
+    from frl_distributed_ml_scaffold_tpu_torch.config import (
+        apply_overrides,
+        get_config,
+    )
     from frl_distributed_ml_scaffold_tpu_torch.models.convert import init_params
     from frl_distributed_ml_scaffold_tpu_torch.ops import _build
 
@@ -758,41 +1058,59 @@ def main() -> int:
                    "built_now": sorted(reports)})
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    kern = kernel_phase(gen)
+    kern = {"decode_attention": kernel_phase(gen)}
     paged_kern = paged_kernel_phase(gen)
-
+    kern.update({f"paged_{op}_attention": paged_kern[op]
+                 for op in ("decode", "verify")})
     cfg = get_config("gpt2_medium_serve")
+    cfg_int8 = apply_overrides(cfg, INT8_OVERRIDES)
+    cfg_fp8 = apply_overrides(cfg, FP8_OVERRIDES)
+    # The weights come from the generator as the two phases above leave
+    # it, so the paths serve the same model whatever phases follow.
     sd = init_params(cfg.model, gen)
-    path, launches, profile = path_phase(cfg, sd, args.seed, card)
-    emit("path", path)
-    emit("profile", profile)
-    paged_path, paged_launches, paged_profile = paged_path_phase(
-        cfg, sd, args.seed, card)
-    emit("paged_path", paged_path)
-    emit("paged_profile", paged_profile)
+    quant_kern = quant_kernel_phase(gen)
+    kern.update({f"{op}_attention_quant": quant_kern[op]
+                 for op in QUANT_TIMED})
+    # Each path runs with every launch count set to 0 just before it;
+    # a kernel's count is that of the path that runs it.
+    launches = {}
+    for key, phase, c in (("path", path_phase, cfg),
+                          ("paged_path", paged_path_phase, cfg),
+                          ("quant_path", path_phase, cfg_int8),
+                          ("quant_paged_path", paged_path_phase, cfg_fp8)):
+        report, counts, profile = phase(c, sd, args.seed, card)
+        launches.update({k: n for k, n in counts.items() if n})
+        emit(key, report)
+        emit(key.replace("path", "profile"), profile)
     emit("fp32_check", fp32_phase(cfg, sd, args.seed))
     emit("fp32_paged_check", fp32_paged_phase(cfg, sd, args.seed))
+    emit("fp32_quant_check", {
+        "int8_contiguous_vs_generate": fp32_phase(cfg_int8, sd, args.seed),
+        "fp8_e4m3_paged_vs_contiguous": fp32_paged_phase(cfg_fp8, sd,
+                                                          args.seed),
+    })
 
     src = "frl_distributed_ml_scaffold_tpu_torch/ops/csrc/"
     ref = "frl_distributed_ml_scaffold_tpu/ops/decode_attention.py:"
-    rows = [("decode_attention", "decode_attention.cu", "346", launches,
-             kern)]
-    rows += [(f"paged_{op}_attention", "paged_attention.cu", line,
-              paged_launches[f"paged_{op}_attention"], paged_kern[op])
-             for op, line in (("decode", "444"), ("verify", "545"))]
+    rows = [("decode_attention", "decode_attention.cu", "346"),
+            ("paged_decode_attention", "paged_attention.cu", "444"),
+            ("paged_verify_attention", "paged_attention.cu", "545"),
+            ("decode_attention_quant", "quant_attention.cu", "394"),
+            ("paged_decode_attention_quant", "quant_attention.cu", "496"),
+            ("paged_verify_attention_quant", "quant_attention.cu", "599")]
     emit("kernels", [{
         "name": name,
         "route": "cuda",
         "source": src + cu,
         "replaces": ref + line,
-        "launches": n,
-        "max_abs_err": k["max_abs_err"],
-        "ms": k["timing"]["ms"],
-        "plain_ms": k["timing"]["plain_ms"],
-        "bound_ms": k["timing"]["bound_ms"],
-        "bound_by": k["timing"]["bound_by"],
-        "library_ms": k["timing"]["library_ms"],
-    } for name, cu, line, n, k in rows])
+        "launches": launches.get(name, 0),
+        "max_abs_err": kern[name]["max_abs_err"],
+        "ms": kern[name]["timing"]["ms"],
+        "plain_ms": kern[name]["timing"]["plain_ms"],
+        "bound_ms": kern[name]["timing"]["bound_ms"],
+        "bound_by": kern[name]["timing"]["bound_by"],
+        "library_ms": kern[name]["timing"]["library_ms"],
+    } for name, cu, line in rows])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -27,7 +27,8 @@ class PrecisionConfig:
 class ServingConfig:
     """Serving knobs of the continuous-batching engine. The port runs
     the bucketed contiguous cache, the paged pool with the prefix cache
-    and ``speculate=ngram``; ``ServingEngine`` refuses the rest
+    and ``speculate=ngram``, each over a bf16/fp32 or a quantized cache
+    (``model.kv_cache_quant``); ``ServingEngine`` refuses the rest
     (``speculate=draft``, disaggregation, deadlines, load shedding)."""
 
     # Bounded admission (load shedding); 0 = unbounded.
@@ -78,7 +79,12 @@ class GPTConfig:
     # Single-token decode attention: "flash" = the hand-written kernel
     # (ops/decode_attention.py), "dense" = the plain masked reference.
     decode_attention: str = "flash"
-    # Quantized KV cache: none | int8 | fp8_e4m3.
+    # Quantized KV cache ("none" | "int8" | "fp8_e4m3"; fp8_e5m2 is also
+    # accepted, as by the reference): K/V stored as 1-byte payloads with
+    # per-(row, position, head) bf16 scales beside them, each written
+    # token quantized once over its own head vector
+    # (ops/quantization.py); the decode and verify kernels read the
+    # payloads and scales in place (ops/csrc/quant_attention.cu).
     kv_cache_quant: str = "none"
     lm_loss_chunk: int = 0
     moe: MoEConfig = field(default_factory=MoEConfig)

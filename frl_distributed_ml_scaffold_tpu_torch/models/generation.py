@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from frl_distributed_ml_scaffold_tpu_torch import resolve_device
+from frl_distributed_ml_scaffold_tpu_torch.ops.quantization import byte_view
 
 
 def _sample(
@@ -165,9 +166,10 @@ def generate(
 
 def cache_batch_axis(leaf: torch.Tensor, batch_rows: int) -> int | None:
     """Which axis of a cache leaf carries the request rows: K/V stacks
-    ``[L, B, S, H, hd]`` and ``cache_index [L, B]`` on axis 1,
-    ``pos_index [B]`` on axis 0. Every per-row cache transform (the
-    serving engine's slot graft) routes through this."""
+    ``[L, B, S, H, hd]``, the quantized cache's scale stacks
+    ``[L, B, S, H]`` and ``cache_index [L, B]`` on axis 1, ``pos_index
+    [B]`` on axis 0. Every per-row cache transform (the serving engine's
+    slot graft) routes through this."""
     if leaf.dim() >= 2 and leaf.shape[1] == batch_rows:
         return 1
     if leaf.dim() == 1 and leaf.shape[0] == batch_rows:
@@ -177,14 +179,16 @@ def cache_batch_axis(leaf: torch.Tensor, batch_rows: int) -> int | None:
 
 def cache_capacity_axis(leaf: torch.Tensor, cache_len: int) -> int | None:
     """Which axis carries the cache capacity (the bucketed S the engine
-    grows): axis 2 of the K/V stacks; bookkeeping leaves carry none."""
+    grows): axis 2 of the K/V stacks and of the scale stacks
+    ``[L, B, S, H]``; bookkeeping leaves carry none."""
     if leaf.dim() >= 4 and leaf.shape[2] == cache_len:
         return 2
     return None
 
 
 def cache_bytes_per_slot(cache: dict, num_slots: int) -> int:
-    """Per-slot device bytes of a decode cache, from its actual leaves."""
+    """Per-slot device bytes of a decode cache, from its actual leaves
+    (scale leaves and bookkeeping included)."""
     total = 0
     for leaf in cache.values():
         ax = cache_batch_axis(leaf, num_slots)
@@ -192,6 +196,27 @@ def cache_bytes_per_slot(cache: dict, num_slots: int) -> int:
             continue
         total += leaf.numel() // leaf.shape[ax] * leaf.element_size()
     return int(total)
+
+
+def _kv_bytes_per_position(cfg, kv_dtype_bytes: int) -> int:
+    """One layer's K + V bytes for one position, the bf16 scales per
+    (position, head) included under ``cfg.kv_cache_quant``."""
+    h = cfg.num_heads
+    hd = cfg.hidden_dim // h
+    if cfg.kv_cache_quant == "none":
+        return 2 * h * hd * kv_dtype_bytes
+    return 2 * h * hd + 2 * h * 2
+
+
+def estimate_cache_bytes_per_slot(cfg, cache_len: int, *,
+                                  kv_dtype_bytes: int = 2) -> int:
+    """Analytic twin of ``cache_bytes_per_slot`` at bucket
+    ``cache_len``: ``L x (K + V (+ scales) + cache_index) + pos_index``.
+    ``kv_dtype_bytes`` is the unquantized element width (2 for bf16, 4
+    for fp32); a quantized cache costs 1 byte per element plus its bf16
+    scales whatever it is."""
+    per_layer = cache_len * _kv_bytes_per_position(cfg, kv_dtype_bytes) + 4
+    return cfg.num_layers * per_layer + 4
 
 
 # ----------------------------------------------------- paged (block) pool
@@ -238,7 +263,8 @@ def splice_pool_blocks(cache: dict, slot_cache: dict, blk_ids, m0: int,
             chunks = leaf[:, 0].reshape(
                 (leaf.shape[0], n_blk, bs) + tuple(leaf.shape[3:])
             )
-            pool[:, ids.to(pool.device)] = chunks[:, m0:m0 + n_priv].to(pool.dtype)
+            byte_view(pool)[:, ids.to(pool.device)] = byte_view(
+                chunks[:, m0:m0 + n_priv].to(pool.dtype))
         elif name == "cache_index":
             cache[name][:, slot] = leaf[:, 0]
         elif name == "pos_index":
@@ -259,8 +285,9 @@ def pool_block_bytes(cache: dict) -> int:
 
 def estimate_pool_block_bytes(cfg, block_size: int, *,
                               kv_dtype_bytes: int = 2) -> int:
-    """Analytic twin of ``pool_block_bytes`` (unquantized pools, the only
-    ones the port builds): one block of ``block_size`` positions costs
-    ``L x 2 x bs x H x hd x kv_dtype_bytes``."""
-    hd = cfg.hidden_dim // cfg.num_heads
-    return cfg.num_layers * 2 * block_size * cfg.num_heads * hd * kv_dtype_bytes
+    """Analytic twin of ``pool_block_bytes``: one block of
+    ``block_size`` positions costs ``L x 2 x bs x H x hd`` payload bytes
+    (``kv_dtype_bytes`` each unquantized, 1 under ``cfg.kv_cache_quant``,
+    plus the bf16 scale blocks)."""
+    return (cfg.num_layers * block_size
+            * _kv_bytes_per_position(cfg, kv_dtype_bytes))

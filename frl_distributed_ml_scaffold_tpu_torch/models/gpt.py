@@ -17,6 +17,17 @@ Paged (``init_paged_cache``): ``key_pool`` / ``value_pool``
 ``[L, N, bs, H, hd]`` shared by every row, ``block_tables [B, M]`` int32
 (row b's logical block j is pool block ``block_tables[b, j]``,
 ``M = ceil(seq_len / bs)``), and the same ``cache_index`` / ``pos_index``.
+
+Quantized (``model.kv_cache_quant`` int8 / fp8_e4m3 / fp8_e5m2): K/V are
+stored as 1-byte payloads (``ops/quantization.py``) with bf16 scales
+beside them, ``key_scale`` / ``value_scale`` ``[L, B, S, H]`` or
+``key_pool_scale`` / ``value_pool_scale`` ``[L, N, bs, H]``, whatever the
+policy. Each written token is quantized ONCE, over its own head vector,
+and never again, so a position contributes the same values at every
+later step, in every bucket and in the pool. Prefill attends over the
+bucket dequantized to the compute dtype; decode and verify hand the
+scales to the kernels.
+
 Block 0 is the trash block: tables point unallocated columns at it, and
 writes past the table land there, so no row ever reads them. A paged
 call takes one token per row (``paged_decode_attention``) or a verify
@@ -44,6 +55,13 @@ from frl_distributed_ml_scaffold_tpu_torch.ops.decode_attention import (
     paged_decode_attention,
     paged_verify_attention,
 )
+from frl_distributed_ml_scaffold_tpu_torch.ops.quantization import (
+    byte_view,
+    dequantize,
+    lowp_dtype,
+    quantize,
+    zeros,
+)
 from frl_distributed_ml_scaffold_tpu_torch.precision import Policy
 
 
@@ -57,10 +75,7 @@ def _check_supported(cfg: GPTConfig) -> None:
             "B items 1-3 for flash; item 12 for ring/ulysses)"
         )
     if cfg.kv_cache_quant != "none":
-        raise NotImplementedError(
-            "model.kv_cache_quant is not ported yet (ROADMAP queue B "
-            "item 7, quantized KV cache)"
-        )
+        lowp_dtype(cfg.kv_cache_quant)  # KeyError naming the formats
     if cfg.moe.num_experts > 0 or cfg.pipeline_stages > 1:
         raise NotImplementedError(
             "MoE blocks and pipeline_stages > 1 are not ported yet "
@@ -90,24 +105,30 @@ def _masked_dense_attention(q, k, v, mask):
     return out.to(q.dtype)
 
 
-def _write_drop(cache_l, cols, vals):
-    """``cache_l[b, cols[b, j]] = vals[b, j]`` with columns past the
-    capacity DROPPED, not clipped (clipping would pile them onto the last
-    position and clobber a real token's K/V). cache_l ``[B, S, H, hd]``,
-    cols ``[B, t]``, vals ``[B, t, H, hd]``."""
-    b, s = cache_l.shape[:2]
+def _write_drop(cols, pairs):
+    """``cache_l[b, cols[b, j]] = vals[b, j]`` for every ``(cache_l,
+    vals)`` pair, with columns past the capacity DROPPED, not clipped
+    (clipping would pile them onto the last position and clobber a real
+    token's K/V). cache_l ``[B, S, ...]`` (K/V or scales), cols ``[B, t]``,
+    vals ``[B, t, ...]``; the indices are computed once for all pairs, and
+    fp8 is written as bytes."""
+    b, s = pairs[0][0].shape[:2]
     rows = torch.arange(b, device=cols.device)
     if cols.shape[1] == 1:
         # One column per row: a dropped write rewrites the value already
         # at the clamped column, which keeps the step free of host syncs.
         c = cols[:, 0]
-        keep = (c < s)[:, None, None]
+        keep = c < s
         cc = c.clamp(max=s - 1)
-        cache_l[rows, cc] = torch.where(keep, vals[:, 0], cache_l[rows, cc])
+        for cache_l, vals in pairs:
+            cache_l, vals = byte_view(cache_l), byte_view(vals)
+            k = keep.view(b, *([1] * (vals.dim() - 2)))
+            cache_l[rows, cc] = torch.where(k, vals[:, 0], cache_l[rows, cc])
         return
     keep = cols < s
-    r = rows[:, None].expand_as(cols)
-    cache_l[r[keep], cols[keep]] = vals[keep]
+    r, c = rows[:, None].expand_as(cols)[keep], cols[keep]
+    for cache_l, vals in pairs:
+        byte_view(cache_l)[r, c] = byte_view(vals)[keep]
 
 
 class CausalSelfAttention(nn.Module):
@@ -139,6 +160,10 @@ class CausalSelfAttention(nn.Module):
             return self._dense(self.out, y.reshape(b, t, d))
         ck = cache["cached_key"][layer]  # [B, S, H, hd] view
         cv = cache["cached_value"][layer]
+        ks = vs = None
+        if "key_scale" in cache:
+            ks = cache["key_scale"][layer]  # [B, S, H] view
+            vs = cache["value_scale"][layer]
         idx = cache["cache_index"][layer]  # [B] view, advanced last
         s = ck.shape[1]
         pad = t - lens  # [B] left-pad widths (0 when not ragged)
@@ -153,11 +178,11 @@ class CausalSelfAttention(nn.Module):
             k_w = torch.gather(k_w, 1, gidx)
             v_w = torch.gather(v_w, 1, gidx)
         write_cols = idx[:, None] + ar[None, :]  # [B, t]
-        _write_drop(ck, write_cols, k_w)
-        _write_drop(cv, write_cols, v_w)
+        _write_drop(write_cols, self._to_store(ck, cv, ks, vs, k_w, v_w))
         if t == 1:
             y = decode_attention(
-                q[:, 0], ck, cv, idx + 1, impl=cfg.decode_attention
+                q[:, 0], ck, cv, idx + 1, k_scale=ks, v_scale=vs,
+                impl=cfg.decode_attention,
             )[:, None]
         else:
             # Query column j sits at absolute position idx + j - pad
@@ -165,9 +190,25 @@ class CausalSelfAttention(nn.Module):
             qpos = (idx[:, None] + ar[None, :] - pad[:, None]).clamp(min=0)
             kpos = torch.arange(s, device=x.device)
             mask = kpos[None, None, :] <= qpos[:, :, None]  # [B, t, S]
+            if ks is not None:
+                # Prefill attends over the bucket dequantized to the
+                # compute dtype, as the reference does.
+                ck = dequantize(ck, ks[..., None], self.dtype)
+                cv = dequantize(cv, vs[..., None], self.dtype)
             y = _masked_dense_attention(q, ck, cv, mask)
         idx.add_(lens)
         return self._dense(self.out, y.reshape(b, t, d))
+
+    def _to_store(self, kc, vc, ks, vs, k_w, v_w):
+        """``(leaf, values)`` pairs to write: K/V as they are, or, with
+        scale leaves, quantized once (K and V in one call, each token over
+        its own head vector) into payloads plus bf16 scales."""
+        if ks is None:
+            return [(kc, k_w), (vc, v_w)]
+        q, s = quantize(torch.stack((k_w, v_w)), self.cfg.kv_cache_quant,
+                        channel_axes=(0, 1, 2, 3))
+        s = s[..., 0].to(torch.bfloat16)
+        return [(kc, q[0]), (vc, q[1]), (ks, s[0]), (vs, s[1])]
 
     def _paged(self, q, k_w, v_w, cache: dict, layer: int):
         """The paged branch: column j of row b writes logical position
@@ -181,6 +222,10 @@ class CausalSelfAttention(nn.Module):
         b, t = q.shape[:2]
         kp = cache["key_pool"][layer]  # [N, bs, H, hd] view
         vp = cache["value_pool"][layer]
+        ks = vs = None
+        if "key_pool_scale" in cache:
+            ks = cache["key_pool_scale"][layer]  # [N, bs, H] view
+            vs = cache["value_pool_scale"][layer]
         tbl = cache["block_tables"]  # [B, M] int32
         idx = cache["cache_index"][layer]  # [B] view, advanced last
         bs, m_tbl = kp.shape[1], tbl.shape[1]
@@ -190,14 +235,14 @@ class CausalSelfAttention(nn.Module):
         phys = torch.where(col < m_tbl, phys, torch.zeros_like(phys))
         off = offs % bs
         # Active rows never collide; duplicates land only in block 0.
-        kp[phys, off] = k_w
-        vp[phys, off] = v_w
-        impl = self.cfg.decode_attention
+        for pool, vals in self._to_store(kp, vp, ks, vs, k_w, v_w):
+            byte_view(pool)[phys, off] = byte_view(vals)
+        kw = dict(k_scale=ks, v_scale=vs, impl=self.cfg.decode_attention)
         if t == 1:
             y = paged_decode_attention(q[:, 0], kp, vp, idx + 1, tbl,
-                                       impl=impl)[:, None]
+                                       **kw)[:, None]
         else:
-            y = paged_verify_attention(q, kp, vp, idx + t, tbl, impl=impl)
+            y = paged_verify_attention(q, kp, vp, idx + t, tbl, **kw)
         idx.add_(t)
         return y
 
@@ -270,15 +315,31 @@ class GPT(nn.Module):
     def device(self) -> torch.device:
         return self.wpe.device
 
+    def _kv_leaves(self, scale_of: dict, shape) -> dict:
+        """The K/V leaves named by ``scale_of``'s keys, ``[*shape, hd]``
+        in the compute dtype; under a quantized cache 1-byte payloads,
+        plus the bf16 scale leaves ``shape`` named by its values."""
+        cfg, dev = self.config, self.device
+        kv = (*shape, cfg.hidden_dim // cfg.num_heads)
+        quant = cfg.kv_cache_quant != "none"
+        dt = lowp_dtype(cfg.kv_cache_quant) if quant else self.policy.compute_dtype
+        out = {name: zeros(kv, dt, dev) for name in scale_of}
+        if quant:
+            out.update({
+                name: torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+                for name in scale_of.values()
+            })
+        return out
+
     def init_cache(self, batch: int, cache_len: int) -> dict:
         """An empty decode cache of capacity ``cache_len``."""
         cfg = self.config
-        h = cfg.num_heads
-        kv = (cfg.num_layers, batch, cache_len, h, cfg.hidden_dim // h)
-        dev, cd = self.device, self.policy.compute_dtype
+        dev = self.device
         return {
-            "cached_key": torch.zeros(kv, dtype=cd, device=dev),
-            "cached_value": torch.zeros(kv, dtype=cd, device=dev),
+            **self._kv_leaves(
+                {"cached_key": "key_scale", "cached_value": "value_scale"},
+                (cfg.num_layers, batch, cache_len, cfg.num_heads),
+            ),
             "cache_index": torch.zeros(
                 (cfg.num_layers, batch), dtype=torch.int32, device=dev
             ),
@@ -292,13 +353,14 @@ class GPT(nn.Module):
         ``block_size`` positions per layer, and all-zero tables (every row
         pointing at the trash block 0)."""
         cfg = self.config
-        h = cfg.num_heads
-        pool = (cfg.num_layers, pool_blocks, block_size, h, cfg.hidden_dim // h)
-        dev, cd = self.device, self.policy.compute_dtype
+        dev = self.device
         m_blocks = -(-cfg.seq_len // block_size)
         return {
-            "key_pool": torch.zeros(pool, dtype=cd, device=dev),
-            "value_pool": torch.zeros(pool, dtype=cd, device=dev),
+            **self._kv_leaves(
+                {"key_pool": "key_pool_scale",
+                 "value_pool": "value_pool_scale"},
+                (cfg.num_layers, pool_blocks, block_size, cfg.num_heads),
+            ),
             "block_tables": torch.zeros(
                 (num_slots, m_blocks), dtype=torch.int32, device=dev
             ),

@@ -34,6 +34,10 @@ The port of the JAX package's ``serving/engine.py``:
   greedy predictions accepted, then rollback: tail blocks return to the
   pool and every cursor rewinds. Acceptance is exact, so the output is
   token-identical to plain decode.
+- **Quantized cache** (``model.kv_cache_quant``): the bf16 scale leaves
+  grow, graft, splice and seed with the K/V leaves they scale (by shape
+  and by name, ``models/generation.py``); 1-byte fp8 leaves move as
+  bytes. Pool accounting reads the actual leaves, scales included.
 
 Waiting for later slices (ROADMAP queue A): the draft-model proposer
 (``speculate=draft``), disaggregation and the SLO scheduler, telemetry and
@@ -67,6 +71,10 @@ from frl_distributed_ml_scaffold_tpu_torch.models.generation import (
     pool_block_bytes,
     rewind_cache_indices,
     splice_pool_blocks,
+)
+from frl_distributed_ml_scaffold_tpu_torch.ops.quantization import (
+    byte_view,
+    zeros,
 )
 
 
@@ -516,7 +524,7 @@ class ServingEngine:
                 grown[name] = e
                 continue
             pad = [0, 0] * (e.dim() - ax - 1) + [0, target - self.bucket]
-            grown[name] = F.pad(e, pad)
+            grown[name] = F.pad(byte_view(e), pad).view(e.dtype)
         self.cache = grown
         self.stats[f"grow_{self.bucket}->{target}"] += 1
         self.bucket = target
@@ -536,7 +544,7 @@ class ServingEngine:
             cap = cache_capacity_axis(p, s_p)
             if cap is not None:
                 dst = dst.narrow(cap, 0, s_p)
-            dst.copy_(p)
+            byte_view(dst).copy_(byte_view(p))
 
     def _seed_for(self, req: ServeRequest, res: dict | None) -> dict | None:
         """The seed of a shared-prefix admission: the ``m`` matched pool
@@ -554,10 +562,11 @@ class ServingEngine:
         seed = {}
         for name, leaf in self.cache.items():
             if name in SLOT_LEAF_OF:
-                l_, _, _, h, hd = leaf.shape
-                contig = torch.zeros((l_, 1, s_c, h, hd), dtype=leaf.dtype,
-                                     device=dev)
-                contig[:, 0, : m * bs] = leaf[:, ids].reshape(l_, m * bs, h, hd)
+                # Pools [L, N, bs, ...]: K/V [.., H, hd], scales [.., H].
+                l_, tail = leaf.shape[0], tuple(leaf.shape[3:])
+                contig = zeros((l_, 1, s_c) + tail, leaf.dtype, dev)
+                byte_view(contig)[:, 0, : m * bs] = byte_view(leaf)[
+                    :, ids].reshape((l_, m * bs) + tail)
                 seed[SLOT_LEAF_OF[name]] = contig
             elif name == "cache_index":
                 seed[name] = torch.full((leaf.shape[0], 1), m * bs,

@@ -39,10 +39,11 @@ def jax_params():
     return jax.device_get(variables["params"])
 
 
-def build_pair(params, policy: str):
-    """(JAX GPT, port GPT on the CPU carrying ``params``) under ``policy``."""
-    jmodel = JaxGPT(JaxGPTConfig(**TINY), jax_policy(policy))
-    cfg = GPTConfig(**TINY)
+def build_pair(params, policy: str, **model):
+    """(JAX GPT, port GPT on the CPU carrying ``params``) under ``policy``;
+    ``model`` overrides fields of both configs (``kv_cache_quant=...``)."""
+    jmodel = JaxGPT(JaxGPTConfig(**TINY, **model), jax_policy(policy))
+    cfg = GPTConfig(**TINY, **model)
     tmodel = GPT(cfg, get_policy(policy), device="cpu")
     tmodel.load_state_dict(params_from_jax(params, cfg))
     return jmodel, tmodel

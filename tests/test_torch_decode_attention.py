@@ -118,8 +118,8 @@ def test_refusals():
     q, k, v, kv_len = (
         torch.from_numpy(a) for a in _inputs(4, OCCUPANCY["mid"])
     )
-    with pytest.raises(NotImplementedError, match="queue B item 7"):
-        tda.decode_attention(q, k, v, kv_len, k_scale=kv_len, v_scale=kv_len)
+    with pytest.raises(ValueError, match="must be passed together"):
+        tda.decode_attention(q, k, v, kv_len, k_scale=kv_len)
     with pytest.raises(KeyError, match="unknown decode_attention impl"):
         tda.decode_attention(q, k, v, kv_len, impl="paged")
 

@@ -136,7 +136,7 @@ def test_writes_past_capacity_are_dropped_not_clipped(width):
     cache = torch.zeros(2, 8, 1, 1)
     cols = torch.tensor([[6 + j for j in range(width)], [2 + j for j in range(width)]])
     vals = torch.arange(1, 2 * width + 1, dtype=torch.float32).view(2, width, 1, 1)
-    _write_drop(cache, cols, vals)
+    _write_drop(cols, [(cache, vals)])
     want = torch.zeros(2, 8)
     for b in range(2):
         for j in range(width):
@@ -151,11 +151,10 @@ def test_writes_past_capacity_are_dropped_not_clipped(width):
     [
         {"attention": "flash"},
         {"attention": "ring"},
-        {"kv_cache_quant": "int8"},
         {"moe": tschema.MoEConfig(num_experts=4)},
         {"pipeline_stages": 2},
     ],
-    ids=["flash", "ring", "kv_quant", "moe", "pipeline"],
+    ids=["flash", "ring", "moe", "pipeline"],
 )
 def test_unported_model_options_raise(override):
     cfg = dataclasses.replace(tschema.GPTConfig(**TINY), **override)

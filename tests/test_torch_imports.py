@@ -47,6 +47,14 @@ def test_every_port_module_imports_with_jax_blocked():
     assert out.returncode == 0, out.stderr
 
 
+def test_scans_cover_every_port_module():
+    """Both scans walk the package, so a new module (the quantization
+    primitives, say) is covered without being listed here."""
+    assert "frl_distributed_ml_scaffold_tpu_torch.ops.quantization" in _modules()
+    assert PORT_DIR / "ops" / "quantization.py" in _sources()
+    assert len(_sources()) == len(_modules()) + 1  # + chip_smoke.py
+
+
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
 def test_no_jax_import_in_the_port(path):
     tree = ast.parse(path.read_text())

@@ -102,3 +102,104 @@ def test_paged_kernels_match_plain_versions(op, dtype):
         dec = tda.paged_decode_attention(q[:, 0].contiguous(), k, v,
                                          kv_len - 4, tables)
         assert torch.equal(got[:, 0], dec)
+
+
+# ------------------------------------------------------- quantized cache
+
+QFORMATS = ["int8", "fp8_e4m3", "fp8_e5m2"]
+
+
+def _quantized(x: torch.Tensor, fmt: str):
+    """Per-(…, head) quantization of ``x [..., D]`` on its device:
+    (payload, bf16 scales [...])."""
+    from frl_distributed_ml_scaffold_tpu_torch.ops.quantization import quantize
+
+    q, s = quantize(x, fmt, channel_axes=tuple(range(x.dim() - 1)))
+    return q, s[..., 0].to(torch.bfloat16)
+
+
+def _poisoned(payload, scale, dead):
+    """Copies with NaN scales and a NaN payload byte (0x7F: NaN in both
+    fp8 formats, int8's largest value) wherever ``dead`` is True."""
+    from frl_distributed_ml_scaffold_tpu_torch.ops.quantization import byte_view
+
+    p = byte_view(payload).clone()
+    p[dead] = 0x7F
+    s = scale.clone()
+    s[dead] = float("nan")
+    return p.view(payload.dtype), s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", QFORMATS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quant_decode_kernel_matches_plain_version(fmt, dtype):
+    """On the card: the quantized contiguous kernel against its plain
+    version, on a strided cache with occupancy past capacity; positions
+    past occupancy poisoned (NaN scales, NaN payloads) leave the output
+    bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    tdt = getattr(torch, dtype)
+    rng = np.random.default_rng(7)
+    q = torch.from_numpy(rng.standard_normal((B, H, D)).astype(np.float32))
+    q = q.to("cuda", tdt)
+    kv = [torch.from_numpy(rng.standard_normal((B, 2 * S, H, D)).astype(
+        np.float32)).cuda() for _ in range(2)]
+    (k, ks), (v, vs) = (_quantized(x, fmt) for x in kv)
+    k, ks, v, vs = k[:, :S], ks[:, :S], v[:, :S], vs[:, :S]
+    lens = torch.tensor([1, 33, S, S + 1], dtype=torch.int32, device="cuda")
+    before = tda.decode_attention.quant_launches
+    got = tda.decode_attention(q, k, v, lens, k_scale=ks, v_scale=vs)
+    want = tda.dense_decode_attention_quant(q, k, v, lens, ks, vs)
+    torch.cuda.synchronize()
+    assert tda.decode_attention.quant_launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=0)
+    dead = torch.arange(S, device="cuda")[None, :] >= lens[:, None]
+    kd, ksd = _poisoned(k, ks, dead)
+    vd, vsd = _poisoned(v, vs, dead)
+    dirty = tda.decode_attention(q, kd, vd, lens, k_scale=ksd, v_scale=vsd)
+    assert torch.equal(dirty, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["decode", "verify"])
+@pytest.mark.parametrize("fmt", QFORMATS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quant_paged_kernels_match_plain_versions(op, fmt, dtype):
+    """On the card: the quantized paged decode and verify kernels against
+    their plain versions, with occupancy past the table; every pool
+    position no row's occupancy reaches poisoned leaves the output
+    bit-identical; quantized verify query 0 is the quantized decode
+    kernel's output bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    tdt = getattr(torch, dtype)
+    t = 5 if op == "verify" else None
+    router = getattr(tda, f"paged_{op}_attention")
+    plain = getattr(tda, f"dense_paged_{op}_attention")
+    q, kf, vf, kv_len, tables = _paged_inputs(torch.float32, t)
+    q = q.to(tdt)
+    (k, ks), (v, vs) = _quantized(kf, fmt), _quantized(vf, fmt)
+    sc = dict(k_scale=ks, v_scale=vs)
+    before = router.quant_launches
+    got = router(q, k, v, kv_len, tables, **sc)
+    want = plain(q, k, v, kv_len, tables, ks, vs)
+    torch.cuda.synchronize()
+    assert router.quant_launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=0)
+    bs, cap = k.shape[1], tables.shape[1] * k.shape[1]
+    dead = torch.ones(k.shape[:2], dtype=torch.bool, device="cuda")
+    for row, n in enumerate(kv_len.clamp(max=cap).tolist()):
+        p = torch.arange(n, device="cuda")
+        dead[tables[row, p // bs].long(), p % bs] = False
+    kd, ksd = _poisoned(k, ks, dead)
+    vd, vsd = _poisoned(v, vs, dead)
+    assert torch.equal(
+        router(q, kd, vd, kv_len, tables, k_scale=ksd, v_scale=vsd), got)
+    if op == "verify":
+        dec = tda.paged_decode_attention(q[:, 0].contiguous(), k, v,
+                                         kv_len - 4, tables, **sc)
+        assert torch.equal(got[:, 0], dec)

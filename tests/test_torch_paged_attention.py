@@ -172,9 +172,8 @@ def test_paged_refusals(op):
         torch.from_numpy(a)
         for a in _inputs(5, 8, OCCUPANCY["mid"], t=T if op == "verify" else None)
     )
-    item = "item 8" if op == "decode" else "item 9"
-    with pytest.raises(NotImplementedError, match=f"queue B {item}"):
-        fn(q, k, v, kv_len, tables, k_scale=kv_len, v_scale=kv_len)
+    with pytest.raises(ValueError, match="must be passed together"):
+        fn(q, k, v, kv_len, tables, v_scale=kv_len)
     with pytest.raises(KeyError, match="unknown decode_attention impl"):
         fn(q, k, v, kv_len, tables, impl="paged")
 

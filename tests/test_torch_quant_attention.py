@@ -1,0 +1,331 @@
+"""The port's decode attention over a QUANTIZED cache (frl_distributed_ml_
+scaffold_tpu_torch/ops/decode_attention.py, ``k_scale``/``v_scale``) held
+against the JAX package's quantized Pallas kernels (``_decode_kernel_quant``,
+``_paged_decode_kernel_quant``, ``_paged_verify_kernel_quant``) run in
+interpret mode on the CPU, and against its dense quantized references.
+
+Inputs are made from a numpy seed and quantized ONCE by the JAX package
+(per (row, position, head), scales stored in bf16, as its model stores
+them); the same bytes go to both packages. On the CPU the port's routers
+take their plain versions (the CUDA kernels run only on the card:
+tests/test_torch_kernels_cuda.py and ``chip_smoke.py``).
+
+Tolerances: fp32 2e-6 (summation order and exp only: both versions
+compute in fp32 from the same payloads and scales); bf16 2e-2 (both round
+the output to bf16, ulp 2^-7 relative at |o| <= 4).
+"""
+
+from __future__ import annotations
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from frl_distributed_ml_scaffold_tpu_torch.ops import _build
+from frl_distributed_ml_scaffold_tpu_torch.ops import decode_attention as tda
+from frl_distributed_ml_scaffold_tpu_torch.ops.quantization import byte_view
+
+jda = importlib.import_module(
+    "frl_distributed_ml_scaffold_tpu.ops.decode_attention"
+)
+jq = importlib.import_module("frl_distributed_ml_scaffold_tpu.ops.quantization")
+
+B, S, H, D, T = 4, 64, 4, 32, 5
+TOL = {"float32": 2e-6, "bfloat16": 2e-2}
+FORMATS = ["int8", "fp8_e4m3"]
+OCCUPANCY = {
+    "mixed": [1, 33, S, S + 1],
+    "past_capacity": [S + 9, 3, S, S + 100],
+}
+
+
+_TORCH = {"int8": torch.int8, "fp8_e4m3": torch.float8_e4m3fn,
+          "fp8_e5m2": torch.float8_e5m2}
+
+
+class Cache:
+    """One quantized K/V pair: the JAX arrays and the port's tensors,
+    holding the same payload bytes and bf16 scales."""
+
+    def __init__(self, k, v, fmt):
+        self.j = []
+        self.t = []
+        for x in (k, v):
+            qx, sx = jq.quantize(jnp.asarray(x), fmt, channel_axes=tuple(
+                range(x.ndim - 1)))
+            sx = sx[..., 0].astype(jnp.bfloat16)
+            self.j.append((qx, sx))
+            payload = torch.from_numpy(np.asarray(qx).view(np.uint8).copy())
+            self.t.append((
+                payload.view(_TORCH[fmt]),
+                torch.from_numpy(np.asarray(sx, np.float32)).to(torch.bfloat16),
+            ))
+
+    def jax(self):
+        (k, ks), (v, vs) = self.j
+        return k, v, dict(k_scale=ks, v_scale=vs)
+
+    def port(self):
+        (k, ks), (v, vs) = self.t
+        return k, v, dict(k_scale=ks, v_scale=vs)
+
+
+def _contiguous(seed, fmt, kv_len):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    return q, Cache(k, v, fmt), np.asarray(kv_len, np.int32)
+
+
+def _paged(seed, fmt, bs, kv_len, t=None):
+    """q, quantized pools [B*M + 1, bs, H, D] (block 0 the trash block),
+    shuffled tables [B, M] over blocks 1.., kv_len."""
+    rng = np.random.default_rng(seed)
+    m = S // bs
+    n = B * m + 1
+    qshape = (B, H, D) if t is None else (B, t, H, D)
+    q = rng.standard_normal(qshape).astype(np.float32)
+    k = rng.standard_normal((n, bs, H, D)).astype(np.float32)
+    v = rng.standard_normal((n, bs, H, D)).astype(np.float32)
+    tables = (rng.permutation(n - 1) + 1).reshape(B, m).astype(np.int32)
+    return q, Cache(k, v, fmt), np.asarray(kv_len, np.int32), tables
+
+
+def _jax_out(fn, q, cache, *args, dtype, **kw):
+    k, v, sc = cache.jax()
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    out = fn(jnp.asarray(q, jdt), k, v, *(jnp.asarray(a) for a in args),
+             **sc, **kw)
+    return np.asarray(out.astype(jnp.float32))
+
+
+def _port_out(fn, q, cache, *args, dtype, **kw):
+    k, v, sc = cache.port()
+    tdt = getattr(torch, dtype)
+    qt = torch.from_numpy(q).to(tdt)
+    out = fn(qt, k, v, *(torch.from_numpy(a) for a in args), **sc, **kw)
+    assert out.dtype == tdt and out.shape == qt.shape
+    return out.float().numpy()
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("occupancy", ["mixed", "past_capacity"])
+def test_decode_quant_matches_pallas_kernel(fmt, dtype, occupancy):
+    q, cache, kv_len = _contiguous(0, fmt, OCCUPANCY[occupancy])
+    got = _port_out(tda.decode_attention, q, cache, kv_len, dtype=dtype)
+    np.testing.assert_allclose(
+        got, _jax_out(jda._local_decode, q, cache, kv_len, dtype=dtype,
+                      impl="flash", interpret=True),
+        atol=TOL[dtype], rtol=0,
+    )
+    if dtype == "float32":
+        lens = np.maximum(kv_len, 1)
+        k, v, sc = cache.jax()
+        want = jda.dense_decode_attention_quant(
+            jnp.asarray(q), k, v, jnp.asarray(lens), sc["k_scale"],
+            sc["v_scale"],
+        )
+        np.testing.assert_allclose(got, np.asarray(want), atol=TOL[dtype],
+                                   rtol=0)
+        k, v, sc = cache.port()
+        np.testing.assert_array_equal(
+            got,
+            tda.dense_decode_attention_quant(
+                torch.from_numpy(q), k, v, torch.from_numpy(lens),
+                sc["k_scale"], sc["v_scale"],
+            ).numpy(),
+        )
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bs", [8, 16])
+def test_paged_decode_quant_matches_pallas_kernel(fmt, dtype, bs):
+    q, cache, kv_len, tables = _paged(1, fmt, bs, [1, 17, S, S + 9])
+    got = _port_out(tda.paged_decode_attention, q, cache, kv_len, tables,
+                    dtype=dtype)
+    np.testing.assert_allclose(
+        got, _jax_out(jda._local_paged_decode, q, cache, kv_len, tables,
+                      dtype=dtype, impl="flash", interpret=True),
+        atol=TOL[dtype], rtol=0,
+    )
+    if dtype == "float32":
+        np.testing.assert_allclose(
+            got, _jax_out(jda._local_paged_decode, q, cache, kv_len, tables,
+                          dtype=dtype, impl="dense", interpret=None),
+            atol=TOL[dtype], rtol=0,
+        )
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bs", [8, 16])
+def test_paged_verify_quant_matches_pallas_kernel(fmt, dtype, bs):
+    q, cache, kv_len, tables = _paged(2, fmt, bs, [T, 23, S, S + 2], t=T)
+    got = _port_out(tda.paged_verify_attention, q, cache, kv_len, tables,
+                    dtype=dtype)
+    np.testing.assert_allclose(
+        got, _jax_out(jda._local_paged_verify, q, cache, kv_len, tables,
+                      dtype=dtype, impl="flash", interpret=True),
+        atol=TOL[dtype], rtol=0,
+    )
+    if dtype == "float32":
+        np.testing.assert_allclose(
+            got, _jax_out(jda._local_paged_verify, q, cache, kv_len, tables,
+                          dtype=dtype, impl="dense", interpret=None),
+            atol=TOL[dtype], rtol=0,
+        )
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_quant_verify_position_j_equals_decode_at_its_occupancy(fmt):
+    """Query j of a tile at total occupancy L is the single-token decode
+    at occupancy L - T + 1 + j, bit for bit (greedy acceptance over a
+    quantized pool rests on it)."""
+    q, cache, kv_len, tables = _paged(3, fmt, 8, [T, 17, 40, S], t=T)
+    tile = _port_out(tda.paged_verify_attention, q, cache, kv_len, tables,
+                     dtype="float32")
+    for j in range(T):
+        dec = _port_out(tda.paged_decode_attention,
+                        np.ascontiguousarray(q[:, j]), cache,
+                        kv_len - T + 1 + j, tables, dtype="float32")
+        np.testing.assert_array_equal(tile[:, j], dec)
+
+
+def _poison(cache: Cache, fmt: str, dead: np.ndarray) -> Cache:
+    """A copy of the port's side of ``cache`` with NaN scales and, where
+    the format has one, NaN payloads (int8 has none: its largest value)
+    wherever ``dead`` ([rows, positions]) is True."""
+    bad = {"int8": 0x7F, "fp8_e4m3": 0x7F, "fp8_e5m2": 0x7F}[fmt]
+    d = torch.from_numpy(dead)
+    out = object.__new__(Cache)
+    out.t = []
+    for payload, scale in cache.t:
+        p, s = payload.clone(), scale.clone()
+        byte_view(p)[d] = bad
+        s[d] = float("nan")
+        out.t.append((p, s))
+    return out
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8_e4m3", "fp8_e5m2"])
+@pytest.mark.parametrize("op", ["contiguous", "decode", "verify"])
+def test_dirty_cache_leaves_the_output_bit_identical(fmt, op):
+    """Every position no row's occupancy reaches, payload and scale,
+    poisoned (NaN scales; NaN payloads where the format has them): the
+    output is bit-identical."""
+    if op == "contiguous":
+        q, cache, kv_len = _contiguous(4, fmt, [1, 33, S, S + 1])
+        args, fn = (kv_len,), tda.decode_attention
+        dead = np.arange(S)[None, :] >= kv_len[:, None]
+    else:
+        t = T if op == "verify" else None
+        q, cache, kv_len, tables = _paged(5, fmt, 8, [T, 17, 9, 33], t=t)
+        args = (kv_len, tables)
+        fn = getattr(tda, f"paged_{op}_attention")
+        dead = np.ones(cache.t[0][0].shape[:2], bool)
+        for row, n in enumerate(kv_len):
+            for p in range(min(int(n), S)):
+                dead[tables[row, p // 8], p % 8] = False
+    assert dead.any()
+    for dtype in ("float32", "bfloat16"):
+        clean = _port_out(fn, q, cache, *args, dtype=dtype)
+        dirty = _port_out(fn, q, _poison(cache, fmt, dead), *args, dtype=dtype)
+        assert np.isfinite(clean).all()
+        np.testing.assert_array_equal(dirty, clean)
+
+
+@pytest.mark.parametrize("op", ["contiguous", "decode", "verify"])
+def test_one_scale_without_the_other_raises(op):
+    if op == "contiguous":
+        q, cache, kv_len = _contiguous(6, "int8", OCCUPANCY["mixed"])
+        k, v, sc = cache.port()
+        args, fn = (torch.from_numpy(kv_len),), tda.decode_attention
+        what = "cache"
+    else:
+        t = T if op == "verify" else None
+        q, cache, kv_len, tables = _paged(6, "int8", 8, OCCUPANCY["mixed"], t=t)
+        k, v, sc = cache.port()
+        args = (torch.from_numpy(kv_len), torch.from_numpy(tables))
+        fn = getattr(tda, f"paged_{op}_attention")
+        what = "pool"
+    q = torch.from_numpy(q)
+    for one in ({"k_scale": sc["k_scale"]}, {"v_scale": sc["v_scale"]}):
+        with pytest.raises(ValueError, match=f"a quantized {what} quantizes "
+                           "both of its halves"):
+            fn(q, k, v, *args, **one)
+    for impl in ("dense", "flash"):
+        assert np.isfinite(fn(q, k, v, *args, **sc, impl=impl).numpy()).all()
+
+
+def test_cpu_quant_takes_the_plain_version_and_launches_nothing():
+    routers = (tda.decode_attention, tda.paged_decode_attention,
+               tda.paged_verify_attention)
+    for r in routers:
+        r.launches = r.quant_launches = 0
+    q, cache, kv_len = _contiguous(7, "fp8_e4m3", OCCUPANCY["mixed"])
+    np.testing.assert_array_equal(
+        _port_out(tda.decode_attention, q, cache, kv_len, dtype="float32"),
+        _port_out(tda.decode_attention, q, cache, kv_len, dtype="float32",
+                  impl="dense"),
+    )
+    q, cache, kv_len, tables = _paged(7, "fp8_e4m3", 8, [1, 9, 30, S], t=T)
+    k, v, sc = cache.port()
+    np.testing.assert_array_equal(
+        _port_out(tda.paged_verify_attention, q, cache, kv_len, tables,
+                  dtype="float32"),
+        tda.dense_paged_verify_attention(
+            torch.from_numpy(q), k, v, torch.from_numpy(kv_len),
+            torch.from_numpy(tables), sc["k_scale"], sc["v_scale"],
+        ).numpy(),
+    )
+    assert all(r.launches == r.quant_launches == 0 for r in routers)
+
+
+@pytest.mark.parametrize(
+    "case",
+    ["payload_dtype", "mixed_payloads", "scale_dtype", "scale_shape",
+     "scale_strides", "head_dim", "q_dtype"],
+)
+@pytest.mark.parametrize("op", ["contiguous", "paged"])
+def test_quant_kernel_argument_checks(case, op):
+    """What the quantized CUDA kernels do not take is refused in Python
+    before any pointer is handed over (checked here on CPU tensors)."""
+    lead = (B, S, H) if op == "contiguous" else (2 * B + 1, 8, H)
+    q = torch.zeros((B, H, D) if op == "contiguous" else (B, T, H, D))
+    k = torch.zeros((*lead, D), dtype=torch.int8)
+    v = torch.zeros((*lead, D), dtype=torch.int8)
+    ks = torch.ones(lead, dtype=torch.bfloat16)
+    vs = torch.ones(lead, dtype=torch.bfloat16)
+    kv_len = torch.full((B,), T, dtype=torch.int32)
+    err = ValueError
+    if case == "payload_dtype":
+        k, v, err = k.half(), v.half(), TypeError
+    elif case == "mixed_payloads":
+        v, err = v.view(torch.float8_e4m3fn), TypeError
+    elif case == "scale_dtype":
+        ks = ks.float()
+    elif case == "scale_shape":
+        ks = ks[:, :-1]
+    elif case == "scale_strides":
+        vs = torch.ones((*lead[:-1], 2 * H), dtype=torch.bfloat16)[..., :H]
+    elif case == "head_dim":
+        q, k, v = q[..., :16], k[..., :16], v[..., :16]
+    else:
+        q, err = q.half(), TypeError
+    with pytest.raises(err):
+        if op == "contiguous":
+            tda._check_kernel_args(q, k, v, kv_len, ks, vs)
+        else:
+            tables = torch.ones(B, 8, dtype=torch.int32)
+            tda._check_paged_args(q, k, v, kv_len, tables, 4, ks, vs)
+
+
+def test_quant_kernel_source_is_found():
+    assert "quant_attention" in _build.sources()
+    assert _build.library_path("quant_attention").parent == _build.BUILD_DIR
