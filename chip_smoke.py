@@ -53,8 +53,9 @@ no final line):
    contiguous and the fp8_e4m3 paged cache (``fp32_quant_check``). A
    differing greedy pick passes only where the top-2 logit gap there is
    below ``FP32_GAP_TOL``.
-8. the ``kernels`` line (six kernels) and, last, ``{"ok": true, "device":
-   ...}``.
+8. ``phase_seconds`` (the build, each phase above and the whole run),
+   the ``kernels`` line (six kernels) and, last, ``{"ok": true,
+   "device": ...}``.
 
 Every launch count is set to 0 just before each path runs and read just
 after it; a kernel's ``launches`` in the kernels line is that of its path.
@@ -136,132 +137,220 @@ def cuda_time_ms(fn, repeats: int = 20, per_call: int = 1,
 
 # ------------------------------------------------------------------ kernels
 
+# Payload formats of the quantized kernels (csrc/quant_attention.cu).
+QUANT_FORMATS = ("int8", "fp8_e4m3", "fp8_e5m2")
+PAGED_BS, PAGED_COLS, VERIFY_T = 16, 64, 5
 
-def decode_inputs(gen, dtype, s, *, b=8, h=16, d=64, layers=1):
+
+def cache_pair(gen, shape, dtype, fmt):
+    """K and V of ``shape [..., H, D]`` from the generator, in ``dtype``
+    or, with ``fmt``, quantized as the model writes its cache. Returns
+    (k, v, scales): scales are the routers' ``k_scale`` / ``v_scale``
+    keywords (bf16, ``shape`` without D), empty when unquantized."""
+    from frl_distributed_ml_scaffold_tpu_torch.ops.quantization import quantize_kv
+
+    k = torch.randn(shape, generator=gen, device="cuda")
+    v = torch.randn(shape, generator=gen, device="cuda")
+    if fmt is None:
+        return k.to(dtype), v.to(dtype), {}
+    (k, ks), (v, vs) = quantize_kv(k, fmt), quantize_kv(v, fmt)
+    return k, v, {"k_scale": ks, "v_scale": vs}
+
+
+def at(scales: dict, i) -> dict:
+    """The scale keywords indexed like their cache."""
+    return {name: s[i] for name, s in scales.items()}
+
+
+def poisoned(k, v, scales: dict, dead):
+    """Copies of a cache with NaN wherever ``dead`` (over its leading
+    dims) is True: in K and V or, quantized, in the scales and as payload
+    byte 0x7F (NaN in both fp8 formats; int8 has no NaN, and 0x7F is its
+    largest value)."""
+    from frl_distributed_ml_scaffold_tpu_torch.ops.quantization import byte_view
+
+    if not scales:
+        kd, vd = k.clone(), v.clone()
+        kd[dead], vd[dead] = float("nan"), float("nan")
+        return kd, vd, {}
+    kd, vd = (byte_view(x).clone() for x in (k, v))
+    kd[dead], vd[dead] = 0x7F, 0x7F
+    sd = {name: s.clone() for name, s in scales.items()}
+    for s in sd.values():
+        s[dead] = float("nan")
+    return kd.view(k.dtype), vd.view(v.dtype), sd
+
+
+def held(what: str, got, want, dirty, dtype) -> float:
+    """The kernel's output against its plain version within ``TOL``, and
+    bit-identical with a poisoned cache. Returns the max abs error."""
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    check(math.isfinite(err) and err <= TOL[dtype],
+          f"{what} {dtype}: max abs err {err} > {TOL[dtype]}")
+    check(torch.equal(dirty, got),
+          f"{what} {dtype}: output changed with NaN where no row's "
+          "occupancy reaches")
+    return err
+
+
+def _worst(checks: list, key: str) -> float:
+    return max(e[key] for e in checks if e["dtype"] == "bfloat16")
+
+
+def timed(kernel, plain, library=None, *, layers: int) -> dict:
+    """``kernel(i)`` and ``plain(i)`` (and ``library(i)``) swept over
+    ``layers`` layers per timed call, as a step does (so each launch finds
+    its cache outside L2, like the real step), in the order plain, kernel,
+    kernel, plain, library; per launch. Plus the kernel's launches
+    enqueued one by one from Python, as the step sees them."""
+    def sweep(op):
+        def fn():
+            for i in range(layers):
+                op(i)
+        return fn
+
+    ms = {}
+    order = [("plain", plain), ("kernel", kernel), ("kernel2", kernel),
+             ("plain2", plain)] + ([("library", library)] if library else [])
+    for name, op in order:
+        ms[name] = cuda_time_ms(sweep(op), per_call=layers)
+    return {
+        "ms": statistics.median([ms["kernel"], ms["kernel2"]]),
+        "plain_ms": statistics.median([ms["plain"], ms["plain2"]]),
+        "library_ms": ms.get("library"),
+        "unqueued_ms": cuda_time_ms(sweep(kernel), per_call=layers,
+                                    queued=False),
+        "order_plain_kernel_kernel_plain": [
+            ms["plain"], ms["kernel"], ms["kernel2"], ms["plain2"]],
+    }
+
+
+def attention_bound(kv_len, cap: int, q, dtype, fmt, blocks: int = 0) -> dict:
+    """The least time of one launch. Bytes: K and V at every occupied
+    (position, head), D elements of ``dtype`` each or, quantized, D
+    payload bytes and a 2-byte scale; the ``blocks`` table entries the
+    occupancy reaches; q, o and kv_len. Operations: 4 D per (query,
+    position, head) the causal occupancy admits."""
+    b, h, d = q.shape[1], q.shape[-2], q.shape[-1]
+    t = q.shape[2] if q.dim() == 5 else 1
+    elem = torch.finfo(dtype).bits // 8
+    per_kv = d * elem if fmt is None else d + 2
+    n = int(kv_len.clamp(1, cap).sum())
+    nbytes = (2 * n * h * per_kv + 2 * b * t * h * d * elem
+              + 4 * blocks + 4 * b)
+    n_q = sum(int((kv_len - (t - 1) + j).clamp(1, cap).sum())
+              for j in range(t))
+    flops = 4 * n_q * h * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+QUANT_LIBRARY_NOTE = ("no single PyTorch call attends over a 1-byte cache "
+                      "with per-position scales")
+
+
+def decode_inputs(gen, dtype, s, *, fmt=None, b=8, h=16, d=64, layers=1):
     """q [L, B, H, D], caches [L, B, S, H, D] (strided views into a
-    2S-capacity buffer, as a grown engine cache would be), kv_len [B]:
-    occupancies 1, S, > S and random ones in between."""
+    2S-capacity buffer, as a grown engine cache would be; quantized to
+    ``fmt`` with scales [L, B, S, H]), kv_len [B]: occupancies 1, S, > S
+    and random ones in between."""
     dev = "cuda"
     q = torch.randn((layers, b, h, d), generator=gen, device=dev).to(dtype)
-    kbuf = torch.randn((layers, b, 2 * s, h, d), generator=gen, device=dev)
-    vbuf = torch.randn((layers, b, 2 * s, h, d), generator=gen, device=dev)
-    k, v = kbuf.to(dtype)[:, :, :s], vbuf.to(dtype)[:, :, :s]
+    k, v, sc = cache_pair(gen, (layers, b, 2 * s, h, d), dtype, fmt)
+    k, v = k[:, :, :s], v[:, :, :s]
+    sc = {name: x[:, :, :s] for name, x in sc.items()}
     mid = torch.randint(2, s, (b - 3,), generator=gen, device=dev)
     kv_len = torch.cat([
         torch.tensor([1, s, s + 37], device=dev), mid,
     ]).to(torch.int32)
-    return q, k, v, kv_len
+    return q, k, v, kv_len, sc
 
 
-def kernel_phase(gen) -> dict:
+def decode_checks(gen, fmt=None) -> list:
+    """The contiguous decode kernel (over a cache quantized to ``fmt``,
+    or not) against its plain version, bf16 and fp32, S in {128, 1024};
+    NaN past each row's occupancy must leave the output bit-identical
+    (the kernel must never read those positions)."""
     from frl_distributed_ml_scaffold_tpu_torch.ops import decode_attention as da
 
-    checks, worst = [], 0.0
+    checks = []
     for dtype in (torch.bfloat16, torch.float32):
         for s in (128, 1024):
-            q, k, v, kv_len = decode_inputs(gen, dtype, s)
-            q, k, v = q[0], k[0], v[0]
-            got = da.decode_attention(q, k, v, kv_len)
-            want = da.dense_decode_attention(q, k, v, kv_len.clamp_min(1))
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            check(math.isfinite(err) and err <= TOL[dtype],
-                  f"decode kernel {dtype} S={s}: max abs err {err} > {TOL[dtype]}")
-            # Dirty cache: NaN past each row's occupancy must not reach
-            # the output (the kernel must never read those positions).
-            kd, vd = k.clone(), v.clone()
-            for row, n in enumerate(kv_len.tolist()):
-                kd[row, min(n, s):] = float("nan")
-                vd[row, min(n, s):] = float("nan")
-            dirty = da.decode_attention(q, kd, vd, kv_len)
-            torch.cuda.synchronize()
-            check(torch.equal(dirty, got),
-                  f"decode kernel {dtype} S={s}: output changed with garbage "
-                  "past kv_len")
-            checks.append({"dtype": str(dtype).replace("torch.", ""), "S": s,
+            q, k, v, kv_len, sc = decode_inputs(gen, dtype, s, fmt=fmt)
+            q, k, v, sc = q[0], k[0], v[0], at(sc, 0)
+            got = da.decode_attention(q, k, v, kv_len, **sc)
+            want = da.decode_attention(q, k, v, kv_len.clamp_min(1),
+                                       impl="dense", **sc)
+            dead = torch.arange(s, device="cuda")[None, :] >= kv_len[:, None]
+            kd, vd, sd = poisoned(k, v, sc, dead)
+            dirty = da.decode_attention(q, kd, vd, kv_len, **sd)
+            err = held(f"decode kernel {fmt or 'unquantized'} S={s}", got,
+                       want, dirty, dtype)
+            checks.append({"format": fmt or "none",
+                           "dtype": str(dtype).replace("torch.", ""), "S": s,
                            "kv_len": kv_len.tolist(), "max_abs_err": err,
                            "tol": TOL[dtype], "dirty_cache_equal": True})
-            if dtype == torch.bfloat16:
-                worst = max(worst, err)
-    emit("kernel_checks", checks)
-    timings = [time_decode(gen, s) for s in (128, 1024)]
-    emit("kernel_timings", timings)
-    return {"max_abs_err": worst, "timing": timings[-1]}
+    return checks
 
 
-def time_decode(gen, s: int) -> dict:
-    """Kernel, plain version and one library call on the path's shapes,
-    sweeping 24 layers' caches per timed call as a decode step does (so
-    each launch finds its cache outside L2, like the real step)."""
+def time_decode(gen, s: int, fmt=None) -> dict:
+    """The contiguous kernel (quantized to ``fmt`` or not), its plain
+    version and, unquantized, one library call on the path's shapes
+    (bf16 q, 24 layers' caches per timed call)."""
     from frl_distributed_ml_scaffold_tpu_torch.ops import decode_attention as da
 
     layers, dtype = 24, torch.bfloat16
-    q, k, v, kv_len = decode_inputs(gen, dtype, s, layers=layers)
-    _, b, h, d = q.shape
+    q, k, v, kv_len, sc = decode_inputs(gen, dtype, s, fmt=fmt, layers=layers)
+    scs = [at(sc, i) for i in range(layers)]
     lens = kv_len.clamp_min(1)
     pos = torch.arange(s, device="cuda")
     mask = (pos[None, :] < lens[:, None])[:, None, None, :]  # [B,1,1,S]
 
-    def run(op):
-        def fn():
-            for i in range(layers):
-                op(q[i], k[i], v[i])
-        return fn
+    def kernel(i):
+        da.decode_attention(q[i], k[i], v[i], kv_len, **scs[i])
 
-    def kernel(qi, ki, vi):
-        da.decode_attention(qi, ki, vi, kv_len)
+    def plain(i):
+        da.decode_attention(q[i], k[i], v[i], lens, impl="dense", **scs[i])
 
-    def plain(qi, ki, vi):
-        da.dense_decode_attention(qi, ki, vi, lens)
-
-    def library(qi, ki, vi):
+    def library(i):
         torch.nn.functional.scaled_dot_product_attention(
-            qi[:, :, None], ki.transpose(1, 2), vi.transpose(1, 2),
+            q[i][:, :, None], k[i].transpose(1, 2), v[i].transpose(1, 2),
             attn_mask=mask,
         )
 
-    ms = {}
-    for name, op in (("plain", plain), ("kernel", kernel), ("kernel2", kernel),
-                     ("plain2", plain), ("library", library)):
-        ms[name] = cuda_time_ms(run(op), per_call=layers)
-    # What the decode step sees: launches enqueued one by one from Python.
-    enqueue_ms = cuda_time_ms(run(kernel), per_call=layers, queued=False)
-    n = lens.clamp(max=s).long()
-    elem = torch.finfo(dtype).bits // 8
-    nbytes = (2 * int(n.sum()) * h * d + 2 * b * h * d) * elem + 4 * b
-    flops = 4 * int(n.sum()) * h * d
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return {
-        "S": s, "kv_len": kv_len.tolist(),
-        "ms": statistics.median([ms["kernel"], ms["kernel2"]]),
-        "plain_ms": statistics.median([ms["plain"], ms["plain2"]]),
-        "library_ms": ms["library"],
-        "unqueued_ms": enqueue_ms,
-        "order_plain_kernel_kernel_plain": [
-            ms["plain"], ms["kernel"], ms["kernel2"], ms["plain2"]],
-        "bytes": nbytes, "flops": flops,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-    }
+    report = timed(kernel, plain, None if fmt else library, layers=layers)
+    if fmt:
+        report["library_note"] = QUANT_LIBRARY_NOTE
+    return {"S": s, "format": fmt or "none", "kv_len": kv_len.tolist(),
+            **report, **attention_bound(kv_len, s, q, dtype, fmt)}
+
+
+def kernel_phase(gen) -> dict:
+    checks = decode_checks(gen)
+    emit("kernel_checks", checks)
+    timings = [time_decode(gen, s) for s in (128, 1024)]
+    emit("kernel_timings", timings)
+    return {"max_abs_err": _worst(checks, "max_abs_err"),
+            "timing": timings[-1]}
 
 
 # ------------------------------------------------------------ paged kernels
 
-PAGED_BS, PAGED_COLS, VERIFY_T = 16, 64, 5
 
-
-def paged_inputs(gen, dtype, *, t=None, layers=1, b=8, h=16, d=64):
+def paged_inputs(gen, dtype, *, fmt=None, t=None, layers=1, b=8, h=16, d=64):
     """q ([L, B, H, D], or [L, B, T, H, D] for the verify tile), pools
-    [L, N, bs, H, D] with N = B * 64 + 1 (block 0 the trash block),
-    shuffled tables [B, 64] over blocks 1.. and kv_len [B]: occupancies 1,
-    16, 17, 1024, > 1024 (a retired row) and random ones."""
+    [L, N, bs, H, D] with N = B * 64 + 1 (block 0 the trash block;
+    quantized to ``fmt`` with scale pools [L, N, bs, H]), shuffled tables
+    [B, 64] over blocks 1.. and kv_len [B]: occupancies 1, 16, 17, 1024,
+    > 1024 (a retired row) and random ones."""
     dev, bs, m = "cuda", PAGED_BS, PAGED_COLS
     n = b * m + 1
     qshape = (layers, b, h, d) if t is None else (layers, b, t, h, d)
     q = torch.randn(qshape, generator=gen, device=dev).to(dtype)
-    k = torch.randn((layers, n, bs, h, d), generator=gen, device=dev).to(dtype)
-    v = torch.randn((layers, n, bs, h, d), generator=gen, device=dev).to(dtype)
+    k, v, sc = cache_pair(gen, (layers, n, bs, h, d), dtype, fmt)
     perm = torch.randperm(n - 1, generator=gen, device=dev) + 1
     tables = perm.view(b, m).to(torch.int32)
     cap = m * bs
@@ -269,7 +358,7 @@ def paged_inputs(gen, dtype, *, t=None, layers=1, b=8, h=16, d=64):
     kv_len = torch.cat([
         torch.tensor([1, bs, bs + 1, cap, cap + 37], device=dev), mid,
     ]).to(torch.int32)
-    return q, k, v, kv_len, tables
+    return q, k, v, kv_len, tables, sc
 
 
 def _used_positions(kv_len, tables, n_blocks):
@@ -283,321 +372,113 @@ def _used_positions(kv_len, tables, n_blocks):
     return used
 
 
-def paged_kernel_phase(gen) -> dict:
+def paged_checks(gen, fmt=None) -> list:
+    """The paged decode and verify kernels (over pools quantized to
+    ``fmt``, or not) against their plain versions, bf16 and fp32; NaN in
+    every pool position no row's occupancy reaches must leave the output
+    bit-identical; verify query 0 must equal the paged decode kernel bit
+    for bit."""
     from frl_distributed_ml_scaffold_tpu_torch.ops import decode_attention as da
 
-    checks, worst = [], {"decode": 0.0, "verify": 0.0}
+    checks = []
     for dtype in (torch.bfloat16, torch.float32):
-        q, k, v, kv_len, tables = paged_inputs(gen, dtype)
+        q, k, v, kv_len, tables, sc = paged_inputs(gen, dtype, fmt=fmt)
         qt = torch.randn((8, VERIFY_T, 16, 64), generator=gen,
                          device="cuda").to(dtype)
-        q, k, v = q[0], k[0], v[0]
-        used = _used_positions(kv_len, tables, k.shape[0])
-        kd, vd = k.clone(), v.clone()
-        kd[~used], vd[~used] = float("nan"), float("nan")
-        entry = {"dtype": str(dtype).replace("torch.", ""),
+        q, k, v, sc = q[0], k[0], v[0], at(sc, 0)
+        dead = ~_used_positions(kv_len, tables, k.shape[0])
+        kd, vd, sd = poisoned(k, v, sc, dead)
+        entry = {"format": fmt or "none",
+                 "dtype": str(dtype).replace("torch.", ""),
                  "block_size": PAGED_BS, "table_cols": PAGED_COLS,
                  "pool_blocks": k.shape[0], "kv_len": kv_len.tolist(),
                  "tol": TOL[dtype]}
         for op, qq in (("decode", q), ("verify", qt)):
             router = getattr(da, f"paged_{op}_attention")
             plain = getattr(da, f"dense_paged_{op}_attention")
-            got = router(qq, k, v, kv_len, tables)
-            want = plain(qq, k, v, kv_len, tables)
-            dirty = router(qq, kd, vd, kv_len, tables)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            check(math.isfinite(err) and err <= TOL[dtype],
-                  f"paged {op} kernel {dtype}: max abs err {err} > {TOL[dtype]}")
-            check(torch.equal(dirty, got),
-                  f"paged {op} kernel {dtype}: output changed with NaN in "
-                  "blocks and positions no row's occupancy reaches")
-            entry[f"{op}_max_abs_err"] = err
+            got = router(qq, k, v, kv_len, tables, **sc)
+            want = plain(qq, k, v, kv_len, tables, **sc)
+            dirty = router(qq, kd, vd, kv_len, tables, **sd)
+            entry[f"{op}_max_abs_err"] = held(
+                f"paged {op} kernel {fmt or 'unquantized'}", got, want,
+                dirty, dtype)
             entry[f"{op}_dirty_equal"] = True
-            if dtype == torch.bfloat16:
-                worst[op] = max(worst[op], err)
-            if op == "verify":
-                # Query 0 is the single-token step at occupancy n - T + 1.
-                dec0 = da.paged_decode_attention(
-                    qt[:, 0].contiguous(), k, v, kv_len - (VERIFY_T - 1),
-                    tables,
-                )
-                torch.cuda.synchronize()
-                check(torch.equal(got[:, 0], dec0),
-                      f"paged verify {dtype}: query 0 differs from the paged "
-                      "decode kernel")
-                entry["verify_query0_bit_equal_decode"] = True
+        # Query 0 is the single-token step at occupancy n - T + 1.
+        dec0 = da.paged_decode_attention(
+            qt[:, 0].contiguous(), k, v, kv_len - (VERIFY_T - 1), tables,
+            **sc)
+        torch.cuda.synchronize()
+        check(torch.equal(got[:, 0], dec0),
+              f"paged verify {fmt or 'unquantized'} {dtype}: query 0 "
+              "differs from the paged decode kernel")
+        entry["verify_query0_bit_equal_decode"] = True
         checks.append(entry)
-    emit("paged_kernel_checks", checks)
-    timings = {op: time_paged(gen, op) for op in ("decode", "verify")}
-    emit("paged_kernel_timings", timings)
-    return {op: {"max_abs_err": worst[op], "timing": timings[op]}
-            for op in ("decode", "verify")}
+    return checks
 
 
-def time_paged(gen, op: str) -> dict:
-    """Paged kernel and plain version at the path's shapes (bf16), 24
-    layers' pools swept per timed call as a paged decode or verify step
-    does. Bytes: the K/V the occupancy reaches, the table columns it
-    reaches, q, o and kv_len."""
+def time_paged(gen, op: str, fmt=None) -> dict:
+    """A paged kernel (over pools quantized to ``fmt``, or not) and its
+    plain version at the path's shapes (bf16 q, 24 layers' pools per
+    timed call)."""
     from frl_distributed_ml_scaffold_tpu_torch.ops import decode_attention as da
 
     layers, dtype = 24, torch.bfloat16
     t = VERIFY_T if op == "verify" else None
-    q, k, v, kv_len, tables = paged_inputs(gen, dtype, t=t, layers=layers)
+    q, k, v, kv_len, tables, sc = paged_inputs(gen, dtype, fmt=fmt, t=t,
+                                               layers=layers)
+    scs = [at(sc, i) for i in range(layers)]
     router = getattr(da, f"paged_{op}_attention")
-    plain = getattr(da, f"dense_paged_{op}_attention")
+    reference = getattr(da, f"dense_paged_{op}_attention")
 
-    def run(fn):
-        def sweep():
-            for i in range(layers):
-                fn(q[i], k[i], v[i], kv_len, tables)
-        return sweep
+    def kernel(i):
+        router(q[i], k[i], v[i], kv_len, tables, **scs[i])
 
-    ms = {}
-    for name, fn in (("plain", plain), ("kernel", router), ("kernel2", router),
-                     ("plain2", plain)):
-        ms[name] = cuda_time_ms(run(fn), per_call=layers)
-    enqueue_ms = cuda_time_ms(run(router), per_call=layers, queued=False)
-    b, h, d = q.shape[1], q.shape[-2], q.shape[-1]
+    def plain(i):
+        reference(q[i], k[i], v[i], kv_len, tables, **scs[i])
+
     cap = PAGED_COLS * PAGED_BS
     n = kv_len.clamp(1, cap).long()
-    elem = torch.finfo(dtype).bits // 8
-    tq = t or 1
     blocks = int(((n - 1) // PAGED_BS + 1).sum())
-    nbytes = ((2 * int(n.sum()) * h * d + 2 * b * tq * h * d) * elem
-              + 4 * blocks + 4 * b)
-    n_q = sum(int((kv_len - (tq - 1) + j).clamp(1, cap).sum())
-              for j in range(tq))
-    flops = 4 * n_q * h * d
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return {
-        "op": op, "T": tq, "kv_len": kv_len.tolist(),
-        "ms": statistics.median([ms["kernel"], ms["kernel2"]]),
-        "plain_ms": statistics.median([ms["plain"], ms["plain2"]]),
-        "library_ms": None,
-        "library_note": "no single PyTorch call reads K/V through a block "
-                        "table",
-        "unqueued_ms": enqueue_ms,
-        "order_plain_kernel_kernel_plain": [
-            ms["plain"], ms["kernel"], ms["kernel2"], ms["plain2"]],
-        "bytes": nbytes, "flops": flops,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "op": op, "format": fmt or "none", "T": t or 1,
+        "kv_len": kv_len.tolist(), **timed(kernel, plain, layers=layers),
+        "library_note": QUANT_LIBRARY_NOTE if fmt else
+        "no single PyTorch call reads K/V through a block table",
+        **attention_bound(kv_len, cap, q, dtype, fmt, blocks),
     }
 
 
-# -------------------------------------------------------- quantized kernels
-
-QUANT_FORMATS = ("int8", "fp8_e4m3", "fp8_e5m2")
-# The format each serving path runs: int8 contiguous, fp8_e4m3 paged.
-QUANT_TIMED = {"decode": "int8", "paged_decode": "fp8_e4m3",
-               "paged_verify": "fp8_e4m3"}
-
-
-def quantized(x, fmt: str):
-    """``x [..., D]`` quantized as the model writes its cache: one scale
-    per vector over D, stored in bf16. Returns (payload, scales)."""
-    from frl_distributed_ml_scaffold_tpu_torch.ops.quantization import quantize
-
-    q, s = quantize(x, fmt, channel_axes=tuple(range(x.dim() - 1)))
-    return q, s[..., 0].to(torch.bfloat16)
-
-
-def poisoned(payload, scale, dead):
-    """Copies with NaN scales and payload byte 0x7F (NaN in both fp8
-    formats; int8 has no NaN, 0x7F is its largest value) where ``dead``
-    (the leading dims) is True."""
-    from frl_distributed_ml_scaffold_tpu_torch.ops.quantization import byte_view
-
-    p = byte_view(payload).clone()
-    p[dead] = 0x7F
-    s = scale.clone()
-    s[dead] = float("nan")
-    return p.view(payload.dtype), s
-
-
-def quant_decode_inputs(gen, fmt, dtype, s, *, layers=1, b=8, h=16, d=64):
-    """q [L, B, H, D] in ``dtype``; quantized caches [L, B, S, H, D] and
-    scales [L, B, S, H], strided views into 2S-capacity buffers; kv_len
-    [B] as ``decode_inputs``."""
-    dev = "cuda"
-    q = torch.randn((layers, b, h, d), generator=gen, device=dev).to(dtype)
-    k, ks = quantized(
-        torch.randn((layers, b, 2 * s, h, d), generator=gen, device=dev), fmt)
-    v, vs = quantized(
-        torch.randn((layers, b, 2 * s, h, d), generator=gen, device=dev), fmt)
-    mid = torch.randint(2, s, (b - 3,), generator=gen, device=dev)
-    kv_len = torch.cat([
-        torch.tensor([1, s, s + 37], device=dev), mid,
-    ]).to(torch.int32)
-    return (q, k[:, :, :s], ks[:, :, :s], v[:, :, :s], vs[:, :, :s], kv_len)
-
-
-def quant_paged_inputs(gen, fmt, dtype, *, t=None, layers=1):
-    """``paged_inputs`` with the pools quantized: q in ``dtype``, payload
-    pools [L, N, bs, H, D], scale pools [L, N, bs, H]."""
-    q, k, v, kv_len, tables = paged_inputs(gen, torch.float32, t=t,
-                                           layers=layers)
-    (k, ks), (v, vs) = quantized(k, fmt), quantized(v, fmt)
-    return q.to(dtype), k, ks, v, vs, kv_len, tables
+def paged_kernel_phase(gen) -> dict:
+    checks = paged_checks(gen)
+    emit("paged_kernel_checks", checks)
+    timings = {op: time_paged(gen, op) for op in ("decode", "verify")}
+    emit("paged_kernel_timings", timings)
+    return {f"paged_{op}_attention": {
+        "max_abs_err": _worst(checks, f"{op}_max_abs_err"),
+        "timing": timings[op]} for op in ("decode", "verify")}
 
 
 def quant_kernel_phase(gen) -> dict:
-    """The three quantized kernels against their plain versions on the
-    card, in every payload format and q dtype, at the serving paths'
-    shapes; NaN-dirty caches; verify query 0 against the paged decode
-    bit for bit. Then timed (``time_quant``)."""
-    from frl_distributed_ml_scaffold_tpu_torch.ops import decode_attention as da
-
-    checks = []
-    worst = {op: 0.0 for op in QUANT_TIMED}
-
-    def held(name, got, want, dirty, dtype, entry):
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        check(math.isfinite(err) and err <= TOL[dtype],
-              f"{name} {entry['format']} {dtype}: max abs err {err} > "
-              f"{TOL[dtype]}")
-        check(torch.equal(dirty, got),
-              f"{name} {entry['format']} {dtype}: output changed with NaN "
-              "where no row's occupancy reaches")
-        entry[f"{name}_max_abs_err"] = err
-        if dtype == torch.bfloat16:
-            op = name.split("_S")[0]
-            worst[op] = max(worst[op], err)
-
+    """The three quantized kernels through the same checks, in every
+    payload format and q dtype; then timed in the format its path runs
+    (int8 contiguous, fp8_e4m3 paged)."""
+    contiguous, paged = [], []
     for fmt in QUANT_FORMATS:
-        for dtype in (torch.bfloat16, torch.float32):
-            entry = {"format": fmt, "dtype": str(dtype).replace("torch.", ""),
-                     "tol": TOL[dtype]}
-            for s in (128, 1024):
-                q, k, ks, v, vs, kv_len = (
-                    x[0] if x.dim() > 1 else x
-                    for x in quant_decode_inputs(gen, fmt, dtype, s))
-                got = da.decode_attention(q, k, v, kv_len, k_scale=ks,
-                                          v_scale=vs)
-                want = da.dense_decode_attention_quant(
-                    q, k, v, kv_len.clamp_min(1), ks, vs)
-                dead = (torch.arange(s, device="cuda")[None, :]
-                        >= kv_len[:, None])
-                kd, ksd = poisoned(k, ks, dead)
-                vd, vsd = poisoned(v, vs, dead)
-                dirty = da.decode_attention(q, kd, vd, kv_len, k_scale=ksd,
-                                            v_scale=vsd)
-                held(f"decode_S{s}", got, want, dirty, dtype, entry)
-            q, k, ks, v, vs, kv_len, tables = (
-                x[0] if i < 5 else x
-                for i, x in enumerate(quant_paged_inputs(gen, fmt, dtype)))
-            qt = torch.randn((8, VERIFY_T, 16, 64), generator=gen,
-                             device="cuda").to(dtype)
-            dead = ~_used_positions(kv_len, tables, k.shape[0])
-            kd, ksd = poisoned(k, ks, dead)
-            vd, vsd = poisoned(v, vs, dead)
-            entry.update(block_size=PAGED_BS, table_cols=PAGED_COLS,
-                         pool_blocks=k.shape[0], kv_len=kv_len.tolist())
-            for op, qq in (("decode", q), ("verify", qt)):
-                router = getattr(da, f"paged_{op}_attention")
-                plain = getattr(da, f"dense_paged_{op}_attention")
-                got = router(qq, k, v, kv_len, tables, k_scale=ks, v_scale=vs)
-                want = plain(qq, k, v, kv_len, tables, ks, vs)
-                dirty = router(qq, kd, vd, kv_len, tables, k_scale=ksd,
-                               v_scale=vsd)
-                held(f"paged_{op}", got, want, dirty, dtype, entry)
-            dec0 = da.paged_decode_attention(
-                qt[:, 0].contiguous(), k, v, kv_len - (VERIFY_T - 1), tables,
-                k_scale=ks, v_scale=vs)
-            torch.cuda.synchronize()
-            check(torch.equal(got[:, 0], dec0),
-                  f"quantized paged verify {fmt} {dtype}: query 0 differs "
-                  "from the quantized paged decode kernel")
-            entry["dirty_cache_equal"] = True
-            entry["verify_query0_bit_equal_decode"] = True
-            checks.append(entry)
-    emit("quant_kernel_checks", checks)
-    timings = {op: time_quant(gen, op, fmt) for op, fmt in QUANT_TIMED.items()}
-    emit("quant_kernel_timings", timings)
-    return {op: {"max_abs_err": worst[op], "timing": timings[op]}
-            for op in QUANT_TIMED}
-
-
-def time_quant(gen, op: str, fmt: str) -> dict:
-    """A quantized kernel and its plain version at its path's shapes
-    (bf16 q; the contiguous cache at S = 1024, or the 513-block pool with
-    64-column tables), 24 layers swept per timed call as a step does.
-    Bytes: the 1-byte K and V payloads and their 2-byte scales at every
-    occupied (position, head), the table columns the occupancy reaches,
-    q, o and kv_len."""
-    from frl_distributed_ml_scaffold_tpu_torch.ops import decode_attention as da
-
-    layers, dtype = 24, torch.bfloat16
-    t = VERIFY_T if op == "paged_verify" else None
-    if op == "decode":
-        s = 1024
-        q, k, ks, v, vs, kv_len = quant_decode_inputs(gen, fmt, dtype, s,
-                                                      layers=layers)
-        lens = kv_len.clamp_min(1)
-        cap, blocks, tq = s, 0, 1
-
-        def kernel(i):
-            da.decode_attention(q[i], k[i], v[i], kv_len, k_scale=ks[i],
-                                v_scale=vs[i])
-
-        def plain(i):
-            da.dense_decode_attention_quant(q[i], k[i], v[i], lens, ks[i],
-                                            vs[i])
-    else:
-        q, k, ks, v, vs, kv_len, tables = quant_paged_inputs(
-            gen, fmt, dtype, t=t, layers=layers)
-        cap, tq = PAGED_COLS * PAGED_BS, t or 1
-        n = kv_len.clamp(1, cap).long()
-        blocks = int(((n - 1) // PAGED_BS + 1).sum())
-        router = getattr(da, f"{op}_attention")
-        reference = getattr(da, f"dense_{op}_attention")
-
-        def kernel(i):
-            router(q[i], k[i], v[i], kv_len, tables, k_scale=ks[i],
-                   v_scale=vs[i])
-
-        def plain(i):
-            reference(q[i], k[i], v[i], kv_len, tables, ks[i], vs[i])
-
-    def run(fn):
-        def sweep():
-            for i in range(layers):
-                fn(i)
-        return sweep
-
-    ms = {}
-    for name, fn in (("plain", plain), ("kernel", kernel), ("kernel2", kernel),
-                     ("plain2", plain)):
-        ms[name] = cuda_time_ms(run(fn), per_call=layers)
-    enqueue_ms = cuda_time_ms(run(kernel), per_call=layers, queued=False)
-    b, h, d = q.shape[1], q.shape[-2], q.shape[-1]
-    elem = torch.finfo(dtype).bits // 8
-    pos_heads = int(kv_len.clamp(1, cap).sum()) * h
-    nbytes = (2 * pos_heads * d * 1 + 2 * pos_heads * 2
-              + 2 * b * tq * h * d * elem + 4 * blocks + 4 * b)
-    n_q = sum(int((kv_len - (tq - 1) + j).clamp(1, cap).sum())
-              for j in range(tq))
-    flops = 4 * n_q * h * d
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return {
-        "op": op, "format": fmt, "T": tq, "kv_len": kv_len.tolist(),
-        "ms": statistics.median([ms["kernel"], ms["kernel2"]]),
-        "plain_ms": statistics.median([ms["plain"], ms["plain2"]]),
-        "library_ms": None,
-        "library_note": "no single PyTorch call attends over a 1-byte cache "
-                        "with per-position scales",
-        "unqueued_ms": enqueue_ms,
-        "order_plain_kernel_kernel_plain": [
-            ms["plain"], ms["kernel"], ms["kernel2"], ms["plain2"]],
-        "bytes": nbytes, "flops": flops,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        contiguous += decode_checks(gen, fmt)
+        paged += paged_checks(gen, fmt)
+    emit("quant_kernel_checks", {"decode": contiguous, "paged": paged})
+    timings = {
+        "decode_attention_quant": time_decode(gen, 1024, "int8"),
+        "paged_decode_attention_quant": time_paged(gen, "decode", "fp8_e4m3"),
+        "paged_verify_attention_quant": time_paged(gen, "verify", "fp8_e4m3"),
     }
+    emit("quant_kernel_timings", timings)
+    worst = {"decode_attention_quant": _worst(contiguous, "max_abs_err")}
+    for op in ("decode", "verify"):
+        worst[f"paged_{op}_attention_quant"] = _worst(paged,
+                                                      f"{op}_max_abs_err")
+    return {name: {"max_abs_err": worst[name], "timing": timings[name]}
+            for name in timings}
 
 
 # --------------------------------------------------------------------- path
@@ -1038,6 +919,7 @@ def main() -> int:
     from frl_distributed_ml_scaffold_tpu_torch.models.convert import init_params
     from frl_distributed_ml_scaffold_tpu_torch.ops import _build
 
+    start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = nvidia_smi()
@@ -1058,19 +940,23 @@ def main() -> int:
                    "built_now": sorted(reports)})
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    kern = {"decode_attention": kernel_phase(gen)}
-    paged_kern = paged_kernel_phase(gen)
-    kern.update({f"paged_{op}_attention": paged_kern[op]
-                 for op in ("decode", "verify")})
+    seconds = {"build": build_s}
+
+    def timed_phase(name, fn, *fn_args):
+        t = time.perf_counter()
+        out = fn(*fn_args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    kern = {"decode_attention": timed_phase("kernel", kernel_phase, gen),
+            **timed_phase("paged_kernel", paged_kernel_phase, gen)}
     cfg = get_config("gpt2_medium_serve")
     cfg_int8 = apply_overrides(cfg, INT8_OVERRIDES)
     cfg_fp8 = apply_overrides(cfg, FP8_OVERRIDES)
     # The weights come from the generator as the two phases above leave
     # it, so the paths serve the same model whatever phases follow.
     sd = init_params(cfg.model, gen)
-    quant_kern = quant_kernel_phase(gen)
-    kern.update({f"{op}_attention_quant": quant_kern[op]
-                 for op in QUANT_TIMED})
+    kern.update(timed_phase("quant_kernel", quant_kernel_phase, gen))
     # Each path runs with every launch count set to 0 just before it;
     # a kernel's count is that of the path that runs it.
     launches = {}
@@ -1078,17 +964,25 @@ def main() -> int:
                           ("paged_path", paged_path_phase, cfg),
                           ("quant_path", path_phase, cfg_int8),
                           ("quant_paged_path", paged_path_phase, cfg_fp8)):
-        report, counts, profile = phase(c, sd, args.seed, card)
+        report, counts, profile = timed_phase(key, phase, c, sd, args.seed,
+                                              card)
         launches.update({k: n for k, n in counts.items() if n})
         emit(key, report)
         emit(key.replace("path", "profile"), profile)
-    emit("fp32_check", fp32_phase(cfg, sd, args.seed))
-    emit("fp32_paged_check", fp32_paged_phase(cfg, sd, args.seed))
+    emit("fp32_check", timed_phase("fp32_check", fp32_phase, cfg, sd,
+                                   args.seed))
+    emit("fp32_paged_check", timed_phase("fp32_paged_check", fp32_paged_phase,
+                                         cfg, sd, args.seed))
     emit("fp32_quant_check", {
-        "int8_contiguous_vs_generate": fp32_phase(cfg_int8, sd, args.seed),
-        "fp8_e4m3_paged_vs_contiguous": fp32_paged_phase(cfg_fp8, sd,
-                                                          args.seed),
+        "int8_contiguous_vs_generate": timed_phase(
+            "fp32_quant_check_int8", fp32_phase, cfg_int8, sd, args.seed),
+        "fp8_e4m3_paged_vs_contiguous": timed_phase(
+            "fp32_quant_check_fp8", fp32_paged_phase, cfg_fp8, sd, args.seed),
     })
+    # Where the script's time limit goes: each phase (a path's includes
+    # its warm-up and profiled window) and the whole of main().
+    seconds["main_total"] = time.perf_counter() - start
+    emit("phase_seconds", seconds)
 
     src = "frl_distributed_ml_scaffold_tpu_torch/ops/csrc/"
     ref = "frl_distributed_ml_scaffold_tpu/ops/decode_attention.py:"

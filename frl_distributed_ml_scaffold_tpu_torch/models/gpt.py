@@ -59,7 +59,7 @@ from frl_distributed_ml_scaffold_tpu_torch.ops.quantization import (
     byte_view,
     dequantize,
     lowp_dtype,
-    quantize,
+    quantize_kv,
     zeros,
 )
 from frl_distributed_ml_scaffold_tpu_torch.precision import Policy
@@ -205,9 +205,7 @@ class CausalSelfAttention(nn.Module):
         its own head vector) into payloads plus bf16 scales."""
         if ks is None:
             return [(kc, k_w), (vc, v_w)]
-        q, s = quantize(torch.stack((k_w, v_w)), self.cfg.kv_cache_quant,
-                        channel_axes=(0, 1, 2, 3))
-        s = s[..., 0].to(torch.bfloat16)
+        q, s = quantize_kv(torch.stack((k_w, v_w)), self.cfg.kv_cache_quant)
         return [(kc, q[0]), (vc, q[1]), (ks, s[0]), (vs, s[1])]
 
     def _paged(self, q, k_w, v_w, cache: dict, layer: int):

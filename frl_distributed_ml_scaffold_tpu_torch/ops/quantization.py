@@ -7,7 +7,9 @@ and a quantized cache holds the same bytes in both. ``quantize`` follows
 the reference step for step: ``scale = max|x| / qmax`` in fp32 over every
 axis but the kept channel axes (1 where the slice is all zero), ``y = x /
 scale`` in fp32, then int8 rounds half to even and clips, fp8 clips and
-casts. The scaled matmuls (``qdot``, ``quantized_matmul``) belong to the
+casts. The cache keeps one scale per head vector, so ``quantize`` takes
+the kept axes as a tuple; the per-tensor and bare-int forms, like the
+scaled matmuls (``qdot``, ``quantized_matmul``), serve the
 tensor-parallel rings and training, which are not ported yet.
 
 ``byte_view`` gives the uint8 view of a 1-byte float tensor, and
@@ -48,24 +50,15 @@ def qmax(fmt: str) -> float:
 
 
 def quantize(
-    x: torch.Tensor,
-    fmt: str,
-    channel_axes: tuple[int, ...] | int | None = None,
-    *,
-    scale_dtype: torch.dtype = torch.float32,
+    x: torch.Tensor, fmt: str, channel_axes: tuple[int, ...]
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric scaled quantization: returns ``(q, scale)`` with
-    ``x ≈ q * scale``. ``channel_axes`` keep independent scales (the
-    max-abs reduction runs over all the others); ``None`` means
-    per-tensor. The scale keeps reduced axes as size-1 dims."""
+    ``x ≈ q * scale`` and an fp32 scale. ``channel_axes`` keep
+    independent scales (the max-abs reduction runs over all the others);
+    the scale keeps reduced axes as size-1 dims."""
     dtype, m = lowp_dtype(fmt), qmax(fmt)
-    if channel_axes is None:
-        reduce_axes = tuple(range(x.dim()))
-    else:
-        if isinstance(channel_axes, int):
-            channel_axes = (channel_axes,)
-        keep = {a % x.dim() for a in channel_axes}
-        reduce_axes = tuple(a for a in range(x.dim()) if a not in keep)
+    keep = {a % x.dim() for a in channel_axes}
+    reduce_axes = tuple(a for a in range(x.dim()) if a not in keep)
     x32 = x.float()
     amax = torch.amax(x32.abs(), dim=reduce_axes, keepdim=True)
     # All-zero slices quantize to zeros with scale 1 (never divide by 0).
@@ -75,7 +68,15 @@ def quantize(
         q = torch.clamp(torch.round(y), -m, m).to(dtype)
     else:
         q = torch.clamp(y, -m, m).to(dtype)
-    return q, scale.to(scale_dtype)
+    return q, scale
+
+
+def quantize_kv(x: torch.Tensor, fmt: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x [..., D]`` quantized as the KV cache stores it: one scale per
+    vector over the last axis (each token's head vector), kept in bf16.
+    Returns ``(payload [..., D], scales [...])``."""
+    q, s = quantize(x, fmt, tuple(range(x.dim() - 1)))
+    return q, s[..., 0].to(torch.bfloat16)
 
 
 def dequantize(

@@ -8,6 +8,8 @@ none; there, skip the repository conftest (which sets up JAX):
         tests/test_torch_kernels_cuda.py
 
 Tolerances as in test_torch_decode_attention.py: fp32 1e-5, bf16 2e-2.
+Caches are poisoned with chip_smoke.py's helper, so both hold the kernels
+to one rule.
 """
 
 from __future__ import annotations
@@ -16,7 +18,9 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import poisoned
 from frl_distributed_ml_scaffold_tpu_torch.ops import decode_attention as tda
+from frl_distributed_ml_scaffold_tpu_torch.ops.quantization import quantize_kv
 
 B, S, H, D = 4, 64, 4, 32
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -95,8 +99,7 @@ def test_paged_kernels_match_plain_versions(op, dtype):
     used = torch.zeros(k.shape[0], dtype=torch.bool, device="cuda")
     for row, n in enumerate(kv_len.clamp(max=tables.shape[1] * bs).tolist()):
         used[tables[row, : (n - 1) // bs + 1].long()] = True
-    kd, vd = k.clone(), v.clone()
-    kd[~used], vd[~used] = float("nan"), float("nan")
+    kd, vd, _ = poisoned(k, v, {}, ~used)
     assert torch.equal(router(q, kd, vd, kv_len, tables), got)
     if op == "verify":
         dec = tda.paged_decode_attention(q[:, 0].contiguous(), k, v,
@@ -107,27 +110,6 @@ def test_paged_kernels_match_plain_versions(op, dtype):
 # ------------------------------------------------------- quantized cache
 
 QFORMATS = ["int8", "fp8_e4m3", "fp8_e5m2"]
-
-
-def _quantized(x: torch.Tensor, fmt: str):
-    """Per-(…, head) quantization of ``x [..., D]`` on its device:
-    (payload, bf16 scales [...])."""
-    from frl_distributed_ml_scaffold_tpu_torch.ops.quantization import quantize
-
-    q, s = quantize(x, fmt, channel_axes=tuple(range(x.dim() - 1)))
-    return q, s[..., 0].to(torch.bfloat16)
-
-
-def _poisoned(payload, scale, dead):
-    """Copies with NaN scales and a NaN payload byte (0x7F: NaN in both
-    fp8 formats, int8's largest value) wherever ``dead`` is True."""
-    from frl_distributed_ml_scaffold_tpu_torch.ops.quantization import byte_view
-
-    p = byte_view(payload).clone()
-    p[dead] = 0x7F
-    s = scale.clone()
-    s[dead] = float("nan")
-    return p.view(payload.dtype), s
 
 
 @pytest.mark.cuda
@@ -146,21 +128,20 @@ def test_quant_decode_kernel_matches_plain_version(fmt, dtype):
     q = q.to("cuda", tdt)
     kv = [torch.from_numpy(rng.standard_normal((B, 2 * S, H, D)).astype(
         np.float32)).cuda() for _ in range(2)]
-    (k, ks), (v, vs) = (_quantized(x, fmt) for x in kv)
+    (k, ks), (v, vs) = (quantize_kv(x, fmt) for x in kv)
     k, ks, v, vs = k[:, :S], ks[:, :S], v[:, :S], vs[:, :S]
+    sc = dict(k_scale=ks, v_scale=vs)
     lens = torch.tensor([1, 33, S, S + 1], dtype=torch.int32, device="cuda")
     before = tda.decode_attention.quant_launches
-    got = tda.decode_attention(q, k, v, lens, k_scale=ks, v_scale=vs)
+    got = tda.decode_attention(q, k, v, lens, **sc)
     want = tda.dense_decode_attention_quant(q, k, v, lens, ks, vs)
     torch.cuda.synchronize()
     assert tda.decode_attention.quant_launches == before + 1
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
                                rtol=0)
     dead = torch.arange(S, device="cuda")[None, :] >= lens[:, None]
-    kd, ksd = _poisoned(k, ks, dead)
-    vd, vsd = _poisoned(v, vs, dead)
-    dirty = tda.decode_attention(q, kd, vd, lens, k_scale=ksd, v_scale=vsd)
-    assert torch.equal(dirty, got)
+    kd, vd, sd = poisoned(k, v, sc, dead)
+    assert torch.equal(tda.decode_attention(q, kd, vd, lens, **sd), got)
 
 
 @pytest.mark.cuda
@@ -181,7 +162,7 @@ def test_quant_paged_kernels_match_plain_versions(op, fmt, dtype):
     plain = getattr(tda, f"dense_paged_{op}_attention")
     q, kf, vf, kv_len, tables = _paged_inputs(torch.float32, t)
     q = q.to(tdt)
-    (k, ks), (v, vs) = _quantized(kf, fmt), _quantized(vf, fmt)
+    (k, ks), (v, vs) = quantize_kv(kf, fmt), quantize_kv(vf, fmt)
     sc = dict(k_scale=ks, v_scale=vs)
     before = router.quant_launches
     got = router(q, k, v, kv_len, tables, **sc)
@@ -195,10 +176,8 @@ def test_quant_paged_kernels_match_plain_versions(op, fmt, dtype):
     for row, n in enumerate(kv_len.clamp(max=cap).tolist()):
         p = torch.arange(n, device="cuda")
         dead[tables[row, p // bs].long(), p % bs] = False
-    kd, ksd = _poisoned(k, ks, dead)
-    vd, vsd = _poisoned(v, vs, dead)
-    assert torch.equal(
-        router(q, kd, vd, kv_len, tables, k_scale=ksd, v_scale=vsd), got)
+    kd, vd, sd = poisoned(k, v, sc, dead)
+    assert torch.equal(router(q, kd, vd, kv_len, tables, **sd), got)
     if op == "verify":
         dec = tda.paged_decode_attention(q[:, 0].contiguous(), k, v,
                                          kv_len - 4, tables, **sc)

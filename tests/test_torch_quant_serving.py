@@ -45,7 +45,7 @@ from frl_distributed_ml_scaffold_tpu_torch.models import generation as tgen
 from frl_distributed_ml_scaffold_tpu_torch.ops import decode_attention as tda
 from frl_distributed_ml_scaffold_tpu_torch.ops.quantization import (
     byte_view,
-    quantize,
+    quantize_kv,
 )
 from frl_distributed_ml_scaffold_tpu_torch.serving import (
     ServeRequest,
@@ -168,9 +168,9 @@ def _quant_paged_cache(tm, fmt, bs, rng):
     for name in ("key_pool", "value_pool"):
         x = torch.from_numpy(rng.standard_normal(
             cache[name].shape).astype(np.float32))
-        qx, sx = quantize(x, fmt, channel_axes=(0, 1, 2, 3))
+        qx, sx = quantize_kv(x, fmt)
         byte_view(cache[name]).copy_(byte_view(qx))
-        cache[name + "_scale"].copy_(sx[..., 0].to(torch.bfloat16))
+        cache[name + "_scale"].copy_(sx)
     cache["block_tables"].copy_(torch.from_numpy(
         (rng.permutation(n - 1) + 1).reshape(3, m).astype(np.int32)))
     tgen.rewind_cache_indices(cache, torch.tensor([5, 17, 30],

@@ -42,25 +42,37 @@ def _bytes(t) -> np.ndarray:
 
 @pytest.mark.parametrize("fmt", FORMATS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("axes", [(0, 1, 2), None], ids=["per_head", "tensor"])
-def test_quantize_is_bit_identical_to_jax(fmt, dtype, axes):
+@pytest.mark.parametrize("stacked", [False, True], ids=["per_head", "kv_stack"])
+def test_quantize_is_bit_identical_to_jax(fmt, dtype, stacked):
+    """One head vector's K, or (as the model writes) K and V stacked on a
+    leading axis and quantized in one call; the JAX side quantizes each
+    of K and V alone, so the stacked call must not mix their scales."""
     x = _x(0)
-    jqv, js = jq.quantize(jnp.asarray(x, getattr(jnp, dtype)), fmt,
-                          channel_axes=axes)
-    tqv, ts = tq.quantize(torch.from_numpy(x).to(getattr(torch, dtype)), fmt,
-                          channel_axes=axes)
+    xs = np.stack((x, _x(2))) if stacked else x[None]
+    axes = (0, 1, 2, 3) if stacked else (0, 1, 2)
+    tqv, ts = tq.quantize(torch.from_numpy(xs if stacked else x)
+                          .to(getattr(torch, dtype)), fmt, channel_axes=axes)
+    if not stacked:
+        tqv, ts = tqv[None], ts[None]
     assert tqv.dtype == tq.lowp_dtype(fmt) and ts.dtype == torch.float32
-    assert tuple(tqv.shape) == jqv.shape and tuple(ts.shape) == js.shape
-    np.testing.assert_array_equal(_bytes(tqv), _bytes(jqv))
-    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
-    # The stored form: scales cast to bf16, as the cache keeps them.
-    np.testing.assert_array_equal(
-        ts.to(torch.bfloat16).float().numpy(),
-        np.asarray(js.astype(jnp.bfloat16).astype(jnp.float32)),
-    )
-    if axes is not None:
-        assert ts[0, 1, 2, 0] == 1.0 and (ts[2, 4] == 1.0).all()
-        assert not _bytes(tqv)[0, 1, 2].any()
+    assert tuple(ts.shape) == xs.shape[:-1] + (1,)
+    for i, xi in enumerate(xs):
+        jqv, js = jq.quantize(jnp.asarray(xi, getattr(jnp, dtype)), fmt,
+                              channel_axes=(0, 1, 2))
+        np.testing.assert_array_equal(_bytes(tqv[i]), _bytes(jqv))
+        np.testing.assert_array_equal(ts[i].numpy(), np.asarray(js))
+        # The stored form: scales cast to bf16, as the cache keeps them.
+        np.testing.assert_array_equal(
+            ts[i].to(torch.bfloat16).float().numpy(),
+            np.asarray(js.astype(jnp.bfloat16).astype(jnp.float32)),
+        )
+    # The cache's form of the same call: bf16 scales without the kept dim.
+    kq, ks = tq.quantize_kv(torch.from_numpy(xs).to(getattr(torch, dtype)),
+                            fmt)
+    assert torch.equal(tq.byte_view(kq), tq.byte_view(tqv))
+    assert torch.equal(ks, ts[..., 0].to(torch.bfloat16))
+    assert ts[0, 0, 1, 2, 0] == 1.0 and (ts[0, 2, 4] == 1.0).all()
+    assert not _bytes(tqv)[0, 0, 1, 2].any()
 
 
 @pytest.mark.parametrize("fmt", FORMATS)
