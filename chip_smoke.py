@@ -1,5 +1,6 @@
 #!/usr/bin/env python
-"""Drive the PyTorch port's serving paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths once on one NVIDIA
+GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -53,8 +54,32 @@ no final line):
    contiguous and the fp8_e4m3 paged cache (``fp32_quant_check``). A
    differing greedy pick passes only where the top-2 logit gap there is
    below ``FP32_GAP_TOL``.
-8. ``phase_seconds`` (the build, each phase above and the whole run),
-   the ``kernels`` line (six kernels) and, last, ``{"ok": true,
+8. flash_kernel_checks: the three training-attention kernels
+   (``csrc/flash_attention.cu``: forward, dQ, dK/dV) against their plain
+   versions, O and lse, dQ, dK and dV, bf16 and fp32, causal and not, at
+   the training path's [8, 1024, 16, 64], gpt2_long's [1, 8192, 16, 64],
+   T = 1000 (not a multiple of the 64-row tile) and head dims 32 and 128;
+   then gradients through the autograd Function at the path shape
+   against torch.autograd of the plain forward (fp32) and the plain
+   backward (bf16). flash_kernel_timings: each kernel, its plain version
+   and ``scaled_dot_product_attention`` (forward, or its backward), beside
+   the bound, at both shapes, bf16, causal.
+9. train_path: ``gpt2_medium_zero1`` with ``model.attention=flash`` at
+   full width and depth (seeded weights, bf16_mixed, AdamW with the
+   recipe's warmup, cosine and clip, dots remat, 64 x 1024 tokens in 8
+   microbatches): one warm-up step (lr 0, the params must not move) and
+   three timed steps; loss, grad_norm and lr per step, step seconds,
+   tokens/s, model FLOPs and their share of the bf16 peak, peak memory;
+   each step launches the forward kernel 384 times (twice per layer and
+   microbatch: dots remat reruns it in the backward) and dQ and dK/dV 192
+   times each, no serving kernel, and nothing falls back. train_profile:
+   one more step under ``torch.profiler``.
+10. fp32_train_check: one ``grad_accum=2`` step at full width, depth cut
+   to 2 layers, through the kernels (``attention=flash``) and through the
+   plain path (``attention=dense``) from the same weights and batch, fp32
+   and then bf16_mixed: losses, every gradient and the params after it.
+11. ``phase_seconds`` (the build, each phase above and the whole run),
+   the ``kernels`` line (nine kernels) and, last, ``{"ok": true,
    "device": ...}``.
 
 Every launch count is set to 0 just before each path runs and read just
@@ -517,31 +542,43 @@ def serve(model, cfg, reqs, new_tokens: int):
     return eng, [done[i] for i in ids], wall
 
 
-# Launch counters: (name in the kernels line, router, attribute).
+# Launch counters: (name in the kernels line, module under ops/, function,
+# attribute).
 COUNTERS = [
-    ("decode_attention", "decode_attention", "launches"),
-    ("paged_decode_attention", "paged_decode_attention", "launches"),
-    ("paged_verify_attention", "paged_verify_attention", "launches"),
-    ("decode_attention_quant", "decode_attention", "quant_launches"),
-    ("paged_decode_attention_quant", "paged_decode_attention",
+    ("decode_attention", "decode_attention", "decode_attention", "launches"),
+    ("paged_decode_attention", "decode_attention", "paged_decode_attention",
+     "launches"),
+    ("paged_verify_attention", "decode_attention", "paged_verify_attention",
+     "launches"),
+    ("decode_attention_quant", "decode_attention", "decode_attention",
      "quant_launches"),
-    ("paged_verify_attention_quant", "paged_verify_attention",
-     "quant_launches"),
+    ("paged_decode_attention_quant", "decode_attention",
+     "paged_decode_attention", "quant_launches"),
+    ("paged_verify_attention_quant", "decode_attention",
+     "paged_verify_attention", "quant_launches"),
+    ("flash_attention_fwd", "flash_attention", "flash_fwd", "launches"),
+    ("flash_attention_bwd_dq", "flash_attention", "flash_bwd_dq", "launches"),
+    ("flash_attention_bwd_dkv", "flash_attention", "flash_bwd_dkv",
+     "launches"),
 ]
 
 
-def reset_launches() -> None:
-    from frl_distributed_ml_scaffold_tpu_torch.ops import decode_attention as da
+def _counted(module: str, fn: str):
+    import importlib
 
-    for _, router, attr in COUNTERS:
-        setattr(getattr(da, router), attr, 0)
+    mod = importlib.import_module(
+        f"frl_distributed_ml_scaffold_tpu_torch.ops.{module}")
+    return getattr(mod, fn)
+
+
+def reset_launches() -> None:
+    for _, module, fn, attr in COUNTERS:
+        setattr(_counted(module, fn), attr, 0)
 
 
 def read_launches() -> dict:
-    from frl_distributed_ml_scaffold_tpu_torch.ops import decode_attention as da
-
-    return {name: getattr(getattr(da, router), attr)
-            for name, router, attr in COUNTERS}
+    return {name: getattr(_counted(module, fn), attr)
+            for name, module, fn, attr in COUNTERS}
 
 
 def check_launches(counts: dict, per_step: dict, layers: int, what: str):
@@ -747,7 +784,6 @@ def profile_phase(model, cfg, reqs, steps: int = 8) -> dict:
     """Where a decode step's time goes: ``steps`` steady decode steps of
     8 live slots under ``torch.profiler``; device busy time is the union
     of the CUDA events' intervals."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from frl_distributed_ml_scaffold_tpu_torch.serving import build_engine
@@ -764,6 +800,16 @@ def profile_phase(model, cfg, reqs, steps: int = 8) -> dict:
             eng.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return {"decode_steps": steps, "slots": 8, "step_s": wall / steps,
+            **device_profile(prof, wall)}
+
+
+def device_profile(prof, wall: float) -> dict:
+    """Device busy time (the union of the CUDA events' intervals), idle
+    share of ``wall``, the kernels that take the device time and the host
+    operators by self CPU time, from a finished ``torch.profiler``."""
+    from torch.autograd import DeviceType
+
     spans, by_name = [], {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -785,8 +831,7 @@ def profile_phase(model, cfg, reqs, steps: int = 8) -> dict:
     # The host side: operators and runtime calls by self CPU time.
     host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
     return {
-        "decode_steps": steps, "slots": 8, "wall_s": wall,
-        "step_s": wall / steps,
+        "wall_s": wall,
         "device_busy_s": busy if spans else "not measured",
         "device_idle_share": 1 - busy / wall if spans else "not measured",
         "cuda_events": len(spans),
@@ -901,6 +946,491 @@ def fp32_paged_phase(cfg, sd, seed: int) -> dict:
             "requests": report}
 
 
+# ------------------------------------------------------------ flash kernels
+
+# (B, T, H, D) of each check: the training path's attention, gpt2_long's,
+# a T that is not a multiple of the kernels' 64-row tile, and the other
+# two head dims the kernels take.
+FLASH_SHAPES = {
+    "path": (8, 1024, 16, 64),
+    "gpt2_long": (1, 8192, 16, 64),
+    "ragged_T": (2, 1000, 4, 64),
+    "head_dim_32": (2, 256, 4, 32),
+    "head_dim_128": (2, 256, 4, 128),
+}
+# Flash kernels vs their plain versions, as a fraction of
+# max(1, max|plain|). bf16: both round each output to bf16 (ulp 2^-8
+# relative) and round P (dS for dQ) to bf16 before a product, the kernel
+# at its running max, the plain version at the row's global max. fp32
+# (and lse under both): every product is a full-fp32 FMA in the kernel and
+# a full-fp32 matmul in the plain version (TF32 off), so only summation
+# order differs, over up to 8192 terms.
+FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+FLASH_ENTRIES = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv")
+
+
+def flash_inputs(gen, shape, dtype, n: int = 4) -> list:
+    """``n`` tensors made in the public (B, T, H, D) layout and returned
+    as (B, H, T, D) views of it, so the kernels read through strides as
+    the training path has them."""
+    return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            .transpose(1, 2) for _ in range(n)]
+
+
+def flash_held(what: str, got, want, tol: float) -> dict:
+    torch.cuda.synchronize()
+    scale = max(1.0, want.float().abs().max().item())
+    err = (got.float() - want.float()).abs().max().item()
+    check(math.isfinite(err) and err <= tol * scale,
+          f"{what}: max abs err {err} > {tol} x {scale}")
+    return {"max_abs_err": err, "scale": scale}
+
+
+def flash_checks(gen) -> list:
+    """Each flash entry against its plain version at every shape of
+    ``FLASH_SHAPES``, bf16 and fp32, causal and not: O and lse from the
+    forward; dQ, dK and dV from the plain forward's residuals."""
+    from frl_distributed_ml_scaffold_tpu_torch.ops import flash_attention as fa
+
+    checks = []
+    for label, shape in FLASH_SHAPES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            for causal in (True, False):
+                q, k, v, do = flash_inputs(gen, shape, dtype)
+                o, lse = fa.flash_fwd(q, k, v, causal=causal)
+                o_ref, lse_ref = fa.dense_fwd_lse(q, k, v, causal=causal)
+                dq = fa.flash_bwd_dq(q, k, v, o_ref, lse_ref, do,
+                                     causal=causal)
+                dk, dv = fa.flash_bwd_dkv(q, k, v, o_ref, lse_ref, do,
+                                          causal=causal)
+                want = fa.dense_bwd_lse(q, k, v, o_ref, lse_ref, do,
+                                        causal=causal)
+                tag = f"flash {label} {dtype} causal={causal}"
+                entry = {"label": label, "shape_BTHD": list(shape),
+                         "dtype": str(dtype).replace("torch.", ""),
+                         "causal": causal, "tol": FLASH_TOL[dtype],
+                         "lse_tol": FLASH_TOL[torch.float32]}
+                for name, got, ref in (("o", o, o_ref), ("dq", dq, want[0]),
+                                       ("dk", dk, want[1]),
+                                       ("dv", dv, want[2])):
+                    entry[name] = flash_held(f"{tag} {name}", got, ref,
+                                             FLASH_TOL[dtype])
+                entry["lse"] = flash_held(f"{tag} lse", lse, lse_ref,
+                                          FLASH_TOL[torch.float32])
+                checks.append(entry)
+                del q, k, v, do, o, lse, o_ref, lse_ref, dq, dk, dv, want
+    return checks
+
+
+def flash_autograd_checks(gen) -> list:
+    """Gradients through the autograd Function (forward kernel, then dQ
+    and dK/dV kernels) at the path shape, causal: fp32 against
+    ``torch.autograd`` of the plain forward; bf16 against the plain
+    backward (autograd of the plain forward rounds its intermediate
+    gradients to bf16 at other places than the kernels' rules)."""
+    from frl_distributed_ml_scaffold_tpu_torch.ops import flash_attention as fa
+
+    out = []
+    shape = FLASH_SHAPES["path"]
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, w = (x.transpose(1, 2) for x in flash_inputs(gen, shape,
+                                                               dtype))
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        before = fa.flash_attention.fallbacks
+        o = fa.flash_attention(*leaves, causal=True)
+        grads = torch.autograd.grad(o, leaves, w)
+        check(fa.flash_attention.fallbacks == before,
+              "flash_attention fell back at the path shape")
+        ref_leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        bhtd = [x.transpose(1, 2) for x in ref_leaves]
+        o_ref, lse_ref = fa.dense_fwd_lse(*bhtd, causal=True)
+        if dtype == torch.float32:
+            ref = torch.autograd.grad(o_ref.transpose(1, 2), ref_leaves, w)
+            against = "torch.autograd of dense_fwd_lse"
+        else:
+            with torch.no_grad():
+                ref = [g.transpose(1, 2) for g in fa.dense_bwd_lse(
+                    *bhtd, o_ref, lse_ref, w.transpose(1, 2), causal=True)]
+            against = "dense_bwd_lse"
+        entry = {"shape_BTHD": list(shape), "causal": True,
+                 "dtype": str(dtype).replace("torch.", ""),
+                 "against": against, "tol": FLASH_TOL[dtype]}
+        entry["o"] = flash_held("autograd o", o.detach(), o_ref.transpose(1, 2),
+                                FLASH_TOL[dtype])
+        for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+            entry[name] = flash_held(f"autograd {name} {dtype}", g, r,
+                                     FLASH_TOL[dtype])
+        out.append(entry)
+        del q, k, v, w, leaves, o, grads, ref_leaves, bhtd, o_ref, ref
+    return out
+
+
+def flash_bound(shape, dtype, causal: bool, entry: str) -> dict:
+    """The least time of one launch. Bytes: each input read once and each
+    output written once (fwd: Q, K, V in, O and lse out; dQ: Q, K, V, O,
+    dO, lse in, dQ out; dK/dV: the same in, dK and dV out). Operations:
+    2 D per (query, key) pair the mask admits for each product (fwd: QK^T
+    and PV; dQ: QK^T, dO V^T and dS K; dK/dV: QK^T, dO V^T, P^T dO and
+    dS^T Q), plus delta = rowsum(dO O) once per row in the backward."""
+    b, t, h, d = shape
+    elem = torch.finfo(dtype).bits // 8
+    rows = b * h * t
+    pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
+    tensor = rows * d * elem
+    n_in, n_out, n_prod = {"flash_attention_fwd": (3, 1, 2),
+                           "flash_attention_bwd_dq": (5, 1, 3),
+                           "flash_attention_bwd_dkv": (5, 2, 4)}[entry]
+    nbytes = (n_in + n_out) * tensor + 4 * rows
+    flops = 2 * d * pairs * n_prod
+    if entry != "flash_attention_fwd":
+        flops += 2 * rows * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def time_flash(gen, shape, layers: int) -> dict:
+    """The three entries, their plain versions and the library's
+    ``scaled_dot_product_attention`` (forward; its backward for the two
+    backward rows, one call computing dq, dk and dv) at ``shape``, bf16,
+    causal, over ``layers`` input sets per timed call. The plain version
+    of both backward rows is ``dense_bwd_lse``, which computes all three
+    gradients."""
+    from frl_distributed_ml_scaffold_tpu_torch.ops import flash_attention as fa
+
+    dtype = torch.bfloat16
+    sets = [flash_inputs(gen, shape, dtype) for _ in range(layers)]
+    res = [fa.dense_fwd_lse(q, k, v, causal=True) for q, k, v, _ in sets]
+    lib_leaves = [[x.detach().requires_grad_() for x in st[:3]]
+                  for st in sets]
+    lib_out = [torch.nn.functional.scaled_dot_product_attention(
+        *lv, is_causal=True) for lv in lib_leaves]
+
+    def plain_bwd(i):
+        fa.dense_bwd_lse(*sets[i][:3], *res[i], sets[i][3], causal=True)
+
+    def library_bwd(i):
+        torch.autograd.grad(lib_out[i], lib_leaves[i], sets[i][3],
+                            retain_graph=True)
+
+    ops = {
+        "flash_attention_fwd": (
+            lambda i: fa.flash_fwd(*sets[i][:3], causal=True),
+            lambda i: fa.dense_fwd_lse(*sets[i][:3], causal=True),
+            lambda i: torch.nn.functional.scaled_dot_product_attention(
+                *sets[i][:3], is_causal=True)),
+        "flash_attention_bwd_dq": (
+            lambda i: fa.flash_bwd_dq(*sets[i][:3], *res[i], sets[i][3],
+                                      causal=True),
+            plain_bwd, library_bwd),
+        "flash_attention_bwd_dkv": (
+            lambda i: fa.flash_bwd_dkv(*sets[i][:3], *res[i], sets[i][3],
+                                       causal=True),
+            plain_bwd, library_bwd),
+    }
+    out = {}
+    for name, (kernel, plain, library) in ops.items():
+        out[name] = {"shape_BTHD": list(shape), "dtype": "bfloat16",
+                     "causal": True,
+                     **timed(kernel, plain, library, layers=layers),
+                     **flash_bound(shape, dtype, True, name)}
+    for name in FLASH_ENTRIES[1:]:
+        out[name]["plain_note"] = "dense_bwd_lse: dq, dk and dv together"
+        out[name]["library_note"] = ("scaled_dot_product_attention "
+                                     "backward: dq, dk and dv together")
+    return out
+
+
+def flash_kernel_phase(gen) -> dict:
+    torch.cuda.empty_cache()
+    checks = flash_checks(gen)
+    autograd = flash_autograd_checks(gen)
+    emit("flash_kernel_checks", {"kernels_vs_plain": checks,
+                                 "autograd": autograd})
+    timings = {"path": time_flash(gen, FLASH_SHAPES["path"], layers=2),
+               "gpt2_long": time_flash(gen, FLASH_SHAPES["gpt2_long"],
+                                       layers=1)}
+    emit("flash_kernel_timings", timings)
+    torch.cuda.empty_cache()
+    worst = {name: max(e[key]["max_abs_err"] for e in checks
+                       if e["dtype"] == "bfloat16" and e["label"] == "path"
+                       for key in keys)
+             for name, keys in zip(FLASH_ENTRIES,
+                                   (("o",), ("dq",), ("dk", "dv")))}
+    return {name: {"max_abs_err": worst[name],
+                   "timing": timings["path"][name]} for name in FLASH_ENTRIES}
+
+
+# -------------------------------------------------------------------- train
+
+TRAIN_OVERRIDES = ["model.attention=flash"]
+# Optimizer steps timed after one warm-up step (step 0, lr 0 under the
+# recipe's 2000-step warmup).
+TRAIN_STEPS = 3
+H100_BF16_PEAK = PEAK_FLOPS[torch.bfloat16]
+
+
+def _train_setup(cfg, sd, device="cuda"):
+    """Model, optimizer, schedule, state and loss of ``cfg`` over the
+    weights ``sd``."""
+    from frl_distributed_ml_scaffold_tpu_torch.models.gpt import GPT
+    from frl_distributed_ml_scaffold_tpu_torch.precision import get_policy
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.optimizers import (
+        make_optimizer,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.tasks import make_lm_loss
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.train_state import (
+        TrainState,
+    )
+
+    policy = get_policy(cfg.precision)
+    model = GPT(cfg.model, policy, device=device)
+    model.load_state_dict(sd)
+    tx, schedule = make_optimizer(cfg.optimizer, cfg.trainer)
+    state = TrainState.create(dict(model.named_parameters()), tx,
+                              with_ema=cfg.trainer.ema_decay > 0,
+                              device=device)
+    return model, policy, tx, schedule, state, make_lm_loss(model)
+
+
+def _step_fn(cfg, loss_fn, tx, policy):
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.train_step import (
+        make_train_step,
+    )
+
+    t = cfg.trainer
+    return make_train_step(
+        loss_fn, tx, policy, seed=t.seed, grad_accum=t.grad_accum,
+        remat=t.remat, ema_decay=t.ema_decay,
+        offload_opt_state=t.offload_opt_state, mesh=cfg.mesh, device="cuda")
+
+
+def train_flops(cfg, n_params: int) -> dict:
+    """Model FLOPs of one optimizer step (no recomputation counted):
+    6 per parameter per token, plus causal attention's QK^T and PV,
+    forward (4 D per admitted pair) and backward (twice that)."""
+    m = cfg.model
+    tokens = cfg.data.global_batch_size * m.seq_len
+    hd = m.hidden_dim // m.num_heads
+    pairs = m.seq_len * (m.seq_len + 1) // 2
+    attn = (3 * 4 * hd * pairs * m.num_heads * cfg.data.global_batch_size
+            * m.num_layers)
+    return {"tokens": tokens, "params": n_params,
+            "dense_flops": 6 * n_params * tokens, "attention_flops": attn,
+            "flops": 6 * n_params * tokens + attn}
+
+
+def train_phase(sd, card: str) -> tuple:
+    """``gpt2_medium_zero1`` with ``model.attention=flash`` at full width
+    and depth: one warm-up step (step 0, lr 0: the params must not move)
+    and ``TRAIN_STEPS`` timed steps of 64 x 1024 tokens in 8 microbatches
+    under dots remat and bf16_mixed. The forward kernel launches twice per
+    layer and microbatch (once in the forward, once when the checkpointed
+    region reruns it in the backward), dQ and dK/dV once each; no serving
+    kernel runs and nothing falls back. Then one profiled step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from frl_distributed_ml_scaffold_tpu_torch.config import (
+        apply_overrides,
+        get_config,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.data.synthetic import SyntheticLM
+    from frl_distributed_ml_scaffold_tpu_torch.ops import flash_attention as fa
+
+    cfg = apply_overrides(get_config("gpt2_medium_zero1"), TRAIN_OVERRIDES)
+    model, policy, tx, schedule, state, loss_fn = _train_setup(cfg, sd)
+    step = _step_fn(cfg, loss_fn, tx, policy)
+    data = SyntheticLM(cfg.data, split="train")
+    gb = cfg.data.global_batch_size
+    batches = [data.batch(s, gb) for s in range(TRAIN_STEPS + 2)]
+    layers, accum = cfg.model.num_layers, cfg.trainer.grad_accum
+    per_step = {"flash_attention_fwd": 2 * layers * accum,
+                "flash_attention_bwd_dq": layers * accum,
+                "flash_attention_bwd_dkv": layers * accum}
+    start = {k: p.clone() for k, p in state.params.items()}
+    fallbacks = fa.flash_attention.fallbacks
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    steps = []
+    for s in range(1 + TRAIN_STEPS):
+        before = read_launches()
+        t0 = time.perf_counter()
+        state, m = step(state, batches[s])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = read_launches()
+        launched = {k: after[k] - before[k] for k in after}
+        for name, n in launched.items():
+            check(n == per_step.get(name, 0),
+                  f"train_path step {s}: {name} launched {n} times, want "
+                  f"{per_step.get(name, 0)}")
+        rec = {"step": s, "lr": schedule(s), "loss": float(m["loss"]),
+               "grad_norm": float(m["grad_norm"]), "step_s": wall,
+               "tokens_per_s": gb * cfg.model.seq_len / wall}
+        check(math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"]),
+              f"train_path step {s}: non-finite loss or grad_norm {rec}")
+        steps.append(rec)
+        if s == 0:
+            check(rec["lr"] == 0.0, "step 0 lr is not 0 under warmup")
+            check(all(torch.equal(state.params[k], p)
+                      for k, p in start.items()),
+                  "params moved at step 0 (lr 0)")
+        elif s == 1:
+            moved = sum(not torch.equal(state.params[k], p)
+                        for k, p in start.items())
+            check(moved > 0, "params did not move at step 1")
+            del start
+    counts = read_launches()
+    check(fa.flash_attention.fallbacks == fallbacks,
+          "flash_attention fell back on the training path")
+    peak_mem = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in state.params.values())
+    flops = train_flops(cfg, n_params)
+    timed_s = [r["step_s"] for r in steps[1:]]
+    step_s = statistics.median(timed_s)
+    report = {
+        "card": card, "config": cfg.name, "overrides": TRAIN_OVERRIDES,
+        "policy": cfg.precision.policy, "layers": layers,
+        "d_model": cfg.model.hidden_dim, "heads": cfg.model.num_heads,
+        "seq_len": cfg.model.seq_len, "global_batch": gb,
+        "grad_accum": accum, "remat": cfg.trainer.remat,
+        "optimizer": {"name": cfg.optimizer.name,
+                      "lr": cfg.optimizer.learning_rate,
+                      "warmup_steps": cfg.optimizer.warmup_steps,
+                      "schedule": cfg.optimizer.schedule,
+                      "clip": cfg.optimizer.grad_clip_norm},
+        "steps": steps, "step_s_median": step_s,
+        "tokens_per_s": flops["tokens"] / step_s,
+        **flops,
+        "model_tflops_per_s": flops["flops"] / step_s / 1e12,
+        "share_of_bf16_peak": flops["flops"] / step_s / H100_BF16_PEAK,
+        "max_memory_allocated_bytes": peak_mem,
+        "launches": counts,
+        "launches_per_step": per_step,
+        "fallbacks": fa.flash_attention.fallbacks - fallbacks,
+        "params_unchanged_after_step0": True,
+        "params_changed_after_step1": True,
+    }
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batches[-1])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    profile_report = {"steps": 1, "step_s": wall,
+                      **device_profile(prof, wall)}
+    del model, state, step, prof
+    torch.cuda.empty_cache()
+    return report, counts, profile_report
+
+
+def fp32_train_phase(sd) -> dict:
+    """One ``grad_accum=2`` step of ``gpt2_medium_zero1`` at full width,
+    depth cut to 2 layers, from the same weights and batch (16 x 1024
+    tokens), once with ``attention=flash`` (the kernels) and once with
+    ``attention=dense`` (the plain path), under the fp32 policy and then
+    bf16_mixed; warmup off so the step's lr is the schedule's 3e-4.
+    Losses, every gradient and the params after the step are compared.
+    Tolerances: loss 1e-5 (fp32) / 2e-3 (bf16_mixed) relative; each
+    gradient to ``tol * max|g| + floor * (largest |g| of any tensor)``,
+    tol 1e-4 / 5e-2, floor 1e-6 / 1e-3 (the floor covers the key bias,
+    whose exact gradient is 0, so both runs hold rounding noise there); params: at most 2 lr apart (one Adam step moves a param by at
+    most lr past the shared weight decay), the mean at most 1e-3 lr /
+    1e-1 lr (under bf16_mixed the two paths' bf16 gradients differ in
+    sign where they are small, and Adam's first step is about sign(g)),
+    except the key bias, whose Adam step normalises rounding
+    noise in both runs (its mean is held to lr)."""
+    from frl_distributed_ml_scaffold_tpu_torch.config import (
+        apply_overrides,
+        get_config,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.data.synthetic import SyntheticLM
+    from frl_distributed_ml_scaffold_tpu_torch.ops import flash_attention as fa
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.train_step import (
+        make_grad_fn,
+    )
+
+    layers = 2
+    base = apply_overrides(get_config("gpt2_medium_zero1"), [
+        f"model.num_layers={layers}", "trainer.grad_accum=2",
+        "optimizer.warmup_steps=0", "data.global_batch_size=16"])
+    sd2 = {k: v for k, v in sd.items()
+           if not k.startswith("blocks.") or int(k.split(".")[1]) < layers}
+    batch = SyntheticLM(base.data, split="train").batch(0, 16)
+    report = {"layers": layers, "cut": "depth 24 -> 2, full width",
+              "global_batch": 16, "grad_accum": 2, "remat": "dots",
+              "warmup_steps": 0, "allow_tf32": False}
+    fallbacks = fa.flash_attention.fallbacks
+    for pol in ("fp32", "bf16_mixed"):
+        runs = {}
+        for attention in ("flash", "dense"):
+            cfg = apply_overrides(base, [f"model.attention={attention}",
+                                         f"precision.policy={pol}"])
+            model, policy, tx, schedule, state, loss_fn = _train_setup(cfg,
+                                                                       sd2)
+            grad_fn = make_grad_fn(loss_fn, policy, grad_accum=2,
+                                   remat=cfg.trainer.remat, device="cuda")
+            reset_launches()
+            loss, _, _, grads = grad_fn(state.params, state.extras, batch)
+            counts = read_launches()
+            want_fwd = 2 * layers * 2 if attention == "flash" else 0
+            check(counts["flash_attention_fwd"] == want_fwd,
+                  f"fp32_train_check {pol} {attention}: forward kernel "
+                  f"launched {counts['flash_attention_fwd']} times")
+            state, m = _step_fn(cfg, loss_fn, tx, policy)(state, batch)
+            runs[attention] = {"loss": float(loss), "grads": grads,
+                               "params": state.params,
+                               "grad_norm": float(m["grad_norm"]),
+                               "lr": schedule(0)}
+            del model, state
+        check(fa.flash_attention.fallbacks == fallbacks,
+              f"fp32_train_check {pol}: flash_attention fell back")
+        k_run, d_run = runs["flash"], runs["dense"]
+        lr = d_run["lr"]
+        loss_rel = abs(k_run["loss"] - d_run["loss"]) / abs(d_run["loss"])
+        loss_tol = 1e-5 if pol == "fp32" else 2e-3
+        check(loss_rel <= loss_tol,
+              f"fp32_train_check {pol}: loss {k_run['loss']} vs "
+              f"{d_run['loss']}")
+        floor = (1e-6 if pol == "fp32" else 1e-3) * max(
+            g.abs().max().item() for g in d_run["grads"].values())
+        worst_grad, worst_param, worst_mean = 0.0, 0.0, 0.0
+        tol = 1e-4 if pol == "fp32" else 5e-2
+        for name, g in d_run["grads"].items():
+            err = (k_run["grads"][name] - g).abs().max().item()
+            lim = tol * g.abs().max().item() + floor
+            check(err <= lim, f"fp32_train_check {pol}: grad {name} "
+                  f"differs by {err} > {lim}")
+            worst_grad = max(worst_grad, err / max(lim, 1e-30))
+            dp = (k_run["params"][name] - d_run["params"][name]).abs()
+            mean_lim = (1e-3 if pol == "fp32" else 1e-1) * lr
+            if name.endswith("attn.key.bias"):  # Adam-normalised noise
+                mean_lim = lr
+            check(dp.max().item() <= 2 * lr and dp.mean().item() <= mean_lim,
+                  f"fp32_train_check {pol}: param {name} after the step "
+                  f"differs by {dp.max().item()} (mean {dp.mean().item()})")
+            worst_param = max(worst_param, dp.max().item())
+            worst_mean = max(worst_mean, dp.mean().item())
+        report[pol] = {
+            "loss_flash": k_run["loss"], "loss_dense": d_run["loss"],
+            "loss_rel_diff": loss_rel, "loss_tol": loss_tol,
+            "grad_norm_flash": k_run["grad_norm"],
+            "grad_norm_dense": d_run["grad_norm"],
+            "grad_tol": tol, "grad_floor": floor,
+            "worst_grad_err_over_limit": worst_grad,
+            "lr": lr, "param_max_abs_diff": worst_param,
+            "param_mean_abs_diff_worst_tensor": worst_mean,
+            "tensors": len(d_run["grads"]),
+        }
+        del runs, k_run, d_run
+        torch.cuda.empty_cache()
+    return report
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -979,19 +1509,38 @@ def main() -> int:
         "fp8_e4m3_paged_vs_contiguous": timed_phase(
             "fp32_quant_check_fp8", fp32_paged_phase, cfg_fp8, sd, args.seed),
     })
+    kern.update(timed_phase("flash_kernel", flash_kernel_phase, gen))
+    report, counts, profile = timed_phase("train_path", train_phase, sd, card)
+    launches.update({k: n for k, n in counts.items() if n})
+    emit("train_path", report)
+    emit("train_profile", profile)
+    emit("fp32_train_check", timed_phase("fp32_train_check",
+                                         fp32_train_phase, sd))
     # Where the script's time limit goes: each phase (a path's includes
     # its warm-up and profiled window) and the whole of main().
     seconds["main_total"] = time.perf_counter() - start
     emit("phase_seconds", seconds)
 
     src = "frl_distributed_ml_scaffold_tpu_torch/ops/csrc/"
-    ref = "frl_distributed_ml_scaffold_tpu/ops/decode_attention.py:"
-    rows = [("decode_attention", "decode_attention.cu", "346"),
-            ("paged_decode_attention", "paged_attention.cu", "444"),
-            ("paged_verify_attention", "paged_attention.cu", "545"),
-            ("decode_attention_quant", "quant_attention.cu", "394"),
-            ("paged_decode_attention_quant", "quant_attention.cu", "496"),
-            ("paged_verify_attention_quant", "quant_attention.cu", "599")]
+    ref = "frl_distributed_ml_scaffold_tpu/ops/"
+    rows = [("decode_attention", "decode_attention.cu",
+             "decode_attention.py:346"),
+            ("paged_decode_attention", "paged_attention.cu",
+             "decode_attention.py:444"),
+            ("paged_verify_attention", "paged_attention.cu",
+             "decode_attention.py:545"),
+            ("decode_attention_quant", "quant_attention.cu",
+             "decode_attention.py:394"),
+            ("paged_decode_attention_quant", "quant_attention.cu",
+             "decode_attention.py:496"),
+            ("paged_verify_attention_quant", "quant_attention.cu",
+             "decode_attention.py:599"),
+            ("flash_attention_fwd", "flash_attention.cu",
+             "flash_attention.py:100"),
+            ("flash_attention_bwd_dq", "flash_attention.cu",
+             "flash_attention.py:188"),
+            ("flash_attention_bwd_dkv", "flash_attention.cu",
+             "flash_attention.py:222")]
     emit("kernels", [{
         "name": name,
         "route": "cuda",

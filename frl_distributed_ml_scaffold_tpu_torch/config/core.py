@@ -2,18 +2,23 @@
 
 ``apply_overrides(cfg, ["model.num_layers=2", "precision.policy=fp32"])``
 returns a new config with those fields replaced, each value coerced to
-the field's annotated type. Unknown paths and values that do not parse
-raise.
+the field's annotated type (``none`` / ``null`` for an Optional field).
+Unknown paths and values that do not parse raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import typing
-from typing import Any
+from typing import Any, Union
 
 
 def _coerce(raw: str, typ: Any) -> Any:
+    if typing.get_origin(typ) is Union:  # Optional[X]: "none" / "null"
+        if raw.lower() in ("none", "null"):
+            return None
+        (inner,) = [a for a in typing.get_args(typ) if a is not type(None)]
+        return _coerce(raw, inner)
     if typ is bool:
         if raw.lower() in ("true", "1", "yes"):
             return True

@@ -1,9 +1,10 @@
-"""The recipes the serving slice runs, under the JAX package's names.
+"""The recipes the port runs, under the JAX package's names.
 
-Only the sections the slice reads are kept (model, precision, serving):
-the trainer, optimizer and data sections arrive with the training slice,
-and the serving recipe's 2-way ``model`` mesh axis with mesh sharding
-(ROADMAP queue A).
+Every section the port reads is kept (model, data, trainer, optimizer,
+mesh, parallel, precision, serving), with the JAX recipe's values. The
+mesh sections name the JAX recipes' multi-device layouts; the port runs
+them on one card, where ``zero1`` and ``fsdp=-1`` are the replicated
+layout (ROADMAP queue A item 7 brings meshes of more than one card).
 """
 
 from __future__ import annotations
@@ -11,19 +12,41 @@ from __future__ import annotations
 import dataclasses
 
 from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
+    DataConfig,
     ExperimentConfig,
     GPTConfig,
+    MeshConfig,
+    OptimizerConfig,
+    ParallelConfig,
     PrecisionConfig,
+    TrainerConfig,
 )
 
 
 def gpt2_medium_zero1() -> ExperimentConfig:
-    """GPT-2-medium: 24 layers, d=1024, 16 heads, 50257 vocab, 1024 ctx."""
+    """GPT-2-medium LM: 24 layers, d=1024, 16 heads, 50257 vocab, 1024
+    ctx; global batch 64 in 8 microbatches, dots remat, AdamW with a
+    cosine schedule and a global-norm clip, ZeRO-1 optimizer sharding."""
     return ExperimentConfig(
         name="gpt2_medium_zero1",
         model=GPTConfig(
             vocab_size=50257, num_layers=24, num_heads=16, hidden_dim=1024,
             seq_len=1024,
+        ),
+        data=DataConfig(
+            name="lm_synthetic", global_batch_size=64, seq_len=1024,
+            vocab_size=50257,
+        ),
+        trainer=TrainerConfig(
+            total_steps=100000, grad_accum=8, remat="dots", log_every=50
+        ),
+        optimizer=OptimizerConfig(
+            name="adamw", learning_rate=3e-4, weight_decay=0.1, b2=0.95,
+            schedule="cosine", warmup_steps=2000, grad_clip_norm=1.0,
+        ),
+        mesh=MeshConfig(data=1, fsdp=-1),
+        parallel=ParallelConfig(
+            param_sharding="replicated", opt_sharding="zero1"
         ),
         precision=PrecisionConfig(policy="bf16_mixed"),
     )
@@ -32,17 +55,40 @@ def gpt2_medium_zero1() -> ExperimentConfig:
 def gpt2_medium_serve() -> ExperimentConfig:
     """The GPT-2-medium weights served through the continuous-batching
     engine with the hand-written decode kernel
-    (``model.decode_attention=flash``)."""
+    (``model.decode_attention=flash``). The JAX recipe's 2-way ``model``
+    axis is kept in the config; the port serves on one card."""
     base = gpt2_medium_zero1()
     return base.replace(
         name="gpt2_medium_serve",
         model=dataclasses.replace(base.model, decode_attention="flash"),
+        mesh=MeshConfig(data=-1, fsdp=1, model=2),
+        parallel=ParallelConfig(param_sharding="replicated"),
+    )
+
+
+def gpt2_long() -> ExperimentConfig:
+    """Long context on one device: 8k tokens through the flash kernels,
+    the chunked-vocab loss and full remat."""
+    base = gpt2_medium_zero1()
+    return base.replace(
+        name="gpt2_long",
+        model=GPTConfig(
+            vocab_size=50257, num_layers=24, num_heads=16, hidden_dim=1024,
+            seq_len=8192, attention="flash", lm_loss_chunk=256,
+        ),
+        data=DataConfig(name="lm_synthetic", global_batch_size=8,
+                        seq_len=8192),
+        mesh=MeshConfig(data=-1),
+        parallel=ParallelConfig(param_sharding="replicated"),
+        trainer=dataclasses.replace(base.trainer, grad_accum=8,
+                                    remat="full"),
     )
 
 
 _RECIPES = {
     "gpt2_medium_zero1": gpt2_medium_zero1,
     "gpt2_medium_serve": gpt2_medium_serve,
+    "gpt2_long": gpt2_long,
 }
 
 

@@ -1,10 +1,21 @@
-"""GPT-2 transformer LM, decode mode: the port of the JAX package's
-``models/gpt.py`` for the serving slice.
+"""GPT-2 transformer LM: the port of the JAX package's ``models/gpt.py``,
+in training/eval mode (no cache) and in decode mode (over a KV cache).
 
-The non-pipelined, non-MoE stack over a contiguous KV cache. Numerics
-follow the JAX model: LayerNorm in fp32 (eps from the config), every
-projection in the policy's compute dtype, GELU in its tanh form (flax's
-default; torch's default is the exact form), weight-tied LM head.
+The non-pipelined, non-MoE stack. ``GPT(tokens)`` with no cache is the
+training/eval forward: positions ``wpe[:t]``, causal attention through
+``model.attention`` (``dense``: ``ops/ring_attention.py``
+``dense_attention``; ``flash``: ``ops/flash_attention.py``, the
+hand-written kernels on the card), and ``return_features=True`` returns
+the compute-dtype ``ln_f`` output for the chunked-vocab loss
+(``trainer/tasks.py``). Training dropout is not ported (every GPT recipe
+runs 0) and raises. ``GPT(tokens, cache)`` is decode mode, over a
+contiguous or paged KV cache; its prefill is dense whatever
+``model.attention`` says.
+
+Numerics follow the JAX model: LayerNorm in fp32 (eps from the config),
+every projection in the policy's compute dtype, GELU in its tanh form
+(flax's default; torch's default is the exact form), weight-tied LM
+head.
 
 The decode cache is a dict of tensors with the JAX cache's leaf names and
 shapes, so the two compare leaf by leaf. Contiguous (``init_cache``):
@@ -55,6 +66,9 @@ from frl_distributed_ml_scaffold_tpu_torch.ops.decode_attention import (
     paged_decode_attention,
     paged_verify_attention,
 )
+from frl_distributed_ml_scaffold_tpu_torch.ops.flash_attention import (
+    flash_attention,
+)
 from frl_distributed_ml_scaffold_tpu_torch.ops.quantization import (
     byte_view,
     dequantize,
@@ -62,17 +76,32 @@ from frl_distributed_ml_scaffold_tpu_torch.ops.quantization import (
     quantize_kv,
     zeros,
 )
+from frl_distributed_ml_scaffold_tpu_torch.ops.ring_attention import (
+    dense_attention,
+)
 from frl_distributed_ml_scaffold_tpu_torch.precision import Policy
+
+_TRAIN_ATTENTION = {"dense": dense_attention, "flash": flash_attention}
 
 
 def _check_supported(cfg: GPTConfig) -> None:
     """Refuse the configurations this slice does not port yet, each with
     the ROADMAP item that brings it."""
-    if cfg.attention != "dense":
+    if cfg.attention in ("ring", "ulysses"):
         raise NotImplementedError(
-            f"model.attention={cfg.attention!r} is a training-path mode, "
-            "not ported yet (ROADMAP queue A item 5, training, with queue "
-            "B items 1-3 for flash; item 12 for ring/ulysses)"
+            f"model.attention={cfg.attention!r} (sequence-parallel "
+            "attention) is not ported yet (ROADMAP queue A item 12)"
+        )
+    if cfg.attention not in _TRAIN_ATTENTION:
+        raise ValueError(
+            f"unknown model.attention {cfg.attention!r} "
+            f"(have {sorted(_TRAIN_ATTENTION)}, ring, ulysses)"
+        )
+    if cfg.block_remat != "none":
+        raise NotImplementedError(
+            f"model.block_remat={cfg.block_remat!r} (per-block remat) is "
+            "not ported yet (ROADMAP queue A item 5, still to port); "
+            "trainer.remat=full|dots remats the whole loss"
         )
     if cfg.kv_cache_quant != "none":
         lowp_dtype(cfg.kv_cache_quant)  # KeyError naming the formats
@@ -147,7 +176,7 @@ class CausalSelfAttention(nn.Module):
             lin.bias.to(self.dtype),
         )
 
-    def forward(self, x, cache: dict, layer: int, lens):
+    def forward(self, x, cache: dict | None, layer: int, lens):
         cfg = self.cfg
         b, t, d = x.shape
         h = cfg.num_heads
@@ -155,6 +184,9 @@ class CausalSelfAttention(nn.Module):
         q = self._dense(self.query, x).view(b, t, h, hd)
         k_w = self._dense(self.key, x).view(b, t, h, hd)
         v_w = self._dense(self.value, x).view(b, t, h, hd)
+        if cache is None:  # training / eval: causal over this call's tokens
+            y = _TRAIN_ATTENTION[cfg.attention](q, k_w, v_w, causal=True)
+            return self._dense(self.out, y.reshape(b, t, d))
         if "key_pool" in cache:
             y = self._paged(q, k_w, v_w, cache, layer)
             return self._dense(self.out, y.reshape(b, t, d))
@@ -278,16 +310,18 @@ class Block(nn.Module):
         self.ln2 = nn.LayerNorm(d, eps=eps, device=device, dtype=pd)
         self.mlp = GptMlp(cfg, policy, device)
 
-    def forward(self, x, cache: dict, layer: int, lens):
+    def forward(self, x, cache: dict | None, layer: int, lens):
         x = x + self.attn(_layer_norm(self.ln1, x), cache, layer, lens)
         return x + self.mlp(_layer_norm(self.ln2, x))
 
 
 class GPT(nn.Module):
-    """GPT-2 LM in decode mode. ``device=None`` means ``cuda`` and raises
-    without a card. Weights come from ``models/convert.py``
-    (``params_from_jax`` or the seeded ``init_params``) through
-    ``load_state_dict``."""
+    """GPT-2 LM, in training/eval mode (no cache) or decode mode.
+    ``device=None`` means ``cuda`` and raises without a card. Weights
+    come from ``models/convert.py`` (``params_from_jax`` or the seeded
+    ``init_params``) through ``load_state_dict``; the training step runs
+    the forward over its own compute-dtype parameters with
+    ``torch.func.functional_call``."""
 
     def __init__(self, config: GPTConfig, policy: Policy, *, device=None):
         super().__init__()
@@ -370,10 +404,25 @@ class GPT(nn.Module):
             ),
         }
 
-    def forward(self, tokens, cache: dict, lengths=None):
-        """tokens ``[B, t]`` (LEFT-padded when ``lengths [B]`` is given)
-        against ``cache``, which advances in place by each row's length.
-        Returns logits ``[B, t, vocab]`` in the compute dtype."""
+    def forward(self, tokens, cache: dict | None = None, lengths=None, *,
+                train: bool = False, return_features: bool = False):
+        """With no ``cache``: the training/eval forward of tokens
+        ``[B, t]`` (t <= seq_len), logits ``[B, t, vocab]`` in the compute
+        dtype, or with ``return_features`` the ``ln_f`` output ``[B, t,
+        d]`` cast to the compute dtype. ``train`` only matters for
+        dropout, which is not ported and raises when > 0.
+
+        With a ``cache``: tokens ``[B, t]`` (LEFT-padded when ``lengths
+        [B]`` is given) against ``cache``, which advances in place by each
+        row's length. Returns logits ``[B, t, vocab]`` in the compute
+        dtype."""
+        if cache is None:
+            if lengths is not None:
+                raise ValueError(
+                    "lengths (ragged left-padded prompts) is a decode-mode "
+                    "argument; training/eval batches are dense"
+                )
+            return self._forward_train(tokens, train, return_features)
         cfg, cd = self.config, self.policy.compute_dtype
         b, t = tokens.shape
         if "key_pool" in cache and t > 1 and lengths is not None:
@@ -401,3 +450,21 @@ class GPT(nn.Module):
             x = block(x, cache, layer, lens)
         x = _layer_norm(self.ln_f, x)
         return F.linear(x.to(cd), self.wte.weight.to(cd))  # weight-tied head
+
+    def _forward_train(self, tokens, train: bool, return_features: bool):
+        cfg, cd = self.config, self.policy.compute_dtype
+        if train and cfg.dropout > 0:
+            raise NotImplementedError(
+                f"model.dropout={cfg.dropout} in training is not ported "
+                "(ROADMAP queue A item 5, still to port); every GPT recipe "
+                "trains with 0"
+            )
+        t = tokens.shape[1]
+        x = F.embedding(tokens, self.wte.weight).to(cd)
+        x = x + self.wpe[:t].to(cd)
+        for layer, block in enumerate(self.blocks):
+            x = block(x, None, layer, None)
+        x = _layer_norm(self.ln_f, x).to(cd)
+        if return_features:
+            return x
+        return F.linear(x, self.wte.weight.to(cd))  # weight-tied head

@@ -149,12 +149,12 @@ def test_writes_past_capacity_are_dropped_not_clipped(width):
 @pytest.mark.parametrize(
     "override",
     [
-        {"attention": "flash"},
+        {"attention": "ulysses"},
         {"attention": "ring"},
         {"moe": tschema.MoEConfig(num_experts=4)},
         {"pipeline_stages": 2},
     ],
-    ids=["flash", "ring", "moe", "pipeline"],
+    ids=["ulysses", "ring", "moe", "pipeline"],
 )
 def test_unported_model_options_raise(override):
     cfg = dataclasses.replace(tschema.GPTConfig(**TINY), **override)
@@ -250,7 +250,9 @@ def test_cache_buckets_and_taxonomy_match_jax(params):
 
 
 @pytest.mark.parametrize(
-    "cls", ["GPTConfig", "MoEConfig", "ServingConfig", "PrecisionConfig"]
+    "cls", ["GPTConfig", "MoEConfig", "ServingConfig", "PrecisionConfig",
+            "OptimizerConfig", "TrainerConfig", "DataConfig", "MeshConfig",
+            "ParallelConfig"]
 )
 def test_config_copies_match_the_jax_schema(cls):
     """The port's own copies keep every field and default of the JAX
@@ -261,12 +263,16 @@ def test_config_copies_match_the_jax_schema(cls):
 
 def test_recipes_and_overrides_match_jax():
     ov = ["model.num_layers=2", "model.decode_attention=dense",
-          "precision.policy=fp32", "serving.kv_block_size=0"]
-    for name in ("gpt2_medium_zero1", "gpt2_medium_serve"):
+          "precision.policy=fp32", "serving.kv_block_size=0",
+          "model.attention=flash", "optimizer.b2=none",
+          "optimizer.grad_clip_norm=0.5", "trainer.remat=full",
+          "data.data_dir=null", "mesh.fsdp=1"]
+    for name in ("gpt2_medium_zero1", "gpt2_medium_serve", "gpt2_long"):
         j = jax_overrides(jax_recipes.__dict__[name](), ov)
         t = tconfig.apply_overrides(tconfig.get_config(name), ov)
         assert t.name == j.name
-        for section in ("model", "precision", "serving"):
+        for section in ("model", "precision", "serving", "data", "trainer",
+                        "optimizer", "mesh", "parallel"):
             assert dataclasses.asdict(getattr(t, section)) == (
                 dataclasses.asdict(getattr(j, section))
             )

@@ -55,6 +55,18 @@ def test_scans_cover_every_port_module():
     assert len(_sources()) == len(_modules()) + 1  # + chip_smoke.py
 
 
+@pytest.mark.parametrize("rel", [
+    "ops/flash_attention.py", "ops/ring_attention.py", "data/synthetic.py",
+    "trainer/tasks.py", "trainer/optimizers.py", "trainer/train_state.py",
+    "trainer/train_step.py",
+], ids=lambda r: r.replace("/", "."))
+def test_scans_cover_the_training_modules(rel):
+    """The training slice's modules are among those both scans walk."""
+    name = "frl_distributed_ml_scaffold_tpu_torch." + rel[:-3].replace("/", ".")
+    assert name in _modules()
+    assert PORT_DIR / rel in _sources()
+
+
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
 def test_no_jax_import_in_the_port(path):
     tree = ast.parse(path.read_text())
@@ -102,6 +114,46 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     out = generate(model, [[1, 2, 3]], max_new_tokens=2, temperature=0.0,
                    device="cpu")
     assert tuple(out.shape) == (1, 5)
+
+
+def test_training_entry_points_default_to_cuda_and_raise_without_a_card():
+    _no_card()
+    from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
+        GPTConfig,
+        OptimizerConfig,
+        TrainerConfig,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.models.gpt import GPT
+    from frl_distributed_ml_scaffold_tpu_torch.precision import get_policy
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.optimizers import (
+        make_optimizer,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.tasks import make_lm_loss
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.train_state import (
+        TrainState,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.train_step import (
+        make_eval_step,
+        make_train_step,
+    )
+
+    cfg = GPTConfig(vocab_size=64, num_layers=1, num_heads=2, hidden_dim=64,
+                    seq_len=32, attention="flash")
+    model = GPT(cfg, get_policy("fp32"), device="cpu")
+    tx, _ = make_optimizer(OptimizerConfig(), TrainerConfig())
+    params = dict(model.named_parameters())
+    loss = make_lm_loss(model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TrainState.create(params, tx)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_train_step(loss, tx, get_policy("fp32"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_eval_step(loss, get_policy("fp32"))
+    state = TrainState.create(params, tx, device="cpu")
+    step = make_train_step(loss, tx, get_policy("fp32"), device="cpu")
+    tokens = torch.randint(0, 64, (2, 33))
+    state, metrics = step(state, {"tokens": tokens})
+    assert state.step == 1 and torch.isfinite(metrics["loss"])
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["repo", "script_alone"])

@@ -7,7 +7,8 @@ none; there, skip the repository conftest (which sets up JAX):
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_kernels_cuda.py
 
-Tolerances as in test_torch_decode_attention.py: fp32 1e-5, bf16 2e-2.
+Tolerances as in test_torch_decode_attention.py: fp32 1e-5, bf16 2e-2;
+the flash kernels as in chip_smoke.py (relative to the output's scale).
 Caches are poisoned with chip_smoke.py's helper, so both hold the kernels
 to one rule.
 """
@@ -182,3 +183,84 @@ def test_quant_paged_kernels_match_plain_versions(op, fmt, dtype):
         dec = tda.paged_decode_attention(q[:, 0].contiguous(), k, v,
                                          kv_len - 4, tables, **sc)
         assert torch.equal(got[:, 0], dec)
+
+
+# ------------------------------------------------------ flash attention
+
+# (B, T, H, D): a T that is not a multiple of the kernels' 64-row tile,
+# and the three head dims the kernels take.
+FLASH_SHAPES = [(2, 200, 3, 32), (2, 136, 2, 64), (1, 72, 2, 128)]
+# As a fraction of max(1, max|plain|), and as chip_smoke.py's FLASH_TOL:
+# bf16 rounds the output and P (dS for dQ) at other points than the plain
+# version; fp32 differs in summation order only.
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _flash_close(got, want, dtype):
+    scale = max(1.0, float(want.float().abs().max()))
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=FLASH_TOL[dtype] * scale, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=lambda s: f"T{s[1]}_D{s[3]}")
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernels_match_plain_versions(dtype, shape, causal):
+    """On the card: the forward, dQ and dK/dV kernels against the plain
+    versions, reading (B, H, T, D) views of (B, T, H, D) tensors through
+    strides; each wrapper counts one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from frl_distributed_ml_scaffold_tpu_torch.ops import flash_attention as fa
+
+    tdt = getattr(torch, dtype)
+    rng = np.random.default_rng(8)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to("cuda", tdt).transpose(1, 2) for _ in range(4))
+    before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+              fa.flash_bwd_dkv.launches)
+    o, lse = fa.flash_fwd(q, k, v, causal=causal)
+    o_ref, lse_ref = fa.dense_fwd_lse(q, k, v, causal=causal)
+    dq = fa.flash_bwd_dq(q, k, v, o_ref, lse_ref, do, causal=causal)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, o_ref, lse_ref, do, causal=causal)
+    want = fa.dense_bwd_lse(q, k, v, o_ref, lse_ref, do, causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    _flash_close(o, o_ref, dtype)
+    _flash_close(lse, lse_ref, "float32")
+    for got, ref in zip((dq, dk, dv), want):
+        _flash_close(got, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_function_runs_the_kernels(dtype):
+    """On the card: the differentiable router launches the forward kernel,
+    then dQ and dK/dV in the backward, and its gradients agree with the
+    plain backward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from frl_distributed_ml_scaffold_tpu_torch.ops import flash_attention as fa
+
+    tdt = getattr(torch, dtype)
+    rng = np.random.default_rng(9)
+    shape = (2, 128, 4, 64)
+    q, k, v, w = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to("cuda", tdt) for _ in range(4))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+              fa.flash_bwd_dkv.launches)
+    o = fa.flash_attention(*leaves, causal=True)
+    grads = torch.autograd.grad(o, leaves, w)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    bhtd = [x.transpose(1, 2) for x in (q, k, v)]
+    o_ref, lse_ref = fa.dense_fwd_lse(*bhtd, causal=True)
+    want = fa.dense_bwd_lse(*bhtd, o_ref, lse_ref, w.transpose(1, 2),
+                            causal=True)
+    _flash_close(o, o_ref.transpose(1, 2), dtype)
+    for got, ref in zip(grads, want):
+        _flash_close(got, ref.transpose(1, 2), dtype)
