@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Drive the PyTorch port's serving and training paths once on one NVIDIA
-GPU.
+"""Drive the PyTorch port's serving and training paths (GPT-2 and
+ResNet-50) once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -78,8 +78,33 @@ no final line):
    to 2 layers, through the kernels (``attention=flash``) and through the
    plain path (``attention=dense``) from the same weights and batch, fp32
    and then bf16_mixed: losses, every gradient and the params after it.
-11. ``phase_seconds`` (the build, each phase above and the whole run),
-   the ``kernels`` line (nine kernels) and, last, ``{"ok": true,
+11. bn_kernel_checks / bn_kernel_timings: the two BatchNorm-backward
+   kernels (``csrc/fused_bn.cu``: sums, dx) against their plain versions
+   and, chained, against ``fallback_bwd``, bf16 and fp32, random gamma,
+   at the rn50 path's (M, C) for the stem (3211264, 64), stage 1
+   (802816, 256) and stage 4 (12544, 2048), and a ragged (12347, 100);
+   timed beside their byte bounds and ``native_batch_norm_backward``.
+   adamw_kernel_checks / adamw_kernel_timings: the AdamW kernel
+   (``csrc/fused_adamw.cu``) against ``adamw_math`` on leaves of
+   2359296, 2048000, 65536 and 65539 elements; timed beside its bound
+   (28 bytes an element) and ``torch._fused_adamw_``.
+12. rn50_path: ``imagenet_rn50_ddp`` with ``model.fused_bn=true
+   data.global_batch_size=256`` at full width and depth (seeded weights,
+   bf16_mixed, the recipe's SGD with warmup, synthetic ImageNet batches
+   on the card before the timed window): one warm-up step (lr 0: params
+   unchanged, every running statistic moved) and three timed steps;
+   loss, accuracy, grad_norm and lr per step, step seconds, images/s,
+   FLOPs (``FlopCounterMode``) and their share of the bf16 peak, peak
+   memory; each step launches each BN kernel 53 times and no other
+   kernel. rn50_profile: one more step under ``torch.profiler``.
+   rn50_adamw_path: the same with ``optimizer.name=fused_adamw``, two
+   timed steps, the AdamW kernel 42 times per step.
+13. fp32_rn50_check: one step of ResNet-50 (64 px, batch 8) through the
+   kernels and through the plain path from the same weights and batch,
+   fp32 and bf16_mixed, SGD and fused_adamw: loss, every gradient,
+   batch_stats and the params after it.
+14. ``phase_seconds`` (the build, each phase above and the whole run),
+   the ``kernels`` line (twelve kernels) and, last, ``{"ok": true,
    "device": ...}``.
 
 Every launch count is set to 0 just before each path runs and read just
@@ -560,6 +585,9 @@ COUNTERS = [
     ("flash_attention_bwd_dq", "flash_attention", "flash_bwd_dq", "launches"),
     ("flash_attention_bwd_dkv", "flash_attention", "flash_bwd_dkv",
      "launches"),
+    ("bn_bwd_sums", "fused_bn", "bn_sums", "launches"),
+    ("bn_bwd_dx", "fused_bn", "bn_dx", "launches"),
+    ("fused_adamw", "fused_adamw", "adamw_kernel", "launches"),
 ]
 
 
@@ -1204,7 +1232,8 @@ def _step_fn(cfg, loss_fn, tx, policy):
     return make_train_step(
         loss_fn, tx, policy, seed=t.seed, grad_accum=t.grad_accum,
         remat=t.remat, ema_decay=t.ema_decay,
-        offload_opt_state=t.offload_opt_state, mesh=cfg.mesh, device="cuda")
+        offload_opt_state=t.offload_opt_state, mesh=cfg.mesh,
+        parallel=cfg.parallel, device="cuda")
 
 
 def train_flops(cfg, n_params: int) -> dict:
@@ -1431,6 +1460,589 @@ def fp32_train_phase(sd) -> dict:
     return report
 
 
+# ---------------------------------------------------------------- resnet
+
+# (M, C) of the BatchNorm layers the rn50 path gives the backward kernels
+# at batch 256: the stem, a stage-1 expansion and stage 4's widest; plus a
+# ragged shape (M not a multiple of any row step, C not a multiple of the
+# 16-byte vector, so the one-element path runs).
+BN_SHAPES = {"stem": (3211264, 64), "stage1": (802816, 256),
+             "stage4": (12544, 2048), "ragged": (12347, 100)}
+BN_EPS = 1e-5
+# BN kernels vs their plain versions, as a fraction of max(1, max|plain|).
+# Both compute in fp32 from the same inputs; they differ in summation
+# order (over up to 3.2M rows for the sums) and rsqrtf against
+# torch.rsqrt. dx in bf16 may round the other way: one bf16 ulp is 2^-7
+# relative at most.
+BN_TOL = {"sums": 1e-5, torch.bfloat16: 2 ** -7, torch.float32: 1e-5}
+# The AdamW kernel vs adamw_math, absolute on p', m' and v' (values of
+# order 1): IEEE operations in the same order; the plain version divides
+# by a host scalar as a multiply by its reciprocal (PyTorch's rule), 1 ulp
+# apart.
+ADAMW_TOL = 1e-6
+# Leaves of the path (numel): the stage-4 3x3 conv, the Dense head, the
+# smallest that takes the kernel, and a ragged one (n % 4 != 0).
+ADAMW_SIZES = {"stage4_conv3x3": 2359296, "dense": 2048000,
+               "min_kernel": 65536, "ragged": 65539}
+ADAMW_HYPER = dict(b1=0.9, b2=0.999, eps=1e-8, wd=1e-4)
+RN50_OVERRIDES = ["model.fused_bn=true", "data.global_batch_size=256"]
+RN50_ADAMW_OVERRIDES = RN50_OVERRIDES + ["optimizer.name=fused_adamw"]
+# Timed steps after one warm-up step (step 0, lr 0 under the recipe's
+# 1565-step warmup).
+RN50_STEPS, RN50_ADAMW_STEPS = 3, 2
+# Per step on the rn50 path: one sums and one dx launch per BatchNorm
+# (53 in ResNet-50); the AdamW kernel once per leaf of >= 65536 elements
+# (42 of the 161).
+RN50_BNS, RN50_LEAVES, RN50_BIG_LEAVES = 53, 161, 42
+
+
+def bn_inputs(gen, m: int, c: int, dtype):
+    """x (per-channel offsets and spreads), dy, a random scale (gamma,
+    some negative) in ``dtype`` and x's fp32 batch statistics, as the
+    forward leaves them."""
+    from frl_distributed_ml_scaffold_tpu_torch.ops import fused_bn as fb
+
+    shift = torch.randn(c, generator=gen, device="cuda")
+    spread = torch.rand(c, generator=gen, device="cuda") * 2 + 0.5
+    x = (torch.randn((m, c), generator=gen, device="cuda") * spread
+         + shift).to(dtype)
+    dy = torch.randn((m, c), generator=gen, device="cuda").to(dtype)
+    scale = (torch.rand(c, generator=gen, device="cuda") * 2 - 0.5).to(dtype)
+    bias = torch.zeros(c, device="cuda", dtype=dtype)
+    _, mean, var = fb.bn_train_forward(x, scale, bias, BN_EPS, dtype)
+    return x, dy, scale, mean, var
+
+
+def bn_held(what: str, got, want, tol: float) -> float:
+    torch.cuda.synchronize()
+    scale = max(1.0, want.float().abs().max().item())
+    err = (got.float() - want.float()).abs().max().item()
+    check(math.isfinite(err) and err <= tol * scale,
+          f"{what}: max abs err {err} > {tol} x {scale}")
+    return err
+
+
+def bn_checks(gen) -> list:
+    """Both BN kernels against their plain versions at ``BN_SHAPES``, bf16
+    and fp32, random gamma; then both chained (dx from the kernel's own
+    sums) against ``fallback_bwd``."""
+    from frl_distributed_ml_scaffold_tpu_torch.ops import fused_bn as fb
+
+    out = []
+    for label, (m, c) in BN_SHAPES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            x, dy, scale, mean, var = bn_inputs(gen, m, c, dtype)
+            dbeta, dgamma = fb.bn_sums(x, dy, mean, var, BN_EPS)
+            ref_b, ref_g = fb.sums_plain(x, dy, mean, var, BN_EPS)
+            dx = fb.bn_dx(x, dy, scale, mean, var, ref_g, ref_b, BN_EPS, m)
+            ref_dx = fb.dx_plain(x, dy, scale, mean, var, ref_g, ref_b,
+                                 BN_EPS, m)
+            chained = fb.bn_dx(x, dy, scale, mean, var, dgamma, dbeta,
+                               BN_EPS, m)
+            want = fb.fallback_bwd(x, dy, scale, mean, var, BN_EPS)
+            tag = f"bn {label} {dtype}"
+            out.append({
+                "label": label, "M": m, "C": c,
+                "dtype": str(dtype).replace("torch.", ""),
+                "sums_tol": BN_TOL["sums"], "dx_tol": BN_TOL[dtype],
+                "dbeta_err": bn_held(f"{tag} dbeta", dbeta, ref_b,
+                                     BN_TOL["sums"]),
+                "dgamma_err": bn_held(f"{tag} dgamma", dgamma, ref_g,
+                                      BN_TOL["sums"]),
+                "dx_err": bn_held(f"{tag} dx", dx, ref_dx, BN_TOL[dtype]),
+                "chained_dx_err": bn_held(f"{tag} chained dx", chained,
+                                          want[0], BN_TOL[dtype]),
+            })
+            del x, dy, scale, mean, var, dbeta, dgamma, dx, ref_dx, chained
+            del want
+    return out
+
+
+def bn_bound(m: int, c: int, dtype, entry: str) -> dict:
+    """Bytes: x and dy read once (and dx written once, for dx), and the
+    per-channel vectors. Operations: 4 (sums) or 6 (dx) flops an element
+    on the fp32 CUDA cores."""
+    elem = torch.finfo(dtype).bits // 8
+    n = m * c
+    n_tensors, per_elem = {"bn_bwd_sums": (2, 4), "bn_bwd_dx": (3, 6)}[entry]
+    nbytes = n_tensors * n * elem + 6 * 4 * c
+    flops = per_elem * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def time_bn(gen, m: int, c: int) -> dict:
+    """Both kernels, their plain versions and the library's
+    ``native_batch_norm_backward`` (both passes in one call) at (M, C),
+    bf16 as the path runs them. Every input set is at least 100 MB, past
+    the 50 MB L2, so one set per timed call finds it cold."""
+    from frl_distributed_ml_scaffold_tpu_torch.ops import fused_bn as fb
+
+    x, dy, scale, mean, var = bn_inputs(gen, m, c, torch.bfloat16)
+    dbeta, dgamma = fb.sums_plain(x, dy, mean, var, BN_EPS)
+    invstd = torch.rsqrt(var + BN_EPS)
+    weight = scale.float()
+
+    def library(_):
+        torch.ops.aten.native_batch_norm_backward(
+            dy, x, weight, None, None, mean, invstd, True, BN_EPS,
+            [True, True, True])
+
+    ops = {
+        "bn_bwd_sums": (lambda _: fb.bn_sums(x, dy, mean, var, BN_EPS),
+                        lambda _: fb.sums_plain(x, dy, mean, var, BN_EPS)),
+        "bn_bwd_dx": (lambda _: fb.bn_dx(x, dy, scale, mean, var, dgamma,
+                                         dbeta, BN_EPS, m),
+                      lambda _: fb.dx_plain(x, dy, scale, mean, var, dgamma,
+                                            dbeta, BN_EPS, m)),
+    }
+    out = {}
+    for name, (kernel, plain) in ops.items():
+        out[name] = {"M": m, "C": c, "dtype": "bfloat16",
+                     **timed(kernel, plain, library, layers=1),
+                     **bn_bound(m, c, torch.bfloat16, name),
+                     "library_note": ("aten native_batch_norm_backward: dx, "
+                                      "dgamma and dbeta together")}
+    return out
+
+
+def bn_kernel_phase(gen) -> dict:
+    torch.cuda.empty_cache()
+    checks = bn_checks(gen)
+    emit("bn_kernel_checks", checks)
+    timings = {label: time_bn(gen, *BN_SHAPES[label])
+               for label in ("stem", "stage1", "stage4")}
+    emit("bn_kernel_timings", timings)
+    torch.cuda.empty_cache()
+    path = [e for e in checks
+            if e["dtype"] == "bfloat16" and e["label"] != "ragged"]
+    # The row's time: the stem, the path's largest BatchNorm.
+    return {
+        "bn_bwd_sums": {"max_abs_err": max(max(e["dbeta_err"],
+                                               e["dgamma_err"]) for e in path),
+                        "timing": timings["stem"]["bn_bwd_sums"]},
+        "bn_bwd_dx": {"max_abs_err": max(e["dx_err"] for e in path),
+                      "timing": timings["stem"]["bn_bwd_dx"]},
+    }
+
+
+def adamw_leaf(gen, n: int):
+    """g, m, v (> 0) and p of one leaf, fp32, at the scales of a step."""
+    g = torch.randn(n, generator=gen, device="cuda") * 1e-2
+    m = torch.randn(n, generator=gen, device="cuda") * 1e-2
+    v = torch.rand(n, generator=gen, device="cuda") * 1e-4
+    p = torch.randn(n, generator=gen, device="cuda") * 0.05
+    return g, m, v, p
+
+
+def adamw_scalars(count: int = 5, lr: float = 1e-3):
+    """(lr, bc1, bc2) of the step taken at ``count``."""
+    t = count + 1
+    return lr, 1.0 - ADAMW_HYPER["b1"] ** t, 1.0 - ADAMW_HYPER["b2"] ** t
+
+
+def adamw_checks(gen) -> list:
+    """The AdamW kernel against ``adamw_math`` on the same leaf, at each
+    of ``ADAMW_SIZES``: p', m' and v'."""
+    from frl_distributed_ml_scaffold_tpu_torch.ops import fused_adamw as fa
+
+    out = []
+    lr, bc1, bc2 = adamw_scalars()
+    for label, n in ADAMW_SIZES.items():
+        g, m, v, p = adamw_leaf(gen, n)
+        want = fa.adamw_math(g, m, v, p, lr, bc1, bc2, **ADAMW_HYPER)
+        fa.adamw_kernel(p, g, m, v, lr, bc1, bc2, **ADAMW_HYPER)
+        torch.cuda.synchronize()
+        errs = {name: (got - ref).abs().max().item()
+                for name, got, ref in zip(("p", "m", "v"), (p, m, v), want)}
+        for name, err in errs.items():
+            check(math.isfinite(err) and err <= ADAMW_TOL,
+                  f"adamw {label} {name}: max abs err {err} > {ADAMW_TOL}")
+        out.append({"label": label, "numel": n, "tol": ADAMW_TOL,
+                    **{f"{k}_err": e for k, e in errs.items()}})
+    return out
+
+
+def time_adamw(gen, n: int, layers: int = 8) -> dict:
+    """The kernel, ``adamw_math`` and the library's ``torch._fused_adamw_``
+    on ``layers`` leaves of ``n`` elements per timed call (28 n bytes
+    each: 8 leaves of the path's largest outrun the L2). Each call moves
+    its leaf one step further."""
+    from frl_distributed_ml_scaffold_tpu_torch.ops import fused_adamw as fa
+
+    lr, bc1, bc2 = adamw_scalars()
+    leaves = [adamw_leaf(gen, n) for _ in range(layers)]
+    steps = [torch.tensor(6.0, device="cuda") for _ in range(layers)]
+    hp = ADAMW_HYPER
+
+    def kernel(i):
+        g, m, v, p = leaves[i]
+        fa.adamw_kernel(p, g, m, v, lr, bc1, bc2, **hp)
+
+    def library(i):
+        g, m, v, p = leaves[i]
+        torch._fused_adamw_([p], [g], [m], [v], [], [steps[i]], lr=lr,
+                            beta1=hp["b1"], beta2=hp["b2"],
+                            weight_decay=hp["wd"], eps=hp["eps"],
+                            amsgrad=False, maximize=False)
+
+    t = timed(kernel, lambda i: fa.adamw_math(*leaves[i], lr, bc1, bc2, **hp),
+              library, layers=layers)
+    nbytes, flops = 28 * n, 16 * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    return {"numel": n, **t, "bytes": nbytes, "flops": flops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_note": "torch._fused_adamw_ on the same leaf"}
+
+
+def adamw_kernel_phase(gen) -> dict:
+    torch.cuda.empty_cache()
+    checks = adamw_checks(gen)
+    emit("adamw_kernel_checks", checks)
+    timings = {label: time_adamw(gen, ADAMW_SIZES[label])
+               for label in ("stage4_conv3x3", "dense")}
+    emit("adamw_kernel_timings", timings)
+    torch.cuda.empty_cache()
+    path = [e for e in checks if e["label"] in timings]
+    return {"fused_adamw": {
+        "max_abs_err": max(max(e["p_err"], e["m_err"], e["v_err"])
+                           for e in path),
+        "timing": timings["stage4_conv3x3"]}}
+
+
+def rn50_setup(cfg, gen, weights=None):
+    """Model, policy, optimizer, schedule, state and loss of a ResNet
+    ``cfg`` on the card; weights ``(params, extras)`` from
+    ``init_resnet_params`` on ``gen`` unless given."""
+    from frl_distributed_ml_scaffold_tpu_torch.models import create_model
+    from frl_distributed_ml_scaffold_tpu_torch.models.convert import (
+        init_resnet_params,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.precision import get_policy
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.optimizers import (
+        make_optimizer,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.tasks import make_loss_fn
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.train_state import (
+        TrainState,
+    )
+
+    policy = get_policy(cfg.precision)
+    model = create_model(cfg.model, policy, in_channels=cfg.data.channels,
+                         device="cuda")
+    if weights is None:
+        weights = init_resnet_params(cfg.model, gen,
+                                     in_channels=cfg.data.channels)
+    params, extras = weights
+    model.load_state_dict({**params, **extras["batch_stats"]})
+    tx, schedule = make_optimizer(cfg.optimizer, cfg.trainer)
+    state = TrainState.create(params, tx, extras, device="cuda")
+    return (model, policy, tx, schedule, state,
+            make_loss_fn(model, cfg.data.name))
+
+
+def rn50_batches(cfg, n: int) -> list:
+    """``n`` synthetic ImageNet batches of the global batch, on the card
+    before any timed window."""
+    from frl_distributed_ml_scaffold_tpu_torch.data.imagenet import ImageNet
+
+    data = ImageNet(cfg.data, split="train")
+    gb = cfg.data.global_batch_size
+    return [{k: torch.from_numpy(v).to("cuda")
+             for k, v in data.batch(s, gb).items()} for s in range(n)]
+
+
+def rn50_flops(loss_fn, policy, state, batch) -> int:
+    """FLOPs of one forward and backward (convolutions and the head),
+    counted by ``FlopCounterMode`` over one gradient pass."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.train_step import (
+        make_grad_fn,
+    )
+
+    grad_fn = make_grad_fn(loss_fn, policy, device="cuda")
+    with FlopCounterMode(display=False) as counter:
+        grad_fn(state.params, state.extras, batch)
+    return counter.get_total_flops()
+
+
+def rn50_phase(gen, card: str, overrides: list, steps: int, batches: list,
+               profiled: bool) -> tuple:
+    """``imagenet_rn50_ddp`` with ``overrides`` at full width and depth:
+    one warm-up step (step 0, lr 0: params unchanged, every running
+    statistic moved) and ``steps`` timed steps of 256 images. Each step
+    launches each BN kernel 53 times, the AdamW kernel 42 times under
+    fused_adamw, and no other kernel of the port. Then, if ``profiled``,
+    one step under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from frl_distributed_ml_scaffold_tpu_torch.config import (
+        apply_overrides,
+        get_config,
+    )
+
+    cfg = apply_overrides(get_config("imagenet_rn50_ddp"), overrides)
+    model, policy, tx, schedule, state, loss_fn = rn50_setup(cfg, gen)
+    step = _step_fn(cfg, loss_fn, tx, policy)
+    n_params = sum(p.numel() for p in state.params.values())
+    big = sum(p.numel() >= 65536 for p in state.params.values())
+    n_bn = len(model.batch_norms())
+    check(len(state.params) == RN50_LEAVES and big == RN50_BIG_LEAVES
+          and n_bn == RN50_BNS,
+          f"rn50: {len(state.params)} leaves, {big} of >= 65536 elements, "
+          f"{n_bn} BatchNorms")
+    per_step = {"bn_bwd_sums": RN50_BNS, "bn_bwd_dx": RN50_BNS}
+    if cfg.optimizer.name == "fused_adamw":
+        per_step["fused_adamw"] = RN50_BIG_LEAVES
+    flops = rn50_flops(loss_fn, policy, state, batches[0])
+    start = {k: p.clone() for k, p in state.params.items()}
+    stats0 = {k: s.clone() for k, s in state.extras["batch_stats"].items()}
+    gb = cfg.data.global_batch_size
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    rows = []
+    for s in range(1 + steps):
+        before = read_launches()
+        t0 = time.perf_counter()
+        state, m = step(state, batches[s % len(batches)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = read_launches()
+        for name in after:
+            n = after[name] - before[name]
+            check(n == per_step.get(name, 0),
+                  f"{cfg.name} step {s}: {name} launched {n} times, want "
+                  f"{per_step.get(name, 0)}")
+        rec = {"step": s, "lr": schedule(s), "step_s": wall,
+               "images_per_s": gb / wall,
+               **{k: float(v) for k, v in m.items()}}
+        check(math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"]),
+              f"rn50 step {s}: non-finite loss or grad_norm {rec}")
+        rows.append(rec)
+        if s == 0:
+            check(rec["lr"] == 0.0, "rn50 step 0 lr is not 0 under warmup")
+            check(all(torch.equal(state.params[k], p)
+                      for k, p in start.items()),
+                  "rn50: params moved at step 0 (lr 0)")
+            still = [k for k, v in stats0.items()
+                     if torch.equal(state.extras["batch_stats"][k], v)]
+            check(not still, f"rn50: batch_stats {still[:4]} did not move at "
+                  "step 0")
+        elif s == 1:
+            check(any(not torch.equal(state.params[k], p)
+                      for k, p in start.items()),
+                  "rn50: params did not move at step 1")
+            del start
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(peak < 80e9, f"rn50: {peak} bytes allocated at peak")
+    step_s = statistics.median(r["step_s"] for r in rows[1:])
+    report = {
+        "card": card, "config": cfg.name, "overrides": overrides,
+        "policy": cfg.precision.policy, "depth": cfg.model.depth,
+        "image_size": cfg.data.image_size, "global_batch": gb,
+        "optimizer": {"name": cfg.optimizer.name,
+                      "lr": cfg.optimizer.learning_rate,
+                      "warmup_steps": cfg.optimizer.warmup_steps,
+                      "schedule": cfg.optimizer.schedule,
+                      "momentum": cfg.optimizer.momentum,
+                      "weight_decay": cfg.optimizer.weight_decay},
+        "params": n_params, "leaves": len(state.params),
+        "batch_norms": n_bn, "steps": rows, "step_s_median": step_s,
+        "images_per_s": gb / step_s, "flops_per_step": flops,
+        "flops_counted_by": "FlopCounterMode over one forward and backward",
+        "model_tflops_per_s": flops / step_s / 1e12,
+        "share_of_bf16_peak": flops / step_s / H100_BF16_PEAK,
+        "max_memory_allocated_bytes": peak,
+        "launches": counts, "launches_per_step": per_step,
+        "params_unchanged_after_step0": True,
+        "batch_stats_moved_at_step0": True,
+        "params_changed_after_step1": True,
+    }
+    profile_report = None
+    if profiled:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, m = step(state, batches[-1])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        profile_report = {"steps": 1, "step_s": wall,
+                          **device_profile(prof, wall)}
+        del prof
+    del model, state, step
+    torch.cuda.empty_cache()
+    return report, counts, profile_report
+
+
+class PlainFusedAdamW:
+    """``FusedAdamW``'s update with every leaf through ``adamw_math``:
+    the plain version of the optimizer, for ``fp32_rn50_check``."""
+
+    def __init__(self, tx):
+        self.tx, self.init = tx, tx.init
+
+    def update(self, grads, state, params, norm=None):
+        from frl_distributed_ml_scaffold_tpu_torch.ops.fused_adamw import (
+            adamw_math,
+        )
+
+        tx = self.tx
+        lr, bc1, bc2 = tx.scalars(state["count"])
+        for k, p in params.items():
+            mu, nu = state["mu"][k], state["nu"][k]
+            new = adamw_math(grads[k], mu, nu, p, lr, bc1, bc2, b1=tx.b1,
+                             b2=tx.b2, eps=tx.eps, wd=tx.weight_decay)
+            for t, n in zip((p, mu, nu), new):
+                t.copy_(n)
+        state["count"] += 1
+        return state
+
+
+# fp32_rn50_check, kernels vs the plain path (autograd through the plain
+# forward; adamw_math for fused_adamw). The loss is one forward of
+# identical ops: 1e-6 / 1e-3 relative. A gradient is held to tol * max|g|
+# of its tensor + floor * (largest |g| of any tensor): the two backward
+# formulas round differently (the closed form against autograd through
+# E[x^2] - E[x]^2) and the difference grows 53 BatchNorms deep; under
+# bf16_mixed both round every dx to bf16, at other values. batch_stats
+# come from identical forwards: 1e-6 relative. The optimizer kernel is
+# held on the kernel run's own gradients against the plain optimizer on
+# the same gradients: 1e-6 absolute (ADAMW_TOL). End to end, SGD's first
+# step moves a param by lr (1 + momentum) times its gradient, so two
+# params differ by at most 2 lr times the gradient limit; Adam's first
+# step is about lr sign(g), and a small gradient's sign is rounding noise,
+# so there only the 2 lr bound holds.
+RN50_CHECK_TOL = {
+    "fp32": {"loss": 1e-6, "grad": 1e-3, "floor": 1e-5, "stats": 1e-6},
+    "bf16_mixed": {"loss": 1e-3, "grad": 1e-1, "floor": 1e-2, "stats": 1e-6},
+}
+RN50_CHECK = ["data.image_size=64", "data.global_batch_size=8",
+              "optimizer.warmup_steps=0"]
+
+
+def _rel_check(tag: str, got: dict, want: dict, tol: float,
+               floor: float = 0.0) -> float:
+    """Each tensor of ``got`` within ``tol * max|want| + floor`` of
+    ``want``'s; returns the worst error over its limit."""
+    worst = 0.0
+    for name, w in want.items():
+        err = (got[name] - w).abs().max().item()
+        lim = tol * w.abs().max().item() + floor
+        check(err <= lim, f"{tag} {name} differs by {err} > {lim}")
+        worst = max(worst, err / max(lim, 1e-30))
+    return worst
+
+
+def fp32_rn50_phase(gen) -> dict:
+    """One step of ResNet-50 (full width and depth, 64 px, batch 8,
+    warmup off) from the same weights and batch through the kernels
+    (``model.fused_bn=true``; the AdamW kernel) and through the plain
+    path (``fused_bn=false``; ``adamw_math``), under fp32 and bf16_mixed,
+    with SGD and with fused_adamw: loss, every gradient, batch_stats, and
+    the params after the update (``RN50_CHECK_TOL``)."""
+    from frl_distributed_ml_scaffold_tpu_torch.config import (
+        apply_overrides,
+        get_config,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.models.convert import (
+        init_resnet_params,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.train_step import (
+        make_grad_fn,
+    )
+
+    base = apply_overrides(get_config("imagenet_rn50_ddp"), RN50_CHECK)
+    weights = init_resnet_params(base.model, gen)
+    batch = rn50_batches(base, 1)[0]
+    report = {"cut": "224 -> 64 px, batch 8, full width and depth",
+              "allow_tf32": False, "tol": RN50_CHECK_TOL,
+              "optimizer_tol": ADAMW_TOL}
+    for pol in ("fp32", "bf16_mixed"):
+        tol = RN50_CHECK_TOL[pol]
+        for opt in ("sgd", "fused_adamw"):
+            runs = {}
+            for fused in (True, False):
+                cfg = apply_overrides(base, [
+                    f"precision.policy={pol}", f"optimizer.name={opt}",
+                    f"model.fused_bn={str(fused).lower()}"])
+                model, policy, tx, schedule, state, loss_fn = rn50_setup(
+                    cfg, gen, weights)
+                if opt == "fused_adamw" and not fused:
+                    tx = PlainFusedAdamW(tx)
+                grad_fn = make_grad_fn(loss_fn, policy, device="cuda")
+                reset_launches()
+                loss, _, extras, grads = grad_fn(state.params, state.extras,
+                                                 batch)
+                before = {k: p.clone() for k, p in state.params.items()}
+                tx.update(grads, state.opt_state, state.params)
+                counts = read_launches()
+                want = {"bn_bwd_sums": RN50_BNS if fused else 0,
+                        "bn_bwd_dx": RN50_BNS if fused else 0,
+                        "fused_adamw": (RN50_BIG_LEAVES if fused
+                                        and opt == "fused_adamw" else 0)}
+                check(all(counts[k] == n for k, n in want.items()),
+                      f"fp32_rn50_check {pol} {opt} fused={fused}: launches "
+                      f"{counts}, want {want}")
+                runs[fused] = {"loss": float(loss), "grads": grads,
+                               "stats": extras["batch_stats"],
+                               "params": state.params, "lr": schedule(0)}
+                if fused and opt == "fused_adamw":
+                    # The plain optimizer on the kernel run's gradients.
+                    PlainFusedAdamW(tx).update(grads, tx.init(before),
+                                               before)
+                    runs["optimizer_ref"] = before
+                del model, state, before
+            k_run, p_run = runs[True], runs[False]
+            lr = p_run["lr"]
+            loss_rel = abs(k_run["loss"] - p_run["loss"]) / abs(p_run["loss"])
+            tag = f"fp32_rn50_check {pol} {opt}"
+            check(loss_rel <= tol["loss"],
+                  f"{tag}: loss {k_run['loss']} vs {p_run['loss']}")
+            floor = tol["floor"] * max(g.abs().max().item()
+                                       for g in p_run["grads"].values())
+            entry = {
+                "loss_kernels": k_run["loss"], "loss_plain": p_run["loss"],
+                "loss_rel_diff": loss_rel, "lr": lr,
+                "worst_grad_err_over_limit": _rel_check(
+                    f"{tag}: grad", k_run["grads"], p_run["grads"],
+                    tol["grad"], floor),
+                "worst_batch_stats_err_over_limit": _rel_check(
+                    f"{tag}: batch_stats", k_run["stats"], p_run["stats"],
+                    tol["stats"], tol["stats"]),
+                "tensors": len(p_run["grads"]),
+            }
+            worst = 0.0
+            for name, p in p_run["params"].items():
+                dp = (k_run["params"][name] - p).abs().max().item()
+                g = p_run["grads"][name]
+                lim = 2 * lr * (
+                    (tol["grad"] * g.abs().max().item() + floor)
+                    if opt == "sgd" else 1.0) + 1e-6
+                check(dp <= lim, f"{tag}: param {name} after the update "
+                      f"differs by {dp} > {lim}")
+                worst = max(worst, dp)
+            entry["param_max_abs_diff"] = worst
+            if opt == "fused_adamw":
+                ref = runs["optimizer_ref"]
+                err = max((k_run["params"][k] - r).abs().max().item()
+                          for k, r in ref.items())
+                check(err <= ADAMW_TOL, f"{tag}: the AdamW kernel's params "
+                      f"differ from adamw_math's by {err} on the same grads")
+                entry["optimizer_vs_plain_same_grads"] = err
+            report[f"{pol}_{opt}"] = entry
+            del runs, k_run, p_run
+            torch.cuda.empty_cache()
+    return report
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -1516,6 +2128,30 @@ def main() -> int:
     emit("train_profile", profile)
     emit("fp32_train_check", timed_phase("fp32_train_check",
                                          fp32_train_phase, sd))
+    # The GPT weights are done with: the ResNet phases' peak memory is
+    # their own.
+    del sd
+    torch.cuda.empty_cache()
+    kern.update(timed_phase("bn_kernel", bn_kernel_phase, gen))
+    kern.update(timed_phase("adamw_kernel", adamw_kernel_phase, gen))
+    rn50_cfg = apply_overrides(get_config("imagenet_rn50_ddp"),
+                               RN50_OVERRIDES)
+    batches = timed_phase("rn50_data", rn50_batches, rn50_cfg,
+                          RN50_STEPS + 2)
+    report, counts, profile = timed_phase(
+        "rn50_path", rn50_phase, gen, card, RN50_OVERRIDES, RN50_STEPS,
+        batches, True)
+    launches.update({k: counts[k] for k in ("bn_bwd_sums", "bn_bwd_dx")})
+    emit("rn50_path", report)
+    emit("rn50_profile", profile)
+    report, counts, _ = timed_phase(
+        "rn50_adamw_path", rn50_phase, gen, card, RN50_ADAMW_OVERRIDES,
+        RN50_ADAMW_STEPS, batches, False)
+    launches["fused_adamw"] = counts["fused_adamw"]
+    emit("rn50_adamw_path", report)
+    del batches
+    emit("fp32_rn50_check", timed_phase("fp32_rn50_check", fp32_rn50_phase,
+                                        gen))
     # Where the script's time limit goes: each phase (a path's includes
     # its warm-up and profiled window) and the whole of main().
     seconds["main_total"] = time.perf_counter() - start
@@ -1540,7 +2176,10 @@ def main() -> int:
             ("flash_attention_bwd_dq", "flash_attention.cu",
              "flash_attention.py:188"),
             ("flash_attention_bwd_dkv", "flash_attention.cu",
-             "flash_attention.py:222")]
+             "flash_attention.py:222"),
+            ("bn_bwd_sums", "fused_bn.cu", "fused_bn.py:115"),
+            ("bn_bwd_dx", "fused_bn.cu", "fused_bn.py:140"),
+            ("fused_adamw", "fused_adamw.cu", "fused_adamw.py:56")]
     emit("kernels", [{
         "name": name,
         "route": "cuda",

@@ -12,6 +12,7 @@ from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
     OptimizerConfig,
     ParallelConfig,
     PrecisionConfig,
+    ResNetConfig,
     ServingConfig,
     TrainerConfig,
 )
@@ -25,6 +26,7 @@ __all__ = [
     "OptimizerConfig",
     "ParallelConfig",
     "PrecisionConfig",
+    "ResNetConfig",
     "ServingConfig",
     "TrainerConfig",
     "apply_overrides",

@@ -1,4 +1,5 @@
-"""The recipes the port runs, under the JAX package's names.
+"""The recipes the port runs, under the JAX package's names: GPT-2
+serving and training, and ResNet-50 training.
 
 Every section the port reads is kept (model, data, trainer, optimizer,
 mesh, parallel, precision, serving), with the JAX recipe's values. The
@@ -19,6 +20,7 @@ from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
     OptimizerConfig,
     ParallelConfig,
     PrecisionConfig,
+    ResNetConfig,
     TrainerConfig,
 )
 
@@ -85,10 +87,35 @@ def gpt2_long() -> ExperimentConfig:
     )
 
 
+def imagenet_rn50_ddp() -> ExperimentConfig:
+    """BASELINE config 2: ResNet-50 on ImageNet, data parallel (the DDP
+    equivalent), bf16_mixed; SGD with nesterov momentum, weight decay and
+    a cosine schedule after warmup, no grad clip. ``global_batch_size``
+    is the whole 16-chip run's."""
+    return ExperimentConfig(
+        name="imagenet_rn50_ddp",
+        model=ResNetConfig(depth=50, num_classes=1000),
+        data=DataConfig(
+            name="imagenet", global_batch_size=1024, image_size=224,
+            channels=3, num_classes=1000,
+        ),
+        trainer=TrainerConfig(total_steps=112590, log_every=100,
+                              eval_every=5000),
+        optimizer=OptimizerConfig(
+            name="sgd", learning_rate=0.4, momentum=0.9, weight_decay=1e-4,
+            schedule="cosine", warmup_steps=1565,
+        ),
+        mesh=MeshConfig(data=-1),
+        parallel=ParallelConfig(param_sharding="replicated"),
+        precision=PrecisionConfig(policy="bf16_mixed"),
+    )
+
+
 _RECIPES = {
     "gpt2_medium_zero1": gpt2_medium_zero1,
     "gpt2_medium_serve": gpt2_medium_serve,
     "gpt2_long": gpt2_long,
+    "imagenet_rn50_ddp": imagenet_rn50_ddp,
 }
 
 

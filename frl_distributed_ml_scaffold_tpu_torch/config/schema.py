@@ -1,9 +1,10 @@
 """Config schema of the port, as typed frozen dataclasses.
 
-Field-for-field copies of the JAX package's ``GPTConfig``, ``MoEConfig``,
-``ServingConfig``, ``PrecisionConfig``, ``OptimizerConfig``,
-``TrainerConfig``, ``DataConfig``, ``MeshConfig`` and ``ParallelConfig``,
-so one override string means the same thing to both packages. The port keeps its own copy: it imports
+Field-for-field copies of the JAX package's ``GPTConfig``,
+``ResNetConfig``, ``MoEConfig``, ``ServingConfig``, ``PrecisionConfig``,
+``OptimizerConfig``, ``TrainerConfig``, ``DataConfig``, ``MeshConfig``
+and ``ParallelConfig``, so one override string means the same thing to
+both packages. The port keeps its own copy: it imports
 nothing of the JAX package. Fields whose feature is not ported yet are
 kept (so recipes and overrides stay identical) and refused where they
 would take effect (``models/gpt.py``, ``serving/engine.py``), each with
@@ -70,8 +71,9 @@ class PrecisionConfig:
 @dataclass(frozen=True)
 class OptimizerConfig:
     """Optimizer and learning-rate schedule (``trainer/optimizers.py``).
-    The port runs ``adamw`` (with the global-norm clip); the others
-    raise, naming ROADMAP queue A item 10."""
+    The port runs ``adamw``, ``sgd`` (each with the optional global-norm
+    clip) and ``fused_adamw`` (``ops/fused_adamw.py``); the others raise,
+    naming ROADMAP queue A item 10."""
 
     name: str = "adamw"  # adamw | sgd | adam | adafactor | lion | fused_adamw
     learning_rate: float = 1e-3
@@ -122,7 +124,8 @@ class TrainerConfig:
 @dataclass(frozen=True)
 class DataConfig:
     """Input pipeline selection. The port has ``SyntheticLM``
-    (``data/synthetic.py``) for ``lm_synthetic``."""
+    (``data/synthetic.py``) for ``lm_synthetic`` and the synthetic
+    ``ImageNet`` (``data/imagenet.py``) for ``imagenet``."""
 
     name: str = "synthetic_mnist"
     global_batch_size: int = 128
@@ -215,12 +218,30 @@ class GPTConfig:
 
 
 @dataclass(frozen=True)
+class ResNetConfig:
+    family: str = "resnet"
+    depth: int = 50  # 10 | 18 | 34 | 50 | 101 | 152
+    num_classes: int = 1000
+    width_multiplier: int = 1
+    # "conv7" = the 7x7/s2 stem; "s2d" = the space-to-depth rewrite
+    # (refused by the port's model, ROADMAP queue A item 9).
+    stem: str = "conv7"
+    # Stem max-pool backward: "scatter" = autodiff (first max wins);
+    # "mask" = the compare-and-sum pass (refused by the port's model).
+    pool_grad: str = "scatter"
+    # Train-mode BatchNorm through the hand-written backward kernels
+    # (ops/fused_bn.py): the same forward, the backward as two passes.
+    fused_bn: bool = False
+
+
+@dataclass(frozen=True)
 class ExperimentConfig:
-    """The sections of a run config the port reads: the model, its
-    training (data, trainer, optimizer, mesh, parallel), precision and
-    serving. The JAX package's checkpoint and elastic sections, and its
-    ``workdir``, arrive with the training loop (ROADMAP queue A item
-    6)."""
+    """The sections of a run config the port reads: the model
+    (``GPTConfig`` or ``ResNetConfig``; ``models.create_model`` dispatches
+    on its ``family``), its training (data,
+    trainer, optimizer, mesh, parallel), precision and serving. The JAX
+    package's checkpoint and elastic sections, and its ``workdir``,
+    arrive with the training loop (ROADMAP queue A item 6)."""
 
     name: str = "experiment"
     model: Any = field(default_factory=GPTConfig)

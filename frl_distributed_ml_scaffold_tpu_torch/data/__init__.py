@@ -1,1 +1,2 @@
-"""Input data of the port: the synthetic LM batches (``synthetic.py``)."""
+"""Input data of the port: the synthetic LM and image batches
+(``synthetic.py``) and the ImageNet source (``imagenet.py``)."""

@@ -1,9 +1,13 @@
-"""Deterministic, learnable synthetic LM data: the port's copy of the
-JAX package's ``SyntheticLM`` (``data/synthetic.py``).
+"""Deterministic, learnable synthetic data: the port's copies of the
+JAX package's ``SyntheticImages`` and ``SyntheticLM``
+(``data/synthetic.py``).
 
-Tokens follow a noisy affine rule ``t+1 = (a*t + b) mod V``, so the
-next-token loss falls well below ``log(V)`` once a model learns it. A
-batch is a pure function of ``(seed, step, host_offset)``, made with
+- images: per-class prototype patterns plus Gaussian noise, so a
+  classifier can learn the label from the image;
+- LM: tokens follow a noisy affine rule ``t+1 = (a*t + b) mod V``, so
+  the next-token loss falls well below ``log(V)`` once a model learns it.
+
+A batch is a pure function of ``(seed, step, host_offset)``, made with
 numpy, and equals the JAX package's batch bit for bit.
 """
 
@@ -12,6 +16,30 @@ from __future__ import annotations
 import numpy as np
 
 from frl_distributed_ml_scaffold_tpu_torch.config.schema import DataConfig
+
+
+class SyntheticImages:
+    """Class-prototype images: ``x = prototype[label] + sigma * noise``,
+    NHWC float32."""
+
+    def __init__(self, cfg: DataConfig, *, split: str, sigma: float = 0.35):
+        self.cfg = cfg
+        self.sigma = sigma
+        self._seed = cfg.shuffle_seed + (0 if split == "train" else 7919)
+        proto_rng = np.random.default_rng(1234)  # shared by the splits
+        shape = (cfg.num_classes, cfg.image_size, cfg.image_size,
+                 cfg.channels)
+        self.prototypes = proto_rng.standard_normal(shape, dtype=np.float32)
+
+    def batch(self, step: int, batch_size: int, host_offset: int = 0) -> dict:
+        """``{"image": float32 [B, H, W, C], "label": int32 [B]}``."""
+        rng = np.random.default_rng((self._seed, step, host_offset))
+        labels = rng.integers(0, self.cfg.num_classes, size=batch_size)
+        noise = rng.standard_normal(
+            (batch_size,) + self.prototypes.shape[1:], dtype=np.float32
+        )
+        images = self.prototypes[labels] + self.sigma * noise
+        return {"image": images, "label": labels.astype(np.int32)}
 
 
 class SyntheticLM:

@@ -1,0 +1,97 @@
+// One-pass AdamW update of one parameter leaf, for Hopper (sm_90a). Built
+// with nvcc into a shared library with a plain C interface and loaded with
+// ctypes (ops/_build.py, ops/fused_adamw.py).
+//
+// Replaces the TPU kernel of frl_distributed_ml_scaffold_tpu/ops/
+// fused_adamw.py:
+//   frl_fused_adamw <- _kernel (launched by _update_leaf)
+// and computes _adamw_math over flat fp32 p, g, m, v, in place:
+//   m' = b1 m + (1 - b1) g
+//   v' = b2 v + (1 - b2) g g
+//   p' = p - lr ((m' / bc1) / (sqrt(v' / bc2) + eps) + wd p)
+// lr, bc1 = 1 - b1^t and bc2 = 1 - b2^t come from the host (the step
+// count is a host integer), so nothing is read back from the card.
+// Every operation is an IEEE-rounded intrinsic (__fmul_rn, __fadd_rn,
+// __fdiv_rn, __fsqrt_rn: never contracted into an FMA, never approximated),
+// in the plain version's order, so the kernel rounds where it does.
+//
+// Bound: 4 reads and 3 writes of 4 bytes an element (28 bytes) against
+// ~15 flops: device memory bytes. The TPU kernel pads each leaf to
+// 512 x 128 tiles; here a grid-stride loop reads the leaf as float4
+// (16-byte loads, every pointer 16-byte aligned, checked by the wrapper)
+// and finishes the last n % 4 elements one by one. No padding, no copy.
+// Left for later: one launch over every leaf (a multi-tensor list), and
+// keeping p in bf16 beside an fp32 master copy.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+struct Hyper {
+  float lr, bc1, bc2, b1, omb1, b2, omb2, eps, wd;
+};
+
+__device__ __forceinline__ void adamw(float& p, float g, float& m, float& v,
+                                      const Hyper& h) {
+  m = __fadd_rn(__fmul_rn(h.b1, m), __fmul_rn(h.omb1, g));
+  v = __fadd_rn(__fmul_rn(h.b2, v), __fmul_rn(h.omb2, __fmul_rn(g, g)));
+  const float mhat = __fdiv_rn(m, h.bc1);
+  const float vhat = __fdiv_rn(v, h.bc2);
+  const float u = __fadd_rn(__fdiv_rn(mhat, __fadd_rn(__fsqrt_rn(vhat), h.eps)),
+                            __fmul_rn(h.wd, p));
+  p = __fsub_rn(p, __fmul_rn(h.lr, u));
+}
+
+__global__ void __launch_bounds__(kThreads)
+    adamw_kernel(float* __restrict__ p, const float* __restrict__ g,
+                 float* __restrict__ m, float* __restrict__ v, long long n,
+                 Hyper h) {
+  const long long n4 = n / 4;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  float4* p4 = reinterpret_cast<float4*>(p);
+  const float4* g4 = reinterpret_cast<const float4*>(g);
+  float4* m4 = reinterpret_cast<float4*>(m);
+  float4* v4 = reinterpret_cast<float4*>(v);
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += stride) {
+    float4 pp = p4[i], gg = g4[i], mm = m4[i], vv = v4[i];
+    adamw(pp.x, gg.x, mm.x, vv.x, h);
+    adamw(pp.y, gg.y, mm.y, vv.y, h);
+    adamw(pp.z, gg.z, mm.z, vv.z, h);
+    adamw(pp.w, gg.w, mm.w, vv.w, h);
+    p4[i] = pp;
+    m4[i] = mm;
+    v4[i] = vv;
+  }
+  // The last n % 4 elements, one thread each.
+  const long long t = n4 * 4 + (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t < n) {
+    float pp = p[t], mm = m[t], vv = v[t];
+    adamw(pp, g[t], mm, vv, h);
+    p[t] = pp;
+    m[t] = mm;
+    v[t] = vv;
+  }
+}
+
+}  // namespace
+
+// p, g, m, v: n fp32 each, 16-byte aligned; p, m, v updated in place.
+// one_minus_b1 / one_minus_b2 are the host's (1 - b) rounded to fp32, as
+// the plain version multiplies by them. Returns cudaGetLastError().
+extern "C" int frl_fused_adamw(float* p, const float* g, float* m, float* v,
+                               long long n, float lr, float bc1, float bc2,
+                               float b1, float one_minus_b1, float b2,
+                               float one_minus_b2, float eps, float wd,
+                               void* stream) {
+  const Hyper h{lr, bc1, bc2, b1, one_minus_b1, b2, one_minus_b2, eps, wd};
+  // About 8 blocks per SM on 132 SMs; the grid-stride loop covers the rest.
+  long long blocks = (n / 4 + kThreads - 1) / kThreads;
+  if (blocks > 1056) blocks = 1056;
+  if (blocks < 1) blocks = 1;
+  adamw_kernel<<<(unsigned)blocks, kThreads, 0,
+                 static_cast<cudaStream_t>(stream)>>>(p, g, m, v, n, h);
+  return (int)cudaGetLastError();
+}

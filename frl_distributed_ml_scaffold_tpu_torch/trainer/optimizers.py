@@ -1,9 +1,9 @@
 """Optimizer and LR schedule: the port of the JAX package's
-``trainer/optimizers.py`` for ``adamw`` (with the optional global-norm
-clip) under the ``constant``, ``cosine``, ``linear`` and ``wsd``
-schedules with linear warmup.
+``trainer/optimizers.py`` for ``adamw`` and ``sgd`` (each with the
+optional global-norm clip) and ``fused_adamw`` under the ``constant``,
+``cosine``, ``linear`` and ``wsd`` schedules with linear warmup.
 
-The update is optax's, written out:
+The updates are optax's, written out:
 
 - ``clip_by_global_norm(max)``: ``g`` unchanged while the global norm is
   below ``max``, else ``(g / norm) * max``, with no epsilon (not
@@ -13,9 +13,15 @@ The update is optax's, written out:
   + eps) + wd * p`` on EVERY leaf (``optax.adamw`` runs with no mask),
   then ``p += -lr(count) * u`` with the schedule read at the count
   BEFORE it increments, so a warmup's first step (lr 0) leaves the
-  params unchanged.
+  params unchanged;
+- ``sgd``: ``add_decayed_weights(wd)`` (``g + wd * p``, when wd != 0),
+  then optax's nesterov ``trace`` (``t = g + m t``, ``u = g + m t``),
+  then ``p += -lr(count) * u``, the count read as above;
+- ``fused_adamw``: ``ops/fused_adamw.py`` ``FusedAdamW``, one pass per
+  leaf (the hand-written kernel on the card); with a grad clip it is
+  refused, as the JAX factory refuses it.
 
-``AdamW.update`` works in place on fp32 tensors (params and moments):
+The updates work in place on fp32 tensors (params and optimizer state):
 the JAX step donates its state, and in place is what keeps one copy of
 them live. The other optimizers raise, naming ROADMAP queue A item 10.
 """
@@ -31,6 +37,7 @@ from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
     OptimizerConfig,
     TrainerConfig,
 )
+from frl_distributed_ml_scaffold_tpu_torch.ops.fused_adamw import FusedAdamW
 
 Schedule = Callable[[int], float]
 
@@ -105,6 +112,20 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.stack(sq).sum().sqrt()
 
 
+def clip_by_global_norm(grads: dict, clip: float | None,
+                        norm: torch.Tensor | None = None) -> dict:
+    """optax's ``clip_by_global_norm``: ``select(norm < clip, g, (g /
+    norm) * clip)`` (``norm`` may be passed in); ``clip=None`` returns
+    ``grads``."""
+    if clip is None:
+        return grads
+    if norm is None:
+        norm = global_norm(grads.values())
+    keep = norm < clip
+    return {k: torch.where(keep, g, (g / norm) * clip)
+            for k, g in grads.items()}
+
+
 class AdamW:
     """optax's ``chain(clip_by_global_norm(clip), adamw(schedule, ...))``
     over a dict of fp32 parameters, updated in place.
@@ -132,15 +153,7 @@ class AdamW:
         """One step: clip ``grads`` (whose global norm may be passed in),
         then AdamW into ``params`` and the moments, in place. Returns the
         state (the same dicts, count advanced)."""
-        if self.clip is not None:
-            if norm is None:
-                norm = global_norm(grads.values())
-            # optax: select(norm < max, g, (g / norm) * max)
-            keep = norm < self.clip
-            grads = {
-                k: torch.where(keep, g, (g / norm) * self.clip)
-                for k, g in grads.items()
-            }
+        grads = clip_by_global_norm(grads, self.clip, norm)
         count = state["count"]
         lr = self.schedule(count)
         b1, b2 = self.b1, self.b2
@@ -157,17 +170,64 @@ class AdamW:
         return state
 
 
-def make_optimizer(cfg: OptimizerConfig, trainer_cfg: TrainerConfig
-                   ) -> tuple[AdamW, Schedule]:
+class SGD:
+    """optax's ``chain(clip_by_global_norm(clip), add_decayed_weights(wd),
+    sgd(schedule, momentum, nesterov=True))`` over a dict of fp32
+    parameters, updated in place.
+
+    State: ``{"count": int, "trace": {name: tensor}}`` (fp32, the
+    parameters' shapes); ``count`` is a host integer."""
+
+    def __init__(self, schedule: Schedule, *, momentum: float,
+                 weight_decay: float, clip: float | None):
+        self.schedule = schedule
+        self.momentum, self.weight_decay, self.clip = (momentum, weight_decay,
+                                                       clip)
+
+    def init(self, params: dict) -> dict:
+        return {"count": 0,
+                "trace": {k: torch.zeros_like(p) for k, p in params.items()}}
+
+    def update(self, grads: dict, state: dict, params: dict,
+               norm: torch.Tensor | None = None) -> dict:
+        """One step into ``params`` and the trace, in place. Returns the
+        state (the same dicts, count advanced)."""
+        grads = clip_by_global_norm(grads, self.clip, norm)
+        count = state["count"]
+        lr, mom, wd = self.schedule(count), self.momentum, self.weight_decay
+        for k, p in params.items():
+            g, t = grads[k], state["trace"][k]
+            if wd:
+                g = g + wd * p
+            t.mul_(mom).add_(g)  # t = g + m t
+            p.add_(g + mom * t, alpha=-lr)  # nesterov: u = g + m t
+        state["count"] = count + 1
+        return state
+
+
+def make_optimizer(cfg: OptimizerConfig, trainer_cfg: TrainerConfig):
     """``(tx, schedule)`` as the JAX factory returns them; the port builds
-    ``adamw`` only."""
+    ``adamw``, ``sgd`` and ``fused_adamw``."""
     schedule = make_schedule(cfg, trainer_cfg.total_steps)
-    if cfg.name != "adamw":
-        raise NotImplementedError(
-            f"optimizer.name={cfg.name!r} is not ported yet (ROADMAP queue "
-            "A item 10; fused_adamw with queue B item 12)"
-        )
-    return AdamW(
-        schedule, b1=cfg.b1, b2=0.999 if cfg.b2 is None else cfg.b2,
-        eps=cfg.eps, weight_decay=cfg.weight_decay, clip=cfg.grad_clip_norm,
-    ), schedule
+    b2 = 0.999 if cfg.b2 is None else cfg.b2
+    if cfg.name == "fused_adamw":
+        if cfg.grad_clip_norm is not None:
+            raise ValueError(
+                "optimizer.name=fused_adamw does not compose with "
+                "grad_clip_norm (global-norm clipping defeats the "
+                "single-pass fusion); use adamw"
+            )
+        return FusedAdamW(schedule, b1=cfg.b1, b2=b2, eps=cfg.eps,
+                          weight_decay=cfg.weight_decay), schedule
+    if cfg.name == "adamw":
+        return AdamW(schedule, b1=cfg.b1, b2=b2, eps=cfg.eps,
+                     weight_decay=cfg.weight_decay,
+                     clip=cfg.grad_clip_norm), schedule
+    if cfg.name == "sgd":
+        return SGD(schedule, momentum=cfg.momentum,
+                   weight_decay=cfg.weight_decay,
+                   clip=cfg.grad_clip_norm), schedule
+    raise NotImplementedError(
+        f"optimizer.name={cfg.name!r} is not ported yet (ROADMAP queue A "
+        "item 10)"
+    )

@@ -1,14 +1,18 @@
 """Task losses: the port of the JAX package's ``trainer/tasks.py`` for
-the LM task.
+the LM and classification tasks.
 
-``make_lm_loss(model)`` returns the ``loss_fn(params, extras, batch,
-rng, train) -> (loss, (metrics, extras))`` contract that
-``train_step.py`` consumes. ``params`` is a dict of the model's
+``make_lm_loss(model)`` and ``make_classification_loss(model)`` return
+the ``loss_fn(params, extras, batch, rng, train) -> (loss, (metrics,
+extras))`` contract that ``train_step.py`` consumes; ``make_loss_fn``
+picks one by dataset name. ``params`` is a dict of the model's
 parameters by name (already in the compute dtype: the step casts them),
-applied with ``torch.func.functional_call``; ``extras`` is ``{}`` for the
-GPT (no BatchNorm statistics); ``rng`` is unused (training dropout is not
-ported and raises in the model). The loss math runs in fp32 whatever the
-compute dtype.
+applied with ``torch.func.functional_call``. ``extras`` holds the
+non-parameter collections: ``{}`` for the GPT, ``{"batch_stats": {buffer
+name: tensor}}`` for the ResNet, whose train-mode forward returns the new
+running statistics, handed back as the new ``extras`` (never written into
+the module), as the JAX ``_apply`` returns its mutated collections.
+``rng`` is unused (training dropout is not ported and raises in the
+model). The loss math runs in fp32 whatever the compute dtype.
 """
 
 from __future__ import annotations
@@ -82,6 +86,56 @@ def make_lm_loss(model):
         return ce, (metrics, extras)
 
     return loss_fn
+
+
+_IMAGE_DATA = ("mnist", "synthetic_mnist", "imagenet", "synthetic_imagenet")
+
+
+def _apply(model, params, extras, x, train: bool):
+    """The model's output with its BatchNorm statistics read from
+    ``extras`` -> (output, new extras): in train mode the statistics the
+    forward returns replace the old ones."""
+    stats = extras.get("batch_stats", {})
+    out, updates = functional_call(model, {**params, **stats}, (x,),
+                                   {"train": train})
+    if train and stats:
+        return out, {**extras, "batch_stats": updates}
+    return out, extras
+
+
+def make_classification_loss(model, input_key: str = "image"):
+    """Softmax cross-entropy over ``batch[input_key]`` and integer
+    ``batch["label"]``, in fp32; metrics ``accuracy`` and, with more than
+    5 classes, ``accuracy_top5``."""
+
+    def loss_fn(params, extras, batch, rng, train):
+        del rng
+        logits, new_extras = _apply(model, params, extras, batch[input_key],
+                                    train)
+        logits = logits.float()
+        labels = batch["label"].long()
+        loss = F.cross_entropy(logits, labels)
+        acc = (logits.argmax(-1) == labels).float().mean()
+        metrics = {"accuracy": acc.detach()}
+        if logits.shape[-1] > 5:
+            top5 = logits.topk(5, dim=-1).indices
+            metrics["accuracy_top5"] = (
+                (top5 == labels[:, None]).any(-1).float().mean().detach())
+        return loss, (metrics, new_extras)
+
+    return loss_fn
+
+
+def make_loss_fn(model, data_name: str):
+    """The task's loss for dataset ``data_name``, as the JAX package
+    picks it."""
+    if data_name in _IMAGE_DATA:
+        return make_classification_loss(model, "image")
+    if data_name in ("video", "video_synthetic"):
+        return make_classification_loss(model, "video")
+    if data_name in ("lm", "lm_synthetic"):
+        return make_lm_loss(model)
+    raise KeyError(f"no task for dataset {data_name!r}")
 
 
 def example_input(data_cfg, model_cfg, batch_size: int = 1) -> dict[str, Any]:

@@ -2,8 +2,9 @@
 
 The step, the fp32 master parameters (a dict by name, as
 ``GPT.named_parameters`` gives them), the optimizer state, the
-non-parameter collections (``extras``: ``{}`` for the GPT) and an
-optional EMA of the parameters. The step updates it in place
+non-parameter collections (``extras``: ``{}`` for the GPT,
+``{"batch_stats": {name: tensor}}`` for the ResNet) and an optional EMA
+of the parameters. The step updates it in place
 (``train_step.py``).
 """
 
@@ -29,16 +30,22 @@ class TrainState:
     @classmethod
     def create(cls, params: dict, tx, extras: dict | None = None, *,
                with_ema: bool = False, device=None) -> "TrainState":
-        """A state at step 0 holding COPIES of ``params`` on ``device``
-        (``None`` means ``cuda`` and raises without a card), detached from
-        any module, and ``tx.init`` of them."""
+        """A state at step 0 holding COPIES of ``params`` and ``extras``
+        on ``device`` (``None`` means ``cuda`` and raises without a card),
+        detached from any module, and ``tx.init`` of the params."""
         dev = resolve_device(device)
         own = {k: p.detach().to(dev, copy=True) for k, p in params.items()}
         return cls(
             step=0,
             params=own,
             opt_state=tx.init(own),
-            extras={} if extras is None else extras,
+            extras=_copy_to(extras or {}, dev),
             ema_params=({k: p.clone() for k, p in own.items()}
                         if with_ema else None),
         )
+
+
+def _copy_to(tree: dict, dev: torch.device) -> dict:
+    return {k: (_copy_to(v, dev) if isinstance(v, dict)
+                else v.detach().to(dev, copy=True))
+            for k, v in tree.items()}

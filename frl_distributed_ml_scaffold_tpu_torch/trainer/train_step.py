@@ -23,11 +23,19 @@ One call of the step function takes one optimizer step:
   global norm BEFORE the clip; then the clip, AdamW (in place) and, with
   ``ema_decay > 0``, the EMA.
 
+Non-parameter collections (``extras``: the ResNet's BatchNorm running
+statistics) thread through the microbatches: each microbatch's forward
+reads the statistics the previous one returned, as the JAX step's scan
+carries them, and the state keeps the last.
+
 The port runs on one card. ZeRO-1 (``parallel.opt_sharding=zero1``) on
 one card is the replicated layout: the optimizer state is sharded over
 an fsdp axis of size 1, i.e. kept whole, which is what this step does.
 A mesh of more than one device, ``offload_opt_state`` and
-``grad_shardings`` raise, naming ROADMAP queue A item 7.
+``grad_shardings`` raise, naming ROADMAP queue A item 7. The fused AdamW
+(``optimizer.name=fused_adamw``) is refused under sharded state, or a
+model, expert or pipe axis above 1, with the JAX trainer's message, as
+the JAX trainer refuses it when it builds its step.
 """
 
 from __future__ import annotations
@@ -44,7 +52,11 @@ from torch.utils.checkpoint import (
 )
 
 from frl_distributed_ml_scaffold_tpu_torch import resolve_device
-from frl_distributed_ml_scaffold_tpu_torch.config.schema import MeshConfig
+from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
+    MeshConfig,
+    ParallelConfig,
+)
+from frl_distributed_ml_scaffold_tpu_torch.ops.fused_adamw import FusedAdamW
 from frl_distributed_ml_scaffold_tpu_torch.precision import Policy
 from frl_distributed_ml_scaffold_tpu_torch.trainer.optimizers import (
     global_norm,
@@ -95,6 +107,25 @@ def _check_one_device(mesh: MeshConfig | None) -> None:
             f"mesh axes {big or {'dcn_data': mesh.dcn_data}} span more than "
             "one device; the port trains on one card (ROADMAP queue A item "
             "7, sharding)"
+        )
+
+
+def _check_fused_optimizer(tx, parallel: ParallelConfig | None,
+                           mesh: MeshConfig | None) -> None:
+    """The JAX trainer's refusal of ``fused_adamw`` where its state would
+    be sharded (``trainer/loop.py``)."""
+    if not isinstance(tx, FusedAdamW):
+        return
+    parallel = parallel or ParallelConfig()
+    mesh = mesh or MeshConfig()
+    if (parallel.opt_sharding != "like_params"
+            or parallel.param_sharding != "replicated"
+            or mesh.model > 1 or mesh.expert > 1 or mesh.pipe > 1):
+        raise ValueError(
+            "optimizer.name=fused_adamw requires replicated state "
+            "(parallel.param_sharding=replicated, "
+            "opt_sharding=like_params) on a mesh with model=1, "
+            "expert=1 and pipe=1; use adamw for sharded-state configs"
         )
 
 
@@ -169,6 +200,7 @@ def make_train_step(
     offload_opt_state: bool = False,
     grad_shardings: Any = None,
     mesh: MeshConfig | None = None,
+    parallel: ParallelConfig | None = None,
     device=None,
 ) -> Callable[[TrainState, Any], tuple[TrainState, dict]]:
     """The step function ``step(state, batch) -> (state, metrics)``,
@@ -178,8 +210,10 @@ def make_train_step(
     contract; nothing in the port's training draws random numbers
     (dropout raises). ``metrics`` are 0-d fp32 tensors on the device:
     the averaged loss and task metrics, and ``grad_norm`` before the
-    clip."""
+    clip. ``parallel`` and ``mesh`` are the run's sections: what the port
+    cannot lay out on one card raises."""
     del seed
+    _check_fused_optimizer(tx, parallel, mesh)
     if offload_opt_state or grad_shardings is not None:
         raise NotImplementedError(
             "offload_opt_state and grad_shardings are not ported yet "

@@ -2,7 +2,9 @@
 
 One tiny GPT config (2 layers, d=128, 4 heads so head_dim is 32 and the
 JAX decode kernel really runs, vocab 512, 128 context), initialised ONCE
-in the JAX package and carried into the port with ``params_from_jax``.
+in the JAX package and carried into the port with ``params_from_jax``;
+and the JAX ResNet's variables, carried across with
+``resnet_params_from_jax``.
 """
 
 from __future__ import annotations
@@ -12,11 +14,16 @@ import importlib
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 from _jit import jit_init
 
 from frl_distributed_ml_scaffold_tpu.config.schema import GPTConfig as JaxGPTConfig
+from frl_distributed_ml_scaffold_tpu.config.schema import (
+    ResNetConfig as JaxResNetConfig,
+)
 from frl_distributed_ml_scaffold_tpu.models.gpt import GPT as JaxGPT
+from frl_distributed_ml_scaffold_tpu.models.resnet import ResNet as JaxResNet
 from frl_distributed_ml_scaffold_tpu.precision import get_policy as jax_policy
 from frl_distributed_ml_scaffold_tpu_torch.config.schema import GPTConfig
 from frl_distributed_ml_scaffold_tpu_torch.models.convert import params_from_jax
@@ -58,3 +65,50 @@ def pallas_interpret():
         yield
     finally:
         jax_decode_attention.FORCE_INTERPRET = None
+
+
+def jax_resnet_variables(depth: int, num_classes: int, image: int,
+                         seed: int = 0, spread: float | None = 0.3) -> dict:
+    """The JAX ResNet's variables (numpy leaves, fp32, ``model.fused_bn``
+    off). Unless ``spread`` is None, every BatchNorm's scale (1 + spread
+    N(0, 1)), bias and running mean (spread / 3 N(0, 1)) and running var
+    (U(0.5, 1.5)) are drawn from a numpy seed: the init's zero scale on
+    each block's last BatchNorm would leave every residual branch out of
+    a forward comparison."""
+    model = JaxResNet(JaxResNetConfig(depth=depth, num_classes=num_classes),
+                      jax_policy("fp32"))
+    variables = jax.device_get(jit_init(
+        model, jnp.zeros((1, image, image, 3), jnp.float32), train=False))
+    rng = np.random.default_rng(seed)
+
+    def perturb(tree):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = perturb(v)
+            elif k == "scale":
+                out[k] = (1 + spread * rng.standard_normal(v.shape)).astype(
+                    np.float32)
+            elif k in ("bias", "mean"):
+                out[k] = (spread / 3 * rng.standard_normal(v.shape)).astype(
+                    np.float32)
+            elif k == "var":
+                out[k] = rng.uniform(0.5, 1.5, v.shape).astype(np.float32)
+            else:
+                out[k] = np.asarray(v)
+        return out
+
+    if spread is None:
+        return jax.tree.map(np.asarray, dict(variables))
+    return {"params": perturb(variables["params"]),
+            "batch_stats": perturb(variables["batch_stats"])}
+
+
+def fused_names(tree):
+    """A ResNet tree with flax's ``BatchNorm_i`` module names as
+    ``FusedBatchNorm_i``, the names the JAX model gives them under
+    ``model.fused_bn``."""
+    if not isinstance(tree, dict):
+        return tree
+    return {(f"Fused{k}" if k.startswith("BatchNorm_") else k): fused_names(v)
+            for k, v in tree.items()}

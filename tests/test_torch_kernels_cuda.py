@@ -8,7 +8,8 @@ none; there, skip the repository conftest (which sets up JAX):
         tests/test_torch_kernels_cuda.py
 
 Tolerances as in test_torch_decode_attention.py: fp32 1e-5, bf16 2e-2;
-the flash kernels as in chip_smoke.py (relative to the output's scale).
+the flash kernels as in chip_smoke.py (relative to the output's scale);
+the BatchNorm-backward and AdamW kernels as in chip_smoke.py.
 Caches are poisoned with chip_smoke.py's helper, so both hold the kernels
 to one rule.
 """
@@ -264,3 +265,110 @@ def test_flash_attention_function_runs_the_kernels(dtype):
     _flash_close(o, o_ref.transpose(1, 2), dtype)
     for got, ref in zip(grads, want):
         _flash_close(got, ref.transpose(1, 2), dtype)
+
+
+# The BatchNorm-backward kernels (csrc/fused_bn.cu), as fractions of
+# max(1, max|plain|): the sums are fp32 in both, in another order; dx may
+# round one bf16 ulp (2^-7 relative) the other way.
+BN_TOL = {"sums": 1e-5, "float32": 1e-5, "bfloat16": 2 ** -7}
+
+
+def _bn_close(got, want, tol):
+    scale = max(1.0, want.float().abs().max().item())
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * scale, (err, tol, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c", [(4096, 64), (1000, 2048), (333, 100)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bn_kernels_match_plain_versions(dtype, m, c):
+    """On the card: the sums and dx kernels against their plain versions
+    (random gamma; a ragged M and a C off the 16-byte vector), one launch
+    each; a layout other than row-major (M, C) raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from frl_distributed_ml_scaffold_tpu_torch.ops import fused_bn as fb
+
+    tdt = getattr(torch, dtype)
+    rng = np.random.default_rng(m + c)
+    x = torch.from_numpy((rng.standard_normal((m, c)) * 2 + 0.5).astype(
+        np.float32)).to("cuda", tdt)
+    dy = torch.from_numpy(rng.standard_normal((m, c)).astype(
+        np.float32)).to("cuda", tdt)
+    scale = torch.from_numpy(rng.uniform(-0.5, 1.5, c).astype(
+        np.float32)).to("cuda", tdt)
+    _, mean, var = fb.bn_train_forward(x, scale, torch.zeros_like(scale),
+                                       1e-5, tdt)
+    before = (fb.bn_sums.launches, fb.bn_dx.launches)
+    dbeta, dgamma = fb.bn_sums(x, dy, mean, var, 1e-5)
+    dx = fb.bn_dx(x, dy, scale, mean, var, dgamma, dbeta, 1e-5, m)
+    torch.cuda.synchronize()
+    assert (fb.bn_sums.launches, fb.bn_dx.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    want = fb.fallback_bwd(x, dy, scale, mean, var, 1e-5)
+    _bn_close(dbeta, want[2], BN_TOL["sums"])
+    _bn_close(dgamma, want[1], BN_TOL["sums"])
+    assert dx.dtype == tdt
+    _bn_close(dx, want[0], BN_TOL[dtype])
+    with pytest.raises(ValueError, match="row-major"):
+        fb.bn_sums(x.t().contiguous().t(), dy, mean, var, 1e-5)
+
+
+@pytest.mark.cuda
+def test_fused_batchnorm_runs_the_kernels():
+    """On the card: ``FusedBatchNorm``'s backward launches the sums and dx
+    kernels once each on an NHWC activation, and its gradients agree with
+    autograd through the plain forward (fp32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from frl_distributed_ml_scaffold_tpu_torch.ops import fused_bn as fb
+
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((4, 14, 14, 256)).astype(
+        np.float32)).cuda()
+    w = torch.from_numpy(rng.standard_normal((4, 14, 14, 256)).astype(
+        np.float32)).cuda()
+    gamma = torch.from_numpy(rng.uniform(-0.5, 1.5, 256).astype(np.float32))
+    grads = {}
+    for cls in (fb.BatchNorm, fb.FusedBatchNorm):
+        mod = cls(256, device="cuda")
+        with torch.no_grad():
+            mod.scale.copy_(gamma)
+        leaf = x.clone().requires_grad_()
+        before = fb.bn_sums.launches
+        y = mod(leaf, train=True, updates={})
+        grads[cls] = torch.autograd.grad(y, [leaf, mod.scale, mod.bias], w)
+        torch.cuda.synchronize()
+        assert fb.bn_sums.launches == before + (cls is fb.FusedBatchNorm)
+    for got, want in zip(grads[fb.FusedBatchNorm], grads[fb.BatchNorm]):
+        _bn_close(got, want, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [65536, 65539, 2359296])
+def test_adamw_kernel_matches_plain_version(n):
+    """On the card: the AdamW kernel against ``adamw_math`` on one leaf
+    (the kernel's smallest, a ragged one, the path's largest), 1e-6
+    absolute; ``update_leaf`` routes a leaf below 65536 elements to the
+    plain math and launches nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from frl_distributed_ml_scaffold_tpu_torch.ops import fused_adamw as fa
+
+    rng = np.random.default_rng(n)
+    g, m, p = (torch.from_numpy((s * rng.standard_normal(n)).astype(
+        np.float32)).cuda() for s in (1e-2, 1e-2, 0.05))
+    v = torch.from_numpy((1e-4 * rng.uniform(size=n)).astype(
+        np.float32)).cuda()
+    hp = dict(b1=0.9, b2=0.999, eps=1e-8, wd=1e-4)
+    want = fa.adamw_math(g, m, v, p, 1e-3, 1 - 0.9 ** 6, 1 - 0.999 ** 6, **hp)
+    before = fa.adamw_kernel.launches
+    fa.update_leaf(g, m, v, p, 1e-3, 1 - 0.9 ** 6, 1 - 0.999 ** 6, **hp)
+    torch.cuda.synchronize()
+    assert fa.adamw_kernel.launches == before + 1
+    for got, ref in zip((p, m, v), want):
+        assert (got - ref).abs().max().item() <= 1e-6
+    small = [t[:1000].clone() for t in (g, m, v, p)]
+    fa.update_leaf(*small, 1e-3, 0.5, 0.5, **hp)
+    assert fa.adamw_kernel.launches == before + 1
