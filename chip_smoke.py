@@ -58,7 +58,8 @@ no final line):
    (``csrc/flash_attention.cu``: forward, dQ, dK/dV) against their plain
    versions, O and lse, dQ, dK and dV, bf16 and fp32, causal and not, at
    the training path's [8, 1024, 16, 64], gpt2_long's [1, 8192, 16, 64],
-   T = 1000 (not a multiple of the 64-row tile) and head dims 32 and 128;
+   T = 1000 (not a multiple of the 64-row tile), T = 40 (below one tile)
+   and head dims 32 and 128;
    then gradients through the autograd Function at the path shape
    against torch.autograd of the plain forward (fp32) and the plain
    backward (bf16). flash_kernel_timings: each kernel, its plain version
@@ -86,7 +87,8 @@ no final line):
    timed beside their byte bounds and ``native_batch_norm_backward``.
    adamw_kernel_checks / adamw_kernel_timings: the AdamW kernel
    (``csrc/fused_adamw.cu``) against ``adamw_math`` on leaves of
-   2359296, 2048000, 65536 and 65539 elements; timed beside its bound
+   2359296, 2048000, 65536 and 65539 elements, the first and last again
+   with a bf16 gradient (read in place); timed beside its bound
    (28 bytes an element) and ``torch._fused_adamw_``.
 12. rn50_path: ``imagenet_rn50_ddp`` with ``model.fused_bn=true
    data.global_batch_size=256`` at full width and depth (seeded weights,
@@ -101,7 +103,8 @@ no final line):
    timed steps, the AdamW kernel 42 times per step.
 13. fp32_rn50_check: one step of ResNet-50 (64 px, batch 8) through the
    kernels and through the plain path from the same weights and batch,
-   fp32 and bf16_mixed, SGD and fused_adamw: loss, every gradient,
+   fp32 and bf16_mixed, SGD and fused_adamw, and bf16 (bf16 gradients
+   into the AdamW kernel) with fused_adamw: loss, every gradient,
    batch_stats and the params after it.
 14. ``phase_seconds`` (the build, each phase above and the whole run),
    the ``kernels`` line (twelve kernels) and, last, ``{"ok": true,
@@ -977,22 +980,26 @@ def fp32_paged_phase(cfg, sd, seed: int) -> dict:
 # ------------------------------------------------------------ flash kernels
 
 # (B, T, H, D) of each check: the training path's attention, gpt2_long's,
-# a T that is not a multiple of the kernels' 64-row tile, and the other
-# two head dims the kernels take.
+# a T that is not a multiple of the kernels' 64-row tile, a T below one
+# tile, and the other two head dims the kernels take.
 FLASH_SHAPES = {
     "path": (8, 1024, 16, 64),
     "gpt2_long": (1, 8192, 16, 64),
     "ragged_T": (2, 1000, 4, 64),
+    "short_T": (1, 40, 2, 64),
     "head_dim_32": (2, 256, 4, 32),
     "head_dim_128": (2, 256, 4, 128),
 }
 # Flash kernels vs their plain versions, as a fraction of
 # max(1, max|plain|). bf16: both round each output to bf16 (ulp 2^-8
 # relative) and round P (dS for dQ) to bf16 before a product, the kernel
-# at its running max, the plain version at the row's global max. fp32
-# (and lse under both): every product is a full-fp32 FMA in the kernel and
-# a full-fp32 matmul in the plain version (TF32 off), so only summation
-# order differs, over up to 8192 terms.
+# at its running max, the plain version at the row's global max; dK/dV's
+# fp32 P and dS enter the tensor cores as bf16 hi + lo (about 16 bits).
+# fp32 (and lse under both): every product is a full-fp32 FMA in the
+# kernel and a full-fp32 matmul in the plain version (TF32 off), so only
+# summation order differs, over up to 8192 terms; the bf16 kernels' exp
+# is the special-function unit's 2^x of a log2(e)-prescaled score, a few
+# fp32 ulps from exp.
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 FLASH_ENTRIES = ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
@@ -1484,6 +1491,8 @@ ADAMW_TOL = 1e-6
 # smallest that takes the kernel, and a ragged one (n % 4 != 0).
 ADAMW_SIZES = {"stage4_conv3x3": 2359296, "dense": 2048000,
                "min_kernel": 65536, "ragged": 65539}
+# Leaves checked again with a bf16 g (precision.policy=bf16's gradients).
+ADAMW_BF16_G = ("stage4_conv3x3", "ragged")
 ADAMW_HYPER = dict(b1=0.9, b2=0.999, eps=1e-8, wd=1e-4)
 RN50_OVERRIDES = ["model.fused_bn=true", "data.global_batch_size=256"]
 RN50_ADAMW_OVERRIDES = RN50_OVERRIDES + ["optimizer.name=fused_adamw"]
@@ -1645,22 +1654,30 @@ def adamw_scalars(count: int = 5, lr: float = 1e-3):
 
 def adamw_checks(gen) -> list:
     """The AdamW kernel against ``adamw_math`` on the same leaf, at each
-    of ``ADAMW_SIZES``: p', m' and v'."""
+    of ``ADAMW_SIZES`` with an fp32 g and at ``ADAMW_BF16_G`` with a bf16
+    g: p', m' and v'."""
     from frl_distributed_ml_scaffold_tpu_torch.ops import fused_adamw as fa
 
     out = []
     lr, bc1, bc2 = adamw_scalars()
-    for label, n in ADAMW_SIZES.items():
+    cases = [(label, n, torch.float32) for label, n in ADAMW_SIZES.items()]
+    cases += [(label, ADAMW_SIZES[label], torch.bfloat16)
+              for label in ADAMW_BF16_G]
+    for label, n, g_dtype in cases:
         g, m, v, p = adamw_leaf(gen, n)
+        g = g.to(g_dtype)
         want = fa.adamw_math(g, m, v, p, lr, bc1, bc2, **ADAMW_HYPER)
         fa.adamw_kernel(p, g, m, v, lr, bc1, bc2, **ADAMW_HYPER)
         torch.cuda.synchronize()
         errs = {name: (got - ref).abs().max().item()
                 for name, got, ref in zip(("p", "m", "v"), (p, m, v), want)}
+        g_name = str(g_dtype).replace("torch.", "")
         for name, err in errs.items():
             check(math.isfinite(err) and err <= ADAMW_TOL,
-                  f"adamw {label} {name}: max abs err {err} > {ADAMW_TOL}")
-        out.append({"label": label, "numel": n, "tol": ADAMW_TOL,
+                  f"adamw {label} g {g_name} {name}: max abs err {err} > "
+                  f"{ADAMW_TOL}")
+        out.append({"label": label, "numel": n, "g_dtype": g_name,
+                    "tol": ADAMW_TOL,
                     **{f"{k}_err": e for k, e in errs.items()}})
     return out
 
@@ -1707,7 +1724,8 @@ def adamw_kernel_phase(gen) -> dict:
                for label in ("stage4_conv3x3", "dense")}
     emit("adamw_kernel_timings", timings)
     torch.cuda.empty_cache()
-    path = [e for e in checks if e["label"] in timings]
+    path = [e for e in checks
+            if e["label"] in timings and e["g_dtype"] == "float32"]
     return {"fused_adamw": {
         "max_abs_err": max(max(e["p_err"], e["m_err"], e["v_err"])
                            for e in path),
@@ -1920,10 +1938,18 @@ class PlainFusedAdamW:
 # params differ by at most 2 lr times the gradient limit; Adam's first
 # step is about lr sign(g), and a small gradient's sign is rounding noise,
 # so there only the 2 lr bound holds.
+# Under bf16 the compute is bf16_mixed's and the gradients are rounded
+# once more to bf16 (2^-8 relative) for the optimizer: bf16_mixed's limits.
 RN50_CHECK_TOL = {
     "fp32": {"loss": 1e-6, "grad": 1e-3, "floor": 1e-5, "stats": 1e-6},
     "bf16_mixed": {"loss": 1e-3, "grad": 1e-1, "floor": 1e-2, "stats": 1e-6},
+    "bf16": {"loss": 1e-3, "grad": 1e-1, "floor": 1e-2, "stats": 1e-6},
 }
+# (policy, optimizer) pairs of fp32_rn50_check; bf16 sends bf16 gradients
+# into the AdamW kernel.
+RN50_CHECK_RUNS = [("fp32", "sgd"), ("fp32", "fused_adamw"),
+                   ("bf16_mixed", "sgd"), ("bf16_mixed", "fused_adamw"),
+                   ("bf16", "fused_adamw")]
 RN50_CHECK = ["data.image_size=64", "data.global_batch_size=8",
               "optimizer.warmup_steps=0"]
 
@@ -1945,9 +1971,9 @@ def fp32_rn50_phase(gen) -> dict:
     """One step of ResNet-50 (full width and depth, 64 px, batch 8,
     warmup off) from the same weights and batch through the kernels
     (``model.fused_bn=true``; the AdamW kernel) and through the plain
-    path (``fused_bn=false``; ``adamw_math``), under fp32 and bf16_mixed,
-    with SGD and with fused_adamw: loss, every gradient, batch_stats, and
-    the params after the update (``RN50_CHECK_TOL``)."""
+    path (``fused_bn=false``; ``adamw_math``), for each of
+    ``RN50_CHECK_RUNS``: loss, every gradient, batch_stats, and the params
+    after the update (``RN50_CHECK_TOL``)."""
     from frl_distributed_ml_scaffold_tpu_torch.config import (
         apply_overrides,
         get_config,
@@ -1965,81 +1991,86 @@ def fp32_rn50_phase(gen) -> dict:
     report = {"cut": "224 -> 64 px, batch 8, full width and depth",
               "allow_tf32": False, "tol": RN50_CHECK_TOL,
               "optimizer_tol": ADAMW_TOL}
-    for pol in ("fp32", "bf16_mixed"):
+    for pol, opt in RN50_CHECK_RUNS:
         tol = RN50_CHECK_TOL[pol]
-        for opt in ("sgd", "fused_adamw"):
-            runs = {}
-            for fused in (True, False):
-                cfg = apply_overrides(base, [
-                    f"precision.policy={pol}", f"optimizer.name={opt}",
-                    f"model.fused_bn={str(fused).lower()}"])
-                model, policy, tx, schedule, state, loss_fn = rn50_setup(
-                    cfg, gen, weights)
-                if opt == "fused_adamw" and not fused:
-                    tx = PlainFusedAdamW(tx)
-                grad_fn = make_grad_fn(loss_fn, policy, device="cuda")
-                reset_launches()
-                loss, _, extras, grads = grad_fn(state.params, state.extras,
-                                                 batch)
-                before = {k: p.clone() for k, p in state.params.items()}
-                tx.update(grads, state.opt_state, state.params)
-                counts = read_launches()
-                want = {"bn_bwd_sums": RN50_BNS if fused else 0,
-                        "bn_bwd_dx": RN50_BNS if fused else 0,
-                        "fused_adamw": (RN50_BIG_LEAVES if fused
-                                        and opt == "fused_adamw" else 0)}
-                check(all(counts[k] == n for k, n in want.items()),
-                      f"fp32_rn50_check {pol} {opt} fused={fused}: launches "
-                      f"{counts}, want {want}")
-                runs[fused] = {"loss": float(loss), "grads": grads,
-                               "stats": extras["batch_stats"],
-                               "params": state.params, "lr": schedule(0)}
-                if fused and opt == "fused_adamw":
-                    # The plain optimizer on the kernel run's gradients.
-                    PlainFusedAdamW(tx).update(grads, tx.init(before),
-                                               before)
-                    runs["optimizer_ref"] = before
-                del model, state, before
-            k_run, p_run = runs[True], runs[False]
-            lr = p_run["lr"]
-            loss_rel = abs(k_run["loss"] - p_run["loss"]) / abs(p_run["loss"])
-            tag = f"fp32_rn50_check {pol} {opt}"
-            check(loss_rel <= tol["loss"],
-                  f"{tag}: loss {k_run['loss']} vs {p_run['loss']}")
-            floor = tol["floor"] * max(g.abs().max().item()
-                                       for g in p_run["grads"].values())
-            entry = {
-                "loss_kernels": k_run["loss"], "loss_plain": p_run["loss"],
-                "loss_rel_diff": loss_rel, "lr": lr,
-                "worst_grad_err_over_limit": _rel_check(
-                    f"{tag}: grad", k_run["grads"], p_run["grads"],
-                    tol["grad"], floor),
-                "worst_batch_stats_err_over_limit": _rel_check(
-                    f"{tag}: batch_stats", k_run["stats"], p_run["stats"],
-                    tol["stats"], tol["stats"]),
-                "tensors": len(p_run["grads"]),
-            }
-            worst = 0.0
-            for name, p in p_run["params"].items():
-                dp = (k_run["params"][name] - p).abs().max().item()
-                g = p_run["grads"][name]
-                lim = 2 * lr * (
-                    (tol["grad"] * g.abs().max().item() + floor)
-                    if opt == "sgd" else 1.0) + 1e-6
-                check(dp <= lim, f"{tag}: param {name} after the update "
-                      f"differs by {dp} > {lim}")
-                worst = max(worst, dp)
-            entry["param_max_abs_diff"] = worst
-            if opt == "fused_adamw":
-                ref = runs["optimizer_ref"]
-                err = max((k_run["params"][k] - r).abs().max().item()
-                          for k, r in ref.items())
-                check(err <= ADAMW_TOL, f"{tag}: the AdamW kernel's params "
-                      f"differ from adamw_math's by {err} on the same grads")
-                entry["optimizer_vs_plain_same_grads"] = err
-            report[f"{pol}_{opt}"] = entry
-            del runs, k_run, p_run
-            torch.cuda.empty_cache()
+        runs = {}
+        for fused in (True, False):
+            cfg = apply_overrides(base, [
+                f"precision.policy={pol}", f"optimizer.name={opt}",
+                f"model.fused_bn={str(fused).lower()}"])
+            model, policy, tx, schedule, state, loss_fn = rn50_setup(
+                cfg, gen, weights)
+            if opt == "fused_adamw" and not fused:
+                tx = PlainFusedAdamW(tx)
+            grad_fn = make_grad_fn(loss_fn, policy, device="cuda")
+            reset_launches()
+            loss, _, extras, grads = grad_fn(state.params, state.extras,
+                                             batch)
+            before = {k: p.clone() for k, p in state.params.items()}
+            tx.update(grads, state.opt_state, state.params)
+            counts = read_launches()
+            want = {"bn_bwd_sums": RN50_BNS if fused else 0,
+                    "bn_bwd_dx": RN50_BNS if fused else 0,
+                    "fused_adamw": (RN50_BIG_LEAVES if fused
+                                    and opt == "fused_adamw" else 0)}
+            check(all(counts[k] == n for k, n in want.items()),
+                  f"fp32_rn50_check {pol} {opt} fused={fused}: launches "
+                  f"{counts}, want {want}")
+            runs[fused] = {"loss": float(loss), "grads": grads,
+                           "stats": extras["batch_stats"],
+                           "params": state.params, "lr": schedule(0)}
+            if fused and opt == "fused_adamw":
+                # The plain optimizer on the kernel run's gradients.
+                PlainFusedAdamW(tx).update(grads, tx.init(before),
+                                           before)
+                runs["optimizer_ref"] = before
+            del model, state, before
+        k_run, p_run = runs[True], runs[False]
+        lr = p_run["lr"]
+        loss_rel = abs(k_run["loss"] - p_run["loss"]) / abs(p_run["loss"])
+        tag = f"fp32_rn50_check {pol} {opt}"
+        check(loss_rel <= tol["loss"],
+              f"{tag}: loss {k_run['loss']} vs {p_run['loss']}")
+        floor = tol["floor"] * max(g.abs().max().item()
+                                   for g in p_run["grads"].values())
+        entry = {
+            "loss_kernels": k_run["loss"], "loss_plain": p_run["loss"],
+            "loss_rel_diff": loss_rel, "lr": lr,
+            "worst_grad_err_over_limit": _rel_check(
+                f"{tag}: grad", k_run["grads"], p_run["grads"],
+                tol["grad"], floor),
+            "worst_batch_stats_err_over_limit": _rel_check(
+                f"{tag}: batch_stats", k_run["stats"], p_run["stats"],
+                tol["stats"], tol["stats"]),
+            "tensors": len(p_run["grads"]),
+            "grad_dtypes": sorted({str(g.dtype).replace("torch.", "")
+                                   for g in k_run["grads"].values()}),
+        }
+        if pol == "bf16":
+            check(entry["grad_dtypes"] == ["bfloat16"],
+                  f"{tag}: the optimizer got {entry['grad_dtypes']} "
+                  "gradients, not bfloat16")
+        worst = 0.0
+        for name, p in p_run["params"].items():
+            dp = (k_run["params"][name] - p).abs().max().item()
+            g = p_run["grads"][name]
+            lim = 2 * lr * (
+                (tol["grad"] * g.abs().max().item() + floor)
+                if opt == "sgd" else 1.0) + 1e-6
+            check(dp <= lim, f"{tag}: param {name} after the update "
+                  f"differs by {dp} > {lim}")
+            worst = max(worst, dp)
+        entry["param_max_abs_diff"] = worst
+        if opt == "fused_adamw":
+            ref = runs["optimizer_ref"]
+            err = max((k_run["params"][k] - r).abs().max().item()
+                      for k, r in ref.items())
+            check(err <= ADAMW_TOL, f"{tag}: the AdamW kernel's params "
+                  f"differ from adamw_math's by {err} on the same grads")
+            entry["optimizer_vs_plain_same_grads"] = err
+        report[f"{pol}_{opt}"] = entry
+        del runs, k_run, p_run
+        torch.cuda.empty_cache()
     return report
 
 

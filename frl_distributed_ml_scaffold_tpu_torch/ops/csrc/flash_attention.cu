@@ -28,20 +28,50 @@
 // - dQ: one block per (b, h, 64-query tile) forms delta from its own dO
 //   and O tiles, then loops over the key tiles up to the diagonal;
 // - dK/dV: one block per (b, h, 64-key tile) loops over the query tiles
-//   from the diagonal down, recomputing delta per query tile. The
-//   flash-attention-2 split: every output element has one writer, so no
-//   atomics and no second pass.
+//   from the diagonal down. The flash-attention-2 split: every output
+//   element has one writer, so no atomics and no second pass.
 // Under causal masking the query-tile kernels run the heaviest tiles (the
 // last ones) first, so the short tiles fill the tail of the launch.
 //
-// Bound: at the GPT-2-medium training shape ([8, 1024, 16, 64] bf16,
-// causal) a forward moves 67 MB and does 1.7e10 flops, 254 flops a byte,
-// so on the tensor cores it would sit at the ridge between the two
-// bounds. This first kernel runs every product as fp32 FMAs on the CUDA
-// cores (67 TFLOP/s peak, not the tensor cores' 989), so it is bound by
-// operations, and by how many FMAs each shared-memory load feeds.
+// Two designs, chosen by dtype:
 //
-// Design (right and simple first):
+// bf16 forward and dK/dV (the training path's): the tensor cores, through
+// mma.sync.m16n8k16 (bf16 operands, fp32 accumulators). At the GPT-2-
+// medium training shape ([8, 1024, 16, 64] bf16, causal) a forward moves
+// 67 MB and does 1.7e10 flops; its bound is bytes (0.020 ms), and its
+// operation floor is below the library's time even at mma.sync's rate, so
+// what matters is what each byte of shared memory feeds: operands in
+// registers, bf16 tiles, copies overlapped with compute.
+// - 128 threads, 4 warps of 16 rows each (query rows in the forward, key
+//   rows in dK/dV). The warp's own rows stay in registers as mma A
+//   fragments: Q in the forward, K and V in dK/dV (at D = 128 the K and V
+//   fragments are reloaded from shared memory per product instead: their
+//   64 registers and the 128 of the dK and dV accumulators do not fit).
+// - The streamed tiles (K and V in the forward; Q, dO, lse and delta in
+//   dK/dV) pass through a 2-stage ring of shared memory filled by
+//   cp.async, so the next tile is in flight while this one is computed.
+//   Rows past T are zero-filled by the copy (src-size 0) and never read.
+//   Rows are padded to D + 8 bf16 (a 16-byte shift a row), so the 8 rows
+//   of every ldmatrix phase fall in 8 distinct 16-byte bank groups.
+// - S (S^T in dK/dV) stays in registers: the scale, the mask (only on the
+//   diagonal and ragged tiles) and the softmax work on the mma C
+//   fragments, a row's max and sum reducing over the 4 lanes of a quad;
+//   the C fragments of P (and P^T, dS^T) are reused as the A fragments of
+//   the next product, and V, dO and Q come in through ldmatrix.trans.
+// - exp is the special-function unit's 2^x (ex2.approx) of a log2(e)-
+//   prescaled score: p = 2^(s log2(e) - m'), m' the running max (lse in
+//   dK/dV) in log2 units; lse is written back in natural units.
+// - dK/dV keeps the reference's unrounded P and dS (fp32): each is split
+//   into hi = bf16(x) and lo = bf16(x - hi), and each of P^T dO and
+//   dS^T Q is two mma's, hi B + lo B (about 16 significant bits, where
+//   one bf16 keeps 8).
+// - delta = rowsum(dO O) is computed once per row by a small kernel that
+//   the same C entry launches first, into a [B, H, T] fp32 scratch the
+//   wrapper allocates, instead of once per (key tile, query tile).
+//
+// fp32 (and bf16 dQ): every product as fp32 FMAs on the CUDA cores (67
+// TFLOP/s peak; TF32 would not hold fp32 to 1e-4), so bound by operations
+// and by how many FMAs each shared-memory load feeds.
 // - 256 threads as a 16 x 16 grid; every 64 x 64 (or 64 x D) product tile
 //   gives each thread 4 rows (ty + 16 i) by 4 (or D / 16) columns
 //   (tx + 16 j), so one thread holds the same rows of S, P and the output
@@ -54,12 +84,14 @@
 //   product routine (tile_mma) serves every product, transposed or not.
 // - Rows and keys past T are loaded as zeros and masked; nothing past T is
 //   read or written.
-// Left for later: bf16 mma.sync / wgmma on the tensor cores, TMA or
-// cp.async double buffering of the K/V (Q/dO) tiles, and 128-row tiles.
+// Left for later: bf16 dQ on the tensor cores (the same design), wgmma
+// and TMA, and 128-row tiles.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -474,6 +506,573 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------- bf16 on the tensor cores
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcThreads = 128;  // 4 warps of 16 rows
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Row stride (bf16 elements) of a tile in shared memory: D + 8, so rows
+// start 16 bytes apart modulo 128 and ldmatrix has no bank conflicts.
+template <int D>
+constexpr int kTcLds = D + 8;
+
+template <int D>
+constexpr size_t fwd_tc_smem_bytes() {
+  return 5 * kTile * kTcLds<D> * sizeof(bf16);  // Q, 2 x (K, V)
+}
+
+template <int D>
+constexpr size_t dkv_tc_smem_bytes() {
+  // K, V; 2 x (Q, dO); 2 x (lse, delta)
+  return 6 * kTile * kTcLds<D> * sizeof(bf16) + 4 * kTile * sizeof(float);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled (nothing read)
+// when !ok.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8 x 8 bf16 matrices; lanes 8 i .. 8 i + 7 give the row addresses
+// of matrix i, and register i of lane l holds matrix i's row l / 4,
+// columns 2 (l % 4) and + 1 (with .trans: rows 2 (l % 4) and + 1, column
+// l / 4).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// c (16 x 8 fp32) += a (16 x 16 bf16, row) * b (16 x 8 bf16, col). Lane l
+// (g = l / 4, t = l % 4) holds a = {(g, 2t..), (g + 8, 2t..), (g, 2t + 8..),
+// (g + 8, 2t + 8..)}, b = {(2t.., g), (2t + 8.., g)} and c = {(g, 2t),
+// (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)}.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two fp32 values as one bf16x2 register (x in the low half).
+__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// hi = bf16(x), lo = bf16(x - hi), pairwise: hi + lo carries x to about
+// 16 significant bits.
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x - hf.x, y - hf.y);
+}
+
+// 64 rows x D of a (b, h) slice from row row0 (element stride st between
+// rows) into dst (row stride kTcLds<D>), 16 bytes a copy; rows >= n
+// zero-filled.
+template <int D>
+__device__ __forceinline__ void cp_tile(bf16* dst, const bf16* src,
+                                        long long st, int row0, int n) {
+  constexpr int kChunks = D / 8;
+  constexpr int LDS = kTcLds<D>;
+#pragma unroll
+  for (int it = 0; it < kTile * kChunks / kTcThreads; ++it) {
+    const int i = threadIdx.x + it * kTcThreads;
+    const int r = i / kChunks;
+    const int c = i % kChunks;
+    const bool ok = row0 + r < n;
+    const bf16* s = src + (ok ? static_cast<long long>(row0 + r) * st : 0) +
+                    c * 8;
+    cp_async16(dst + r * LDS + c * 8, s, ok);
+  }
+}
+
+// 64 fp32 of a contiguous row vector from row0 into dst; rows >= n zero.
+__device__ __forceinline__ void cp_rows(float* dst, const float* src,
+                                        int row0, int n) {
+  if (threadIdx.x < kTile) {
+    const bool ok = row0 + static_cast<int>(threadIdx.x) < n;
+    cp_async4(dst + threadIdx.x, src + (ok ? row0 + threadIdx.x : 0), ok);
+  }
+}
+
+// A lane's ldmatrix offsets (elements) within a tile of row stride LDS:
+// A fragments of a warp's 16 rows (plus warp * 16 * LDS); B fragments of
+// two n-tiles of 8 rows (k along the row: K for Q K^T, Q for K Q^T); B
+// fragments of two n-tiles of 8 columns read transposed (k down the rows:
+// V for P V, dO for P^T dO, Q for dS^T Q).
+template <int LDS>
+__device__ __forceinline__ int a_offset(int lane) {
+  return (lane & 15) * LDS + (lane >> 4) * 8;
+}
+template <int LDS>
+__device__ __forceinline__ int b_offset(int lane) {
+  return ((lane & 7) + ((lane >> 4) << 3)) * LDS + ((lane >> 3) & 1) * 8;
+}
+template <int LDS>
+__device__ __forceinline__ int bt_offset(int lane) {
+  return ((lane & 7) + (((lane >> 3) & 1) << 3)) * LDS + (lane >> 4) * 8;
+}
+
+// acc[16 x 64] += A[16 x D] * tile[64 x D]^T, A from the warp's fragments
+// (or, when A_REGS is false, from a_tile's rows by ldmatrix), the tile's 64
+// rows as the 8 n-tiles of the product.
+template <int D, bool A_REGS>
+__device__ __forceinline__ void mma_abt(
+    float (&acc)[8][4], const uint32_t (&af)[A_REGS ? D / 16 : 1][4],
+    const bf16* a_tile, const bf16* tile, int lane) {
+  constexpr int LDS = kTcLds<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    if constexpr (A_REGS) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = af[kk][i];
+    } else {
+      ldsm_x4(a, a_tile + a_offset<LDS>(lane) + kk * 16);
+    }
+    uint32_t b[4][4];  // all four loads in flight before the products
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      ldsm_x4(b[np], tile + b_offset<LDS>(lane) + np * 16 * LDS + kk * 16);
+    }
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      mma_bf16(acc[2 * np], a, b[np][0], b[np][1]);
+      mma_bf16(acc[2 * np + 1], a, b[np][2], b[np][3]);
+    }
+  }
+}
+
+// 2^x by the special-function unit (ex2.approx.ftz: about 2 ulp; a
+// result below 2^-126 flushes to 0 where expf would keep a denormal).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The A fragment of k-chunk kc (columns 16 kc .. 16 kc + 15) of a 16 x 64
+// fp32 C-fragment tile x, rounded to bf16: the C -> A reuse.
+__device__ __forceinline__ void c_to_a(const float (&x)[8][4], int kc,
+                                       uint32_t (&a)[4]) {
+  a[0] = pack_bf16(x[2 * kc][0], x[2 * kc][1]);
+  a[1] = pack_bf16(x[2 * kc][2], x[2 * kc][3]);
+  a[2] = pack_bf16(x[2 * kc + 1][0], x[2 * kc + 1][1]);
+  a[3] = pack_bf16(x[2 * kc + 1][2], x[2 * kc + 1][3]);
+}
+
+// The same, split into hi and lo fragments.
+__device__ __forceinline__ void c_to_a_split(const float (&x)[8][4], int kc,
+                                             uint32_t (&hi)[4],
+                                             uint32_t (&lo)[4]) {
+  split_bf16(x[2 * kc][0], x[2 * kc][1], hi[0], lo[0]);
+  split_bf16(x[2 * kc][2], x[2 * kc][3], hi[1], lo[1]);
+  split_bf16(x[2 * kc + 1][0], x[2 * kc + 1][1], hi[2], lo[2]);
+  split_bf16(x[2 * kc + 1][2], x[2 * kc + 1][3], hi[3], lo[3]);
+}
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kTcThreads)
+flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ o,
+                    float* __restrict__ lse, int H, int n, Strides s,
+                    float scale_log2) {
+  constexpr int LDS = kTcLds<D>;
+  constexpr int TILE = kTile * LDS;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(tc_smem);
+  // Stage st of the ring: K at qs + (1 + 2 st) TILE, V right after it.
+
+  const int n_tiles = (n + kTile - 1) / kTile;
+  const int qt = n_tiles - 1 - static_cast<int>(blockIdx.x);
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int q0 = qt * kTile;
+
+  const bf16* kb = k + b * s.b[kK] + h * s.h[kK];
+  const bf16* vb = v + b * s.b[kV] + h * s.h[kV];
+  cp_tile<D>(qs, q + b * s.b[kQ] + h * s.h[kQ], s.t[kQ], q0, n);
+  cp_tile<D>(qs + TILE, kb, s.t[kK], 0, n);
+  cp_tile<D>(qs + 2 * TILE, vb, s.t[kV], 0, n);
+  cp_async_commit();
+
+  uint32_t qf[D / 16][4];
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  }
+  // Rows g and g + 8 of the warp's 16: running max (log2 units) and this
+  // lane's share of the denominator.
+  float m_r[2] = {kNegInf, kNegInf};
+  float l_r[2] = {0.f, 0.f};
+
+  const int k_end = CAUSAL ? qt + 1 : n_tiles;
+  for (int kt = 0; kt < k_end; ++kt) {
+    if (kt + 1 < k_end) {
+      bf16* nxt = qs + (1 + 2 * ((kt + 1) & 1)) * TILE;
+      cp_tile<D>(nxt, kb, s.t[kK], (kt + 1) * kTile, n);
+      cp_tile<D>(nxt + TILE, vb, s.t[kV], (kt + 1) * kTile, n);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's group (and Q) have landed
+    __syncthreads();
+    if (kt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        ldsm_x4(qf[kk], qs + warp * 16 * LDS + a_offset<LDS>(lane) + kk * 16);
+      }
+    }
+    const bf16* kc = qs + (1 + 2 * (kt & 1)) * TILE;
+    const bf16* vc = kc + TILE;
+
+    float sc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+    }
+    mma_abt<D, true>(sc, qf, nullptr, kc, lane);
+
+    const int k0 = kt * kTile;
+    const bool edge = (CAUSAL && kt == qt) || k0 + kTile > n;
+    float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[j][e] * scale_log2;
+        if (edge) {
+          const int kpos = k0 + 8 * j + 2 * t4 + (e & 1);
+          const int qpos = q0 + warp * 16 + g + (e >> 1) * 8;
+          if (kpos >= n || (CAUSAL && kpos > qpos)) x = kNegInf;
+        }
+        sc[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float alpha = ex2(m_r[r] - mx[r]);
+      m_r[r] = mx[r];
+      l_r[r] *= alpha;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[j][2 * r] *= alpha;
+        acc[j][2 * r + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2(sc[j][e] - m_r[e >> 1]);
+        l_r[e >> 1] += p;
+        sc[j][e] = p;
+      }
+    }
+
+    // O += P V: P's C fragments, rounded to bf16, are the A fragments.
+#pragma unroll
+    for (int kc2 = 0; kc2 < 4; ++kc2) {
+      uint32_t pa[4];
+      c_to_a(sc, kc2, pa);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t bv[4];
+        ldsm_x4_t(bv, vc + bt_offset<LDS>(lane) + kc2 * 16 * LDS + dp * 16);
+        mma_bf16(acc[2 * dp], pa, bv[0], bv[1]);
+        mma_bf16(acc[2 * dp + 1], pa, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before refill
+  }
+
+  bf16* ob = o + b * s.b[kO] + h * s.h[kO];
+  float* lb = lse + (static_cast<long long>(b) * H + h) * n;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_r[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int row = q0 + warp * 16 + g + r * 8;
+    if (row >= n) continue;
+    const float ls = fmaxf(l, 1e-30f);
+    bf16* orow = ob + static_cast<long long>(row) * s.t[kO];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t4) =
+          __floats2bfloat162_rn(acc[j][2 * r] / ls, acc[j][2 * r + 1] / ls);
+    }
+    if (t4 == 0) lb[row] = m_r[r] * kLn2 + logf(ls);
+  }
+}
+
+// delta[r] = sum_d dO[r, d] O[r, d] in fp32 for every row r = (b, h, t) of
+// a [B, H, T] fp32 output; D / 8 lanes a row, 16 bytes each.
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                   float* __restrict__ delta, int H, int n, Strides s,
+                   long long rows) {
+  constexpr int L = D / 8;
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  const long long r = i / L;
+  const int c = static_cast<int>(i % L);
+  float acc = 0.f;
+  if (r < rows) {
+    const long long t = r % n;
+    const long long bh = r / n;
+    const long long hh = bh % H;
+    const long long bb = bh / H;
+    const uint4 ov = *reinterpret_cast<const uint4*>(
+        o + bb * s.b[kO] + hh * s.h[kO] + t * s.t[kO] + c * 8);
+    const uint4 gv = *reinterpret_cast<const uint4*>(
+        dout + bb * s.b[kDO] + hh * s.h[kDO] + t * s.t[kDO] + c * 8);
+    const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
+    const __nv_bfloat162* gp = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 a = __bfloat1622float2(op[e]);
+      const float2 d = __bfloat1622float2(gp[e]);
+      acc = fmaf(d.x, a.x, acc);
+      acc = fmaf(d.y, a.y, acc);
+    }
+  }
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1) {
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  }
+  if (c == 0 && r < rows) delta[r] = acc;
+}
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kTcThreads)
+flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, bf16* __restrict__ dk,
+                        bf16* __restrict__ dv, int H, int n, Strides s,
+                        float scale, float scale_log2) {
+  constexpr int LDS = kTcLds<D>;
+  constexpr int TILE = kTile * LDS;
+  // K and V fragments in registers up to D = 64 (32 registers); at 128
+  // they are reloaded from the resident tiles for each product.
+  constexpr bool kRegs = D <= 64;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* ks = reinterpret_cast<bf16*>(tc_smem);
+  bf16* vs = ks + TILE;
+  // Stage st: Q at ks + (2 + 2 st) TILE, dO right after it; lse and
+  // delta (64 fp32 each) at rows + 128 st and + 64.
+  float* rows_s = reinterpret_cast<float*>(ks + 6 * TILE);
+
+  const int n_tiles = (n + kTile - 1) / kTile;
+  const int kt = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int k0 = kt * kTile;
+  const int krow = k0 + warp * 16 + g;  // this lane's rows: krow, krow + 8
+
+  const bf16* qb = q + b * s.b[kQ] + h * s.h[kQ];
+  const bf16* dob = dout + b * s.b[kDO] + h * s.h[kDO];
+  const long long bh = static_cast<long long>(b) * H + h;
+  const float* lb = lse + bh * n;
+  const float* db = delta + bh * n;
+  auto load_stage = [&](int st, int qt) {
+    bf16* qd = ks + (2 + 2 * st) * TILE;
+    cp_tile<D>(qd, qb, s.t[kQ], qt * kTile, n);
+    cp_tile<D>(qd + TILE, dob, s.t[kDO], qt * kTile, n);
+    cp_rows(rows_s + 128 * st, lb, qt * kTile, n);
+    cp_rows(rows_s + 128 * st + 64, db, qt * kTile, n);
+  };
+
+  const int q_begin = CAUSAL ? kt : 0;
+  cp_tile<D>(ks, k + b * s.b[kK] + h * s.h[kK], s.t[kK], k0, n);
+  cp_tile<D>(vs, v + b * s.b[kV] + h * s.h[kV], s.t[kV], k0, n);
+  load_stage(0, q_begin);
+  cp_async_commit();
+
+  uint32_t kf[kRegs ? D / 16 : 1][4];
+  uint32_t vf[kRegs ? D / 16 : 1][4];
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dka[j][e] = 0.f;
+      dva[j][e] = 0.f;
+    }
+  }
+  const bf16* kw = ks + warp * 16 * LDS;  // this warp's 16 key rows
+  const bf16* vw = vs + warp * 16 * LDS;
+
+  for (int qt = q_begin; qt < n_tiles; ++qt) {
+    const int st = (qt - q_begin) & 1;
+    if (qt + 1 < n_tiles) load_stage(st ^ 1, qt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if constexpr (kRegs) {
+      if (qt == q_begin) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          ldsm_x4(kf[kk], kw + a_offset<LDS>(lane) + kk * 16);
+          ldsm_x4(vf[kk], vw + a_offset<LDS>(lane) + kk * 16);
+        }
+      }
+    }
+    const bf16* qc = ks + (2 + 2 * st) * TILE;
+    const bf16* doc = qc + TILE;
+    const float* ls = rows_s + 128 * st;
+    const float* dl = ls + 64;
+    const int q0 = qt * kTile;
+
+    // S^T = K Q^T: rows the warp's 16 keys, columns the tile's 64 queries.
+    float pt[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pt[j][e] = 0.f;
+    }
+    mma_abt<D, kRegs>(pt, kf, kw, qc, lane);
+
+    // P^T = exp(S^T / sqrt(D) - lse), 0 where masked.
+    const bool edge = (CAUSAL && qt == kt) || q0 + kTile > n || k0 + kTile > n;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float lq = (e & 1) ? l2.y : l2.x;
+        float p = ex2(pt[j][e] * scale_log2 - lq * kLog2e);
+        if (edge) {
+          const int qpos = q0 + 8 * j + 2 * t4 + (e & 1);
+          const int kpos = krow + (e >> 1) * 8;
+          if (qpos >= n || kpos >= n || (CAUSAL && kpos > qpos)) p = 0.f;
+        }
+        pt[j][e] = p;
+      }
+    }
+
+    // dP^T = V dO^T, then dS^T = P^T (dP^T - delta) / sqrt(D) in place.
+    float ds[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[j][e] = 0.f;
+    }
+    mma_abt<D, kRegs>(ds, vf, vw, doc, lane);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * t4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float dq = (e & 1) ? d2.y : d2.x;
+        ds[j][e] = pt[j][e] * (ds[j][e] - dq) * scale;
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q, each operand as hi + lo.
+#pragma unroll
+    for (int kc2 = 0; kc2 < 4; ++kc2) {
+      uint32_t ph[4], pl[4], sh[4], sl[4];
+      c_to_a_split(pt, kc2, ph, pl);
+      c_to_a_split(ds, kc2, sh, sl);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t bo[4];
+        ldsm_x4_t(bo, doc + bt_offset<LDS>(lane) + kc2 * 16 * LDS + dp * 16);
+        mma_bf16(dva[2 * dp], ph, bo[0], bo[1]);
+        mma_bf16(dva[2 * dp], pl, bo[0], bo[1]);
+        mma_bf16(dva[2 * dp + 1], ph, bo[2], bo[3]);
+        mma_bf16(dva[2 * dp + 1], pl, bo[2], bo[3]);
+        uint32_t bq[4];
+        ldsm_x4_t(bq, qc + bt_offset<LDS>(lane) + kc2 * 16 * LDS + dp * 16);
+        mma_bf16(dka[2 * dp], sh, bq[0], bq[1]);
+        mma_bf16(dka[2 * dp], sl, bq[0], bq[1]);
+        mma_bf16(dka[2 * dp + 1], sh, bq[2], bq[3]);
+        mma_bf16(dka[2 * dp + 1], sl, bq[2], bq[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before refill
+  }
+
+  bf16* dkb = dk + b * s.b[kDK] + h * s.h[kDK];
+  bf16* dvb = dv + b * s.b[kDV] + h * s.h[kDV];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = krow + r * 8;
+    if (row >= n) continue;
+    bf16* kr = dkb + static_cast<long long>(row) * s.t[kDK];
+    bf16* vr = dvb + static_cast<long long>(row) * s.t[kDV];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(kr + 8 * j + 2 * t4) =
+          __floats2bfloat162_rn(dka[j][2 * r], dka[j][2 * r + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(vr + 8 * j + 2 * t4) =
+          __floats2bfloat162_rn(dva[j][2 * r], dva[j][2 * r + 1]);
+    }
+  }
+}
+
 template <typename T_, int D_, bool CAUSAL_>
 struct Tag {
   using T = T_;
@@ -538,7 +1137,9 @@ cudaError_t allow_smem(K kernel, size_t smem) {
 // (host memory, 24 int64: q, k, v, o, dO, dQ, dK, dV, each as b, h, t;
 // slots a call does not use are ignored). lse is a contiguous fp32
 // [B, H, T] (the [B, H, T, 1] of the API). Tq == Tk == T. dtype: 0 =
-// float32, 1 = bfloat16; D in {32, 64, 128}. Each returns a cudaError_t
+// float32, 1 = bfloat16; D in {32, 64, 128}. bf16 inputs are read 16 bytes
+// at a time: every base pointer 16-byte aligned and every stride a
+// multiple of 8 elements (the wrapper checks). Each returns a cudaError_t
 // as int: the launch's own error, checked right after it.
 
 extern "C" int frl_flash_fwd(const void* q, const void* k, const void* v,
@@ -551,14 +1152,25 @@ extern "C" int frl_flash_fwd(const void* q, const void* k, const void* v,
   return dispatch(B, H, T, D, dtype, causal, [&](auto tag) {
     using Tg = decltype(tag);
     using Ty = typename Tg::T;
-    auto kernel = flash_fwd_kernel<Ty, Tg::D, Tg::causal>;
-    const size_t smem = fwd_smem_floats<Tg::D>() * sizeof(float);
-    cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, smem, st>>>(
-        static_cast<const Ty*>(q), static_cast<const Ty*>(k),
-        static_cast<const Ty*>(v), static_cast<Ty*>(o),
-        static_cast<float*>(lse), H, T, s, scale);
+    if constexpr (std::is_same<Ty, bf16>::value) {
+      auto kernel = flash_fwd_tc_kernel<Tg::D, Tg::causal>;
+      const size_t smem = fwd_tc_smem_bytes<Tg::D>();
+      cudaError_t err = allow_smem(kernel, smem);
+      if (err != cudaSuccess) return err;
+      kernel<<<grid, kTcThreads, smem, st>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<bf16*>(o),
+          static_cast<float*>(lse), H, T, s, scale * kLog2e);
+    } else {
+      auto kernel = flash_fwd_kernel<Ty, Tg::D, Tg::causal>;
+      const size_t smem = fwd_smem_floats<Tg::D>() * sizeof(float);
+      cudaError_t err = allow_smem(kernel, smem);
+      if (err != cudaSuccess) return err;
+      kernel<<<grid, kThreads, smem, st>>>(
+          static_cast<const Ty*>(q), static_cast<const Ty*>(k),
+          static_cast<const Ty*>(v), static_cast<Ty*>(o),
+          static_cast<float*>(lse), H, T, s, scale);
+    }
     return cudaGetLastError();
   });
 }
@@ -588,10 +1200,13 @@ extern "C" int frl_flash_bwd_dq(const void* q, const void* k, const void* v,
   });
 }
 
+// delta: a [B, H, T] fp32 scratch, written and read by the bf16 path
+// (rowsum(dO O), by a first launch) and unused by the fp32 one.
 extern "C" int frl_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* o, const void* dout,
-                                 const void* lse, void* dk, void* dv, int B,
-                                 int H, int T, int D, int dtype, int causal,
+                                 const void* lse, void* delta, void* dk,
+                                 void* dv, int B, int H, int T, int D,
+                                 int dtype, int causal,
                                  const long long* strides, float scale,
                                  void* stream) {
   const Strides s = unpack(strides);
@@ -600,15 +1215,36 @@ extern "C" int frl_flash_bwd_dkv(const void* q, const void* k, const void* v,
   return dispatch(B, H, T, D, dtype, causal, [&](auto tag) {
     using Tg = decltype(tag);
     using Ty = typename Tg::T;
-    auto kernel = flash_bwd_dkv_kernel<Ty, Tg::D, Tg::causal>;
-    const size_t smem = bwd_smem_floats<Tg::D>() * sizeof(float);
-    cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, smem, st>>>(
-        static_cast<const Ty*>(q), static_cast<const Ty*>(k),
-        static_cast<const Ty*>(v), static_cast<const Ty*>(o),
-        static_cast<const Ty*>(dout), static_cast<const float*>(lse),
-        static_cast<Ty*>(dk), static_cast<Ty*>(dv), H, T, s, scale);
+    if constexpr (std::is_same<Ty, bf16>::value) {
+      const long long rows = static_cast<long long>(B) * H * T;
+      const long long lanes = rows * (Tg::D / 8);
+      flash_delta_kernel<Tg::D>
+          <<<static_cast<unsigned>((lanes + 255) / 256), 256, 0, st>>>(
+              static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
+              static_cast<float*>(delta), H, T, s, rows);
+      cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+      auto kernel = flash_bwd_dkv_tc_kernel<Tg::D, Tg::causal>;
+      const size_t smem = dkv_tc_smem_bytes<Tg::D>();
+      err = allow_smem(kernel, smem);
+      if (err != cudaSuccess) return err;
+      kernel<<<grid, kTcThreads, smem, st>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, T, s, scale,
+          scale * kLog2e);
+    } else {
+      auto kernel = flash_bwd_dkv_kernel<Ty, Tg::D, Tg::causal>;
+      const size_t smem = bwd_smem_floats<Tg::D>() * sizeof(float);
+      cudaError_t err = allow_smem(kernel, smem);
+      if (err != cudaSuccess) return err;
+      kernel<<<grid, kThreads, smem, st>>>(
+          static_cast<const Ty*>(q), static_cast<const Ty*>(k),
+          static_cast<const Ty*>(v), static_cast<const Ty*>(o),
+          static_cast<const Ty*>(dout), static_cast<const float*>(lse),
+          static_cast<Ty*>(dk), static_cast<Ty*>(dv), H, T, s, scale);
+    }
     return cudaGetLastError();
   });
 }

@@ -23,7 +23,11 @@ Two versions of each function:
   the TPU's ``_fwd_kernel``, ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``),
   launched on the current stream through ``ctypes`` by ``flash_fwd``,
   ``flash_bwd_dq`` and ``flash_bwd_dkv``, each of which counts its
-  launches in ``.launches``.
+  launches in ``.launches``. The bf16 forward and dK/dV run on the tensor
+  cores (``mma.sync``) and read 16 bytes at a time, so bf16 inputs must be
+  16-byte aligned with b, h and t strides that are multiples of 8
+  elements (as every (B, T, H, D) view of a projection is); anything else
+  raises.
 
 Routing is by the tensor's device only: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises; nothing falls back
@@ -133,6 +137,12 @@ def _check_kernel_args(seq_dim: int, *tensors):
             raise ValueError(f"tensors on {t.device} and {q.device}")
         if t.stride(-1) != 1:
             raise ValueError("flash kernels need unit stride along head_dim")
+        if t.dtype == torch.bfloat16 and (
+                t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])):
+            raise ValueError(
+                "the bf16 flash kernels read 16 bytes at a time: they need "
+                "16-byte aligned tensors whose b, h and t strides are "
+                f"multiples of 8 elements, got strides {t.stride()}")
 
 
 def _stride_table(seq_dim: int, **tensors) -> ctypes.Array:
@@ -222,16 +232,20 @@ def flash_bwd_dq(q, k, v, o, lse, do, *, causal: bool, seq_dim: int = 2):
 
 
 def flash_bwd_dkv(q, k, v, o, lse, do, *, causal: bool, seq_dim: int = 2):
-    """Launch the dK/dV kernel on CUDA tensors -> (dk, dv)."""
+    """Launch the dK/dV kernel on CUDA tensors -> (dk, dv). The bf16
+    kernel first writes ``rowsum(dO * O)`` into a [B, H, T] fp32 scratch
+    (one launch of the entry, counted once)."""
     _check_kernel_args(seq_dim, q, k, v, o, do)
     lse = _lse_arg(lse, q, seq_dim)
-    fn = _bind("frl_flash_bwd_dkv", 8)
+    fn = _bind("frl_flash_bwd_dkv", 9)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    dims = _dims(q, seq_dim, causal)
+    delta = torch.empty(dims[:3], dtype=torch.float32, device=q.device)
     strides = _stride_table(seq_dim, q=q, k=k, v=v, o=o, do=do, dk=dk, dv=dv)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             do.data_ptr(), lse.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             *_dims(q, seq_dim, causal), strides,
+             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), *dims, strides,
              1.0 / math.sqrt(q.shape[-1]),
              torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "dK/dV")

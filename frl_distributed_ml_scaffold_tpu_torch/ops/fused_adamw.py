@@ -1,7 +1,9 @@
 """Fused AdamW: the port of the JAX package's ``ops/fused_adamw.py``.
 
 One optimizer step of AdamW on one parameter leaf in one pass: read g,
-m, v and p, write p', m' and v' (fp32). ``FusedAdamW`` runs it over a dict
+m, v and p, write p', m' and v' (fp32). g may be bf16 (the step's cast
+under ``precision.policy=bf16``): it is widened to fp32 as it is read,
+as the JAX ``_update_leaf`` upcasts it. ``FusedAdamW`` runs it over a dict
 of leaves with the JAX package's schedule rules: the learning rate is
 read at the count BEFORE it increments, the bias correction uses the
 incremented count, as ``optax.adamw`` does.
@@ -50,29 +52,41 @@ def adamw_math(g, m, v, p, lr, bc1, bc2, *, b1, b2, eps, wd):
 
 
 def _check_leaf(p, g, m, v):
-    for name, t in (("p", p), ("g", g), ("m", m), ("v", v)):
+    """What the kernel takes: fp32 p, m and v, 16-byte aligned; g fp32
+    (16-byte aligned) or bf16 (8-byte aligned), read in place; all of
+    p's shape and device, contiguous."""
+    for name, t in (("p", p), ("m", m), ("v", v)):
         if t.dtype != torch.float32:
-            raise TypeError(f"the AdamW kernel takes float32 leaves, {name} "
-                            f"is {t.dtype}")
+            raise TypeError(
+                f"the AdamW kernel takes float32 p, m and v, {name} is "
+                f"{t.dtype} (a bf16 p comes only from a bf16 init, ROADMAP "
+                "A6, which the port does not have)")
+    if g.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the AdamW kernel takes a float32 or bfloat16 g, "
+                        f"got {g.dtype}")
+    for name, t in (("p", p), ("g", g), ("m", m), ("v", v)):
         if t.shape != p.shape or t.device != p.device:
             raise ValueError(f"{name} is {tuple(t.shape)} on {t.device}, p is "
                              f"{tuple(p.shape)} on {p.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"the AdamW kernel needs contiguous, 16-byte "
-                             f"aligned leaves; {name} is not")
+        align = 8 if t.dtype == torch.bfloat16 else 16
+        if not t.is_contiguous() or t.data_ptr() % align:
+            raise ValueError(f"the AdamW kernel needs contiguous leaves, "
+                             f"{align}-byte aligned; {name} is not")
 
 
 def adamw_kernel(p, g, m, v, lr, bc1, bc2, *, b1, b2, eps, wd) -> None:
-    """Launch the kernel on CUDA fp32 leaves: p, m and v updated in
-    place."""
+    """Launch the kernel on CUDA leaves (fp32 p, m, v; fp32 or bf16 g):
+    p, m and v updated in place."""
     _check_leaf(p, g, m, v)
     fn = _build.load("fused_adamw").frl_fused_adamw
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_longlong]
                        + [ctypes.c_float] * 9 + [ctypes.c_void_p])
-    err = fn(p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
-             p.numel(), lr, bc1, bc2, b1, 1.0 - b1, b2, 1.0 - b2, eps, wd,
+    err = fn(p.data_ptr(), g.data_ptr(), int(g.dtype == torch.bfloat16),
+             m.data_ptr(), v.data_ptr(), p.numel(), lr, bc1, bc2, b1, 1.0 - b1,
+             b2, 1.0 - b2, eps, wd,
              torch.cuda.current_stream(p.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused AdamW kernel launch failed: CUDA error {err}")

@@ -202,3 +202,20 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_bad_shapes():
                       causal=True)
     with pytest.raises(ValueError, match="lse"):
         tfa.flash_bwd_dq(q, q, q, q, torch.zeros(1, 2, 64), q, causal=True)
+
+
+def test_bf16_kernel_wrappers_refuse_misaligned_tensors():
+    """The bf16 kernels read 16 bytes at a time: a (B, T, H, D) view with
+    strides in multiples of 8 elements passes the wrappers' check; a t
+    stride off the 8-element grid or a base pointer off 16 bytes raises
+    before any build or launch."""
+    bf = torch.bfloat16
+    view = torch.zeros(1, 64, 2, 40, dtype=bf)[..., :32]
+    tfa._check_kernel_args(1, view, view, view)
+    odd = torch.zeros(1, 2, 64, 36, dtype=bf)[..., :32]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tfa.flash_fwd(odd, odd, odd, causal=True)
+    shifted = torch.zeros(1 * 2 * 64 * 32 + 1, dtype=bf)[1:].view(1, 2, 64, 32)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.flash_bwd_dkv(shifted, shifted, shifted, shifted,
+                          torch.zeros(1, 2, 64, 1), shifted, causal=True)

@@ -8,7 +8,8 @@ CPU, inputs from a numpy seed.
   65536-element minimum (one ragged);
 - ``FusedAdamW`` against JAX ``fused_adamw``'s ``fused_apply`` over 3
   steps of a warmup + cosine schedule with weight decay: params and both
-  moments;
+  moments; and over 3 steps of bf16 gradients, the JAX kernel in
+  interpret mode;
 - ``SGD`` (``optimizer.name=sgd``: weight decay, nesterov momentum) and
   its clip against the JAX factory's optax chain;
 - the factory's refusals.
@@ -100,6 +101,54 @@ def test_fused_adamw_matches_jax_over_three_steps():
                           (tstate["nu"][k], jstate.nu[k])):
             np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                        atol=ATOL, err_msg=k)
+
+
+def test_fused_adamw_bf16_grads_match_jax_over_three_steps():
+    """``FusedAdamW`` fed bf16 gradients (``precision.policy=bf16``'s
+    cast) against JAX ``fused_adamw`` running its Pallas kernel in
+    interpret mode on the same bf16 gradients: fp32 params and both
+    moments after 3 steps, leaves above and below 65536 elements."""
+    sched = lambda c: 1e-2 * (c + 1)
+    jtx = jfa.fused_adamw(sched, b2=0.95, weight_decay=0.1, interpret=True)
+    ttx = tfa.FusedAdamW(sched, b2=0.95, weight_decay=0.1)
+    rng = np.random.default_rng(3)
+    params = _leaves(rng)
+    jp = jax.tree.map(jnp.asarray, params)
+    jstate = jtx.init(jp)
+    tp = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    tstate = ttx.init(tp)
+    for _ in range(3):
+        g = {k: (0.1 * rng.standard_normal(s)).astype(np.float32)
+             for k, s in SHAPES.items()}
+        jp, jstate = jtx.fused_apply(
+            {k: jnp.asarray(v).astype(jnp.bfloat16) for k, v in g.items()},
+            jstate, jp)
+        ttx.update({k: torch.from_numpy(v).bfloat16() for k, v in g.items()},
+                   tstate, tp)
+    for k in SHAPES:
+        assert tp[k].dtype == tstate["mu"][k].dtype == torch.float32
+        for got, want in ((tp[k], jp[k]), (tstate["mu"][k], jstate.mu[k]),
+                          (tstate["nu"][k], jstate.nu[k])):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                       atol=ATOL, err_msg=k)
+
+
+def test_kernel_takes_bf16_grads_and_refuses_other_leaves():
+    """What the kernel wrapper takes, checked before any build: a bf16 g
+    beside fp32 p, m and v; a bf16 p (reachable only through a bf16
+    init, ROADMAP A6) or a misaligned g raises."""
+    p, m, v = (torch.zeros(65536) for _ in range(3))
+    tfa._check_leaf(p, torch.zeros(65536, dtype=torch.bfloat16), m, v)
+    with pytest.raises(TypeError, match="A6"):
+        tfa.adamw_kernel(p.bfloat16(), p, m, v, 1e-3, 0.1, 0.1, b1=0.9,
+                         b2=0.999, eps=1e-8, wd=0.0)
+    with pytest.raises(TypeError, match="float32 or bfloat16 g"):
+        tfa.adamw_kernel(p, p.half(), m, v, 1e-3, 0.1, 0.1, b1=0.9,
+                         b2=0.999, eps=1e-8, wd=0.0)
+    g = torch.zeros(65537, dtype=torch.bfloat16)[1:]
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        tfa.adamw_kernel(p, g, m, v, 1e-3, 0.1, 0.1, b1=0.9, b2=0.999,
+                         eps=1e-8, wd=0.0)
 
 
 def test_fused_adamw_reads_lr_before_the_count_increments():

@@ -189,8 +189,10 @@ def test_quant_paged_kernels_match_plain_versions(op, fmt, dtype):
 # ------------------------------------------------------ flash attention
 
 # (B, T, H, D): a T that is not a multiple of the kernels' 64-row tile,
-# and the three head dims the kernels take.
-FLASH_SHAPES = [(2, 200, 3, 32), (2, 136, 2, 64), (1, 72, 2, 128)]
+# the three head dims the kernels take, a T below one tile, and a long
+# ragged T.
+FLASH_SHAPES = [(2, 200, 3, 32), (2, 136, 2, 64), (1, 72, 2, 128),
+                (1, 40, 2, 64), (2, 1000, 4, 64)]
 # As a fraction of max(1, max|plain|), and as chip_smoke.py's FLASH_TOL:
 # bf16 rounds the output and P (dS for dQ) at other points than the plain
 # version; fp32 differs in summation order only.
@@ -231,6 +233,34 @@ def test_flash_kernels_match_plain_versions(dtype, shape, causal):
             fa.flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
     _flash_close(o, o_ref, dtype)
     _flash_close(lse, lse_ref, "float32")
+    for got, ref in zip((dq, dk, dv), want):
+        _flash_close(got, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_backward_kernels_read_a_strided_do(dtype):
+    """On the card: dQ and dK/dV read a dO that is a non-contiguous view
+    (every other 64-column half of a wider tensor) through its strides,
+    and agree with the plain backward on the same view."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from frl_distributed_ml_scaffold_tpu_torch.ops import flash_attention as fa
+
+    tdt = getattr(torch, dtype)
+    rng = np.random.default_rng(10)
+    b, t, h, d = 2, 136, 2, 64
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, t, h, d)).astype(
+        np.float32)).to("cuda", tdt).transpose(1, 2) for _ in range(3))
+    wide = torch.from_numpy(rng.standard_normal((b, t, h, 2 * d)).astype(
+        np.float32)).to("cuda", tdt)
+    do = wide[..., d:].transpose(1, 2)
+    assert not do.is_contiguous()
+    o_ref, lse_ref = fa.dense_fwd_lse(q, k, v, causal=True)
+    dq = fa.flash_bwd_dq(q, k, v, o_ref, lse_ref, do, causal=True)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, o_ref, lse_ref, do, causal=True)
+    want = fa.dense_bwd_lse(q, k, v, o_ref, lse_ref, do, causal=True)
+    torch.cuda.synchronize()
     for got, ref in zip((dq, dk, dv), want):
         _flash_close(got, ref, dtype)
 
@@ -372,3 +402,30 @@ def test_adamw_kernel_matches_plain_version(n):
     small = [t[:1000].clone() for t in (g, m, v, p)]
     fa.update_leaf(*small, 1e-3, 0.5, 0.5, **hp)
     assert fa.adamw_kernel.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [65539, 2359296])
+def test_adamw_kernel_reads_bf16_grads(n):
+    """On the card: the AdamW kernel with a bf16 g (read in place, widened
+    in registers) against ``adamw_math`` on the same bf16 g, 1e-6
+    absolute, one launch; p, m and v stay float32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from frl_distributed_ml_scaffold_tpu_torch.ops import fused_adamw as fa
+
+    rng = np.random.default_rng(n + 1)
+    g, m, p = (torch.from_numpy((s * rng.standard_normal(n)).astype(
+        np.float32)).cuda() for s in (1e-2, 1e-2, 0.05))
+    g = g.bfloat16()
+    v = torch.from_numpy((1e-4 * rng.uniform(size=n)).astype(
+        np.float32)).cuda()
+    hp = dict(b1=0.9, b2=0.999, eps=1e-8, wd=1e-4)
+    want = fa.adamw_math(g, m, v, p, 1e-3, 1 - 0.9 ** 6, 1 - 0.999 ** 6, **hp)
+    before = fa.adamw_kernel.launches
+    fa.update_leaf(g, m, v, p, 1e-3, 1 - 0.9 ** 6, 1 - 0.999 ** 6, **hp)
+    torch.cuda.synchronize()
+    assert fa.adamw_kernel.launches == before + 1
+    for got, ref in zip((p, m, v), want):
+        assert got.dtype == torch.float32
+        assert (got - ref).abs().max().item() <= 1e-6
