@@ -9,14 +9,20 @@ no final line):
 
 1. env: the card (``nvidia-smi`` name and power limit), torch and CUDA.
 2. build: every kernel under ``frl_distributed_ml_scaffold_tpu_torch/ops/
-   csrc`` compiled by nvcc, all in parallel, and the seconds it took.
+   csrc`` compiled by nvcc, all in parallel, the seconds it took, and the
+   registers and spill bytes of the bf16 dQ and contiguous decode kernels
+   (the full ``-Xptxas -v`` reports go to ``OUT_DIR/ptxas_*.txt``).
 3. kernel checks: each kernel held against its plain PyTorch version on
    the card at the serving paths' shapes, bf16 and fp32, plus a
    dirty-cache check (NaN where no row's occupancy reaches must leave the
    output bit-identical); then timed against the plain version (and one
    library call where one computes the same function), beside its bound:
    - contiguous decode: 8 slots, 16 heads, head_dim 64, S in {128, 1024},
-     occupancies 1, S, random and > S;
+     occupancies 1, S, random and > S; then the edges of its split over
+     positions through a strided q: S = 4096, one slot (8 splits), two
+     slots (4 splits) and 24 slots (B*H = 384: one split), with kv_len
+     1, > S and lengths no chunk divides; and the kernel alone at every
+     split count at S = 1024;
    - paged decode and verify (T = 5): the same rows and heads, block size
      16, 64-column tables into a 513-block pool with shuffled tables,
      occupancies 1, 16, 17, 1024, > 1024 (a retired row) and random;
@@ -123,6 +129,7 @@ import argparse
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -163,6 +170,43 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+# Kernels whose registers and spills the build line reports (nvcc's
+# -Xptxas -v): those this script's latest redesigns touched.
+PTXAS_KERNELS = ("flash_bwd_dq_tc_kernel", "decode_attention_kernel")
+
+
+def ptxas_summary(reports: dict) -> list:
+    """Registers and spill bytes of every instantiation of
+    ``PTXAS_KERNELS`` from the build's ``-Xptxas -v`` reports, its
+    template arguments demangled (bf16 / float, D, causal)."""
+    out = []
+    for source, report in reports.items():
+        lines = report.splitlines()
+        for i, line in enumerate(lines):
+            if "Compiling entry function" not in line:
+                continue
+            mangled = line.split("'")[1]
+            name = next((n for n in PTXAS_KERNELS if n in mangled), None)
+            if name is None:
+                continue
+            args = re.search(name + r"I(.*?)EEv", mangled)
+            args = args[1] if args else ""
+            for pat, rep in ((r"13__nv_bfloat16", "bf16,"), (r"^f", "float,"),
+                             (r"Li(\d+)E", r"\1,"), (r"Lb1E", "true,"),
+                             (r"Lb0E", "false,")):
+                args = re.sub(pat, rep, args)
+            block = " ".join(lines[i + 1: i + 4])
+            regs = re.search(r"Used (\d+) registers", block)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", block)
+            out.append({"source": source,
+                        "kernel": f"{name}<{args.rstrip(',')}>",
+                        "registers": int(regs[1]) if regs else None,
+                        "spill_store_bytes": int(spill[1]) if spill else None,
+                        "spill_load_bytes": int(spill[2]) if spill else None})
+    return out
 
 
 def cuda_time_ms(fn, repeats: int = 20, per_call: int = 1,
@@ -322,11 +366,39 @@ def decode_inputs(gen, dtype, s, *, fmt=None, b=8, h=16, d=64, layers=1):
     return q, k, v, kv_len, sc
 
 
+# Split edges of the contiguous kernel (csrc/decode_attention.cu), beyond
+# the path's shapes: (B, H, S) and occupancies. kv_len 1, > S and values
+# no split's chunk divides; S = 4096 at the path's 8 x 16 (one split, 16
+# passes); one slot (8 splits); two slots (4 splits); B*H = 384 >= 2 x
+# 132 SMs (one split).
+DECODE_EDGES = {
+    "S4096": (8, 16, 4096, [1, 4101, 3001, 2999, 129, 4095, 1025, 7]),
+    "one_slot": (1, 16, 4096, [2999]),
+    "two_slots": (2, 16, 1024, [1000, 1030]),
+    "wide_BH": (24, 16, 1024, [1, 1029, 1000] + list(range(5, 1024, 49))),
+}
+
+
+def _decode_case(dtype, q, k, v, kv_len, sc, what: str) -> float:
+    """One contiguous decode call held against its plain version, and
+    bit-identical with NaN past each row's occupancy (the kernel must
+    never read those positions)."""
+    from frl_distributed_ml_scaffold_tpu_torch.ops import decode_attention as da
+
+    got = da.decode_attention(q, k, v, kv_len, **sc)
+    want = da.decode_attention(q, k, v, kv_len.clamp_min(1), impl="dense",
+                               **sc)
+    dead = torch.arange(k.shape[1], device="cuda")[None, :] >= kv_len[:, None]
+    kd, vd, sd = poisoned(k, v, sc, dead)
+    dirty = da.decode_attention(q, kd, vd, kv_len, **sd)
+    return held(what, got, want, dirty, dtype)
+
+
 def decode_checks(gen, fmt=None) -> list:
     """The contiguous decode kernel (over a cache quantized to ``fmt``,
     or not) against its plain version, bf16 and fp32, S in {128, 1024};
-    NaN past each row's occupancy must leave the output bit-identical
-    (the kernel must never read those positions)."""
+    unquantized, also at the split edges of ``DECODE_EDGES`` through a
+    strided q."""
     from frl_distributed_ml_scaffold_tpu_torch.ops import decode_attention as da
 
     checks = []
@@ -334,17 +406,33 @@ def decode_checks(gen, fmt=None) -> list:
         for s in (128, 1024):
             q, k, v, kv_len, sc = decode_inputs(gen, dtype, s, fmt=fmt)
             q, k, v, sc = q[0], k[0], v[0], at(sc, 0)
-            got = da.decode_attention(q, k, v, kv_len, **sc)
-            want = da.decode_attention(q, k, v, kv_len.clamp_min(1),
-                                       impl="dense", **sc)
-            dead = torch.arange(s, device="cuda")[None, :] >= kv_len[:, None]
-            kd, vd, sd = poisoned(k, v, sc, dead)
-            dirty = da.decode_attention(q, kd, vd, kv_len, **sd)
-            err = held(f"decode kernel {fmt or 'unquantized'} S={s}", got,
-                       want, dirty, dtype)
+            err = _decode_case(dtype, q, k, v, kv_len, sc,
+                               f"decode kernel {fmt or 'unquantized'} S={s}")
             checks.append({"format": fmt or "none",
                            "dtype": str(dtype).replace("torch.", ""), "S": s,
                            "kv_len": kv_len.tolist(), "max_abs_err": err,
+                           "tol": TOL[dtype], "dirty_cache_equal": True})
+        if fmt is not None:
+            continue
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        # The edges draw from a generator of their own, so the weights and
+        # inputs of every later phase stay what they were without them.
+        egen = torch.Generator(device="cuda").manual_seed(
+            gen.initial_seed() + 1)
+        for label, (b, h, s, lens) in DECODE_EDGES.items():
+            d = 64
+            q = torch.randn((b, h, 3 * d), generator=egen,
+                            device="cuda").to(dtype)[..., d: 2 * d]
+            k, v, _ = cache_pair(egen, (b, 2 * s, h, d), dtype, None)
+            k, v = k[:, :s], v[:, :s]
+            kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            err = _decode_case(dtype, q, k, v, kv_len, {},
+                               f"decode kernel edge {label}")
+            checks.append({"format": "none", "edge": label,
+                           "dtype": str(dtype).replace("torch.", ""),
+                           "B": b, "H": h, "S": s, "q_strided": True,
+                           "splits": da.decode_splits(b * h, s, sms),
+                           "kv_len": lens, "max_abs_err": err,
                            "tol": TOL[dtype], "dirty_cache_equal": True})
     return checks
 
@@ -377,6 +465,17 @@ def time_decode(gen, s: int, fmt=None) -> dict:
     report = timed(kernel, plain, None if fmt else library, layers=layers)
     if fmt:
         report["library_note"] = QUANT_LIBRARY_NOTE
+    else:
+        report["splits"] = da.decode_splits(
+            q.shape[1] * q.shape[2], s,
+            torch.cuda.get_device_properties(0).multi_processor_count)
+        # The kernel alone (kv_len already clamped) at every split count,
+        # against which decode_splits' choice is read.
+        report["ms_by_splits"] = {
+            n: cuda_time_ms(lambda n=n: [
+                da._flash_decode(q[i], k[i], v[i], lens, n)
+                for i in range(layers)], per_call=layers)
+            for n in range(1, da.MAX_DECODE_SPLITS + 1)}
     return {"S": s, "format": fmt or "none", "kv_len": kv_len.tolist(),
             **report, **attention_bound(kv_len, s, q, dtype, fmt)}
 
@@ -2110,7 +2209,8 @@ def main() -> int:
         with open(os.path.join(OUT_DIR, f"ptxas_{name}.txt"), "w") as f:
             f.write(rep)
     emit("build", {"seconds": build_s, "sources": _build.sources(),
-                   "built_now": sorted(reports)})
+                   "built_now": sorted(reports),
+                   "ptxas": ptxas_summary(reports)})
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     seconds = {"build": build_s}

@@ -35,20 +35,20 @@
 //
 // Two designs, chosen by dtype:
 //
-// bf16 forward and dK/dV (the training path's): the tensor cores, through
+// bf16 (the training path's): the tensor cores, through
 // mma.sync.m16n8k16 (bf16 operands, fp32 accumulators). At the GPT-2-
 // medium training shape ([8, 1024, 16, 64] bf16, causal) a forward moves
 // 67 MB and does 1.7e10 flops; its bound is bytes (0.020 ms), and its
 // operation floor is below the library's time even at mma.sync's rate, so
 // what matters is what each byte of shared memory feeds: operands in
 // registers, bf16 tiles, copies overlapped with compute.
-// - 128 threads, 4 warps of 16 rows each (query rows in the forward, key
-//   rows in dK/dV). The warp's own rows stay in registers as mma A
-//   fragments: Q in the forward, K and V in dK/dV (at D = 128 the K and V
-//   fragments are reloaded from shared memory per product instead: their
-//   64 registers and the 128 of the dK and dV accumulators do not fit).
-// - The streamed tiles (K and V in the forward; Q, dO, lse and delta in
-//   dK/dV) pass through a 2-stage ring of shared memory filled by
+// - 128 threads, 4 warps of 16 rows each (query rows in the forward and
+//   dQ, key rows in dK/dV). The warp's own rows stay in registers as mma
+//   A fragments: Q in the forward, Q and dO in dQ, K and V in dK/dV (at
+//   D = 128 the dQ and dK/dV fragments are reloaded from shared memory
+//   per product instead: with the D-wide accumulators they do not fit).
+// - The streamed tiles (K and V in the forward and dQ; Q, dO, lse and
+//   delta in dK/dV) pass through a 2-stage ring of shared memory filled by
 //   cp.async, so the next tile is in flight while this one is computed.
 //   Rows past T are zero-filled by the copy (src-size 0) and never read.
 //   Rows are padded to D + 8 bf16 (a 16-byte shift a row), so the 8 rows
@@ -56,22 +56,28 @@
 // - S (S^T in dK/dV) stays in registers: the scale, the mask (only on the
 //   diagonal and ragged tiles) and the softmax work on the mma C
 //   fragments, a row's max and sum reducing over the 4 lanes of a quad;
-//   the C fragments of P (and P^T, dS^T) are reused as the A fragments of
-//   the next product, and V, dO and Q come in through ldmatrix.trans.
+//   the C fragments of P (and dS, P^T, dS^T) are reused as the A
+//   fragments of the next product, and V, K, dO and Q come in through
+//   ldmatrix.trans.
 // - exp is the special-function unit's 2^x (ex2.approx) of a log2(e)-
 //   prescaled score: p = 2^(s log2(e) - m'), m' the running max (lse in
-//   dK/dV) in log2 units; lse is written back in natural units.
+//   dQ and dK/dV) in log2 units; lse is written back in natural units.
+// - dQ does three products a key tile (S = Q K^T, dP = dO V^T, dQ += dS
+//   K) and rounds dS to bf16 before the last, exactly as the reference's
+//   ds.astype(k.dtype), so it needs no hi + lo split; delta = rowsum(dO O)
+//   comes from the block's own 64 rows of O and dO, read while the first
+//   copies are in flight.
 // - dK/dV keeps the reference's unrounded P and dS (fp32): each is split
 //   into hi = bf16(x) and lo = bf16(x - hi), and each of P^T dO and
 //   dS^T Q is two mma's, hi B + lo B (about 16 significant bits, where
 //   one bf16 keeps 8).
-// - delta = rowsum(dO O) is computed once per row by a small kernel that
-//   the same C entry launches first, into a [B, H, T] fp32 scratch the
+// - dK/dV's delta is computed once per row by a small kernel that the
+//   same C entry launches first, into a [B, H, T] fp32 scratch the
 //   wrapper allocates, instead of once per (key tile, query tile).
 //
-// fp32 (and bf16 dQ): every product as fp32 FMAs on the CUDA cores (67
-// TFLOP/s peak; TF32 would not hold fp32 to 1e-4), so bound by operations
-// and by how many FMAs each shared-memory load feeds.
+// fp32: every product as fp32 FMAs on the CUDA cores (67 TFLOP/s peak;
+// TF32 would not hold fp32 to 1e-4), so bound by operations and by how
+// many FMAs each shared-memory load feeds.
 // - 256 threads as a 16 x 16 grid; every 64 x 64 (or 64 x D) product tile
 //   gives each thread 4 rows (ty + 16 i) by 4 (or D / 16) columns
 //   (tx + 16 j), so one thread holds the same rows of S, P and the output
@@ -84,8 +90,7 @@
 //   product routine (tile_mma) serves every product, transposed or not.
 // - Rows and keys past T are loaded as zeros and masked; nothing past T is
 //   read or written.
-// Left for later: bf16 dQ on the tensor cores (the same design), wgmma
-// and TMA, and 128-row tiles.
+// Left for later: wgmma and TMA, and 128-row tiles.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -525,6 +530,11 @@ constexpr size_t fwd_tc_smem_bytes() {
 }
 
 template <int D>
+constexpr size_t dq_tc_smem_bytes() {
+  return 6 * kTile * kTcLds<D> * sizeof(bf16);  // Q, dO, 2 x (K, V)
+}
+
+template <int D>
 constexpr size_t dkv_tc_smem_bytes() {
   // K, V; 2 x (Q, dO); 2 x (lse, delta)
   return 6 * kTile * kTcLds<D> * sizeof(bf16) + 4 * kTile * sizeof(float);
@@ -860,6 +870,186 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// dQ for one (b, h, 64-query tile): the forward's loop with a second score
+// product and no online softmax. Q and dO stay (as A fragments up to D =
+// 64), K and V stream through the ring; S = Q K^T and dP = dO V^T land in
+// C fragments, p = 2^(s log2(e) / sqrt(D) - lse log2(e)) and dS = p (dP -
+// delta) / sqrt(D) are formed in place, and dS, rounded to bf16 (the
+// reference's ds.astype(k.dtype)), is the A operand of dQ += dS K with K
+// read through ldmatrix.trans.
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kTcThreads)
+flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ o,
+                       const bf16* __restrict__ dout,
+                       const float* __restrict__ lse, bf16* __restrict__ dq,
+                       int H, int n, Strides s, float scale,
+                       float scale_log2) {
+  constexpr int LDS = kTcLds<D>;
+  constexpr int TILE = kTile * LDS;
+  // Q and dO fragments in registers up to D = 64 (32 registers); at 128
+  // they are reloaded from the resident tiles for each product.
+  constexpr bool kRegs = D <= 64;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  __shared__ float delta_s[kTile];
+  bf16* qs = reinterpret_cast<bf16*>(tc_smem);
+  bf16* dos = qs + TILE;
+  // Stage st of the ring: K at qs + (2 + 2 st) TILE, V right after it.
+
+  const int n_tiles = (n + kTile - 1) / kTile;
+  const int qt = n_tiles - 1 - static_cast<int>(blockIdx.x);
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int q0 = qt * kTile;
+  const int qrow = q0 + warp * 16 + g;  // this lane's rows: qrow, qrow + 8
+
+  const bf16* kb = k + b * s.b[kK] + h * s.h[kK];
+  const bf16* vb = v + b * s.b[kV] + h * s.h[kV];
+  const bf16* ob = o + b * s.b[kO] + h * s.h[kO];
+  const bf16* dob = dout + b * s.b[kDO] + h * s.h[kDO];
+  cp_tile<D>(qs, q + b * s.b[kQ] + h * s.h[kQ], s.t[kQ], q0, n);
+  cp_tile<D>(dos, dob, s.t[kDO], q0, n);
+  cp_tile<D>(qs + 2 * TILE, kb, s.t[kK], 0, n);
+  cp_tile<D>(qs + 3 * TILE, vb, s.t[kV], 0, n);
+  cp_async_commit();
+
+  // delta = rowsum(dO O) in fp32 for the tile's 64 rows (0 past n), two
+  // threads a row, 16 bytes a load, while the copies are in flight.
+  {
+    const int r = threadIdx.x >> 1;
+    const int c0 = (threadIdx.x & 1) * (D / 2);
+    float acc = 0.f;
+    if (q0 + r < n) {
+      const bf16* orow = ob + static_cast<long long>(q0 + r) * s.t[kO] + c0;
+      const bf16* grow = dob + static_cast<long long>(q0 + r) * s.t[kDO] + c0;
+#pragma unroll
+      for (int c = 0; c < D / 2; c += 8) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
+        const uint4 gv = *reinterpret_cast<const uint4*>(grow + c);
+        const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* gp = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 a = __bfloat1622float2(op[e]);
+          const float2 d = __bfloat1622float2(gp[e]);
+          acc = fmaf(d.x, a.x, acc);
+          acc = fmaf(d.y, a.y, acc);
+        }
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if ((threadIdx.x & 1) == 0) delta_s[r] = acc;
+  }
+  // lse of the lane's two rows, in log2 units.
+  const float* lb = lse + (static_cast<long long>(b) * H + h) * n;
+  float lse_r[2], delta_r[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qrow + r * 8;
+    lse_r[r] = row < n ? lb[row] * kLog2e : 0.f;
+  }
+
+  uint32_t qf[kRegs ? D / 16 : 1][4];
+  uint32_t df[kRegs ? D / 16 : 1][4];
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  }
+  const bf16* qw = qs + warp * 16 * LDS;  // this warp's 16 query rows
+  const bf16* dw = dos + warp * 16 * LDS;
+
+  const int k_end = CAUSAL ? qt + 1 : n_tiles;
+  for (int kt = 0; kt < k_end; ++kt) {
+    if (kt + 1 < k_end) {
+      bf16* nxt = qs + (2 + 2 * ((kt + 1) & 1)) * TILE;
+      cp_tile<D>(nxt, kb, s.t[kK], (kt + 1) * kTile, n);
+      cp_tile<D>(nxt + TILE, vb, s.t[kV], (kt + 1) * kTile, n);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's group (and Q, dO) have landed
+    __syncthreads();
+    if (kt == 0) {
+      if constexpr (kRegs) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          ldsm_x4(qf[kk], qw + a_offset<LDS>(lane) + kk * 16);
+          ldsm_x4(df[kk], dw + a_offset<LDS>(lane) + kk * 16);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) delta_r[r] = delta_s[warp * 16 + g + r * 8];
+    }
+    const bf16* kc = qs + (2 + 2 * (kt & 1)) * TILE;
+    const bf16* vc = kc + TILE;
+
+    // S = Q K^T and dP = dO V^T: rows the warp's 16 queries, columns the
+    // tile's 64 keys.
+    float sc[8][4], ds[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[j][e] = 0.f;
+        ds[j][e] = 0.f;
+      }
+    }
+    mma_abt<D, kRegs>(sc, qf, qw, kc, lane);
+    mma_abt<D, kRegs>(ds, df, dw, vc, lane);
+
+    // dS = p (dP - delta) / sqrt(D), p = exp(S / sqrt(D) - lse), 0 where
+    // masked.
+    const int k0 = kt * kTile;
+    const bool edge = (CAUSAL && kt == qt) || k0 + kTile > n;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = ex2(sc[j][e] * scale_log2 - lse_r[e >> 1]);
+        if (edge) {
+          const int kpos = k0 + 8 * j + 2 * t4 + (e & 1);
+          const int qpos = qrow + (e >> 1) * 8;
+          if (kpos >= n || (CAUSAL && kpos > qpos)) p = 0.f;
+        }
+        ds[j][e] = p * (ds[j][e] - delta_r[e >> 1]) * scale;
+      }
+    }
+
+    // dQ += dS K: dS's C fragments, rounded to bf16, are the A fragments.
+#pragma unroll
+    for (int kc2 = 0; kc2 < 4; ++kc2) {
+      uint32_t da[4];
+      c_to_a(ds, kc2, da);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t bk[4];
+        ldsm_x4_t(bk, kc + bt_offset<LDS>(lane) + kc2 * 16 * LDS + dp * 16);
+        mma_bf16(acc[2 * dp], da, bk[0], bk[1]);
+        mma_bf16(acc[2 * dp + 1], da, bk[2], bk[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before refill
+  }
+
+  bf16* qb = dq + b * s.b[kDQ] + h * s.h[kDQ];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qrow + r * 8;
+    if (row >= n) continue;
+    bf16* qr = qb + static_cast<long long>(row) * s.t[kDQ];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(qr + 8 * j + 2 * t4) =
+          __floats2bfloat162_rn(acc[j][2 * r], acc[j][2 * r + 1]);
+    }
+  }
+}
+
 // delta[r] = sum_d dO[r, d] O[r, d] in fp32 for every row r = (b, h, t) of
 // a [B, H, T] fp32 output; D / 8 lanes a row, 16 bytes each.
 template <int D>
@@ -1187,15 +1377,27 @@ extern "C" int frl_flash_bwd_dq(const void* q, const void* k, const void* v,
   return dispatch(B, H, T, D, dtype, causal, [&](auto tag) {
     using Tg = decltype(tag);
     using Ty = typename Tg::T;
-    auto kernel = flash_bwd_dq_kernel<Ty, Tg::D, Tg::causal>;
-    const size_t smem = bwd_smem_floats<Tg::D>() * sizeof(float);
-    cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, smem, st>>>(
-        static_cast<const Ty*>(q), static_cast<const Ty*>(k),
-        static_cast<const Ty*>(v), static_cast<const Ty*>(o),
-        static_cast<const Ty*>(dout), static_cast<const float*>(lse),
-        static_cast<Ty*>(dq), H, T, s, scale);
+    if constexpr (std::is_same<Ty, bf16>::value) {
+      auto kernel = flash_bwd_dq_tc_kernel<Tg::D, Tg::causal>;
+      const size_t smem = dq_tc_smem_bytes<Tg::D>();
+      cudaError_t err = allow_smem(kernel, smem);
+      if (err != cudaSuccess) return err;
+      kernel<<<grid, kTcThreads, smem, st>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<const bf16*>(o),
+          static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+          static_cast<bf16*>(dq), H, T, s, scale, scale * kLog2e);
+    } else {
+      auto kernel = flash_bwd_dq_kernel<Ty, Tg::D, Tg::causal>;
+      const size_t smem = bwd_smem_floats<Tg::D>() * sizeof(float);
+      cudaError_t err = allow_smem(kernel, smem);
+      if (err != cudaSuccess) return err;
+      kernel<<<grid, kThreads, smem, st>>>(
+          static_cast<const Ty*>(q), static_cast<const Ty*>(k),
+          static_cast<const Ty*>(v), static_cast<const Ty*>(o),
+          static_cast<const Ty*>(dout), static_cast<const float*>(lse),
+          static_cast<Ty*>(dq), H, T, s, scale);
+    }
     return cudaGetLastError();
   });
 }

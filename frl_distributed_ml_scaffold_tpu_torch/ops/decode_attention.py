@@ -30,7 +30,8 @@ Two versions of each function:
   scale multiplies the score with ``1/sqrt(D)``, the V scale multiplies
   the fp32 probabilities before PV. The CPU takes it, and the card holds
   the kernel against it (``chip_smoke.py``).
-- the hand-written CUDA kernel (``csrc/decode_attention.cu`` replaces the
+- the hand-written CUDA kernel (``csrc/decode_attention.cu``, a split-KV
+  kernel whose split count ``decode_splits`` picks, replaces the
   TPU's ``_decode_kernel``; ``csrc/paged_attention.cu`` replaces
   ``_paged_decode_kernel`` and ``_paged_verify_kernel``;
   ``csrc/quant_attention.cu`` replaces the three ``*_quant`` siblings),
@@ -47,6 +48,7 @@ quantized one.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -160,6 +162,16 @@ def _check_kernel_args(q, k, v, kv_len, k_scale=None, v_scale=None):
         raise ValueError(
             "decode kernel needs each position's [H, D] contiguous"
         )
+    if k_scale is None:
+        elem = k.element_size()
+        for t in (k, v):
+            if (t.data_ptr() % 16
+                    or any(st * elem % 16 for st in t.stride()[:3])):
+                raise ValueError(
+                    "the decode kernel reads the cache 16 bytes at a time: "
+                    "k and v must be 16-byte aligned with b, s and h strides "
+                    f"in multiples of 16 bytes, got strides {t.stride()}"
+                )
     if (kv_len.shape != (b,) or kv_len.dtype != torch.int32
             or not kv_len.is_contiguous()):
         raise ValueError("kv_len must be a contiguous int32 [B] tensor")
@@ -183,17 +195,41 @@ def _bind(source: str, name: str, n_ptr: int, n_int: int, n_long: int):
     return fn
 
 
-def _flash_decode(q, k, v, kv_len):
-    """Launch the CUDA kernel; ``kv_len`` is int32 and already >= 1."""
+# Most CTAs one (row, head) is split into: the portable cluster size
+# (csrc/decode_attention.cu merges the splits through distributed shared
+# memory).
+MAX_DECODE_SPLITS = 8
+
+
+def decode_splits(bh: int, s: int, sm_count: int) -> int:
+    """CTAs per (row, head) of the contiguous decode kernel, from what the
+    host knows without a sync: about one CTA (16 warps) per SM in all, so
+    1 once ``B*H >= sm_count``; at most ``MAX_DECODE_SPLITS``, and no
+    more than one per 256 positions of capacity ``s`` (one pass of a
+    CTA at head_dim 64 bf16)."""
+    return max(1, min(MAX_DECODE_SPLITS, sm_count // bh, -(-s // 256)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _flash_decode(q, k, v, kv_len, splits=None):
+    """Launch the CUDA kernel; ``kv_len`` is int32 (the kernel clamps each
+    row's occupancy to ``[1, S]``). ``splits``: CTAs per (row, head),
+    ``decode_splits``'s by default."""
     _check_kernel_args(q, k, v, kv_len)
-    fn = _bind("decode_attention", "frl_decode_attention", 5, 5, 7)
+    fn = _bind("decode_attention", "frl_decode_attention", 5, 6, 7)
     b, h, d = q.shape
     s = k.shape[1]
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    if splits is None:
+        splits = decode_splits(b * h, s, _sm_count(q.device.index))
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-        out.data_ptr(), b, h, s, d, _KERNEL_DTYPES[q.dtype],
+        out.data_ptr(), b, h, s, d, _KERNEL_DTYPES[q.dtype], splits,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
         out.stride(0), out.stride(1), 1.0 / math.sqrt(d), stream,
     )
@@ -272,16 +308,17 @@ def decode_attention(
         raise KeyError(
             f"unknown decode_attention impl {impl!r} (dense | flash)"
         )
-    lens = kv_len.to(torch.int32).clamp_min(1)
     if q.device.type == "cpu":
-        return dense(lens)
+        return dense(kv_len.to(torch.int32).clamp_min(1))
     if q.device.type != "cuda":
         raise ValueError(
             f"decode attention runs on cpu or cuda, not {q.device}"
         )
     if quant:
-        return _flash_decode_quant(q, k, v, lens.contiguous(), k_scale, v_scale)
-    return _flash_decode(q, k, v, lens.contiguous())
+        lens = kv_len.to(torch.int32).clamp_min(1).contiguous()
+        return _flash_decode_quant(q, k, v, lens, k_scale, v_scale)
+    # The kernel clamps each row to [1, S] itself: no launch for the clamp.
+    return _flash_decode(q, k, v, kv_len.to(torch.int32).contiguous())
 
 
 decode_attention.launches = 0

@@ -160,3 +160,46 @@ def test_kernel_sources_are_found_and_named_by_content():
     path = _build.library_path("decode_attention")
     assert path.parent == _build.BUILD_DIR
     assert path == _build.library_path("decode_attention")
+
+
+@pytest.mark.parametrize(
+    "bh, s, sms, want",
+    [
+        (128, 1024, 132, 1),  # the serving path: 8 slots x 16 heads
+        (264, 4096, 132, 1),  # B*H >= 2 x SMs
+        (32, 1024, 132, 4),   # 2 slots
+        (32, 512, 132, 2),    # capped at one split per 256 positions
+        (16, 4096, 132, 8),   # one slot: capped at the cluster size
+        (16, 128, 132, 1),    # one bucket of 128: no split
+        (66, 4096, 132, 2),
+        (1, 1, 132, 1),
+    ],
+)
+def test_decode_split_count_rule(bh, s, sms, want):
+    """The contiguous kernel's split count: about one CTA per SM in all,
+    1 from B*H >= SMs, at most 8 (one cluster), one per 256 positions."""
+    got = tda.decode_splits(bh, s, sms)
+    assert got == want
+    assert 1 <= got <= tda.MAX_DECODE_SPLITS
+
+
+@pytest.mark.parametrize("case", ["misaligned_base", "position_stride"])
+def test_kernel_refuses_caches_it_cannot_read_16_bytes_at_a_time(case):
+    """k and v must be 16-byte aligned with strides in multiples of 16
+    bytes: the kernel reads 8 bf16 (4 fp32) per load. The wrapper raises
+    rather than copying the cache; q may be any unit-stride view."""
+    q = torch.zeros(B, H, 3 * D, dtype=torch.bfloat16)[..., D: 2 * D]
+    kv_len = torch.ones(B, dtype=torch.int32)
+    n = B * S * H * D
+    if case == "misaligned_base":
+        flat = torch.zeros(n + 8, dtype=torch.bfloat16)
+        off = next(i for i in range(1, 8) if flat[i:].data_ptr() % 16)
+        k = flat[off: off + n].view(B, S, H, D)
+    else:
+        # Each position's [H, D] followed by 4 bf16 (8 bytes) of padding.
+        k = torch.zeros(B, S, H * D + 4, dtype=torch.bfloat16)[..., : H * D]
+        k = k.unflatten(2, (H, D))
+    with pytest.raises(ValueError, match="16 bytes at a time"):
+        tda._check_kernel_args(q, k, k, kv_len)
+    aligned = torch.zeros(B, S, H, D, dtype=torch.bfloat16)
+    tda._check_kernel_args(q, aligned, aligned.clone(), kv_len)

@@ -57,6 +57,58 @@ def test_cuda_kernel_matches_plain_version(dtype):
     )
 
 
+# Split edges of the contiguous kernel: (B, H, S, D, occupancies). The
+# path's 8 x 16 (one split) at S = 128 (kv_len 0, which the kernel clamps
+# to 1 as the router does), 1024 and 4096 (kv_len 1 and > S, many
+# passes), one and two slots (8 and 4 splits, chunks that do not divide
+# n), B*H >= 2 x 132 (one split), and head dims with idle lanes (96) and
+# two 16-byte chunks a lane (256 fp32), both split 4 ways.
+DECODE_EDGES = {
+    "S128": (8, 16, 128, 64, [0, 1, 128, 165, 63, 64, 65, 127]),
+    "S1024": (8, 16, 1024, 64, [1, 1024, 1061, 1000, 129, 385, 7, 513]),
+    "S4096": (8, 16, 4096, 64, [1, 4096, 4200, 3001, 1025, 129, 2, 4095]),
+    "one_slot": (1, 16, 4096, 64, [2999]),
+    "two_slots": (2, 16, 1024, 64, [1000, 1030]),
+    "wide": (24, 16, 256, 64, [1, 256, 300] + list(range(3, 255, 12))),
+    "D96": (2, 4, 1024, 96, [1000, 1030]),
+    "D256": (2, 2, 1024, 256, [1, 777]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(DECODE_EDGES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_decode_kernel_split_edges(dtype, case):
+    """On the card: the split-KV kernel against the plain version at the
+    edges of its split (empty and ragged chunks, kv_len 1 and > S, one
+    split and eight) through a strided q and strided caches; NaN past
+    every row's occupancy leaves the output bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    b, h, s, d, lens = DECODE_EDGES[case]
+    tdt = getattr(torch, dtype)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = tda.decode_splits(b * h, s, sms)
+    assert (splits > 1) == (case in ("one_slot", "two_slots", "D96", "D256"))
+    rng = np.random.default_rng(11)
+    q = torch.from_numpy(rng.standard_normal((b, h, 2 * d)).astype(
+        np.float32)).to("cuda", tdt)[..., d:]
+    k, v = (torch.from_numpy(rng.standard_normal((b, 2 * s, h, d)).astype(
+        np.float32)).to("cuda", tdt)[:, :s] for _ in range(2))
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    before = tda.decode_attention.launches
+    got = tda.decode_attention(q, k, v, kv_len)
+    n = kv_len.clamp_min(1)
+    want = tda.dense_decode_attention(q, k, v, n)
+    torch.cuda.synchronize()
+    assert tda.decode_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=0)
+    dead = torch.arange(s, device="cuda")[None, :] >= n[:, None]
+    kd, vd, _ = poisoned(k, v, {}, dead)
+    assert torch.equal(tda.decode_attention(q, kd, vd, kv_len), got)
+
+
 def _paged_inputs(dtype, t=None, bs=16, m=8):
     """q, pools [B*m + 1, bs, H, D] (block 0 trash), shuffled tables,
     occupancies 1, a block edge + 1, m*bs and past m*bs (a retired
@@ -235,6 +287,32 @@ def test_flash_kernels_match_plain_versions(dtype, shape, causal):
     _flash_close(lse, lse_ref, "float32")
     for got, ref in zip((dq, dk, dv), want):
         _flash_close(got, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("t", [40, 1000, 1024])
+def test_flash_bf16_dq_kernel_matches_plain_backward(t, d, causal):
+    """On the card: the bf16 dQ kernel (tensor cores) against
+    ``dense_bwd_lse`` below one tile, at a ragged T and at the path's T,
+    for every head dim it takes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from frl_distributed_ml_scaffold_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(12)
+    shape = (1, t, 2, d)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to("cuda", torch.bfloat16).transpose(1, 2)
+        for _ in range(4))
+    o_ref, lse_ref = fa.dense_fwd_lse(q, k, v, causal=causal)
+    before = fa.flash_bwd_dq.launches
+    dq = fa.flash_bwd_dq(q, k, v, o_ref, lse_ref, do, causal=causal)
+    want = fa.dense_bwd_lse(q, k, v, o_ref, lse_ref, do, causal=causal)[0]
+    torch.cuda.synchronize()
+    assert fa.flash_bwd_dq.launches == before + 1
+    _flash_close(dq, want, "bfloat16")
 
 
 @pytest.mark.cuda
