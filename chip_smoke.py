@@ -26,11 +26,18 @@ no final line):
    - paged decode and verify (T = 5): the same rows and heads, block size
      16, 64-column tables into a 513-block pool with shuffled tables,
      occupancies 1, 16, 17, 1024, > 1024 (a retired row) and random;
-     verify query 0 must equal the paged decode kernel bit for bit.
+     verify query 0 must equal the paged decode kernel bit for bit. Then
+     the edges of the bf16-q kernels' split (``csrc/paged_tc.cuh``): T =
+     1..8 at every forced split count 1..8 over occupancies that cross
+     split boundaries and kv_len - T + 1 < 1, one slot (8 splits) and 24
+     slots (one split), through a strided q; each held to the plain
+     version, NaN past every row's occupancy bit-identical, query 0
+     equal to the decode at the same split count bit for bit; timed at
+     every split count (``ms_by_splits``).
    - quantized cache (``csrc/quant_attention.cu``): the three kernels in
      int8, fp8_e4m3 and fp8_e5m2, bf16 and fp32 q, at the same shapes
-     (contiguous S in {128, 1024}; the paged pool and T = 5), each against
-     its plain version; NaN in the scales (and 0x7F in the payloads) of
+     (contiguous S in {128, 1024}; the paged pool and T = 5, and the
+     paged edges above), each against its plain version; NaN in the scales (and 0x7F in the payloads) of
      every position no row's occupancy reaches leaves the output
      bit-identical; quantized verify query 0 equals the quantized paged
      decode bit for bit. Timed in the format its path runs.
@@ -174,7 +181,8 @@ def nvidia_smi() -> str:
 
 # Kernels whose registers and spills the build line reports (nvcc's
 # -Xptxas -v): those this script's latest redesigns touched.
-PTXAS_KERNELS = ("flash_bwd_dq_tc_kernel", "decode_attention_kernel")
+PTXAS_KERNELS = ("flash_bwd_dq_tc_kernel", "decode_attention_kernel",
+                 "paged_tc_kernel")
 
 
 def ptxas_summary(reports: dict) -> list:
@@ -524,12 +532,97 @@ def _used_positions(kv_len, tables, n_blocks):
     return used
 
 
+# Split edges of the paged kernels for bf16 q (csrc/paged_tc.cuh), beyond
+# the path's shapes: (B, H, table columns, occupancies), block size 16.
+# "grid": 16 columns (16 tiles, so every split count 1..8 has work),
+# occupancies that cross split boundaries, one past the table and 2
+# (kv_len - T + 1 < 1 from T = 3), swept over T = 1..8 and every forced
+# split count. "one_slot": one row, 128 columns (paged_splits: 8).
+# "wide": 24 slots, B*H = 384 >= 132 SMs (one split).
+PAGED_EDGES = {
+    "grid": (6, 4, 16, [2, 33, 97, 130, 200, 263]),
+    "one_slot": (1, 16, 128, [1999]),
+    "wide": (24, 16, 64, [1, 1030, 513] + list(range(7, 1024, 49))),
+}
+
+
+def _paged_edge_case(dtype, fmt, q, k, v, kv_len, tables, sc, kd, vd, sd,
+                     splits, what: str) -> tuple:
+    """The verify tile q ``[B, T, H, D]`` and the decode of its query 0
+    (at occupancy kv_len - T + 1, through q[:, 0]'s strided view) at a
+    split count (None: ``paged_splits``'s), each held to its plain version
+    and bit-identical over the poisoned pools; query 0 equal to the
+    decode bit for bit. Returns both max abs errors."""
+    from frl_distributed_ml_scaffold_tpu_torch.ops import decode_attention as da
+
+    t = q.shape[1]
+    lens = kv_len.clamp_min(1)
+    dec_lens = (kv_len - (t - 1)).clamp_min(1)
+    outs, errs = {}, []
+    for op, qq, n in (("verify", q, lens), ("decode", q[:, 0], dec_lens)):
+        launch = getattr(da, f"_flash_paged_{op}")
+        plain = getattr(da, f"dense_paged_{op}_attention")
+        outs[op] = launch(qq, k, v, n, tables, splits=splits, **sc)
+        want = plain(qq, k, v, n, tables, **sc)
+        dirty = launch(qq, kd, vd, n, tables, splits=splits, **sd)
+        errs.append(held(f"paged {op} kernel {fmt or 'unquantized'} {what}",
+                         outs[op], want, dirty, dtype))
+    check(torch.equal(outs["verify"][:, 0], outs["decode"]),
+          f"paged verify {fmt or 'unquantized'} {dtype} {what}: query 0 "
+          "differs from the paged decode kernel")
+    return tuple(errs)
+
+
+def paged_edge_checks(gen, dtype, fmt=None) -> list:
+    """``PAGED_EDGES`` through ``_paged_edge_case``: "grid" at T = 1..8 x
+    splits 1..8, the others at T = VERIFY_T and the default split. fp32 q
+    runs the CUDA-core kernels, which take no split (the count is
+    ignored). Inputs from a generator of their own, so every later
+    phase's inputs stay what they were without these."""
+    from frl_distributed_ml_scaffold_tpu_torch.ops import decode_attention as da
+
+    egen = torch.Generator(device="cuda").manual_seed(gen.initial_seed() + 2)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = []
+    for label, (b, h, m, lens) in PAGED_EDGES.items():
+        d, bs = 64, PAGED_BS
+        n = b * m + 1
+        k, v, sc = cache_pair(egen, (n, bs, h, d), dtype, fmt)
+        perm = torch.randperm(n - 1, generator=egen, device="cuda") + 1
+        tables = perm.view(b, m).to(torch.int32)
+        kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        dead = ~_used_positions(kv_len, tables, n)
+        kd, vd, sd = poisoned(k, v, sc, dead)
+        # q [B, 8, H, D]; tile T is its strided view q8[:, :T].
+        q8 = torch.randn((b, da.MAX_VERIFY_TILE, h, d), generator=egen,
+                         device="cuda").to(dtype)
+        grid = label == "grid"
+        cases = [(t, s) for t in range(1, da.MAX_VERIFY_TILE + 1)
+                 for s in range(1, da.MAX_DECODE_SPLITS + 1)] if grid else [
+            (VERIFY_T, None)]
+        errs = [_paged_edge_case(dtype, fmt, q8[:, :t], k, v, kv_len, tables,
+                                 sc, kd, vd, sd, s, f"{label} T={t} splits={s}")
+                for t, s in cases]
+        out.append({"format": fmt or "none", "edge": label,
+                    "dtype": str(dtype).replace("torch.", ""),
+                    "B": b, "H": h, "table_cols": m, "kv_len": lens,
+                    "T": sorted({t for t, _ in cases}),
+                    "splits": list(range(1, da.MAX_DECODE_SPLITS + 1))
+                    if grid else da.paged_splits(b * h, m * bs, sms),
+                    "cases": len(cases), "q_strided": True,
+                    "verify_max_abs_err": max(e[0] for e in errs),
+                    "decode_max_abs_err": max(e[1] for e in errs),
+                    "tol": TOL[dtype], "dirty_equal": True,
+                    "verify_query0_bit_equal_decode": True})
+    return out
+
+
 def paged_checks(gen, fmt=None) -> list:
     """The paged decode and verify kernels (over pools quantized to
     ``fmt``, or not) against their plain versions, bf16 and fp32; NaN in
     every pool position no row's occupancy reaches must leave the output
     bit-identical; verify query 0 must equal the paged decode kernel bit
-    for bit."""
+    for bit. Then the split edges (``paged_edge_checks``)."""
     from frl_distributed_ml_scaffold_tpu_torch.ops import decode_attention as da
 
     checks = []
@@ -565,6 +658,8 @@ def paged_checks(gen, fmt=None) -> list:
               "differs from the paged decode kernel")
         entry["verify_query0_bit_equal_decode"] = True
         checks.append(entry)
+    for dtype in (torch.bfloat16, torch.float32):
+        checks += paged_edge_checks(gen, dtype, fmt)
     return checks
 
 
@@ -591,9 +686,22 @@ def time_paged(gen, op: str, fmt=None) -> dict:
     cap = PAGED_COLS * PAGED_BS
     n = kv_len.clamp(1, cap).long()
     blocks = int(((n - 1) // PAGED_BS + 1).sum())
+    # The kernel alone at every split count (router clamp done), against
+    # which paged_splits' choice is read.
+    lens = kv_len.clamp_min(1)
+    launch = getattr(da, f"_flash_paged_{op}")
+    by_splits = {
+        s: cuda_time_ms(lambda s=s: [
+            launch(q[i], k[i], v[i], lens, tables, splits=s, **scs[i])
+            for i in range(layers)], per_call=layers)
+        for s in range(1, da.MAX_DECODE_SPLITS + 1)}
     return {
         "op": op, "format": fmt or "none", "T": t or 1,
         "kv_len": kv_len.tolist(), **timed(kernel, plain, layers=layers),
+        "splits": da.paged_splits(
+            q.shape[1] * q.shape[-2], cap,
+            torch.cuda.get_device_properties(0).multi_processor_count),
+        "ms_by_splits": by_splits,
         "library_note": QUANT_LIBRARY_NOTE if fmt else
         "no single PyTorch call reads K/V through a block table",
         **attention_bound(kv_len, cap, q, dtype, fmt, blocks),

@@ -3,10 +3,11 @@
 Each ``ops/csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ``ctypes``. The
 library lands in ``build/kernels/`` at the repository root (git-ignored),
-named by a hash of its source and flags, so an edited source rebuilds and
-an unchanged one is reused. Nothing builds at import: the first launch
-builds what it needs, and ``build_all`` builds every source at once, one
-``nvcc`` process each, all started together. A failed build raises.
+named by a hash of its source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source or header rebuilds and an unchanged one is
+reused. Nothing builds at import: the first launch builds what it needs,
+and ``build_all`` builds every source at once, one ``nvcc`` process
+each, all started together. A failed build raises.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{tag[:12]}.so"
 

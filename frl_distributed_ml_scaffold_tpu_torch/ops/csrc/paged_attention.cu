@@ -25,7 +25,15 @@
 // turns compute-bound. So the lever is to read each occupied pool byte
 // once, and never touch a block that no row's occupied prefix reaches.
 //
-// Design (simple first), after the contiguous decode kernel:
+// Two designs, chosen by dtype:
+//
+// bf16 (the serving dtype): paged_tc.cuh, on the tensor cores: a split
+// over positions fixed by tile index and merged in a thread-block
+// cluster, 16-warp CTAs, 16-byte cp.async of whole tiles into a 2-stage
+// ring, the verify tile as one 16-row mma A operand. Its note has the
+// design.
+//
+// fp32 (the fp32 token-identity checks): this file's CUDA-core template.
 // - One CTA of 8 warps per (row, head). On the TPU the table rides the
 //   scalar-prefetch channel into the BlockSpec index map and the grid
 //   walks logical blocks in order; here the CTA loads its own indices:
@@ -45,14 +53,12 @@
 //   query masks contributes p = 0 and leaves m unchanged (alpha = 1), and
 //   the arithmetic is written with explicit _rn intrinsics so the
 //   compiler cannot contract it differently per tile width.
-//
-// Left for later PRs: 16-byte vector loads, cp.async/TMA double
-// buffering of whole pool blocks, and a split over positions with a
-// combine pass for few rows or long occupancies.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "paged_tc.cuh"
 
 namespace {
 
@@ -63,19 +69,12 @@ constexpr int kMaxTile = 8;
 constexpr int kMaxTableCols = 8192;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 // Round to T and back: the probability as the PV product sees it.
@@ -274,27 +273,36 @@ void launch_dtype(int e, int nq, const Args& a, dim3 grid, cudaStream_t st) {
 
 int launch(const void* q, const void* k, const void* v, const void* kv_len,
            const void* tables, void* out, int B, int T, int H, int D, int N,
-           int bs, int M, int dtype, long long q_sb, long long q_st,
-           long long q_sh, long long p_sn, long long p_ss, long long p_sh,
-           long long o_sb, long long o_st, long long o_sh, float scale,
-           void* stream) {
+           int bs, int M, int dtype, int splits, long long q_sb,
+           long long q_st, long long q_sh, long long p_sn, long long p_ss,
+           long long p_sh, long long o_sb, long long o_st, long long o_sh,
+           float scale, void* stream) {
   const int e = D / 32;
   int log2_bs = 0;
   while ((1 << log2_bs) < bs) ++log2_bs;
   if (B < 1 || H < 1 || N < 1 || M < 1 || M > kMaxTableCols || T < 1 ||
       T > kMaxTile || D % 32 != 0 || (e != 1 && e != 2 && e != 4 && e != 8) ||
-      bs < 1 || (1 << log2_bs) != bs || (dtype != 0 && dtype != 1)) {
+      bs < 1 || (1 << log2_bs) != bs || (dtype != 0 && dtype != 1) ||
+      splits < 1 || splits > paged_tc::kMaxSplits) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args a{q, k, v, kv_len, tables, out, H, M, log2_bs, q_sb, q_st,
-               q_sh, p_sn, p_ss, p_sh, o_sb, o_st, o_sh, scale};
-  const dim3 grid(B * H);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    launch_dtype<float>(e, T, a, grid, st);
-  } else {
-    launch_dtype<__nv_bfloat16>(e, T, a, grid, st);
+    const Args a{q, k, v, kv_len, tables, out, H, M, log2_bs, q_sb, q_st,
+                 q_sh, p_sn, p_ss, p_sh, o_sb, o_st, o_sh, scale};
+    launch_dtype<float>(e, T, a, dim3(B * H), st);
+    return static_cast<int>(cudaGetLastError());
   }
+  const paged_tc::Params a{
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const unsigned char*>(k),
+      static_cast<const unsigned char*>(v), nullptr, nullptr,
+      static_cast<const int32_t*>(kv_len),
+      static_cast<const int32_t*>(tables), static_cast<__nv_bfloat16*>(out),
+      T, H, M, log2_bs, 0, q_sb, q_st, q_sh, p_sn, p_ss, p_sh, 0, 0, 0, o_sb,
+      o_st, o_sh, scale};
+  const cudaError_t err = paged_tc::launch<false>(a, B, D, splits, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -306,27 +314,32 @@ int launch(const void* q, const void* k, const void* v, const void* kv_len,
 // along D; kv_len [B] int32 >= 1 (each row's total occupancy, the tile
 // included); tables [B, M] int32, contiguous, every column a row's
 // occupancy reaches holding a pool block id in [0, N). bs a power of two,
-// D in {32, 64, 128, 256}. dtype: 0 = float32, 1 = bfloat16. Returns a
+// D in {32, 64, 128, 256}. dtype: 0 = float32, 1 = bfloat16. splits in
+// 1..8: CTAs per (row, head), one cluster (bf16; fp32 takes one CTA). The
+// bf16 kernel reads the pools 16 bytes at a time: 16-byte aligned, the N,
+// bs and H strides multiples of 16 bytes (the wrapper checks). Returns a
 // cudaError_t as int.
 extern "C" int frl_paged_decode_attention(
     const void* q, const void* k, const void* v, const void* kv_len,
     const void* tables, void* out, int B, int T, int H, int D, int N, int bs,
-    int M, int dtype, long long q_sb, long long q_st, long long q_sh,
-    long long p_sn, long long p_ss, long long p_sh, long long o_sb,
-    long long o_st, long long o_sh, float scale, void* stream) {
+    int M, int dtype, int splits, long long q_sb, long long q_st,
+    long long q_sh, long long p_sn, long long p_ss, long long p_sh,
+    long long o_sb, long long o_st, long long o_sh, float scale,
+    void* stream) {
   if (T != 1) return static_cast<int>(cudaErrorInvalidValue);
   return launch(q, k, v, kv_len, tables, out, B, T, H, D, N, bs, M, dtype,
-                q_sb, q_st, q_sh, p_sn, p_ss, p_sh, o_sb, o_st, o_sh, scale,
-                stream);
+                splits, q_sb, q_st, q_sh, p_sn, p_ss, p_sh, o_sb, o_st, o_sh,
+                scale, stream);
 }
 
 extern "C" int frl_paged_verify_attention(
     const void* q, const void* k, const void* v, const void* kv_len,
     const void* tables, void* out, int B, int T, int H, int D, int N, int bs,
-    int M, int dtype, long long q_sb, long long q_st, long long q_sh,
-    long long p_sn, long long p_ss, long long p_sh, long long o_sb,
-    long long o_st, long long o_sh, float scale, void* stream) {
+    int M, int dtype, int splits, long long q_sb, long long q_st,
+    long long q_sh, long long p_sn, long long p_ss, long long p_sh,
+    long long o_sb, long long o_st, long long o_sh, float scale,
+    void* stream) {
   return launch(q, k, v, kv_len, tables, out, B, T, H, D, N, bs, M, dtype,
-                q_sb, q_st, q_sh, p_sn, p_ss, p_sh, o_sb, o_st, o_sh, scale,
-                stream);
+                splits, q_sb, q_st, q_sh, p_sn, p_ss, p_sh, o_sb, o_st, o_sh,
+                scale, stream);
 }

@@ -33,9 +33,19 @@
 // bf16 kernels: read each occupied payload and scale byte once, never
 // touch a position or block no row's occupancy reaches.
 //
-// Design (simple first), after decode_attention.cu and paged_attention.cu
-// (which stay as they are):
-// - One template for all three entry points: one CTA of 8 warps per
+// Two designs, chosen by q's dtype and the cache:
+//
+// Paged with bf16 q (the serving dtype): paged_tc.cuh, on the tensor
+// cores, shared with the bf16 pools of paged_attention.cu: a split over
+// positions fixed by tile index and merged in a thread-block cluster,
+// 16-warp CTAs, 16-byte cp.async of 16 payload bytes into a 2-stage
+// ring, the payload bytes turned into bf16 B fragments exactly, p *
+// v_scale as bf16 hi + lo. Its note has the design.
+//
+// The contiguous cache, and fp32 q on the pools (the fp32 token-identity
+// checks): this file's CUDA-core template, after decode_attention.cu's
+// first design and paged_attention.cu's fp32 one.
+// - One template for these entry points: one CTA of 8 warps per
 //   (row, head). The paged instantiations copy the table columns the
 //   occupancy reaches into shared memory (the TPU kernels get them from
 //   the scalar-prefetch channel) and address pool[table[p / bs], p % bs];
@@ -46,12 +56,10 @@
 //   strides (bf16 -> fp32 is exact, so the scale leaves need no per-step
 //   transpose or cast, which the TPU router makes).
 // - The payload format is a runtime argument, uniform over the grid, not
-//   a template parameter: 72 instantiations (q dtype x head_dim x tile
-//   width, contiguous and paged) instead of three times as many. Each
-//   iteration issues all its loads first (predicated, as the bf16
-//   kernels do), then takes one branch on the format to decode them: a
-//   format branch between the loads serialises them, ~4x slower on the
-//   card at the serving shapes.
+//   a template parameter. Each iteration issues all its loads first
+//   (predicated, as the bf16 kernels do), then takes one branch on the
+//   format to decode them: a format branch between the loads serialises
+//   them, ~4x slower on the card at the serving shapes.
 // - Positions >= n are never read; a position that a query masks adds
 //   p = 0 and leaves the running max alone, so garbage there (NaN
 //   payloads or scales included) cannot reach the output.
@@ -59,16 +67,21 @@
 //   kv_len - T + 1: both run this template with the same warp partition,
 //   loop and merge order, and the arithmetic is written with explicit _rn
 //   intrinsics so the compiler cannot contract it differently per tile
-//   width. Greedy acceptance over a quantized pool rests on it.
+//   width. Greedy acceptance over a quantized pool rests on it (and, for
+//   bf16 q, on paged_tc.cuh's same property).
 //
-// Left for later PRs: 16-byte loads of 16 payload bytes, cp.async/TMA of
-// whole pool blocks, and a split over positions for few rows.
+// Left for later PRs: the contiguous kernel's redesign (16-byte loads, a
+// split over positions).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "paged_tc.cuh"
 
 namespace {
 
@@ -326,26 +339,24 @@ void launch_tile(int nq, const Params& a, int rows, cudaStream_t st) {
   }
 }
 
-// nq == 0: the contiguous cache (one query); else a paged tile of nq.
+// nq == 0: the contiguous cache (one query); else a paged tile of nq
+// (fp32 q only: bf16 q on the pools takes paged_tc.cuh).
+template <typename T, int E>
+void launch_e(int nq, const Params& a, int rows, cudaStream_t st) {
+  if (nq == 0) {
+    launch_one<T, E, 1, false>(a, rows, st);
+  } else if constexpr (std::is_same<T, float>::value) {
+    launch_tile<T, E>(nq, a, rows, st);
+  }
+}
+
 template <typename T>
 void launch_dtype(int e, int nq, const Params& a, int rows, cudaStream_t st) {
   switch (e) {
-    case 1:
-      if (nq == 0) launch_one<T, 1, 1, false>(a, rows, st);
-      else launch_tile<T, 1>(nq, a, rows, st);
-      break;
-    case 2:
-      if (nq == 0) launch_one<T, 2, 1, false>(a, rows, st);
-      else launch_tile<T, 2>(nq, a, rows, st);
-      break;
-    case 4:
-      if (nq == 0) launch_one<T, 4, 1, false>(a, rows, st);
-      else launch_tile<T, 4>(nq, a, rows, st);
-      break;
-    case 8:
-      if (nq == 0) launch_one<T, 8, 1, false>(a, rows, st);
-      else launch_tile<T, 8>(nq, a, rows, st);
-      break;
+    case 1: launch_e<T, 1>(nq, a, rows, st); break;
+    case 2: launch_e<T, 2>(nq, a, rows, st); break;
+    case 4: launch_e<T, 4>(nq, a, rows, st); break;
+    case 8: launch_e<T, 8>(nq, a, rows, st); break;
   }
 }
 
@@ -367,27 +378,43 @@ int launch(int nq, int rows, int D, int dtype, const Params& a, void* stream) {
 int launch_paged(const void* q, const void* k, const void* v, const void* ks,
                  const void* vs, const void* kv_len, const void* tables,
                  void* out, int B, int T, int H, int D, int N, int bs, int M,
-                 int dtype, int fmt, long long q_sb, long long q_st,
-                 long long q_sh, long long p_sn, long long p_ss,
-                 long long p_sh, long long s_sn, long long s_ss,
-                 long long s_sh, long long o_sb, long long o_st,
-                 long long o_sh, float scale, void* stream) {
+                 int dtype, int fmt, int splits, long long q_sb,
+                 long long q_st, long long q_sh, long long p_sn,
+                 long long p_ss, long long p_sh, long long s_sn,
+                 long long s_ss, long long s_sh, long long o_sb,
+                 long long o_st, long long o_sh, float scale, void* stream) {
   int log2_bs = 0;
   while ((1 << log2_bs) < bs) ++log2_bs;
   if (!valid_common(B, H, D, dtype, fmt) || N < 1 || M < 1 ||
       M > kMaxTableCols || T < 1 || T > kMaxTile || bs < 1 ||
-      (1 << log2_bs) != bs) {
+      (1 << log2_bs) != bs || splits < 1 || splits > paged_tc::kMaxSplits) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Params a{q, static_cast<const uint8_t*>(k),
-                 static_cast<const uint8_t*>(v),
-                 static_cast<const __nv_bfloat16*>(ks),
-                 static_cast<const __nv_bfloat16*>(vs),
-                 static_cast<const int32_t*>(kv_len),
-                 static_cast<const int32_t*>(tables), out, H, M, M * bs,
-                 log2_bs, fmt, q_sb, q_st, q_sh, p_sn, p_ss, p_sh, s_sn, s_ss,
-                 s_sh, o_sb, o_st, o_sh, scale};
-  return launch(T, B, D, dtype, a, stream);
+  if (dtype == 0) {
+    const Params a{q, static_cast<const uint8_t*>(k),
+                   static_cast<const uint8_t*>(v),
+                   static_cast<const __nv_bfloat16*>(ks),
+                   static_cast<const __nv_bfloat16*>(vs),
+                   static_cast<const int32_t*>(kv_len),
+                   static_cast<const int32_t*>(tables), out, H, M, M * bs,
+                   log2_bs, fmt, q_sb, q_st, q_sh, p_sn, p_ss, p_sh, s_sn,
+                   s_ss, s_sh, o_sb, o_st, o_sh, scale};
+    return launch(T, B, D, dtype, a, stream);
+  }
+  const paged_tc::Params a{
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const unsigned char*>(k),
+      static_cast<const unsigned char*>(v),
+      static_cast<const __nv_bfloat16*>(ks),
+      static_cast<const __nv_bfloat16*>(vs),
+      static_cast<const int32_t*>(kv_len),
+      static_cast<const int32_t*>(tables), static_cast<__nv_bfloat16*>(out),
+      T, H, M, log2_bs, fmt, q_sb, q_st, q_sh, p_sn, p_ss, p_sh, s_sn, s_ss,
+      s_sh, o_sb, o_st, o_sh, scale};
+  const cudaError_t err = paged_tc::launch<true>(
+      a, B, D, splits, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -424,32 +451,35 @@ extern "C" int frl_decode_attention_quant(
 // Paged: q and out [B, T, H, D] (T = 1 for decode), pools [N, bs, H, D],
 // scale pools [N, bs, H]; tables [B, M] int32, contiguous, every column a
 // row's occupancy reaches holding a pool block id in [0, N); bs a power
-// of two.
+// of two. splits in 1..8: CTAs per (row, head), one cluster (bf16 q; fp32
+// takes one CTA). The bf16-q kernel reads the pools 16 bytes at a time:
+// 16-byte aligned, the N, bs and H strides multiples of 16 bytes (the
+// wrapper checks).
 extern "C" int frl_paged_decode_attention_quant(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* kv_len, const void* tables, void* out,
     int B, int T, int H, int D, int N, int bs, int M, int dtype, int fmt,
-    long long q_sb, long long q_st, long long q_sh, long long p_sn,
-    long long p_ss, long long p_sh, long long s_sn, long long s_ss,
-    long long s_sh, long long o_sb, long long o_st, long long o_sh,
-    float scale, void* stream) {
+    int splits, long long q_sb, long long q_st, long long q_sh,
+    long long p_sn, long long p_ss, long long p_sh, long long s_sn,
+    long long s_ss, long long s_sh, long long o_sb, long long o_st,
+    long long o_sh, float scale, void* stream) {
   if (T != 1) return static_cast<int>(cudaErrorInvalidValue);
   return launch_paged(q, k, v, k_scale, v_scale, kv_len, tables, out, B, T,
-                      H, D, N, bs, M, dtype, fmt, q_sb, q_st, q_sh, p_sn,
-                      p_ss, p_sh, s_sn, s_ss, s_sh, o_sb, o_st, o_sh, scale,
-                      stream);
+                      H, D, N, bs, M, dtype, fmt, splits, q_sb, q_st, q_sh,
+                      p_sn, p_ss, p_sh, s_sn, s_ss, s_sh, o_sb, o_st, o_sh,
+                      scale, stream);
 }
 
 extern "C" int frl_paged_verify_attention_quant(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* kv_len, const void* tables, void* out,
     int B, int T, int H, int D, int N, int bs, int M, int dtype, int fmt,
-    long long q_sb, long long q_st, long long q_sh, long long p_sn,
-    long long p_ss, long long p_sh, long long s_sn, long long s_ss,
-    long long s_sh, long long o_sb, long long o_st, long long o_sh,
-    float scale, void* stream) {
+    int splits, long long q_sb, long long q_st, long long q_sh,
+    long long p_sn, long long p_ss, long long p_sh, long long s_sn,
+    long long s_ss, long long s_sh, long long o_sb, long long o_st,
+    long long o_sh, float scale, void* stream) {
   return launch_paged(q, k, v, k_scale, v_scale, kv_len, tables, out, B, T,
-                      H, D, N, bs, M, dtype, fmt, q_sb, q_st, q_sh, p_sn,
-                      p_ss, p_sh, s_sn, s_ss, s_sh, o_sb, o_st, o_sh, scale,
-                      stream);
+                      H, D, N, bs, M, dtype, fmt, splits, q_sb, q_st, q_sh,
+                      p_sn, p_ss, p_sh, s_sn, s_ss, s_sh, o_sb, o_st, o_sh,
+                      scale, stream);
 }

@@ -34,8 +34,10 @@ Two versions of each function:
   kernel whose split count ``decode_splits`` picks, replaces the
   TPU's ``_decode_kernel``; ``csrc/paged_attention.cu`` replaces
   ``_paged_decode_kernel`` and ``_paged_verify_kernel``;
-  ``csrc/quant_attention.cu`` replaces the three ``*_quant`` siblings),
-  launched on the current stream through ``ctypes``.
+  ``csrc/quant_attention.cu`` replaces the three ``*_quant`` siblings;
+  for bf16 q both paged files launch ``csrc/paged_tc.cuh``'s
+  tensor-core kernel, split as ``paged_splits`` picks), launched on the
+  current stream through ``ctypes``.
 
 The routers (``decode_attention``, ``paged_decode_attention``,
 ``paged_verify_attention``) choose by the tensor's device only: a CPU
@@ -210,6 +212,18 @@ def decode_splits(bh: int, s: int, sm_count: int) -> int:
     return max(1, min(MAX_DECODE_SPLITS, sm_count // bh, -(-s // 256)))
 
 
+def paged_splits(bh: int, cap: int, sm_count: int) -> int:
+    """CTAs per (row, head) of the paged kernels for bf16 q
+    (``csrc/paged_tc.cuh``), from what the host knows without a sync: B*H,
+    the table's capacity ``cap = M * bs`` positions and the SM count:
+    ``decode_splits``'s rule over that capacity (both kernels run 16-warp
+    CTAs of 256 positions a pass). Never the occupancy: a split takes a
+    fixed share of the table, so the decode at n and the verify at
+    n + T - 1 partition positions alike, and verify query 0 equals the
+    decode bit for bit."""
+    return decode_splits(bh, cap, sm_count)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -330,7 +344,7 @@ decode_attention.quant_launches = 0
 # Query tiles the verify kernels are instantiated for (T = speculate_k + 1).
 MAX_VERIFY_TILE = 8
 # Shared memory the kernels give a row's table (csrc/paged_attention.cu,
-# csrc/quant_attention.cu).
+# csrc/quant_attention.cu, csrc/paged_tc.cuh).
 _MAX_TABLE_BYTES = 32 * 1024
 
 
@@ -436,6 +450,14 @@ def _check_paged_args(q, k_pool, v_pool, kv_len, block_tables, want_q_dim,
         )
     if q.stride(-1) != 1 or k_pool.stride(-1) != 1:
         raise ValueError("paged kernels need unit stride along head_dim")
+    elem = k_pool.element_size()
+    for t in (k_pool, v_pool):
+        if t.data_ptr() % 16 or any(st * elem % 16 for st in t.stride()[:3]):
+            raise ValueError(
+                "the paged kernels read the pools 16 bytes at a time: "
+                "k_pool and v_pool must be 16-byte aligned with N, bs and H "
+                f"strides in multiples of 16 bytes, got strides {t.stride()}"
+            )
     if (block_tables.dim() != 2 or block_tables.shape[0] != b
             or block_tables.dtype != torch.int32
             or not block_tables.is_contiguous()):
@@ -460,29 +482,35 @@ def _check_paged_args(q, k_pool, v_pool, kv_len, block_tables, want_q_dim,
 
 
 def _launch_paged(op, q, k_pool, v_pool, kv_len, block_tables, k_scale,
-                  v_scale):
+                  v_scale, splits=None):
     """Launch the paged ``op`` ("decode" on q ``[B, H, D]``, "verify" on
     ``[B, T, H, D]``) kernel, the quantized one when scales are given;
-    ``kv_len`` int32, already >= 1."""
+    ``kv_len`` int32 (the kernels clamp each row's occupancy to
+    ``[1, M*bs]``). ``splits``: CTAs per (row, head) of the bf16-q
+    kernel, ``paged_splits``'s by default (fp32 q takes one)."""
     _check_paged_args(q, k_pool, v_pool, kv_len, block_tables,
                       3 if op == "decode" else 4, k_scale, v_scale)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     q4, out4 = (q, out) if q.dim() == 4 else (q[:, None], out[:, None])
     b, t, h, d = q4.shape
     n, bs = k_pool.shape[:2]
+    m = block_tables.shape[1]
+    if splits is None:
+        splits = paged_splits(b * h, m * bs, _sm_count(q.device.index))
     name = f"frl_paged_{op}_attention"
     ptrs = [q4.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr()]
-    ints = [b, t, h, d, n, bs, block_tables.shape[1], _KERNEL_DTYPES[q.dtype]]
+    ints = [b, t, h, d, n, bs, m, _KERNEL_DTYPES[q.dtype]]
     strides = [q4.stride(0), q4.stride(1), q4.stride(2),
                k_pool.stride(0), k_pool.stride(1), k_pool.stride(2)]
     if k_scale is None:
-        fn = _bind("paged_attention", name, 6, 8, 9)
+        fn = _bind("paged_attention", name, 6, 9, 9)
     else:
         name += "_quant"
-        fn = _bind("quant_attention", name, 8, 9, 12)
+        fn = _bind("quant_attention", name, 8, 10, 12)
         ptrs += [k_scale.data_ptr(), v_scale.data_ptr()]
         ints.append(_PAYLOAD_FORMATS[k_pool.dtype])
         strides += [k_scale.stride(0), k_scale.stride(1), k_scale.stride(2)]
+    ints.append(splits)
     ptrs += [kv_len.data_ptr(), block_tables.data_ptr(), out4.data_ptr()]
     strides += [out4.stride(0), out4.stride(1), out4.stride(2)]
     err = fn(*ptrs, *ints, *strides, 1.0 / math.sqrt(d),
@@ -500,20 +528,20 @@ def _count(router, k_scale) -> None:
 
 
 def _flash_paged_decode(q, k_pool, v_pool, kv_len, block_tables,
-                        k_scale=None, v_scale=None):
+                        k_scale=None, v_scale=None, splits=None):
     """Launch the paged decode kernel (quantized with scales)."""
     out = _launch_paged("decode", q, k_pool, v_pool, kv_len, block_tables,
-                        k_scale, v_scale)
+                        k_scale, v_scale, splits)
     _count(paged_decode_attention, k_scale)
     return out
 
 
 def _flash_paged_verify(q, k_pool, v_pool, kv_len, block_tables,
-                        k_scale=None, v_scale=None):
+                        k_scale=None, v_scale=None, splits=None):
     """Launch the paged verify kernel (quantized with scales) on a
     ``[B, T, H, D]`` tile."""
     out = _launch_paged("verify", q, k_pool, v_pool, kv_len, block_tables,
-                        k_scale, v_scale)
+                        k_scale, v_scale, splits)
     _count(paged_verify_attention, k_scale)
     return out
 
@@ -545,16 +573,19 @@ def paged_decode_attention(
     """Single-token decode attention over a paged cache, the entry point
     the paged model branch routes through. With ``k_scale`` / ``v_scale``
     (``[N, bs, H]`` bf16, both or neither) the pools are quantized.
-    ``impl="dense"`` is the explicit plain version; ``"flash"`` clamps
-    ``kv_len`` to >= 1 and takes the kernel on a CUDA tensor, the plain
-    version on a CPU tensor. ``paged_decode_attention.launches`` /
+    ``impl="dense"`` is the explicit plain version; ``"flash"`` takes
+    the kernel on a CUDA tensor, the plain version on a CPU tensor (both
+    clamp each row's occupancy to ``[1, M*bs]``).
+    ``paged_decode_attention.launches`` /
     ``.quant_launches`` count kernel launches."""
     _quantized(k_scale, v_scale, "pool")
     if not _use_paged_kernel(q, impl):
         return dense_paged_decode_attention(
             q, k_pool, v_pool, kv_len, block_tables, k_scale, v_scale
         )
-    lens = kv_len.to(torch.int32).clamp_min(1).contiguous()
+    # The kernels clamp each row to [1, M*bs] themselves: no launch for
+    # the clamp.
+    lens = kv_len.to(torch.int32).contiguous()
     return _flash_paged_decode(q, k_pool, v_pool, lens, block_tables,
                               k_scale, v_scale)
 
@@ -580,9 +611,9 @@ def paged_verify_attention(
         return dense_paged_verify_attention(
             q, k_pool, v_pool, kv_len, block_tables, k_scale, v_scale
         )
-    lens = kv_len.to(torch.int32).clamp_min(1).contiguous()
-    return _flash_paged_verify(q, k_pool, v_pool, lens, block_tables,
-                              k_scale, v_scale)
+    return _flash_paged_verify(q, k_pool, v_pool,
+                              kv_len.to(torch.int32).contiguous(),
+                              block_tables, k_scale, v_scale)
 
 
 paged_decode_attention.launches = 0

@@ -238,6 +238,72 @@ def test_quant_paged_kernels_match_plain_versions(op, fmt, dtype):
         assert torch.equal(got[:, 0], dec)
 
 
+# ------------------------------------- paged kernels' split over positions
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("fmt", ["none"] + QFORMATS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_kernels_at_every_tile_and_split(dtype, fmt, d):
+    """On the card: the paged verify kernel at T = 1..8 and the paged
+    decode of its query 0 (at kv_len - T + 1, through q[:, 0]'s strided
+    view, as the model calls it), at every forced split count 1..8, over
+    occupancies that cross split boundaries, one past the table and 2
+    (kv_len - T + 1 < 1 from T = 3): each held to its plain version;
+    NaN in every pool position no row's occupancy reaches leaves both
+    bit-identical; query 0 equals the decode at the same split count bit
+    for bit. bf16 q runs the tensor-core kernels (csrc/paged_tc.cuh);
+    fp32 q the CUDA-core ones, which take no split."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    tdt = getattr(torch, dtype)
+    rng = np.random.default_rng(13)
+    b, h, m, bs = 4, 2, 16, 16  # 16 tiles of 16: work for every split
+    n = b * m + 1
+    q8 = torch.from_numpy(rng.standard_normal(
+        (b, tda.MAX_VERIFY_TILE, h, d)).astype(np.float32)).to("cuda", tdt)
+    kf, vf = (torch.from_numpy(rng.standard_normal((n, bs, h, d)).astype(
+        np.float32)).cuda() for _ in range(2))
+    if fmt == "none":
+        k, v, sc = kf.to(tdt), vf.to(tdt), {}
+    else:
+        (k, ks), (v, vs) = quantize_kv(kf, fmt), quantize_kv(vf, fmt)
+        sc = dict(k_scale=ks, v_scale=vs)
+    tables = torch.from_numpy(
+        (rng.permutation(n - 1) + 1).reshape(b, m).astype(np.int32)).cuda()
+    kv_len = torch.tensor([2, 33, 130, 270], dtype=torch.int32,
+                          device="cuda")
+    dead = torch.ones((n, bs), dtype=torch.bool, device="cuda")
+    for row, occ in enumerate(kv_len.clamp(max=m * bs).tolist()):
+        p = torch.arange(occ, device="cuda")
+        dead[tables[row, p // bs].long(), p % bs] = False
+    kd, vd, sd = poisoned(k, v, sc, dead)
+    for t in range(1, tda.MAX_VERIFY_TILE + 1):
+        q = q8[:, :t]
+        dec_lens = (kv_len - (t - 1)).clamp_min(1)
+        want_v = tda.dense_paged_verify_attention(q, k, v, kv_len, tables,
+                                                  **sc)
+        want_d = tda.dense_paged_decode_attention(q[:, 0], k, v, dec_lens,
+                                                  tables, **sc)
+        for s in range(1, tda.MAX_DECODE_SPLITS + 1):
+            got_v = tda._flash_paged_verify(q, k, v, kv_len, tables,
+                                            splits=s, **sc)
+            got_d = tda._flash_paged_decode(q[:, 0], k, v, dec_lens, tables,
+                                            splits=s, **sc)
+            torch.cuda.synchronize()
+            for got, want in ((got_v, want_v), (got_d, want_d)):
+                torch.testing.assert_close(got.float(), want.float(),
+                                           atol=TOL[dtype], rtol=0,
+                                           msg=lambda m: f"T={t} s={s}: {m}")
+            assert torch.equal(got_v[:, 0], got_d), (t, s)
+            assert torch.equal(tda._flash_paged_verify(
+                q, kd, vd, kv_len, tables, splits=s, **sd), got_v), (t, s)
+            assert torch.equal(tda._flash_paged_decode(
+                q[:, 0], kd, vd, dec_lens, tables, splits=s, **sd),
+                got_d), (t, s)
+
+
 # ------------------------------------------------------ flash attention
 
 # (B, T, H, D): a T that is not a multiple of the kernels' 64-row tile,

@@ -219,3 +219,100 @@ def test_paged_kernel_argument_checks(case):
 def test_paged_kernel_source_is_found():
     assert "paged_attention" in _build.sources()
     assert _build.library_path("paged_attention").parent == _build.BUILD_DIR
+
+
+@pytest.mark.parametrize(
+    "bh, cap, sms, want",
+    [
+        (128, 1024, 132, 1),  # the serving path: 8 slots x 16 heads
+        (384, 1024, 132, 1),  # 24 slots: B*H >= SMs
+        (16, 2048, 132, 8),   # one slot: capped at the cluster size
+        (16, 1024, 132, 4),   # one slot: one split per 256 positions
+        (32, 1024, 132, 4),   # 2 slots
+        (64, 256, 132, 1),    # one table of 256 positions: no split
+        (66, 4096, 132, 2),
+        (1, 16, 132, 1),
+    ],
+)
+def test_paged_split_count_rule(bh, cap, sms, want):
+    """The paged kernels' split count for bf16 q: about one CTA per SM in
+    all, 1 from B*H >= SMs, at most 8 (one cluster), one per 256
+    positions of the table's capacity."""
+    got = tda.paged_splits(bh, cap, sms)
+    assert got == want
+    assert 1 <= got <= tda.MAX_DECODE_SPLITS
+
+
+def _recording_launch(monkeypatch, calls):
+    """Run the paged launch wrappers on CPU tensors with a stand-in for
+    the CUDA entry point that records its arguments (and a fixed SM
+    count and stream), so the host side is checked without a card."""
+    def bind(source, name, n_ptr, n_int, n_long):
+        def fn(*args):
+            calls.append({"name": name, "n_ptr": n_ptr, "n_int": n_int,
+                          "ints": args[n_ptr: n_ptr + n_int]})
+            return 0
+        return fn
+
+    monkeypatch.setattr(tda, "_bind", bind)
+    monkeypatch.setattr(tda, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0}))
+    for router in (tda.paged_decode_attention, tda.paged_verify_attention):
+        monkeypatch.setattr(router, "launches", router.launches)
+
+
+@pytest.mark.parametrize("op", ["decode", "verify"])
+def test_paged_split_count_never_reads_the_occupancy(op, monkeypatch):
+    """The split count comes from B*H, the table's capacity and the SM
+    count only (paged_splits takes nothing else), so the decode at n and
+    the verify at n + T - 1 partition positions alike; it is the entry
+    point's last int argument, and an explicit count overrides it."""
+    import inspect
+
+    assert list(inspect.signature(tda.paged_splits).parameters) == [
+        "bh", "cap", "sm_count"]
+    calls = []
+    _recording_launch(monkeypatch, calls)
+    t = T if op == "verify" else None
+    q, k, v, _, tables = (torch.from_numpy(a) for a in
+                          _inputs(7, 16, OCCUPANCY["mid"], t=t))
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    launch = getattr(tda, f"_flash_paged_{op}")
+    for lens in ([1, 1, 1, 1], [T, 40, 23, 63], [S, S + 9, 7, S]):
+        launch(q, k, v, torch.tensor(lens, dtype=torch.int32), tables)
+    launch(q, k, v, torch.ones(B, dtype=torch.int32), tables, splits=3)
+    want = tda.paged_splits(B * H, tables.shape[1] * k.shape[1], 132)
+    assert [c["ints"][-1] for c in calls] == [want, want, want, 3]
+    assert all(c["name"] == f"frl_paged_{op}_attention"
+               and c["n_int"] == 9 for c in calls)
+
+
+@pytest.mark.parametrize("case", ["misaligned_base", "position_stride",
+                                  "block_stride"])
+def test_paged_kernels_refuse_pools_they_cannot_read_16_bytes_at_a_time(case):
+    """The pools must be 16-byte aligned with N, bs and H strides in
+    multiples of 16 bytes: the kernels copy a position's head slice 16
+    bytes at a time. The wrapper raises rather than copying the pool; the
+    model's per-layer views of one [L, N, bs, H, D] allocation pass."""
+    q = torch.zeros(B, T, H, D, dtype=torch.bfloat16)
+    kv_len = torch.full((B,), T, dtype=torch.int32)
+    tables = torch.ones(B, 8, dtype=torch.int32)
+    n, bs = 2 * B + 1, 8
+    size = n * bs * H * D
+    if case == "misaligned_base":
+        flat = torch.zeros(size + 8, dtype=torch.bfloat16)
+        off = next(i for i in range(1, 8) if flat[i:].data_ptr() % 16)
+        k = flat[off: off + size].view(n, bs, H, D)
+    elif case == "position_stride":
+        # Each position's [H, D] followed by 4 bf16 (8 bytes) of padding.
+        k = torch.zeros(n, bs, H * D + 4, dtype=torch.bfloat16)
+        k = k[..., : H * D].unflatten(2, (H, D))
+    else:
+        # Each block followed by 4 bf16 (8 bytes) of padding.
+        k = torch.zeros(n, bs * H * D + 4, dtype=torch.bfloat16)
+        k = k[:, : bs * H * D].view(n, bs, H, D)
+    with pytest.raises(ValueError, match="16 bytes at a time"):
+        tda._check_paged_args(q, k, k, kv_len, tables, 4)
+    layers = torch.zeros(3, n, bs, H, D, dtype=torch.bfloat16)
+    tda._check_paged_args(q, layers[1], layers[2], kv_len, tables, 4)

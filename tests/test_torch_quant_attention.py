@@ -329,3 +329,63 @@ def test_quant_kernel_argument_checks(case, op):
 def test_quant_kernel_source_is_found():
     assert "quant_attention" in _build.sources()
     assert _build.library_path("quant_attention").parent == _build.BUILD_DIR
+
+
+@pytest.mark.parametrize("case", ["misaligned_base", "head_stride"])
+def test_quant_paged_kernels_refuse_pools_they_cannot_read_16_bytes_at_a_time(
+        case):
+    """A quantized pool must be 16-byte aligned with N, bs and H strides
+    in multiples of 16 bytes (one copy carries 16 payload bytes). The
+    wrapper raises; the model's per-layer pool views pass."""
+    q = torch.zeros(B, T, H, D)
+    kv_len = torch.full((B,), T, dtype=torch.int32)
+    tables = torch.ones(B, 8, dtype=torch.int32)
+    lead = (2 * B + 1, 8, H)
+    ks = torch.ones(lead, dtype=torch.bfloat16)
+    size = (2 * B + 1) * 8 * H * D
+    if case == "misaligned_base":
+        flat = torch.zeros(size + 16, dtype=torch.int8)
+        off = next(i for i in range(1, 16) if flat[i:].data_ptr() % 16)
+        k = flat[off: off + size].view(*lead, D)
+    else:
+        # Each head's D payload bytes followed by 8 bytes of padding.
+        k = torch.zeros((*lead, D + 8), dtype=torch.int8)[..., :D]
+    with pytest.raises(ValueError, match="16 bytes at a time"):
+        tda._check_paged_args(q, k, k, kv_len, tables, 4, ks, ks.clone())
+    layers = torch.zeros((3, *lead, D), dtype=torch.int8)
+    tda._check_paged_args(q, layers[0], layers[1], kv_len, tables, 4, ks,
+                          ks.clone())
+
+
+def test_quant_paged_launch_passes_the_split_count(monkeypatch):
+    """The quantized paged entry points take the split count as their
+    last int argument, after the payload format; the default is
+    paged_splits' and never depends on the occupancy."""
+    calls = []
+
+    def bind(source, name, n_ptr, n_int, n_long):
+        def fn(*args):
+            calls.append((name, args[n_ptr: n_ptr + n_int]))
+            return 0
+        return fn
+
+    monkeypatch.setattr(tda, "_bind", bind)
+    monkeypatch.setattr(tda, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0}))
+    for router in (tda.paged_decode_attention, tda.paged_verify_attention):
+        monkeypatch.setattr(router, "quant_launches", router.quant_launches)
+    q, cache, _, tables = _paged(3, "fp8_e4m3", 16, [1, 1, 1, 1], t=T)
+    k, v, sc = cache.port()
+    q = torch.from_numpy(q).bfloat16()
+    tables = torch.from_numpy(tables)
+    for lens in ([1, 1, 1, 1], [S, S + 9, 7, S]):
+        tda._flash_paged_verify(q, k, v, torch.tensor(lens, dtype=torch.int32),
+                                tables, **sc)
+    tda._flash_paged_decode(q[:, 0], k, v, torch.ones(B, dtype=torch.int32),
+                            tables, splits=5, **sc)
+    want = tda.paged_splits(B * H, tables.shape[1] * k.shape[1], 132)
+    assert [c[0] for c in calls] == [
+        "frl_paged_verify_attention_quant"] * 2 + [
+        "frl_paged_decode_attention_quant"]
+    assert [c[1][-2:] for c in calls] == [(1, want), (1, want), (1, 5)]

@@ -2,7 +2,7 @@
 """Time one path of the PyTorch port in several checkouts on one card,
 each in a process of its own, in the order given.
 
-    python tools/torch_ab.py {train_path,path} TREE [TREE ...]
+    python tools/torch_ab.py PHASE TREE [TREE ...]
 
 TREE is a checkout of this repository (for example a parent commit
 unpacked with ``git archive`` into a git-ignored directory). For each, a
@@ -13,14 +13,18 @@ phases from weights made with seed 0 (the same in every tree):
   ``model.attention=flash`` at full width and depth, one warm-up, three
   timed steps and one profiled step;
 - ``path``: ``path_phase``, ``gpt2_medium_serve`` serving 16 requests
-  with 8 slots over the bucketed cache, then a profiled window.
+  with 8 slots over the bucketed cache, then a profiled window;
+- ``paged_path`` / ``quant_paged_path``: ``paged_path_phase``, the same
+  model with the paged pool, the prefix cache and n-gram speculation
+  (``quant_paged_path`` over an fp8_e4m3 pool), 16 requests, then a
+  profiled window.
 
 Each tree builds its own kernels. One JSON line per tree: the card, the
-step or token times, device busy time and idle share of the profiled
-window, and the kernels that take the most device time. Give the trees
-in the order parent, change, change, parent: host time moves between
-hosts, so only turns within one call compare. Needs a CUDA card; imports
-no JAX.
+step or token times, device busy time (in all and, serving, per step of
+the profiled window) and idle share, and the kernels that take the most
+device time. Give the trees in the order parent, change, change, parent:
+host time moves between hosts, so only turns within one call compare.
+Needs a CUDA card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -57,10 +61,25 @@ def _one(phase: str, tree: str) -> dict:
                    steps=[r["step_s"] for r in report["steps"]],
                    tokens_per_s=report["tokens_per_s"])
     else:
-        report, _, profile = chip_smoke.path_phase(cfg, sd, 0, card)
+        if phase == "path":
+            report, _, profile = chip_smoke.path_phase(cfg, sd, 0, card)
+            steps = {"decode_steps": report["decode_steps"]}
+        else:
+            from frl_distributed_ml_scaffold_tpu_torch.config import (
+                apply_overrides,
+            )
+
+            if phase == "quant_paged_path":
+                cfg = apply_overrides(cfg, chip_smoke.FP8_OVERRIDES)
+            report, _, profile = chip_smoke.paged_path_phase(cfg, sd, 0, card)
+            steps = {k: report["stats"][k]
+                     for k in ("decode_paged", "decode_verify")}
         out.update({k: report[k] for k in (
             "tokens_per_s", "ttft_mean_s", "ttft_p50_s", "tpot_mean_s",
-            "tpot_p50_s", "decode_steps")})
+            "tpot_p50_s")}, **steps)
+        busy = profile["device_busy_s"]
+        out["busy_per_step_s"] = (busy / profile["decode_steps"]
+                                  if isinstance(busy, float) else busy)
     out.update(busy_s=profile["device_busy_s"],
                idle=profile["device_idle_share"],
                profiled_s=profile["wall_s"],
@@ -68,7 +87,7 @@ def _one(phase: str, tree: str) -> dict:
     return out
 
 
-PHASES = ("train_path", "path")
+PHASES = ("train_path", "path", "paged_path", "quant_paged_path")
 
 
 def main() -> int:
