@@ -34,13 +34,17 @@ no final line):
      version, NaN past every row's occupancy bit-identical, query 0
      equal to the decode at the same split count bit for bit; timed at
      every split count (``ms_by_splits``).
-   - quantized cache (``csrc/quant_attention.cu``): the three kernels in
-     int8, fp8_e4m3 and fp8_e5m2, bf16 and fp32 q, at the same shapes
-     (contiguous S in {128, 1024}; the paged pool and T = 5, and the
-     paged edges above), each against its plain version; NaN in the scales (and 0x7F in the payloads) of
+   - quantized cache (``csrc/quant_attention.cu``; for bf16 q all three
+     through ``csrc/paged_tc.cuh``, the contiguous one without its
+     table): the three kernels in int8, fp8_e4m3 and fp8_e5m2, bf16 and
+     fp32 q, at the same shapes (contiguous S in {128, 1024} and the
+     contiguous edges above, bf16 also at every forced split count 1..8;
+     the paged pool and T = 5, and the paged edges above), each against
+     its plain version; NaN in the scales (and 0x7F in the payloads) of
      every position no row's occupancy reaches leaves the output
      bit-identical; quantized verify query 0 equals the quantized paged
-     decode bit for bit. Timed in the format its path runs.
+     decode bit for bit. Timed in the format its path runs, the
+     contiguous one also at every split count (``ms_by_splits``).
 4. path: GPT-2-medium at full width (``gpt2_medium_serve``, seeded random
    weights, bf16_mixed) serving 16 requests through ``build_engine`` with
    8 slots over the bucketed cache; the decode kernel must launch 24 times
@@ -59,7 +63,8 @@ no final line):
    ``model.kv_cache_quant=int8`` (contiguous) and ``fp8_e4m3`` (paged),
    through the quantized kernels, the unquantized ones launching never;
    the cache's bytes per slot and the pool block's bytes (811008) equal
-   their estimates.
+   their estimates. In quant_path's profiled window the only attention
+   kernel on the device is ``paged_tc.cuh``'s contiguous mode.
 7. fp32 checks: the same requests under the fp32 policy, two of them
    re-run alone through ``generate()``, token for token; and the paged
    requests through the fp32 paged + ngram engine against the fp32
@@ -374,9 +379,10 @@ def decode_inputs(gen, dtype, s, *, fmt=None, b=8, h=16, d=64, layers=1):
     return q, k, v, kv_len, sc
 
 
-# Split edges of the contiguous kernel (csrc/decode_attention.cu), beyond
-# the path's shapes: (B, H, S) and occupancies. kv_len 1, > S and values
-# no split's chunk divides; S = 4096 at the path's 8 x 16 (one split, 16
+# Split edges of the contiguous kernels (csrc/decode_attention.cu and,
+# quantized with bf16 q, csrc/paged_tc.cuh without its table), beyond the
+# path's shapes: (B, H, S) and occupancies. kv_len 1, > S and values no
+# split's chunk divides; S = 4096 at the path's 8 x 16 (one split, 16
 # passes); one slot (8 splits); two slots (4 splits); B*H = 384 >= 2 x
 # 132 SMs (one split).
 DECODE_EDGES = {
@@ -387,41 +393,59 @@ DECODE_EDGES = {
 }
 
 
-def _decode_case(dtype, q, k, v, kv_len, sc, what: str) -> float:
+def _decode_case(dtype, q, k, v, kv_len, sc, what: str,
+                 splits=None) -> float:
     """One contiguous decode call held against its plain version, and
     bit-identical with NaN past each row's occupancy (the kernel must
-    never read those positions)."""
+    never read those positions). Through the router, or with ``splits``
+    the launch wrapper at that split count."""
     from frl_distributed_ml_scaffold_tpu_torch.ops import decode_attention as da
 
-    got = da.decode_attention(q, k, v, kv_len, **sc)
+    def run(k, v, sc):
+        if splits is None:
+            return da.decode_attention(q, k, v, kv_len, **sc)
+        launch = da._flash_decode_quant if sc else da._flash_decode
+        return launch(q, k, v, kv_len, **sc, splits=splits)
+
+    got = run(k, v, sc)
     want = da.decode_attention(q, k, v, kv_len.clamp_min(1), impl="dense",
                                **sc)
     dead = torch.arange(k.shape[1], device="cuda")[None, :] >= kv_len[:, None]
     kd, vd, sd = poisoned(k, v, sc, dead)
-    dirty = da.decode_attention(q, kd, vd, kv_len, **sd)
-    return held(what, got, want, dirty, dtype)
+    return held(what, got, want, run(kd, vd, sd), dtype)
 
 
 def decode_checks(gen, fmt=None) -> list:
     """The contiguous decode kernel (over a cache quantized to ``fmt``,
     or not) against its plain version, bf16 and fp32, S in {128, 1024};
-    unquantized, also at the split edges of ``DECODE_EDGES`` through a
-    strided q."""
+    then at the split edges of ``DECODE_EDGES`` through a strided q and,
+    quantized with bf16 q, at S = 1024 at every forced split count."""
     from frl_distributed_ml_scaffold_tpu_torch.ops import decode_attention as da
 
+    name = fmt or "unquantized"
     checks = []
     for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).replace("torch.", "")
         for s in (128, 1024):
             q, k, v, kv_len, sc = decode_inputs(gen, dtype, s, fmt=fmt)
             q, k, v, sc = q[0], k[0], v[0], at(sc, 0)
             err = _decode_case(dtype, q, k, v, kv_len, sc,
-                               f"decode kernel {fmt or 'unquantized'} S={s}")
-            checks.append({"format": fmt or "none",
-                           "dtype": str(dtype).replace("torch.", ""), "S": s,
+                               f"decode kernel {name} S={s}")
+            checks.append({"format": fmt or "none", "dtype": dt, "S": s,
                            "kv_len": kv_len.tolist(), "max_abs_err": err,
                            "tol": TOL[dtype], "dirty_cache_equal": True})
-        if fmt is not None:
-            continue
+        if fmt is not None and dtype == torch.bfloat16:
+            # The S = 1024 inputs at every split count 1..8.
+            errs = [_decode_case(dtype, q, k, v, kv_len, sc,
+                                 f"decode kernel {name} S=1024 splits={n}",
+                                 splits=n)
+                    for n in range(1, da.MAX_DECODE_SPLITS + 1)]
+            checks.append({"format": fmt, "dtype": dt, "S": 1024,
+                           "forced_splits": list(range(
+                               1, da.MAX_DECODE_SPLITS + 1)),
+                           "kv_len": kv_len.tolist(),
+                           "max_abs_err": max(errs), "tol": TOL[dtype],
+                           "dirty_cache_equal": True})
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         # The edges draw from a generator of their own, so the weights and
         # inputs of every later phase stay what they were without them.
@@ -431,14 +455,15 @@ def decode_checks(gen, fmt=None) -> list:
             d = 64
             q = torch.randn((b, h, 3 * d), generator=egen,
                             device="cuda").to(dtype)[..., d: 2 * d]
-            k, v, _ = cache_pair(egen, (b, 2 * s, h, d), dtype, None)
+            k, v, sc = cache_pair(egen, (b, 2 * s, h, d), dtype, fmt)
             k, v = k[:, :s], v[:, :s]
+            sc = {key: x[:, :s] for key, x in sc.items()}
             kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
-            err = _decode_case(dtype, q, k, v, kv_len, {},
-                               f"decode kernel edge {label}")
-            checks.append({"format": "none", "edge": label,
-                           "dtype": str(dtype).replace("torch.", ""),
-                           "B": b, "H": h, "S": s, "q_strided": True,
+            err = _decode_case(dtype, q, k, v, kv_len, sc,
+                               f"decode kernel {name} edge {label}")
+            checks.append({"format": fmt or "none", "edge": label,
+                           "dtype": dt, "B": b, "H": h, "S": s,
+                           "q_strided": True,
                            "splits": da.decode_splits(b * h, s, sms),
                            "kv_len": lens, "max_abs_err": err,
                            "tol": TOL[dtype], "dirty_cache_equal": True})
@@ -448,7 +473,8 @@ def decode_checks(gen, fmt=None) -> list:
 def time_decode(gen, s: int, fmt=None) -> dict:
     """The contiguous kernel (quantized to ``fmt`` or not), its plain
     version and, unquantized, one library call on the path's shapes
-    (bf16 q, 24 layers' caches per timed call)."""
+    (bf16 q, 24 layers' caches per timed call); then the kernel alone at
+    every split count."""
     from frl_distributed_ml_scaffold_tpu_torch.ops import decode_attention as da
 
     layers, dtype = 24, torch.bfloat16
@@ -473,17 +499,17 @@ def time_decode(gen, s: int, fmt=None) -> dict:
     report = timed(kernel, plain, None if fmt else library, layers=layers)
     if fmt:
         report["library_note"] = QUANT_LIBRARY_NOTE
-    else:
-        report["splits"] = da.decode_splits(
-            q.shape[1] * q.shape[2], s,
-            torch.cuda.get_device_properties(0).multi_processor_count)
-        # The kernel alone (kv_len already clamped) at every split count,
-        # against which decode_splits' choice is read.
-        report["ms_by_splits"] = {
-            n: cuda_time_ms(lambda n=n: [
-                da._flash_decode(q[i], k[i], v[i], lens, n)
-                for i in range(layers)], per_call=layers)
-            for n in range(1, da.MAX_DECODE_SPLITS + 1)}
+    report["splits"] = da.decode_splits(
+        q.shape[1] * q.shape[2], s,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    # The kernel alone (no router) at every split count, against which
+    # decode_splits' choice is read.
+    launch = da._flash_decode_quant if fmt else da._flash_decode
+    report["ms_by_splits"] = {
+        n: cuda_time_ms(lambda n=n: [
+            launch(q[i], k[i], v[i], kv_len, **scs[i], splits=n)
+            for i in range(layers)], per_call=layers)
+        for n in range(1, da.MAX_DECODE_SPLITS + 1)}
     return {"S": s, "format": fmt or "none", "kv_len": kv_len.tolist(),
             **report, **attention_bound(kv_len, s, q, dtype, fmt)}
 
@@ -906,6 +932,14 @@ def path_phase(cfg, sd, seed: int, card: str) -> tuple:
     check(err <= tol, f"decode-step logits kernel vs dense: {err} > {tol}")
     del dense
     profile = profile_phase(model, cfg, reqs)
+    if _suffix(cfg):
+        # bf16 q over a quantized contiguous cache: paged_tc.cuh's
+        # contiguous mode (kPaged = false) is the only attention kernel.
+        att = profile["attention_kernels_s"]
+        ok = [re.search(r"paged_tc_kernel<\d+, true, false>", n) for n in att]
+        check(bool(att) and all(ok),
+              f"quant path: attention kernels {sorted(att)} in the "
+              "profiled window")
     return {
         "card": card, "config": cfg.name, "policy": cfg.precision.policy,
         "kv_cache_quant": cfg.model.kv_cache_quant,
@@ -1066,6 +1100,8 @@ def device_profile(prof, wall: float) -> dict:
             end = b
     busy /= 1e6  # profiler times are microseconds
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    attention = {name: t for name, t in by_name.items()
+                 if re.search(r"attention_kernel|paged_tc_kernel", name)}
     # The host side: operators and runtime calls by self CPU time.
     host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
     return {
@@ -1074,6 +1110,7 @@ def device_profile(prof, wall: float) -> dict:
         "device_idle_share": 1 - busy / wall if spans else "not measured",
         "cuda_events": len(spans),
         "top_device_s": [[name, t] for name, t in top],
+        "attention_kernels_s": attention,
         "top_host_self_s": [[a.key[:80], a.self_cpu_time_total / 1e6, a.count]
                             for a in host[:12]],
     }

@@ -299,9 +299,10 @@ int launch(const void* q, const void* k, const void* v, const void* kv_len,
       static_cast<const unsigned char*>(v), nullptr, nullptr,
       static_cast<const int32_t*>(kv_len),
       static_cast<const int32_t*>(tables), static_cast<__nv_bfloat16*>(out),
-      T, H, M, log2_bs, 0, q_sb, q_st, q_sh, p_sn, p_ss, p_sh, 0, 0, 0, o_sb,
-      o_st, o_sh, scale};
-  const cudaError_t err = paged_tc::launch<false>(a, B, D, splits, st);
+      T, H, M, log2_bs, 0, M * bs, q_sb, q_st, q_sh, p_sn, p_ss, p_sh, 0, 0,
+      0, o_sb, o_st, o_sh, scale};
+  const cudaError_t err =
+      paged_tc::launch<false, /*paged=*/true>(a, B, D, splits, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,12 +1,16 @@
-// Decode and speculative-verify attention over a PAGED KV cache for a bf16
-// q, on the tensor cores: the design that paged_attention.cu (bf16 pools)
-// and quant_attention.cu (1-byte pools with bf16 scales) launch for bf16
-// q. fp32 q keeps each file's CUDA-core template.
+// Decode and speculative-verify attention over a PAGED KV cache, and
+// decode over a CONTIGUOUS quantized one, for a bf16 q, on the tensor
+// cores: the design that paged_attention.cu (bf16 pools) and
+// quant_attention.cu (1-byte pools and the 1-byte contiguous cache, with
+// bf16 scales) launch for bf16 q. fp32 q keeps each file's CUDA-core
+// template.
 //
 // Same function as those files state: query t of a row whose total
 // occupancy is kv_len attends logical positions
-// p < n_t = clamp(kv_len - (T-1) + t, 1, M*bs), T <= 8 queries a row
-// (T = 1 for the decode), an online softmax in fp32 with mask value
+// p < n_t = clamp(kv_len - (T-1) + t, 1, cap), T <= 8 queries a row
+// (T = 1 for the decode), cap = M*bs for the pools (retired rows run past
+// their table) and S for the contiguous cache [B, S, H, D] (rows past
+// their bucket read all of it), an online softmax in fp32 with mask value
 // -1e30 and the denominator floored at 1e-30, output in bf16. bf16 pools:
 // the probability rounded to bf16 before the PV product (the TPU kernels
 // cast p to v's dtype). Quantized pools: the score is
@@ -20,26 +24,32 @@
 // arithmetic costs once they land.
 //
 // Design:
+// - Addressing, a template flag (kPaged). Paged: logical position p of
+//   row b is pool[tables[b, p / bs], p % bs]. Contiguous: cache[b, p],
+//   through the row, position and head strides (a per-layer view of the
+//   engine's cache, whose row stride is not S times the position
+//   stride); no table, no table prologue, no table in shared memory.
 // - Split over positions, fixed by tile index. A tile is 16 logical
 //   positions (one pool block at the serving block size 16). The grid is
-//   (B*H, splits); split s takes tiles [s*c, (s+1)*c) of the table's
-//   capacity, c = ceil(ceil(M*bs/16) / splits), cut at the last query's
+//   (B*H, splits); split s takes tiles [s*c, (s+1)*c) of the capacity,
+//   c = ceil(ceil(cap/16) / splits), cut at the last query's
 //   occupancy, and warp w of its CTA takes the tiles whose index within
 //   the split is w mod the warp count, in increasing order. The host
-//   picks splits from B*H, M*bs and the SM count, never from kv_len
-//   (ops/decode_attention.py `paged_splits`): the decode runs at n0 and
-//   the verify at n0 + T - 1, and both must partition positions alike.
+//   picks splits from B*H, cap and the SM count, never from kv_len
+//   (ops/decode_attention.py `paged_splits`, `decode_splits`): the
+//   decode runs at n0 and the verify at n0 + T - 1, and both must
+//   partition positions alike.
 //   The splits of one (row, head) form a thread-block cluster; rank 0
 //   merges their partials through distributed shared memory in split
 //   order, as decode_attention.cu does.
-// - Memory. The CTA copies its split's table columns into shared memory
-//   (cp.async, alongside the occupancy and q, so the three loads overlap;
-//   table entries are indices, not pool bytes). Each warp stages its
-//   tile's K and V head slices (16 rows at the pool's position stride)
+// - Memory. Paged, the CTA copies its split's table columns into shared
+//   memory (cp.async, alongside the occupancy and q, so the three loads
+//   overlap; table entries are indices, not pool bytes). Each warp stages
+//   its tile's K and V head slices (16 rows at the cache's position stride)
 //   with 16-byte cp.async into a 2-stage ring of its own, so the next
 //   tile is in flight while this one is computed;
 //   rows at or past the last query's occupancy are zero-filled (src-size
-//   0) and never read from the pool. Quantized: one cp.async carries 16
+//   0) and never read from the cache. Quantized: one cp.async carries 16
 //   payload bytes, and the tile's 16 K and 16 V scales are plain loads
 //   issued with it, one a lane. 16 warps a CTA (B4's finding); 8 at
 //   D = 128 and 4 at D = 256, where the ring would not fit.
@@ -123,11 +133,16 @@ struct Params {
   const bf16* ks;          // scale pools (quantized only)
   const bf16* vs;
   const int32_t* kv_len;
-  const int32_t* tables;
+  const int32_t* tables;  // paged only
   bf16* out;
   int T, H, M, log2_bs, fmt;
-  // Strides in elements: q and out (row, query, head), the pools and the
-  // scale pools (block, position, head).
+  // Positions a row holds, S contiguous. The paged mode derives
+  // M << log2_bs itself: reading this field instead changed its
+  // generated code and slowed it on the card.
+  int cap;
+  // Strides in elements: q and out (row, query, head); the cache and its
+  // scales (block, position, head) paged, (row, position, head)
+  // contiguous.
   int64_t q_sb, q_st, q_sh;
   int64_t p_sn, p_ss, p_sh;
   int64_t s_sn, s_ss, s_sh;
@@ -311,14 +326,18 @@ __device__ __forceinline__ int out_col(int j, int c) {
   return kQuant ? c * (D / 8) + j : 8 * j + c;
 }
 
-// Stage tile `tile`'s K and V head slices into `st` (cp.async, rows at or
-// past n zero-filled). Quantized, returns lane l's scale of the tile: K's
-// of position l for l < 16, V's of position l - 16, 0 past n.
-template <int D, bool kQuant>
+// Stage tile `tile`'s K and V head slices of row b into `st` (cp.async,
+// rows at or past n zero-filled). Quantized, returns lane l's scale of
+// the tile: K's of position l for l < 16, V's of position l - 16, 0 past
+// n. Paged, position p is pool[tbl[p >> log2_bs], p & mask]; contiguous,
+// cache[b, p]. The two offsets are written out apart, each as one
+// expression: a shared helper changed the paged mode's generated code and
+// slowed it on the card.
+template <int D, bool kQuant, bool kPaged>
 __device__ __forceinline__ float stage_tile(const Params& a,
                                             const int32_t* tbl,
                                             unsigned char* st, int tile,
-                                            int n, int h, int lane) {
+                                            int n, int b, int h, int lane) {
   using S = Stage<D, kQuant>;
   constexpr int kElem = kQuant ? 1 : 2;
   constexpr int kChunks = D * kElem / 16;  // 16-byte chunks of a row
@@ -331,21 +350,34 @@ __device__ __forceinline__ float stage_tile(const Params& a,
     const int c = i % kChunks;
     const int p = p0 + r;
     const bool ok = p < n;
-    const int64_t off =
-        ok ? (static_cast<int64_t>(tbl[p >> a.log2_bs]) * a.p_sn +
-              static_cast<int64_t>(p & mask) * a.p_ss + h * a.p_sh) *
-                     kElem +
-                 c * 16
-           : 0;
+    int64_t off;
+    if constexpr (kPaged) {
+      off = ok ? (static_cast<int64_t>(tbl[p >> a.log2_bs]) * a.p_sn +
+                  static_cast<int64_t>(p & mask) * a.p_ss + h * a.p_sh) *
+                         kElem +
+                     c * 16
+               : 0;
+    } else {
+      off = ok ? (static_cast<int64_t>(b) * a.p_sn +
+                  static_cast<int64_t>(p) * a.p_ss + h * a.p_sh) *
+                         kElem +
+                     c * 16
+               : 0;
+    }
     cp_async16(st + r * S::kK + c * 16, a.k + off, ok);
     cp_async16(st + kTile * S::kK + r * S::kV + c * 16, a.v + off, ok);
   }
   if constexpr (kQuant) {
     const int p = p0 + (lane & 15);
     if (p < n) {
-      const int64_t off = static_cast<int64_t>(tbl[p >> a.log2_bs]) * a.s_sn +
-                          static_cast<int64_t>(p & mask) * a.s_ss +
-                          h * a.s_sh;
+      int64_t off;
+      if constexpr (kPaged) {
+        off = static_cast<int64_t>(tbl[p >> a.log2_bs]) * a.s_sn +
+              static_cast<int64_t>(p & mask) * a.s_ss + h * a.s_sh;
+      } else {
+        off = static_cast<int64_t>(b) * a.s_sn +
+              static_cast<int64_t>(p) * a.s_ss + h * a.s_sh;
+      }
       return __bfloat162float((lane < 16 ? a.ks : a.vs)[off]);
     }
   }
@@ -493,7 +525,7 @@ __device__ __forceinline__ void tile_step(
   }
 }
 
-template <int D, bool kQuant>
+template <int D, bool kQuant, bool kPaged>
 __global__ void __launch_bounds__(warps<D>() * 32)
 paged_tc_kernel(const Params a) {
   constexpr int W = warps<D>();
@@ -512,27 +544,30 @@ paged_tc_kernel(const Params a) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t4 = lane & 3;
-  const int cap = a.M << a.log2_bs;
+  const int cap = kPaged ? a.M << a.log2_bs : a.cap;
 
-  // The occupancy, this split's table columns (all its share of the
-  // table, which needs no occupancy; copied asynchronously) and q's
+  // The occupancy, this split's table columns (paged: all its share of
+  // the table, which needs no occupancy; copied asynchronously) and q's
   // fragments are independent loads, all in flight at once.
   const int len = a.kv_len[b];
   const int tiles = (cap + kTile - 1) / kTile;
   const int per = (tiles + splits - 1) / splits;
   const int tile0 = static_cast<int>(blockIdx.y) * per;
   int32_t* tbl = reinterpret_cast<int32_t*>(smem);
-  unsigned char* rings = smem + table_bytes(a.M);
-  if (tile0 < tiles) {
-    const int c0 = (tile0 * kTile) >> a.log2_bs;
-    const int c1 = ((min(tile0 + per, tiles) * kTile - 1) >> a.log2_bs) + 1;
-    const int32_t* trow = a.tables + static_cast<int64_t>(b) * a.M;
-    for (int i = c0 + static_cast<int>(threadIdx.x); i < min(c1, a.M);
-         i += blockDim.x) {
-      cp_async4(tbl + i, trow + i);
+  unsigned char* rings = smem + (kPaged ? table_bytes(a.M) : 0);
+  if constexpr (kPaged) {
+    if (tile0 < tiles) {
+      const int c0 = (tile0 * kTile) >> a.log2_bs;
+      const int c1 =
+          ((min(tile0 + per, tiles) * kTile - 1) >> a.log2_bs) + 1;
+      const int32_t* trow = a.tables + static_cast<int64_t>(b) * a.M;
+      for (int i = c0 + static_cast<int>(threadIdx.x); i < min(c1, a.M);
+           i += blockDim.x) {
+        cp_async4(tbl + i, trow + i);
+      }
     }
+    cp_async_commit();
   }
-  cp_async_commit();
 
   // q's A fragments, row g: slots 2 t4, + 1 (register 0) and 2 t4 + 8,
   // + 9 (register 1) of each 16-wide chunk of the contraction.
@@ -556,8 +591,10 @@ paged_tc_kernel(const Params a) {
   const int n = min(max(len, 1), cap);
   const int n_row = g < T ? min(max(len - (T - 1) + g, 1), cap) : 0;
   const int tile1 = min(tile0 + per, (n + kTile - 1) / kTile);
-  cp_async_wait<0>();
-  __syncthreads();  // the table columns are in
+  if constexpr (kPaged) {
+    cp_async_wait<0>();
+    __syncthreads();  // the table columns are in
+  }
   const float scale_log2 = __fmul_rn(a.scale, kLog2e);
 
   float acc[D / 8][4];
@@ -576,13 +613,15 @@ paged_tc_kernel(const Params a) {
   unsigned char* ring = rings + warp * 2 * S::kBytes;
   int tile = tile0 + warp;
   float sc = 0.f;
-  if (tile < tile1) sc = stage_tile<D, kQuant>(a, tbl, ring, tile, n, h, lane);
+  if (tile < tile1) {
+    sc = stage_tile<D, kQuant, kPaged>(a, tbl, ring, tile, n, b, h, lane);
+  }
   cp_async_commit();
   for (int i = 0; tile < tile1; ++i, tile += W) {
     float sc_next = 0.f;
     if (tile + W < tile1) {
-      sc_next = stage_tile<D, kQuant>(a, tbl, ring + ((i + 1) & 1) * S::kBytes,
-                                      tile + W, n, h, lane);
+      sc_next = stage_tile<D, kQuant, kPaged>(
+          a, tbl, ring + ((i + 1) & 1) * S::kBytes, tile + W, n, b, h, lane);
     }
     cp_async_commit();
     cp_async_wait<1>();  // this tile's group has landed
@@ -690,7 +729,7 @@ paged_tc_kernel(const Params a) {
   cluster.sync();  // rank 0 is done reading before any CTA exits
 }
 
-template <int D, bool kQuant>
+template <int D, bool kQuant, bool kPaged>
 cudaError_t launch_d(const Params& a, int B, int splits, cudaStream_t st) {
   constexpr int W = warps<D>();
   constexpr int kRings = W * 2 * Stage<D, kQuant>::kBytes;
@@ -701,13 +740,14 @@ cudaError_t launch_d(const Params& a, int B, int splits, cudaStream_t st) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (!(opted.load() >> dev & 1)) {
-    err = cudaFuncSetAttribute(paged_tc_kernel<D, kQuant>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               table_bytes(kMaxTableCols) + kRings);
+    err = cudaFuncSetAttribute(
+        paged_tc_kernel<D, kQuant, kPaged>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (kPaged ? table_bytes(kMaxTableCols) : 0) + kRings);
     if (err != cudaSuccess) return err;
     opted.fetch_or(uint64_t{1} << dev);
   }
-  const size_t smem = table_bytes(a.M) + kRings;
+  const size_t smem = (kPaged ? table_bytes(a.M) : 0) + kRings;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B * a.H, splits);
   cfg.blockDim = dim3(W * 32);
@@ -720,19 +760,20 @@ cudaError_t launch_d(const Params& a, int B, int splits, cudaStream_t st) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = splits > 1 ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, paged_tc_kernel<D, kQuant>, a);
+  return cudaLaunchKernelEx(&cfg, paged_tc_kernel<D, kQuant, kPaged>, a);
 }
 
 // Launch for head dim D in {32, 64, 128, 256} (the callers check it),
-// splits in 1..kMaxSplits. Returns the launch's own error.
-template <bool kQuant>
+// splits in 1..kMaxSplits; kPaged false: tables unused, a.cap = S.
+// Returns the launch's own error.
+template <bool kQuant, bool kPaged>
 cudaError_t launch(const Params& a, int B, int D, int splits,
                    cudaStream_t st) {
   switch (D) {
-    case 32: return launch_d<32, kQuant>(a, B, splits, st);
-    case 64: return launch_d<64, kQuant>(a, B, splits, st);
-    case 128: return launch_d<128, kQuant>(a, B, splits, st);
-    case 256: return launch_d<256, kQuant>(a, B, splits, st);
+    case 32: return launch_d<32, kQuant, kPaged>(a, B, splits, st);
+    case 64: return launch_d<64, kQuant, kPaged>(a, B, splits, st);
+    case 128: return launch_d<128, kQuant, kPaged>(a, B, splits, st);
+    case 256: return launch_d<256, kQuant, kPaged>(a, B, splits, st);
   }
   return cudaErrorInvalidValue;
 }

@@ -33,18 +33,22 @@
 // bf16 kernels: read each occupied payload and scale byte once, never
 // touch a position or block no row's occupancy reaches.
 //
-// Two designs, chosen by q's dtype and the cache:
+// Two designs, chosen by q's dtype:
 //
-// Paged with bf16 q (the serving dtype): paged_tc.cuh, on the tensor
-// cores, shared with the bf16 pools of paged_attention.cu: a split over
-// positions fixed by tile index and merged in a thread-block cluster,
-// 16-warp CTAs, 16-byte cp.async of 16 payload bytes into a 2-stage
-// ring, the payload bytes turned into bf16 B fragments exactly, p *
-// v_scale as bf16 hi + lo. Its note has the design.
+// bf16 q (the serving dtype), the pools and the contiguous cache:
+// paged_tc.cuh, on the tensor cores, shared with the bf16 pools of
+// paged_attention.cu: a split over positions fixed by tile index and
+// merged in a thread-block cluster, 16-warp CTAs, 16-byte cp.async of 16
+// payload bytes into a 2-stage ring, the payload bytes turned into bf16
+// B fragments exactly, p * v_scale as bf16 hi + lo. The contiguous cache
+// is its kPaged = false mode: position p of row b at cache[b, p] through
+// three strides, no table; the host picks the split count from B*H, S
+// and the SM count (ops/decode_attention.py `decode_splits`) and hands
+// kv_len over unclamped. Its note has the design.
 //
-// The contiguous cache, and fp32 q on the pools (the fp32 token-identity
-// checks): this file's CUDA-core template, after decode_attention.cu's
-// first design and paged_attention.cu's fp32 one.
+// fp32 q (the fp32 token-identity checks), both caches: this file's
+// CUDA-core template, after decode_attention.cu's first design and
+// paged_attention.cu's fp32 one.
 // - One template for these entry points: one CTA of 8 warps per
 //   (row, head). The paged instantiations copy the table columns the
 //   occupancy reaches into shared memory (the TPU kernels get them from
@@ -70,16 +74,14 @@
 //   width. Greedy acceptance over a quantized pool rests on it (and, for
 //   bf16 q, on paged_tc.cuh's same property).
 //
-// Left for later PRs: the contiguous kernel's redesign (16-byte loads, a
-// split over positions).
+// Left for later PRs: nothing of this file's own; the fp32 template is
+// not on a serving path (fp32 runs only the token-identity checks).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "paged_tc.cuh"
 
@@ -94,22 +96,6 @@ constexpr int kMaxTableCols = 8192;
 constexpr int kInt8 = 0;
 constexpr int kE4M3 = 1;
 constexpr int kE5M2 = 2;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // One payload byte as fp32, exactly.
 template <int kFmt>
@@ -141,6 +127,7 @@ __device__ __forceinline__ void decode_all(const uint32_t (&kb)[U][E],
   }
 }
 
+// The fp32-q template's arguments (q and out float32).
 struct Params {
   const void* q;
   const uint8_t* k;
@@ -160,7 +147,7 @@ struct Params {
   float scale;
 };
 
-template <typename T, int E, int NQ, bool kPaged>
+template <int E, int NQ, bool kPaged>
 __global__ void __launch_bounds__(kWarps * 32)
 quant_attention_kernel(const Params a) {
   constexpr int D = 32 * E;
@@ -193,17 +180,18 @@ quant_attention_kernel(const Params a) {
     __syncthreads();
   }
 
-  const T* qbase = static_cast<const T*>(a.q);
+  const float* qbase = static_cast<const float*>(a.q);
   float qr[NQ][E];
   float acc[NQ][E];
   float m[NQ];
   float l[NQ];
 #pragma unroll
   for (int t = 0; t < NQ; ++t) {
-    const T* qp = qbase + b * a.q_sb + t * a.q_st + h * a.q_sh + lane * E;
+    const float* qp =
+        qbase + b * a.q_sb + t * a.q_st + h * a.q_sh + lane * E;
 #pragma unroll
     for (int e = 0; e < E; ++e) {
-      qr[t][e] = to_float(qp[e]);
+      qr[t][e] = qp[e];
       acc[t][e] = 0.f;
     }
     m[t] = kNegInf;
@@ -289,7 +277,7 @@ quant_attention_kernel(const Params a) {
     }
   }
 
-  T* obase = static_cast<T*>(a.out);
+  float* obase = static_cast<float*>(a.out);
 #pragma unroll
   for (int t = 0; t < NQ; ++t) {
     if (lane == 0) {
@@ -312,66 +300,68 @@ quant_attention_kernel(const Params a) {
         num = fmaf(sm_acc[w][d], c, num);
       }
       obase[b * a.o_sb + t * a.o_st + h * a.o_sh + d] =
-          from_float<T>(__fdiv_rn(num, fmaxf(den, 1e-30f)));
+          __fdiv_rn(num, fmaxf(den, 1e-30f));
     }
     __syncthreads();
   }
 }
 
-template <typename T, int E, int NQ, bool kPaged>
+template <int E, int NQ, bool kPaged>
 void launch_one(const Params& a, int rows, cudaStream_t st) {
   const size_t smem = kPaged ? static_cast<size_t>(a.M) * sizeof(int32_t) : 0;
-  quant_attention_kernel<T, E, NQ, kPaged>
+  quant_attention_kernel<E, NQ, kPaged>
       <<<rows * a.H, kWarps * 32, smem, st>>>(a);
 }
 
-template <typename T, int E>
+template <int E>
 void launch_tile(int nq, const Params& a, int rows, cudaStream_t st) {
   switch (nq) {
-    case 1: launch_one<T, E, 1, true>(a, rows, st); break;
-    case 2: launch_one<T, E, 2, true>(a, rows, st); break;
-    case 3: launch_one<T, E, 3, true>(a, rows, st); break;
-    case 4: launch_one<T, E, 4, true>(a, rows, st); break;
-    case 5: launch_one<T, E, 5, true>(a, rows, st); break;
-    case 6: launch_one<T, E, 6, true>(a, rows, st); break;
-    case 7: launch_one<T, E, 7, true>(a, rows, st); break;
-    case 8: launch_one<T, E, 8, true>(a, rows, st); break;
+    case 1: launch_one<E, 1, true>(a, rows, st); break;
+    case 2: launch_one<E, 2, true>(a, rows, st); break;
+    case 3: launch_one<E, 3, true>(a, rows, st); break;
+    case 4: launch_one<E, 4, true>(a, rows, st); break;
+    case 5: launch_one<E, 5, true>(a, rows, st); break;
+    case 6: launch_one<E, 6, true>(a, rows, st); break;
+    case 7: launch_one<E, 7, true>(a, rows, st); break;
+    case 8: launch_one<E, 8, true>(a, rows, st); break;
   }
 }
 
-// nq == 0: the contiguous cache (one query); else a paged tile of nq
-// (fp32 q only: bf16 q on the pools takes paged_tc.cuh).
-template <typename T, int E>
+// nq == 0: the contiguous cache (one query); else a paged tile of nq.
+template <int E>
 void launch_e(int nq, const Params& a, int rows, cudaStream_t st) {
   if (nq == 0) {
-    launch_one<T, E, 1, false>(a, rows, st);
-  } else if constexpr (std::is_same<T, float>::value) {
-    launch_tile<T, E>(nq, a, rows, st);
-  }
-}
-
-template <typename T>
-void launch_dtype(int e, int nq, const Params& a, int rows, cudaStream_t st) {
-  switch (e) {
-    case 1: launch_e<T, 1>(nq, a, rows, st); break;
-    case 2: launch_e<T, 2>(nq, a, rows, st); break;
-    case 4: launch_e<T, 4>(nq, a, rows, st); break;
-    case 8: launch_e<T, 8>(nq, a, rows, st); break;
-  }
-}
-
-bool valid_common(int B, int H, int D, int dtype, int fmt) {
-  return B >= 1 && H >= 1 && (D == 32 || D == 64 || D == 128 || D == 256) &&
-         (dtype == 0 || dtype == 1) && fmt >= kInt8 && fmt <= kE5M2;
-}
-
-int launch(int nq, int rows, int D, int dtype, const Params& a, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    launch_dtype<float>(D / 32, nq, a, rows, st);
+    launch_one<E, 1, false>(a, rows, st);
   } else {
-    launch_dtype<__nv_bfloat16>(D / 32, nq, a, rows, st);
+    launch_tile<E>(nq, a, rows, st);
   }
+}
+
+bool valid_common(int B, int H, int D, int dtype, int fmt, int splits) {
+  return B >= 1 && H >= 1 && (D == 32 || D == 64 || D == 128 || D == 256) &&
+         (dtype == 0 || dtype == 1) && fmt >= kInt8 && fmt <= kE5M2 &&
+         splits >= 1 && splits <= paged_tc::kMaxSplits;
+}
+
+// The fp32-q template, for head dim D.
+int launch_fp32(int nq, int rows, int D, const Params& a, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D / 32) {
+    case 1: launch_e<1>(nq, a, rows, st); break;
+    case 2: launch_e<2>(nq, a, rows, st); break;
+    case 4: launch_e<4>(nq, a, rows, st); break;
+    case 8: launch_e<8>(nq, a, rows, st); break;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 q: paged_tc.cuh, paged or contiguous.
+template <bool kPaged>
+int launch_bf16(const paged_tc::Params& a, int rows, int D, int splits,
+                void* stream) {
+  const cudaError_t err = paged_tc::launch<true, kPaged>(
+      a, rows, D, splits, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -385,9 +375,9 @@ int launch_paged(const void* q, const void* k, const void* v, const void* ks,
                  long long o_st, long long o_sh, float scale, void* stream) {
   int log2_bs = 0;
   while ((1 << log2_bs) < bs) ++log2_bs;
-  if (!valid_common(B, H, D, dtype, fmt) || N < 1 || M < 1 ||
+  if (!valid_common(B, H, D, dtype, fmt, splits) || N < 1 || M < 1 ||
       M > kMaxTableCols || T < 1 || T > kMaxTile || bs < 1 ||
-      (1 << log2_bs) != bs || splits < 1 || splits > paged_tc::kMaxSplits) {
+      (1 << log2_bs) != bs) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype == 0) {
@@ -399,7 +389,7 @@ int launch_paged(const void* q, const void* k, const void* v, const void* ks,
                    static_cast<const int32_t*>(tables), out, H, M, M * bs,
                    log2_bs, fmt, q_sb, q_st, q_sh, p_sn, p_ss, p_sh, s_sn,
                    s_ss, s_sh, o_sb, o_st, o_sh, scale};
-    return launch(T, B, D, dtype, a, stream);
+    return launch_fp32(T, B, D, a, stream);
   }
   const paged_tc::Params a{
       static_cast<const __nv_bfloat16*>(q),
@@ -409,43 +399,56 @@ int launch_paged(const void* q, const void* k, const void* v, const void* ks,
       static_cast<const __nv_bfloat16*>(vs),
       static_cast<const int32_t*>(kv_len),
       static_cast<const int32_t*>(tables), static_cast<__nv_bfloat16*>(out),
-      T, H, M, log2_bs, fmt, q_sb, q_st, q_sh, p_sn, p_ss, p_sh, s_sn, s_ss,
-      s_sh, o_sb, o_st, o_sh, scale};
-  const cudaError_t err = paged_tc::launch<true>(
-      a, B, D, splits, static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+      T, H, M, log2_bs, fmt, M * bs, q_sb, q_st, q_sh, p_sn, p_ss, p_sh, s_sn,
+      s_ss, s_sh, o_sb, o_st, o_sh, scale};
+  return launch_bf16<true>(a, B, D, splits, stream);
 }
 
 }  // namespace
 
 // Every entry point: payloads with unit stride along D and strides given
 // in elements (bytes); scales bf16 with the payload's leading shape and
-// their own strides; kv_len [B] int32 >= 1 (each row's total occupancy, a
-// verify tile included); D in {32, 64, 128, 256}. dtype (of q and out):
-// 0 = float32, 1 = bfloat16. fmt (of the payloads): 0 = int8, 1 = fp8
-// e4m3, 2 = fp8 e5m2. Returns a cudaError_t as int.
+// their own strides; kv_len [B] int32, each row's total occupancy (a
+// verify tile included), clamped here to [1, cap]; D in {32, 64, 128,
+// 256}. dtype (of q and out): 0 = float32, 1 = bfloat16. fmt (of the
+// payloads): 0 = int8, 1 = fp8 e4m3, 2 = fp8 e5m2. splits in 1..8: CTAs
+// per (row, head), one cluster (bf16 q; fp32 takes one CTA). The bf16-q
+// kernel reads the payloads 16 bytes at a time: 16-byte aligned, the row
+// (or block), position and head strides multiples of 16 bytes (the
+// wrapper checks). Returns a cudaError_t as int.
 
 // Contiguous: q [B, H, D], k/v [B, S, H, D], scales [B, S, H], out
 // [B, H, D].
 extern "C" int frl_decode_attention_quant(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* kv_len, void* out, int B, int H, int S,
-    int D, int dtype, int fmt, long long q_sb, long long q_sh,
+    int D, int dtype, int fmt, int splits, long long q_sb, long long q_sh,
     long long kv_sb, long long kv_ss, long long kv_sh, long long sc_sb,
     long long sc_ss, long long sc_sh, long long o_sb, long long o_sh,
     float scale, void* stream) {
-  if (!valid_common(B, H, D, dtype, fmt) || S < 1) {
+  if (!valid_common(B, H, D, dtype, fmt, splits) || S < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Params a{q, static_cast<const uint8_t*>(k),
-                 static_cast<const uint8_t*>(v),
-                 static_cast<const __nv_bfloat16*>(k_scale),
-                 static_cast<const __nv_bfloat16*>(v_scale),
-                 static_cast<const int32_t*>(kv_len), nullptr, out, H, 0, S,
-                 0, fmt, q_sb, 0, q_sh, kv_sb, kv_ss, kv_sh, sc_sb, sc_ss,
-                 sc_sh, o_sb, 0, o_sh, scale};
-  return launch(0, B, D, dtype, a, stream);
+  if (dtype == 0) {
+    const Params a{q, static_cast<const uint8_t*>(k),
+                   static_cast<const uint8_t*>(v),
+                   static_cast<const __nv_bfloat16*>(k_scale),
+                   static_cast<const __nv_bfloat16*>(v_scale),
+                   static_cast<const int32_t*>(kv_len), nullptr, out, H, 0,
+                   S, 0, fmt, q_sb, 0, q_sh, kv_sb, kv_ss, kv_sh, sc_sb,
+                   sc_ss, sc_sh, o_sb, 0, o_sh, scale};
+    return launch_fp32(0, B, D, a, stream);
+  }
+  const paged_tc::Params a{
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const unsigned char*>(k),
+      static_cast<const unsigned char*>(v),
+      static_cast<const __nv_bfloat16*>(k_scale),
+      static_cast<const __nv_bfloat16*>(v_scale),
+      static_cast<const int32_t*>(kv_len), nullptr,
+      static_cast<__nv_bfloat16*>(out), 1, H, 0, 0, fmt, S, q_sb, 0, q_sh,
+      kv_sb, kv_ss, kv_sh, sc_sb, sc_ss, sc_sh, o_sb, 0, o_sh, scale};
+  return launch_bf16<false>(a, B, D, splits, stream);
 }
 
 // Paged: q and out [B, T, H, D] (T = 1 for decode), pools [N, bs, H, D],

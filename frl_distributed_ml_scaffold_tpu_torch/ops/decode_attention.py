@@ -36,8 +36,10 @@ Two versions of each function:
   ``_paged_decode_kernel`` and ``_paged_verify_kernel``;
   ``csrc/quant_attention.cu`` replaces the three ``*_quant`` siblings;
   for bf16 q both paged files launch ``csrc/paged_tc.cuh``'s
-  tensor-core kernel, split as ``paged_splits`` picks), launched on the
-  current stream through ``ctypes``.
+  tensor-core kernel, split as ``paged_splits`` picks, and the quantized
+  contiguous cache launches the same kernel without the table, split as
+  ``decode_splits`` picks), launched on the current stream through
+  ``ctypes``.
 
 The routers (``decode_attention``, ``paged_decode_attention``,
 ``paged_verify_attention``) choose by the tensor's device only: a CPU
@@ -160,11 +162,10 @@ def _check_kernel_args(q, k, v, kv_len, k_scale=None, v_scale=None):
         )
     if q.stride(-1) != 1 or k.stride(-1) != 1:
         raise ValueError("decode kernel needs unit stride along head_dim")
-    if k.stride(2) != d:
-        raise ValueError(
-            "decode kernel needs each position's [H, D] contiguous"
-        )
-    if k_scale is None:
+    # The unquantized kernel, and the quantized one for bf16 q
+    # (csrc/paged_tc.cuh), copy the cache 16 bytes at a time; the fp32-q
+    # quantized kernel reads bytes.
+    if k_scale is None or q.dtype == torch.bfloat16:
         elem = k.element_size()
         for t in (k, v):
             if (t.data_ptr() % 16
@@ -174,6 +175,10 @@ def _check_kernel_args(q, k, v, kv_len, k_scale=None, v_scale=None):
                     "k and v must be 16-byte aligned with b, s and h strides "
                     f"in multiples of 16 bytes, got strides {t.stride()}"
                 )
+    if k.stride(2) != d:
+        raise ValueError(
+            "decode kernel needs each position's [H, D] contiguous"
+        )
     if (kv_len.shape != (b,) or kv_len.dtype != torch.int32
             or not kv_len.is_contiguous()):
         raise ValueError("kv_len must be a contiguous int32 [B] tensor")
@@ -204,8 +209,10 @@ MAX_DECODE_SPLITS = 8
 
 
 def decode_splits(bh: int, s: int, sm_count: int) -> int:
-    """CTAs per (row, head) of the contiguous decode kernel, from what the
-    host knows without a sync: about one CTA (16 warps) per SM in all, so
+    """CTAs per (row, head) of the contiguous decode kernels (the
+    unquantized one, and ``csrc/paged_tc.cuh`` over a quantized cache for
+    bf16 q), from what the host knows without a sync, never ``kv_len``:
+    about one CTA (16 warps) per SM in all, so
     1 once ``B*H >= sm_count``; at most ``MAX_DECODE_SPLITS``, and no
     more than one per 256 positions of capacity ``s`` (one pass of a
     CTA at head_dim 64 bf16)."""
@@ -227,6 +234,21 @@ def paged_splits(bh: int, cap: int, sm_count: int) -> int:
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _use_kernel(q, impl) -> bool:
+    """The routers' rule: the kernel for a CUDA tensor under
+    ``impl="flash"``, the plain version for ``impl="dense"`` or a CPU
+    tensor; everything else raises."""
+    if impl not in ("dense", "flash"):
+        raise KeyError(
+            f"unknown decode_attention impl {impl!r} (dense | flash)"
+        )
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(
+            f"decode attention runs on cpu or cuda, not {q.device}"
+        )
+    return impl == "flash" and q.device.type == "cuda"
 
 
 def _flash_decode(q, k, v, kv_len, splits=None):
@@ -255,18 +277,24 @@ def _flash_decode(q, k, v, kv_len, splits=None):
     return out
 
 
-def _flash_decode_quant(q, k, v, kv_len, k_scale, v_scale):
-    """Launch the quantized contiguous kernel; ``kv_len`` is int32 and
-    already >= 1."""
+def _flash_decode_quant(q, k, v, kv_len, k_scale, v_scale, splits=None):
+    """Launch the quantized contiguous kernel; ``kv_len`` is int32 (the
+    kernel clamps each row's occupancy to ``[1, S]``). ``splits``: CTAs
+    per (row, head) of the bf16-q kernel (``csrc/paged_tc.cuh``),
+    ``decode_splits``'s by default, never from ``kv_len`` (fp32 q takes
+    one)."""
     _check_kernel_args(q, k, v, kv_len, k_scale, v_scale)
-    fn = _bind("quant_attention", "frl_decode_attention_quant", 7, 6, 10)
+    fn = _bind("quant_attention", "frl_decode_attention_quant", 7, 7, 10)
     b, h, d = q.shape
+    s = k.shape[1]
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    if splits is None:
+        splits = decode_splits(b * h, s, _sm_count(q.device.index))
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
         v_scale.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-        b, h, k.shape[1], d, _KERNEL_DTYPES[q.dtype],
-        _PAYLOAD_FORMATS[k.dtype],
+        b, h, s, d, _KERNEL_DTYPES[q.dtype], _PAYLOAD_FORMATS[k.dtype],
+        splits,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
         k_scale.stride(0), k_scale.stride(1), k_scale.stride(2),
         out.stride(0), out.stride(1), 1.0 / math.sqrt(d),
@@ -305,34 +333,24 @@ def decode_attention(
     consumer routes through. With ``k_scale`` / ``v_scale`` (``[B, S, H]``
     bf16, both or neither) the cache is quantized. ``impl="dense"`` is the
     explicit config choice ``model.decode_attention=dense``; ``"flash"``
-    clamps ``kv_len`` to >= 1 (as the TPU kernel's router does) and takes
-    the kernel on a CUDA tensor, the plain version on a CPU tensor.
-    ``decode_attention.launches`` / ``.quant_launches`` count kernel
-    launches."""
+    clamps each row's occupancy to ``[1, S]`` (as the TPU kernel's router
+    clamps it to >= 1) and takes the kernel on a CUDA tensor, the plain
+    version on a CPU tensor. ``decode_attention.launches`` /
+    ``.quant_launches`` count kernel launches."""
     quant = _quantized(k_scale, v_scale, "cache")
-
-    def dense(lens):
+    if not _use_kernel(q, impl):
+        lens = kv_len
+        if impl == "flash":
+            lens = kv_len.to(torch.int32).clamp_min(1)
         if quant:
             return dense_decode_attention_quant(q, k, v, lens, k_scale, v_scale)
         return dense_decode_attention(q, k, v, lens)
-
-    if impl == "dense":
-        return dense(kv_len)
-    if impl != "flash":
-        raise KeyError(
-            f"unknown decode_attention impl {impl!r} (dense | flash)"
-        )
-    if q.device.type == "cpu":
-        return dense(kv_len.to(torch.int32).clamp_min(1))
-    if q.device.type != "cuda":
-        raise ValueError(
-            f"decode attention runs on cpu or cuda, not {q.device}"
-        )
+    # The kernels clamp each row to [1, S] themselves: no launch for the
+    # clamp.
+    lens = kv_len.to(torch.int32).contiguous()
     if quant:
-        lens = kv_len.to(torch.int32).clamp_min(1).contiguous()
         return _flash_decode_quant(q, k, v, lens, k_scale, v_scale)
-    # The kernel clamps each row to [1, S] itself: no launch for the clamp.
-    return _flash_decode(q, k, v, kv_len.to(torch.int32).contiguous())
+    return _flash_decode(q, k, v, lens)
 
 
 decode_attention.launches = 0
@@ -546,17 +564,6 @@ def _flash_paged_verify(q, k_pool, v_pool, kv_len, block_tables,
     return out
 
 
-def _use_paged_kernel(q, impl) -> bool:
-    """The paged routers' rule: the kernel for a CUDA tensor under
-    ``impl="flash"``, the plain version for ``impl="dense"`` or a CPU
-    tensor; everything else raises."""
-    if impl not in ("dense", "flash"):
-        raise KeyError(
-            f"unknown decode_attention impl {impl!r} (dense | flash)"
-        )
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"paged attention runs on cpu or cuda, not {q.device}")
-    return impl == "flash" and q.device.type == "cuda"
 
 
 def paged_decode_attention(
@@ -579,7 +586,7 @@ def paged_decode_attention(
     ``paged_decode_attention.launches`` /
     ``.quant_launches`` count kernel launches."""
     _quantized(k_scale, v_scale, "pool")
-    if not _use_paged_kernel(q, impl):
+    if not _use_kernel(q, impl):
         return dense_paged_decode_attention(
             q, k_pool, v_pool, kv_len, block_tables, k_scale, v_scale
         )
@@ -607,7 +614,7 @@ def paged_verify_attention(
     ``paged_verify_attention.launches`` / ``.quant_launches`` count kernel
     launches."""
     _quantized(k_scale, v_scale, "pool")
-    if not _use_paged_kernel(q, impl):
+    if not _use_kernel(q, impl):
         return dense_paged_verify_attention(
             q, k_pool, v_pool, kv_len, block_tables, k_scale, v_scale
         )

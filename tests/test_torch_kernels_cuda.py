@@ -238,6 +238,89 @@ def test_quant_paged_kernels_match_plain_versions(op, fmt, dtype):
         assert torch.equal(got[:, 0], dec)
 
 
+# The quantized contiguous kernel for bf16 q (csrc/paged_tc.cuh without
+# its table) at DECODE_EDGES' shapes, bar D = 96 (it takes head dims 32,
+# 64, 128 and 256).
+QUANT_DECODE_EDGES = sorted(c for c in DECODE_EDGES if c != "D96")
+
+
+def _quant_cache(rng, b, s, h, d, fmt):
+    """A quantized K/V pair [b, s, h, d] and its scales, views into a
+    2s-capacity buffer (as a grown engine cache is), and the scale
+    keywords."""
+    (k, ks), (v, vs) = (quantize_kv(torch.from_numpy(rng.standard_normal(
+        (b, 2 * s, h, d)).astype(np.float32)).cuda(), fmt) for _ in range(2))
+    k, ks, v, vs = k[:, :s], ks[:, :s], v[:, :s], vs[:, :s]
+    return k, v, dict(k_scale=ks, v_scale=vs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", QUANT_DECODE_EDGES)
+@pytest.mark.parametrize("fmt", QFORMATS)
+def test_quant_decode_kernel_split_edges(fmt, case):
+    """On the card: bf16 q over a quantized contiguous cache at the edges
+    of the split (kv_len 0, 1 and > S, one slot at 8 splits, two slots,
+    B*H = 384 at one split, D = 256) through a strided q and a cache view
+    into a 2S buffer, against the plain version; NaN payloads and scales
+    past every row's occupancy leave the output bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    b, h, s, d, lens = DECODE_EDGES[case]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert (tda.decode_splits(b * h, s, sms) > 1) == (
+        case in ("one_slot", "two_slots", "D256"))
+    rng = np.random.default_rng(14)
+    q = torch.from_numpy(rng.standard_normal((b, h, 2 * d)).astype(
+        np.float32)).to("cuda", torch.bfloat16)[..., d:]
+    k, v, sc = _quant_cache(rng, b, s, h, d, fmt)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    before = tda.decode_attention.quant_launches
+    got = tda.decode_attention(q, k, v, kv_len, **sc)
+    n = kv_len.clamp_min(1)
+    want = tda.dense_decode_attention_quant(q, k, v, n, **sc)
+    torch.cuda.synchronize()
+    assert tda.decode_attention.quant_launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=TOL["bfloat16"], rtol=0)
+    dead = torch.arange(s, device="cuda")[None, :] >= n[:, None]
+    kd, vd, sd = poisoned(k, v, sc, dead)
+    assert torch.equal(tda.decode_attention(q, kd, vd, kv_len, **sd), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("fmt", QFORMATS)
+def test_quant_decode_kernel_at_every_split(fmt, d):
+    """On the card: bf16 q over a quantized contiguous cache whose
+    capacity no tile divides (S = 300: 19 tiles of 16, the last ragged;
+    at 7 and 8 splits a CTA has one tile or none), at every forced split
+    count 1..8 and each head dim, through a strided q and a cache view
+    into a 2S buffer, occupancies 0, 1, 17, 150, S and > S: each held to
+    the plain version, and bit-identical with NaN payloads and scales
+    past every row's occupancy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    b, h, s = 6, 2, 300
+    rng = np.random.default_rng(15)
+    q = torch.from_numpy(rng.standard_normal((b, h, 2 * d)).astype(
+        np.float32)).to("cuda", torch.bfloat16)[..., :d]
+    k, v, sc = _quant_cache(rng, b, s, h, d, fmt)
+    kv_len = torch.tensor([0, 1, 17, 150, s, s + 37], dtype=torch.int32,
+                          device="cuda")
+    n = kv_len.clamp_min(1)
+    want = tda.dense_decode_attention_quant(q, k, v, n, **sc)
+    dead = torch.arange(s, device="cuda")[None, :] >= n[:, None]
+    kd, vd, sd = poisoned(k, v, sc, dead)
+    for splits in range(1, tda.MAX_DECODE_SPLITS + 1):
+        got = tda._flash_decode_quant(q, k, v, kv_len, splits=splits, **sc)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=TOL["bfloat16"], rtol=0,
+                                   msg=lambda m: f"splits={splits}: {m}")
+        assert torch.equal(tda._flash_decode_quant(
+            q, kd, vd, kv_len, splits=splits, **sd), got), splits
+
+
 # ------------------------------------- paged kernels' split over positions
 
 

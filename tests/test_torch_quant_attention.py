@@ -17,6 +17,7 @@ the output to bf16, ulp 2^-7 relative at |o| <= 4).
 
 from __future__ import annotations
 
+import ctypes
 import importlib
 
 import jax.numpy as jnp
@@ -357,15 +358,19 @@ def test_quant_paged_kernels_refuse_pools_they_cannot_read_16_bytes_at_a_time(
                           ks.clone())
 
 
-def test_quant_paged_launch_passes_the_split_count(monkeypatch):
-    """The quantized paged entry points take the split count as their
-    last int argument, after the payload format; the default is
-    paged_splits' and never depends on the occupancy."""
-    calls = []
-
+def _recording_launch(monkeypatch, calls):
+    """Run the quantized launch wrappers on CPU tensors with a stand-in for
+    the CUDA entry point that records its name, its int arguments and the
+    kv_len it was handed (read through its pointer, as the kernel reads
+    it), with a fixed SM count and stream, so the host side is checked
+    without a card. Every quantized entry point takes q, k, v, the two
+    scales and kv_len as its first six pointers and B as its first int."""
     def bind(source, name, n_ptr, n_int, n_long):
         def fn(*args):
-            calls.append((name, args[n_ptr: n_ptr + n_int]))
+            lens = (ctypes.c_int32 * args[n_ptr]).from_address(args[5])
+            calls.append({"name": name, "n_int": n_int,
+                          "ints": args[n_ptr: n_ptr + n_int],
+                          "kv_len": list(lens)})
             return 0
         return fn
 
@@ -373,8 +378,17 @@ def test_quant_paged_launch_passes_the_split_count(monkeypatch):
     monkeypatch.setattr(tda, "_sm_count", lambda index: 132)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: type("S", (), {"cuda_stream": 0}))
-    for router in (tda.paged_decode_attention, tda.paged_verify_attention):
+    for router in (tda.decode_attention, tda.paged_decode_attention,
+                   tda.paged_verify_attention):
         monkeypatch.setattr(router, "quant_launches", router.quant_launches)
+
+
+def test_quant_paged_launch_passes_the_split_count(monkeypatch):
+    """The quantized paged entry points take the split count as their
+    last int argument, after the payload format; the default is
+    paged_splits' and never depends on the occupancy."""
+    calls = []
+    _recording_launch(monkeypatch, calls)
     q, cache, _, tables = _paged(3, "fp8_e4m3", 16, [1, 1, 1, 1], t=T)
     k, v, sc = cache.port()
     q = torch.from_numpy(q).bfloat16()
@@ -385,7 +399,98 @@ def test_quant_paged_launch_passes_the_split_count(monkeypatch):
     tda._flash_paged_decode(q[:, 0], k, v, torch.ones(B, dtype=torch.int32),
                             tables, splits=5, **sc)
     want = tda.paged_splits(B * H, tables.shape[1] * k.shape[1], 132)
-    assert [c[0] for c in calls] == [
+    assert [c["name"] for c in calls] == [
         "frl_paged_verify_attention_quant"] * 2 + [
         "frl_paged_decode_attention_quant"]
-    assert [c[1][-2:] for c in calls] == [(1, want), (1, want), (1, 5)]
+    assert [c["ints"][-2:] for c in calls] == [(1, want), (1, want), (1, 5)]
+    assert [c["kv_len"] for c in calls] == [[1, 1, 1, 1], [S, S + 9, 7, S],
+                                            [1, 1, 1, 1]]
+
+
+# The contiguous launch's host side at a capacity that splits: S_SPLIT
+# positions, B*H = 16 rows and heads on 132 SMs (decode_splits: 4).
+S_SPLIT = 1024
+CONTIGUOUS_LENS = {
+    "zero": [0, 0, 0, 0],
+    "mixed": [0, 1, 333, S_SPLIT],
+    "past_capacity": [S_SPLIT + 37, 3, S_SPLIT, S_SPLIT + 1000],
+}
+
+
+@pytest.mark.parametrize("lens", sorted(CONTIGUOUS_LENS))
+@pytest.mark.parametrize("fmt", ["int8", "fp8_e4m3", "fp8_e5m2"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quant_decode_launch_passes_the_split_count_and_kv_len_unclamped(
+        dtype, fmt, lens, monkeypatch):
+    """The router's kernel branch over a quantized contiguous cache hands
+    the entry point kv_len as it came (0 and > S included: the kernel
+    clamps each row to [1, S], so the router launches no clamp) and
+    decode_splits(B*H, S, SMs) as its split count, after the payload
+    format; an explicit ``splits=`` overrides it. bf16 q takes the
+    tensor-core kernel, fp32 q the CUDA-core one (the count is then
+    ignored)."""
+    calls = []
+    _recording_launch(monkeypatch, calls)
+    monkeypatch.setattr(tda, "_use_kernel", lambda q, impl: impl == "flash")
+    rng = np.random.default_rng(8)
+    q = torch.from_numpy(rng.standard_normal((B, H, D)).astype(
+        np.float32)).to(getattr(torch, dtype))
+    k, v = (torch.zeros(B, 2 * S_SPLIT, H, D, dtype=torch.int8)[:, :S_SPLIT]
+            .view(_TORCH[fmt]) for _ in range(2))
+    ks, vs = (torch.ones(B, S_SPLIT, H, dtype=torch.bfloat16)
+              for _ in range(2))
+    kv_len = torch.tensor(CONTIGUOUS_LENS[lens], dtype=torch.int32)
+    out = tda.decode_attention(q, k, v, kv_len, k_scale=ks, v_scale=vs)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert tda.decode_attention.quant_launches == 1
+    tda._flash_decode_quant(q, k, v, kv_len, ks, vs, splits=7)
+    want = tda.decode_splits(B * H, S_SPLIT, 132)
+    assert want == 4
+    ids = (B, H, S_SPLIT, D, {"float32": 0, "bfloat16": 1}[dtype],
+           {"int8": 0, "fp8_e4m3": 1, "fp8_e5m2": 2}[fmt])
+    assert [c["name"] for c in calls] == ["frl_decode_attention_quant"] * 2
+    assert [c["ints"] for c in calls] == [(*ids, want), (*ids, 7)]
+    assert [c["kv_len"] for c in calls] == [CONTIGUOUS_LENS[lens]] * 2
+
+
+@pytest.mark.parametrize("case", ["misaligned_base", "row_stride",
+                                  "position_stride", "head_stride"])
+@pytest.mark.parametrize("fmt", ["int8", "fp8_e4m3", "fp8_e5m2"])
+def test_quant_decode_kernel_refuses_caches_it_cannot_read_16_bytes_at_a_time(
+        fmt, case):
+    """With bf16 q the quantized contiguous cache must be 16-byte aligned
+    with row, position and head strides in multiples of 16 bytes (one
+    copy carries 16 payload bytes): the wrapper raises before any pointer
+    is handed over. fp32 q's kernel reads bytes and keeps its rule (a
+    padded head still raises: each position's [H, D] must be contiguous).
+    The engine's per-layer views of one 2S-capacity buffer pass."""
+    q = torch.zeros(B, H, D, dtype=torch.bfloat16)
+    kv_len = torch.ones(B, dtype=torch.int32)
+    ks = torch.ones(B, S, H, dtype=torch.bfloat16)
+    n = B * S * H * D
+    if case == "misaligned_base":
+        flat = torch.zeros(n + 16, dtype=torch.int8)
+        off = next(i for i in range(1, 16) if flat[i:].data_ptr() % 16)
+        k = flat[off: off + n].view(B, S, H, D)
+    elif case == "row_stride":
+        # Each row followed by 8 bytes of padding.
+        k = torch.zeros(B, S * H * D + 8, dtype=torch.int8)[:, : S * H * D]
+        k = k.view(B, S, H, D)
+    elif case == "position_stride":
+        # Each position's [H, D] followed by 8 bytes of padding.
+        k = torch.zeros(B, S, H * D + 8, dtype=torch.int8)[..., : H * D]
+        k = k.unflatten(2, (H, D))
+    else:
+        # Each head's D payload bytes followed by 8 bytes of padding.
+        k = torch.zeros(B, S, H, D + 8, dtype=torch.int8)[..., :D]
+    k = k.view(_TORCH[fmt])
+    with pytest.raises(ValueError, match="16 bytes at a time"):
+        tda._check_kernel_args(q, k, k, kv_len, ks, ks.clone())
+    if case == "head_stride":
+        with pytest.raises(ValueError, match=r"\[H, D\] contiguous"):
+            tda._check_kernel_args(q.float(), k, k, kv_len, ks, ks.clone())
+    else:
+        tda._check_kernel_args(q.float(), k, k, kv_len, ks, ks.clone())
+    layers = torch.zeros(3, B, 2 * S, H, D, dtype=torch.int8)[:, :, :S]
+    layers = layers.view(_TORCH[fmt])
+    tda._check_kernel_args(q, layers[0], layers[1], kv_len, ks, ks.clone())

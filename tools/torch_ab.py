@@ -12,8 +12,10 @@ phases from weights made with seed 0 (the same in every tree):
 - ``train_path``: ``train_phase``, ``gpt2_medium_zero1`` with
   ``model.attention=flash`` at full width and depth, one warm-up, three
   timed steps and one profiled step;
-- ``path``: ``path_phase``, ``gpt2_medium_serve`` serving 16 requests
-  with 8 slots over the bucketed cache, then a profiled window;
+- ``path`` / ``quant_path``: ``path_phase``, ``gpt2_medium_serve``
+  serving 16 requests with 8 slots over the bucketed cache
+  (``quant_path`` over an int8 cache, ``chip_smoke.INT8_OVERRIDES``),
+  then a profiled window;
 - ``paged_path`` / ``quant_paged_path``: ``paged_path_phase``, the same
   model with the paged pool, the prefix cache and n-gram speculation
   (``quant_paged_path`` over an fp8_e4m3 pool), 16 requests, then a
@@ -22,7 +24,8 @@ phases from weights made with seed 0 (the same in every tree):
 Each tree builds its own kernels. One JSON line per tree: the card, the
 step or token times, device busy time (in all and, serving, per step of
 the profiled window) and idle share, and the kernels that take the most
-device time. Give the trees in the order parent, change, change, parent:
+device time (and the attention kernels' time in the profiled window).
+Give the trees in the order parent, change, change, parent:
 host time moves between hosts, so only turns within one call compare.
 Needs a CUDA card; imports no JAX.
 """
@@ -61,14 +64,16 @@ def _one(phase: str, tree: str) -> dict:
                    steps=[r["step_s"] for r in report["steps"]],
                    tokens_per_s=report["tokens_per_s"])
     else:
-        if phase == "path":
+        from frl_distributed_ml_scaffold_tpu_torch.config import (
+            apply_overrides,
+        )
+
+        if phase in ("path", "quant_path"):
+            if phase == "quant_path":
+                cfg = apply_overrides(cfg, chip_smoke.INT8_OVERRIDES)
             report, _, profile = chip_smoke.path_phase(cfg, sd, 0, card)
             steps = {"decode_steps": report["decode_steps"]}
         else:
-            from frl_distributed_ml_scaffold_tpu_torch.config import (
-                apply_overrides,
-            )
-
             if phase == "quant_paged_path":
                 cfg = apply_overrides(cfg, chip_smoke.FP8_OVERRIDES)
             report, _, profile = chip_smoke.paged_path_phase(cfg, sd, 0, card)
@@ -83,11 +88,17 @@ def _one(phase: str, tree: str) -> dict:
     out.update(busy_s=profile["device_busy_s"],
                idle=profile["device_idle_share"],
                profiled_s=profile["wall_s"],
-               top_device_s=profile["top_device_s"][:4])
+               top_device_s=profile["top_device_s"][:4],
+               # Trees older than the profile's own attention entry: the
+               # attention kernels among its top ten.
+               attention_kernels_s=profile.get("attention_kernels_s") or {
+                   n: t for n, t in profile["top_device_s"]
+                   if "attention_kernel" in n or "paged_tc_kernel" in n})
     return out
 
 
-PHASES = ("train_path", "path", "paged_path", "quant_paged_path")
+PHASES = ("train_path", "path", "quant_path", "paged_path",
+          "quant_paged_path")
 
 
 def main() -> int:
