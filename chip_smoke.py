@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Drive the PyTorch port's serving and training paths (GPT-2 and
-ResNet-50) once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths (GPT-2, ResNet-50,
+ViT-B/16, the video classifier, the MNIST MLP) once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -124,7 +124,30 @@ no final line):
    fp32 and bf16_mixed, SGD and fused_adamw, and bf16 (bf16 gradients
    into the AdamW kernel) with fused_adamw: loss, every gradient,
    batch_stats and the params after it.
-14. ``phase_seconds`` (the build, each phase above and the whole run),
+14. vit_path: ``imagenet_vitb_fsdp`` with ``data.global_batch_size=256``
+   at full width and depth (86567656 params, 12 layers, D = 768, 12
+   heads, 197 tokens, 1000 classes; seeded weights, bf16_mixed, the
+   recipe's AdamW with warmup, cosine and clip 1.0, ``remat=full``) on
+   rn50_path's synthetic ImageNet batches, already on the card: one
+   warm-up step (lr 0: params unchanged) and three timed steps; loss,
+   accuracy, grad_norm and lr per step, step seconds, images/s, FLOPs
+   (``FlopCounterMode``, within 1 % of the analytic 26.98 TFLOP a step)
+   and their share of the bf16 peak, peak memory; no kernel of the port
+   launches (plain PyTorch: patches and products, attention written out
+   as flax's). vit_profile: one more step under ``torch.profiler``.
+15. fp32_vit_check: one ViT-B step (full width, depth 2, batch 8) on the
+   card and through the port's CPU path from the same weights and
+   batch, fp32 and bf16_mixed: loss, every gradient and the params after
+   the update (``VIT_CHECK_TOL``).
+16. video_path: ``ego4d_video_elastic`` at full width (784 tokens, 400
+   classes) with batch 64 -> 16, synthetic clips made before the timed
+   window: one warm-up and two timed steps, the fields of vit_path;
+   video_profile: one more step under ``torch.profiler``.
+17. mlp_path: ``mnist_mlp`` as published (535818 params, batch 256, fp32,
+   synthetic MNIST): 200 steps of the recipe's schedule, the loss must
+   fall; then 20 steps under the profiler for the idle share (the path is
+   host-bound by nature).
+18. ``phase_seconds`` (the build, each phase above and the whole run),
    the ``kernels`` line (twelve kernels) and, last, ``{"ok": true,
    "device": ...}``.
 
@@ -138,6 +161,7 @@ script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -2018,9 +2042,10 @@ def rn50_batches(cfg, n: int) -> list:
              for k, v in data.batch(s, gb).items()} for s in range(n)]
 
 
-def rn50_flops(loss_fn, policy, state, batch) -> int:
-    """FLOPs of one forward and backward (convolutions and the head),
-    counted by ``FlopCounterMode`` over one gradient pass."""
+def flop_count(loss_fn, policy, state, batch) -> int:
+    """FLOPs of one forward and backward (convolutions and products),
+    counted by ``FlopCounterMode`` over one gradient pass without
+    recompute."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from frl_distributed_ml_scaffold_tpu_torch.trainer.train_step import (
@@ -2061,7 +2086,7 @@ def rn50_phase(gen, card: str, overrides: list, steps: int, batches: list,
     per_step = {"bn_bwd_sums": RN50_BNS, "bn_bwd_dx": RN50_BNS}
     if cfg.optimizer.name == "fused_adamw":
         per_step["fused_adamw"] = RN50_BIG_LEAVES
-    flops = rn50_flops(loss_fn, policy, state, batches[0])
+    flops = flop_count(loss_fn, policy, state, batches[0])
     start = {k: p.clone() for k, p in state.params.items()}
     stats0 = {k: s.clone() for k, s in state.extras["batch_stats"].items()}
     gb = cfg.data.global_batch_size
@@ -2318,6 +2343,370 @@ def fp32_rn50_phase(gen) -> dict:
     return report
 
 
+# --------------------------------------------------- ViT, video and MLP
+
+# imagenet_vitb_fsdp at full width and depth, the batch cut as for RN50;
+# ego4d_video_elastic at full width, batch 64 -> 16; mnist_mlp as
+# published. No kernel of the port runs on these paths.
+VIT_OVERRIDES = ["data.global_batch_size=256"]
+VIDEO_OVERRIDES = ["data.global_batch_size=16"]
+VIT_STEPS, VIDEO_STEPS, MLP_STEPS = 3, 2, 200
+# The MLP's idle share is read over this many steps under the profiler.
+MLP_PROFILE_STEPS = 20
+FAMILY_PARAMS = {"vit": 86567656, "video": 87146128, "mlp": 535818}
+# FlopCounterMode's count against the analytic model FLOPs (ViT and
+# video): the count leaves out the patch / tubelet embedding's input
+# gradient (the input is data), 0.22 % of ViT-B's step and 0.39 % of the
+# video model's.
+FLOPS_TOL = 0.01
+
+
+def family_setup(cfg, gen, weights=None, device="cuda"):
+    """Model, policy, optimizer, schedule, state and loss of a ViT,
+    video or MLP ``cfg`` on ``device``; weights from the family's seeded
+    init on ``gen`` unless given."""
+    from frl_distributed_ml_scaffold_tpu_torch.models import convert
+    from frl_distributed_ml_scaffold_tpu_torch.models import create_model
+    from frl_distributed_ml_scaffold_tpu_torch.precision import get_policy
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.optimizers import (
+        make_optimizer,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.tasks import make_loss_fn
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.train_state import (
+        TrainState,
+    )
+
+    d = cfg.data
+    kw = ({"in_features": d.image_size * d.image_size * d.channels}
+          if cfg.model.family == "mlp" else {"in_channels": d.channels})
+    policy = get_policy(cfg.precision)
+    model = create_model(cfg.model, policy, device=device, **kw)
+    if weights is None:
+        init = getattr(convert, f"init_{cfg.model.family}_params")
+        weights = init(cfg.model, gen, **kw)
+    model.load_state_dict(weights)
+    tx, schedule = make_optimizer(cfg.optimizer, cfg.trainer)
+    state = TrainState.create(weights, tx, device=device)
+    return (model, policy, tx, schedule, state,
+            make_loss_fn(model, cfg.data.name))
+
+
+def family_flops(cfg) -> dict:
+    """Model FLOPs of one optimizer step, no recompute counted: three
+    times the forward's products. ViT / video: the patch or tubelet
+    embedding, per layer the four projections and the MLP (2 (4 + 2 r)
+    D^2 a token) and attention's QK^T and PV (4 N^2 D), the head. MLP:
+    its Dense layers. ``not_computed``: the first product's input
+    gradient, part of that count but never computed (the input is
+    data), so ``FlopCounterMode`` counts ``flops - not_computed``."""
+    m, d, b = cfg.model, cfg.data, cfg.data.global_batch_size
+    if m.family == "mlp":
+        widths = [d.image_size ** 2 * d.channels, *m.hidden_sizes,
+                  m.num_classes]
+        fwd = sum(2 * a * c for a, c in zip(widths[:-1], widths[1:]))
+        first = 2 * widths[0] * widths[1]
+        return {"flops": 3 * b * fwd, "not_computed": b * first,
+                "forward_flops_per_sample": fwd}
+    if m.family == "vit":
+        patches = (m.image_size // m.patch_size) ** 2
+        features = m.patch_size ** 2 * d.channels
+        tokens = patches + (m.pool == "cls")
+    else:
+        tt, th, tw = m.tubelet_size
+        patches = ((m.num_frames // tt) * (m.image_size // th)
+                   * (m.image_size // tw))
+        features = tt * th * tw * d.channels
+        tokens = patches
+    dm = m.hidden_dim
+    first = 2 * patches * features * dm
+    fwd = (first + m.num_layers * (2 * (4 + 2 * m.mlp_ratio) * dm * dm
+                                   * tokens + 4 * tokens * tokens * dm)
+           + 2 * dm * m.num_classes)
+    return {"flops": 3 * b * fwd, "not_computed": b * first,
+            "forward_flops_per_sample": fwd, "tokens": tokens}
+
+
+def family_batches(cfg, n: int) -> list:
+    """``n`` synthetic batches of the global batch on the card (MNIST's
+    synthetic fallback, or video clips, whose source is dropped after)."""
+    from frl_distributed_ml_scaffold_tpu_torch.data.mnist import MNIST
+    from frl_distributed_ml_scaffold_tpu_torch.data.video import VideoClips
+
+    source = {"mlp": MNIST, "video": VideoClips}[cfg.model.family]
+    data = source(cfg.data, split="train")
+    gb = cfg.data.global_batch_size
+    return [{k: torch.from_numpy(v).to("cuda")
+             for k, v in data.batch(s, gb).items()} for s in range(n)]
+
+
+# Device time by kind of kernel (first match wins): the products (the
+# attention's, over 197 or 784 positions, take cuBLAS's unaligned
+# ``align1`` kernels), copies and casts, the rest.
+KERNEL_KINDS = (("gemm_align1", r"gemm.*align1"),
+                ("gemm", r"gemm|nvjet|xmma"),
+                ("copy_or_cast", r"copy"),
+                ("layer_norm", r"layer_norm"),
+                ("softmax", r"softmax"),
+                ("reduce", r"reduce_kernel"),
+                ("elementwise", r"elementwise"))
+
+
+def device_time_by_kind(prof) -> dict:
+    """Seconds of CUDA kernel time in a finished ``torch.profiler`` run,
+    summed by ``KERNEL_KINDS`` (``other`` for the rest)."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        kind = next((k for k, pat in KERNEL_KINDS
+                     if re.search(pat, e.name)), "other")
+        t = (e.time_range.end - e.time_range.start) / 1e6
+        out[kind] = out.get(kind, 0.0) + t
+    return out
+
+
+def family_phase(cfg, gen, card: str, batches: list, steps: int,
+                 profile_steps: int) -> tuple:
+    """``cfg`` (ViT, video or MLP) on the card: one warm-up step (step
+    0, lr 0 under warmup: the params must not move) and ``steps`` timed
+    steps, each synchronised; every launch count stays 0. FLOPs of one
+    forward and backward without recompute by ``FlopCounterMode``: equal
+    to ``family_flops``' count less what it never computes, and (ViT,
+    video) within ``FLOPS_TOL`` of the model FLOPs. Then
+    ``profile_steps`` more steps under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model, policy, tx, schedule, state, loss_fn = family_setup(cfg, gen)
+    step = _step_fn(cfg, loss_fn, tx, policy)
+    family = cfg.model.family
+    n_params = sum(p.numel() for p in state.params.values())
+    check(n_params == FAMILY_PARAMS[family],
+          f"{cfg.name}: {n_params} params, want {FAMILY_PARAMS[family]}")
+    counted = flop_count(loss_fn, policy, state, batches[0])
+    analytic = family_flops(cfg)
+    rel = counted / analytic["flops"] - 1
+    check(counted == analytic["flops"] - analytic["not_computed"],
+          f"{cfg.name}: FlopCounterMode counts {counted}, the analytic "
+          f"count is {analytic['flops']} less {analytic['not_computed']}")
+    if family != "mlp":
+        check(abs(rel) <= FLOPS_TOL, f"{cfg.name}: FlopCounterMode counts "
+              f"{rel:+.2%} off the model FLOPs")
+    start = {k: p.clone() for k, p in state.params.items()}
+    gb = cfg.data.global_batch_size
+    rate = "clips_per_s" if family == "video" else "images_per_s"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    rows = []
+    for s in range(1 + steps):
+        t0 = time.perf_counter()
+        state, m = step(state, batches[s % len(batches)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rec = {"step": s, "lr": schedule(s), "step_s": wall,
+               rate: gb / wall,
+               **{k: float(v) for k, v in m.items()}}
+        check(math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"]),
+              f"{cfg.name} step {s}: non-finite loss or grad_norm {rec}")
+        rows.append(rec)
+        if s == 0:
+            check(rec["lr"] == 0.0, f"{cfg.name}: step 0 lr is not 0")
+            check(all(torch.equal(state.params[k], p)
+                      for k, p in start.items()),
+                  f"{cfg.name}: params moved at step 0 (lr 0)")
+        elif s == 1:
+            check(any(not torch.equal(state.params[k], p)
+                      for k, p in start.items()),
+                  f"{cfg.name}: params did not move at step 1")
+            del start
+    counts = read_launches()
+    check(not any(counts.values()),
+          f"{cfg.name}: a kernel of the port launched: {counts}")
+    peak = torch.cuda.max_memory_allocated()
+    check(peak < 80e9, f"{cfg.name}: {peak} bytes allocated at peak")
+    step_s = statistics.median(r["step_s"] for r in rows[1:])
+    shown = rows if len(rows) <= 10 else rows[::20] + rows[-1:]
+    report = {
+        "card": card, "config": cfg.name, "family": family,
+        "policy": cfg.precision.policy, "global_batch": gb,
+        "remat": cfg.trainer.remat,
+        "model": dataclasses.asdict(cfg.model),
+        "optimizer": {"name": cfg.optimizer.name,
+                      "lr": cfg.optimizer.learning_rate,
+                      "weight_decay": cfg.optimizer.weight_decay,
+                      "warmup_steps": cfg.optimizer.warmup_steps,
+                      "schedule": cfg.optimizer.schedule,
+                      "clip": cfg.optimizer.grad_clip_norm},
+        "params": n_params, "steps_run": len(rows), "steps": shown,
+        "step_s_median": step_s, rate: gb / step_s,
+        "flops_per_step": counted,
+        "flops_counted_by": "FlopCounterMode over one forward and backward "
+                            "(no recompute)",
+        "analytic_flops_per_step": analytic["flops"],
+        "first_input_grad_flops_not_computed": analytic["not_computed"],
+        "flops_counted_over_analytic_minus_1": rel,
+        "model_tflops_per_s": counted / step_s / 1e12,
+        "share_of_peak": counted / step_s / PEAK_FLOPS[policy.compute_dtype],
+        "peak_used": f"{PEAK_FLOPS[policy.compute_dtype] / 1e12:g} TFLOP/s "
+                     f"({str(policy.compute_dtype).replace('torch.', '')})",
+        "max_memory_allocated_bytes": peak,
+        "launches": counts, "launches_per_step": {},
+        "params_unchanged_after_step0": True,
+        "params_changed_after_step1": True,
+    }
+    if family != "mlp":
+        report["embedding"] = ("patchify + one product (F.linear), not a "
+                               "convolution")
+    profile_report = None
+    if profile_steps:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for s in range(profile_steps):
+                state, m = step(state, batches[s % len(batches)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        profile_report = {"steps": profile_steps,
+                          "step_s": wall / profile_steps,
+                          **device_profile(prof, wall),
+                          "device_s_by_kind": device_time_by_kind(prof)}
+        del prof
+    del model, state, step
+    torch.cuda.empty_cache()
+    return report, rows, profile_report
+
+
+def mlp_phase(gen, card: str) -> dict:
+    """``mnist_mlp`` as published (batch 256, fp32, synthetic MNIST on
+    the card): ``MLP_STEPS`` steps of the recipe's warmup and cosine,
+    then ``MLP_PROFILE_STEPS`` under the profiler. The loss must fall:
+    the mean of the last ten steps below half that of the first ten."""
+    from frl_distributed_ml_scaffold_tpu_torch.config import get_config
+
+    cfg = get_config("mnist_mlp")
+    batches = family_batches(cfg, MLP_STEPS)
+    report, rows, profile = family_phase(cfg, gen, card, batches,
+                                         MLP_STEPS - 1, MLP_PROFILE_STEPS)
+    first = statistics.mean(r["loss"] for r in rows[:10])
+    last = statistics.mean(r["loss"] for r in rows[-10:])
+    check(last < 0.5 * first, f"mnist_mlp: loss {first} -> {last} over "
+          f"{len(rows)} steps")
+    report.update({"loss_first10_mean": first, "loss_last10_mean": last,
+                   "accuracy_last10_mean": statistics.mean(
+                       r["accuracy"] for r in rows[-10:]),
+                   "profile": profile})
+    return report
+
+
+# fp32_vit_check: one step of ViT-B at full width, depth cut to 2, batch
+# 8, warmup off (lr 3e-3), on the card and through the port's CPU path
+# (the one the tier-1 tests hold to the JAX package) from the same
+# weights and batch. fp32 (TF32 off): only summation order differs, so
+# loss 1e-5 relative, each gradient within 1e-4 of its tensor's largest
+# |g| plus 1e-6 of the largest |g| of any tensor (the key bias's exact
+# gradient is 0: its values are rounding noise on both sides). bf16_mixed:
+# cuBLAS and the CPU round bf16 products at other values, as
+# fp32_rn50_check's limits. Params after the step: AdamW's first step is
+# about lr sign(g), and a gradient within rounding of 0 has no sign, so
+# each param within 2 lr, and (fp32) their mean difference under 1 % of
+# that.
+VIT_CHECK = ["model.num_layers=2", "data.global_batch_size=8",
+             "optimizer.warmup_steps=0"]
+VIT_CHECK_TOL = {
+    "fp32": {"loss": 1e-5, "grad": 1e-4, "floor": 1e-6, "param_mean": 0.01},
+    "bf16_mixed": {"loss": 1e-3, "grad": 1e-1, "floor": 1e-2,
+                   "param_mean": None},
+}
+
+
+def fp32_vit_phase(gen) -> dict:
+    """One ``imagenet_vitb_fsdp`` step (``VIT_CHECK``) under fp32 and
+    bf16_mixed on the card and on the CPU: loss, every gradient and the
+    params after the update (``VIT_CHECK_TOL``)."""
+    from frl_distributed_ml_scaffold_tpu_torch.config import (
+        apply_overrides,
+        get_config,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.data.imagenet import ImageNet
+    from frl_distributed_ml_scaffold_tpu_torch.models.convert import (
+        init_vit_params,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.optimizers import (
+        global_norm,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.train_step import (
+        make_grad_fn,
+    )
+
+    base = apply_overrides(get_config("imagenet_vitb_fsdp"), VIT_CHECK)
+    weights = init_vit_params(base.model, gen)
+    batch = ImageNet(base.data, split="train").batch(
+        0, base.data.global_batch_size)
+    report = {"cut": "depth 12 -> 2, batch 8, warmup off; full width",
+              "allow_tf32": False, "tol": VIT_CHECK_TOL,
+              "cpu_threads": torch.get_num_threads()}
+    for pol, tol in VIT_CHECK_TOL.items():
+        cfg = apply_overrides(base, [f"precision.policy={pol}"])
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            w = {k: v.to(dev) for k, v in weights.items()}
+            model, policy, tx, schedule, state, loss_fn = family_setup(
+                cfg, gen, w, device=dev)
+            grad_fn = make_grad_fn(loss_fn, policy, remat=cfg.trainer.remat,
+                                   device=dev)
+            reset_launches()
+            loss, metrics, _, grads = grad_fn(state.params, {}, batch)
+            tx.update(grads, state.opt_state, state.params,
+                      norm=global_norm(grads.values()))
+            counts = read_launches()
+            check(not any(counts.values()),
+                  f"fp32_vit_check {pol} {dev}: a kernel launched: {counts}")
+            runs[dev] = {"loss": float(loss), "lr": schedule(0),
+                         "grads": {k: g.cpu() for k, g in grads.items()},
+                         "params": {k: p.cpu()
+                                    for k, p in state.params.items()},
+                         "seconds": time.perf_counter() - t0}
+            del model, state, grads
+        card, cpu = runs["cuda"], runs["cpu"]
+        tag = f"fp32_vit_check {pol}"
+        loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+        check(loss_rel <= tol["loss"],
+              f"{tag}: loss {card['loss']} on the card, {cpu['loss']} on "
+              "the CPU")
+        floor = tol["floor"] * max(g.abs().max().item()
+                                   for g in cpu["grads"].values())
+        lr = cpu["lr"]
+        lim = 2 * lr + 1e-6
+        worst, means = 0.0, []
+        for name, p in cpu["params"].items():
+            diff = (card["params"][name] - p).abs()
+            check(diff.max().item() <= lim, f"{tag}: param {name} differs "
+                  f"by {diff.max().item()} > {lim} after the step")
+            worst = max(worst, diff.max().item())
+            means.append(diff.mean().item())
+        mean = statistics.mean(means)
+        if tol["param_mean"] is not None:
+            check(mean <= tol["param_mean"] * lim,
+                  f"{tag}: params differ by {mean} on average")
+        report[pol] = {
+            "loss_card": card["loss"], "loss_cpu": cpu["loss"],
+            "loss_rel_diff": loss_rel, "lr": lr,
+            "worst_grad_err_over_limit": _rel_check(
+                f"{tag}: grad", card["grads"], cpu["grads"], tol["grad"],
+                floor),
+            "param_max_abs_diff": worst, "param_mean_abs_diff": mean,
+            "param_limit": lim, "tensors": len(cpu["grads"]),
+            "card_seconds": card["seconds"], "cpu_seconds": cpu["seconds"],
+        }
+        del runs, card, cpu
+        torch.cuda.empty_cache()
+    return report
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -2425,9 +2814,31 @@ def main() -> int:
         RN50_ADAMW_STEPS, batches, False)
     launches["fused_adamw"] = counts["fused_adamw"]
     emit("rn50_adamw_path", report)
-    del batches
     emit("fp32_rn50_check", timed_phase("fp32_rn50_check", fp32_rn50_phase,
                                         gen))
+    # ViT-B trains on the same synthetic ImageNet batches (the recipes'
+    # data sections are the same), already on the card.
+    vit_cfg = apply_overrides(get_config("imagenet_vitb_fsdp"),
+                              VIT_OVERRIDES)
+    check(vit_cfg.data == rn50_cfg.data,
+          "imagenet_vitb_fsdp's data differs from imagenet_rn50_ddp's")
+    report, _, profile = timed_phase("vit_path", family_phase, vit_cfg, gen,
+                                     card, batches, VIT_STEPS, 1)
+    emit("vit_path", report)
+    emit("vit_profile", profile)
+    del batches
+    emit("fp32_vit_check", timed_phase("fp32_vit_check", fp32_vit_phase,
+                                       gen))
+    video_cfg = apply_overrides(get_config("ego4d_video_elastic"),
+                                VIDEO_OVERRIDES)
+    clips = timed_phase("video_data", family_batches, video_cfg,
+                        1 + VIDEO_STEPS)
+    report, _, profile = timed_phase("video_path", family_phase, video_cfg,
+                                     gen, card, clips, VIDEO_STEPS, 1)
+    emit("video_path", report)
+    emit("video_profile", profile)
+    del clips
+    emit("mlp_path", timed_phase("mlp_path", mlp_phase, gen, card))
     # Where the script's time limit goes: each phase (a path's includes
     # its warm-up and profiled window) and the whole of main().
     seconds["main_total"] = time.perf_counter() - start

@@ -8,6 +8,7 @@ from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
     ExperimentConfig,
     GPTConfig,
     MeshConfig,
+    MLPConfig,
     MoEConfig,
     OptimizerConfig,
     ParallelConfig,
@@ -15,6 +16,8 @@ from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
     ResNetConfig,
     ServingConfig,
     TrainerConfig,
+    VideoConfig,
+    ViTConfig,
 )
 
 __all__ = [
@@ -22,6 +25,7 @@ __all__ = [
     "ExperimentConfig",
     "GPTConfig",
     "MeshConfig",
+    "MLPConfig",
     "MoEConfig",
     "OptimizerConfig",
     "ParallelConfig",
@@ -29,6 +33,8 @@ __all__ = [
     "ResNetConfig",
     "ServingConfig",
     "TrainerConfig",
+    "VideoConfig",
+    "ViTConfig",
     "apply_overrides",
     "get_config",
 ]

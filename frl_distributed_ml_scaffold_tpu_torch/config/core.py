@@ -2,7 +2,8 @@
 
 ``apply_overrides(cfg, ["model.num_layers=2", "precision.policy=fp32"])``
 returns a new config with those fields replaced, each value coerced to
-the field's annotated type (``none`` / ``null`` for an Optional field).
+the field's annotated type (``none`` / ``null`` for an Optional field;
+``a,b,c`` or ``(a,b,c)`` for a tuple field).
 Unknown paths and values that do not parse raise.
 """
 
@@ -19,6 +20,14 @@ def _coerce(raw: str, typ: Any) -> Any:
             return None
         (inner,) = [a for a in typing.get_args(typ) if a is not type(None)]
         return _coerce(raw, inner)
+    if typing.get_origin(typ) is tuple:  # tuple[int, ...] or tuple[int, int]
+        args = typing.get_args(typ)
+        items = [a.strip() for a in raw.strip("()[]").split(",") if a.strip()]
+        types = ([args[0]] * len(items) if args[-1] is Ellipsis
+                 else list(args))
+        if len(types) != len(items):
+            raise ValueError(f"cannot parse {raw!r} as {typ}")
+        return tuple(_coerce(a, t) for a, t in zip(items, types))
     if typ is bool:
         if raw.lower() in ("true", "1", "yes"):
             return True

@@ -1,5 +1,6 @@
 """The recipes the port runs, under the JAX package's names: GPT-2
-serving and training, and ResNet-50 training.
+serving and training, and the training of the BASELINE model families
+(MNIST MLP, ResNet-50, ViT-B/16, the video classifier).
 
 Every section the port reads is kept (model, data, trainer, optimizer,
 mesh, parallel, precision, serving), with the JAX recipe's values. The
@@ -17,12 +18,31 @@ from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
     ExperimentConfig,
     GPTConfig,
     MeshConfig,
+    MLPConfig,
     OptimizerConfig,
     ParallelConfig,
     PrecisionConfig,
     ResNetConfig,
     TrainerConfig,
+    VideoConfig,
+    ViTConfig,
 )
+
+
+def mnist_mlp() -> ExperimentConfig:
+    """BASELINE config 1: an MLP on MNIST, single-process smoke test."""
+    return ExperimentConfig(
+        name="mnist_mlp",
+        model=MLPConfig(hidden_sizes=(512, 256), num_classes=10),
+        data=DataConfig(name="mnist", global_batch_size=256, image_size=28,
+                        channels=1),
+        trainer=TrainerConfig(total_steps=1500, log_every=100,
+                              eval_every=500, eval_steps=20),
+        optimizer=OptimizerConfig(name="adamw", learning_rate=1e-3,
+                                  schedule="cosine", warmup_steps=50),
+        mesh=MeshConfig(data=-1),
+        precision=PrecisionConfig(policy="fp32"),
+    )
 
 
 def gpt2_medium_zero1() -> ExperimentConfig:
@@ -111,11 +131,64 @@ def imagenet_rn50_ddp() -> ExperimentConfig:
     )
 
 
+def imagenet_vitb_fsdp() -> ExperimentConfig:
+    """BASELINE config 3: ViT-B/16 on ImageNet, FSDP full-shard and full
+    remat; AdamW with weight decay, a cosine schedule after warmup and a
+    global-norm clip. On one card ``fsdp=-1`` is an axis of size 1, so
+    every param is whole."""
+    return ExperimentConfig(
+        name="imagenet_vitb_fsdp",
+        model=ViTConfig(image_size=224, patch_size=16, hidden_dim=768,
+                        num_layers=12, num_heads=12, num_classes=1000),
+        data=DataConfig(
+            name="imagenet", global_batch_size=1024, image_size=224,
+            channels=3, num_classes=1000,
+        ),
+        trainer=TrainerConfig(total_steps=93500, remat="full",
+                              log_every=100, eval_every=5000),
+        optimizer=OptimizerConfig(
+            name="adamw", learning_rate=3e-3, weight_decay=0.3,
+            schedule="cosine", warmup_steps=10000, grad_clip_norm=1.0,
+        ),
+        mesh=MeshConfig(data=1, fsdp=-1),
+        parallel=ParallelConfig(param_sharding="fsdp"),
+        precision=PrecisionConfig(policy="bf16_mixed"),
+    )
+
+
+def ego4d_video_elastic() -> ExperimentConfig:
+    """BASELINE config 5: the video-clip classifier, full remat, AdamW
+    with a clip. The JAX recipe also enables sharded checkpoints
+    (``checkpoint=CheckpointConfig(enabled=True, save_every=500,
+    max_to_keep=3)``) and runs under the elastic supervisor; the port's
+    config has no checkpoint section until the training loop and the
+    checkpoint manager arrive (ROADMAP queue A item 6)."""
+    return ExperimentConfig(
+        name="ego4d_video_elastic",
+        model=VideoConfig(num_frames=8, num_classes=400),
+        data=DataConfig(
+            name="video_synthetic", global_batch_size=64, image_size=224,
+            channels=3, num_frames=8, num_classes=400,
+        ),
+        trainer=TrainerConfig(total_steps=30000, remat="full", log_every=50),
+        optimizer=OptimizerConfig(
+            name="adamw", learning_rate=1e-3, weight_decay=0.05,
+            schedule="cosine", warmup_steps=2500, grad_clip_norm=1.0,
+        ),
+        mesh=MeshConfig(data=1, fsdp=-1),
+        parallel=ParallelConfig(param_sharding="fsdp"),
+        precision=PrecisionConfig(policy="bf16_mixed"),
+    )
+
+
 _RECIPES = {
+    "mnist_mlp": mnist_mlp,
     "gpt2_medium_zero1": gpt2_medium_zero1,
     "gpt2_medium_serve": gpt2_medium_serve,
     "gpt2_long": gpt2_long,
     "imagenet_rn50_ddp": imagenet_rn50_ddp,
+    "imagenet_vitb_fsdp": imagenet_vitb_fsdp,
+    "ego4d_video_elastic": ego4d_video_elastic,
 }
 
 

@@ -1,7 +1,8 @@
 """Config schema of the port, as typed frozen dataclasses.
 
 Field-for-field copies of the JAX package's ``GPTConfig``,
-``ResNetConfig``, ``MoEConfig``, ``ServingConfig``, ``PrecisionConfig``,
+``ResNetConfig``, ``ViTConfig``, ``VideoConfig``, ``MLPConfig``,
+``MoEConfig``, ``ServingConfig``, ``PrecisionConfig``,
 ``OptimizerConfig``, ``TrainerConfig``, ``DataConfig``, ``MeshConfig``
 and ``ParallelConfig``, so one override string means the same thing to
 both packages. The port keeps its own copy: it imports
@@ -124,8 +125,10 @@ class TrainerConfig:
 @dataclass(frozen=True)
 class DataConfig:
     """Input pipeline selection. The port has ``SyntheticLM``
-    (``data/synthetic.py``) for ``lm_synthetic`` and the synthetic
-    ``ImageNet`` (``data/imagenet.py``) for ``imagenet``."""
+    (``data/synthetic.py``) for ``lm_synthetic``, the synthetic
+    ``ImageNet`` (``data/imagenet.py``) for ``imagenet``, ``MNIST``
+    (``data/mnist.py``) for ``mnist`` and the synthetic ``VideoClips``
+    (``data/video.py``) for ``video_synthetic``."""
 
     name: str = "synthetic_mnist"
     global_batch_size: int = 128
@@ -235,10 +238,50 @@ class ResNetConfig:
 
 
 @dataclass(frozen=True)
+class MLPConfig:
+    family: str = "mlp"
+    hidden_sizes: tuple[int, ...] = (512, 256)
+    num_classes: int = 10
+    dropout: float = 0.0
+
+
+@dataclass(frozen=True)
+class ViTConfig:
+    family: str = "vit"
+    image_size: int = 224
+    patch_size: int = 16
+    hidden_dim: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    mlp_ratio: int = 4
+    num_classes: int = 1000
+    dropout: float = 0.0
+    pool: str = "cls"  # cls | mean
+
+
+@dataclass(frozen=True)
+class VideoConfig:
+    """Video-clip classifier (BASELINE config 5): a ViT over tubelet
+    embeddings of a frame stack."""
+
+    family: str = "video"
+    image_size: int = 224
+    num_frames: int = 8
+    tubelet_size: tuple[int, int, int] = (2, 16, 16)  # (t, h, w)
+    hidden_dim: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    mlp_ratio: int = 4
+    num_classes: int = 400
+    dropout: float = 0.0
+
+
+@dataclass(frozen=True)
 class ExperimentConfig:
     """The sections of a run config the port reads: the model
-    (``GPTConfig`` or ``ResNetConfig``; ``models.create_model`` dispatches
-    on its ``family``), its training (data,
+    (``GPTConfig``, ``ResNetConfig``, ``ViTConfig``, ``VideoConfig`` or
+    ``MLPConfig``; ``models.create_model`` dispatches on its
+    ``family``), its training (data,
     trainer, optimizer, mesh, parallel), precision and serving. The JAX
     package's checkpoint and elastic sections, and its ``workdir``,
     arrive with the training loop (ROADMAP queue A item 6)."""

@@ -1,11 +1,13 @@
 """Deterministic, learnable synthetic data: the port's copies of the
-JAX package's ``SyntheticImages`` and ``SyntheticLM``
+JAX package's ``SyntheticImages``, ``SyntheticLM`` and ``SyntheticVideo``
 (``data/synthetic.py``).
 
 - images: per-class prototype patterns plus Gaussian noise, so a
   classifier can learn the label from the image;
 - LM: tokens follow a noisy affine rule ``t+1 = (a*t + b) mod V``, so
-  the next-token loss falls well below ``log(V)`` once a model learns it.
+  the next-token loss falls well below ``log(V)`` once a model learns it;
+- video: per-class prototypes whose frame t is frame 0 rolled t pixels
+  down, plus Gaussian noise, so motion carries the class.
 
 A batch is a pure function of ``(seed, step, host_offset)``, made with
 numpy, and equals the JAX package's batch bit for bit.
@@ -67,3 +69,35 @@ class SyntheticLM:
             )
             toks[:, t + 1] = nxt
         return {"tokens": toks.astype(np.int32)}
+
+
+class SyntheticVideo:
+    """Per-class drifting spatio-temporal prototypes plus noise, clips
+    [B, T, H, W, C] float32. The prototypes are ``num_classes x
+    num_frames x H x W x C`` float32 held on the host (1.93 GB at the
+    ego4d recipe's 400 x 8 x 224 x 224 x 3, about twice that while they
+    are built): build one source and make its batches once."""
+
+    def __init__(self, cfg: DataConfig, *, split: str, sigma: float = 0.35):
+        self.cfg = cfg
+        self.sigma = sigma
+        self._seed = cfg.shuffle_seed + (0 if split == "train" else 7919)
+        proto_rng = np.random.default_rng(4321)
+        shape = (cfg.num_classes, cfg.num_frames, cfg.image_size,
+                 cfg.image_size, cfg.channels)
+        frame0 = proto_rng.standard_normal(
+            (cfg.num_classes, 1, cfg.image_size, cfg.image_size,
+             cfg.channels), dtype=np.float32)
+        frames = [np.roll(frame0, shift=t, axis=2)
+                  for t in range(cfg.num_frames)]
+        self.prototypes = np.concatenate(frames, axis=1).reshape(shape)
+
+    def batch(self, step: int, batch_size: int, host_offset: int = 0) -> dict:
+        """``{"video": float32 [B, T, H, W, C], "label": int32 [B]}``."""
+        rng = np.random.default_rng((self._seed, step, host_offset))
+        labels = rng.integers(0, self.cfg.num_classes, size=batch_size)
+        noise = rng.standard_normal(
+            (batch_size,) + self.prototypes.shape[1:], dtype=np.float32
+        )
+        clips = self.prototypes[labels] + self.sigma * noise
+        return {"video": clips, "label": labels.astype(np.int32)}

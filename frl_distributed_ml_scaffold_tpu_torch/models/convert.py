@@ -1,5 +1,6 @@
-"""Weights for the port's ``GPT`` and ``ResNet``: carried across from
-the JAX package's params, or made from a seed.
+"""Weights for the port's models: carried across from the JAX package's
+params, or made from a seed on the card (which has no JAX) with the JAX
+inits' distributions.
 
 GPT:
 
@@ -20,6 +21,18 @@ BatchNorms numbered in call order, the projection last) and ``Dense_0``.
 The BatchNorm running statistics are the ``batch_stats`` collection; the
 port carries them as ``extras["batch_stats"]``, keyed by the BatchNorm
 modules' buffer names.
+
+ViT and the video classifier (``models/vit.py``, ``models/video.py``):
+``Conv_0{kernel (p, p, C, D) or (t, h, w, C, D), bias}`` becomes the
+``embed`` Linear (the kernel flattened over everything but D, the order
+``patchify`` flattens a patch in), ``cls_token (1, 1, D)`` (ViT with
+``pool=cls``) and ``pos_embedding (1, N, D)`` stay as they are;
+``EncoderBlock_i{LayerNorm_0, MultiHeadDotProductAttention_0{query, key,
+value: kernel (D, H, hd), bias (H, hd); out: kernel (H, hd, D), bias
+(D)}, LayerNorm_1, MlpBlock_0{Dense_0, Dense_1}}`` becomes ``blocks.i``
+``{ln1, attn.{query,key,value,out}, ln2, mlp.{fc_in,fc_out}}`` with the
+heads flattened; the final ``LayerNorm_0`` and ``Dense_0`` become ``ln``
+and ``head``. MLP: ``Dense_i`` becomes ``dense.i``.
 """
 
 from __future__ import annotations
@@ -31,8 +44,30 @@ import torch
 
 from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
     GPTConfig,
+    MLPConfig,
     ResNetConfig,
+    VideoConfig,
+    ViTConfig,
 )
+from frl_distributed_ml_scaffold_tpu_torch.precision import Policy
+
+# flax variance_scaling(1, fan_in, truncated_normal) divides the standard
+# deviation by this, the std of a unit normal truncated at +-2.
+_TRUNC_STD = 0.87962566103423978
+
+
+def _lecun_normal(shape, fan_in: int, generator: torch.Generator, dtype):
+    """flax ``lecun_normal``: truncated at two standard deviations, the
+    standard deviation corrected for the truncation."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    w = torch.empty(shape, dtype=dtype, device=generator.device)
+    return torch.nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                                       generator=generator)
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True))
+
 
 _DENSE = (
     ("attn", "query"), ("attn", "key"), ("attn", "value"), ("attn", "out"),
@@ -44,25 +79,22 @@ def params_from_jax(tree: dict, cfg: GPTConfig) -> dict[str, torch.Tensor]:
     """The JAX package's GPT params (numpy leaves) as the port's state
     dict (CPU tensors; ``load_state_dict`` moves and casts them)."""
 
-    def t(a):
-        return torch.from_numpy(np.array(a, copy=True))
-
     blocks = tree["blocks"]
     sd = {
-        "wte.weight": t(tree["wte"]["embedding"]),
-        "wpe": t(tree["wpe"]),
-        "ln_f.weight": t(tree["ln_f"]["scale"]),
-        "ln_f.bias": t(tree["ln_f"]["bias"]),
+        "wte.weight": _t(tree["wte"]["embedding"]),
+        "wpe": _t(tree["wpe"]),
+        "ln_f.weight": _t(tree["ln_f"]["scale"]),
+        "ln_f.bias": _t(tree["ln_f"]["bias"]),
     }
     for i in range(cfg.num_layers):
         pre = f"blocks.{i}."
         for ln in ("ln1", "ln2"):
-            sd[pre + ln + ".weight"] = t(blocks[ln]["scale"][i])
-            sd[pre + ln + ".bias"] = t(blocks[ln]["bias"][i])
+            sd[pre + ln + ".weight"] = _t(blocks[ln]["scale"][i])
+            sd[pre + ln + ".bias"] = _t(blocks[ln]["bias"][i])
         for sub, name in _DENSE:
             leaf = blocks[sub][name]
-            sd[f"{pre}{sub}.{name}.weight"] = t(leaf["kernel"][i].T)
-            sd[f"{pre}{sub}.{name}.bias"] = t(leaf["bias"][i])
+            sd[f"{pre}{sub}.{name}.weight"] = _t(leaf["kernel"][i].T)
+            sd[f"{pre}{sub}.{name}.bias"] = _t(leaf["bias"][i])
     return sd
 
 
@@ -83,13 +115,7 @@ def init_params(
         return torch.nn.init.normal_(w, std=std, generator=generator)
 
     def lecun(out_f, in_f):
-        # flax variance_scaling(1, fan_in, truncated_normal): the stddev
-        # is corrected for the truncation at +-2.
-        std = math.sqrt(1.0 / in_f) / 0.87962566103423978
-        w = torch.empty((out_f, in_f), dtype=dtype, device=dev)
-        return torch.nn.init.trunc_normal_(
-            w, std=std, a=-2 * std, b=2 * std, generator=generator
-        )
+        return _lecun_normal((out_f, in_f), in_f, generator, dtype)
 
     def zeros(n):
         return torch.zeros(n, dtype=dtype, device=dev)
@@ -141,19 +167,16 @@ def resnet_params_from_jax(params: dict, batch_stats: dict
     parameter names, ``extras = {"batch_stats": {buffer name: tensor}}``
     (CPU tensors)."""
 
-    def t(a):
-        return torch.from_numpy(np.array(a, copy=True))
-
     out, stats = {}, {}
 
     def bn(port: str, p_tree: dict, s_tree: dict, name: str):
-        out[f"{port}.scale"] = t(p_tree[name]["scale"])
-        out[f"{port}.bias"] = t(p_tree[name]["bias"])
-        stats[f"{port}.mean"] = t(s_tree[name]["mean"])
-        stats[f"{port}.var"] = t(s_tree[name]["var"])
+        out[f"{port}.scale"] = _t(p_tree[name]["scale"])
+        out[f"{port}.bias"] = _t(p_tree[name]["bias"])
+        stats[f"{port}.mean"] = _t(s_tree[name]["mean"])
+        stats[f"{port}.var"] = _t(s_tree[name]["var"])
 
     def conv(port: str, kernel):
-        out[f"{port}.weight"] = t(np.transpose(kernel, (3, 2, 0, 1)))
+        out[f"{port}.weight"] = _t(np.transpose(kernel, (3, 2, 0, 1)))
 
     top_bn = _bn_prefix(params)
     conv("stem_conv", params["Conv_0"]["kernel"])
@@ -169,8 +192,8 @@ def resnet_params_from_jax(params: dict, batch_stats: dict
         for j, (c_name, b_name) in enumerate(layers[:n]):
             conv(f"blocks.{i}.{c_name}", p_tree[f"Conv_{j}"]["kernel"])
             bn(f"blocks.{i}.{b_name}", p_tree, s_tree, f"{prefix}_{j}")
-    out["head.weight"] = t(np.transpose(params["Dense_0"]["kernel"]))
-    out["head.bias"] = t(params["Dense_0"]["bias"])
+    out["head.weight"] = _t(np.transpose(params["Dense_0"]["kernel"]))
+    out["head.bias"] = _t(params["Dense_0"]["bias"])
     return out, {"batch_stats": stats}
 
 
@@ -189,7 +212,6 @@ def init_resnet_params(cfg: ResNetConfig, generator: torch.Generator, *,
         BOTTLENECK,
         ResNet,
     )
-    from frl_distributed_ml_scaffold_tpu_torch.precision import Policy
 
     dev = generator.device
     shapes = ResNet(cfg, Policy(), in_channels=in_channels, device="meta")
@@ -197,11 +219,8 @@ def init_resnet_params(cfg: ResNetConfig, generator: torch.Generator, *,
     params = {}
     for name, p in shapes.named_parameters():
         if name.endswith(".weight") and p.dim() >= 2:  # conv and Dense
-            fan_in = p[0].numel()
-            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            w = torch.empty(p.shape, dtype=dtype, device=dev)
-            params[name] = torch.nn.init.trunc_normal_(
-                w, std=std, a=-2 * std, b=2 * std, generator=generator)
+            params[name] = _lecun_normal(p.shape, p[0].numel(), generator,
+                                         dtype)
         elif name.endswith(".scale") and not name.endswith(last_bn):
             params[name] = torch.ones(p.shape, dtype=dtype, device=dev)
         else:  # biases, and the zero-initialised last BatchNorm scales
@@ -210,3 +229,117 @@ def init_resnet_params(cfg: ResNetConfig, generator: torch.Generator, *,
                  b.shape, dtype=torch.float32, device=dev)
              for name, b in shapes.named_buffers()}
     return params, {"batch_stats": stats}
+
+
+def _dense(sd: dict, port: str, leaf: dict) -> None:
+    sd[port + ".weight"] = _t(np.transpose(leaf["kernel"]))
+    sd[port + ".bias"] = _t(leaf["bias"])
+
+
+def _numbered(tree: dict, prefix: str) -> list[str]:
+    """``tree``'s keys ``<prefix>_<i>`` in order of i."""
+    return sorted((k for k in tree if k.rsplit("_", 1)[0] == prefix),
+                  key=lambda k: int(k.rsplit("_", 1)[1]))
+
+
+def mlp_params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
+    """The JAX package's MLP params (numpy leaves) as the port's state
+    dict (CPU tensors)."""
+    sd: dict[str, torch.Tensor] = {}
+    for i, key in enumerate(_numbered(tree, "Dense")):
+        _dense(sd, f"dense.{i}", tree[key])
+    return sd
+
+
+def vit_params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
+    """The JAX package's ViT params (numpy leaves) as the port's state
+    dict (CPU tensors)."""
+    kernel = np.asarray(tree["Conv_0"]["kernel"])
+    sd = {"embed.weight": _t(kernel.reshape(-1, kernel.shape[-1]).T),
+          "embed.bias": _t(tree["Conv_0"]["bias"]),
+          "pos_embedding": _t(tree["pos_embedding"])}
+    if "cls_token" in tree:
+        sd["cls_token"] = _t(tree["cls_token"])
+
+    def ln(port: str, leaf: dict):
+        sd[port + ".weight"] = _t(leaf["scale"])
+        sd[port + ".bias"] = _t(leaf["bias"])
+
+    for i, key in enumerate(_numbered(tree, "EncoderBlock")):
+        block, pre = tree[key], f"blocks.{i}."
+        ln(pre + "ln1", block["LayerNorm_0"])
+        ln(pre + "ln2", block["LayerNorm_1"])
+        attn = block["MultiHeadDotProductAttention_0"]
+        for name in ("query", "key", "value"):
+            k = np.asarray(attn[name]["kernel"])  # (D, H, hd)
+            sd[f"{pre}attn.{name}.weight"] = _t(k.reshape(k.shape[0], -1).T)
+            sd[f"{pre}attn.{name}.bias"] = _t(np.reshape(attn[name]["bias"],
+                                                         -1))
+        k = np.asarray(attn["out"]["kernel"])  # (H, hd, D)
+        sd[pre + "attn.out.weight"] = _t(k.reshape(-1, k.shape[-1]).T)
+        sd[pre + "attn.out.bias"] = _t(attn["out"]["bias"])
+        _dense(sd, pre + "mlp.fc_in", block["MlpBlock_0"]["Dense_0"])
+        _dense(sd, pre + "mlp.fc_out", block["MlpBlock_0"]["Dense_1"])
+    ln("ln", tree["LayerNorm_0"])
+    _dense(sd, "head", tree["Dense_0"])
+    return sd
+
+
+# The video classifier's tree is the ViT's without ``cls_token``, its
+# ``Conv_0`` kernel five-dimensional.
+video_params_from_jax = vit_params_from_jax
+
+
+def _init_like(model: torch.nn.Module, generator: torch.Generator,
+               dtype) -> dict[str, torch.Tensor]:
+    """A seeded state dict for ``model`` (built on the meta device) with
+    the flax inits of the ViT, video and MLP models: ``lecun_normal``
+    for every Dense and embedding kernel (fan-in: the weight's second
+    dim), zero biases and cls token, unit LayerNorm scales, normal(0.02)
+    position embeddings. Tensors are made on the generator's device."""
+    dev = generator.device
+    sd = {}
+    for name, p in model.named_parameters():
+        if name == "pos_embedding":
+            w = torch.empty(p.shape, dtype=dtype, device=dev)
+            sd[name] = torch.nn.init.normal_(w, std=0.02, generator=generator)
+        elif name == "cls_token" or name.endswith(".bias"):
+            sd[name] = torch.zeros(p.shape, dtype=dtype, device=dev)
+        elif p.dim() == 1:  # LayerNorm scales
+            sd[name] = torch.ones(p.shape, dtype=dtype, device=dev)
+        else:
+            sd[name] = _lecun_normal(p.shape, p.shape[1], generator, dtype)
+    return sd
+
+
+def init_mlp_params(cfg: MLPConfig, generator: torch.Generator, *,
+                    in_features: int = 784, dtype=torch.float32) -> dict:
+    """Seeded weights for the port's ``MLP`` (``_init_like``). The
+    numbers differ from the JAX init's (another generator); the
+    distributions are the same."""
+    from frl_distributed_ml_scaffold_tpu_torch.models.mlp import MLP
+
+    return _init_like(MLP(cfg, Policy(), in_features=in_features,
+                          device="meta"), generator, dtype)
+
+
+def init_vit_params(cfg: ViTConfig, generator: torch.Generator, *,
+                    in_channels: int = 3, dtype=torch.float32) -> dict:
+    """Seeded weights for the port's ``ViT`` (``_init_like``), as
+    ``init_mlp_params``."""
+    from frl_distributed_ml_scaffold_tpu_torch.models.vit import ViT
+
+    return _init_like(ViT(cfg, Policy(), in_channels=in_channels,
+                          device="meta"), generator, dtype)
+
+
+def init_video_params(cfg: VideoConfig, generator: torch.Generator, *,
+                      in_channels: int = 3, dtype=torch.float32) -> dict:
+    """Seeded weights for the port's ``VideoClassifier``
+    (``_init_like``), as ``init_mlp_params``."""
+    from frl_distributed_ml_scaffold_tpu_torch.models.video import (
+        VideoClassifier,
+    )
+
+    return _init_like(VideoClassifier(cfg, Policy(), in_channels=in_channels,
+                                      device="meta"), generator, dtype)

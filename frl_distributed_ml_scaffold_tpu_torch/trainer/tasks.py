@@ -7,10 +7,12 @@ extras))`` contract that ``train_step.py`` consumes; ``make_loss_fn``
 picks one by dataset name. ``params`` is a dict of the model's
 parameters by name (already in the compute dtype: the step casts them),
 applied with ``torch.func.functional_call``. ``extras`` holds the
-non-parameter collections: ``{}`` for the GPT, ``{"batch_stats": {buffer
-name: tensor}}`` for the ResNet, whose train-mode forward returns the new
-running statistics, handed back as the new ``extras`` (never written into
-the module), as the JAX ``_apply`` returns its mutated collections.
+non-parameter collections: ``{}`` for the GPT, ViT, video classifier and
+MLP, whose forward returns the output alone; ``{"batch_stats": {buffer
+name: tensor}}`` for the ResNet, whose forward returns ``(logits,
+updates)``: in train mode the new running statistics, handed back as the
+new ``extras`` (never written into the module), as the JAX ``_apply``
+returns its mutated collections.
 ``rng`` is unused (training dropout is not ported and raises in the
 model). The loss math runs in fp32 whatever the compute dtype.
 """
@@ -89,16 +91,20 @@ def make_lm_loss(model):
 
 
 _IMAGE_DATA = ("mnist", "synthetic_mnist", "imagenet", "synthetic_imagenet")
+_VIDEO_DATA = ("video", "video_synthetic")
 
 
 def _apply(model, params, extras, x, train: bool):
     """The model's output with its BatchNorm statistics read from
     ``extras`` -> (output, new extras): in train mode the statistics the
-    forward returns replace the old ones."""
-    stats = extras.get("batch_stats", {})
+    forward returns replace the old ones. A model without statistics
+    returns its output alone."""
+    stats = extras.get("batch_stats")
+    if stats is None:
+        return functional_call(model, params, (x,), {"train": train}), extras
     out, updates = functional_call(model, {**params, **stats}, (x,),
                                    {"train": train})
-    if train and stats:
+    if train:
         return out, {**extras, "batch_stats": updates}
     return out, extras
 
@@ -131,7 +137,7 @@ def make_loss_fn(model, data_name: str):
     picks it."""
     if data_name in _IMAGE_DATA:
         return make_classification_loss(model, "image")
-    if data_name in ("video", "video_synthetic"):
+    if data_name in _VIDEO_DATA:
         return make_classification_loss(model, "video")
     if data_name in ("lm", "lm_synthetic"):
         return make_lm_loss(model)
@@ -141,7 +147,15 @@ def make_loss_fn(model, data_name: str):
 def example_input(data_cfg, model_cfg, batch_size: int = 1) -> dict[str, Any]:
     """A tiny batch of the task's shapes (zeros)."""
     del model_cfg
-    if data_cfg.name in ("lm", "lm_synthetic"):
+    name, size, ch = data_cfg.name, data_cfg.image_size, data_cfg.channels
+    if name in _IMAGE_DATA:
+        return {"image": np.zeros((batch_size, size, size, ch), np.float32),
+                "label": np.zeros((batch_size,), np.int32)}
+    if name in _VIDEO_DATA:
+        return {"video": np.zeros((batch_size, data_cfg.num_frames, size,
+                                   size, ch), np.float32),
+                "label": np.zeros((batch_size,), np.int32)}
+    if name in ("lm", "lm_synthetic"):
         return {"tokens": np.zeros((batch_size, data_cfg.seq_len + 1),
                                    np.int32)}
-    raise KeyError(f"no example input for dataset {data_cfg.name!r}")
+    raise KeyError(f"no example input for dataset {name!r}")

@@ -31,6 +31,9 @@ carries them, and the state keeps the last.
 The port runs on one card. ZeRO-1 (``parallel.opt_sharding=zero1``) on
 one card is the replicated layout: the optimizer state is sharded over
 an fsdp axis of size 1, i.e. kept whole, which is what this step does.
+FSDP (``parallel.param_sharding=fsdp`` with ``mesh.fsdp=-1``, the ViT-B
+and video recipes' layout) on one card is the same: an fsdp axis of one
+device holds every param whole.
 A mesh of more than one device, ``offload_opt_state`` and
 ``grad_shardings`` raise, naming ROADMAP queue A item 7. The fused AdamW
 (``optimizer.name=fused_adamw``) is refused under sharded state, or a

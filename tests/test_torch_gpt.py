@@ -252,7 +252,8 @@ def test_cache_buckets_and_taxonomy_match_jax(params):
 @pytest.mark.parametrize(
     "cls", ["GPTConfig", "MoEConfig", "ServingConfig", "PrecisionConfig",
             "OptimizerConfig", "TrainerConfig", "DataConfig", "MeshConfig",
-            "ParallelConfig", "ResNetConfig"]
+            "ParallelConfig", "ResNetConfig", "ViTConfig", "VideoConfig",
+            "MLPConfig"]
 )
 def test_config_copies_match_the_jax_schema(cls):
     """The port's own copies keep every field and default of the JAX

@@ -58,7 +58,8 @@ def test_scans_cover_every_port_module():
 @pytest.mark.parametrize("rel", [
     "ops/flash_attention.py", "ops/ring_attention.py", "data/synthetic.py",
     "trainer/tasks.py", "trainer/optimizers.py", "trainer/train_state.py",
-    "trainer/train_step.py",
+    "trainer/train_step.py", "models/vit.py", "models/video.py",
+    "models/mlp.py", "data/mnist.py", "data/video.py",
 ], ids=lambda r: r.replace("/", "."))
 def test_scans_cover_the_training_modules(rel):
     """The training slice's modules are among those both scans walk."""
@@ -154,6 +155,16 @@ def test_training_entry_points_default_to_cuda_and_raise_without_a_card():
     tokens = torch.randint(0, 64, (2, 33))
     state, metrics = step(state, {"tokens": tokens})
     assert state.step == 1 and torch.isfinite(metrics["loss"])
+    from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
+        MLPConfig,
+        VideoConfig,
+        ViTConfig,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.models import create_model
+
+    for own in (MLPConfig(), ViTConfig(), VideoConfig()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            create_model(own, get_policy("fp32"))
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["repo", "script_alone"])

@@ -55,7 +55,10 @@ from frl_distributed_ml_scaffold_tpu_torch.config import schema as tschema
 from frl_distributed_ml_scaffold_tpu_torch.data.imagenet import ImageNet
 from frl_distributed_ml_scaffold_tpu_torch.data.synthetic import SyntheticImages
 from frl_distributed_ml_scaffold_tpu_torch.models import create_model
+from frl_distributed_ml_scaffold_tpu_torch.models import mlp as tmlp
 from frl_distributed_ml_scaffold_tpu_torch.models import resnet as tresnet
+from frl_distributed_ml_scaffold_tpu_torch.models import video as tvideo
+from frl_distributed_ml_scaffold_tpu_torch.models import vit as tvit
 from frl_distributed_ml_scaffold_tpu_torch.models.convert import (
     init_resnet_params,
     resnet_params_from_jax,
@@ -259,7 +262,8 @@ def test_synthetic_images_match_jax():
 
 
 def test_create_model_and_refusals():
-    """``create_model`` dispatches on the family; what the slice does not
+    """``create_model`` dispatches on the family (the MLP, ViT and video
+    families build from their own configs); what the slice does not
     port raises, naming its ROADMAP item."""
     pol = get_policy("fp32")
     cfg = tschema.ResNetConfig(depth=10, num_classes=CLASSES)
@@ -276,9 +280,12 @@ def test_create_model_and_refusals():
     with pytest.raises(ValueError, match="stem"):
         create_model(dataclasses.replace(cfg, stem="conv9"), pol,
                      device="cpu")
-    for family in ("mlp", "vit", "video"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            create_model(dataclasses.replace(cfg, family=family), pol)
+    for own, cls in ((tschema.MLPConfig(), tmlp.MLP),
+                     (tschema.ViTConfig(), tvit.ViT),
+                     (tschema.VideoConfig(), tvideo.VideoClassifier)):
+        assert type(create_model(own, pol, device="meta")) is cls
+    with pytest.raises(KeyError, match="unknown model family"):
+        create_model(dataclasses.replace(cfg, family="nope"), pol)
     with pytest.raises(NotImplementedError, match="item 9"):
         ImageNet(tschema.DataConfig(name="imagenet", data_dir="/data"),
                  split="train")
