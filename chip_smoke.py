@@ -97,7 +97,33 @@ no final line):
    to 2 layers, through the kernels (``attention=flash``) and through the
    plain path (``attention=dense``) from the same weights and batch, fp32
    and then bf16_mixed: losses, every gradient and the params after it.
-11. bn_kernel_checks / bn_kernel_timings: the two BatchNorm-backward
+11. loop_path: the training loop as a user runs it,
+   ``launcher/launch.py`` ``main`` with no --device (the card):
+   ``--config=gpt2_medium_zero1 model.attention=flash
+   trainer.total_steps=6 trainer.log_every=1 checkpoint.enabled=true
+   checkpoint.save_every=3`` at full width and depth, its workdir a
+   temporary directory under ``build/`` removed after (the port's log
+   lines go to ``OUT_DIR/loop_phases.log``). Per step the flash kernels
+   launch 384 / 192 / 192 times, as in train_path, and nothing else;
+   the median step, samples/s, data wait, MFU (``flops_source``
+   analytic) and train_path's median step beside it; the commit markers
+   are steps 3 and 6, and each checkpoint's tensor payload is 12 bytes
+   a parameter plus the step, its directory within 1 % above, with the
+   seconds of its snapshot, its write and the loop's wait;
+   ``telemetry.jsonl``, ``metrics.prom`` and ``trace_events.json``
+   parse. Then 8 steps with checkpoints off: the loop's own median step
+   beside train_path's.
+12. loop_resume_check: a launch to step 7 under ``FRL_FAULT_PLAN`` at
+   ``checkpoint.torn_write`` leaves step 7 torn (no marker; 6 is still
+   the newest committed step); then step 6's marker is deleted and a
+   launch to step 6 resumes from step 3 (``restore_or_init`` skips 6
+   and 7), and its steps 4-6 give the first run's loss and grad_norm
+   bit for bit (``LOOP_RESUME_TOL`` 0).
+13. mlp_launch: ``mnist_mlp`` through ``main`` with no --device, 200
+   steps; ``FRL_FAULT_PLAN`` at ``trainer.preempt`` sends SIGTERM at
+   step 100: a committed checkpoint of step 100 and exit code 0; a
+   second launch resumes there to step 200; the loss falls by half.
+14. bn_kernel_checks / bn_kernel_timings: the two BatchNorm-backward
    kernels (``csrc/fused_bn.cu``: sums, dx) against their plain versions
    and, chained, against ``fallback_bwd``, bf16 and fp32, random gamma,
    at the rn50 path's (M, C) for the stem (3211264, 64), stage 1
@@ -108,7 +134,7 @@ no final line):
    2359296, 2048000, 65536 and 65539 elements, the first and last again
    with a bf16 gradient (read in place); timed beside its bound
    (28 bytes an element) and ``torch._fused_adamw_``.
-12. rn50_path: ``imagenet_rn50_ddp`` with ``model.fused_bn=true
+15. rn50_path: ``imagenet_rn50_ddp`` with ``model.fused_bn=true
    data.global_batch_size=256`` at full width and depth (seeded weights,
    bf16_mixed, the recipe's SGD with warmup, synthetic ImageNet batches
    on the card before the timed window): one warm-up step (lr 0: params
@@ -119,12 +145,12 @@ no final line):
    kernel. rn50_profile: one more step under ``torch.profiler``.
    rn50_adamw_path: the same with ``optimizer.name=fused_adamw``, two
    timed steps, the AdamW kernel 42 times per step.
-13. fp32_rn50_check: one step of ResNet-50 (64 px, batch 8) through the
+16. fp32_rn50_check: one step of ResNet-50 (64 px, batch 8) through the
    kernels and through the plain path from the same weights and batch,
    fp32 and bf16_mixed, SGD and fused_adamw, and bf16 (bf16 gradients
    into the AdamW kernel) with fused_adamw: loss, every gradient,
    batch_stats and the params after it.
-14. vit_path: ``imagenet_vitb_fsdp`` with ``data.global_batch_size=256``
+17. vit_path: ``imagenet_vitb_fsdp`` with ``data.global_batch_size=256``
    at full width and depth (86567656 params, 12 layers, D = 768, 12
    heads, 197 tokens, 1000 classes; seeded weights, bf16_mixed, the
    recipe's AdamW with warmup, cosine and clip 1.0, ``remat=full``) on
@@ -135,19 +161,19 @@ no final line):
    and their share of the bf16 peak, peak memory; no kernel of the port
    launches (plain PyTorch: patches and products, attention written out
    as flax's). vit_profile: one more step under ``torch.profiler``.
-15. fp32_vit_check: one ViT-B step (full width, depth 2, batch 8) on the
+18. fp32_vit_check: one ViT-B step (full width, depth 2, batch 8) on the
    card and through the port's CPU path from the same weights and
    batch, fp32 and bf16_mixed: loss, every gradient and the params after
    the update (``VIT_CHECK_TOL``).
-16. video_path: ``ego4d_video_elastic`` at full width (784 tokens, 400
+19. video_path: ``ego4d_video_elastic`` at full width (784 tokens, 400
    classes) with batch 64 -> 16, synthetic clips made before the timed
    window: one warm-up and two timed steps, the fields of vit_path;
    video_profile: one more step under ``torch.profiler``.
-17. mlp_path: ``mnist_mlp`` as published (535818 params, batch 256, fp32,
+20. mlp_path: ``mnist_mlp`` as published (535818 params, batch 256, fp32,
    synthetic MNIST): 200 steps of the recipe's schedule, the loss must
    fall; then 20 steps under the profiler for the idle share (the path is
    host-bound by nature).
-18. ``phase_seconds`` (the build, each phase above and the whole run),
+21. ``phase_seconds`` (the build, each phase above and the whole run),
    the ``kernels`` line (twelve kernels) and, last, ``{"ok": true,
    "device": ...}``.
 
@@ -166,9 +192,11 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -1511,21 +1539,6 @@ def _step_fn(cfg, loss_fn, tx, policy):
         parallel=cfg.parallel, device="cuda")
 
 
-def train_flops(cfg, n_params: int) -> dict:
-    """Model FLOPs of one optimizer step (no recomputation counted):
-    6 per parameter per token, plus causal attention's QK^T and PV,
-    forward (4 D per admitted pair) and backward (twice that)."""
-    m = cfg.model
-    tokens = cfg.data.global_batch_size * m.seq_len
-    hd = m.hidden_dim // m.num_heads
-    pairs = m.seq_len * (m.seq_len + 1) // 2
-    attn = (3 * 4 * hd * pairs * m.num_heads * cfg.data.global_batch_size
-            * m.num_layers)
-    return {"tokens": tokens, "params": n_params,
-            "dense_flops": 6 * n_params * tokens, "attention_flops": attn,
-            "flops": 6 * n_params * tokens + attn}
-
-
 def train_phase(sd, card: str) -> tuple:
     """``gpt2_medium_zero1`` with ``model.attention=flash`` at full width
     and depth: one warm-up step (step 0, lr 0: the params must not move)
@@ -1542,6 +1555,9 @@ def train_phase(sd, card: str) -> tuple:
     )
     from frl_distributed_ml_scaffold_tpu_torch.data.synthetic import SyntheticLM
     from frl_distributed_ml_scaffold_tpu_torch.ops import flash_attention as fa
+    from frl_distributed_ml_scaffold_tpu_torch.utils.flops import (
+        gpt_train_flops,
+    )
 
     cfg = apply_overrides(get_config("gpt2_medium_zero1"), TRAIN_OVERRIDES)
     model, policy, tx, schedule, state, loss_fn = _train_setup(cfg, sd)
@@ -1592,7 +1608,7 @@ def train_phase(sd, card: str) -> tuple:
           "flash_attention fell back on the training path")
     peak_mem = torch.cuda.max_memory_allocated()
     n_params = sum(p.numel() for p in state.params.values())
-    flops = train_flops(cfg, n_params)
+    flops = gpt_train_flops(cfg, n_params)
     timed_s = [r["step_s"] for r in steps[1:]]
     step_s = statistics.median(timed_s)
     report = {
@@ -1736,6 +1752,314 @@ def fp32_train_phase(sd) -> dict:
 
 
 # ---------------------------------------------------------------- resnet
+
+# loop_path, loop_resume_check and mlp_launch: the training loop as a user
+# runs it, through the launcher's ``main`` on the card (no --device: the
+# default). loop_path: gpt2_medium_zero1 + flash at full width and depth,
+# 6 steps, a checkpoint every 3 (async, the recipe's default), a log
+# record every step. The resumed steps 4-6 must equal the uninterrupted
+# run's bit for bit: nothing on the path is nondeterministic (the flash
+# kernels use no atomics; the products and reductions repeat their order).
+LOOP_ARGS = ["--config=gpt2_medium_zero1", "model.attention=flash",
+             "trainer.total_steps=6", "trainer.log_every=1",
+             "checkpoint.enabled=true", "checkpoint.save_every=3"]
+LOOP_STEPS, LOOP_SAVES = 6, [3, 6]
+# The same launch with checkpoints off (the recipe's default) for 8
+# steps: its median (steps 3-8) is the loop's own step, to hold beside
+# train_path's.
+LOOP_PLAIN_STEPS = 8
+LOOP_RESUME_TOL = 0.0
+# A checkpoint's tensors: fp32 params and both AdamW moments (12 bytes a
+# parameter) and the int64 step; the directory may add at most 1 % (the
+# torch.save container and meta.json).
+LOOP_DIR_SLACK = 0.01
+MLP_LAUNCH = ["--config=mnist_mlp", "trainer.total_steps=200",
+              "trainer.log_every=10", "checkpoint.enabled=true",
+              "checkpoint.save_every=1000"]
+MLP_PREEMPT_STEP = 100
+
+
+def read_jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, name))
+               for root, _, files in os.walk(path) for name in files)
+
+
+def quiet_loop_log() -> str:
+    """Send the port's log lines (a config dump and a line a step per
+    launch) to ``OUT_DIR/loop_phases.log``; stdout keeps its warnings."""
+    import logging
+
+    from frl_distributed_ml_scaffold_tpu_torch.utils.logging import get_logger
+
+    logger = get_logger()
+    for handler in logger.handlers:
+        handler.setLevel(logging.WARNING)
+    path = os.path.join(OUT_DIR, "loop_phases.log")
+    handler = logging.FileHandler(path, mode="w")
+    handler.setFormatter(logging.Formatter(
+        "%(asctime)s %(levelname)s %(name)s] %(message)s"))
+    logger.addHandler(handler)
+    return path
+
+
+def launch_main(args: list, fault_plan=None) -> tuple:
+    """``launch.main(args)`` with ``FRL_FAULT_PLAN`` set to ``fault_plan``
+    (JSON) for the call; (exit code, seconds). Frees the run's memory
+    after."""
+    import gc
+
+    from frl_distributed_ml_scaffold_tpu_torch.launcher import launch
+
+    if fault_plan is not None:
+        os.environ["FRL_FAULT_PLAN"] = json.dumps(fault_plan)
+    try:
+        t0 = time.perf_counter()
+        rc = launch.main(args)
+        return rc, time.perf_counter() - t0
+    finally:
+        os.environ.pop("FRL_FAULT_PLAN", None)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def read_prom(path: str) -> dict:
+    """The samples of a Prometheus text file, by series."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            if line.strip() and not line.startswith("#"):
+                name, value = line.rsplit(" ", 1)
+                out[name] = float(value)
+    return out
+
+
+def loop_phase(card: str, train_step_s: float, work: str) -> tuple:
+    """loop_path: ``launch.main(LOOP_ARGS)`` on the card. Every flash
+    kernel launches as in train_path (384 / 192 / 192 a step, nothing
+    falls back, no other kernel); metrics.jsonl has a record a step; the
+    commit markers are steps 3 and 6, each checkpoint's tensor payload is
+    12 bytes a parameter plus the step and its directory within 1 % above
+    that; telemetry.jsonl, metrics.prom and trace_events.json parse.
+    Then the same launch with checkpoints off for ``LOOP_PLAIN_STEPS``
+    steps: the loop's own median step beside train_path's."""
+    from frl_distributed_ml_scaffold_tpu_torch.checkpoint.manager import (
+        Checkpointer,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.config import (
+        apply_overrides,
+        get_config,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.models import create_model
+    from frl_distributed_ml_scaffold_tpu_torch.ops import flash_attention as fa
+    from frl_distributed_ml_scaffold_tpu_torch.precision import get_policy
+    from frl_distributed_ml_scaffold_tpu_torch.utils.flops import (
+        peak_flops_per_chip,
+    )
+
+    args = LOOP_ARGS + [f"workdir={work}"]
+    cfg = apply_overrides(get_config("gpt2_medium_zero1"),
+                          [a for a in args if not a.startswith("--")])
+    run_dir = os.path.join(work, cfg.name)
+    ckpt_dir = os.path.join(run_dir, "ckpt")
+    n_params = sum(p.numel() for p in create_model(
+        cfg.model, get_policy(cfg.precision), device="meta").parameters())
+    layers, accum = cfg.model.num_layers, cfg.trainer.grad_accum
+    per_step = {"flash_attention_fwd": 2 * layers * accum,
+                "flash_attention_bwd_dq": layers * accum,
+                "flash_attention_bwd_dkv": layers * accum}
+    fallbacks = fa.flash_attention.fallbacks
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    rc, wall = launch_main(args)
+    counts = read_launches()
+    check(rc == 0, f"loop_path: launch exited {rc}")
+    for name, n in counts.items():
+        check(n == per_step.get(name, 0) * LOOP_STEPS,
+              f"loop_path: {name} launched {n} times in {LOOP_STEPS} steps, "
+              f"want {per_step.get(name, 0)} a step")
+    check(fa.flash_attention.fallbacks == fallbacks,
+          "flash_attention fell back on the loop's path")
+    recs = read_jsonl(os.path.join(run_dir, "metrics.jsonl"))
+    check([r["step"] for r in recs] == list(range(1, LOOP_STEPS + 1)),
+          f"loop_path: metrics.jsonl steps {[r['step'] for r in recs]}")
+    for r in recs:
+        check(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]),
+              f"loop_path: non-finite record {r}")
+    last = recs[-1]
+    if peak_flops_per_chip() is not None:
+        check(last.get("flops_source") == "analytic" and last["mfu"] > 0,
+              f"loop_path: no analytic MFU in {last}")
+    ck = Checkpointer(ckpt_dir, cfg.checkpoint)
+    markers = sorted(os.listdir(os.path.join(ckpt_dir, "commits")))
+    check(ck.all_steps() == LOOP_SAVES and ck.uncommitted_steps() == []
+          and markers == [f"step_{s}" for s in LOOP_SAVES],
+          f"loop_path: committed {ck.all_steps()}, markers {markers}")
+    with open(os.path.join(run_dir, "trace_events.json")) as f:
+        events = json.load(f)["traceEvents"]
+    blocked = {e["args"]["step"]: e["dur"] / 1e6 for e in events
+               if e.get("name") == "checkpoint"}
+    payload = 12 * n_params + 8
+    saves = []
+    for step in LOOP_SAVES:
+        meta = ck.meta(step)
+        size = dir_bytes(os.path.join(ckpt_dir, str(step)))
+        check(meta["payload_bytes"] == payload,
+              f"loop_path: step {step} payload {meta['payload_bytes']} != "
+              f"12 x {n_params} + 8")
+        check(payload <= size <= (1 + LOOP_DIR_SLACK) * payload,
+              f"loop_path: step {step} directory {size} bytes for a "
+              f"{payload}-byte payload")
+        saves.append({"step": step, "payload_bytes": meta["payload_bytes"],
+                      "dir_bytes": size, "snapshot_s": meta["snapshot_s"],
+                      "write_s": meta["write_s"],
+                      "loop_blocked_s": blocked.get(step)})
+    telemetry = read_jsonl(os.path.join(run_dir, "telemetry.jsonl"))
+    prom = read_prom(os.path.join(run_dir, "metrics.prom"))
+    names = {e["name"] for e in events}
+    check(prom.get("train_steps_total") == LOOP_STEPS
+          and {"step", "load_batch", "dispatch", "checkpoint"} <= names
+          and any(r.get("event") == "telemetry" for r in telemetry),
+          f"loop_path: telemetry files: prom {prom.get('train_steps_total')},"
+          f" spans {sorted(names)}")
+    step_s = last["step_time_median_s"]
+    plain_dir = os.path.join(work, "plain")
+    rc, plain_wall = launch_main(
+        [a.replace(f"total_steps={LOOP_STEPS}",
+                   f"total_steps={LOOP_PLAIN_STEPS}")
+         for a in LOOP_ARGS if not a.startswith("checkpoint.")]
+        + [f"workdir={plain_dir}"])
+    check(rc == 0, f"loop_path: the run without checkpoints exited {rc}")
+    plain = read_jsonl(os.path.join(plain_dir, cfg.name, "metrics.jsonl"))
+    check([r["step"] for r in plain] == list(range(1, LOOP_PLAIN_STEPS + 1)),
+          f"loop_path: plain run steps {[r['step'] for r in plain]}")
+    plain_step_s = plain[-1]["step_time_median_s"]
+    report = {
+        "card": card, "args": LOOP_ARGS, "wall_s": wall,
+        "records": [{k: r.get(k) for k in (
+            "step", "loss", "grad_norm", "lr", "data_wait_s", "compute_s",
+            "step_time_median_s", "samples_per_sec_per_chip", "mfu")}
+            for r in recs],
+        "step_time_median_s": step_s,
+        "samples_per_sec_per_chip": last["samples_per_sec_per_chip"],
+        "tokens_per_s": last["samples_per_sec_per_chip"] * cfg.model.seq_len,
+        "data_wait_s": [r["data_wait_s"] for r in recs],
+        "data_wait_share": statistics.mean(
+            r["data_wait_s"] for r in recs[2:]) / step_s,
+        "mfu": last.get("mfu"), "flops_source": last.get("flops_source"),
+        "train_path_step_s_median": train_step_s,
+        "loop_over_train_path": step_s / train_step_s,
+        "without_checkpoints": {
+            "steps": LOOP_PLAIN_STEPS, "wall_s": plain_wall,
+            "window_s": [r.get("compute_s", 0) + r["data_wait_s"]
+                         for r in plain[2:]],
+            "step_time_median_s": plain_step_s,
+            "over_train_path": plain_step_s / train_step_s,
+            "mfu": plain[-1].get("mfu")},
+        "launches": counts, "launches_per_step": per_step,
+        "params": n_params, "checkpoints": saves,
+        "commit_markers": markers,
+        "hbm_peak_gib": last.get("hbm_peak_gib"),
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "telemetry_records": len(telemetry),
+        "prom_series": len(prom), "trace_spans": len(events),
+    }
+    return report, counts
+
+
+def loop_resume_phase(work: str) -> dict:
+    """loop_resume_check, on loop_path's directory: a launch to step 7
+    under ``FRL_FAULT_PLAN`` at ``checkpoint.torn_write`` (the save of
+    step 7 is torn: its directory stays, no marker, the newest committed
+    step is still 6); then step 6's marker is deleted and a launch to
+    step 6 resumes: ``restore_or_init`` skips 6 and 7 and lands on 3, the
+    last committed step, and steps 4-6 repeat the first run's loss and
+    grad_norm. Returns the largest difference (``main`` holds it to
+    ``LOOP_RESUME_TOL`` after printing)."""
+    from frl_distributed_ml_scaffold_tpu_torch.checkpoint.manager import (
+        Checkpointer,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
+        CheckpointConfig,
+    )
+
+    run_dir = os.path.join(work, "gpt2_medium_zero1")
+    ckpt_dir = os.path.join(run_dir, "ckpt")
+    metrics = os.path.join(run_dir, "metrics.jsonl")
+    first = {r["step"]: r for r in read_jsonl(metrics)}
+    torn_args = [a.replace("total_steps=6", "total_steps=7")
+                 for a in LOOP_ARGS] + [f"workdir={work}"]
+    rc, torn_wall = launch_main(torn_args,
+                                [{"site": "checkpoint.torn_write"}])
+    check(rc == 0, f"loop_resume_check: the torn run exited {rc}")
+    ck = Checkpointer(ckpt_dir, CheckpointConfig())
+    torn = {"committed": ck.all_steps(), "uncommitted": ck.uncommitted_steps(),
+            "latest_step": ck.latest_step(),
+            "steps_run": [r["step"] for r in read_jsonl(metrics)[LOOP_STEPS:]]}
+    check(torn == {"committed": [3, 6], "uncommitted": [7], "latest_step": 6,
+                   "steps_run": [7]},
+          f"loop_resume_check: torn write {torn}")
+    os.remove(os.path.join(ckpt_dir, "commits", "step_6"))
+    rc, resume_wall = launch_main(LOOP_ARGS + [f"workdir={work}"])
+    check(rc == 0, f"loop_resume_check: the resumed run exited {rc}")
+    resumed = read_jsonl(metrics)[LOOP_STEPS + 1:]
+    check([r["step"] for r in resumed] == [4, 5, 6],
+          f"loop_resume_check: resumed steps {[r['step'] for r in resumed]}")
+    diff = {k: max(abs(r[k] - first[r["step"]][k]) for r in resumed)
+            for k in ("loss", "grad_norm", "lr")}
+    after = {"committed": ck.all_steps(), "uncommitted": ck.uncommitted_steps()}
+    check(after == {"committed": [3], "uncommitted": [6, 7]},
+          f"loop_resume_check: after the resume {after}")
+    return {"torn_run": {**torn, "wall_s": torn_wall},
+            "resume": {"restored_from": resumed[0]["step"] - 1,
+                       "steps": [{k: r[k] for k in ("step", "loss",
+                                                    "grad_norm")}
+                                 for r in resumed],
+                       "first_run": [{k: first[s][k] for k in (
+                           "step", "loss", "grad_norm")} for s in (4, 5, 6)],
+                       "max_abs_diff": diff, "tolerance": LOOP_RESUME_TOL,
+                       "checkpoints_after": after, "wall_s": resume_wall}}
+
+
+def mlp_launch_phase(work: str) -> dict:
+    """``mnist_mlp`` through ``launch.main`` with no --device, 200 steps:
+    ``FRL_FAULT_PLAN`` at ``trainer.preempt`` sends the process SIGTERM
+    at step 100, the run checkpoints step 100 and exits 0; a second
+    launch resumes there and finishes. The loss falls by half (first
+    record to last), no kernel of the port launches."""
+    args = MLP_LAUNCH + [f"workdir={work}"]
+    run_dir = os.path.join(work, "mnist_mlp")
+    reset_launches()
+    rc, wall = launch_main(args, [{"site": "trainer.preempt",
+                                   "key": str(MLP_PREEMPT_STEP - 1)}])
+    check(rc == 0, f"mlp_launch: the preempted run exited {rc}")
+    recs = read_jsonl(os.path.join(run_dir, "metrics.jsonl"))
+    markers = sorted(os.listdir(os.path.join(run_dir, "ckpt", "commits")))
+    check(recs[-1].get("event") == "preempted"
+          and recs[-1]["step"] == MLP_PREEMPT_STEP
+          and markers == [f"step_{MLP_PREEMPT_STEP}"],
+          f"mlp_launch: preemption left {recs[-1]}, markers {markers}")
+    rc, resume_wall = launch_main(args)
+    check(rc == 0, f"mlp_launch: the resumed run exited {rc}")
+    counts = read_launches()
+    check(not any(counts.values()), f"mlp_launch: kernels launched {counts}")
+    recs = read_jsonl(os.path.join(run_dir, "metrics.jsonl"))
+    markers = sorted(os.listdir(os.path.join(run_dir, "ckpt", "commits")))
+    check(recs[-1]["step"] == 200 and markers == ["step_100", "step_200"],
+          f"mlp_launch: ended at {recs[-1]['step']}, markers {markers}")
+    first, last = recs[0]["loss"], recs[-1]["loss"]
+    check(last < 0.5 * first, f"mlp_launch: loss {first} -> {last}")
+    return {"args": MLP_LAUNCH, "preempted_at": MLP_PREEMPT_STEP,
+            "steps_logged": [r["step"] for r in recs],
+            "loss_first": first, "loss_last": last,
+            "accuracy_last": recs[-1]["accuracy"],
+            "step_time_median_s": recs[-1].get("step_time_median_s"),
+            "commit_markers": markers, "wall_s": [wall, resume_wall]}
+
 
 # (M, C) of the BatchNorm layers the rn50 path gives the backward kernels
 # at batch 256: the stem, a stage-1 expansion and stage 4's widest; plus a
@@ -2045,17 +2369,12 @@ def rn50_batches(cfg, n: int) -> list:
 def flop_count(loss_fn, policy, state, batch) -> int:
     """FLOPs of one forward and backward (convolutions and products),
     counted by ``FlopCounterMode`` over one gradient pass without
-    recompute."""
-    from torch.utils.flop_counter import FlopCounterMode
+    recompute: the port's ``utils/flops.py`` ``grad_flops``, the count
+    the training loop's MFU uses for these families."""
+    from frl_distributed_ml_scaffold_tpu_torch.utils.flops import grad_flops
 
-    from frl_distributed_ml_scaffold_tpu_torch.trainer.train_step import (
-        make_grad_fn,
-    )
-
-    grad_fn = make_grad_fn(loss_fn, policy, device="cuda")
-    with FlopCounterMode(display=False) as counter:
-        grad_fn(state.params, state.extras, batch)
-    return counter.get_total_flops()
+    return grad_flops(loss_fn, policy, state.params, state.extras, batch,
+                      "cuda")
 
 
 def rn50_phase(gen, card: str, overrides: list, steps: int, batches: list,
@@ -2790,9 +3109,28 @@ def main() -> int:
     report, counts, profile = timed_phase("train_path", train_phase, sd, card)
     launches.update({k: n for k, n in counts.items() if n})
     emit("train_path", report)
+    train_step_s = report["step_s_median"]
     emit("train_profile", profile)
     emit("fp32_train_check", timed_phase("fp32_train_check",
                                          fp32_train_phase, sd))
+    # The loop through the launcher, as a user runs it: its checkpoints
+    # go to a directory of the checkout that git ignores, removed after.
+    emit("loop_log", quiet_loop_log())
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="loop_", dir=os.path.join(REPO, "build"))
+    try:
+        report, _ = timed_phase("loop_path", loop_phase, card, train_step_s,
+                                work)
+        emit("loop_path", report)
+        report = timed_phase("loop_resume_check", loop_resume_phase, work)
+        emit("loop_resume_check", report)
+        worst = max(report["resume"]["max_abs_diff"].values())
+        check(worst <= LOOP_RESUME_TOL,
+              f"loop_resume_check: resumed steps 4-6 differ by {worst}")
+        emit("mlp_launch", timed_phase("mlp_launch", mlp_launch_phase,
+                                       os.path.join(work, "mlp")))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     # The GPT weights are done with: the ResNet phases' peak memory is
     # their own.
     del sd

@@ -1,10 +1,19 @@
 """Typed dataclass config tree, dotted-path overrides and the recipes
 the port runs (serving and training)."""
 
-from frl_distributed_ml_scaffold_tpu_torch.config.core import apply_overrides
-from frl_distributed_ml_scaffold_tpu_torch.config.recipes import get_config
+from frl_distributed_ml_scaffold_tpu_torch.config.core import (
+    apply_overrides,
+    config_to_dict,
+    pretty_config,
+)
+from frl_distributed_ml_scaffold_tpu_torch.config.recipes import (
+    get_config,
+    list_configs,
+)
 from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
+    CheckpointConfig,
     DataConfig,
+    ElasticConfig,
     ExperimentConfig,
     GPTConfig,
     MeshConfig,
@@ -21,7 +30,9 @@ from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
 )
 
 __all__ = [
+    "CheckpointConfig",
     "DataConfig",
+    "ElasticConfig",
     "ExperimentConfig",
     "GPTConfig",
     "MeshConfig",
@@ -36,5 +47,8 @@ __all__ = [
     "VideoConfig",
     "ViTConfig",
     "apply_overrides",
+    "config_to_dict",
     "get_config",
+    "list_configs",
+    "pretty_config",
 ]

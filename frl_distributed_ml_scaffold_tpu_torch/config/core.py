@@ -4,12 +4,15 @@
 returns a new config with those fields replaced, each value coerced to
 the field's annotated type (``none`` / ``null`` for an Optional field;
 ``a,b,c`` or ``(a,b,c)`` for a tuple field).
-Unknown paths and values that do not parse raise.
+Unknown paths and values that do not parse raise. ``config_to_dict``
+and ``pretty_config`` give a config as plain data (the loop's
+``config.json``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import typing
 from typing import Any, Union
 
@@ -69,3 +72,19 @@ def apply_overrides(cfg: Any, overrides: list[str]) -> Any:
             cfg, path.strip().lstrip("-").split("."), raw.strip()
         )
     return cfg
+
+
+def config_to_dict(cfg: Any) -> Any:
+    """Recursive dataclass -> plain-dict conversion (JSON-safe)."""
+    if dataclasses.is_dataclass(cfg):
+        return {f.name: config_to_dict(getattr(cfg, f.name))
+                for f in dataclasses.fields(cfg)}
+    if isinstance(cfg, (list, tuple)):
+        return [config_to_dict(x) for x in cfg]
+    if isinstance(cfg, dict):
+        return {k: config_to_dict(v) for k, v in cfg.items()}
+    return cfg
+
+
+def pretty_config(cfg: Any) -> str:
+    return json.dumps(config_to_dict(cfg), indent=2, default=str)

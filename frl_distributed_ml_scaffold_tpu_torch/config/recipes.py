@@ -2,8 +2,8 @@
 serving and training, and the training of the BASELINE model families
 (MNIST MLP, ResNet-50, ViT-B/16, the video classifier).
 
-Every section the port reads is kept (model, data, trainer, optimizer,
-mesh, parallel, precision, serving), with the JAX recipe's values. The
+Every section is kept (model, data, trainer, optimizer, mesh, parallel,
+precision, checkpoint, serving), with the JAX recipe's values. The
 mesh sections name the JAX recipes' multi-device layouts; the port runs
 them on one card, where ``zero1`` and ``fsdp=-1`` are the replicated
 layout (ROADMAP queue A item 7 brings meshes of more than one card).
@@ -14,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 
 from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
+    CheckpointConfig,
     DataConfig,
     ExperimentConfig,
     GPTConfig,
@@ -158,11 +159,10 @@ def imagenet_vitb_fsdp() -> ExperimentConfig:
 
 def ego4d_video_elastic() -> ExperimentConfig:
     """BASELINE config 5: the video-clip classifier, full remat, AdamW
-    with a clip. The JAX recipe also enables sharded checkpoints
-    (``checkpoint=CheckpointConfig(enabled=True, save_every=500,
-    max_to_keep=3)``) and runs under the elastic supervisor; the port's
-    config has no checkpoint section until the training loop and the
-    checkpoint manager arrive (ROADMAP queue A item 6)."""
+    with a clip, checkpoints every 500 steps (``checkpoint/manager.py``,
+    read by ``trainer/loop.py``). The JAX recipe runs under the elastic
+    supervisor, which the port's launcher refuses (``--elastic``,
+    ROADMAP queue A item 13)."""
     return ExperimentConfig(
         name="ego4d_video_elastic",
         model=VideoConfig(num_frames=8, num_classes=400),
@@ -178,6 +178,8 @@ def ego4d_video_elastic() -> ExperimentConfig:
         mesh=MeshConfig(data=1, fsdp=-1),
         parallel=ParallelConfig(param_sharding="fsdp"),
         precision=PrecisionConfig(policy="bf16_mixed"),
+        checkpoint=CheckpointConfig(enabled=True, save_every=500,
+                                    max_to_keep=3),
     )
 
 
@@ -190,6 +192,10 @@ _RECIPES = {
     "imagenet_vitb_fsdp": imagenet_vitb_fsdp,
     "ego4d_video_elastic": ego4d_video_elastic,
 }
+
+
+def list_configs() -> list[str]:
+    return sorted(_RECIPES)
 
 
 def get_config(name: str) -> ExperimentConfig:

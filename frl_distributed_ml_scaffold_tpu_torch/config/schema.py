@@ -3,13 +3,14 @@
 Field-for-field copies of the JAX package's ``GPTConfig``,
 ``ResNetConfig``, ``ViTConfig``, ``VideoConfig``, ``MLPConfig``,
 ``MoEConfig``, ``ServingConfig``, ``PrecisionConfig``,
-``OptimizerConfig``, ``TrainerConfig``, ``DataConfig``, ``MeshConfig``
-and ``ParallelConfig``, so one override string means the same thing to
-both packages. The port keeps its own copy: it imports
-nothing of the JAX package. Fields whose feature is not ported yet are
-kept (so recipes and overrides stay identical) and refused where they
-would take effect (``models/gpt.py``, ``serving/engine.py``), each with
-the ROADMAP item that brings it.
+``OptimizerConfig``, ``TrainerConfig``, ``CheckpointConfig``,
+``ElasticConfig``, ``DataConfig``, ``MeshConfig`` and ``ParallelConfig``,
+so one override string means the same thing to both packages. The port
+keeps its own copy: it imports nothing of the JAX package. Fields whose
+feature is not ported yet are kept (so recipes and overrides stay
+identical) and refused where they would take effect (``models/gpt.py``,
+``serving/engine.py``, ``trainer/loop.py``, ``launcher/launch.py``), each
+with the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -95,11 +96,17 @@ class OptimizerConfig:
 
 @dataclass(frozen=True)
 class TrainerConfig:
-    """The training loop's knobs. The port's ``make_train_step`` reads
-    ``grad_accum``, ``remat``, ``seed``, ``ema_decay`` and
-    ``offload_opt_state`` (refused); the loop's own knobs (logging,
-    eval, profiling, watchdog, checkpoints) are kept for the loop
-    (ROADMAP queue A item 6)."""
+    """The training loop's knobs. ``make_train_step`` reads
+    ``grad_accum``, ``remat``, ``ema_decay`` and ``offload_opt_state``
+    (refused, ROADMAP queue A item 7); ``trainer/loop.py`` ``Trainer``
+    reads the rest: ``total_steps``, ``log_every``, ``eval_every`` /
+    ``eval_steps``, ``seed`` (the seeded init), ``profile_steps`` /
+    ``profile_start_step`` (a ``torch.profiler`` window),
+    ``tensorboard``, ``stall_timeout_s`` /
+    ``stall_timeout_first_beat_scale`` (the stall watchdog),
+    ``tracing`` (host spans, ``trace_events.json``) and ``preempt_save``
+    (the SIGTERM checkpoint). ``init_params_path`` (a flax msgpack file)
+    is refused, naming ROADMAP queue A item 15."""
 
     total_steps: int = 1000
     grad_accum: int = 1
@@ -120,6 +127,37 @@ class TrainerConfig:
     tracing: bool = True
     offload_opt_state: bool = False
     preempt_save: bool = True
+
+
+@dataclass(frozen=True)
+class CheckpointConfig:
+    """Checkpoints of the train state (``checkpoint/manager.py``).
+    ``restore_redistribute`` (and its scratch budget) is refused:
+    redistribution across meshes is ROADMAP queue A item 13."""
+
+    enabled: bool = False
+    save_every: int = 1000
+    max_to_keep: int = 3
+    async_save: bool = True
+    resume: bool = True  # restore the latest committed checkpoint
+    restore_redistribute: bool = False
+    redistribute_scratch_mb: int = 0
+
+
+@dataclass(frozen=True)
+class ElasticConfig:
+    """The JAX package's checkpoint-restart supervisor's knobs, kept so
+    one override string means the same to both packages; the port's
+    launcher refuses ``--elastic`` (ROADMAP queue A item 13)."""
+
+    max_restarts: int = 3
+    backoff_s: float = 1.0
+    max_backoff_s: float = 300.0
+    heartbeat_retire_after: int = 10
+    reset_after_s: float = 600.0
+    shrink_after: int = 0
+    peer_timeout_s: float = 60.0
+    grow: bool = True
 
 
 @dataclass(frozen=True)
@@ -278,13 +316,12 @@ class VideoConfig:
 
 @dataclass(frozen=True)
 class ExperimentConfig:
-    """The sections of a run config the port reads: the model
-    (``GPTConfig``, ``ResNetConfig``, ``ViTConfig``, ``VideoConfig`` or
-    ``MLPConfig``; ``models.create_model`` dispatches on its
-    ``family``), its training (data,
-    trainer, optimizer, mesh, parallel), precision and serving. The JAX
-    package's checkpoint and elastic sections, and its ``workdir``,
-    arrive with the training loop (ROADMAP queue A item 6)."""
+    """A run config: the model (``GPTConfig``, ``ResNetConfig``,
+    ``ViTConfig``, ``VideoConfig`` or ``MLPConfig``;
+    ``models.create_model`` dispatches on its ``family``), its training
+    (data, trainer, optimizer, mesh, parallel, checkpoint), precision,
+    serving and the elastic supervisor's section, and ``workdir``: the
+    loop writes ``<workdir>/<name>/`` (``trainer/loop.py``)."""
 
     name: str = "experiment"
     model: Any = field(default_factory=GPTConfig)
@@ -294,7 +331,10 @@ class ExperimentConfig:
     mesh: MeshConfig = field(default_factory=MeshConfig)
     parallel: ParallelConfig = field(default_factory=ParallelConfig)
     precision: PrecisionConfig = field(default_factory=PrecisionConfig)
+    checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
     serving: ServingConfig = field(default_factory=ServingConfig)
+    elastic: ElasticConfig = field(default_factory=ElasticConfig)
+    workdir: str = "/tmp/frl_tpu_runs"
 
     def replace(self, **kw) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)

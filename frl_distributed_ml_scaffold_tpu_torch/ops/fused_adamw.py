@@ -59,8 +59,9 @@ def _check_leaf(p, g, m, v):
         if t.dtype != torch.float32:
             raise TypeError(
                 f"the AdamW kernel takes float32 p, m and v, {name} is "
-                f"{t.dtype} (a bf16 p comes only from a bf16 init, ROADMAP "
-                "A6, which the port does not have)")
+                f"{t.dtype} (a bf16 p comes only from a bf16 init: "
+                "trainer.init_params_path, ROADMAP queue A item 15, which "
+                "the port's loop refuses)")
     if g.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the AdamW kernel takes a float32 or bfloat16 g, "
                         f"got {g.dtype}")

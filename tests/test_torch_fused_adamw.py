@@ -136,10 +136,11 @@ def test_fused_adamw_bf16_grads_match_jax_over_three_steps():
 def test_kernel_takes_bf16_grads_and_refuses_other_leaves():
     """What the kernel wrapper takes, checked before any build: a bf16 g
     beside fp32 p, m and v; a bf16 p (reachable only through a bf16
-    init, ROADMAP A6) or a misaligned g raises."""
+    init, ``trainer.init_params_path``, ROADMAP queue A item 15) or a
+    misaligned g raises."""
     p, m, v = (torch.zeros(65536) for _ in range(3))
     tfa._check_leaf(p, torch.zeros(65536, dtype=torch.bfloat16), m, v)
-    with pytest.raises(TypeError, match="A6"):
+    with pytest.raises(TypeError, match="init_params_path.*item 15"):
         tfa.adamw_kernel(p.bfloat16(), p, m, v, 1e-3, 0.1, 0.1, b1=0.9,
                          b2=0.999, eps=1e-8, wd=0.0)
     with pytest.raises(TypeError, match="float32 or bfloat16 g"):

@@ -253,13 +253,27 @@ def test_cache_buckets_and_taxonomy_match_jax(params):
     "cls", ["GPTConfig", "MoEConfig", "ServingConfig", "PrecisionConfig",
             "OptimizerConfig", "TrainerConfig", "DataConfig", "MeshConfig",
             "ParallelConfig", "ResNetConfig", "ViTConfig", "VideoConfig",
-            "MLPConfig"]
+            "MLPConfig", "CheckpointConfig", "ElasticConfig"]
 )
 def test_config_copies_match_the_jax_schema(cls):
     """The port's own copies keep every field and default of the JAX
     schema, so one override string means the same in both packages."""
     j, t = getattr(jax_schema, cls)(), getattr(tschema, cls)()
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
+
+
+def test_experiment_config_sections_match_the_jax_schema():
+    """The run config has the JAX schema's sections, in its order, and
+    its default ``workdir``; a recipe's checkpoint section is the JAX
+    recipe's."""
+    names = [f.name for f in dataclasses.fields(tschema.ExperimentConfig)]
+    assert names == [f.name for f in
+                     dataclasses.fields(jax_schema.ExperimentConfig)]
+    assert tschema.ExperimentConfig().workdir == (
+        jax_schema.ExperimentConfig().workdir)
+    for name in tconfig.list_configs():
+        assert dataclasses.asdict(tconfig.get_config(name).checkpoint) == (
+            dataclasses.asdict(jax_recipes.__dict__[name]().checkpoint))
 
 
 def test_recipes_and_overrides_match_jax():

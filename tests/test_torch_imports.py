@@ -59,7 +59,12 @@ def test_scans_cover_every_port_module():
     "ops/flash_attention.py", "ops/ring_attention.py", "data/synthetic.py",
     "trainer/tasks.py", "trainer/optimizers.py", "trainer/train_state.py",
     "trainer/train_step.py", "models/vit.py", "models/video.py",
-    "models/mlp.py", "data/mnist.py", "data/video.py",
+    "models/mlp.py", "data/mnist.py", "data/video.py", "data/pipeline.py",
+    "trainer/loop.py", "checkpoint/manager.py", "launcher/launch.py",
+    "utils/logging.py", "utils/timing.py", "utils/trees.py",
+    "utils/profiling.py", "utils/flops.py", "faults/plan.py",
+    "faults/retry.py", "telemetry/metrics.py", "telemetry/timeline.py",
+    "telemetry/tracing.py", "telemetry/watchdog.py",
 ], ids=lambda r: r.replace("/", "."))
 def test_scans_cover_the_training_modules(rel):
     """The training slice's modules are among those both scans walk."""
@@ -165,6 +170,15 @@ def test_training_entry_points_default_to_cuda_and_raise_without_a_card():
     for own in (MLPConfig(), ViTConfig(), VideoConfig()):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             create_model(own, get_policy("fp32"))
+    from frl_distributed_ml_scaffold_tpu_torch.config import get_config
+    from frl_distributed_ml_scaffold_tpu_torch.launcher.launch import main
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.loop import Trainer
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(get_config("mnist_mlp"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--config=mnist_mlp", "data.global_batch_size=8"])
+    assert Trainer(get_config("mnist_mlp"), device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["repo", "script_alone"])
