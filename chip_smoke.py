@@ -1,6 +1,7 @@
 #!/usr/bin/env python
 """Drive the PyTorch port's serving and training paths (GPT-2, ResNet-50,
-ViT-B/16, the video classifier, the MNIST MLP) once on one NVIDIA GPU.
+ViT-B/16, the video classifier, the MNIST MLP) and its shard loaders once
+on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -173,7 +174,41 @@ no final line):
    synthetic MNIST): 200 steps of the recipe's schedule, the loss must
    fall; then 20 steps under the profiler for the idle share (the path is
    host-bound by nature).
-21. ``phase_seconds`` (the build, each phase above and the whole run),
+21. shards: 2048 seeded uint8 images of 256 x 256 x 3 (0.4 GB) and
+   their labels as four sealed ``train_*`` shards in a temporary
+   directory under ``build/`` (with the token bin and clip shards below;
+   removed at the end).
+22. native_build: the port's C++ data core (``native/frl_data.cpp``)
+   built by g++ on this host (seconds), its pool's threads, and every
+   entry point against its numpy version bit for bit at the paths'
+   shapes, both timed: ``gather_rows`` uint8 and float32 over 512 rows
+   of 256 x 256 x 3, ``augment_batch`` to 224 in train and eval,
+   ``gather_windows`` uint16 and uint32 over 64 x 1025 tokens; then
+   ``ImageNet.batch`` at batch 512 over the shards alone: images/s and
+   the gather and augment seconds.
+23. stem_pool_check: on the card, the s2d stem with
+   ``s2d_stem_weights(w7)`` against the conv7 stem (``STEM_TOL``) and
+   the mask pool's gradient against autodiff's on a tie-free input
+   (``POOL_TOL``); each stem and pool timed forward and backward at batch
+   512 in bf16.
+24. rn50_shards_path: ``imagenet_rn50_ddp`` at bench.py's headline point
+   (``model.stem=s2d model.pool_grad=mask model.fused_bn=true
+   data.global_batch_size=512``) at full width and depth through the
+   port's ``Trainer`` from the shards, checkpoints off, 12 steps, the
+   last two under the profiler: the median step (steps 7-10, after the
+   prefetched head start), images/s, the data wait and the rest of each
+   step, the idle share and 53 sums and 53 dx launches a step (and 53
+   more for the loop's FLOP count); ``is_synthetic`` false and no loader
+   call through numpy. Beside it in the same call: the same with
+   ``data_dir`` unset (synthetic batches built on the host each step; 6
+   steps) and the shards run with ``model.stem=conv7`` (8 steps).
+25. lm_shards_path: a seeded uint16 token bin of 4M tokens written by
+   ``write_token_bin``, then ``gpt2_medium_zero1`` with
+   ``model.attention=flash data.name=lm`` through ``launch.main``, 3
+   steps: 384 / 192 / 192 flash launches a step, the data wait per step.
+26. video_shards_path: ``ego4d_video_elastic`` (batch 16) from 64 seeded
+   uint8 clips of 8 x 224 x 224 x 3 through the ``Trainer``, 6 steps.
+27. ``phase_seconds`` (the build, each phase above and the whole run),
    the ``kernels`` line (twelve kernels) and, last, ``{"ok": true,
    "device": ...}``.
 
@@ -3029,6 +3064,470 @@ def fp32_vit_phase(gen) -> dict:
 # --------------------------------------------------------------------- main
 
 
+# ------------------------------------------ loaders and the native core
+
+# Synthetic ImageNet-shaped shards of the real stored size: 2048 uint8
+# images of 256 x 256 x 3 (0.4 GB) in shards of 512, seeded labels of
+# 1000 classes. bench.py's headline RN50 point: the s2d stem, the mask
+# pool, the BatchNorm kernels, batch 512.
+SHARD_PX, SHARD_SIZE, SHARD_IMAGES = 256, 512, 2048
+RN50_SHARD_OVERRIDES = ["model.stem=s2d", "model.pool_grad=mask",
+                        "model.fused_bn=true", "data.global_batch_size=512"]
+# Loop steps of each rn50 run (from the shards, and synthetic), the steps
+# that run under the profiler at the end (idle share) and the first step
+# of the median. The loop times the windows after the first two, and its
+# MFU probe (FlopCounterMode, one forward and backward) delays step 4,
+# which lets the prefetch queue (depth 2) fill: the shards run's median
+# is taken from step 7, where that head start is spent.
+RN50_SHARD_RUNS = {"shards": (12, 2, 7), "synthetic": (6, 1, 3),
+                   "shards_conv7": (8, 0, 3)}
+# The loader's host throughput alone: ImageNet.batch at batch 512.
+LOADER_BATCHES = 4
+# Native vs numpy at the path's shapes: 512 gathered rows of 256^2 x 3,
+# augmented to 224; 64 windows of 1025 tokens.
+NATIVE_ROWS, NATIVE_CROP, NATIVE_WINDOWS = 512, 224, (64, 1025)
+# The s2d stem with s2d_stem_weights(w7) against the conv7 stem (fp32,
+# TF32 off: the same products summed in another order), relative to
+# max|conv7|; the mask pool's gradient against autodiff's on a tie-free
+# input (sums of at most four terms in another order), relative to
+# max|dy|.
+STEM_TOL, POOL_TOL = 1e-5, 1e-6
+# The token bin of lm_shards_path: 4M seeded uint16 tokens of the
+# recipe's vocab; 3 steps of gpt2_medium_zero1 + flash through launch.
+LM_TOKENS, LM_STEPS = 4 * 1024 * 1024, 3
+# Clip shards of video_shards_path: 64 uint8 clips of 8 x 224^2 x 3.
+VIDEO_CLIPS, VIDEO_SHARD_STEPS = 64, 6
+
+
+def proc_threads() -> int:
+    return len(os.listdir("/proc/self/task"))
+
+
+def write_image_shards(root: str, seed: int) -> dict:
+    """``SHARD_IMAGES`` seeded uint8 images and labels as sealed
+    ``train_*`` shards under ``root``."""
+    import numpy as np
+
+    from frl_distributed_ml_scaffold_tpu_torch.data.shards import sealed_save
+
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    for i in range(SHARD_IMAGES // SHARD_SIZE):
+        x = rng.integers(0, 256, (SHARD_SIZE, SHARD_PX, SHARD_PX, 3),
+                         dtype=np.uint8)
+        sealed_save(os.path.join(root, f"train_images_{i:03d}.npy"), x)
+        sealed_save(os.path.join(root, f"train_labels_{i:03d}.npy"),
+                    rng.integers(0, 1000, SHARD_SIZE).astype(np.int32))
+    return {"dir_bytes": dir_bytes(root), "images": SHARD_IMAGES,
+            "stored": [SHARD_PX, SHARD_PX, 3], "dtype": "uint8",
+            "seconds": time.perf_counter() - t0}
+
+
+def _host_ms(fn, repeats: int = 3) -> float:
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def native_phase(shard_dir: str, seed: int) -> dict:
+    """native_build: the port's C++ data core built with g++ on this host
+    (seconds, the library's name), its pool's threads, every entry point
+    against its numpy version bit for bit at the rn50 and GPT paths'
+    shapes with both times, and ``ImageNet.batch`` at batch 512 over the
+    shards alone (images/s, the gather and augment split)."""
+    import numpy as np
+
+    from frl_distributed_ml_scaffold_tpu_torch.config import (
+        apply_overrides,
+        get_config,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.data import native
+    from frl_distributed_ml_scaffold_tpu_torch.data.imagenet import ImageNet
+    from frl_distributed_ml_scaffold_tpu_torch.data.shards import (
+        ShardedNpyCorpus,
+    )
+
+    path = native.library_path()
+    existed = path.exists()
+    t0 = time.perf_counter()
+    check(native.native_available(), "native_build: the C++ data core did "
+          "not build or load (g++)")
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    u8 = rng.integers(0, 256, (NATIVE_ROWS, SHARD_PX, SHARD_PX, 3),
+                      dtype=np.uint8)
+    idx = np.sort(rng.integers(0, NATIVE_ROWS, NATIVE_ROWS))
+    threads0 = proc_threads()
+    rows = native.gather_rows(u8, idx)
+    pool_threads = proc_threads() - threads0
+    checks = {}
+
+    def held(name, fast, plain):
+        got, want = fast(), plain()
+        check(got.dtype == want.dtype and np.array_equal(got, want),
+              f"native_build: {name} differs from its numpy version")
+        checks[name] = {"shape": list(got.shape), "bit_equal": True,
+                        "native_ms": _host_ms(fast),
+                        "numpy_ms": _host_ms(plain, repeats=1)}
+
+    held("gather_rows_u8", lambda: native.gather_rows(u8, idx),
+         lambda: native.gather_rows_numpy(u8, idx))
+    f32 = native.gather_rows(u8, np.arange(NATIVE_ROWS))
+    held("gather_rows_f32", lambda: native.gather_rows(f32, idx),
+         lambda: native.gather_rows_numpy(f32, idx))
+    del f32
+    for train in (True, False):
+        held(f"augment_{'train' if train else 'eval'}",
+             lambda: native.augment_batch(rows, NATIVE_CROP, seed=seed + 1,
+                                          train=train),
+             lambda: native.augment_numpy(rows, NATIVE_CROP, seed=seed + 1,
+                                          train=train))
+    n, window = NATIVE_WINDOWS
+    for dtype in (np.uint16, np.uint32):
+        toks = rng.integers(0, 50257, LM_TOKENS).astype(dtype)
+        starts = rng.integers(0, LM_TOKENS - window, n)
+        held(f"gather_windows_{np.dtype(dtype).name}",
+             lambda: native.gather_windows(toks, starts, window),
+             lambda: native.gather_windows_numpy(toks, starts, window))
+    del u8, rows
+    # The loader alone: what the prefetch worker does per step.
+    cfg = apply_overrides(
+        get_config("imagenet_rn50_ddp"),
+        RN50_SHARD_OVERRIDES + [f"data.data_dir={shard_dir}"])
+    data = ImageNet(cfg.data, split="train")
+    check(not data.is_synthetic, "native_build: ImageNet found no shards")
+    gb = cfg.data.global_batch_size
+    calls0 = dict(native.calls)
+    # The batch's two parts, each through its own public call: the
+    # corpus's gather (index draws as the loader's) and the augment.
+    corpus = ShardedNpyCorpus(shard_dir, "train", "images")
+    per_batch, gather_s, augment_s = [], [], []
+    for step in range(LOADER_BATCHES):
+        t0 = time.perf_counter()
+        batch = data.batch(step, gb)
+        per_batch.append(time.perf_counter() - t0)
+        r = np.random.default_rng((seed, step))
+        i = np.sort(r.integers(0, corpus.n, size=gb))
+        t0 = time.perf_counter()
+        x, _ = corpus.gather(i)
+        gather_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        native.augment_batch(x, cfg.data.image_size, seed=step, train=True)
+        augment_s.append(time.perf_counter() - t0)
+    check(batch["image"].shape == (gb, 224, 224, 3)
+          and np.isfinite(batch["image"]).all(),
+          f"native_build: batch {batch['image'].shape}")
+    check(native.calls["numpy"] == calls0["numpy"],
+          "native_build: a loader call took the numpy path")
+    return {"library": path.name, "built_now": not existed,
+            "build_s": build_s, "flags": list(native.CXX_FLAGS),
+            "host_cpus": os.cpu_count(), "pool_threads": pool_threads,
+            "checks": checks,
+            "imagenet_batch": {
+                "batch": gb, "stored": [SHARD_PX, SHARD_PX, 3],
+                "crop": cfg.data.image_size, "seconds": per_batch,
+                "images_per_s": gb / statistics.median(per_batch),
+                "gather_s": gather_s, "augment_s": augment_s,
+                "gather_bytes": gb * SHARD_PX * SHARD_PX * 3 * 4,
+                "augment_bytes": gb * 224 * 224 * 3 * 4},
+            "calls": dict(native.calls)}
+
+
+def stem_pool_phase(gen) -> dict:
+    """On the card: the s2d stem with ``s2d_stem_weights(w7)`` against
+    the conv7 stem on the same input, and the mask pool's gradient
+    against autodiff's (scatter) on a tie-free input; then each timed,
+    forward and backward, at batch 512 in bf16 (the stem's weight
+    gradient only: the image needs none)."""
+    from frl_distributed_ml_scaffold_tpu_torch.models import resnet
+    from frl_distributed_ml_scaffold_tpu_torch.models.convert import (
+        s2d_stem_weights,
+    )
+
+    x = torch.randn((16, 224, 224, 3), generator=gen, device="cuda")
+    w7 = 0.1 * torch.randn((64, 3, 7, 7), generator=gen, device="cuda")
+    conv7 = resnet.Conv(3, 64, 7, 2, device="cuda")
+    conv4 = resnet.Conv(12, 64, 4, 1, device="cuda")
+    with torch.no_grad():
+        conv7.weight.copy_(w7)
+        conv4.weight.copy_(s2d_stem_weights(w7))
+        want = conv7(x)
+        got = conv4(resnet.space_to_depth(x))
+    stem_err = ((got - want).abs().max() / want.abs().max()).item()
+    check(got.shape == want.shape and stem_err <= STEM_TOL,
+          f"stem_pool: s2d stem differs from conv7 by {stem_err}")
+    shape = (16, 112, 112, 64)  # 12845056 distinct values, exact in fp32
+    n = math.prod(shape)
+    xp = torch.randperm(n, generator=gen, device="cuda").float().reshape(
+        shape).requires_grad_()
+    dy = torch.randn((16, 56, 56, 64), generator=gen, device="cuda")
+    g_mask, = torch.autograd.grad(resnet.max_pool_mask_grad(xp), xp, dy)
+    g_scat, = torch.autograd.grad(resnet.max_pool_same(xp), xp, dy)
+    pool_err = ((g_mask - g_scat).abs().max() / dy.abs().max()).item()
+    check(pool_err <= POOL_TOL,
+          f"stem_pool: mask gradient differs from scatter by {pool_err}")
+    del x, want, got, xp, dy, g_mask, g_scat
+    bf = torch.bfloat16
+    xb = torch.randn((512, 224, 224, 3), generator=gen, device="cuda",
+                     dtype=bf)
+    gb = torch.randn((512, 112, 112, 64), generator=gen, device="cuda",
+                     dtype=bf)
+    timings = {}
+    for name, conv, s2d in (("conv7", conv7, False), ("s2d", conv4, True)):
+        conv.to(bf)
+
+        def stem(conv=conv, s2d=s2d):
+            y = conv(resnet.space_to_depth(xb) if s2d else xb)
+            torch.autograd.grad(y, conv.weight, gb)
+
+        timings[f"stem_{name}_ms"] = cuda_time_ms(stem, repeats=10)
+    xq = torch.relu(gb).requires_grad_()
+    dq = torch.randn((512, 56, 56, 64), generator=gen, device="cuda",
+                     dtype=bf)
+    for name, pool in (("scatter", resnet.max_pool_same),
+                       ("mask", resnet.max_pool_mask_grad)):
+        timings[f"pool_{name}_ms"] = cuda_time_ms(
+            lambda pool=pool: torch.autograd.grad(pool(xq), xq, dq),
+            repeats=10)
+    del xb, gb, xq, dq
+    torch.cuda.empty_cache()
+    return {"stem_rel_err": stem_err, "stem_tol": STEM_TOL,
+            "pool_rel_err": pool_err, "pool_tol": POOL_TOL,
+            "timed_at": "batch 512, bf16, forward + backward, device time",
+            **timings}
+
+
+def loop_run(cfg, per_step: dict, profiled: int = 0, first: int = 3) -> dict:
+    """``Trainer(cfg).fit()`` on the card with every launch count set to 0
+    just before it: each kernel of ``per_step`` launches that many times a
+    step, no other kernel, and no loader call takes numpy. The last
+    ``profiled`` steps run under ``torch.profiler`` (idle share); the
+    medians are over steps ``first`` (1-based, at least 3: the loop times
+    from there) to the last unprofiled one. Returns the records' per-step
+    numbers and the source's ``is_synthetic``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from frl_distributed_ml_scaffold_tpu_torch.data import native
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.loop import Trainer
+
+    steps = cfg.trainer.total_steps
+    trainer = Trainer(cfg)
+    prof = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            if profiled else None)
+    mark = {}
+
+    def on_step(step, metrics):
+        if prof is None:
+            return
+        if step == steps - 1 - profiled:
+            mark["t0"] = time.perf_counter()
+            prof.start()
+        elif step == steps - 1:
+            torch.cuda.synchronize()
+            mark["wall"] = time.perf_counter() - mark["t0"]
+            prof.stop()
+
+    calls0 = dict(native.calls)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, last = trainer.fit(on_step=on_step)
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    # FlopCounterMode's one forward and backward (the loop's MFU probe
+    # for a family other than the GPT) runs the kernels once more.
+    passes = steps + (last.get("flops_source") == "flop_counter")
+    for name, n in counts.items():
+        check(n == per_step.get(name, 0) * passes,
+              f"{cfg.name}: {name} launched {n} times in {steps} steps and "
+              f"{passes - steps} FLOP count, want {per_step.get(name, 0)} "
+              "each")
+    check(native.calls["numpy"] == calls0["numpy"],
+          f"{cfg.name}: a loader call took the numpy path")
+    recs = read_jsonl(os.path.join(cfg.workdir, cfg.name, "metrics.jsonl"))
+    check([r["step"] for r in recs] == list(range(1, steps + 1)),
+          f"{cfg.name}: metrics.jsonl steps {[r['step'] for r in recs]}")
+    for r in recs:
+        check(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]),
+              f"{cfg.name}: non-finite record {r}")
+    # A timed window's step: its wait for the batch plus the rest.
+    quiet = recs[first - 1: steps - profiled]
+    med = statistics.median(r["data_wait_s"] + r["compute_s"] for r in quiet)
+    out = {
+        "config": cfg.name, "steps": steps, "wall_s": wall,
+        "source_is_synthetic": trainer.pipeline.source.is_synthetic,
+        "records": [{k: r.get(k) for k in (
+            "step", "loss", "grad_norm", "data_wait_s", "compute_s")}
+            for r in recs],
+        "median_over_steps": [first, steps - profiled],
+        "step_s_median": med,
+        "samples_per_s": cfg.data.global_batch_size / med,
+        "data_wait_s_median": statistics.median(
+            r["data_wait_s"] for r in quiet),
+        "compute_s_median": statistics.median(r["compute_s"] for r in quiet),
+        "data_wait_share": statistics.median(r["data_wait_s"] for r in quiet)
+        / med,
+        "mfu": last.get("mfu"), "flops_source": last.get("flops_source"),
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "launches": {k: n for k, n in counts.items() if n},
+        "flop_count_passes": passes - steps,
+        "native_calls": native.calls["native"] - calls0["native"],
+    }
+    if prof is not None:
+        report = device_profile(prof, mark["wall"])
+        out["profile"] = {"steps": profiled, **{k: report[k] for k in (
+            "wall_s", "device_busy_s", "device_idle_share", "cuda_events",
+            "top_device_s")}}
+        out["device_idle_share"] = report["device_idle_share"]
+    del trainer, state, prof
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def rn50_shards_phase(shard_dir: str, work: str, card: str) -> dict:
+    """rn50_shards_path: ``imagenet_rn50_ddp`` at bench.py's headline point
+    (s2d stem, mask pool, fused BatchNorm, batch 512) through the port's
+    ``Trainer`` from the uint8 shards; beside it, in this call, the same
+    with ``data_dir`` unset (synthetic batches built per step on the host)
+    and the shards run with the conv7 stem (its step without the data
+    wait against the s2d run's)."""
+    from frl_distributed_ml_scaffold_tpu_torch.config import (
+        apply_overrides,
+        get_config,
+    )
+
+    per_step = {"bn_bwd_sums": RN50_BNS, "bn_bwd_dx": RN50_BNS}
+    common = ["trainer.log_every=1", "trainer.eval_every=0",
+              "checkpoint.enabled=false"]
+    runs = {}
+    for key, extra in (("shards", [f"data.data_dir={shard_dir}"]),
+                       ("synthetic", []),
+                       ("shards_conv7", [f"data.data_dir={shard_dir}",
+                                         "model.stem=conv7"])):
+        steps, profiled, first = RN50_SHARD_RUNS[key]
+        cfg = apply_overrides(get_config("imagenet_rn50_ddp"),
+                              RN50_SHARD_OVERRIDES + common + extra
+                              + [f"trainer.total_steps={steps}",
+                                 f"workdir={os.path.join(work, key)}"])
+        runs[key] = loop_run(cfg, per_step, profiled, first)
+        check(runs[key]["source_is_synthetic"] == (key == "synthetic"),
+              f"rn50_shards_path {key}: is_synthetic "
+              f"{runs[key]['source_is_synthetic']}")
+        if key != "synthetic":
+            check(runs[key]["native_calls"] > 0,
+                  f"rn50_shards_path {key}: no native loader call")
+    shards, synth = runs["shards"], runs["synthetic"]
+    report = {"card": card, "overrides": RN50_SHARD_OVERRIDES,
+              "corpus": {"images": SHARD_IMAGES, "dtype": "uint8",
+                         "stored": [SHARD_PX, SHARD_PX, 3]},
+              "launches_per_step": per_step, **runs,
+              "shards_over_synthetic_images_per_s":
+                  shards["samples_per_s"] / synth["samples_per_s"],
+              "s2d_over_conv7_compute_s":
+                  shards["compute_s_median"]
+                  / runs["shards_conv7"]["compute_s_median"],
+              "steps_profiled_first": {k: list(v)
+                                       for k, v in RN50_SHARD_RUNS.items()}}
+    return report
+
+
+def lm_shards_phase(work: str, seed: int) -> dict:
+    """lm_shards_path: a seeded uint16 token bin written by
+    ``write_token_bin``, then ``gpt2_medium_zero1`` with ``data.name=lm``
+    and flash through ``launch.main``: 384 / 192 / 192 flash launches a
+    step, the data wait per step, no loader call through numpy."""
+    import numpy as np
+
+    from frl_distributed_ml_scaffold_tpu_torch.config import (
+        apply_overrides,
+        get_config,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.data import native
+    from frl_distributed_ml_scaffold_tpu_torch.data.lm import write_token_bin
+
+    lm_dir = os.path.join(work, "tokens")
+    vocab = get_config("gpt2_medium_zero1").data.vocab_size
+    write_token_bin(os.path.join(lm_dir, "train.bin"),
+                    np.random.default_rng(seed).integers(0, vocab, LM_TOKENS),
+                    vocab_size=vocab)
+    args = ["--config=gpt2_medium_zero1", "model.attention=flash",
+            "data.name=lm", f"data.data_dir={lm_dir}",
+            f"trainer.total_steps={LM_STEPS}", "trainer.log_every=1",
+            "trainer.eval_every=0", f"workdir={work}"]
+    cfg = apply_overrides(get_config("gpt2_medium_zero1"), args[1:])
+    layers, accum = cfg.model.num_layers, cfg.trainer.grad_accum
+    per_step = {"flash_attention_fwd": 2 * layers * accum,
+                "flash_attention_bwd_dq": layers * accum,
+                "flash_attention_bwd_dkv": layers * accum}
+    calls0 = dict(native.calls)
+    reset_launches()
+    rc, wall = launch_main(args)
+    counts = read_launches()
+    check(rc == 0, f"lm_shards_path: launch exited {rc}")
+    for name, n in counts.items():
+        check(n == per_step.get(name, 0) * LM_STEPS,
+              f"lm_shards_path: {name} launched {n} times in {LM_STEPS} "
+              f"steps, want {per_step.get(name, 0)} a step")
+    check(native.calls["numpy"] == calls0["numpy"]
+          and native.calls["native"] > calls0["native"],
+          f"lm_shards_path: loader calls {native.calls} (from {calls0})")
+    recs = read_jsonl(os.path.join(work, cfg.name, "metrics.jsonl"))
+    check([r["step"] for r in recs] == list(range(1, LM_STEPS + 1))
+          and all(math.isfinite(r["loss"]) for r in recs),
+          f"lm_shards_path: records {recs}")
+    return {"args": args[:-1], "tokens": LM_TOKENS,
+            "bin_bytes": os.path.getsize(os.path.join(lm_dir, "train.bin")),
+            "wall_s": wall, "launches": counts,
+            "launches_per_step": per_step,
+            "loss": [r["loss"] for r in recs],
+            "data_wait_s": [r["data_wait_s"] for r in recs],
+            "step_time_median_s": recs[-1].get("step_time_median_s"),
+            "native_calls": native.calls["native"] - calls0["native"]}
+
+
+def video_shards_phase(work: str, seed: int, card: str) -> dict:
+    """video_shards_path: ``ego4d_video_elastic`` (batch 16, as
+    video_path) from seeded uint8 clip shards through the ``Trainer``."""
+    import numpy as np
+
+    from frl_distributed_ml_scaffold_tpu_torch.config import (
+        apply_overrides,
+        get_config,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.data.shards import sealed_save
+
+    clip_dir = os.path.join(work, "clips")
+    os.makedirs(clip_dir)
+    base = get_config("ego4d_video_elastic").data
+    rng = np.random.default_rng(seed)
+    half = VIDEO_CLIPS // 2
+    for i in range(2):
+        sealed_save(os.path.join(clip_dir, f"train_clips_{i:03d}.npy"),
+                    rng.integers(0, 256, (half, base.num_frames,
+                                          base.image_size, base.image_size,
+                                          base.channels), dtype=np.uint8))
+        sealed_save(os.path.join(clip_dir, f"train_labels_{i:03d}.npy"),
+                    rng.integers(0, base.num_classes, half).astype(np.int32))
+    cfg = apply_overrides(get_config("ego4d_video_elastic"), [
+        *VIDEO_OVERRIDES, "data.name=video", f"data.data_dir={clip_dir}",
+        f"trainer.total_steps={VIDEO_SHARD_STEPS}", "trainer.log_every=1",
+        "trainer.eval_every=0", "checkpoint.enabled=false",
+        f"workdir={work}"])
+    out = loop_run(cfg, {})
+    check(not out["source_is_synthetic"] and out["native_calls"] > 0,
+          "video_shards_path: the clips did not come from the shards")
+    return {"card": card, "clips": VIDEO_CLIPS, "dtype": "uint8",
+            "clip": [base.num_frames, base.image_size, base.image_size,
+                     base.channels], **out}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3177,6 +3676,31 @@ def main() -> int:
     emit("video_profile", profile)
     del clips
     emit("mlp_path", timed_phase("mlp_path", mlp_phase, gen, card))
+    # The loaders, the native data core, the s2d stem and the mask pool:
+    # seeded shards and token bins under a temporary directory of build/,
+    # removed after.
+    data_work = tempfile.mkdtemp(prefix="data_",
+                                 dir=os.path.join(REPO, "build"))
+    try:
+        shard_dir = os.path.join(data_work, "imagenet")
+        os.makedirs(shard_dir)
+        emit("shards", timed_phase("shards", write_image_shards, shard_dir,
+                                   args.seed))
+        emit("native_build", timed_phase("native_build", native_phase,
+                                         shard_dir, args.seed))
+        emit("stem_pool_check", timed_phase("stem_pool_check",
+                                            stem_pool_phase, gen))
+        emit("rn50_shards_path", timed_phase(
+            "rn50_shards_path", rn50_shards_phase, shard_dir,
+            os.path.join(data_work, "rn50"), card))
+        emit("lm_shards_path", timed_phase(
+            "lm_shards_path", lm_shards_phase,
+            os.path.join(data_work, "lm"), args.seed))
+        emit("video_shards_path", timed_phase(
+            "video_shards_path", video_shards_phase,
+            os.path.join(data_work, "video"), args.seed, card))
+    finally:
+        shutil.rmtree(data_work, ignore_errors=True)
     # Where the script's time limit goes: each phase (a path's includes
     # its warm-up and profiled window) and the whole of main().
     seconds["main_total"] = time.perf_counter() - start

@@ -163,10 +163,12 @@ class ElasticConfig:
 @dataclass(frozen=True)
 class DataConfig:
     """Input pipeline selection. The port has ``SyntheticLM``
-    (``data/synthetic.py``) for ``lm_synthetic``, the synthetic
-    ``ImageNet`` (``data/imagenet.py``) for ``imagenet``, ``MNIST``
-    (``data/mnist.py``) for ``mnist`` and the synthetic ``VideoClips``
-    (``data/video.py``) for ``video_synthetic``."""
+    (``data/synthetic.py``) for ``lm_synthetic``, ``TokenBinLM``
+    (``data/lm.py``) for ``lm``, ``ImageNet`` (``data/imagenet.py``) for
+    ``imagenet``, ``MNIST`` (``data/mnist.py``) for ``mnist`` and
+    ``VideoClips`` (``data/video.py``) for ``video``; ``data_dir`` names
+    their shards or token bins. ``streaming`` is refused (ROADMAP queue A
+    item 9, A13)."""
 
     name: str = "synthetic_mnist"
     global_batch_size: int = 128
@@ -265,10 +267,10 @@ class ResNetConfig:
     num_classes: int = 1000
     width_multiplier: int = 1
     # "conv7" = the 7x7/s2 stem; "s2d" = the space-to-depth rewrite
-    # (refused by the port's model, ROADMAP queue A item 9).
+    # (a 4x4/s1 convolution over 12 channels).
     stem: str = "conv7"
     # Stem max-pool backward: "scatter" = autodiff (first max wins);
-    # "mask" = the compare-and-sum pass (refused by the port's model).
+    # "mask" = the compare-and-sum pass (ties split the gradient).
     pool_grad: str = "scatter"
     # Train-mode BatchNorm through the hand-written backward kernels
     # (ops/fused_bn.py): the same forward, the backward as two passes.

@@ -33,11 +33,9 @@ def _build_source(cfg: DataConfig, split: str):
 
         return ImageNet(cfg, split=split)
     if name == "lm":
-        raise NotImplementedError(
-            "data.name='lm' (token shards read through the native data "
-            "core) is not ported yet (ROADMAP queue A item 9, the shard "
-            "loaders and data/native.py); use data.name=lm_synthetic"
-        )
+        from frl_distributed_ml_scaffold_tpu_torch.data.lm import TokenBinLM
+
+        return TokenBinLM(cfg, split=split)
     if name == "lm_synthetic":
         from frl_distributed_ml_scaffold_tpu_torch.data.synthetic import (
             SyntheticLM,
@@ -122,6 +120,10 @@ class PrefetchingPipeline:
     @property
     def loader_retries(self):
         return self._p.loader_retries
+
+    @property
+    def source(self):
+        return self._p.source
 
     def global_batch(self, step: int) -> dict[str, torch.Tensor]:
         if self._ex is None:  # re-open after close() (fit re-entry)

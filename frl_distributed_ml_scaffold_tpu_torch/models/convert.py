@@ -14,7 +14,8 @@ A flax ``Dense.kernel`` is ``[in, out]``; a torch ``Linear.weight`` is
 ``[out, in]``.
 
 ResNet: the flax tree names modules by class and order: ``Conv_0`` (the
-stem, HWIO kernel; the port's weights are OIHW), ``BatchNorm_0`` (or
+stem, HWIO kernel; the port's weights are OIHW; ``stem_s2d`` under
+``model.stem=s2d``, a (4, 4, 12, F) kernel), ``BatchNorm_0`` (or
 ``FusedBatchNorm_0`` under ``model.fused_bn``: the subclass's name), the
 blocks ``BottleneckBlock_i`` / ``BasicBlock_i`` (their convolutions and
 BatchNorms numbered in call order, the projection last) and ``Dense_0``.
@@ -179,7 +180,10 @@ def resnet_params_from_jax(params: dict, batch_stats: dict
         out[f"{port}.weight"] = _t(np.transpose(kernel, (3, 2, 0, 1)))
 
     top_bn = _bn_prefix(params)
-    conv("stem_conv", params["Conv_0"]["kernel"])
+    if "stem_s2d" in params:
+        conv("stem_s2d", params["stem_s2d"]["kernel"])
+    else:
+        conv("stem_conv", params["Conv_0"]["kernel"])
     bn("stem_bn", params, batch_stats, f"{top_bn}_0")
     blocks = sorted(
         (k for k in params if k.split("_")[0] in _BLOCK_LAYERS),
@@ -203,7 +207,8 @@ def init_resnet_params(cfg: ResNetConfig, generator: torch.Generator, *,
     """Seeded ``(params, extras)`` for the port's ``ResNet`` following the
     JAX model's init distributions: flax ``lecun_normal`` (truncated at
     two standard deviations, the standard deviation corrected for it;
-    fan-in = kh * kw * in) for conv and Dense kernels, zero Dense bias,
+    fan-in = kh * kw * in, 4 * 4 * 12 for the s2d stem) for conv and
+    Dense kernels, zero Dense bias,
     BatchNorm scale 1 and bias 0 except scale 0 on the last BatchNorm of
     every block, running mean 0 and var 1. Tensors are made on the
     generator's device. The numbers differ from the JAX init's (another
@@ -229,6 +234,34 @@ def init_resnet_params(cfg: ResNetConfig, generator: torch.Generator, *,
                  b.shape, dtype=torch.float32, device=dev)
              for name, b in shapes.named_buffers()}
     return params, {"batch_stats": stats}
+
+
+def s2d_stem_weights(w7: torch.Tensor) -> torch.Tensor:
+    """The exact rewrite of a 7x7 stride-2 SAME stem kernel (F, C, 7, 7)
+    as the 4x4 stride-1 kernel (F, 4C, 4, 4) over space-to-depth(2)
+    input (the JAX package's ``s2d_stem_weights``, in OIHW).
+
+    SAME pads (2, 3) for k=7, s=2, so output pixel x reads input
+    a = 2x + i - 2, i in [0, 7). In s2d coordinates a = 2u + di with
+    u = x + k - 1 (SAME pads (1, 2) for k=4, s=1), so i = 2k + di: the 7x7
+    taps relabel one to one onto (k, di), and (3, 1) (i = 7) stays 0."""
+    f, c, k7, _ = w7.shape
+    if k7 != 7:
+        raise ValueError(f"expected a 7x7 stem kernel, got {tuple(w7.shape)}")
+    w4 = w7.new_zeros((f, 4 * c, 4, 4))
+    for kh in range(4):
+        for dh in range(2):
+            ih = 2 * kh + dh
+            if ih >= 7:
+                continue
+            for kw in range(4):
+                for dw in range(2):
+                    iw = 2 * kw + dw
+                    if iw >= 7:
+                        continue
+                    ch = (dh * 2 + dw) * c
+                    w4[:, ch: ch + c, kh, kw] = w7[:, :, ih, iw]
+    return w4
 
 
 def _dense(sd: dict, port: str, leaf: dict) -> None:

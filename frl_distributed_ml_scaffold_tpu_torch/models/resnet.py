@@ -30,9 +30,17 @@ running averages by buffer name (``"<module>.mean"`` / ``".var"``), which
 the loss function returns as the new ``extras["batch_stats"]``; the
 buffers are never written by a forward.
 
-Not ported, and refused where they would take effect: ``stem="s2d"``,
-``pool_grad="mask"`` (ROADMAP queue A item 9) and ``param_hooks``, the
-FSDP per-block gather hooks (queue A item 11).
+``stem="s2d"`` is the space-to-depth stem: ``space_to_depth(x, 2)``
+(channels packed ``(di, dj, c)``) and a 4x4 stride-1 convolution over
+4C channels (``stem_s2d``; ``models/convert.py`` ``s2d_stem_weights``
+rewrites a 7x7/s2 kernel into it exactly). ``pool_grad="mask"`` is the
+stem pool whose backward is the reference's two compare-and-sum passes
+in place of autodiff's route-to-the-first-maximum: tied maxima split the
+gradient equally (``max_pool_mask_grad``). Both are plain PyTorch: XLA
+fused them in the reference; neither was a Pallas kernel.
+
+Not ported, and refused: ``param_hooks``, the FSDP per-block gather
+hooks (ROADMAP queue A item 11).
 """
 
 from __future__ import annotations
@@ -114,6 +122,78 @@ def max_pool_same(x):
     return _nhwc(F.max_pool2d(_nchw(x), 3, 2))
 
 
+def space_to_depth(x, block: int = 2):
+    """NHWC (B, H, W, C) -> (B, H/b, W/b, b*b*C), channels packed
+    ``(di, dj, c)`` row-major (the order ``s2d_stem_weights`` assumes)."""
+    b, h, w, c = x.shape
+    if h % block or w % block:
+        raise ValueError(
+            f"space_to_depth stem needs spatial dims divisible by {block}; "
+            f"got {h}x{w} — use stem='conv7' for odd input sizes")
+    x = x.reshape(b, h // block, block, w // block, block, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(
+        b, h // block, w // block, block * block * c)
+
+
+def _check_mask_pool_shape(x) -> None:
+    h, w = x.shape[1], x.shape[2]
+    if h % 2 or w % 2:
+        raise ValueError(
+            "pool_grad='mask' needs even pool-INPUT spatial dims (its "
+            f"dilation math assumes exact stride-2 coverage); got {h}x{w} "
+            "into the stem pool — use pool_grad='scatter' for odd sizes")
+
+
+def mask_pool_grad(x, y, dy):
+    """The gradient of ``max_pool_same`` at ``x`` (output ``y``) for the
+    output gradient ``dy``, as the reference's two passes. SAME on even
+    dims pads (0, 1), so window p reads inputs 2p + t, t in {0, 1, 2}.
+    Pass 1 counts, per window, the entries equal to its max. Pass 2 gives
+    each input the sum of ``dy / count`` over the covering windows whose
+    max equals it, tap by tap in the reference's order; each tap touches
+    the stride-2 grid of its offset only (where the reference dilates
+    onto the whole input grid)."""
+    ho, wo = y.shape[1], y.shape[2]
+    xp = F.pad(x, (0, 0, 0, 2, 0, 2), value=float("-inf"))
+    count = torch.zeros(y.shape, dtype=dy.dtype, device=dy.device)
+    for th in range(3):
+        for tw in range(3):
+            patch = xp[:, th: th + 2 * ho - 1: 2, tw: tw + 2 * wo - 1: 2]
+            count = count + (patch == y).to(dy.dtype)
+    scaled = dy / count  # >= 1: the max is always in its window
+    dx = torch.zeros_like(x)
+    for th in range(3):
+        nh = ho - th // 2  # the last window's third row is padding
+        for tw in range(3):
+            nw = wo - tw // 2
+            at = (slice(None), slice(th, th + 2 * nh - 1, 2),
+                  slice(tw, tw + 2 * nw - 1, 2))
+            hit = x[at] == y[:, :nh, :nw]
+            dx[at] += torch.where(hit, scaled[:, :nh, :nw], 0.0).to(x.dtype)
+    return dx
+
+
+class _MaxPoolMaskGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = max_pool_same(x)
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, y = ctx.saved_tensors
+        return mask_pool_grad(x, y, dy)
+
+
+def max_pool_mask_grad(x):
+    """``max_pool_same`` whose backward is ``mask_pool_grad``: without
+    ties it equals autodiff's; tied maxima split the gradient equally
+    where autodiff routes it all to the first. Odd dims raise."""
+    _check_mask_pool_shape(x)
+    return _MaxPoolMaskGrad.apply(x)
+
+
 class BottleneckBlock(nn.Module):
     """1x1 -> 3x3 (stride) -> 1x1 (4x filters), each with BatchNorm, the
     last one zero-initialised; a projection (1x1 with the stride, and its
@@ -171,19 +251,10 @@ class ResNet(nn.Module):
     def __init__(self, config: ResNetConfig, policy: Policy, *,
                  in_channels: int = 3, param_hooks=None, device=None):
         super().__init__()
-        if config.stem == "s2d":
-            raise NotImplementedError(
-                "model.stem='s2d' (the space-to-depth stem) is not ported "
-                "yet (ROADMAP queue A item 9); use stem='conv7'")
-        if config.stem != "conv7":
+        if config.stem not in ("conv7", "s2d"):
             raise ValueError(f"unknown ResNet stem {config.stem!r}; expected "
                              "'conv7' or 's2d'")
-        if config.pool_grad == "mask":
-            raise NotImplementedError(
-                "model.pool_grad='mask' (the compare-and-sum pool backward) "
-                "is not ported yet (ROADMAP queue A item 9); use "
-                "pool_grad='scatter'")
-        if config.pool_grad != "scatter":
+        if config.pool_grad not in ("scatter", "mask"):
             raise ValueError(f"unknown pool_grad {config.pool_grad!r}; "
                              "expected 'scatter' or 'mask'")
         if param_hooks is not None:
@@ -206,7 +277,10 @@ class ResNet(nn.Module):
             return Conv(cin, cout, k, stride, param_dtype=pd, device=dev)
 
         width = 64 * config.width_multiplier
-        self.stem_conv = conv(in_channels, width, 7, 2)
+        if config.stem == "s2d":
+            self.stem_s2d = conv(4 * in_channels, width, 4, 1)
+        else:
+            self.stem_conv = conv(in_channels, width, 7, 2)
         self.stem_bn = norm(width)
         block_cls = BottleneckBlock if BOTTLENECK[config.depth] else BasicBlock
         blocks, cin = [], width
@@ -229,9 +303,16 @@ class ResNet(nn.Module):
         """``x`` [B, H, W, C] -> ``(logits [B, classes], updates)``."""
         cd = self.policy.compute_dtype
         updates: dict[str, torch.Tensor] = {}
-        x = self.stem_conv(x.to(cd))
+        x = x.to(cd)
+        if self.config.stem == "s2d":
+            x = self.stem_s2d(space_to_depth(x, 2))
+        else:
+            x = self.stem_conv(x)
         x = F.relu(self.stem_bn(x, train=train, updates=updates))
-        x = max_pool_same(x)
+        if self.config.pool_grad == "mask":
+            x = max_pool_mask_grad(x)
+        else:
+            x = max_pool_same(x)
         for block in self.blocks:
             x = block(x, train, updates)
         x = x.mean(dim=(1, 2))  # global average pool

@@ -68,15 +68,17 @@ def pallas_interpret():
 
 
 def jax_resnet_variables(depth: int, num_classes: int, image: int,
-                         seed: int = 0, spread: float | None = 0.3) -> dict:
+                         seed: int = 0, spread: float | None = 0.3,
+                         **model) -> dict:
     """The JAX ResNet's variables (numpy leaves, fp32, ``model.fused_bn``
     off). Unless ``spread`` is None, every BatchNorm's scale (1 + spread
     N(0, 1)), bias and running mean (spread / 3 N(0, 1)) and running var
     (U(0.5, 1.5)) are drawn from a numpy seed: the init's zero scale on
     each block's last BatchNorm would leave every residual branch out of
-    a forward comparison."""
-    model = JaxResNet(JaxResNetConfig(depth=depth, num_classes=num_classes),
-                      jax_policy("fp32"))
+    a forward comparison. ``model`` sets other ResNetConfig fields
+    (``stem="s2d"``)."""
+    model = JaxResNet(JaxResNetConfig(depth=depth, num_classes=num_classes,
+                                      **model), jax_policy("fp32"))
     variables = jax.device_get(jit_init(
         model, jnp.zeros((1, image, image, 3), jnp.float32), train=False))
     rng = np.random.default_rng(seed)

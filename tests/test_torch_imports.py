@@ -64,7 +64,8 @@ def test_scans_cover_every_port_module():
     "utils/logging.py", "utils/timing.py", "utils/trees.py",
     "utils/profiling.py", "utils/flops.py", "faults/plan.py",
     "faults/retry.py", "telemetry/metrics.py", "telemetry/timeline.py",
-    "telemetry/tracing.py", "telemetry/watchdog.py",
+    "telemetry/tracing.py", "telemetry/watchdog.py", "data/native.py",
+    "data/shards.py", "data/imagenet.py", "data/lm.py",
 ], ids=lambda r: r.replace("/", "."))
 def test_scans_cover_the_training_modules(rel):
     """The training slice's modules are among those both scans walk."""

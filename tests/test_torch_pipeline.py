@@ -2,7 +2,7 @@
 pipeline.py) against the JAX package's: ``local_batch(step)`` bit for bit
 for every synthetic source, prefetched batches equal to unprefetched
 ones (after a seek too), the same retry count under an armed
-``data.loader`` fault, and the refusal of ``data.name=lm``."""
+``data.loader`` fault, and the refusal of streaming token bins."""
 
 from __future__ import annotations
 
@@ -103,9 +103,13 @@ def test_loader_budget_exhaustion_raises_alike():
     assert tp.loader_retries == jp.loader_retries == 1
 
 
-def test_lm_shards_and_unknown_sources_are_refused():
+def test_lm_shards_and_unknown_sources_are_refused(tmp_path):
+    """Streaming token bins are refused, naming their item; an unknown
+    dataset raises."""
     with pytest.raises(NotImplementedError, match="queue A item 9"):
-        tpipeline.build_pipeline(tschema.DataConfig(name="lm"), device="cpu")
+        tpipeline.build_pipeline(
+            tschema.DataConfig(name="lm", data_dir=str(tmp_path),
+                               streaming=True), device="cpu")
     with pytest.raises(KeyError, match="unknown dataset"):
         tpipeline.build_pipeline(tschema.DataConfig(name="nope"),
                                  device="cpu")

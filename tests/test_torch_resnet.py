@@ -271,14 +271,18 @@ def test_create_model_and_refusals():
     if not torch.cuda.is_available():  # the entry point defaults to cuda
         with pytest.raises(RuntimeError, match="no CUDA device"):
             create_model(cfg, pol)
-    for kw, item in (({"stem": "s2d"}, "item 9"),
-                     ({"pool_grad": "mask"}, "item 9")):
-        with pytest.raises(NotImplementedError, match=item):
-            create_model(dataclasses.replace(cfg, **kw), pol, device="cpu")
+    s2d = create_model(dataclasses.replace(cfg, stem="s2d",
+                                           pool_grad="mask"), pol,
+                       device="cpu")
+    assert tuple(s2d.stem_s2d.weight.shape) == (64, 12, 4, 4)
+    assert not hasattr(s2d, "stem_conv")
     with pytest.raises(NotImplementedError, match="item 11"):
         tresnet.ResNet(cfg, pol, param_hooks=object(), device="cpu")
     with pytest.raises(ValueError, match="stem"):
         create_model(dataclasses.replace(cfg, stem="conv9"), pol,
+                     device="cpu")
+    with pytest.raises(ValueError, match="pool_grad"):
+        create_model(dataclasses.replace(cfg, pool_grad="nope"), pol,
                      device="cpu")
     for own, cls in ((tschema.MLPConfig(), tmlp.MLP),
                      (tschema.ViTConfig(), tvit.ViT),
@@ -287,5 +291,5 @@ def test_create_model_and_refusals():
     with pytest.raises(KeyError, match="unknown model family"):
         create_model(dataclasses.replace(cfg, family="nope"), pol)
     with pytest.raises(NotImplementedError, match="item 9"):
-        ImageNet(tschema.DataConfig(name="imagenet", data_dir="/data"),
-                 split="train")
+        ImageNet(tschema.DataConfig(name="imagenet", data_dir="/data",
+                                    streaming=True), split="train")

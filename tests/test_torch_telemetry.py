@@ -8,6 +8,7 @@ fault-plan parser agree."""
 from __future__ import annotations
 
 import json
+import re
 import time
 
 import pytest
@@ -234,14 +235,18 @@ def _fit(tmp_path, *extra):
 
 
 def test_hung_step_fires_the_loop_watchdog(tmp_path):
-    """A hung step (0.5 s against a 0.06 s deadline) is reported: the
-    stalls counter in metrics.prom and the dump, and the run completes."""
+    """A hung step (1.5 s against a 0.3 s deadline) is reported: the
+    stalls counter in metrics.prom and the dump, and the run completes.
+    An ordinary step on a loaded host may also pass the deadline, so the
+    count is held to at least one, as the JAX twin holds it."""
     with tfaults.active(tfaults.FaultPlan(
-            [dict(site="trainer.hung_step", key="3", arg=0.5)])):
-        _, state, run = _fit(tmp_path, "trainer.stall_timeout_s=0.06",
+            [dict(site="trainer.hung_step", key="3", arg=1.5)])):
+        _, state, run = _fit(tmp_path, "trainer.stall_timeout_s=0.3",
                              "trainer.stall_timeout_first_beat_scale=200")
     assert state.step == 6
-    assert "stalls_total 1" in (run / "metrics.prom").read_text()
+    stalls = re.search(r"^stalls_total (\S+)$",
+                       (run / "metrics.prom").read_text(), re.M)
+    assert stalls is not None and float(stalls[1]) >= 1
     assert "no progress" in (run / "stall_dump.txt").read_text()
 
 

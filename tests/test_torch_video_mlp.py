@@ -16,8 +16,8 @@ the JAX package, on the CPU, inputs from a numpy seed.
 - The converters fill every parameter, the inits follow the JAX inits'
   distributions, ``SyntheticVideo``, ``VideoClips`` and ``MNIST``
   batches (synthetic, ``mnist.npz``, IDX gzipped and raw, files the test
-  writes) equal the JAX package's bit for bit, and ``data_dir`` is
-  refused for video.
+  writes) equal the JAX package's bit for bit, and streaming clip
+  shards are refused.
 
 Tolerances (``_torch_parity.LOGIT_TOL`` / ``TRAIN_TOL``, shared with
 test_torch_vit.py, whose docstring says why bf16 differs and why Adam's
@@ -260,8 +260,8 @@ def test_synthetic_video_matches_jax():
                 for k in want:
                     np.testing.assert_array_equal(got[k], want[k])
     with pytest.raises(NotImplementedError, match="item 9"):
-        VideoClips(tschema.DataConfig(name="video", data_dir="/data"),
-                   split="train")
+        VideoClips(tschema.DataConfig(name="video", data_dir="/data",
+                                      streaming=True), split="train")
 
 
 def _idx(path, arr: np.ndarray, opener=open):
