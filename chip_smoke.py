@@ -73,6 +73,32 @@ no final line):
    contiguous and the fp8_e4m3 paged cache (``fp32_quant_check``). A
    differing greedy pick passes only where the top-2 logit gap there is
    below ``FP32_GAP_TOL``.
+7a. disagg_path: the same model with ``serving.kv_block_size=16
+   serving.disaggregate=true`` (8 slots, ``prefill_max_per_tick=1``,
+   tenants fg latency and bg best_effort) through ``build_engine``'s
+   ``DisaggServingEngine``, beside the colocated paged engine in the same
+   call, each a warm pass, ``reset_cache`` and a timed pass of the
+   disaggregation mix (fg: 2 prompts of 4-8 tokens, 128 new; bg: 24 of
+   505-512 tokens, 1 new): tokens/s, TTFT and gap-based TPOT p50 / p99
+   per tenant and the fg TPOT p99 ratio (reported, not gated),
+   handoffs, deferrals, preemptions, parks, resumes, the transfer
+   counter (0 by construction: one shared pool has no transfer path;
+   checked registered and 0) and the idle share of 4 profiled
+   ticks. Both passes token-identical; the paged decode kernel 24 times
+   a step and no other kernel; then a chaos pass (one
+   ``serve.prefill_worker`` and one ``serve.handoff`` failure) in which
+   every request ends ``ok`` with the fault-free tokens.
+   draft_path: ``serving.speculate=draft serving.speculate_k=4`` with a
+   seeded fp32 draft GPT (1 layer, width 128, 2 heads) against the
+   plain paged engine, 8 requests of 48 new tokens, under bf16_mixed
+   (timed: tokens/s, accept rate, tokens per slot-step, requests equal
+   to the plain engine's) and under fp32 (token for token, the top-2-gap
+   rule below); the contiguous decode kernel 3 times a draft round, the
+   paged kernels 24 times a step of their kind, nothing else.
+   serve_faults_check: a queue bound of 2 sheds, a queued deadline
+   expires, ``serve.prefill`` quarantines (bucketed and paged) and
+   ``serve.grow`` fails a growth, each with its typed completion and its
+   counter in the engine's registry.
 8. flash_kernel_checks: the three training-attention kernels
    (``csrc/flash_attention.cu``: forward, dQ, dK/dV) against their plain
    versions, O and lse, dQ, dK and dV, bf16 and fp32, causal and not, at
@@ -1306,6 +1332,447 @@ def fp32_paged_phase(cfg, sd, seed: int) -> dict:
     return {"policy": "fp32", "allow_tf32": False, "engine_stats": stats,
             "identical": sum(e["identical"] for e in report),
             "requests": report}
+
+
+# ------------------------------------------------ disaggregation and draft
+
+DISAGG_OVERRIDES = ["serving.kv_block_size=16", "serving.disaggregate=true"]
+DRAFT_OVERRIDES = ["serving.kv_block_size=16", "serving.speculate=draft",
+                   "serving.speculate_k=4"]
+# The disaggregated pass's fault drill: one prefill-worker failure and one
+# handoff failure mid-burst (each re-queued once).
+DISAGG_CHAOS = [dict(site="serve.prefill_worker", at=2, times=1),
+                dict(site="serve.handoff", at=3, times=1)]
+# Ticks of the disaggregated pass under the profiler: a prefill and a
+# decode step each, inside the burst.
+DISAGG_PROFILE_TICKS = 4
+
+
+def disagg_workload(cfg, slots: int, seed: int, max_new: int = 64):
+    """The mix the disaggregation A/B serves: a decode-heavy foreground
+    (2 prompts of 4-8 tokens, budget ``min(2 max_new, seq_len / 8)``: 128
+    new tokens at 1024 context) and a prefill-heavy burst (3 x ``slots``
+    prompts of half the context less 0-7 tokens, budget 1)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 5)
+    vocab = cfg.vocab_size
+    budget = max(16, min(2 * max_new, cfg.seq_len // 8))
+    dec = [(rng.integers(0, vocab, size=int(rng.integers(4, 9)))
+            .astype(np.int32), budget) for _ in range(2)]
+    half = cfg.seq_len // 2
+    burst = [(rng.integers(0, vocab, size=half - int(rng.integers(0, 8)))
+              .astype(np.int32), 1) for _ in range(3 * slots)]
+    return dec, burst
+
+
+def _gap_ms(comps) -> list:
+    """Inter-token gaps (ms) of ``comps`` from their token arrival times:
+    the TPOT a decoding tenant sees, inline prefills included."""
+    import numpy as np
+
+    gaps = []
+    for c in comps:
+        if len(c.token_times_s) > 1:
+            gaps.extend((np.diff(np.asarray(c.token_times_s)) * 1e3).tolist())
+    return gaps
+
+
+def _tenant_slo(comps) -> dict:
+    import numpy as np
+
+    gaps = _gap_ms(comps)
+    ttft = [c.ttft_s * 1e3 for c in comps]
+    return {
+        "requests": len(comps),
+        "ttft_ms_p50": float(np.percentile(ttft, 50)),
+        "ttft_ms_p99": float(np.percentile(ttft, 99)),
+        "tpot_gap_ms_p50": float(np.percentile(gaps, 50)) if gaps else None,
+        "tpot_gap_ms_p99": float(np.percentile(gaps, 99)) if gaps else None,
+    }
+
+
+def disagg_phase(cfg, sd, seed: int, card: str) -> dict:
+    """``gpt2_medium_serve`` at full width and depth with
+    ``serving.kv_block_size=16``, 8 slots: the colocated paged engine and
+    the disaggregated one (``serving.disaggregate=true``, tenants fg
+    latency and bg best_effort, ``prefill_max_per_tick=1``) serve
+    ``disagg_workload`` each as a warm pass, ``reset_cache`` and a timed
+    pass. Both timed passes must be token-identical; the paged decode
+    kernel launches 24 times per decode step and no other kernel runs;
+    the shared pool moves no bytes at handoff. Then a profiled pass of
+    the disaggregated engine (idle share) and a chaos pass (one
+    prefill-worker and one handoff failure) whose every request ends
+    ``ok``."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from frl_distributed_ml_scaffold_tpu_torch import faults
+    from frl_distributed_ml_scaffold_tpu_torch.config import apply_overrides
+    from frl_distributed_ml_scaffold_tpu_torch.models.gpt import GPT
+    from frl_distributed_ml_scaffold_tpu_torch.precision import get_policy
+    from frl_distributed_ml_scaffold_tpu_torch.serving import (
+        DisaggServingEngine,
+        TenantSpec,
+        build_engine,
+    )
+
+    cfgd = apply_overrides(cfg, DISAGG_OVERRIDES)
+    cfgc = apply_overrides(cfg, DISAGG_OVERRIDES[:1])
+    model = GPT(cfgd.model, get_policy(cfgd.precision), device="cuda")
+    model.load_state_dict(sd)
+    slots, layers = 8, cfgd.model.num_layers
+    dec, burst = disagg_workload(cfgd.model, slots, seed)
+    tenants = [TenantSpec("fg", "latency"), TenantSpec("bg", "best_effort")]
+
+    def submit_all(eng, disagg):
+        ids = []
+        for group, work in (("fg", dec), ("bg", burst)):
+            for p, n in work:
+                kw = {"tenant": group} if disagg else {}
+                ids.append((group, eng.submit(p, n, **kw)))
+        return ids
+
+    def timed(eng, disagg):
+        submit_all(eng, disagg)  # warm pass
+        eng.run()
+        eng.reset_cache()
+        ids = submit_all(eng, disagg)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = {c.id: c for c in eng.run()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+        check(sorted(done) == sorted(i for _, i in ids),
+              "disagg path: not every request completed")
+        comps = [(g, done[i]) for g, i in ids]
+        for g, c in comps:
+            check(c.ok, f"disagg path: request {c.id} finished "
+                  f"{c.finish_reason}")
+        st = eng.stats
+        check_launches(counts, {"paged_decode_attention": st["decode_paged"]},
+                       layers, "disagg path")
+        n_tok = sum(len(c.tokens) - c.prompt_len for _, c in comps)
+        return comps, {
+            "wall_s": wall, "generated_tokens": n_tok,
+            "tokens_per_s": n_tok / wall,
+            "fg": _tenant_slo([c for g, c in comps if g == "fg"]),
+            "bg": _tenant_slo([c for g, c in comps if g == "bg"]),
+            "decode_steps": st["decode_steps"], "launches": counts,
+        }
+
+    colo = build_engine(model, serving=cfgc.serving, num_slots=slots,
+                        temperature=0.0)
+    colo_comps, colo_rep = timed(colo, False)
+    eng = build_engine(model, serving=cfgd.serving, num_slots=slots,
+                       temperature=0.0, tenants=tenants)
+    check(isinstance(eng, DisaggServingEngine),
+          "build_engine did not dispatch to DisaggServingEngine")
+    comps, rep = timed(eng, True)
+    for (_, a), (_, b) in zip(colo_comps, comps):
+        check(np.array_equal(a.tokens, b.tokens),
+              f"disagg path: request {b.id} differs from the colocated run")
+    st = dict(eng.stats)
+    check(st["handoffs"] == len(comps) == st["handoff_splices"],
+          "disagg path: a request did not cross by handoff")
+    # Shared-pool mode has no transfer path: the handoff re-owns blocks,
+    # so the transfer counter reads 0 by construction. What is checked is
+    # that it is registered, still 0, and absent from the stats.
+    transfer = eng.telemetry.snapshot().get(
+        "serve_handoff_transfer_bytes_total")
+    check(transfer == 0 and "handoff_transfer_bytes" not in st,
+          "disagg path: the transfer counter is missing or moved in "
+          f"shared-pool mode ({transfer})")
+    check(st["prefill_deferred"] > 0, "disagg path: the burst never deferred")
+    check(eng.decode._reserved_future == 0 and not any(
+        eng.decode._slot_blocks), "disagg path: reservations left")
+    handoff_h = eng.telemetry.histogram("serve_handoff_seconds")
+
+    # Idle share: the burst's first DISAGG_PROFILE_TICKS ticks of one
+    # more pass of the disaggregated engine, profiled.
+    eng.reset_cache()
+    submit_all(eng, True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(DISAGG_PROFILE_TICKS):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    profile_rep = device_profile(prof, wall)
+    eng.run()
+
+    # Chaos: each failure re-queues once, every request still serves.
+    eng.reset_cache()
+    plan = faults.FaultPlan(DISAGG_CHAOS, seed=seed)
+    with faults.active(plan):
+        ids = submit_all(eng, True)
+        chaos = {c.id: c for c in eng.run()}
+    cst = eng.stats
+    check(sorted(chaos) == sorted(i for _, i in ids) and all(
+        c.ok for c in chaos.values()),
+        "disagg chaos: a request did not end ok")
+    check(cst["prefill_worker_failures"] == 1 and cst["handoff_failures"] == 1,
+          f"disagg chaos: failures {dict(cst)}")
+    for (_, i), (_, c) in zip(ids, comps):
+        check(np.array_equal(chaos[i].tokens, c.tokens),
+              f"disagg chaos: request {i} differs from the fault-free run")
+    fg_c, fg_d = colo_rep["fg"], rep["fg"]
+    report = {
+        "card": card, "config": cfgd.name, "overrides": DISAGG_OVERRIDES,
+        "policy": cfgd.precision.policy, "layers": layers,
+        "d_model": cfgd.model.hidden_dim, "slots": slots,
+        "prefill_max_per_tick": eng.prefill_max_per_tick,
+        "fg_requests": len(dec), "fg_budget": dec[0][1],
+        "bg_requests": len(burst),
+        "bg_prompt_lens": [len(p) for p, _ in burst],
+        "colocated": colo_rep, "disaggregated": rep,
+        "fg_tpot_gap_p99_ratio_colocated_over_disagg": (
+            fg_c["tpot_gap_ms_p99"] / fg_d["tpot_gap_ms_p99"]),
+        "tokens_per_s_ratio_disagg_over_colocated": (
+            rep["tokens_per_s"] / colo_rep["tokens_per_s"]),
+        "token_identical": True,
+        "handoffs": st["handoffs"],
+        "handoff_p50_ms": handoff_h.quantile(0.5) * 1e3,
+        "prefill_deferred": st["prefill_deferred"],
+        "admission_deferred": st.get("admission_deferred", 0),
+        "preemptions": st.get("preemptions", 0),
+        "parked": st.get("parked", 0), "resumed": st.get("resumed", 0),
+        "handoff_transfer_bytes": transfer,
+        "handoff_transfer_bytes_note": "0 by construction: one shared pool, "
+                                       "no transfer path",
+        "stats": st,
+        "profile": {"ticks": DISAGG_PROFILE_TICKS, **{
+            k: profile_rep[k] for k in (
+                "wall_s", "device_busy_s", "device_idle_share",
+                "cuda_events", "top_device_s")}},
+        "chaos": {"injected": dict(plan.injected),
+                  "prefill_worker_failures": cst["prefill_worker_failures"],
+                  "handoff_failures": cst["handoff_failures"],
+                  "requeued": cst["prefill_worker_requeued"]
+                  + cst["handoff_requeued"],
+                  "completed_ok": len(chaos)},
+    }
+    del model
+    return report
+
+
+def draft_phase(cfg, sd, seed: int, card: str) -> dict:
+    """The paged engine with ``serving.speculate=draft
+    serving.speculate_k=4`` and a seeded fp32 draft GPT of one layer,
+    width ``hidden_dim / 8`` (128) and 2 heads, against the plain paged
+    engine on 8 of the paged path's requests, 48 new tokens each. Each
+    draft round is one ``generate`` of the draft that launches the
+    contiguous decode kernel ``speculate_k - 1`` times; the target's
+    verify and decode steps launch the paged kernels 24 times each;
+    nothing else launches. Under the serving policy (bf16_mixed) it is
+    timed, with its accept rate and tokens per slot-step (a random draft
+    accepts little) and how many requests equal the plain engine's (the
+    verify tile's products take other GEMM shapes than a decode step's,
+    so a bf16 near-tie may flip). Under fp32 it is held to the plain
+    engine token for token: a differing greedy pick passes only where the
+    top-2 logit gap there is below ``FP32_GAP_TOL``."""
+    import numpy as np
+
+    from frl_distributed_ml_scaffold_tpu_torch.config import apply_overrides
+    from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
+        GPTConfig,
+        PrecisionConfig,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.models.convert import (
+        init_params,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.models.gpt import GPT
+    from frl_distributed_ml_scaffold_tpu_torch.precision import get_policy
+    from frl_distributed_ml_scaffold_tpu_torch.serving import build_engine
+
+    dcfg = GPTConfig(vocab_size=cfg.model.vocab_size, num_layers=1,
+                     num_heads=2, hidden_dim=cfg.model.hidden_dim // 8,
+                     seq_len=cfg.model.seq_len)
+    draft = GPT(dcfg, get_policy("fp32"), device="cuda")
+    draft.load_state_dict(init_params(
+        dcfg, torch.Generator("cuda").manual_seed(seed + 11)))
+    reqs = paged_requests(seed, cfg.model.vocab_size)[:8]
+    new_tokens, layers = 48, cfg.model.num_layers
+
+    def serve_all(eng):
+        ids = [eng.submit(p, new_tokens) for p in reqs]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = {c.id: c for c in eng.run()}
+        torch.cuda.synchronize()
+        return [done[i] for i in ids], time.perf_counter() - t0
+
+    def run(cfg_run):
+        """Plain and draft engines over ``cfg_run``'s policy: warm
+        passes, then one timed pass each (launches read over the draft
+        engine's)."""
+        model = GPT(cfg_run.model, get_policy(cfg_run.precision),
+                    device="cuda")
+        model.load_state_dict(sd)
+        plain = build_engine(
+            model, serving=apply_overrides(cfg_run, DRAFT_OVERRIDES[:1])
+            .serving, num_slots=8, temperature=0.0)
+        serve_all(plain)  # warm-up
+        plain.reset_cache()
+        want, plain_wall = serve_all(plain)
+        eng = build_engine(
+            model, serving=apply_overrides(cfg_run, DRAFT_OVERRIDES).serving,
+            num_slots=8, temperature=0.0, draft_model=draft)
+        rounds = [0]
+        draft_fn = eng._draft_fn
+
+        def counted(windows, lens):
+            rounds[0] += 1
+            return draft_fn(windows, lens)
+
+        eng._draft_fn = counted
+        serve_all(eng)  # warm-up
+        eng.reset_cache()
+        rounds[0] = 0
+        reset_launches()
+        got, wall = serve_all(eng)
+        counts = read_launches()
+        st = eng.stats
+        what = f"draft path ({cfg_run.precision.policy})"
+        b4 = counts.pop("decode_attention")
+        check(b4 == rounds[0] * (eng.spec_k - 1) * dcfg.num_layers and b4 > 0,
+              f"{what}: the draft's decode kernel launched {b4} times in "
+              f"{rounds[0]} rounds")
+        check(st["decode_verify"] > 0 and st["spec_proposed"] > 0,
+              f"{what}: nothing was proposed")
+        check_launches(counts, {n: s for n, s in (
+            ("paged_decode_attention", st["decode_paged"]),
+            ("paged_verify_attention", st["decode_verify"])) if s},
+            layers, what)
+        check(all(c.ok for c in got) and eng._reserved_future == 0
+              and not any(eng._slot_blocks), f"{what}: reservations left")
+        n_tok = sum(len(c.tokens) - c.prompt_len for c in got)
+        report = {
+            "tokens_per_s": n_tok / wall,
+            "plain_paged_tokens_per_s": n_tok / plain_wall,
+            "spec_accept_rate": st["spec_accepted"] / st["spec_proposed"],
+            "tokens_per_slot_step": st["step_tokens"] / st["slot_steps"],
+            "draft_rounds": rounds[0], "draft_decode_launches": b4,
+            "launches": {**counts, "decode_attention": b4},
+            "stats": dict(st),
+        }
+        diffs = []
+        for i, (a, b) in enumerate(zip(got, want)):
+            n = min(len(a.tokens), len(b.tokens))
+            j = next((j for j in range(n) if a.tokens[j] != b.tokens[j]), None)
+            if j is None:
+                check(len(a.tokens) == len(b.tokens),
+                      f"{what}: request {i} lengths differ")
+                continue
+            diffs.append({"request": i, "first_diff_step": j - a.prompt_len,
+                          "top2_gap": _top2_gap(model, cfg_run,
+                                                a.tokens[:j])})
+        report["identical_to_plain_paged"] = len(got) - len(diffs)
+        report["differing"] = diffs
+        return report
+
+    bf16 = run(apply_overrides(cfg, DRAFT_OVERRIDES[:1]))
+    fp32 = run(cfg.replace(precision=PrecisionConfig(policy="fp32")))
+    for d in fp32["differing"]:
+        check(d["top2_gap"] <= FP32_GAP_TOL,
+              f"draft path (fp32): request {d['request']} differs from the "
+              f"plain paged engine at step {d['first_diff_step']} with "
+              f"top-2 gap {d['top2_gap']}")
+    del draft
+    return {
+        "card": card, "config": cfg.name, "overrides": DRAFT_OVERRIDES,
+        "layers": layers,
+        "draft": {"layers": dcfg.num_layers, "d_model": dcfg.hidden_dim,
+                  "heads": dcfg.num_heads, "policy": "fp32"},
+        "slots": 8, "requests": len(reqs), "new_tokens": new_tokens,
+        "bf16_mixed": bf16, "fp32": fp32, "gap_tol": FP32_GAP_TOL,
+    }
+
+
+def serve_faults_phase(cfg, sd) -> dict:
+    """The colocated engine's typed failures on the card, at full width:
+    a queue bound of 2 sheds, a request queued past its deadline expires
+    before its prefill, the ``serve.prefill`` site quarantines a request
+    (paged: its reservation released) and ``serve.grow`` fails a bucket
+    growth; each with its completion and its counter in the registry,
+    and the other requests served."""
+    import dataclasses
+
+    import numpy as np
+
+    from frl_distributed_ml_scaffold_tpu_torch import faults
+    from frl_distributed_ml_scaffold_tpu_torch.models.gpt import GPT
+    from frl_distributed_ml_scaffold_tpu_torch.precision import get_policy
+    from frl_distributed_ml_scaffold_tpu_torch.serving import ServingEngine
+
+    model = GPT(cfg.model, get_policy(cfg.precision), device="cuda")
+    model.load_state_dict(sd)
+    serving = cfg.serving
+    p = np.arange(16, dtype=np.int32) + 100
+    out = {}
+
+    def engine(slots=2, **kw):
+        return ServingEngine(model, num_slots=slots, temperature=0.0,
+                             serving=dataclasses.replace(serving, **kw))
+
+    eng = engine(slots=1, max_queue_depth=2)
+    ids = [eng.submit(p + i, 3) for i in range(4)]
+    done = {c.id: c for c in eng.run()}
+    reasons = [done[i].finish_reason for i in ids]
+    check(reasons == ["length", "length", "shed", "shed"],
+          f"serve faults: shed {reasons}")
+    out["shed"] = {"reasons": reasons, "serve_shed_total":
+                   eng.telemetry.counter("serve_shed_total").value}
+    check(out["shed"]["serve_shed_total"] == 2, "serve faults: shed counter")
+
+    eng = engine(slots=1)
+    ra = eng.submit(p, 6, deadline_s=1e-6)
+    rb = eng.submit(p + 1, 3)
+    time.sleep(0.01)
+    done = {c.id: c for c in eng.run()}
+    n = eng.telemetry.counter("serve_deadline_miss_total").value
+    check(done[ra].finish_reason == "deadline" and done[rb].ok and n == 1,
+          "serve faults: queued deadline")
+    out["deadline"] = {"reasons": [done[ra].finish_reason,
+                                   done[rb].finish_reason],
+                       "serve_deadline_miss_total": n}
+
+    for name, kw in (("quarantine", {}),
+                     ("quarantine_paged", {"kv_block_size": 16})):
+        eng = engine(**kw)
+        ra, rb = eng.submit(p, 4), eng.submit(p + 1, 4)
+        with faults.active(faults.FaultPlan(
+                [dict(site="serve.prefill", key=str(ra))])):
+            done = {c.id: c for c in eng.run()}
+        n = eng.telemetry.counter("serve_quarantined_total").value
+        check(done[ra].finish_reason == "error" and done[rb].ok and n == 1,
+              f"serve faults: {name}")
+        if kw:
+            check(eng._reserved_future == 0, "serve faults: reservation left")
+        out[name] = {"reasons": [done[ra].finish_reason,
+                                 done[rb].finish_reason],
+                     "serve_quarantined_total": n}
+
+    eng = engine()
+    ra = eng.submit(p[:4], 30)  # grows past the first bucket
+    rb = eng.submit(p[:3] + 1, 4)
+    with faults.active(faults.FaultPlan([dict(site="serve.grow")])):
+        done = {c.id: c for c in eng.run()}
+    n = eng.telemetry.counter("serve_grow_failures_total").value
+    check(done[ra].finish_reason == "error" and done[rb].ok and n == 1
+          and len(done[ra].tokens) > done[ra].prompt_len,
+          "serve faults: grow")
+    out["grow"] = {"reasons": [done[ra].finish_reason,
+                               done[rb].finish_reason],
+                   "serve_grow_failures_total": n,
+                   "partial_tokens": len(done[ra].tokens)
+                   - done[ra].prompt_len}
+    del model
+    return out
 
 
 # ------------------------------------------------------------ flash kernels
@@ -3604,6 +4071,15 @@ def main() -> int:
         "fp8_e4m3_paged_vs_contiguous": timed_phase(
             "fp32_quant_check_fp8", fp32_paged_phase, cfg_fp8, sd, args.seed),
     })
+    # The disaggregated engine, the draft tier and the typed failures:
+    # their launch counts are reported in their own lines (the kernels
+    # line keeps the paths above).
+    emit("disagg_path", timed_phase("disagg_path", disagg_phase, cfg, sd,
+                                    args.seed, card))
+    emit("draft_path", timed_phase("draft_path", draft_phase, cfg, sd,
+                                   args.seed, card))
+    emit("serve_faults_check", timed_phase("serve_faults_check",
+                                           serve_faults_phase, cfg, sd))
     kern.update(timed_phase("flash_kernel", flash_kernel_phase, gen))
     report, counts, profile = timed_phase("train_path", train_phase, sd, card)
     launches.update({k: n for k, n in counts.items() if n})

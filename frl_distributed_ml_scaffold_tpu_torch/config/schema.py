@@ -189,11 +189,12 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class ServingConfig:
-    """Serving knobs of the continuous-batching engine. The port runs
-    the bucketed contiguous cache, the paged pool with the prefix cache
-    and ``speculate=ngram``, each over a bf16/fp32 or a quantized cache
-    (``model.kv_cache_quant``); ``ServingEngine`` refuses the rest
-    (``speculate=draft``, disaggregation, deadlines, load shedding)."""
+    """Serving knobs of the continuous-batching engine: the queue bound
+    and default deadline, the bucketed contiguous cache or the paged pool
+    with the prefix cache, speculation (``ngram``, or ``draft`` with a
+    draft model) over a bf16/fp32 or a quantized cache
+    (``model.kv_cache_quant``), and the disaggregated prefill/decode
+    workers (``build_engine`` dispatches on ``disaggregate``)."""
 
     # Bounded admission (load shedding); 0 = unbounded.
     max_queue_depth: int = 0

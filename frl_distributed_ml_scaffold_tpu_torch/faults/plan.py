@@ -18,9 +18,10 @@ of the JAX package's ``faults/plan.py``.
 The ambient plan lives in ``faults/__init__.py``; this module is the
 mechanism. The port's training loop, data pipeline and checkpointer
 consult ``trainer.*``, ``data.loader`` and ``checkpoint.torn_write``;
-the serving and elastic sites are kept so plans mean the same in both
-packages (the port's engine and launcher do not consult them yet:
-ROADMAP queue A items 3 and 13).
+the serving engine and the disaggregated scheduler the ``serve.*``
+sites. The elastic sites are kept so plans mean the same in both
+packages (the port's launcher does not consult them yet: ROADMAP queue
+A item 9, A13).
 """
 
 from __future__ import annotations

@@ -7,7 +7,8 @@ named by a hash of its source, the shared headers (``csrc/*.cuh``) and
 the flags, so an edited source or header rebuilds and an unchanged one is
 reused. Nothing builds at import: the first launch builds what it needs,
 and ``build_all`` builds every source at once, one ``nvcc`` process
-each, all started together. A failed build raises.
+each, all started together. A failed build, load or launch raises
+``KernelError``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import os
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -30,6 +33,22 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 
+class KernelError(RuntimeError):
+    """A kernel of the port that did not build, load or launch."""
+
+
+def is_device_failure(err: BaseException) -> bool:
+    """Whether ``err`` is a kernel's build, load or launch failure
+    (``KernelError``) or an error of the CUDA runtime. Code that
+    resolves other errors quietly (the draft tier's downgrade) lets
+    these propagate."""
+    cuda_errors = tuple(c for c in (getattr(torch, "AcceleratorError", None),
+                                    getattr(torch.cuda, "CudaError", None))
+                        if c is not None)
+    return isinstance(err, (KernelError, *cuda_errors)) or (
+        isinstance(err, RuntimeError) and "CUDA error" in str(err))
+
+
 def sources() -> list[str]:
     """Every kernel source's name (``csrc/<name>.cu``)."""
     return sorted(p.stem for p in CSRC.glob("*.cu"))
@@ -39,7 +58,7 @@ def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
     if CUDA_HOME is None:
-        raise RuntimeError(
+        raise KernelError(
             "no CUDA toolkit found (set CUDA_HOME); the port's kernels "
             "are compiled with nvcc at first use"
         )
@@ -85,7 +104,7 @@ def build_all(names: list[str] | None = None) -> dict[str, str]:
         else:
             os.replace(tmp, out)
     if failed:
-        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+        raise KernelError("kernel build failed: " + "\n".join(failed))
     return reports
 
 
@@ -94,5 +113,9 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _libs:
             build_all([name])
-            _libs[name] = ctypes.CDLL(str(library_path(name)))
+            try:
+                _libs[name] = ctypes.CDLL(str(library_path(name)))
+            except OSError as e:
+                raise KernelError(f"kernel library {name} did not load: "
+                                  f"{e}") from e
         return _libs[name]

@@ -270,7 +270,7 @@ def _flash_decode(q, k, v, kv_len, splits=None):
         out.stride(0), out.stride(1), 1.0 / math.sqrt(d), stream,
     )
     if err != 0:
-        raise RuntimeError(
+        raise _build.KernelError(
             f"decode attention kernel launch failed: CUDA error {err}"
         )
     decode_attention.launches += 1
@@ -301,7 +301,7 @@ def _flash_decode_quant(q, k, v, kv_len, k_scale, v_scale, splits=None):
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(
+        raise _build.KernelError(
             f"quantized decode attention kernel launch failed: CUDA error "
             f"{err}"
         )
@@ -534,7 +534,8 @@ def _launch_paged(op, q, k_pool, v_pool, kv_len, block_tables, k_scale,
     err = fn(*ptrs, *ints, *strides, 1.0 / math.sqrt(d),
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        raise _build.KernelError(
+            f"{name} kernel launch failed: CUDA error {err}")
     return out
 
 

@@ -180,8 +180,8 @@ def _dims(q, seq_dim, causal):
 
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(f"flash attention {what} kernel launch failed: "
-                           f"CUDA error {err}")
+        raise _build.KernelError(
+            f"flash attention {what} kernel launch failed: CUDA error {err}")
 
 
 def _lse_arg(lse, q, seq_dim):

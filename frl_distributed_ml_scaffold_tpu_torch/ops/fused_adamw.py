@@ -90,7 +90,8 @@ def adamw_kernel(p, g, m, v, lr, bc1, bc2, *, b1, b2, eps, wd) -> None:
              b2, 1.0 - b2, eps, wd,
              torch.cuda.current_stream(p.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"fused AdamW kernel launch failed: CUDA error {err}")
+        raise _build.KernelError(
+            f"fused AdamW kernel launch failed: CUDA error {err}")
     adamw_kernel.launches += 1
 
 

@@ -166,8 +166,8 @@ def _bind(name: str, argtypes: list):
 
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(f"BN backward {what} kernel launch failed: CUDA "
-                           f"error {err}")
+        raise _build.KernelError(
+            f"BN backward {what} kernel launch failed: CUDA error {err}")
 
 
 def _splits(m: int, c: int) -> int:

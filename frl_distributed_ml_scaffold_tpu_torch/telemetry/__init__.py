@@ -1,8 +1,7 @@
-"""Runtime telemetry of the training loop: metrics
-(``metrics.py``), the phase timeline (``timeline.py``), spans
+"""Runtime telemetry of the training loop and the serving engines:
+metrics (``metrics.py``), the phase timeline (``timeline.py``), spans
 (``tracing.py``) and the stall watchdog (``watchdog.py``). The port's
-copies of the JAX package's ``telemetry/``; serving adopts them with
-ROADMAP queue A item 3."""
+copies of the JAX package's ``telemetry/``."""
 
 from frl_distributed_ml_scaffold_tpu_torch.telemetry.metrics import (
     LOG2_LATENCY_BUCKETS_S,

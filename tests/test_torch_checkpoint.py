@@ -10,6 +10,8 @@ files."""
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (before any torch op)
+
 import json
 import os
 import signal

@@ -23,6 +23,8 @@ layers of train-mode BatchNorm deep).
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (before any torch op)
+
 import numpy as np
 import pytest
 import torch

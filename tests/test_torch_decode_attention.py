@@ -14,6 +14,8 @@ normalised ones).
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (before any torch op)
+
 import importlib
 
 import jax.numpy as jnp
@@ -160,6 +162,24 @@ def test_kernel_sources_are_found_and_named_by_content():
     path = _build.library_path("decode_attention")
     assert path.parent == _build.BUILD_DIR
     assert path == _build.library_path("decode_attention")
+
+
+def test_a_build_without_a_toolkit_raises_a_kernel_error(monkeypatch,
+                                                         tmp_path):
+    """No nvcc: the build raises ``KernelError``, which
+    ``is_device_failure`` tells from other errors (a CUDA runtime
+    error's text included)."""
+    from torch.utils import cpp_extension
+
+    monkeypatch.setattr(cpp_extension, "CUDA_HOME", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    with pytest.raises(_build.KernelError, match="no CUDA toolkit") as info:
+        _build.build_all(["decode_attention"])
+    assert _build.is_device_failure(info.value)
+    assert _build.is_device_failure(
+        RuntimeError("CUDA error: an illegal memory access was encountered"))
+    assert not _build.is_device_failure(RuntimeError("draft model crashed"))
+    assert not _build.is_device_failure(ValueError("bad window"))
 
 
 @pytest.mark.parametrize(

@@ -18,6 +18,8 @@ the row's global one.
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (before any torch op)
+
 import importlib
 import logging
 

@@ -21,6 +21,8 @@ here and fp32 there, 1e-7 relative apart).
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (before any torch op)
+
 import dataclasses
 
 import jax

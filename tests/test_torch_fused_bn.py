@@ -20,6 +20,8 @@ dtypes, 1e-5.
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (before any torch op)
+
 import flax.linen as fnn
 import jax
 import jax.numpy as jnp

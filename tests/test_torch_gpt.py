@@ -11,6 +11,8 @@ the largest logit, ``8 * eps_bf16 * max(1, max|logit|)``.
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (before any torch op)
+
 import dataclasses
 
 import jax.numpy as jnp

@@ -4,6 +4,8 @@ package, and its entry points run on the card unless the CPU is asked for.
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (before any torch op)
+
 import ast
 import pkgutil
 import shutil
@@ -52,6 +54,8 @@ def test_scans_cover_every_port_module():
     primitives, say) is covered without being listed here."""
     assert "frl_distributed_ml_scaffold_tpu_torch.ops.quantization" in _modules()
     assert PORT_DIR / "ops" / "quantization.py" in _sources()
+    assert "frl_distributed_ml_scaffold_tpu_torch.serving.scheduler" in _modules()
+    assert PORT_DIR / "serving" / "scheduler.py" in _sources()
     assert len(_sources()) == len(_modules()) + 1  # + chip_smoke.py
 
 
@@ -103,6 +107,7 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     from frl_distributed_ml_scaffold_tpu_torch.models.gpt import GPT
     from frl_distributed_ml_scaffold_tpu_torch.precision import get_policy
     from frl_distributed_ml_scaffold_tpu_torch.serving import (
+        DisaggServingEngine,
         ServingEngine,
         build_engine,
     )
@@ -118,6 +123,11 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         ServingEngine(model)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_engine(model, serving=ServingConfig())
+    disagg = ServingConfig(kv_block_size=16, disaggregate=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DisaggServingEngine(model, serving=disagg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_engine(model, serving=disagg)
     out = generate(model, [[1, 2, 3]], max_new_tokens=2, temperature=0.0,
                    device="cpu")
     assert tuple(out.shape) == (1, 5)

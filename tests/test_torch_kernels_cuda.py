@@ -16,6 +16,8 @@ to one rule.
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (before any torch op)
+
 import numpy as np
 import pytest
 import torch

@@ -6,6 +6,8 @@ to end with its loss halved."""
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (before any torch op)
+
 import json
 import subprocess
 import sys

@@ -18,6 +18,8 @@ with and without ``trainer.ema_decay``.
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (before any torch op)
+
 import json
 
 import jax

@@ -18,6 +18,8 @@ kernel's fp32 sums run in another order; chip_smoke.py's
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (before any torch op)
+
 import json
 import os
 

@@ -19,6 +19,8 @@ twice the lr (Adam's first step is about lr sign(g)).
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (before any torch op)
+
 import pytest
 import torch
 

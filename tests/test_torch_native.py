@@ -20,6 +20,8 @@ data/native.py and its copy of native/frl_data.cpp) on the CPU.
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (before any torch op)
+
 from pathlib import Path
 
 import numpy as np

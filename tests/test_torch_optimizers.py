@@ -11,6 +11,8 @@ and the clip 1e-6 absolute on params of unit scale after several steps
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (before any torch op)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -14,6 +14,8 @@ probabilities where the plain versions round normalised ones).
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (before any torch op)
+
 import importlib
 
 import jax.numpy as jnp

@@ -11,6 +11,8 @@ summation order only); cursors, tables and splices exactly.
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (before any torch op)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -49,12 +51,15 @@ def _np(x):
 
 
 def _to_jax(cache: dict) -> dict:
-    """The port's flat cache dict as the JAX model's cache tree."""
+    """The port's flat cache dict as the JAX model's cache tree, COPIED:
+    ``jnp.asarray`` of a tensor's numpy view may alias its storage, and
+    the port's step writes the pool in place while the JAX step still
+    runs asynchronously on it."""
     top = ("pos_index", "block_tables")
     return {
-        **{k: jnp.asarray(_np(v)) for k, v in cache.items() if k in top},
+        **{k: jnp.array(_np(v)) for k, v in cache.items() if k in top},
         "blocks": {"attn": {
-            k: jnp.asarray(_np(v)) for k, v in cache.items() if k not in top
+            k: jnp.array(_np(v)) for k, v in cache.items() if k not in top
         }},
     }
 

@@ -6,6 +6,8 @@ ones (after a seek too), the same retry count under an armed
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (before any torch op)
+
 import numpy as np
 import pytest
 import torch

@@ -17,6 +17,8 @@ the output to bf16, ulp 2^-7 relative at |o| <= 4).
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (before any torch op)
+
 import ctypes
 import importlib
 

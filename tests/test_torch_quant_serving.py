@@ -20,6 +20,8 @@ port's own ``generate()``.
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (before any torch op)
+
 import dataclasses
 
 import jax.numpy as jnp
@@ -71,12 +73,15 @@ def _pair(params, fmt):
 
 
 def _jnp(t: torch.Tensor):
-    """A port cache leaf as a JAX array with the same bits."""
+    """A port cache leaf as a JAX array with the same bits, COPIED:
+    ``jnp.asarray`` of a tensor's numpy view may alias its storage, and
+    the port's step writes the pool in place while the JAX step still
+    runs asynchronously on it."""
     if t.dtype == torch.bfloat16:
-        return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+        return jnp.array(t.float().numpy()).astype(jnp.bfloat16)
     if t.dtype in _JNP:
-        return jnp.asarray(byte_view(t).numpy()).view(_JNP[t.dtype])
-    return jnp.asarray(t.numpy())
+        return jnp.array(byte_view(t).numpy()).view(_JNP[t.dtype])
+    return jnp.array(t.numpy())
 
 
 def _to_jax(cache: dict) -> dict:

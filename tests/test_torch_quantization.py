@@ -8,6 +8,8 @@ either package therefore holds the same bytes.
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (before any torch op)
+
 import importlib
 
 import jax.numpy as jnp

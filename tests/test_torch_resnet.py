@@ -27,6 +27,8 @@ agree there; the training test holds bf16_mixed at depth 10.
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (before any torch op)
+
 import dataclasses
 import functools
 

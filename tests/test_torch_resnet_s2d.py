@@ -27,6 +27,8 @@ autodiff's, which sums a position's windows in another order).
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (before any torch op)
+
 import dataclasses
 import functools
 

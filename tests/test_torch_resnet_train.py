@@ -36,6 +36,8 @@ scale 0):
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (before any torch op)
+
 import dataclasses
 import functools
 

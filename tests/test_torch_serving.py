@@ -2,10 +2,13 @@
 ``ServingEngine`` are token-identical to the JAX package's under ``fp32``
 on the same carried-across params, with the JAX side decoding through its
 Pallas kernel in interpret mode. The engine refuses the same malformed
-requests with the same messages, and the options not ported yet by name.
+requests and options with the same messages, and the options not ported
+yet by name.
 """
 
 from __future__ import annotations
+
+import _torch_threads  # noqa: F401  (before any torch op)
 
 import jax.numpy as jnp
 import numpy as np
@@ -137,31 +140,50 @@ def test_engine_refuses_zero_slots(pair):
 @pytest.mark.parametrize(
     "override",
     [
-        # The paged engine is ported; its draft-model tier is not.
+        # The draft tier needs its draft model, as in JAX.
         {"kv_block_size": 16, "speculate": "draft"},
         # Speculation without the paged cache is refused as JAX does.
         {"speculate": "ngram"},
+        # Disaggregation without the paged cache, as JAX.
         {"disaggregate": True},
-        {"max_queue_depth": 4},
-        {"default_deadline_s": 1.0},
+        {"max_queue_depth": -1},
+        # Still to port (ROADMAP A7): the separate prefill partition and
+        # the tensor-parallel serving layout.
+        {"disaggregate": True, "kv_block_size": 16, "prefill_env": "mesh"},
+        {"rules": "gpt_tp_rules"},
     ],
-    ids=["paged", "speculate", "disaggregate", "queue_bound", "deadline"],
+    ids=["paged", "speculate", "disaggregate", "queue_bound", "partition",
+         "rules"],
 )
 def test_unported_serving_options_raise(pair, override):
+    """The options the port refuses: those JAX refuses too, with JAX's
+    message, and those still to port, naming their ROADMAP item."""
     jm, params, tm = pair
-    if override == {"speculate": "ngram"}:
-        from frl_distributed_ml_scaffold_tpu.config.schema import (
-            ServingConfig as JaxServingConfig,
-        )
-
-        with pytest.raises(ValueError) as jinfo:
-            JaxEngine(jm, params, serving=JaxServingConfig(**override))
-        with pytest.raises(ValueError) as info:
-            build_engine(tm, serving=ServingConfig(**override), device="cpu")
-        assert str(info.value) == str(jinfo.value)
+    override = dict(override)
+    kw = {k: override.pop(k) for k in ("prefill_env", "rules")
+          if k in override}
+    if kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP queue A item 5"):
+            build_engine(tm, serving=ServingConfig(**override), device="cpu",
+                         **kw)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item"):
+    from frl_distributed_ml_scaffold_tpu.config.schema import (
+        ServingConfig as JaxServingConfig,
+    )
+    from frl_distributed_ml_scaffold_tpu.serving import (
+        build_engine as jax_build_engine,
+    )
+
+    with pytest.raises(ValueError) as jinfo:
+        jax_build_engine(jm, params, serving=JaxServingConfig(**override))
+    with pytest.raises(ValueError) as info:
         build_engine(tm, serving=ServingConfig(**override), device="cpu")
+    if override.get("speculate") == "draft":
+        # The port's draft is one module carrying its weights.
+        assert "needs draft_model=" in str(jinfo.value)
+        assert "needs draft_model=" in str(info.value)
+        return
+    assert str(info.value) == str(jinfo.value)
 
 
 def test_build_engine_dispatches_to_the_colocated_engine(pair):

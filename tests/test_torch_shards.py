@@ -18,6 +18,8 @@ files the test writes from a numpy seed.
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (before any torch op)
+
 import logging
 
 import numpy as np

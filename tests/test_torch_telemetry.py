@@ -7,6 +7,8 @@ fault-plan parser agree."""
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (before any torch op)
+
 import json
 import re
 import time

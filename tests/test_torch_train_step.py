@@ -32,6 +32,8 @@ Tolerances:
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (before any torch op)
+
 import dataclasses
 
 import jax

@@ -36,6 +36,8 @@ bound holds some leaves), set from the largest difference measured here:
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (before any torch op)
+
 import dataclasses
 import functools
 import gzip

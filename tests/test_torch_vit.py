@@ -40,6 +40,8 @@ Seconds on the CPU, run alone: see CHANGES.md.
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (before any torch op)
+
 import dataclasses
 import functools
 
