@@ -159,8 +159,10 @@ no final line):
    adamw_kernel_checks / adamw_kernel_timings: the AdamW kernel
    (``csrc/fused_adamw.cu``) against ``adamw_math`` on leaves of
    2359296, 2048000, 65536 and 65539 elements, the first and last again
-   with a bf16 gradient (read in place); timed beside its bound
-   (28 bytes an element) and ``torch._fused_adamw_``.
+   with a bf16 gradient (read in place) and with a bf16 p and g (p'
+   rounded to bf16 to nearest even: within one ulp, and bit-equal in
+   all but 1e-3 of the elements); timed beside its bound (28 bytes an
+   element; 22 with a bf16 p and g) and ``torch._fused_adamw_``.
 15. rn50_path: ``imagenet_rn50_ddp`` with ``model.fused_bn=true
    data.global_batch_size=256`` at full width and depth (seeded weights,
    bf16_mixed, the recipe's SGD with warmup, synthetic ImageNet batches
@@ -234,7 +236,38 @@ no final line):
    steps: 384 / 192 / 192 flash launches a step, the data wait per step.
 26. video_shards_path: ``ego4d_video_elastic`` (batch 16) from 64 seeded
    uint8 clips of 8 x 224 x 224 x 3 through the ``Trainer``, 6 steps.
-27. ``phase_seconds`` (the build, each phase above and the whole run),
+27. beam_path (after serve_faults_check): ``beam_search`` over the
+   serving weights, 4 ragged prompts of 32-64 tokens, 4 beams, 64 new
+   tokens, bf16_mixed: tokens/s and the decode kernel 24 x 63 times a
+   call; in fp32 one beam equals greedy ``generate()`` (top-2-gap rule)
+   and beam 0's score the teacher-forced sum of its log-probabilities.
+28. long_path (after fp32_train_check): ``gpt2_long`` as published (T =
+   8192, global batch 8 in 8 microbatches, ``trainer.remat=full``,
+   ``lm_loss_chunk=256``, flash) from seeded weights: one warm-up and two
+   timed steps, then ``trainer.remat=none`` with ``model.block_remat``
+   full and save_attn on the same batches: step seconds, tokens/s, MFU,
+   peak memory, the first step's loss (held across the three modes) and
+   the flash launches a step.
+29. adafactor_path: ``gpt2_medium_adafactor`` cut as train_path (warmup
+   off, one batch repeated): the loss falls; step seconds, tokens/s and
+   the optimizer state's bytes beside train_path's AdamW state.
+30. optimizers_check: adam, lion, adafactor and sgd, two fp32 steps each
+   on the card against the CPU from the same state and gradients.
+31. dropout_check: ``gpt2_medium_zero1`` + flash with
+   ``model.dropout=0.1``: each site's kept share within a binomial bound,
+   one seed one loss, ``trainer.remat=full`` and ``model.block_remat=
+   full`` / ``save_attn`` gradients against ``remat=none``, steps in
+   turns with dropout 0, the masks' host cost.
+32. init_params_check (after mlp_launch): seeded ``imagenet_rn50_ddp``
+   params written as a flax msgpack file by the port, loaded under
+   ``precision.policy=bf16`` (equal to the file's in bf16) and trained
+   through ``launch.main`` with ``trainer.init_params_path`` and
+   ``optimizer.name=fused_adamw``: 42 AdamW launches a step with a bf16
+   p; ``gpt2_medium_zero1`` from a file of the serving weights: the first
+   loss of the run without a file. The AdamW kernel's checks and timings
+   (item 12) include a bf16 p, and the kernels line's AdamW row its
+   bf16-p times.
+33. ``phase_seconds`` (the build, each phase above and the whole run),
    the ``kernels`` line (twelve kernels) and, last, ``{"ok": true,
    "device": ...}``.
 
@@ -2021,7 +2054,7 @@ def _train_setup(cfg, sd, device="cuda"):
     policy = get_policy(cfg.precision)
     model = GPT(cfg.model, policy, device=device)
     model.load_state_dict(sd)
-    tx, schedule = make_optimizer(cfg.optimizer, cfg.trainer)
+    tx, schedule = make_optimizer(cfg.optimizer, cfg.trainer, cfg.model)
     state = TrainState.create(dict(model.named_parameters()), tx,
                               with_ema=cfg.trainer.ema_decay > 0,
                               device=device)
@@ -2130,6 +2163,7 @@ def train_phase(sd, card: str) -> tuple:
         "model_tflops_per_s": flops["flops"] / step_s / 1e12,
         "share_of_bf16_peak": flops["flops"] / step_s / H100_BF16_PEAK,
         "max_memory_allocated_bytes": peak_mem,
+        "opt_state_bytes": state_bytes(state.opt_state),
         "launches": counts,
         "launches_per_step": per_step,
         "fallbacks": fa.flash_attention.fallbacks - fallbacks,
@@ -2148,6 +2182,15 @@ def train_phase(sd, card: str) -> tuple:
     del model, state, step, prof
     torch.cuda.empty_cache()
     return report, counts, profile_report
+
+
+def state_bytes(tree) -> int:
+    """Device bytes of the tensor leaves of a nested dict."""
+    if isinstance(tree, dict):
+        return sum(state_bytes(v) for v in tree.values())
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return 0
 
 
 def fp32_train_phase(sd) -> dict:
@@ -2585,8 +2628,17 @@ ADAMW_TOL = 1e-6
 # smallest that takes the kernel, and a ragged one (n % 4 != 0).
 ADAMW_SIZES = {"stage4_conv3x3": 2359296, "dense": 2048000,
                "min_kernel": 65536, "ragged": 65539}
-# Leaves checked again with a bf16 g (precision.policy=bf16's gradients).
+# Leaves checked again with a bf16 g (precision.policy=bf16's gradients),
+# and with a bf16 p and g (a bf16 init from trainer.init_params_path).
 ADAMW_BF16_G = ("stage4_conv3x3", "ragged")
+# A bf16 p' is the plain version's fp32 result rounded to nearest even:
+# within one bf16 ulp of it, and bit-equal to it in all but
+# ADAMW_BF16_P_BIT_EQUAL of the elements (the fp32 results may differ by
+# ~1e-7, which crosses a rounding boundary rarely; a kernel that
+# truncates, or rounds any other way, stays within the ulp but is
+# bit-equal in only about half), m' and v' to ADAMW_TOL.
+ADAMW_BF16_P_ULPS = 1
+ADAMW_BF16_P_BIT_EQUAL = 0.999
 ADAMW_HYPER = dict(b1=0.9, b2=0.999, eps=1e-8, wd=1e-4)
 RN50_OVERRIDES = ["model.fused_bn=true", "data.global_batch_size=256"]
 RN50_ADAMW_OVERRIDES = RN50_OVERRIDES + ["optimizer.name=fused_adamw"]
@@ -2754,37 +2806,65 @@ def adamw_checks(gen) -> list:
 
     out = []
     lr, bc1, bc2 = adamw_scalars()
-    cases = [(label, n, torch.float32) for label, n in ADAMW_SIZES.items()]
-    cases += [(label, ADAMW_SIZES[label], torch.bfloat16)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(label, n, f32, f32) for label, n in ADAMW_SIZES.items()]
+    cases += [(label, ADAMW_SIZES[label], bf16, f32)
               for label in ADAMW_BF16_G]
-    for label, n, g_dtype in cases:
+    cases += [(label, ADAMW_SIZES[label], bf16, bf16)
+              for label in ADAMW_BF16_G]
+    for label, n, g_dtype, p_dtype in cases:
         g, m, v, p = adamw_leaf(gen, n)
-        g = g.to(g_dtype)
-        want = fa.adamw_math(g, m, v, p, lr, bc1, bc2, **ADAMW_HYPER)
+        g, p = g.to(g_dtype), p.to(p_dtype)
+        want = list(fa.adamw_math(g, m, v, p.float(), lr, bc1, bc2,
+                                  **ADAMW_HYPER))
         fa.adamw_kernel(p, g, m, v, lr, bc1, bc2, **ADAMW_HYPER)
         torch.cuda.synchronize()
-        errs = {name: (got - ref).abs().max().item()
-                for name, got, ref in zip(("p", "m", "v"), (p, m, v), want)}
+        errs = {name: (got.float() - ref).abs().max().item()
+                for name, got, ref in zip(("m", "v"), (m, v), want[1:])}
         g_name = str(g_dtype).replace("torch.", "")
+        p_name = str(p_dtype).replace("torch.", "")
+        entry = {"label": label, "numel": n, "g_dtype": g_name,
+                 "p_dtype": p_name, "tol": ADAMW_TOL}
+        if p_dtype == bf16:
+            check(p.dtype == bf16, f"adamw {label}: p left bf16")
+            ref = want[0].to(bf16).float()
+            ulp = torch.exp2(torch.floor(torch.log2(
+                ref.abs().clamp_min(2.0 ** -126))) - 7)
+            ulps = ((p.float() - ref).abs() / ulp).max().item()
+            share = (p.float() == ref).float().mean().item()
+            check(ulps <= ADAMW_BF16_P_ULPS,
+                  f"adamw {label} bf16 p: {ulps} ulps from the plain p'")
+            check(share >= ADAMW_BF16_P_BIT_EQUAL,
+                  f"adamw {label} bf16 p: {share} of p' bit-equal to the "
+                  f"plain p' rounded to nearest even, want >= "
+                  f"{ADAMW_BF16_P_BIT_EQUAL}")
+            entry.update(p_ulps=ulps, p_tol_ulps=ADAMW_BF16_P_ULPS,
+                         p_bit_equal_share=share,
+                         p_bit_equal_min=ADAMW_BF16_P_BIT_EQUAL,
+                         p_abs_err=(p.float() - ref).abs().max().item())
+        else:
+            errs["p"] = (p - want[0]).abs().max().item()
         for name, err in errs.items():
             check(math.isfinite(err) and err <= ADAMW_TOL,
-                  f"adamw {label} g {g_name} {name}: max abs err {err} > "
-                  f"{ADAMW_TOL}")
-        out.append({"label": label, "numel": n, "g_dtype": g_name,
-                    "tol": ADAMW_TOL,
-                    **{f"{k}_err": e for k, e in errs.items()}})
+                  f"adamw {label} g {g_name} p {p_name} {name}: max abs err "
+                  f"{err} > {ADAMW_TOL}")
+        entry.update({f"{k}_err": e for k, e in errs.items()})
+        out.append(entry)
     return out
 
 
-def time_adamw(gen, n: int, layers: int = 8) -> dict:
+def time_adamw(gen, n: int, layers: int = 8, bf16_p: bool = False) -> dict:
     """The kernel, ``adamw_math`` and the library's ``torch._fused_adamw_``
-    on ``layers`` leaves of ``n`` elements per timed call (28 n bytes
-    each: 8 leaves of the path's largest outrun the L2). Each call moves
-    its leaf one step further."""
+    on ``layers`` leaves of ``n`` elements per timed call (p read and
+    written, g read, m and v read and written: 28 n bytes each in fp32,
+    22 n with ``bf16_p``'s bf16 p and g; 8 leaves of the path's largest
+    outrun the L2). Each call moves its leaf one step further."""
     from frl_distributed_ml_scaffold_tpu_torch.ops import fused_adamw as fa
 
     lr, bc1, bc2 = adamw_scalars()
     leaves = [adamw_leaf(gen, n) for _ in range(layers)]
+    if bf16_p:
+        leaves = [(g.bfloat16(), m, v, p.bfloat16()) for g, m, v, p in leaves]
     steps = [torch.tensor(6.0, device="cuda") for _ in range(layers)]
     hp = ADAMW_HYPER
 
@@ -2799,15 +2879,25 @@ def time_adamw(gen, n: int, layers: int = 8) -> dict:
                             weight_decay=hp["wd"], eps=hp["eps"],
                             amsgrad=False, maximize=False)
 
-    t = timed(kernel, lambda i: fa.adamw_math(*leaves[i], lr, bc1, bc2, **hp),
-              library, layers=layers)
-    nbytes, flops = 28 * n, 16 * n
+    def plain(i):
+        g, m, v, p = leaves[i]
+        fa.adamw_math(g, m, v, p.float(), lr, bc1, bc2, **hp)
+
+    # No PyTorch call updates a bf16 p beside fp32 moments
+    # (torch._fused_adamw_ takes one dtype for all four).
+    t = timed(kernel, plain, None if bf16_p else library, layers=layers)
+    g, m, v, p = leaves[0]
+    nbytes = n * (2 * p.element_size() + g.element_size()
+                  + 2 * m.element_size() + 2 * v.element_size())
+    flops = 16 * n
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
     return {"numel": n, **t, "bytes": nbytes, "flops": flops,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_note": "torch._fused_adamw_ on the same leaf"}
+            "library_note": ("none: no PyTorch call takes a bf16 p beside "
+                             "fp32 moments" if bf16_p else
+                             "torch._fused_adamw_ on the same leaf")}
 
 
 def adamw_kernel_phase(gen) -> dict:
@@ -2816,14 +2906,22 @@ def adamw_kernel_phase(gen) -> dict:
     emit("adamw_kernel_checks", checks)
     timings = {label: time_adamw(gen, ADAMW_SIZES[label])
                for label in ("stage4_conv3x3", "dense")}
+    timings["stage4_conv3x3_bf16_p"] = time_adamw(
+        gen, ADAMW_SIZES["stage4_conv3x3"], bf16_p=True)
     emit("adamw_kernel_timings", timings)
     torch.cuda.empty_cache()
     path = [e for e in checks
             if e["label"] in timings and e["g_dtype"] == "float32"]
+    bf16_p = [e for e in checks if e["p_dtype"] == "bfloat16"]
     return {"fused_adamw": {
         "max_abs_err": max(max(e["p_err"], e["m_err"], e["v_err"])
                            for e in path),
-        "timing": timings["stage4_conv3x3"]}}
+        "timing": timings["stage4_conv3x3"],
+        "bf16_p": {**timings["stage4_conv3x3_bf16_p"],
+                   "max_abs_err": max(max(e["p_abs_err"], e["m_err"],
+                                          e["v_err"]) for e in bf16_p),
+                   "p_bit_equal_share": min(e["p_bit_equal_share"]
+                                            for e in bf16_p)}}}
 
 
 def rn50_setup(cfg, gen, weights=None):
@@ -2851,7 +2949,7 @@ def rn50_setup(cfg, gen, weights=None):
                                      in_channels=cfg.data.channels)
     params, extras = weights
     model.load_state_dict({**params, **extras["batch_stats"]})
-    tx, schedule = make_optimizer(cfg.optimizer, cfg.trainer)
+    tx, schedule = make_optimizer(cfg.optimizer, cfg.trainer, cfg.model)
     state = TrainState.create(params, tx, extras, device="cuda")
     return (model, policy, tx, schedule, state,
             make_loss_fn(model, cfg.data.name))
@@ -3206,7 +3304,7 @@ def family_setup(cfg, gen, weights=None, device="cuda"):
         init = getattr(convert, f"init_{cfg.model.family}_params")
         weights = init(cfg.model, gen, **kw)
     model.load_state_dict(weights)
-    tx, schedule = make_optimizer(cfg.optimizer, cfg.trainer)
+    tx, schedule = make_optimizer(cfg.optimizer, cfg.trainer, cfg.model)
     state = TrainState.create(weights, tx, device=device)
     return (model, policy, tx, schedule, state,
             make_loss_fn(model, cfg.data.name))
@@ -3995,6 +4093,583 @@ def video_shards_phase(work: str, seed: int, card: str) -> dict:
                      base.channels], **out}
 
 
+# ------------------------ remat modes, optimizers, dropout, params files, beams
+# gpt2_long as published: one warm-up step (lr 0 under the recipe's
+# warmup) and LONG_STEPS timed steps under trainer.remat=full, then each
+# per-block mode on the same batches (LONG_MODE_STEPS steps: the first
+# step's loss, then the others' seconds).
+LONG_STEPS, LONG_MODE_STEPS = 3, 3
+LONG_MODES = (("remat_full", []),
+              ("block_remat_full", ["trainer.remat=none",
+                                    "model.block_remat=full"]),
+              ("block_remat_save_attn", ["trainer.remat=none",
+                                         "model.block_remat=save_attn"]))
+# The three modes run the same forward (bf16 products, fp32 LayerNorm,
+# softmax and loss); only the backward's recompute differs. Their first
+# step's loss, a mean over 65536 tokens, is held to 1e-3 relative (a
+# tenth of a bf16 ulp at the loss).
+LONG_LOSS_RTOL = 1e-3
+# adafactor_path: gpt2_medium_adafactor cut as train_path, warmup off and
+# one batch repeated, so the loss must fall within ADAFACTOR_STEPS steps.
+ADAFACTOR_OVERRIDES = ["model.attention=flash", "optimizer.warmup_steps=0"]
+ADAFACTOR_STEPS = 3
+# optimizers_check: one step of each optimizer from the same state and
+# gradients on the card and the CPU, leaves of GPT-2-medium's block
+# shapes; fp32 elementwise math in another order (and adafactor's means
+# and RMS reduced in another order): 1e-6 absolute on params of scale
+# 0.05 (and their moments).
+OPT_SHAPES = {"attn.query": (1024, 1024), "mlp.fc_in": (4096, 1024),
+              "mlp.fc_out": (1024, 4096), "ln.weight": (1024,),
+              "mlp.fc_in.bias": (4096,)}
+OPT_NAMES = ("adam", "lion", "adafactor", "sgd")
+OPT_TOL = 1e-6
+# dropout_check: gpt2_medium_zero1 + flash with model.dropout=0.1, its
+# steps in turns with the same recipe at dropout 0 (the first of each a
+# warm-up at lr 0; the host's spread within one run is wider than the
+# cost measured, so the two are timed side by side).
+DROPOUT_RATE = 0.1
+DROPOUT_TURNS = ("plain", "dropout", "dropout", "plain", "plain", "dropout",
+                 "dropout", "plain")
+DROPOUT_OVERRIDES = ["model.attention=flash", f"model.dropout={DROPOUT_RATE}"]
+# Kept share at each site within this many binomial standard deviations
+# (a false alarm has odds below 1e-8 a site).
+DROPOUT_SIGMAS = 6
+# trainer.remat=full and model.block_remat=full / save_attn against
+# remat=none gradients at the same seed: the same masks make the same
+# gradients up to the backward's reduction order
+# (the flash kernels and cuBLAS are deterministic here, so bit-equal is
+# expected); a mask drawn anew in the recompute moves a leaf's gradient
+# by about its own norm. Held to 1e-3 of each leaf's norm.
+DROPOUT_REMAT_RTOL = 1e-3
+# beam_path: 4 ragged prompts, 4 beams, 64 new tokens, timed twice.
+BEAM_PROMPTS, BEAM_WIDTH, BEAM_NEW, BEAM_CALLS = 4, 4, 64, 2
+# Beam 0's fp32 score against the teacher-forced sum of its tokens'
+# log-probabilities: a sum of 64 fp32 log-probs, decode steps against one
+# dense forward (1e-5 a token apart).
+BEAM_SCORE_TOL = 1e-2
+
+
+def _gpt_steps(cfg, sd, batches, n_steps: int, per_step: dict, what: str):
+    """``n_steps`` train steps of ``cfg`` from weights ``sd`` on
+    ``batches`` (cycled); every step's launches held to ``per_step``.
+    Returns (records, peak bytes, state's optimizer bytes)."""
+    model, policy, tx, schedule, state, loss_fn = _train_setup(cfg, sd)
+    step = _step_fn(cfg, loss_fn, tx, policy)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    recs = []
+    for s in range(n_steps):
+        before = read_launches()
+        t0 = time.perf_counter()
+        state, m = step(state, batches[s % len(batches)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = read_launches()
+        for name in after:
+            n = after[name] - before[name]
+            check(n == per_step.get(name, 0),
+                  f"{what} step {s}: {name} launched {n} times, want "
+                  f"{per_step.get(name, 0)}")
+        rec = {"step": s, "lr": schedule(s), "loss": float(m["loss"]),
+               "grad_norm": float(m["grad_norm"]), "step_s": wall}
+        check(math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"]),
+              f"{what} step {s}: non-finite loss or grad_norm {rec}")
+        recs.append(rec)
+    peak = torch.cuda.max_memory_allocated()
+    opt_bytes = state_bytes(state.opt_state)
+    n_params = sum(p.numel() for p in state.params.values())
+    del model, state, step, tx
+    torch.cuda.empty_cache()
+    return recs, peak, opt_bytes, n_params
+
+
+def _flash_per_step(cfg, recompute: bool) -> dict:
+    """Flash launches a step: dQ and dK/dV once a layer and microbatch,
+    the forward once more where the backward recomputes it."""
+    n = cfg.model.num_layers * cfg.trainer.grad_accum
+    return {"flash_attention_fwd": (2 if recompute else 1) * n,
+            "flash_attention_bwd_dq": n, "flash_attention_bwd_dkv": n}
+
+
+def long_phase(gen, card: str) -> dict:
+    """long_path: ``gpt2_long`` as published (24 layers, d 1024, T 8192,
+    global batch 8 in 8 microbatches, ``trainer.remat=full``,
+    ``lm_loss_chunk=256``, flash, bf16_mixed, AdamW with the clip) from
+    seeded weights and synthetic batches: one warm-up step at lr 0 and
+    ``LONG_STEPS`` timed steps; then ``trainer.remat=none`` with
+    ``model.block_remat=full`` and ``=save_attn`` on the same batches.
+    Each mode: step seconds, tokens/s, MFU (analytic, causal attention
+    included, no recompute counted), peak memory, the first step's loss
+    and the flash launches a step against the count the code implies
+    (every mode reruns the flash forward once in the backward: the whole
+    loss, each block, or each attention sublayer, whose internals the
+    attention's backward needs)."""
+    from frl_distributed_ml_scaffold_tpu_torch.config import (
+        apply_overrides,
+        get_config,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.data.synthetic import SyntheticLM
+    from frl_distributed_ml_scaffold_tpu_torch.models.convert import init_params
+    from frl_distributed_ml_scaffold_tpu_torch.utils.flops import (
+        gpt_train_flops,
+    )
+
+    base = get_config("gpt2_long")
+    sd = init_params(base.model, gen)
+    gb = base.data.global_batch_size
+    data = SyntheticLM(base.data, split="train")
+    batches = [data.batch(s, gb) for s in range(1 + LONG_STEPS)]
+    report = {"card": card, "config": base.name,
+              "seq_len": base.model.seq_len, "global_batch": gb,
+              "grad_accum": base.trainer.grad_accum,
+              "lm_loss_chunk": base.model.lm_loss_chunk,
+              "attention": base.model.attention,
+              "policy": base.precision.policy, "modes": {}}
+    for label, ov in LONG_MODES:
+        cfg = apply_overrides(base, ov)
+        n = 1 + LONG_STEPS if label == "remat_full" else LONG_MODE_STEPS
+        per_step = _flash_per_step(cfg, recompute=True)
+        recs, peak, _, n_params = _gpt_steps(cfg, sd, batches, n, per_step,
+                                             f"long_path {label}")
+        flops = gpt_train_flops(cfg, n_params)
+        step_s = statistics.median(r["step_s"] for r in recs[1:])
+        report["modes"][label] = {
+            "overrides": ov, "steps": recs, "step_s": step_s,
+            "tokens_per_s": flops["tokens"] / step_s,
+            "model_flops": flops["flops"],
+            "mfu": flops["flops"] / step_s / H100_BF16_PEAK,
+            "max_memory_allocated_bytes": peak,
+            "flash_launches_per_step": per_step}
+    first = {k: v["steps"][0]["loss"] for k, v in report["modes"].items()}
+    ref = first["remat_full"]
+    for label, loss in first.items():
+        check(abs(loss - ref) <= LONG_LOSS_RTOL * abs(ref),
+              f"long_path: {label} first loss {loss} against {ref}")
+    report.update(first_step_loss=first, loss_rtol=LONG_LOSS_RTOL)
+    del sd
+    torch.cuda.empty_cache()
+    return report
+
+
+def adafactor_phase(sd, card: str, adamw_state_bytes: int) -> dict:
+    """adafactor_path: ``gpt2_medium_adafactor`` cut as train_path
+    (flash, full width and depth, 64 x 1024 tokens in 8 microbatches,
+    dots remat), warmup off and one batch repeated: the loss must fall
+    over ``ADAFACTOR_STEPS`` steps. Step seconds, tokens/s, and the
+    optimizer state's bytes beside train_path's AdamW state."""
+    from frl_distributed_ml_scaffold_tpu_torch.config import (
+        apply_overrides,
+        get_config,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.data.synthetic import SyntheticLM
+
+    cfg = apply_overrides(get_config("gpt2_medium_adafactor"),
+                          ADAFACTOR_OVERRIDES)
+    gb = cfg.data.global_batch_size
+    batch = SyntheticLM(cfg.data, split="train").batch(0, gb)
+    recs, peak, opt_bytes, n_params = _gpt_steps(
+        cfg, sd, [batch], ADAFACTOR_STEPS, _flash_per_step(cfg, True),
+        "adafactor_path")
+    check(recs[-1]["loss"] < recs[0]["loss"],
+          f"adafactor_path: the loss did not fall {recs}")
+    step_s = statistics.median(r["step_s"] for r in recs[1:])
+    return {"card": card, "config": cfg.name, "overrides": ADAFACTOR_OVERRIDES,
+            "optimizer": {"name": cfg.optimizer.name,
+                          "lr": cfg.optimizer.learning_rate,
+                          "weight_decay": cfg.optimizer.weight_decay,
+                          "clip": cfg.optimizer.grad_clip_norm},
+            "steps": recs, "step_s": step_s,
+            "tokens_per_s": gb * cfg.model.seq_len / step_s,
+            "max_memory_allocated_bytes": peak,
+            "opt_state_bytes": opt_bytes,
+            "adamw_opt_state_bytes": adamw_state_bytes,
+            "params": n_params,
+            "opt_state_bytes_per_param": opt_bytes / n_params}
+
+
+def optimizers_phase() -> dict:
+    """optimizers_check: adam, lion, adafactor and sgd (lr 1e-3, weight
+    decay 0.1, the clip at 1.0), two fp32 steps each on the card and on
+    the CPU from the same params, zero state and gradients, over leaves
+    of GPT-2-medium's block shapes: every param and state leaf after each
+    step within ``OPT_TOL``."""
+    from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
+        OptimizerConfig,
+        TrainerConfig,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.optimizers import (
+        make_optimizer,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.utils.trees import tree_leaves
+
+    cpu = torch.Generator().manual_seed(15)
+    params = {k: 0.05 * torch.randn(s, generator=cpu)
+              for k, s in OPT_SHAPES.items()}
+    grads = [{k: 0.02 * torch.randn(s, generator=cpu)
+              for k, s in OPT_SHAPES.items()} for _ in range(2)]
+    out = {}
+    for name in OPT_NAMES:
+        cfg = OptimizerConfig(name=name, learning_rate=1e-3, warmup_steps=0,
+                              weight_decay=0.1, grad_clip_norm=1.0,
+                              momentum=0.9)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            tx, _ = make_optimizer(cfg, TrainerConfig(total_steps=10), None)
+            p = {k: v.to(dev, copy=True) for k, v in params.items()}
+            st = tx.init(p)
+            errs = []
+            for g in grads:
+                tx.update({k: v.to(dev) for k, v in g.items()}, st, p)
+                errs.append([x.to("cpu", copy=True)
+                             if isinstance(x, torch.Tensor) else x
+                             for x in (*p.values(), *tree_leaves(st))])
+            runs[dev] = errs
+        worst = 0.0
+        for step_c, step_g in zip(runs["cpu"], runs["cuda"]):
+            for a, b in zip(step_c, step_g):
+                if isinstance(a, torch.Tensor):
+                    worst = max(worst, (a - b).abs().max().item())
+                else:
+                    check(a == b, f"optimizers_check {name}: {a} != {b}")
+        check(worst <= OPT_TOL,
+              f"optimizers_check {name}: card vs CPU max abs err {worst}")
+        out[name] = {"max_abs_err": worst, "tol": OPT_TOL}
+    return {"shapes": OPT_SHAPES, "steps": 2, "optimizers": out}
+
+
+def dropout_phase(sd, card: str, train_step_s: float) -> dict:
+    """dropout_check: ``gpt2_medium_zero1`` + flash with
+    ``model.dropout=0.1``. One training forward of 8 x 1024 tokens with
+    every mask recorded: one a site (the embedding and two a block), each
+    kept share within ``DROPOUT_SIGMAS`` binomial standard deviations;
+    the same seed gives the same loss; ``trainer.remat=full`` gradients,
+    and those of ``model.block_remat=full`` and ``save_attn`` (each block
+    checkpointed on its own, its sites' generators seeded inside the
+    region), against ``remat=none`` at the same seed. Then steps at
+    train_path's
+    shape in turns with the same recipe at dropout 0
+    (``DROPOUT_TURNS``: a warm-up each, then three timed each), and the
+    host cost of the masks' generators."""
+    from frl_distributed_ml_scaffold_tpu_torch.config import (
+        apply_overrides,
+        get_config,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.data.synthetic import SyntheticLM
+    from frl_distributed_ml_scaffold_tpu_torch.models import dropout as mdrop
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.train_step import (
+        make_grad_fn,
+    )
+
+    cfg = apply_overrides(get_config("gpt2_medium_zero1"), DROPOUT_OVERRIDES)
+    small = SyntheticLM(cfg.data, split="train").batch(0, 8)
+    model, policy, tx, _, state, loss_fn = _train_setup(cfg, sd)
+    masks = []
+    real = mdrop.keep_mask
+
+    def spy(shape, rate, seed, *site, device):
+        m = real(shape, rate, seed, *site, device=device)
+        masks.append((site, m.float().mean().item(), m.numel()))
+        return m
+
+    mdrop.keep_mask = spy
+    try:
+        with torch.no_grad():
+            toks = torch.from_numpy(small["tokens"][:, :-1]).cuda()
+            model(toks, train=True, rng=123)
+    finally:
+        mdrop.keep_mask = real
+    layers = cfg.model.num_layers
+    want_sites = {(layers, 0)} | {(i, s) for i in range(layers)
+                                  for s in (0, 1)}
+    check({site for site, _, _ in masks} == want_sites
+          and len(masks) == len(want_sites),
+          f"dropout_check: sites {[s for s, _, _ in masks]}")
+    keep = 1.0 - DROPOUT_RATE
+    shares = []
+    for site, share, n in masks:
+        bound = DROPOUT_SIGMAS * math.sqrt(DROPOUT_RATE * keep / n)
+        check(abs(share - keep) <= bound,
+              f"dropout_check: site {site} kept {share}, bound {bound}")
+        shares.append(share)
+    grads = {}
+    for remat in ("none", "full", "none"):
+        fn = make_grad_fn(loss_fn, policy, remat=remat, seed=7,
+                          device="cuda")
+        loss, _, _, g = fn(state.params, {}, small, 3)
+        grads.setdefault(remat, []).append((float(loss), g))
+    (l0, g0), (l1, _) = grads["none"]
+    check(l0 == l1, f"dropout_check: one seed, two losses {l0} {l1}")
+    lf, gf = grads["full"][0]
+    rel = max(((gf[k] - g).norm() / g.norm().clamp_min(1e-30)).item()
+              for k, g in g0.items())
+    bit_equal = all(torch.equal(gf[k], g) for k, g in g0.items())
+    check(rel <= DROPOUT_REMAT_RTOL,
+          f"dropout_check: remat=full grads off by {rel} of their norm")
+    del grads, gf, model, state, tx
+    torch.cuda.empty_cache()
+    block = {}
+    for mode in ("full", "save_attn"):
+        c = apply_overrides(cfg, ["trainer.remat=none",
+                                  f"model.block_remat={mode}"])
+        model, policy, tx, _, state, loss_fn = _train_setup(c, sd)
+        fn = make_grad_fn(loss_fn, policy, remat="none", seed=7,
+                          device="cuda")
+        loss, _, _, g = fn(state.params, {}, small, 3)
+        b_rel = max(((g[k] - g0k).norm() / g0k.norm().clamp_min(1e-30))
+                    .item() for k, g0k in g0.items())
+        check(b_rel <= DROPOUT_REMAT_RTOL,
+              f"dropout_check: block_remat={mode} grads off by {b_rel} of "
+              "their norm")
+        block[mode] = {"loss": float(loss), "grad_rel_err": b_rel,
+                       "grads_bit_equal": all(torch.equal(g[k], g0k)
+                                              for k, g0k in g0.items())}
+        del model, state, tx, g
+        torch.cuda.empty_cache()
+    del g0
+    data = SyntheticLM(cfg.data, split="train")
+    gb = cfg.data.global_batch_size
+    batches = [data.batch(s, gb) for s in range(3)]
+    per_step = _flash_per_step(cfg, True)
+    runs = {}
+    for label, c in (("plain", apply_overrides(get_config(
+            "gpt2_medium_zero1"), TRAIN_OVERRIDES)), ("dropout", cfg)):
+        model, policy, tx, _, state, loss_fn = _train_setup(c, sd)
+        runs[label] = {"state": state, "model": model,
+                       "step": _step_fn(c, loss_fn, tx, policy), "recs": []}
+    for label in DROPOUT_TURNS:
+        run = runs[label]
+        s = len(run["recs"])
+        before = read_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run["state"], m = run["step"](run["state"], batches[s % 3])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = read_launches()
+        for name in after:
+            n = after[name] - before[name]
+            check(n == per_step.get(name, 0),
+                  f"dropout_check {label} step {s}: {name} launched {n}")
+        check(math.isfinite(float(m["loss"])),
+              f"dropout_check {label} step {s}: loss {float(m['loss'])}")
+        run["recs"].append({"step": s, "loss": float(m["loss"]),
+                            "step_s": wall})
+    steps = {k: r["recs"] for k, r in runs.items()}
+    step_s = {k: statistics.median(x["step_s"] for x in r[1:])
+              for k, r in steps.items()}
+    del runs
+    torch.cuda.empty_cache()
+    # Host cost: one generator made and seeded on the card per site.
+    reps = 2000
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        torch.Generator(device="cuda").manual_seed(mdrop.mix_seed(1, i, 0))
+    gen_us = (time.perf_counter() - t0) / reps * 1e6
+    # dots remat reruns each site in the backward: twice a microbatch.
+    sites_per_step = 2 * len(want_sites) * cfg.trainer.grad_accum
+    return {"card": card, "config": cfg.name, "overrides": DROPOUT_OVERRIDES,
+            "sites": len(masks), "kept_share_min": min(shares),
+            "kept_share_max": max(shares), "sigmas": DROPOUT_SIGMAS,
+            "same_seed_same_loss": True, "loss_remat_none": l0,
+            "loss_remat_full": lf, "remat_grad_rel_err": rel,
+            "remat_grads_bit_equal": bit_equal, "block_remat": block,
+            "remat_rtol": DROPOUT_REMAT_RTOL, "turns": DROPOUT_TURNS,
+            "steps": steps, "step_s": step_s,
+            "step_ratio": step_s["dropout"] / step_s["plain"],
+            "train_path_step_s": train_step_s,
+            "generator_us": gen_us, "sites_per_step": sites_per_step,
+            "generator_ms_per_step": gen_us * sites_per_step / 1e3}
+
+
+def init_params_phase(gen, sd, work: str) -> dict:
+    """init_params_check: seeded ``imagenet_rn50_ddp`` params written
+    with the port's flax msgpack writer, loaded by the ``Trainer`` under
+    ``precision.policy=bf16`` (equal to the file's, cast to bf16), then
+    trained through ``launch.main`` with ``trainer.init_params_path``,
+    ``precision.policy=bf16`` and ``optimizer.name=fused_adamw`` (no
+    clip, replicated state: the ``rn50_fused_opt`` point): 42 AdamW
+    launches a step with a bf16 p, finite losses. Then ``gpt2_medium_zero1``
+    at bf16_mixed from a file of the serving weights: the first step's
+    loss equals the run from the same weights without a file."""
+    from frl_distributed_ml_scaffold_tpu_torch.checkpoint import flax_msgpack
+    from frl_distributed_ml_scaffold_tpu_torch.config import (
+        apply_overrides,
+        get_config,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.data.synthetic import SyntheticLM
+    from frl_distributed_ml_scaffold_tpu_torch.models import convert
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.loop import Trainer
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.train_state import (
+        TrainState,
+    )
+
+    rcfg = apply_overrides(get_config("imagenet_rn50_ddp"), RN50_OVERRIDES)
+    params, extras = convert.init_resnet_params(rcfg.model, gen,
+                                                in_channels=3)
+    params = {k: v.cpu() for k, v in params.items()}
+    extras = {"batch_stats": {k: v.cpu() for k, v in
+                              extras["batch_stats"].items()}}
+    path = os.path.join(work, "rn50.msgpack")
+    t0 = time.perf_counter()
+    with open(path, "wb") as fh:
+        flax_msgpack.dump(convert.resnet_params_to_jax(params, extras,
+                                                       rcfg.model)[0], fh)
+    write_s = time.perf_counter() - t0
+    ov = RN50_OVERRIDES + ["precision.policy=bf16",
+                           "optimizer.name=fused_adamw",
+                           f"trainer.init_params_path={path}",
+                           "trainer.total_steps=2", "trainer.log_every=1",
+                           "trainer.eval_every=0", f"workdir={work}"]
+    cfg = apply_overrides(get_config("imagenet_rn50_ddp"), ov)
+    t0 = time.perf_counter()
+    state = Trainer(cfg, device="cuda").init_state()
+    load_s = time.perf_counter() - t0
+    for k, v in params.items():
+        got = state.params[k]
+        check(got.dtype == torch.bfloat16
+              and torch.equal(got.cpu(), v.bfloat16()),
+              f"init_params_check: {k} is not the file's leaf in bf16")
+    del state
+    torch.cuda.empty_cache()
+    reset_launches()
+    rc, run_s = launch_main([f"--config={cfg.name}", *ov])
+    counts = read_launches()
+    check(rc == 0, f"init_params_check: launch.main returned {rc}")
+    per_step = RN50_BIG_LEAVES
+    check(counts["fused_adamw"] == per_step * cfg.trainer.total_steps,
+          f"init_params_check: fused_adamw launched {counts['fused_adamw']}"
+          f" times in {cfg.trainer.total_steps} steps")
+    recs = read_jsonl(os.path.join(work, cfg.name, "metrics.jsonl"))
+    losses = [r["loss"] for r in recs if "loss" in r]
+    check(len(losses) == cfg.trainer.total_steps
+          and all(math.isfinite(x) for x in losses),
+          f"init_params_check: losses {losses}")
+    # GPT-2-medium at bf16_mixed (fp32 params) from a file of ``sd``.
+    gpath = os.path.join(work, "gpt2_medium.msgpack")
+    gov = TRAIN_OVERRIDES + ["data.global_batch_size=8",
+                             "trainer.grad_accum=1"]
+    base = apply_overrides(get_config("gpt2_medium_zero1"), gov)
+    with open(gpath, "wb") as fh:
+        flax_msgpack.dump(convert.params_to_jax(
+            {k: v.cpu() for k, v in sd.items()}, base.model), fh)
+    file_bytes = os.path.getsize(gpath)
+    batch = SyntheticLM(base.data, split="train").batch(0, 8)
+    first = {}
+    for label, c in (("file", apply_overrides(
+            base, [f"trainer.init_params_path={gpath}"])), ("seeded", base)):
+        trainer = Trainer(c, device="cuda")
+        st = (trainer.init_state() if label == "file" else
+              TrainState.create(sd, trainer.tx, device="cuda"))
+        _, m = trainer.train_step(st, batch)
+        first[label] = float(m["loss"])
+        del trainer, st
+        torch.cuda.empty_cache()
+    check(first["file"] == first["seeded"],
+          f"init_params_check: first loss {first}")
+    os.remove(gpath)
+    return {"rn50": {"config": cfg.name, "overrides": ov, "file": path,
+                     "file_bytes": os.path.getsize(path),
+                     "write_s": write_s, "trainer_load_s": load_s,
+                     "params_equal_file_bf16": True,
+                     "launch_rc": rc, "launch_s": run_s,
+                     "fused_adamw_launches": counts["fused_adamw"],
+                     "fused_adamw_per_step": per_step, "losses": losses},
+            "gpt2_medium": {"policy": base.precision.policy,
+                            "file_bytes": file_bytes,
+                            "first_loss": first}}
+
+
+def beam_phase(cfg, sd, seed: int, card: str) -> dict:
+    """beam_path: ``gpt2_medium_serve`` (bf16_mixed, seeded weights),
+    ``BEAM_PROMPTS`` ragged prompts of 32-64 tokens, ``BEAM_WIDTH``
+    beams, ``BEAM_NEW`` new tokens: tokens/s, and the decode kernel 24
+    times a decode step (24 x 63 a call) and no other kernel. In fp32:
+    one beam equals greedy ``generate()`` under the top-2-gap rule, and
+    beam 0's score equals the teacher-forced sum of its tokens'
+    log-probabilities."""
+    import numpy as np
+
+    from frl_distributed_ml_scaffold_tpu_torch.models.generation import (
+        beam_search,
+        generate,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.models.gpt import GPT
+    from frl_distributed_ml_scaffold_tpu_torch.precision import get_policy
+
+    rng = np.random.default_rng(seed + 15)
+    lens = np.linspace(32, 64, BEAM_PROMPTS).astype(int)
+    width = int(lens.max())
+    prompt = np.zeros((BEAM_PROMPTS, width), np.int32)
+    for row, n in enumerate(lens):
+        prompt[row, width - n:] = rng.integers(0, cfg.model.vocab_size, n)
+    prompt_t = torch.from_numpy(prompt).cuda()
+    lens_t = torch.from_numpy(lens).cuda()
+    out = {"card": card, "config": cfg.name, "prompt_lens": lens.tolist(),
+           "beams": BEAM_WIDTH, "new_tokens": BEAM_NEW}
+    model = GPT(cfg.model, get_policy(cfg.precision), device="cuda")
+    model.load_state_dict(sd)
+    beam_search(model, prompt_t, max_new_tokens=2, num_beams=BEAM_WIDTH,
+                prompt_lengths=lens_t)  # warm-up
+    walls = []
+    for _ in range(BEAM_CALLS):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        toks, scores = beam_search(model, prompt_t, max_new_tokens=BEAM_NEW,
+                                   num_beams=BEAM_WIDTH, prompt_lengths=lens_t)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts = read_launches()
+        check_launches(counts, {"decode_attention": BEAM_NEW - 1},
+                       cfg.model.num_layers, "beam_path")
+    check(bool(torch.isfinite(scores).all()) and toks.shape == (
+        BEAM_PROMPTS, width + BEAM_NEW), "beam_path: malformed result")
+    wall = statistics.median(walls)
+    out.update(policy=cfg.precision.policy, wall_s=walls,
+               tokens_per_s=BEAM_PROMPTS * BEAM_NEW / wall,
+               launches=counts, scores=scores.tolist())
+    del model
+    m32 = GPT(cfg.model, get_policy("fp32"), device="cuda")
+    m32.load_state_dict(sd)
+    one, _ = beam_search(m32, prompt_t, max_new_tokens=BEAM_NEW,
+                         num_beams=1, prompt_lengths=lens_t)
+    greedy = generate(m32, prompt_t, max_new_tokens=BEAM_NEW,
+                      temperature=0.0, prompt_lengths=lens_t)
+    rows = []
+    for row, n in enumerate(lens):
+        a, b = one[row].cpu().numpy(), greedy[row].cpu().numpy()
+        diff = np.flatnonzero(a != b)
+        entry = {"row": row, "identical": not diff.size}
+        if diff.size:
+            j = int(diff[0])
+            gap = _top2_gap(m32, cfg, a[width - n:j])
+            entry.update(first_diff_step=j - width, top2_gap=gap)
+            check(gap <= FP32_GAP_TOL,
+                  f"beam_path: one beam differs from greedy in row {row} "
+                  f"at a top-2 gap of {gap}")
+        rows.append(entry)
+    best, best_scores = beam_search(m32, prompt_t, max_new_tokens=BEAM_NEW,
+                                    num_beams=BEAM_WIDTH,
+                                    prompt_lengths=lens_t)
+    forced = []
+    with torch.no_grad():
+        for row, n in enumerate(lens):
+            seq = best[row, width - n:].long()[None]
+            lp = torch.log_softmax(m32(seq[:, :-1]).float(), dim=-1)
+            new = seq[0, n:]
+            forced.append(lp[0, n - 1:].gather(1, new[:, None]).sum().item())
+    err = max(abs(a - b) for a, b in zip(forced, best_scores.tolist()))
+    check(err <= BEAM_SCORE_TOL,
+          f"beam_path: beam 0's score against teacher forcing off by {err}")
+    out["fp32"] = {"one_beam_vs_greedy": rows, "gap_tol": FP32_GAP_TOL,
+                   "scores": best_scores.tolist(), "teacher_forced": forced,
+                   "score_err": err, "score_tol": BEAM_SCORE_TOL}
+    del m32
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4080,14 +4755,27 @@ def main() -> int:
                                    args.seed, card))
     emit("serve_faults_check", timed_phase("serve_faults_check",
                                            serve_faults_phase, cfg, sd))
+    # Beam search over the same weights: its own launch counts.
+    emit("beam_path", timed_phase("beam_path", beam_phase, cfg, sd,
+                                  args.seed, card))
     kern.update(timed_phase("flash_kernel", flash_kernel_phase, gen))
     report, counts, profile = timed_phase("train_path", train_phase, sd, card)
     launches.update({k: n for k, n in counts.items() if n})
     emit("train_path", report)
     train_step_s = report["step_s_median"]
+    adamw_state_bytes = report["opt_state_bytes"]
     emit("train_profile", profile)
     emit("fp32_train_check", timed_phase("fp32_train_check",
                                          fp32_train_phase, sd))
+    # The rest of the one-card training surface: gpt2_long end to end
+    # under each remat mode, adafactor, the other optimizers, dropout.
+    emit("long_path", timed_phase("long_path", long_phase, gen, card))
+    emit("adafactor_path", timed_phase("adafactor_path", adafactor_phase, sd,
+                                       card, adamw_state_bytes))
+    emit("optimizers_check", timed_phase("optimizers_check",
+                                         optimizers_phase))
+    emit("dropout_check", timed_phase("dropout_check", dropout_phase, sd,
+                                      card, train_step_s))
     # The loop through the launcher, as a user runs it: its checkpoints
     # go to a directory of the checkout that git ignores, removed after.
     emit("loop_log", quiet_loop_log())
@@ -4104,6 +4792,10 @@ def main() -> int:
               f"loop_resume_check: resumed steps 4-6 differ by {worst}")
         emit("mlp_launch", timed_phase("mlp_launch", mlp_launch_phase,
                                        os.path.join(work, "mlp")))
+        init_work = os.path.join(work, "init_params")
+        os.makedirs(init_work)
+        emit("init_params_check", timed_phase(
+            "init_params_check", init_params_phase, gen, sd, init_work))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # The GPT weights are done with: the ResNet phases' peak memory is
@@ -4217,6 +4909,14 @@ def main() -> int:
         "bound_ms": kern[name]["timing"]["bound_ms"],
         "bound_by": kern[name]["timing"]["bound_by"],
         "library_ms": kern[name]["timing"]["library_ms"],
+        **({"bf16_p_max_abs_err": kern[name]["bf16_p"]["max_abs_err"],
+            "bf16_p_bit_equal_share":
+                kern[name]["bf16_p"]["p_bit_equal_share"],
+            "bf16_p_ms": kern[name]["bf16_p"]["ms"],
+            "bf16_p_plain_ms": kern[name]["bf16_p"]["plain_ms"],
+            "bf16_p_bound_ms": kern[name]["bf16_p"]["bound_ms"],
+            "bf16_p_library_ms": kern[name]["bf16_p"]["library_ms"]}
+           if "bf16_p" in kern[name] else {}),
     } for name, cu, line in rows])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -89,6 +89,23 @@ def gpt2_medium_serve() -> ExperimentConfig:
     )
 
 
+def gpt2_medium_adafactor() -> ExperimentConfig:
+    """The flagship on Adafactor: ``gpt2_medium_zero1`` with adafactor
+    at lr 1e-2 (its update is relative, so AdamW's 3e-4 would barely
+    move it) and no weight decay. The factored second moment keeps a row
+    and a column a matrix: 3271452 bytes of optimizer state for the
+    GPT-2-medium model against AdamW's 2838585344 (``chip_smoke.py``'s
+    ``adafactor_path``)."""
+    base = gpt2_medium_zero1()
+    return base.replace(
+        name="gpt2_medium_adafactor",
+        optimizer=dataclasses.replace(
+            base.optimizer, name="adafactor", learning_rate=1e-2,
+            weight_decay=0.0,
+        ),
+    )
+
+
 def gpt2_long() -> ExperimentConfig:
     """Long context on one device: 8k tokens through the flash kernels,
     the chunked-vocab loss and full remat."""
@@ -187,6 +204,7 @@ _RECIPES = {
     "mnist_mlp": mnist_mlp,
     "gpt2_medium_zero1": gpt2_medium_zero1,
     "gpt2_medium_serve": gpt2_medium_serve,
+    "gpt2_medium_adafactor": gpt2_medium_adafactor,
     "gpt2_long": gpt2_long,
     "imagenet_rn50_ddp": imagenet_rn50_ddp,
     "imagenet_vitb_fsdp": imagenet_vitb_fsdp,

@@ -72,10 +72,10 @@ class PrecisionConfig:
 
 @dataclass(frozen=True)
 class OptimizerConfig:
-    """Optimizer and learning-rate schedule (``trainer/optimizers.py``).
-    The port runs ``adamw``, ``sgd`` (each with the optional global-norm
-    clip) and ``fused_adamw`` (``ops/fused_adamw.py``); the others raise,
-    naming ROADMAP queue A item 10."""
+    """Optimizer and learning-rate schedule (``trainer/optimizers.py``):
+    ``adamw``, ``adam``, ``sgd``, ``lion`` and ``adafactor`` (each with
+    the optional global-norm clip) and ``fused_adamw``
+    (``ops/fused_adamw.py``)."""
 
     name: str = "adamw"  # adamw | sgd | adam | adafactor | lion | fused_adamw
     learning_rate: float = 1e-3
@@ -105,8 +105,9 @@ class TrainerConfig:
     ``tensorboard``, ``stall_timeout_s`` /
     ``stall_timeout_first_beat_scale`` (the stall watchdog),
     ``tracing`` (host spans, ``trace_events.json``) and ``preempt_save``
-    (the SIGTERM checkpoint). ``init_params_path`` (a flax msgpack file)
-    is refused, naming ROADMAP queue A item 15."""
+    (the SIGTERM checkpoint) and ``init_params_path`` (a flax msgpack
+    params file to start from: ``checkpoint/flax_msgpack.py``). ``seed``
+    also seeds training dropout."""
 
     total_steps: int = 1000
     grad_accum: int = 1

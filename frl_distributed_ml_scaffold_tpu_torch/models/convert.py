@@ -67,7 +67,19 @@ def _lecun_normal(shape, fan_in: int, generator: torch.Generator, dtype):
 
 
 def _t(a) -> torch.Tensor:
+    """A leaf as a contiguous CPU tensor: a numpy leaf copied, a tensor
+    leaf (a params file read by ``checkpoint/flax_msgpack.py``) as it is,
+    copied only where a transpose left it strided."""
+    if isinstance(a, torch.Tensor):
+        return a.contiguous()
     return torch.from_numpy(np.array(a, copy=True))
+
+
+def _perm(a, axes):
+    """``a`` with its axes permuted: numpy or tensor."""
+    if isinstance(a, torch.Tensor):
+        return a.permute(axes)
+    return np.transpose(a, axes)
 
 
 _DENSE = (
@@ -97,6 +109,28 @@ def params_from_jax(tree: dict, cfg: GPTConfig) -> dict[str, torch.Tensor]:
             sd[f"{pre}{sub}.{name}.weight"] = _t(leaf["kernel"][i].T)
             sd[f"{pre}{sub}.{name}.bias"] = _t(leaf["bias"][i])
     return sd
+
+
+def params_to_jax(sd: dict, cfg: GPTConfig) -> dict:
+    """The inverse of ``params_from_jax``: the port's GPT state dict as
+    the JAX package's params tree (nested dicts of tensors on ``sd``'s
+    device, block leaves stacked on ``[L]``, Dense kernels ``[in,
+    out]``), for writing a flax params file on a machine without JAX."""
+    layers = range(cfg.num_layers)
+
+    def stack(suffix: str, transpose: bool = False):
+        leaves = [sd[f"blocks.{i}.{suffix}"] for i in layers]
+        return torch.stack([w.T if transpose else w for w in leaves])
+
+    blocks = {ln: {"scale": stack(ln + ".weight"), "bias": stack(ln + ".bias")}
+              for ln in ("ln1", "ln2")}
+    for sub, name in _DENSE:
+        blocks.setdefault(sub, {})[name] = {
+            "kernel": stack(f"{sub}.{name}.weight", transpose=True),
+            "bias": stack(f"{sub}.{name}.bias")}
+    return {"wte": {"embedding": sd["wte.weight"]}, "wpe": sd["wpe"],
+            "blocks": blocks,
+            "ln_f": {"scale": sd["ln_f.weight"], "bias": sd["ln_f.bias"]}}
 
 
 def init_params(
@@ -177,7 +211,7 @@ def resnet_params_from_jax(params: dict, batch_stats: dict
         stats[f"{port}.var"] = _t(s_tree[name]["var"])
 
     def conv(port: str, kernel):
-        out[f"{port}.weight"] = _t(np.transpose(kernel, (3, 2, 0, 1)))
+        out[f"{port}.weight"] = _t(_perm(kernel, (3, 2, 0, 1)))
 
     top_bn = _bn_prefix(params)
     if "stem_s2d" in params:
@@ -196,9 +230,52 @@ def resnet_params_from_jax(params: dict, batch_stats: dict
         for j, (c_name, b_name) in enumerate(layers[:n]):
             conv(f"blocks.{i}.{c_name}", p_tree[f"Conv_{j}"]["kernel"])
             bn(f"blocks.{i}.{b_name}", p_tree, s_tree, f"{prefix}_{j}")
-    out["head.weight"] = _t(np.transpose(params["Dense_0"]["kernel"]))
+    out["head.weight"] = _t(_perm(params["Dense_0"]["kernel"], (1, 0)))
     out["head.bias"] = _t(params["Dense_0"]["bias"])
     return out, {"batch_stats": stats}
+
+
+def resnet_params_to_jax(params: dict, extras: dict, cfg: ResNetConfig
+                         ) -> tuple[dict, dict]:
+    """The inverse of ``resnet_params_from_jax``: the port's ResNet
+    ``(params, extras)`` as the JAX package's ``(params, batch_stats)``
+    trees (HWIO kernels, flax's module names; tensors on the params'
+    device)."""
+    from frl_distributed_ml_scaffold_tpu_torch.models.resnet import BOTTLENECK
+
+    stats = extras["batch_stats"]
+    bn_name = "FusedBatchNorm" if cfg.fused_bn else "BatchNorm"
+    block = "BottleneckBlock" if BOTTLENECK[cfg.depth] else "BasicBlock"
+    p_tree: dict = {}
+    s_tree: dict = {}
+
+    def conv(port: str, dst: dict, name: str):
+        dst[name] = {"kernel": params[port + ".weight"].permute(2, 3, 1, 0)}
+
+    def bn(port: str, p_dst: dict, s_dst: dict, name: str):
+        p_dst[name] = {"scale": params[port + ".scale"],
+                       "bias": params[port + ".bias"]}
+        s_dst[name] = {"mean": stats[port + ".mean"],
+                       "var": stats[port + ".var"]}
+
+    if "stem_s2d.weight" in params:
+        conv("stem_s2d", p_tree, "stem_s2d")
+    else:
+        conv("stem_conv", p_tree, "Conv_0")
+    bn("stem_bn", p_tree, s_tree, f"{bn_name}_0")
+    n_blocks = 1 + max(int(k.split(".")[1]) for k in params
+                       if k.startswith("blocks."))
+    for i in range(n_blocks):
+        pb, sb = p_tree.setdefault(f"{block}_{i}", {}), s_tree.setdefault(
+            f"{block}_{i}", {})
+        layers = [(c, b) for c, b in _BLOCK_LAYERS[block]
+                  if f"blocks.{i}.{c}.weight" in params]
+        for j, (c_name, b_name) in enumerate(layers):
+            conv(f"blocks.{i}.{c_name}", pb, f"Conv_{j}")
+            bn(f"blocks.{i}.{b_name}", pb, sb, f"{bn_name}_{j}")
+    p_tree["Dense_0"] = {"kernel": params["head.weight"].T,
+                         "bias": params["head.bias"]}
+    return p_tree, s_tree
 
 
 def init_resnet_params(cfg: ResNetConfig, generator: torch.Generator, *,
@@ -265,7 +342,7 @@ def s2d_stem_weights(w7: torch.Tensor) -> torch.Tensor:
 
 
 def _dense(sd: dict, port: str, leaf: dict) -> None:
-    sd[port + ".weight"] = _t(np.transpose(leaf["kernel"]))
+    sd[port + ".weight"] = _t(_perm(leaf["kernel"], (1, 0)))
     sd[port + ".bias"] = _t(leaf["bias"])
 
 
@@ -287,7 +364,7 @@ def mlp_params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
 def vit_params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     """The JAX package's ViT params (numpy leaves) as the port's state
     dict (CPU tensors)."""
-    kernel = np.asarray(tree["Conv_0"]["kernel"])
+    kernel = tree["Conv_0"]["kernel"]
     sd = {"embed.weight": _t(kernel.reshape(-1, kernel.shape[-1]).T),
           "embed.bias": _t(tree["Conv_0"]["bias"]),
           "pos_embedding": _t(tree["pos_embedding"])}
@@ -304,11 +381,10 @@ def vit_params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
         ln(pre + "ln2", block["LayerNorm_1"])
         attn = block["MultiHeadDotProductAttention_0"]
         for name in ("query", "key", "value"):
-            k = np.asarray(attn[name]["kernel"])  # (D, H, hd)
+            k = attn[name]["kernel"]  # (D, H, hd)
             sd[f"{pre}attn.{name}.weight"] = _t(k.reshape(k.shape[0], -1).T)
-            sd[f"{pre}attn.{name}.bias"] = _t(np.reshape(attn[name]["bias"],
-                                                         -1))
-        k = np.asarray(attn["out"]["kernel"])  # (H, hd, D)
+            sd[f"{pre}attn.{name}.bias"] = _t(attn[name]["bias"].reshape(-1))
+        k = attn["out"]["kernel"]  # (H, hd, D)
         sd[pre + "attn.out.weight"] = _t(k.reshape(-1, k.shape[-1]).T)
         sd[pre + "attn.out.bias"] = _t(attn["out"]["bias"])
         _dense(sd, pre + "mlp.fc_in", block["MlpBlock_0"]["Dense_0"])
@@ -321,6 +397,55 @@ def vit_params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
 # The video classifier's tree is the ViT's without ``cls_token``, its
 # ``Conv_0`` kernel five-dimensional.
 video_params_from_jax = vit_params_from_jax
+
+
+def mlp_params_to_jax(sd: dict) -> dict:
+    """The inverse of ``mlp_params_from_jax``."""
+    n = 1 + max(int(k.split(".")[1]) for k in sd)
+    return {f"Dense_{i}": {"kernel": sd[f"dense.{i}.weight"].T,
+                           "bias": sd[f"dense.{i}.bias"]} for i in range(n)}
+
+
+def vit_params_to_jax(sd: dict, cfg) -> dict:
+    """The inverse of ``vit_params_from_jax`` (and of
+    ``video_params_from_jax``): ``cfg`` (a ``ViTConfig`` or
+    ``VideoConfig``) gives the heads and the patch or tubelet shape of
+    ``Conv_0``'s kernel."""
+    d, h = cfg.hidden_dim, cfg.num_heads
+    sizes = (tuple(cfg.tubelet_size) if hasattr(cfg, "tubelet_size")
+             else (cfg.patch_size, cfg.patch_size))
+    w = sd["embed.weight"]  # [D, prod(sizes) * C]
+    channels = w.shape[1] // math.prod(sizes)
+    tree = {"Conv_0": {"kernel": w.T.reshape(*sizes, channels, d),
+                       "bias": sd["embed.bias"]},
+            "pos_embedding": sd["pos_embedding"]}
+    if "cls_token" in sd:
+        tree["cls_token"] = sd["cls_token"]
+
+    def ln(port: str):
+        return {"scale": sd[port + ".weight"], "bias": sd[port + ".bias"]}
+
+    def dense(port: str):
+        return {"kernel": sd[port + ".weight"].T, "bias": sd[port + ".bias"]}
+
+    n = 1 + max(int(k.split(".")[1]) for k in sd if k.startswith("blocks."))
+    for i in range(n):
+        pre = f"blocks.{i}."
+        attn = {name: {
+            "kernel": sd[f"{pre}attn.{name}.weight"].T.reshape(d, h, d // h),
+            "bias": sd[f"{pre}attn.{name}.bias"].reshape(h, d // h)}
+            for name in ("query", "key", "value")}
+        attn["out"] = {"kernel": sd[pre + "attn.out.weight"].T.reshape(
+            h, d // h, d), "bias": sd[pre + "attn.out.bias"]}
+        tree[f"EncoderBlock_{i}"] = {
+            "LayerNorm_0": ln(pre + "ln1"),
+            "MultiHeadDotProductAttention_0": attn,
+            "LayerNorm_1": ln(pre + "ln2"),
+            "MlpBlock_0": {"Dense_0": dense(pre + "mlp.fc_in"),
+                           "Dense_1": dense(pre + "mlp.fc_out")}}
+    tree["LayerNorm_0"] = ln("ln")
+    tree["Dense_0"] = dense("head")
+    return tree
 
 
 def _init_like(model: torch.nn.Module, generator: torch.Generator,

@@ -12,6 +12,7 @@ cursor rewind, and the block-pool taxonomy (``POOL_LEAF_OF``,
 Sampling: greedy (``temperature=0``), temperature, top-k and nucleus
 (top-p), drawing from an explicit ``torch.Generator``. The draws differ
 from ``jax.random``'s; greedy decoding is the same function in both.
+``beam_search`` runs over the same prefill and decode step.
 """
 
 from __future__ import annotations
@@ -162,6 +163,148 @@ def generate(
             done = done | (tok == eos_id)
         toks.append(tok)
     return torch.cat([prompt, torch.stack(toks, dim=1)], dim=1)
+
+
+def _gather_cache_rows(cache: dict, rows: torch.Tensor,
+                       batch_rows: int) -> dict:
+    """The per-beam rows of a contiguous decode cache reordered by
+    ``rows``: K/V, scales and the per-row bookkeeping (``cache_index``,
+    ``pos_index``) follow their beam, since under ragged prompts the
+    beams of different rows sit at different positions."""
+    out = {}
+    for name, leaf in cache.items():
+        ax = cache_batch_axis(leaf, batch_rows)
+        out[name] = leaf if ax is None else leaf.index_select(ax, rows)
+    return out
+
+
+def _repeat_cache_rows(cache: dict, w: int, batch_rows: int) -> dict:
+    """A ``[B]``-row cache as ``[B * W]`` beams, each row repeated ``w``
+    times in place (row b's beams are rows ``b * w .. b * w + w - 1``)."""
+    out = {}
+    for name, leaf in cache.items():
+        ax = cache_batch_axis(leaf, batch_rows)
+        out[name] = leaf if ax is None else leaf.repeat_interleave(w, dim=ax)
+    return out
+
+
+@torch.no_grad()
+def beam_search(
+    model,
+    prompt,
+    *,
+    max_new_tokens: int,
+    num_beams: int = 4,
+    eos_id: int | None = None,
+    length_penalty: float = 0.0,
+    prompt_lengths=None,
+    cache_len: int | None = None,
+    device=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Deterministic beam decode of ``prompt`` ([B, Tp] int, LEFT-padded
+    with ``prompt_lengths`` when ragged); returns ``([B, Tp + new] best
+    tokens, [B] scores)``, the JAX package's ``beam_search``.
+
+    One prefill over the ``[B]`` prompt, its cache then repeated to
+    ``[B * W]`` beams; then one decode step over every beam per new
+    token (``_decode_step``: the decode kernel on the card). Each step
+    extends every beam over the whole vocabulary, keeps the top W of
+    ``W * V`` by summed log-probability (ties to the lower index, as
+    ``lax.top_k``) and reorders the cache rows by the survivors'
+    parents. With ``eos_id`` a finished beam is frozen: its only
+    continuation is eos at zero added log-probability.
+
+    The search ranks by the raw sum; with ``length_penalty`` alpha > 0
+    the final ranking divides each beam's sum by ``len ** alpha`` (len
+    counts the tokens up to and including the first eos), a stable sort
+    keeping ties in the search's order. The returned score is the ranked
+    quantity. ``device=None`` means ``cuda``; the model must live on the
+    resolved device."""
+    dev = resolve_device(device)
+    if model.device != dev:
+        raise ValueError(f"model lives on {model.device}, asked for {dev}")
+    cfg = model.config
+    prompt = torch.as_tensor(prompt, device=dev).to(torch.int32)
+    b, tp = prompt.shape
+    w = num_beams
+    if max_new_tokens < 1:
+        raise ValueError(
+            f"max_new_tokens={max_new_tokens} < 1: the returned score is "
+            "the sum log-prob of the emitted tokens, so at least one must "
+            "be emitted"
+        )
+    if tp + max_new_tokens > cfg.seq_len:
+        raise ValueError(
+            f"prompt ({tp}) + max_new_tokens ({max_new_tokens}) exceeds the "
+            f"model context ({cfg.seq_len}) — the KV cache is sized to it"
+        )
+    if w < 1 or w > cfg.vocab_size:
+        raise ValueError(f"num_beams={w} not in [1, vocab={cfg.vocab_size}]")
+    needed = tp + max_new_tokens
+    if cache_len is None:
+        cache_len = next_cache_bucket(cfg.seq_len, needed)
+    if cache_len < needed:
+        raise ValueError(
+            f"cache_len={cache_len} cannot hold prompt+new={needed} tokens")
+    if prompt_lengths is not None:
+        prompt_lengths = torch.as_tensor(prompt_lengths, device=dev)
+
+    logits, cache = _prefill(model, prompt, prompt_lengths,
+                             cache_len=cache_len)
+    scores, tok = _top_k(torch.log_softmax(logits.float(), dim=-1), w)
+    cache = _repeat_cache_rows(cache, w, b)
+    finished = (torch.zeros((b, w), dtype=torch.bool, device=dev)
+                if eos_id is None else tok == eos_id)
+    buf = torch.zeros((b, w, max_new_tokens), dtype=torch.int32, device=dev)
+    buf[:, :, 0] = tok
+    batch_idx = torch.arange(b, device=dev)[:, None]
+    for t in range(1, max_new_tokens):
+        logits, cache = _decode_step(model, cache, tok.reshape(b * w))
+        lp = torch.log_softmax(logits.float(), dim=-1).reshape(b, w, -1)
+        if eos_id is not None:
+            # Frozen beams may only repeat eos, for free: their score
+            # stays comparable while live beams keep extending.
+            eos_only = torch.full_like(lp, torch.finfo(torch.float32).min)
+            eos_only[..., eos_id] = 0.0
+            lp = torch.where(finished[..., None], eos_only, lp)
+        total = scores[..., None] + lp  # [B, W, V]
+        v = total.shape[-1]
+        scores, flat = _top_k(total.reshape(b, w * v), w)
+        src = flat // v  # each survivor's parent beam [B, W]
+        tok = (flat % v).to(torch.int32)
+        cache = _gather_cache_rows(cache, (batch_idx * w + src).reshape(-1),
+                                   b * w)
+        buf = buf[batch_idx, src]
+        buf[:, :, t] = tok
+        finished = finished[batch_idx, src]
+        if eos_id is not None:
+            finished = finished | (tok == eos_id)
+    if length_penalty > 0.0:
+        # Re-rank by the length-normalised score; the search stays on the
+        # raw sum (the normalisation is not monotone across prefixes of
+        # different lengths).
+        if eos_id is None:
+            # Every beam has the same length: a constant division, no
+            # reorder (a sort could swap beams tied in f32).
+            scores = scores / float(max_new_tokens) ** length_penalty
+        else:
+            is_eos = buf == eos_id
+            first = is_eos.int().argmax(dim=-1)
+            lens = torch.where(is_eos.any(-1), first + 1,
+                               torch.full_like(first, max_new_tokens)).float()
+            ranked = scores / lens ** length_penalty
+            order = torch.argsort(-ranked, dim=1, stable=True)
+            buf = torch.gather(buf, 1, order[..., None].expand_as(buf))
+            scores = torch.gather(ranked, 1, order)
+    # Beams are sorted by (possibly re-ranked) score: beam 0 is the best.
+    return torch.cat([prompt, buf[:, 0]], dim=1), scores[:, 0]
+
+
+def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest of each row, largest first, ties to the lower
+    index (``lax.top_k``'s order; ``torch.topk`` does not promise one)."""
+    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
 
 
 def cache_batch_axis(leaf: torch.Tensor, batch_rows: int) -> int | None:

@@ -7,9 +7,12 @@ training/eval forward: positions ``wpe[:t]``, causal attention through
 ``dense_attention``; ``flash``: ``ops/flash_attention.py``, the
 hand-written kernels on the card), and ``return_features=True`` returns
 the compute-dtype ``ln_f`` output for the chunked-vocab loss
-(``trainer/tasks.py``). Training dropout is not ported (every GPT recipe
-runs 0) and raises. ``GPT(tokens, cache)`` is decode mode, over a
-contiguous or paged KV cache; its prefill is dense whatever
+(``trainer/tasks.py``). Training dropout (``model.dropout``) sits where
+the JAX model's does: after the embedding and after each block's
+attention output projection and ``fc_out`` (``models/dropout.py``).
+``model.block_remat`` checkpoints each block on its own. ``GPT(tokens,
+cache)`` is decode mode, over a contiguous or paged KV cache; it ignores
+``block_remat`` and dropout, and its prefill is dense whatever
 ``model.attention`` says.
 
 Numerics follow the JAX model: LayerNorm in fp32 (eps from the config),
@@ -58,9 +61,15 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from frl_distributed_ml_scaffold_tpu_torch import resolve_device
 from frl_distributed_ml_scaffold_tpu_torch.config.schema import GPTConfig
+from frl_distributed_ml_scaffold_tpu_torch.models.dropout import (
+    check_seed,
+    dropout,
+)
 from frl_distributed_ml_scaffold_tpu_torch.ops.decode_attention import (
     decode_attention,
     paged_decode_attention,
@@ -82,6 +91,19 @@ from frl_distributed_ml_scaffold_tpu_torch.ops.ring_attention import (
 from frl_distributed_ml_scaffold_tpu_torch.precision import Policy
 
 _TRAIN_ATTENTION = {"dense": dense_attention, "flash": flash_attention}
+_BLOCK_REMAT = ("none", "full", "save_attn")
+
+
+def stacked_name(name: str) -> str:
+    """The JAX leaf a port parameter belongs to: the JAX model scans its
+    blocks, so ``blocks.<i>.<rest>`` of every layer i is one ``[L, ...]``
+    leaf there (``blocks.<rest>``); other names are their own leaf. An
+    optimizer that reduces over a whole leaf (Adafactor's block RMS)
+    reduces over these groups."""
+    head, _, rest = name.partition(".")
+    if head == "blocks":
+        return "blocks." + rest.partition(".")[2]
+    return name
 
 
 def _check_supported(cfg: GPTConfig) -> None:
@@ -97,11 +119,10 @@ def _check_supported(cfg: GPTConfig) -> None:
             f"unknown model.attention {cfg.attention!r} "
             f"(have {sorted(_TRAIN_ATTENTION)}, ring, ulysses)"
         )
-    if cfg.block_remat != "none":
-        raise NotImplementedError(
-            f"model.block_remat={cfg.block_remat!r} (per-block remat) is "
-            "not ported yet (ROADMAP queue A item 5, still to port); "
-            "trainer.remat=full|dots remats the whole loss"
+    if cfg.block_remat not in _BLOCK_REMAT:
+        raise KeyError(
+            f"unknown model.block_remat={cfg.block_remat!r} "
+            "(none | full | save_attn)"
         )
     if cfg.kv_cache_quant != "none":
         lowp_dtype(cfg.kv_cache_quant)  # KeyError naming the formats
@@ -309,10 +330,33 @@ class Block(nn.Module):
         self.attn = CausalSelfAttention(cfg, policy, device)
         self.ln2 = nn.LayerNorm(d, eps=eps, device=device, dtype=pd)
         self.mlp = GptMlp(cfg, policy, device)
+        self.rate = cfg.dropout
 
-    def forward(self, x, cache: dict | None, layer: int, lens):
-        x = x + self.attn(_layer_norm(self.ln1, x), cache, layer, lens)
-        return x + self.mlp(_layer_norm(self.ln2, x))
+    def attn_sublayer(self, x, layer: int, seed: int | None):
+        """The training forward's attention sublayer, its dropout after
+        the output projection (site 0 of ``layer``)."""
+        y = self.attn(_layer_norm(self.ln1, x), None, layer, None)
+        return dropout(y, self.rate, seed, layer, 0)
+
+    def mlp_sublayer(self, x, layer: int, seed: int | None):
+        """The MLP sublayer, its dropout after ``fc_out`` (site 1)."""
+        return dropout(self.mlp(_layer_norm(self.ln2, x)), self.rate, seed,
+                       layer, 1)
+
+    def forward(self, x, cache: dict | None, layer: int, lens,
+                seed: int | None = None, part: str = "block"):
+        """The block over ``x``; in training, ``part`` ``attn`` or
+        ``mlp`` returns that sublayer's output alone (``GPT._block_train``
+        checkpoints them apart)."""
+        if cache is not None:
+            x = x + self.attn(_layer_norm(self.ln1, x), cache, layer, lens)
+            return x + self.mlp(_layer_norm(self.ln2, x))
+        if part == "attn":
+            return self.attn_sublayer(x, layer, seed)
+        if part == "mlp":
+            return self.mlp_sublayer(x, layer, seed)
+        x = x + self.attn_sublayer(x, layer, seed)
+        return x + self.mlp_sublayer(x, layer, seed)
 
 
 class GPT(nn.Module):
@@ -405,12 +449,16 @@ class GPT(nn.Module):
         }
 
     def forward(self, tokens, cache: dict | None = None, lengths=None, *,
-                train: bool = False, return_features: bool = False):
+                train: bool = False, rng: int | None = None,
+                return_features: bool = False):
         """With no ``cache``: the training/eval forward of tokens
         ``[B, t]`` (t <= seq_len), logits ``[B, t, vocab]`` in the compute
         dtype, or with ``return_features`` the ``ln_f`` output ``[B, t,
-        d]`` cast to the compute dtype. ``train`` only matters for
-        dropout, which is not ported and raises when > 0.
+        d]`` cast to the compute dtype. With ``train`` and
+        ``model.dropout > 0``, dropout after the embedding and after each
+        block's attention output projection and ``fc_out``, its masks
+        seeded by ``rng`` (an int: ``models/dropout.py``). Under
+        ``model.block_remat`` each block is checkpointed on its own.
 
         With a ``cache``: tokens ``[B, t]`` (LEFT-padded when ``lengths
         [B]`` is given) against ``cache``, which advances in place by each
@@ -422,7 +470,8 @@ class GPT(nn.Module):
                     "lengths (ragged left-padded prompts) is a decode-mode "
                     "argument; training/eval batches are dense"
                 )
-            return self._forward_train(tokens, train, return_features)
+            return self._forward_train(tokens, check_seed(
+                self.config.dropout, train, rng), return_features)
         cfg, cd = self.config, self.policy.compute_dtype
         b, t = tokens.shape
         if "key_pool" in cache and t > 1 and lengths is not None:
@@ -451,20 +500,49 @@ class GPT(nn.Module):
         x = _layer_norm(self.ln_f, x)
         return F.linear(x.to(cd), self.wte.weight.to(cd))  # weight-tied head
 
-    def _forward_train(self, tokens, train: bool, return_features: bool):
+    def _forward_train(self, tokens, seed: int | None,
+                       return_features: bool):
         cfg, cd = self.config, self.policy.compute_dtype
-        if train and cfg.dropout > 0:
-            raise NotImplementedError(
-                f"model.dropout={cfg.dropout} in training is not ported "
-                "(ROADMAP queue A item 5, still to port); every GPT recipe "
-                "trains with 0"
-            )
         t = tokens.shape[1]
         x = F.embedding(tokens, self.wte.weight).to(cd)
         x = x + self.wpe[:t].to(cd)
+        # The embedding's site sits after every block's: (L, 0).
+        x = dropout(x, cfg.dropout, seed, cfg.num_layers, 0)
         for layer, block in enumerate(self.blocks):
-            x = block(x, None, layer, None)
+            x = self._block_train(block, x, layer, seed)
         x = _layer_norm(self.ln_f, x).to(cd)
         if return_features:
             return x
         return F.linear(x, self.wte.weight.to(cd))  # weight-tied head
+
+    def _block_train(self, block: Block, x, layer: int, seed: int | None):
+        """One block of the training forward under ``model.block_remat``:
+        ``none``; ``full``, the block under ``torch.utils.checkpoint``
+        (non-reentrant), only its input kept, everything in it
+        recomputed in the backward; ``save_attn``, the attention and MLP
+        sublayers each checkpointed, so their inputs, the block's input
+        and ``x + attn_out``, are kept: the attention sublayer's output
+        is saved as JAX's ``save_only_these_names("attn_out")`` saves it,
+        and the MLP's recompute does not rerun the attention. The
+        attention's own backward still needs its internals, which both
+        modes recompute (the flash forward included). Dropout masks are
+        drawn at their sites, so a recompute draws the same ones.
+
+        The recompute runs in the backward, after the train step's
+        ``functional_call`` has put the module's own parameters back, so
+        the block's parameters as this forward sees them are handed to
+        the checkpoint and swapped in again around the recompute."""
+        mode = self.config.block_remat
+        if mode == "none" or not torch.is_grad_enabled():
+            return block(x, None, layer, None, seed)
+        names, tensors = zip(*block.named_parameters())
+
+        def run(x, part, *tensors):
+            return functional_call(block, dict(zip(names, tensors)),
+                                   (x, None, layer, None, seed),
+                                   {"part": part})
+
+        if mode == "full":
+            return checkpoint(run, x, "block", *tensors, use_reentrant=False)
+        x = x + checkpoint(run, x, "attn", *tensors, use_reentrant=False)
+        return x + checkpoint(run, x, "mlp", *tensors, use_reentrant=False)

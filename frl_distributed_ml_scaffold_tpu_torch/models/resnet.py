@@ -299,8 +299,11 @@ class ResNet(nn.Module):
     def batch_norms(self) -> list[BatchNorm]:
         return [m for m in self.modules() if isinstance(m, BatchNorm)]
 
-    def forward(self, x, *, train: bool = False):
-        """``x`` [B, H, W, C] -> ``(logits [B, classes], updates)``."""
+    def forward(self, x, *, train: bool = False, rng: int | None = None):
+        """``x`` [B, H, W, C] -> ``(logits [B, classes], updates)``. The
+        ResNet has no dropout: ``rng`` is taken, as every family's
+        forward takes it, and not read."""
+        del rng
         cd = self.policy.compute_dtype
         updates: dict[str, torch.Tensor] = {}
         x = x.to(cd)

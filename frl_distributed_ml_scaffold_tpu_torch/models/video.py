@@ -38,8 +38,8 @@ class VideoClassifier(TokenClassifier):
                          * in_channels,
                          tokens=tokens, cls_token=False, device=device)
 
-    def forward(self, x, *, train: bool = False):
+    def forward(self, x, *, train: bool = False, rng: int | None = None):
         """``x`` [B, T, H, W, C] -> logits [B, classes]."""
         x = patchify(x.to(self.policy.compute_dtype),
                      tuple(self.config.tubelet_size))
-        return self.classify(x, pool="mean", train=train)
+        return self.classify(x, pool="mean", train=train, rng=rng)

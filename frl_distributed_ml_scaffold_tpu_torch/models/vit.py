@@ -32,10 +32,15 @@ flax names them (``query``, ``key``, ``value``, ``out``), over the heads
 flattened: flax's ``(D, heads, head_dim)`` kernels become ``[heads *
 head_dim, D]`` weights (``models/convert.py``).
 
-Not ported, and refused where they would take effect: training with
-``dropout > 0`` (every recipe trains with 0), and the tensor-parallel
-hooks (``tp_overlap`` / ``tp``; the JAX package's ``vit_tp_rules`` is
-sharding, ROADMAP queue A item 11).
+Training dropout (``model.dropout``, ``models/dropout.py``) sits where
+flax puts it: after the position embedding, on the attention
+probabilities (flax's ``dropout_rate``: the probabilities times ``keep /
+(1 - rate)`` in the compute dtype), after the MLP's GELU and after its
+output projection.
+
+Not ported, and refused where they would take effect: the
+tensor-parallel hooks (``tp_overlap`` / ``tp``; the JAX package's
+``vit_tp_rules`` is sharding, ROADMAP queue A item 11).
 """
 
 from __future__ import annotations
@@ -48,6 +53,11 @@ from torch import nn
 
 from frl_distributed_ml_scaffold_tpu_torch import resolve_device
 from frl_distributed_ml_scaffold_tpu_torch.config.schema import ViTConfig
+from frl_distributed_ml_scaffold_tpu_torch.models.dropout import (
+    check_seed,
+    dropout,
+    keep_mask,
+)
 from frl_distributed_ml_scaffold_tpu_torch.models.gpt import _layer_norm
 from frl_distributed_ml_scaffold_tpu_torch.precision import Policy
 
@@ -59,13 +69,6 @@ def refuse_hook(hook, name: str) -> None:
         raise NotImplementedError(
             f"{name} (the collective-matmul tensor-parallel hooks) is not "
             "ported yet (ROADMAP queue A item 11)")
-
-
-def refuse_dropout(dropout: float, train: bool) -> None:
-    if train and dropout > 0:
-        raise NotImplementedError(
-            f"model.dropout={dropout} in training is not ported (ROADMAP "
-            "queue A item 5, still to port); every recipe trains with 0")
 
 
 def patchify(x: torch.Tensor, sizes: tuple[int, ...]) -> torch.Tensor:
@@ -89,17 +92,19 @@ def _dense(lin: nn.Linear, x, cd):
 class MultiHeadAttention(nn.Module):
     """flax ``MultiHeadDotProductAttention`` self-attention (no mask)."""
 
-    def __init__(self, dim: int, num_heads: int, policy: Policy, device):
+    def __init__(self, dim: int, num_heads: int, policy: Policy, device, *,
+                 dropout: float = 0.0):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"hidden_dim {dim} not divisible by num_heads "
                              f"{num_heads}")
         self.num_heads, self.dtype = num_heads, policy.compute_dtype
+        self.rate = dropout
         pd = policy.param_dtype
         self.query, self.key, self.value, self.out = (
             nn.Linear(dim, dim, device=device, dtype=pd) for _ in range(4))
 
-    def forward(self, x):
+    def forward(self, x, seed: int | None = None, layer: int = 0):
         cd = self.dtype
         b, n, d = x.shape
         hd = d // self.num_heads
@@ -108,38 +113,49 @@ class MultiHeadAttention(nn.Module):
         q = q / torch.tensor(math.sqrt(hd), dtype=cd)
         s = torch.einsum("bqhd,bkhd->bhqk", q, k)
         p = torch.softmax(s, dim=-1)
+        if seed is not None and self.rate > 0.0:
+            keep = keep_mask(p.shape, self.rate, seed, layer, 0,
+                             device=p.device)
+            p = p * (keep.to(cd) / torch.tensor(1.0 - self.rate, dtype=cd))
         o = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(b, n, d)
         return _dense(self.out, o, cd)
 
 
 class MlpBlock(nn.Module):
-    def __init__(self, dim: int, mlp_ratio: int, policy: Policy, device):
+    def __init__(self, dim: int, mlp_ratio: int, policy: Policy, device, *,
+                 dropout: float = 0.0):
         super().__init__()
         self.dtype, pd = policy.compute_dtype, policy.param_dtype
+        self.rate = dropout
         self.fc_in = nn.Linear(dim, dim * mlp_ratio, device=device, dtype=pd)
         self.fc_out = nn.Linear(dim * mlp_ratio, dim, device=device, dtype=pd)
 
-    def forward(self, x):
+    def forward(self, x, seed: int | None = None, layer: int = 0):
         y = F.gelu(_dense(self.fc_in, x, self.dtype), approximate="tanh")
-        return _dense(self.fc_out, y, self.dtype)
+        y = dropout(y, self.rate, seed, layer, 1)
+        return dropout(_dense(self.fc_out, y, self.dtype), self.rate, seed,
+                       layer, 2)
 
 
 class EncoderBlock(nn.Module):
     """Pre-LN block: ``x + attn(ln1(x))``, then ``x + mlp(ln2(x))``."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: int,
-                 policy: Policy, device, *, tp=None):
+                 policy: Policy, device, *, tp=None, dropout: float = 0.0):
         super().__init__()
         refuse_hook(tp, "EncoderBlock tp")
         pd = policy.param_dtype
         self.ln1 = nn.LayerNorm(dim, eps=LN_EPS, device=device, dtype=pd)
-        self.attn = MultiHeadAttention(dim, num_heads, policy, device)
+        self.attn = MultiHeadAttention(dim, num_heads, policy, device,
+                                       dropout=dropout)
         self.ln2 = nn.LayerNorm(dim, eps=LN_EPS, device=device, dtype=pd)
-        self.mlp = MlpBlock(dim, mlp_ratio, policy, device)
+        self.mlp = MlpBlock(dim, mlp_ratio, policy, device, dropout=dropout)
 
-    def forward(self, x):
-        x = x + self.attn(_layer_norm(self.ln1, x))
-        return x + self.mlp(_layer_norm(self.ln2, x))
+    def forward(self, x, seed: int | None = None, layer: int = 0):
+        """``seed`` (None in eval) seeds this block's dropout sites, each
+        named by ``(layer, site)``."""
+        x = x + self.attn(_layer_norm(self.ln1, x), seed, layer)
+        return x + self.mlp(_layer_norm(self.ln2, x), seed, layer)
 
 
 class TokenClassifier(nn.Module):
@@ -161,22 +177,27 @@ class TokenClassifier(nn.Module):
         self.pos_embedding = nn.Parameter(torch.empty(
             (1, tokens + cls_token, d), device=dev, dtype=pd))
         self.blocks = nn.ModuleList(
-            EncoderBlock(d, cfg.num_heads, cfg.mlp_ratio, policy, dev)
+            EncoderBlock(d, cfg.num_heads, cfg.mlp_ratio, policy, dev,
+                         dropout=cfg.dropout)
             for _ in range(cfg.num_layers))
         self.ln = nn.LayerNorm(d, eps=LN_EPS, device=dev, dtype=pd)
         self.head = nn.Linear(d, cfg.num_classes, device=dev, dtype=pd)
 
-    def classify(self, patches, *, pool: str, train: bool):
-        """``patches`` [B, N, patch_features] -> logits [B, classes]."""
-        refuse_dropout(self.config.dropout, train)
+    def classify(self, patches, *, pool: str, train: bool,
+                 rng: int | None = None):
+        """``patches`` [B, N, patch_features] -> logits [B, classes];
+        ``rng`` seeds training dropout (``models/dropout.py``)."""
+        seed = check_seed(self.config.dropout, train, rng)
         cd = self.policy.compute_dtype
         x = _dense(self.embed, patches, cd)
         if pool == "cls":
             cls = self.cls_token.to(cd).expand(x.shape[0], -1, -1)
             x = torch.cat([cls, x], dim=1)
         x = x + self.pos_embedding.to(cd)
-        for block in self.blocks:
-            x = block(x)
+        # The embedding's site sits after every block's: (L, 0).
+        x = dropout(x, self.config.dropout, seed, len(self.blocks), 0)
+        for layer, block in enumerate(self.blocks):
+            x = block(x, seed, layer)
         x = _layer_norm(self.ln, x)
         x = x[:, 0] if pool == "cls" else x.mean(dim=1)
         return _dense(self.head, x, cd).to(self.policy.output_dtype)
@@ -199,8 +220,8 @@ class ViT(TokenClassifier):
                          tokens=(config.image_size // p) ** 2,
                          cls_token=config.pool == "cls", device=device)
 
-    def forward(self, x, *, train: bool = False):
+    def forward(self, x, *, train: bool = False, rng: int | None = None):
         """``x`` [B, H, W, C] -> logits [B, classes]."""
         p = self.config.patch_size
         x = patchify(x.to(self.policy.compute_dtype), (p, p))
-        return self.classify(x, pool=self.config.pool, train=train)
+        return self.classify(x, pool=self.config.pool, train=train, rng=rng)

@@ -5,8 +5,8 @@
 // Replaces the TPU kernel of frl_distributed_ml_scaffold_tpu/ops/
 // fused_adamw.py:
 //   frl_fused_adamw <- _kernel (launched by _update_leaf)
-// and computes _adamw_math over flat fp32 p, m, v and an fp32 or bf16 g,
-// in place:
+// and computes _adamw_math over flat fp32 m, v, an fp32 or bf16 p and an
+// fp32 or bf16 g, in place:
 //   m' = b1 m + (1 - b1) g
 //   v' = b2 v + (1 - b2) g g
 //   p' = p - lr ((m' / bc1) / (sqrt(v' / bc2) + eps) + wd p)
@@ -21,14 +21,23 @@
 // registers, as the JAX _update_leaf upcasts it; the update itself is
 // the same.
 //
+// A bf16 p (trainer.init_params_path under precision.policy=bf16) is read
+// the same way and widened in registers; m and v stay fp32 and p' is
+// rounded to bf16 to nearest even (__float2bfloat16_rn) as it is stored.
+// This is the JAX package's plain path (_adamw_math on p as fp32, p'
+// cast back to the param dtype, m' and v' kept fp32), which every backend
+// but the TPU runs; its TPU kernel path casts m' and v' to the param
+// dtype too. The plain path keeps the state's dtypes fixed from step to
+// step, and it is what the CPU reference computes.
+//
 // Bound: 4 reads and 3 writes of 4 bytes an element (28 bytes; 26 with a
-// bf16 g) against ~15 flops: device memory bytes. The TPU kernel pads
-// each leaf to 512 x 128 tiles; here a grid-stride loop reads p, m, v as
-// float4 (16-byte loads, each pointer 16-byte aligned) and g as float4
-// or as four bf16 (8-byte aligned), both checked by the wrapper, and
-// finishes the last n % 4 elements one by one. No padding, no copy.
-// Left for later: one launch over every leaf (a multi-tensor list), and
-// keeping p in bf16 beside an fp32 master copy.
+// bf16 g, 22 with a bf16 p and g) against ~15 flops: device memory bytes.
+// The TPU kernel pads each leaf to 512 x 128 tiles; here a grid-stride
+// loop reads m, v (and an fp32 p or g) as float4 (16-byte loads, each
+// pointer 16-byte aligned) and a bf16 p or g as four bf16 (8-byte
+// aligned), all checked by the wrapper, and finishes the last n % 4
+// elements one by one. No padding, no copy. Left for later: one launch
+// over every leaf (a multi-tensor list).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,82 +61,118 @@ __device__ __forceinline__ void adamw(float& p, float g, float& m, float& v,
   p = __fsub_rn(p, __fmul_rn(h.lr, u));
 }
 
-// Four consecutive g values from element 4 i, and one, as fp32.
-__device__ __forceinline__ float4 load_g4(const float* g, long long i) {
-  return reinterpret_cast<const float4*>(g)[i];
+// Four consecutive values from element 4 i, and one, as fp32.
+__device__ __forceinline__ float4 load4(const float* x, long long i) {
+  return reinterpret_cast<const float4*>(x)[i];
 }
-__device__ __forceinline__ float4 load_g4(const __nv_bfloat16* g,
-                                          long long i) {
-  const uint2 raw = reinterpret_cast<const uint2*>(g)[i];
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* x,
+                                        long long i) {
+  const uint2 raw = reinterpret_cast<const uint2*>(x)[i];
   const float2 lo = __bfloat1622float2(
       *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
   const float2 hi = __bfloat1622float2(
       *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
-__device__ __forceinline__ float load_g(const float* g, long long i) {
-  return g[i];
+__device__ __forceinline__ float load1(const float* x, long long i) {
+  return x[i];
 }
-__device__ __forceinline__ float load_g(const __nv_bfloat16* g, long long i) {
-  return __bfloat162float(g[i]);
+__device__ __forceinline__ float load1(const __nv_bfloat16* x, long long i) {
+  return __bfloat162float(x[i]);
 }
 
-template <typename G>
+// Four fp32 values stored from element 4 i, and one: as they are, or
+// rounded to bf16 to nearest even.
+__device__ __forceinline__ void store4(float* x, long long i, float4 val) {
+  reinterpret_cast<float4*>(x)[i] = val;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* x, long long i,
+                                       float4 val) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(val.x, val.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(val.z, val.w);
+  uint2 raw;
+  raw.x = *reinterpret_cast<const unsigned int*>(&lo);
+  raw.y = *reinterpret_cast<const unsigned int*>(&hi);
+  reinterpret_cast<uint2*>(x)[i] = raw;
+}
+__device__ __forceinline__ void store1(float* x, long long i, float val) {
+  x[i] = val;
+}
+__device__ __forceinline__ void store1(__nv_bfloat16* x, long long i,
+                                       float val) {
+  x[i] = __float2bfloat16_rn(val);
+}
+
+template <typename P, typename G>
 __global__ void __launch_bounds__(kThreads)
-    adamw_kernel(float* __restrict__ p, const G* __restrict__ g,
+    adamw_kernel(P* __restrict__ p, const G* __restrict__ g,
                  float* __restrict__ m, float* __restrict__ v, long long n,
                  Hyper h) {
   const long long n4 = n / 4;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  float4* p4 = reinterpret_cast<float4*>(p);
   float4* m4 = reinterpret_cast<float4*>(m);
   float4* v4 = reinterpret_cast<float4*>(v);
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
        i += stride) {
-    float4 pp = p4[i], mm = m4[i], vv = v4[i];
-    const float4 gg = load_g4(g, i);
+    float4 pp = load4(p, i), mm = m4[i], vv = v4[i];
+    const float4 gg = load4(g, i);
     adamw(pp.x, gg.x, mm.x, vv.x, h);
     adamw(pp.y, gg.y, mm.y, vv.y, h);
     adamw(pp.z, gg.z, mm.z, vv.z, h);
     adamw(pp.w, gg.w, mm.w, vv.w, h);
-    p4[i] = pp;
+    store4(p, i, pp);
     m4[i] = mm;
     v4[i] = vv;
   }
   // The last n % 4 elements, one thread each.
   const long long t = n4 * 4 + (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t < n) {
-    float pp = p[t], mm = m[t], vv = v[t];
-    adamw(pp, load_g(g, t), mm, vv, h);
-    p[t] = pp;
+    float pp = load1(p, t), mm = m[t], vv = v[t];
+    adamw(pp, load1(g, t), mm, vv, h);
+    store1(p, t, pp);
     m[t] = mm;
     v[t] = vv;
   }
 }
 
+template <typename P>
+void launch(P* p, const void* g, int g_bf16, float* m, float* v, long long n,
+            const Hyper& h, unsigned blocks, cudaStream_t st) {
+  if (g_bf16) {
+    adamw_kernel<<<blocks, kThreads, 0, st>>>(
+        p, static_cast<const __nv_bfloat16*>(g), m, v, n, h);
+  } else {
+    adamw_kernel<<<blocks, kThreads, 0, st>>>(
+        p, static_cast<const float*>(g), m, v, n, h);
+  }
+}
+
 }  // namespace
 
-// p, m, v: n fp32 each, 16-byte aligned, updated in place; g: n fp32
-// (g_bf16 = 0, 16-byte aligned) or n bf16 (g_bf16 = 1, 8-byte aligned).
-// one_minus_b1 / one_minus_b2 are the host's (1 - b) rounded to fp32, as
-// the plain version multiplies by them. Returns cudaGetLastError().
-extern "C" int frl_fused_adamw(float* p, const void* g, int g_bf16, float* m,
-                               float* v, long long n, float lr, float bc1,
-                               float bc2, float b1, float one_minus_b1,
-                               float b2, float one_minus_b2, float eps,
-                               float wd, void* stream) {
+// m, v: n fp32 each, 16-byte aligned, updated in place; p: n fp32 (p_bf16
+// = 0, 16-byte aligned) or n bf16 (p_bf16 = 1, 8-byte aligned), updated in
+// place; g: n fp32 (g_bf16 = 0, 16-byte aligned) or n bf16 (g_bf16 = 1,
+// 8-byte aligned). one_minus_b1 / one_minus_b2 are the host's (1 - b)
+// rounded to fp32, as the plain version multiplies by them. Returns
+// cudaGetLastError().
+extern "C" int frl_fused_adamw(void* p, int p_bf16, const void* g, int g_bf16,
+                               float* m, float* v, long long n, float lr,
+                               float bc1, float bc2, float b1,
+                               float one_minus_b1, float b2,
+                               float one_minus_b2, float eps, float wd,
+                               void* stream) {
   const Hyper h{lr, bc1, bc2, b1, one_minus_b1, b2, one_minus_b2, eps, wd};
   // About 8 blocks per SM on 132 SMs; the grid-stride loop covers the rest.
   long long blocks = (n / 4 + kThreads - 1) / kThreads;
   if (blocks > 1056) blocks = 1056;
   if (blocks < 1) blocks = 1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (g_bf16) {
-    adamw_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
-        p, static_cast<const __nv_bfloat16*>(g), m, v, n, h);
+  if (p_bf16) {
+    launch(static_cast<__nv_bfloat16*>(p), g, g_bf16, m, v, n, h,
+           (unsigned)blocks, st);
   } else {
-    adamw_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
-        p, static_cast<const float*>(g), m, v, n, h);
+    launch(static_cast<float*>(p), g, g_bf16, m, v, n, h, (unsigned)blocks,
+           st);
   }
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,18 @@
 """Fused AdamW: the port of the JAX package's ``ops/fused_adamw.py``.
 
 One optimizer step of AdamW on one parameter leaf in one pass: read g,
-m, v and p, write p', m' and v' (fp32). g may be bf16 (the step's cast
-under ``precision.policy=bf16``): it is widened to fp32 as it is read,
-as the JAX ``_update_leaf`` upcasts it. ``FusedAdamW`` runs it over a dict
-of leaves with the JAX package's schedule rules: the learning rate is
-read at the count BEFORE it increments, the bias correction uses the
-incremented count, as ``optax.adamw`` does.
+m, v and p, write p', m' and v'. m and v are fp32. g may be bf16 (the
+step's cast under ``precision.policy=bf16``): it is widened to fp32 as it
+is read, as the JAX ``_update_leaf`` upcasts it. p may be bf16 (a bf16
+init from ``trainer.init_params_path`` under ``precision.policy=bf16``):
+it is widened as it is read and p' rounded back to bf16 (to nearest
+even), while m' and v' stay fp32. That is the JAX package's plain path,
+which every backend but the TPU runs and which keeps the state's dtypes
+fixed; its TPU kernel path casts m' and v' to the param dtype too.
+``FusedAdamW`` runs it over a dict of leaves with the JAX package's
+schedule rules: the learning rate is read at the count BEFORE it
+increments, the bias correction uses the incremented count, as
+``optax.adamw`` does.
 
 Two versions of the per-leaf update:
 
@@ -52,19 +58,17 @@ def adamw_math(g, m, v, p, lr, bc1, bc2, *, b1, b2, eps, wd):
 
 
 def _check_leaf(p, g, m, v):
-    """What the kernel takes: fp32 p, m and v, 16-byte aligned; g fp32
-    (16-byte aligned) or bf16 (8-byte aligned), read in place; all of
-    p's shape and device, contiguous."""
-    for name, t in (("p", p), ("m", m), ("v", v)):
+    """What the kernel takes: fp32 m and v, 16-byte aligned; p and g
+    each fp32 (16-byte aligned) or bf16 (8-byte aligned), read in place;
+    all of p's shape and device, contiguous."""
+    for name, t in (("m", m), ("v", v)):
         if t.dtype != torch.float32:
-            raise TypeError(
-                f"the AdamW kernel takes float32 p, m and v, {name} is "
-                f"{t.dtype} (a bf16 p comes only from a bf16 init: "
-                "trainer.init_params_path, ROADMAP queue A item 15, which "
-                "the port's loop refuses)")
-    if g.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"the AdamW kernel takes a float32 or bfloat16 g, "
-                        f"got {g.dtype}")
+            raise TypeError(f"the AdamW kernel takes float32 m and v, {name} "
+                            f"is {t.dtype}")
+    for name, t in (("p", p), ("g", g)):
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"the AdamW kernel takes a float32 or bfloat16 "
+                            f"{name}, got {t.dtype}")
     for name, t in (("p", p), ("g", g), ("m", m), ("v", v)):
         if t.shape != p.shape or t.device != p.device:
             raise ValueError(f"{name} is {tuple(t.shape)} on {t.device}, p is "
@@ -76,18 +80,18 @@ def _check_leaf(p, g, m, v):
 
 
 def adamw_kernel(p, g, m, v, lr, bc1, bc2, *, b1, b2, eps, wd) -> None:
-    """Launch the kernel on CUDA leaves (fp32 p, m, v; fp32 or bf16 g):
-    p, m and v updated in place."""
+    """Launch the kernel on CUDA leaves (fp32 m, v; fp32 or bf16 p and
+    g): p, m and v updated in place."""
     _check_leaf(p, g, m, v)
     fn = _build.load("fused_adamw").frl_fused_adamw
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] * 2
                        + [ctypes.c_void_p] * 2 + [ctypes.c_longlong]
                        + [ctypes.c_float] * 9 + [ctypes.c_void_p])
-    err = fn(p.data_ptr(), g.data_ptr(), int(g.dtype == torch.bfloat16),
-             m.data_ptr(), v.data_ptr(), p.numel(), lr, bc1, bc2, b1, 1.0 - b1,
-             b2, 1.0 - b2, eps, wd,
+    err = fn(p.data_ptr(), int(p.dtype == torch.bfloat16), g.data_ptr(),
+             int(g.dtype == torch.bfloat16), m.data_ptr(), v.data_ptr(),
+             p.numel(), lr, bc1, bc2, b1, 1.0 - b1, b2, 1.0 - b2, eps, wd,
              torch.cuda.current_stream(p.device).cuda_stream)
     if err != 0:
         raise _build.KernelError(
@@ -101,7 +105,7 @@ adamw_kernel.launches = 0
 def update_leaf(g, m, v, p, lr, bc1, bc2, *, b1, b2, eps, wd) -> None:
     """One leaf's update, in place on p, m and v: the kernel for a leaf
     on the card of at least ``MIN_KERNEL_ELEMENTS``, else
-    ``adamw_math``."""
+    ``adamw_math`` (p' rounded once to p's dtype)."""
     if p.device.type == "cuda" and p.numel() >= MIN_KERNEL_ELEMENTS:
         adamw_kernel(p, g, m, v, lr, bc1, bc2, b1=b1, b2=b2, eps=eps, wd=wd)
         return
@@ -115,14 +119,15 @@ def update_leaf(g, m, v, p, lr, bc1, bc2, *, b1, b2, eps, wd) -> None:
 
 
 class FusedAdamW:
-    """AdamW as one pass per leaf over a dict of fp32 parameters, updated
-    in place; the interface of ``trainer.optimizers.AdamW`` (no clip: the
-    global-norm clip is a separate pass over every leaf, so the optimizer
-    factory refuses the combination).
+    """AdamW as one pass per leaf over a dict of fp32 or bf16 parameters,
+    updated in place; the interface of ``trainer.optimizers.AdamW`` (no
+    clip: the global-norm clip is a separate pass over every leaf, so the
+    optimizer factory refuses the combination).
 
     State: ``{"count": int, "mu": {name: tensor}, "nu": {name: tensor}}``
-    (fp32). ``count`` is a host integer, so lr and the bias corrections
-    are host floats and no step reads the card back."""
+    (fp32 whatever the params' dtype). ``count`` is a host integer, so
+    lr and the bias corrections are host floats and no step reads the
+    card back."""
 
     def __init__(self, schedule, *, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, weight_decay: float = 0.0):

@@ -18,7 +18,12 @@ Refused, each naming its ROADMAP item: meshes of more than one device and
 ``offload_opt_state`` (queue A item 7, raised by ``make_train_step``),
 the overlap schedule and low-precision collectives (item 11), sequence
 parallelism, pipelines (SPMD or MPMD) and MoE (item 12, raised by the
-GPT model for the last two), ``trainer.init_params_path`` (item 15).
+GPT model for the last two).
+
+``trainer.init_params_path`` starts the run from a flax msgpack params
+file (``tools/import_hf_gpt2.py``'s output, or ``checkpoint/
+flax_msgpack.py`` ``dump`` of ``models/convert.py``'s ``*_params_to_jax``
+trees), read without ``msgpack`` or flax.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from typing import Any, Callable
 import torch
 
 from frl_distributed_ml_scaffold_tpu_torch import faults, resolve_device
+from frl_distributed_ml_scaffold_tpu_torch.checkpoint import flax_msgpack
 from frl_distributed_ml_scaffold_tpu_torch.checkpoint.manager import Checkpointer
 from frl_distributed_ml_scaffold_tpu_torch.config.core import config_to_dict
 from frl_distributed_ml_scaffold_tpu_torch.config.schema import ExperimentConfig
@@ -83,12 +89,6 @@ def _check_ported(cfg: ExperimentConfig) -> None:
     """Refuse what the loop does not port yet (module docstring); the
     mesh, optimizer-offload and pipeline refusals are the step's and the
     model's own."""
-    if cfg.trainer.init_params_path:
-        raise NotImplementedError(
-            f"trainer.init_params_path={cfg.trainer.init_params_path!r}: "
-            "reading a flax msgpack params file is not ported yet (ROADMAP "
-            "queue A item 15); the loop starts from the seeded init"
-        )
     p = cfg.parallel
     if (p.schedule not in ("", "auto") or p.fsdp_overlap or p.tp_overlap
             or p.low_precision != "none"):
@@ -113,6 +113,25 @@ def _model_kwargs(cfg: ExperimentConfig) -> dict:
     if family in ("resnet", "vit", "video"):
         return {"in_channels": d.channels}
     return {}
+
+
+def _leaves_with_path(tree, path: str = ""):
+    """``(key path, leaf)`` of a nested dict in JAX's flattening order
+    (keys sorted at each level), the path as ``jax.tree_util.keystr``
+    writes it: ``['blocks']['attn']['query']['kernel']``."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves_with_path(tree[k], f"{path}[{k!r}]")
+    else:
+        yield path, tree
+
+
+def _cast_tree(tree, dtype: torch.dtype):
+    """Every leaf of a nested dict cast to ``dtype`` (a leaf already of
+    it is kept as it is, not copied)."""
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
 
 
 class Trainer:
@@ -140,7 +159,8 @@ class Trainer:
         self._model_kw = _model_kwargs(cfg)
         self.model = create_model(cfg.model, self.policy, device=self.device,
                                   **self._model_kw)
-        self.tx, self.schedule = make_optimizer(cfg.optimizer, cfg.trainer)
+        self.tx, self.schedule = make_optimizer(cfg.optimizer, cfg.trainer,
+                                                cfg.model)
         self.loss_fn = make_loss_fn(self.model, cfg.data.name)
         self._compile_steps()
         self.state_shapes = self._state_template()
@@ -169,7 +189,10 @@ class Trainer:
         (what a restore is checked against; nothing is allocated)."""
         meta = create_model(self.cfg.model, self.policy, device="meta",
                             **self._model_kw)
-        params = {k: p.detach().float() for k, p in meta.named_parameters()}
+        # fp32 from the seeded init, the policy's param dtype from a file.
+        dtype = (self.policy.param_dtype if self.cfg.trainer.init_params_path
+                 else torch.float32)
+        params = {k: p.detach().to(dtype) for k, p in meta.named_parameters()}
         extras = ({"batch_stats": dict(meta.named_buffers())}
                   if self.cfg.model.family == "resnet" else {})
         return TrainState(
@@ -182,9 +205,11 @@ class Trainer:
         """A fresh state from the family's seeded init
         (``models/convert.py``), seeded by ``trainer.seed`` on the
         trainer's device. The params are fp32 under every policy, as the
-        JAX trainer's init makes them (flax's default param dtype); a
-        bf16 param comes only from ``init_params_path`` (refused, ROADMAP
-        queue A item 15)."""
+        JAX trainer's init makes them (flax's default param dtype). With
+        ``trainer.init_params_path`` the params (and the EMA) come from
+        that file instead, in the policy's param dtype
+        (``_load_init_params``); the ResNet's BatchNorm statistics stay
+        the seeded init's, as the JAX trainer loads params only."""
         cfg = self.cfg
         gen = torch.Generator(device=self.device).manual_seed(
             cfg.trainer.seed)
@@ -197,12 +222,74 @@ class Trainer:
         else:
             init = getattr(convert, f"init_{family}_params")
             params, extras = init(cfg.model, gen, **self._model_kw), {}
+        if cfg.trainer.init_params_path:
+            del params  # the seeded params are not kept beside the file's
+            params = self._load_init_params(cfg.trainer.init_params_path)
         state = TrainState.create(params, self.tx, extras,
                                   with_ema=cfg.trainer.ema_decay > 0.0,
                                   device=self.device)
         self.logger.info("initialized %s: %.2fM params on %s", cfg.name,
                          tree_param_count(state.params) / 1e6, self.device)
         return state
+
+    def _jax_tree(self, params: dict, extras: dict) -> dict:
+        """The port's params as the JAX package's params tree
+        (``models/convert.py``'s inverse converters)."""
+        m = self.cfg.model
+        if m.family == "gpt":
+            return convert.params_to_jax(params, m)
+        if m.family == "resnet":
+            return convert.resnet_params_to_jax(params, extras, m)[0]
+        if m.family == "mlp":
+            return convert.mlp_params_to_jax(params)
+        return convert.vit_params_to_jax(params, m)
+
+    def _load_init_params(self, path: str) -> dict:
+        """A flax msgpack params file (``checkpoint/flax_msgpack.py``) as
+        the port's params, cast to the policy's param dtype, on the CPU.
+
+        Its tree and shapes are checked against the model's own (the JAX
+        tree of the state template, built on the meta device) before
+        anything is converted or moved, with the JAX trainer's messages
+        and key paths, so a mismatched file fails naming its leaves."""
+        loaded = flax_msgpack.load(path)
+        shapes = self.state_shapes
+        want_tree = self._jax_tree(shapes.params, shapes.extras)
+        got_paths = {k: tuple(v.shape) for k, v in _leaves_with_path(loaded)}
+        want_paths = {k: tuple(v.shape)
+                      for k, v in _leaves_with_path(want_tree)}
+        if got_paths.keys() != want_paths.keys():
+            missing = sorted(want_paths.keys() - got_paths.keys())[:5]
+            extra = sorted(got_paths.keys() - want_paths.keys())[:5]
+            raise ValueError(
+                f"init_params_path {path!r} does not match the model tree "
+                f"(missing {missing}, unexpected {extra})"
+            )
+        bad = [k for k in want_paths if got_paths[k] != want_paths[k]]
+        if bad:
+            raise ValueError(
+                f"init_params_path {path!r} shape mismatches at {bad[:5]}: "
+                + ", ".join(f"{k}: {got_paths[k]} != {want_paths[k]}"
+                            for k in bad[:5])
+            )
+        dtype = self.policy.param_dtype
+        loaded = _cast_tree(loaded, dtype)
+        m = self.cfg.model
+        if m.family == "gpt":
+            params = convert.params_from_jax(loaded, m)
+        elif m.family == "resnet":
+            # The conversion walks the statistics beside the params: the
+            # template's stand in (the file holds params only).
+            stats = convert.resnet_params_to_jax(
+                shapes.params, shapes.extras, m)[1]
+            params = convert.resnet_params_from_jax(loaded, stats)[0]
+        elif m.family == "mlp":
+            params = convert.mlp_params_from_jax(loaded)
+        else:
+            params = convert.vit_params_from_jax(loaded)
+        self.logger.info("initialized params from %s (%.2fM params)", path,
+                         tree_param_count(params) / 1e6)
+        return params
 
     def step_cost_analysis(self, state: TrainState, batch) -> dict | None:
         """Model FLOPs of ONE train step (``utils/flops.py``), with the

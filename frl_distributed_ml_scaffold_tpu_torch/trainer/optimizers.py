@@ -1,7 +1,8 @@
 """Optimizer and LR schedule: the port of the JAX package's
-``trainer/optimizers.py`` for ``adamw`` and ``sgd`` (each with the
-optional global-norm clip) and ``fused_adamw`` under the ``constant``,
-``cosine``, ``linear`` and ``wsd`` schedules with linear warmup.
+``trainer/optimizers.py``: ``adamw``, ``adam``, ``sgd``, ``lion`` and
+``adafactor`` (each with the optional global-norm clip) and
+``fused_adamw``, under the ``constant``, ``cosine``, ``linear`` and
+``wsd`` schedules with linear warmup.
 
 The updates are optax's, written out:
 
@@ -13,30 +14,50 @@ The updates are optax's, written out:
   + eps) + wd * p`` on EVERY leaf (``optax.adamw`` runs with no mask),
   then ``p += -lr(count) * u`` with the schedule read at the count
   BEFORE it increments, so a warmup's first step (lr 0) leaves the
-  params unchanged;
+  params unchanged; ``adam`` is the same without the ``wd * p`` term;
 - ``sgd``: ``add_decayed_weights(wd)`` (``g + wd * p``, when wd != 0),
   then optax's nesterov ``trace`` (``t = g + m t``, ``u = g + m t``),
   then ``p += -lr(count) * u``, the count read as above;
+- ``lion`` (b2 0.99 when unset, not the Adam family's 0.999; weight
+  decay built in): ``u = sign((1-b1) g + b1 mu) + wd * p``, ``mu = (1-b2)
+  g + b2 mu``, ``p += -lr(count) * u``;
+- ``adafactor``, optax's defaults (``cfg.eps`` is not passed: the Adam
+  epsilon would floor the RMS 22 orders of magnitude too high): with
+  ``rho = 1 - (count+1)^-0.8`` and ``s = g^2 + 1e-30``, a leaf whose two
+  largest dims (numpy's argsort order) are both at least 128 keeps the
+  factored second moment, ``v_row = rho v_row + (1-rho) mean(s, d0)``,
+  ``v_col = rho v_col + (1-rho) mean(s, d1)``, ``u = g (v_row /
+  mean(v_row))^-1/2 v_col^-1/2``; any other leaf keeps ``v = rho v +
+  (1-rho) s``, ``u = g v^-1/2``. Then the block-RMS clip ``u / max(1,
+  rms(u))``, ``u *= lr(count)``, ``u *= max(rms(p), 1e-3)`` (the
+  parameter scale) and ``p -= u``; with ``weight_decay`` the JAX
+  package's decoupled decay follows, ``p -= lr(count) * wd * p``;
 - ``fused_adamw``: ``ops/fused_adamw.py`` ``FusedAdamW``, one pass per
   leaf (the hand-written kernel on the card); with a grad clip it is
   refused, as the JAX factory refuses it.
 
-The updates work in place on fp32 tensors (params and optimizer state):
-the JAX step donates its state, and in place is what keeps one copy of
-them live. The other optimizers raise, naming ROADMAP queue A item 10.
+The updates work in place on the params and the optimizer state (the
+JAX step donates its state, and in place is what keeps one copy of them
+live). The state takes the params' dtype, as optax makes it: a bf16
+param (``trainer.init_params_path`` under ``precision.policy=bf16``)
+has bf16 moments. A leaf that is not fp32 is updated in fp32 and each of
+its tensors rounded once to its own dtype.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Callable
+from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
     OptimizerConfig,
     TrainerConfig,
 )
+from frl_distributed_ml_scaffold_tpu_torch.models import jax_leaf_of
 from frl_distributed_ml_scaffold_tpu_torch.ops.fused_adamw import FusedAdamW
 
 Schedule = Callable[[int], float]
@@ -126,12 +147,30 @@ def clip_by_global_norm(grads: dict, clip: float | None,
             for k, g in grads.items()}
 
 
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when fp32 (updated in place), else an fp32 copy that
+    ``_store`` writes back."""
+    return t if t.dtype == torch.float32 else t.float()
+
+
+def _store(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Write an fp32 result back into ``dst``, rounding once to its
+    dtype; a no-op when ``src`` is ``dst`` (an fp32 leaf, in place)."""
+    if src is not dst:
+        dst.copy_(src)
+
+
+def _zeros(params: dict) -> dict:
+    return {k: torch.zeros_like(p) for k, p in params.items()}
+
+
 class AdamW:
     """optax's ``chain(clip_by_global_norm(clip), adamw(schedule, ...))``
-    over a dict of fp32 parameters, updated in place.
+    over a dict of parameters, updated in place; with ``weight_decay=0``
+    it is ``optax.adam``.
 
     State: ``{"count": int, "mu": {name: tensor}, "nu": {name: tensor}}``
-    (fp32, the parameters' shapes). ``count`` is a host integer: the
+    (the parameters' shapes and dtypes). ``count`` is a host integer: the
     schedule and the bias correction are read from it without a device
     sync."""
 
@@ -142,11 +181,7 @@ class AdamW:
         self.weight_decay, self.clip = weight_decay, clip
 
     def init(self, params: dict) -> dict:
-        return {
-            "count": 0,
-            "mu": {k: torch.zeros_like(p) for k, p in params.items()},
-            "nu": {k: torch.zeros_like(p) for k, p in params.items()},
-        }
+        return {"count": 0, "mu": _zeros(params), "nu": _zeros(params)}
 
     def update(self, grads: dict, state: dict, params: dict,
                norm: torch.Tensor | None = None) -> dict:
@@ -160,23 +195,28 @@ class AdamW:
         c1 = 1 - b1 ** (count + 1)
         c2 = 1 - b2 ** (count + 1)
         for k, p in params.items():
-            g, mu, nu = grads[k], state["mu"][k], state["nu"][k]
+            g = grads[k].float()
+            p32, mu, nu = _f32(p), _f32(state["mu"][k]), _f32(state["nu"][k])
             mu.mul_(b1).add_(g, alpha=1 - b1)
             nu.mul_(b2).addcmul_(g, g, value=1 - b2)
             u = (mu / c1) / ((nu / c2).sqrt() + self.eps)
-            u.add_(p, alpha=self.weight_decay)
-            p.add_(u, alpha=-lr)
+            if self.weight_decay:
+                u.add_(p32, alpha=self.weight_decay)
+            p32.add_(u, alpha=-lr)
+            _store(state["mu"][k], mu)
+            _store(state["nu"][k], nu)
+            _store(p, p32)
         state["count"] = count + 1
         return state
 
 
 class SGD:
     """optax's ``chain(clip_by_global_norm(clip), add_decayed_weights(wd),
-    sgd(schedule, momentum, nesterov=True))`` over a dict of fp32
-    parameters, updated in place.
+    sgd(schedule, momentum, nesterov=True))`` over a dict of parameters,
+    updated in place.
 
-    State: ``{"count": int, "trace": {name: tensor}}`` (fp32, the
-    parameters' shapes); ``count`` is a host integer."""
+    State: ``{"count": int, "trace": {name: tensor}}`` (the parameters'
+    shapes and dtypes); ``count`` is a host integer."""
 
     def __init__(self, schedule: Schedule, *, momentum: float,
                  weight_decay: float, clip: float | None):
@@ -185,8 +225,7 @@ class SGD:
                                                        clip)
 
     def init(self, params: dict) -> dict:
-        return {"count": 0,
-                "trace": {k: torch.zeros_like(p) for k, p in params.items()}}
+        return {"count": 0, "trace": _zeros(params)}
 
     def update(self, grads: dict, state: dict, params: dict,
                norm: torch.Tensor | None = None) -> dict:
@@ -196,22 +235,188 @@ class SGD:
         count = state["count"]
         lr, mom, wd = self.schedule(count), self.momentum, self.weight_decay
         for k, p in params.items():
-            g, t = grads[k], state["trace"][k]
+            g, p32, t = grads[k].float(), _f32(p), _f32(state["trace"][k])
             if wd:
-                g = g + wd * p
+                g = g + wd * p32
             t.mul_(mom).add_(g)  # t = g + m t
-            p.add_(g + mom * t, alpha=-lr)  # nesterov: u = g + m t
+            p32.add_(g + mom * t, alpha=-lr)  # nesterov: u = g + m t
+            _store(state["trace"][k], t)
+            _store(p, p32)
         state["count"] = count + 1
         return state
 
 
-def make_optimizer(cfg: OptimizerConfig, trainer_cfg: TrainerConfig):
-    """``(tx, schedule)`` as the JAX factory returns them; the port builds
-    ``adamw``, ``sgd`` and ``fused_adamw``."""
+class Lion:
+    """optax's ``chain(clip_by_global_norm(clip), lion(schedule, b1, b2,
+    weight_decay))`` over a dict of parameters, updated in place.
+
+    State: ``{"count": int, "mu": {name: tensor}}`` (the parameters'
+    shapes and dtypes); ``count`` is a host integer."""
+
+    def __init__(self, schedule: Schedule, *, b1: float, b2: float,
+                 weight_decay: float, clip: float | None):
+        self.schedule = schedule
+        self.b1, self.b2 = b1, b2
+        self.weight_decay, self.clip = weight_decay, clip
+
+    def init(self, params: dict) -> dict:
+        return {"count": 0, "mu": _zeros(params)}
+
+    def update(self, grads: dict, state: dict, params: dict,
+               norm: torch.Tensor | None = None) -> dict:
+        """One step into ``params`` and the moment, in place. Returns the
+        state (the same dicts, count advanced)."""
+        grads = clip_by_global_norm(grads, self.clip, norm)
+        count = state["count"]
+        lr, b1, b2 = self.schedule(count), self.b1, self.b2
+        for k, p in params.items():
+            g, p32, mu = grads[k].float(), _f32(p), _f32(state["mu"][k])
+            u = torch.sign((1 - b1) * g + b1 * mu)
+            mu.mul_(b2).add_(g, alpha=1 - b2)
+            u.add_(p32, alpha=self.weight_decay)
+            p32.add_(u, alpha=-lr)
+            _store(state["mu"][k], mu)
+            _store(p, p32)
+        state["count"] = count + 1
+        return state
+
+
+# optax.adafactor's defaults, which the JAX factory keeps.
+ADAFACTOR_MIN_DIM = 128
+ADAFACTOR_DECAY_RATE = 0.8
+ADAFACTOR_EPS = 1e-30
+ADAFACTOR_CLIP = 1.0
+ADAFACTOR_MIN_SCALE = 1e-3
+
+
+def _factored_dims(shape) -> tuple[int, int] | None:
+    """optax's ``_factored_dims`` at ``min_dim_size_to_factor=128``: the
+    two largest axes (d1, d0) in numpy's argsort order, or None."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < ADAFACTOR_MIN_DIM:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class Adafactor:
+    """optax's ``chain(clip_by_global_norm(clip), adafactor(schedule))``
+    at optax's defaults (module docstring), then, with ``weight_decay``,
+    the JAX package's ``_decoupled_decay``: ``p -= lr(count) * wd * p``
+    (a raw per-step rate would decay ~1000x too hard for a config tuned
+    for AdamW). Updated in place.
+
+    The block-RMS clip and the parameter scale reduce over a whole JAX
+    leaf. The JAX GPT scans its blocks, so each of its block leaves
+    stacks every layer: ``leaf_of`` maps a port parameter name to the
+    JAX leaf it belongs to (``models.jax_leaf_of``), and the two
+    reductions run over all the port leaves of one JAX leaf.
+
+    State: ``{"count": int, "v_row", "v_col", "v": {name: tensor}}`` in
+    the parameters' dtypes. A factored leaf keeps ``v_row`` (its shape
+    without d0) and ``v_col`` (without d1) and a ``(1,)`` placeholder
+    ``v``; any other leaf keeps a param-shaped ``v`` and ``(1,)``
+    placeholders, as optax's ``FactoredState`` does. The three counts of
+    the JAX chain (the factored moments', the schedule's and the decay's)
+    advance together, so one host integer stands for them."""
+
+    def __init__(self, schedule: Schedule, *, leaf_of: Callable[[str], str],
+                 weight_decay: float, clip: float | None):
+        self.schedule = schedule
+        self.leaf_of = leaf_of
+        self.weight_decay, self.clip = weight_decay, clip
+
+    def init(self, params: dict) -> dict:
+        state = {"count": 0, "v_row": {}, "v_col": {}, "v": {}}
+        for k, p in params.items():
+            one = functools.partial(torch.zeros, (1,), dtype=p.dtype,
+                                    device=p.device)
+            dims = _factored_dims(tuple(p.shape))
+            if dims is None:
+                state["v_row"][k], state["v_col"][k] = one(), one()
+                state["v"][k] = torch.zeros_like(p)
+                continue
+            d1, d0 = dims
+            row = [n for i, n in enumerate(p.shape) if i != d0]
+            col = [n for i, n in enumerate(p.shape) if i != d1]
+            state["v_row"][k] = torch.zeros(row, dtype=p.dtype,
+                                            device=p.device)
+            state["v_col"][k] = torch.zeros(col, dtype=p.dtype,
+                                            device=p.device)
+            state["v"][k] = one()
+        return state
+
+    def _scaled(self, k: str, g: torch.Tensor, state: dict, rho: float,
+                omr: float) -> torch.Tensor:
+        """Leaf ``k``'s gradient over its factored (or plain) RMS, the
+        second moments advanced in place."""
+        sq = g.square().add_(ADAFACTOR_EPS)
+        dims = _factored_dims(tuple(g.shape))
+        if dims is None:
+            v = _f32(state["v"][k])
+            v.mul_(rho).add_(sq, alpha=omr)
+            _store(state["v"][k], v)
+            return g * v.rsqrt()
+        d1, d0 = dims
+        row, col = _f32(state["v_row"][k]), _f32(state["v_col"][k])
+        row.mul_(rho).add_(sq.mean(d0), alpha=omr)
+        col.mul_(rho).add_(sq.mean(d1), alpha=omr)
+        _store(state["v_row"][k], row)
+        _store(state["v_col"][k], col)
+        r1 = d1 - 1 if d1 > d0 else d1
+        row_factor = (row / row.mean(r1, keepdim=True)).rsqrt()
+        return (g * row_factor.unsqueeze(d0)) * col.rsqrt().unsqueeze(d1)
+
+    def update(self, grads: dict, state: dict, params: dict,
+               norm: torch.Tensor | None = None) -> dict:
+        """One step into ``params`` and the second moments, in place.
+        Returns the state (the same dicts, count advanced)."""
+        grads = clip_by_global_norm(grads, self.clip, norm)
+        count = state["count"]
+        lr, wd = self.schedule(count), self.weight_decay
+        # The decay rate and its complement in fp32, as optax takes them.
+        rho = np.float32(1) - np.float32(count + 1) ** np.float32(
+            -ADAFACTOR_DECAY_RATE)
+        rho, omr = float(rho), float(np.float32(1) - rho)
+        blocks: dict[str, list[str]] = {}
+        for k in params:
+            blocks.setdefault(self.leaf_of(k), []).append(k)
+        for names in blocks.values():
+            # One block at a time: its updates, then the RMS of the
+            # updates and of the params over the whole block.
+            us = {k: self._scaled(k, grads[k].float(), state, rho, omr)
+                  for k in names}
+            n = sum(u.numel() for u in us.values())
+            rms_u = (sum(u.square().sum() for u in us.values()) / n).sqrt()
+            rms_p = (sum(params[k].float().square().sum() for k in names)
+                     / n).sqrt()
+            scale = (lr / torch.clamp(rms_u / ADAFACTOR_CLIP, min=1.0)
+                     * torch.clamp(rms_p, min=ADAFACTOR_MIN_SCALE))
+            for k in names:
+                p = params[k]
+                p32 = _f32(p)
+                u = us.pop(k).mul_(scale).neg_()
+                if wd:
+                    u = u - lr * wd * p32
+                p32.add_(u)
+                _store(p, p32)
+        state["count"] = count + 1
+        return state
+
+
+def make_optimizer(cfg: OptimizerConfig, trainer_cfg: TrainerConfig,
+                   model_cfg: Any):
+    """``(tx, schedule)`` as the JAX factory returns them, for the
+    parameters of a ``model_cfg`` model (None: a plain dict of
+    parameters, each its own JAX leaf). Adafactor reduces over the
+    model's JAX leaves (``models.jax_leaf_of``); the elementwise
+    optimizers do not read it."""
     schedule = make_schedule(cfg, trainer_cfg.total_steps)
     b2 = 0.999 if cfg.b2 is None else cfg.b2
+    clip = cfg.grad_clip_norm
     if cfg.name == "fused_adamw":
-        if cfg.grad_clip_norm is not None:
+        if clip is not None:
             raise ValueError(
                 "optimizer.name=fused_adamw does not compose with "
                 "grad_clip_norm (global-norm clipping defeats the "
@@ -219,15 +424,17 @@ def make_optimizer(cfg: OptimizerConfig, trainer_cfg: TrainerConfig):
             )
         return FusedAdamW(schedule, b1=cfg.b1, b2=b2, eps=cfg.eps,
                           weight_decay=cfg.weight_decay), schedule
-    if cfg.name == "adamw":
+    if cfg.name in ("adamw", "adam"):
+        wd = cfg.weight_decay if cfg.name == "adamw" else 0.0
         return AdamW(schedule, b1=cfg.b1, b2=b2, eps=cfg.eps,
-                     weight_decay=cfg.weight_decay,
-                     clip=cfg.grad_clip_norm), schedule
+                     weight_decay=wd, clip=clip), schedule
     if cfg.name == "sgd":
         return SGD(schedule, momentum=cfg.momentum,
-                   weight_decay=cfg.weight_decay,
-                   clip=cfg.grad_clip_norm), schedule
-    raise NotImplementedError(
-        f"optimizer.name={cfg.name!r} is not ported yet (ROADMAP queue A "
-        "item 10)"
-    )
+                   weight_decay=cfg.weight_decay, clip=clip), schedule
+    if cfg.name == "lion":
+        return Lion(schedule, b1=cfg.b1, b2=0.99 if cfg.b2 is None else cfg.b2,
+                    weight_decay=cfg.weight_decay, clip=clip), schedule
+    if cfg.name == "adafactor":
+        return Adafactor(schedule, leaf_of=jax_leaf_of(model_cfg),
+                         weight_decay=cfg.weight_decay, clip=clip), schedule
+    raise KeyError(f"unknown optimizer {cfg.name!r}")

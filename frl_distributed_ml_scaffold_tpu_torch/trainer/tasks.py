@@ -13,8 +13,10 @@ name: tensor}}`` for the ResNet, whose forward returns ``(logits,
 updates)``: in train mode the new running statistics, handed back as the
 new ``extras`` (never written into the module), as the JAX ``_apply``
 returns its mutated collections.
-``rng`` is unused (training dropout is not ported and raises in the
-model). The loss math runs in fp32 whatever the compute dtype.
+``rng`` is the int seed of the forward's training dropout
+(``models/dropout.py``; the train step derives one per step and
+microbatch), handed to the model. The loss math runs in fp32 whatever
+the compute dtype.
 """
 
 from __future__ import annotations
@@ -64,7 +66,6 @@ def make_lm_loss(model):
         return total / (b * t)
 
     def loss_fn(params, extras, batch, rng, train):
-        del rng
         tokens = batch["tokens"]
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
         use_chunks = chunk > 0 and inputs.shape[1] % chunk == 0
@@ -76,7 +77,7 @@ def make_lm_loss(model):
             )
             warned.append(True)
         out = functional_call(model, params, (inputs,),
-                              {"train": train,
+                              {"train": train, "rng": rng,
                                "return_features": use_chunks})
         if use_chunks:
             emb = params["wte.weight"].to(out.dtype)
@@ -94,16 +95,16 @@ _IMAGE_DATA = ("mnist", "synthetic_mnist", "imagenet", "synthetic_imagenet")
 _VIDEO_DATA = ("video", "video_synthetic")
 
 
-def _apply(model, params, extras, x, train: bool):
+def _apply(model, params, extras, x, train: bool, rng):
     """The model's output with its BatchNorm statistics read from
     ``extras`` -> (output, new extras): in train mode the statistics the
     forward returns replace the old ones. A model without statistics
     returns its output alone."""
+    kw = {"train": train, "rng": rng}
     stats = extras.get("batch_stats")
     if stats is None:
-        return functional_call(model, params, (x,), {"train": train}), extras
-    out, updates = functional_call(model, {**params, **stats}, (x,),
-                                   {"train": train})
+        return functional_call(model, params, (x,), kw), extras
+    out, updates = functional_call(model, {**params, **stats}, (x,), kw)
     if train:
         return out, {**extras, "batch_stats": updates}
     return out, extras
@@ -115,9 +116,8 @@ def make_classification_loss(model, input_key: str = "image"):
     5 classes, ``accuracy_top5``."""
 
     def loss_fn(params, extras, batch, rng, train):
-        del rng
         logits, new_extras = _apply(model, params, extras, batch[input_key],
-                                    train)
+                                    train, rng)
         logits = logits.float()
         labels = batch["label"].long()
         loss = F.cross_entropy(logits, labels)

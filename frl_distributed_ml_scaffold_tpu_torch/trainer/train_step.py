@@ -59,6 +59,7 @@ from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
     MeshConfig,
     ParallelConfig,
 )
+from frl_distributed_ml_scaffold_tpu_torch.models.dropout import mix_seed
 from frl_distributed_ml_scaffold_tpu_torch.ops.fused_adamw import FusedAdamW
 from frl_distributed_ml_scaffold_tpu_torch.precision import Policy
 from frl_distributed_ml_scaffold_tpu_torch.trainer.optimizers import (
@@ -141,9 +142,12 @@ def _to_device(batch: dict, dev: torch.device) -> dict:
 
 
 def make_grad_fn(loss_fn: LossFn, policy: Policy, *, grad_accum: int = 1,
-                 remat: str = "none", device=None):
-    """``grad_fn(params, extras, batch) -> (loss, metrics, extras,
-    grads)``: the step's forward and backward without the update.
+                 remat: str = "none", seed: int = 0, device=None):
+    """``grad_fn(params, extras, batch, step=0) -> (loss, metrics,
+    extras, grads)``: the step's forward and backward without the
+    update. Microbatch i of step ``step`` hands the loss the dropout seed
+    ``mix_seed(seed, step, i)``, as the JAX step folds the step into its
+    key and splits it per microbatch.
     ``params`` are the fp32 master params (left untouched); ``grads`` are
     averaged over the ``grad_accum`` microbatches and cast to the param
     dtype; ``loss`` and ``metrics`` are averaged 0-d fp32 tensors."""
@@ -152,7 +156,7 @@ def make_grad_fn(loss_fn: LossFn, policy: Policy, *, grad_accum: int = 1,
     dev = resolve_device(device)
     wrapped = _remat_wrap(loss_fn, remat)
 
-    def grad_fn(params: dict, extras: dict, batch: Any):
+    def grad_fn(params: dict, extras: dict, batch: Any, step: int = 0):
         batch = _to_device(batch, dev)
         for k, x in batch.items():
             if x.shape[0] % grad_accum:
@@ -167,15 +171,15 @@ def make_grad_fn(loss_fn: LossFn, policy: Policy, *, grad_accum: int = 1,
                for k, p in params.items()}
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         metric_sums: dict[str, torch.Tensor] = {}
-        for mb in micro:
+        for i, mb in enumerate(micro):
             # Fresh compute-dtype leaves: the gradients are taken with
             # respect to them, as the JAX step differentiates params_c.
             params_c = policy.cast_to_compute(
                 {k: p.detach() for k, p in params.items()})
             for p in params_c.values():
                 p.requires_grad_()
-            loss, (metrics, extras) = wrapped(params_c, extras, mb, None,
-                                              True)
+            loss, (metrics, extras) = wrapped(params_c, extras, mb,
+                                              mix_seed(seed, step, i), True)
             grads = torch.autograd.grad(loss, list(params_c.values()))
             for k, g in zip(params_c, grads):
                 acc[k].add_(g.to(policy.reduce_dtype))
@@ -209,13 +213,12 @@ def make_train_step(
     """The step function ``step(state, batch) -> (state, metrics)``,
     which updates ``state`` in place and returns it. ``batch`` is a dict
     of numpy arrays or tensors (moved to ``device``: ``None`` means
-    ``cuda`` and raises without a card). ``seed`` is kept for the
-    contract; nothing in the port's training draws random numbers
-    (dropout raises). ``metrics`` are 0-d fp32 tensors on the device:
+    ``cuda`` and raises without a card). ``seed`` (``trainer.seed``)
+    seeds training dropout, one seed per step and microbatch
+    (``make_grad_fn``). ``metrics`` are 0-d fp32 tensors on the device:
     the averaged loss and task metrics, and ``grad_norm`` before the
     clip. ``parallel`` and ``mesh`` are the run's sections: what the port
     cannot lay out on one card raises."""
-    del seed
     _check_fused_optimizer(tx, parallel, mesh)
     if offload_opt_state or grad_shardings is not None:
         raise NotImplementedError(
@@ -224,11 +227,11 @@ def make_train_step(
         )
     _check_one_device(mesh)
     grad_fn = make_grad_fn(loss_fn, policy, grad_accum=grad_accum,
-                           remat=remat, device=device)
+                           remat=remat, seed=seed, device=device)
 
     def step_fn(state: TrainState, batch: Any) -> tuple[TrainState, dict]:
-        loss, metrics, state.extras, grads = grad_fn(state.params,
-                                                     state.extras, batch)
+        loss, metrics, state.extras, grads = grad_fn(
+            state.params, state.extras, batch, state.step)
         norm = global_norm(grads.values())
         tx.update(grads, state.opt_state, state.params, norm=norm)
         if ema_decay > 0.0:

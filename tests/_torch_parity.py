@@ -206,7 +206,8 @@ def port_train(cfg, model, sd: dict, batches) -> dict:
         make_train_step,
     )
 
-    tx, schedule = topt.make_optimizer(cfg.optimizer, cfg.trainer)
+    tx, schedule = topt.make_optimizer(cfg.optimizer, cfg.trainer,
+                                       cfg.model)
     state = TrainState.create(sd, tx, device="cpu")
     step = make_train_step(
         ttasks.make_loss_fn(model, cfg.data.name), tx,

@@ -36,7 +36,11 @@ from frl_distributed_ml_scaffold_tpu.ops import fused_adamw as jfa
 from frl_distributed_ml_scaffold_tpu.trainer import optimizers as jopt
 from frl_distributed_ml_scaffold_tpu_torch.config import schema as tschema
 from frl_distributed_ml_scaffold_tpu_torch.ops import fused_adamw as tfa
+from frl_distributed_ml_scaffold_tpu_torch.precision import get_policy
 from frl_distributed_ml_scaffold_tpu_torch.trainer import optimizers as topt
+from frl_distributed_ml_scaffold_tpu_torch.trainer.train_step import (
+    make_train_step,
+)
 
 ATOL = 1e-6
 HYPER = dict(b1=0.9, b2=0.999, eps=1e-8, wd=1e-2)
@@ -84,7 +88,7 @@ def test_fused_adamw_matches_jax_over_three_steps():
     jtx, _ = jopt.make_optimizer(jschema.OptimizerConfig(**kw),
                                  jschema.TrainerConfig(**TRAINER))
     ttx, _ = topt.make_optimizer(tschema.OptimizerConfig(**kw),
-                                 tschema.TrainerConfig(**TRAINER))
+                                 tschema.TrainerConfig(**TRAINER), None)
     assert isinstance(ttx, tfa.FusedAdamW)
     rng = np.random.default_rng(0)
     params = _leaves(rng)
@@ -137,20 +141,27 @@ def test_fused_adamw_bf16_grads_match_jax_over_three_steps():
 
 def test_kernel_takes_bf16_grads_and_refuses_other_leaves():
     """What the kernel wrapper takes, checked before any build: a bf16 g
-    beside fp32 p, m and v; a bf16 p (reachable only through a bf16
-    init, ``trainer.init_params_path``, ROADMAP queue A item 15) or a
-    misaligned g raises."""
+    and a bf16 p (from a bf16 init, ``trainer.init_params_path``) beside
+    fp32 m and v; an fp16 p or g, a bf16 moment or a misaligned bf16 p
+    or g raises."""
     p, m, v = (torch.zeros(65536) for _ in range(3))
     tfa._check_leaf(p, torch.zeros(65536, dtype=torch.bfloat16), m, v)
-    with pytest.raises(TypeError, match="init_params_path.*item 15"):
-        tfa.adamw_kernel(p.bfloat16(), p, m, v, 1e-3, 0.1, 0.1, b1=0.9,
+    tfa._check_leaf(p.bfloat16(), p.bfloat16(), m, v)
+    with pytest.raises(TypeError, match="float32 or bfloat16 p"):
+        tfa.adamw_kernel(p.half(), p, m, v, 1e-3, 0.1, 0.1, b1=0.9,
                          b2=0.999, eps=1e-8, wd=0.0)
+    with pytest.raises(TypeError, match="float32 m and v"):
+        tfa.adamw_kernel(p.bfloat16(), p, m.bfloat16(), v, 1e-3, 0.1, 0.1,
+                         b1=0.9, b2=0.999, eps=1e-8, wd=0.0)
     with pytest.raises(TypeError, match="float32 or bfloat16 g"):
         tfa.adamw_kernel(p, p.half(), m, v, 1e-3, 0.1, 0.1, b1=0.9,
                          b2=0.999, eps=1e-8, wd=0.0)
     g = torch.zeros(65537, dtype=torch.bfloat16)[1:]
-    with pytest.raises(ValueError, match="8-byte aligned"):
+    with pytest.raises(ValueError, match="8-byte aligned; g"):
         tfa.adamw_kernel(p, g, m, v, 1e-3, 0.1, 0.1, b1=0.9, b2=0.999,
+                         eps=1e-8, wd=0.0)
+    with pytest.raises(ValueError, match="8-byte aligned; p"):
+        tfa.adamw_kernel(g, p, m, v, 1e-3, 0.1, 0.1, b1=0.9, b2=0.999,
                          eps=1e-8, wd=0.0)
 
 
@@ -181,7 +192,7 @@ def test_sgd_matches_optax(wd, clip):
     jtx, _ = jopt.make_optimizer(jschema.OptimizerConfig(**kw),
                                  jschema.TrainerConfig(**TRAINER))
     ttx, _ = topt.make_optimizer(tschema.OptimizerConfig(**kw),
-                                 tschema.TrainerConfig(**TRAINER))
+                                 tschema.TrainerConfig(**TRAINER), None)
     assert isinstance(ttx, topt.SGD)
     rng = np.random.default_rng(1)
     params = _leaves(rng)
@@ -203,18 +214,22 @@ def test_sgd_matches_optax(wd, clip):
 
 def test_factory_refuses_fused_adamw_with_a_clip():
     """Both factories refuse ``fused_adamw`` with ``grad_clip_norm``, with
-    the same message; the other optimizers not ported raise naming their
-    ROADMAP item."""
+    the same message; the step refuses it under ZeRO."""
     cfg = dict(name="fused_adamw", grad_clip_norm=1.0)
     with pytest.raises(ValueError, match="grad_clip_norm") as jerr:
         jopt.make_optimizer(jschema.OptimizerConfig(**cfg),
                             jschema.TrainerConfig(**TRAINER))
     with pytest.raises(ValueError) as terr:
         topt.make_optimizer(tschema.OptimizerConfig(**cfg),
-                            tschema.TrainerConfig(**TRAINER))
+                            tschema.TrainerConfig(**TRAINER), None)
     assert str(terr.value) == str(jerr.value)
-    for name in ("lion", "adafactor", "adam"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            topt.make_optimizer(
-                dataclasses.replace(tschema.OptimizerConfig(), name=name),
-                tschema.TrainerConfig(**TRAINER))
+    # Without the clip it builds, and the step refuses it under ZeRO-1
+    # (sharded optimizer state), as the JAX trainer does.
+    tx, _ = topt.make_optimizer(
+        dataclasses.replace(tschema.OptimizerConfig(**cfg),
+                            grad_clip_norm=None),
+        tschema.TrainerConfig(**TRAINER), None)
+    with pytest.raises(ValueError, match="requires replicated state"):
+        make_train_step(lambda *a: None, tx, get_policy("fp32"),
+                        parallel=tschema.ParallelConfig(opt_sharding="zero1"),
+                        device="cpu")

@@ -1,5 +1,7 @@
 """The port stands alone: it imports neither JAX nor anything of the JAX
-package, and its entry points run on the card unless the CPU is asked for.
+package (nor flax's ``msgpack``: the port reads and writes flax params
+files itself), and its entry points run on the card unless the CPU is
+asked for.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import frl_distributed_ml_scaffold_tpu_torch as port
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_DIR = Path(port.__file__).resolve().parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "frl_distributed_ml_scaffold_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack",
+             "frl_distributed_ml_scaffold_tpu")
 
 
 def _modules() -> list[str]:
@@ -56,6 +59,10 @@ def test_scans_cover_every_port_module():
     assert PORT_DIR / "ops" / "quantization.py" in _sources()
     assert "frl_distributed_ml_scaffold_tpu_torch.serving.scheduler" in _modules()
     assert PORT_DIR / "serving" / "scheduler.py" in _sources()
+    for rel in ("checkpoint/flax_msgpack.py", "models/dropout.py"):
+        name = port.__name__ + "." + rel[:-3].replace("/", ".")
+        assert name in _modules()
+        assert PORT_DIR / rel in _sources()
     assert len(_sources()) == len(_modules()) + 1  # + chip_smoke.py
 
 
@@ -103,7 +110,10 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         GPTConfig,
         ServingConfig,
     )
-    from frl_distributed_ml_scaffold_tpu_torch.models.generation import generate
+    from frl_distributed_ml_scaffold_tpu_torch.models.generation import (
+        beam_search,
+        generate,
+    )
     from frl_distributed_ml_scaffold_tpu_torch.models.gpt import GPT
     from frl_distributed_ml_scaffold_tpu_torch.precision import get_policy
     from frl_distributed_ml_scaffold_tpu_torch.serving import (
@@ -131,6 +141,11 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     out = generate(model, [[1, 2, 3]], max_new_tokens=2, temperature=0.0,
                    device="cpu")
     assert tuple(out.shape) == (1, 5)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        beam_search(model, [[1, 2, 3]], max_new_tokens=2, num_beams=2)
+    out, _ = beam_search(model, [[1, 2, 3]], max_new_tokens=2, num_beams=2,
+                         device="cpu")
+    assert tuple(out.shape) == (1, 5)
 
 
 def test_training_entry_points_default_to_cuda_and_raise_without_a_card():
@@ -157,7 +172,7 @@ def test_training_entry_points_default_to_cuda_and_raise_without_a_card():
     cfg = GPTConfig(vocab_size=64, num_layers=1, num_heads=2, hidden_dim=64,
                     seq_len=32, attention="flash")
     model = GPT(cfg, get_policy("fp32"), device="cpu")
-    tx, _ = make_optimizer(OptimizerConfig(), TrainerConfig())
+    tx, _ = make_optimizer(OptimizerConfig(), TrainerConfig(), cfg)
     params = dict(model.named_parameters())
     loss = make_lm_loss(model)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -658,3 +658,42 @@ def test_adamw_kernel_reads_bf16_grads(n):
     for got, ref in zip((p, m, v), want):
         assert got.dtype == torch.float32
         assert (got - ref).abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [65539, 2359296])
+def test_adamw_kernel_takes_bf16_params(n, g_dtype):
+    """On the card: the AdamW kernel with a bf16 p (from a bf16 init,
+    ``trainer.init_params_path``) against ``adamw_math`` on p widened to
+    fp32: p' stays bf16, rounded to nearest even, within one bf16 ulp of
+    the plain result rounded the same way (the two fp32 results may
+    differ by ~1e-7, enough to cross a rounding boundary); m and v stay
+    float32, 1e-6 absolute; one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from frl_distributed_ml_scaffold_tpu_torch.ops import fused_adamw as fa
+
+    rng = np.random.default_rng(n + 2)
+    g, m, p = (torch.from_numpy((s * rng.standard_normal(n)).astype(
+        np.float32)).cuda() for s in (1e-2, 1e-2, 0.05))
+    g = g.to(getattr(torch, g_dtype))
+    p = p.bfloat16()
+    v = torch.from_numpy((1e-4 * rng.uniform(size=n)).astype(
+        np.float32)).cuda()
+    hp = dict(b1=0.9, b2=0.999, eps=1e-8, wd=1e-4)
+    pn, mn, vn = fa.adamw_math(g, m, v, p.float(), 1e-3, 1 - 0.9 ** 6,
+                               1 - 0.999 ** 6, **hp)
+    before = fa.adamw_kernel.launches
+    fa.update_leaf(g, m, v, p, 1e-3, 1 - 0.9 ** 6, 1 - 0.999 ** 6, **hp)
+    torch.cuda.synchronize()
+    assert fa.adamw_kernel.launches == before + 1
+    assert p.dtype == torch.bfloat16
+    assert m.dtype == v.dtype == torch.float32
+    want = pn.bfloat16().float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2 ** -126)))
+                     - 7)
+    assert ((p.float() - want).abs() <= ulp).all()
+    assert (p.float() == want).float().mean().item() > 0.999
+    for got, ref in ((m, mn), (v, vn)):
+        assert (got - ref).abs().max().item() <= 1e-6

@@ -64,7 +64,7 @@ def _step(cfg, weights, batch, kw, device):
     policy = get_policy(cfg.precision)
     model = create_model(cfg.model, policy, device=device, **kw)
     params = {k: v.to(device) for k, v in weights.items()}
-    tx, schedule = make_optimizer(cfg.optimizer, cfg.trainer)
+    tx, schedule = make_optimizer(cfg.optimizer, cfg.trainer, cfg.model)
     grad_fn = make_grad_fn(make_loss_fn(model, cfg.data.name), policy,
                            remat=cfg.trainer.remat, device=device)
     loss, _, _, grads = grad_fn(params, {}, batch)
@@ -96,3 +96,36 @@ def test_card_step_matches_the_cpu_step(family, policy):
         assert err <= tol["grad"] * g.abs().max().item() + floor, (k, err)
     for k, p in params.items():
         assert (params_c[k] - p).abs().max().item() <= 2 * lr + 1e-6, k
+
+
+@pytest.mark.cuda
+def test_beam_search_on_the_card_is_greedy_at_one_beam():
+    """``beam_search`` on the card (its decode steps through the decode
+    kernel) with one beam is greedy ``generate``, fp32, on a tiny seeded
+    GPT with ragged prompts: each decode step launches the kernel once a
+    layer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from frl_distributed_ml_scaffold_tpu_torch.config.schema import GPTConfig
+    from frl_distributed_ml_scaffold_tpu_torch.models.generation import (
+        beam_search,
+        generate,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.ops import decode_attention
+
+    cfg = GPTConfig(vocab_size=512, num_layers=2, num_heads=4, hidden_dim=128,
+                    seq_len=128, decode_attention="flash")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = create_model(cfg, get_policy("fp32"), device="cuda")
+    model.load_state_dict(convert.init_params(cfg, gen))
+    prompt = torch.randint(1, 512, (3, 12), generator=gen, device="cuda")
+    prompt[0, :4] = 0
+    lens = torch.tensor([8, 12, 12], device="cuda")
+    before = decode_attention.decode_attention.launches
+    toks, score = beam_search(model, prompt, max_new_tokens=9, num_beams=1,
+                              prompt_lengths=lens)
+    assert decode_attention.decode_attention.launches - before == 2 * 8
+    greedy = generate(model, prompt, max_new_tokens=9, temperature=0.0,
+                      prompt_lengths=lens)
+    assert torch.equal(toks, greedy)
+    assert score.shape == (3,) and torch.isfinite(score).all()

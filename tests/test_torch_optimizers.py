@@ -56,7 +56,7 @@ def _run_both(opt_kw, grads_scale, steps=4, seed=0):
     jtx, _ = jopt.make_optimizer(jschema.OptimizerConfig(**opt_kw),
                                  jschema.TrainerConfig(**trainer))
     ttx, _ = topt.make_optimizer(tschema.OptimizerConfig(**opt_kw),
-                                 tschema.TrainerConfig(**trainer))
+                                 tschema.TrainerConfig(**trainer), None)
     jp = jax.tree.map(jnp.asarray, params)
     jstate = jtx.init(jp)
     tp = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
@@ -125,7 +125,8 @@ def test_step_zero_under_warmup_leaves_params_unchanged():
     kw = dict(name="adamw", learning_rate=1e-2, warmup_steps=5,
               schedule="cosine", weight_decay=0.1, grad_clip_norm=1.0)
     tx, sched = topt.make_optimizer(tschema.OptimizerConfig(**kw),
-                                    tschema.TrainerConfig(total_steps=10))
+                                    tschema.TrainerConfig(total_steps=10),
+                                    None)
     params = {"w": torch.ones(3)}
     state = tx.init(params)
     tx.update({"w": torch.full((3,), 0.5)}, state, params)

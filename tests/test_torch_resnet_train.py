@@ -147,7 +147,7 @@ def _port_run(policy, opt, fused, steps=STEPS, accum=ACCUM):
     params, extras = resnet_params_from_jax(v["params"], v["batch_stats"])
     model = create_model(mcfg, get_policy(policy), device="cpu")
     model.load_state_dict({**params, **extras["batch_stats"]})
-    tx, schedule = topt.make_optimizer(ocfg, tcfg)
+    tx, schedule = topt.make_optimizer(ocfg, tcfg, mcfg)
     state = TrainState.create(params, tx, extras, device="cpu")
     step = make_train_step(ttasks.make_loss_fn(model, "imagenet"), tx,
                            get_policy(policy), grad_accum=accum, device="cpu")
@@ -224,7 +224,7 @@ def test_first_step_under_warmup_moves_stats_not_params():
     params, extras = resnet_params_from_jax(v["params"], v["batch_stats"])
     model = create_model(mcfg, get_policy("fp32"), device="cpu")
     model.load_state_dict({**params, **extras["batch_stats"]})
-    tx, schedule = topt.make_optimizer(ocfg, tcfg)
+    tx, schedule = topt.make_optimizer(ocfg, tcfg, mcfg)
     state = TrainState.create(params, tx, extras, device="cpu")
     step = make_train_step(ttasks.make_loss_fn(model, "imagenet"), tx,
                            get_policy("fp32"), device="cpu")
@@ -245,9 +245,9 @@ def test_fused_adamw_refusals():
     with pytest.raises(ValueError, match="grad_clip_norm"):
         topt.make_optimizer(tschema.OptimizerConfig(
             **dict(OPT["fused_adamw"], grad_clip_norm=1.0)),
-            tschema.TrainerConfig(**TRAINER))
+            tschema.TrainerConfig(**TRAINER), None)
     tx, _ = topt.make_optimizer(tschema.OptimizerConfig(**OPT["fused_adamw"]),
-                                tschema.TrainerConfig(**TRAINER))
+                                tschema.TrainerConfig(**TRAINER), None)
     assert isinstance(tx, tfa.FusedAdamW)
     loss = lambda *a: None  # noqa: E731 (never called)
     pol = get_policy("fp32")
@@ -263,7 +263,7 @@ def test_fused_adamw_refusals():
                     parallel=tschema.ParallelConfig())
     # The same layouts under SGD are one card's replicated state.
     sgd, _ = topt.make_optimizer(tschema.OptimizerConfig(**OPT["sgd"]),
-                                 tschema.TrainerConfig(**TRAINER))
+                                 tschema.TrainerConfig(**TRAINER), None)
     make_train_step(loss, sgd, pol, device="cpu",
                     parallel=dataclasses.replace(tschema.ParallelConfig(),
                                                  opt_sharding="zero1"))

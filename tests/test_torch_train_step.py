@@ -54,6 +54,10 @@ from frl_distributed_ml_scaffold_tpu.trainer import optimizers as jopt
 from frl_distributed_ml_scaffold_tpu.trainer import tasks as jtasks
 from frl_distributed_ml_scaffold_tpu.trainer import train_state as jstate
 from frl_distributed_ml_scaffold_tpu.trainer import train_step as jstep
+from frl_distributed_ml_scaffold_tpu_torch.config import (
+    apply_overrides,
+    get_config,
+)
 from frl_distributed_ml_scaffold_tpu_torch.config import schema as tschema
 from frl_distributed_ml_scaffold_tpu_torch.data.synthetic import SyntheticLM
 from frl_distributed_ml_scaffold_tpu_torch.models.convert import params_from_jax
@@ -62,6 +66,7 @@ from frl_distributed_ml_scaffold_tpu_torch.ops import flash_attention as tfa
 from frl_distributed_ml_scaffold_tpu_torch.precision import get_policy
 from frl_distributed_ml_scaffold_tpu_torch.trainer import optimizers as topt
 from frl_distributed_ml_scaffold_tpu_torch.trainer import tasks as ttasks
+from frl_distributed_ml_scaffold_tpu_torch.trainer.loop import Trainer
 from frl_distributed_ml_scaffold_tpu_torch.trainer.train_state import TrainState
 from frl_distributed_ml_scaffold_tpu_torch.trainer.train_step import (
     make_eval_step,
@@ -117,7 +122,7 @@ def _port_run(params, policy, *, attention="dense", remat="none", chunk=0):
     model = GPT(cfg, get_policy(policy), device="cpu")
     model.load_state_dict(params_from_jax(params, cfg))
     tx, schedule = topt.make_optimizer(
-        tschema.OptimizerConfig(**OPT), tschema.TrainerConfig(**TRAINER))
+        tschema.OptimizerConfig(**OPT), tschema.TrainerConfig(**TRAINER), cfg)
     state = TrainState.create(dict(model.named_parameters()), tx,
                               device="cpu")
     step = make_train_step(ttasks.make_lm_loss(model), tx,
@@ -192,7 +197,7 @@ def test_first_step_under_warmup_leaves_params_unchanged(params):
     model = GPT(cfg, get_policy("fp32"), device="cpu")
     model.load_state_dict(params_from_jax(params, cfg))
     tx, schedule = topt.make_optimizer(
-        tschema.OptimizerConfig(**OPT), tschema.TrainerConfig(**TRAINER))
+        tschema.OptimizerConfig(**OPT), tschema.TrainerConfig(**TRAINER), cfg)
     state = TrainState.create(dict(model.named_parameters()), tx,
                               device="cpu")
     step = make_train_step(ttasks.make_lm_loss(model), tx, get_policy("fp32"),
@@ -221,7 +226,8 @@ def test_eval_step_matches_jax_eval(params):
     tmodel = got["model"]
     tmodel.load_state_dict(params_from_jax(params, tmodel.config))
     ttx, _ = topt.make_optimizer(tschema.OptimizerConfig(**OPT),
-                                 tschema.TrainerConfig(**TRAINER))
+                                 tschema.TrainerConfig(**TRAINER),
+                                 tmodel.config)
     tst = TrainState.create(dict(tmodel.named_parameters()), ttx,
                             device="cpu")
     out = make_eval_step(ttasks.make_lm_loss(tmodel), get_policy("fp32"),
@@ -246,16 +252,21 @@ def test_synthetic_lm_batches_match_jax():
 
 
 def test_training_refusals():
-    """What the slice does not port raises, naming its ROADMAP item."""
+    """What the port still does not train raises, naming its ROADMAP
+    item: meshes of more than one card and optimizer offload (item 7),
+    per-block remat under the overlap schedule (item 11), fused_adamw
+    with a clip. Training dropout needs its seed; an unknown block_remat
+    raises."""
     cfg = tschema.GPTConfig(**TINY, dropout=0.1)
     model = GPT(cfg, get_policy("fp32"), device="cpu")
     toks = torch.zeros((1, 9), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs a seed"):
         model(toks, train=True)
+    assert model(toks, train=True, rng=3).shape == (1, 9, TINY["vocab_size"])
     assert model(toks, train=False).shape == (1, 9, TINY["vocab_size"])
     loss = ttasks.make_lm_loss(model)
     tx, _ = topt.make_optimizer(tschema.OptimizerConfig(**OPT),
-                                tschema.TrainerConfig(**TRAINER))
+                                tschema.TrainerConfig(**TRAINER), cfg)
     for kw in ({"offload_opt_state": True}, {"grad_shardings": object()},
                {"mesh": tschema.MeshConfig(data=2)},
                {"mesh": tschema.MeshConfig(data=1, fsdp=4)}):
@@ -264,20 +275,26 @@ def test_training_refusals():
     # The recipe's own mesh (data=1, fsdp=-1) is one card.
     make_train_step(loss, tx, get_policy("fp32"), device="cpu",
                     mesh=tschema.MeshConfig(data=1, fsdp=-1))
-    for name in ("lion", "adafactor"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            topt.make_optimizer(
-                dataclasses.replace(tschema.OptimizerConfig(**OPT), name=name),
-                tschema.TrainerConfig(**TRAINER))
+    # Per-block remat under the overlap schedule (the JAX model's
+    # overlap remat policies) stays with the schedule, item 11.
+    for flag in ("fsdp_overlap", "tp_overlap"):
+        ov = ["model.num_layers=2", "model.hidden_dim=128",
+              "model.num_heads=4", "model.vocab_size=512",
+              "model.seq_len=128", "data.vocab_size=512",
+              "data.seq_len=128", "model.block_remat=full",
+              f"parallel.{flag}=true"]
+        with pytest.raises(NotImplementedError, match="item 11"):
+            Trainer(apply_overrides(get_config("gpt2_medium_zero1"), ov),
+                    device="cpu")
     # fused_adamw is ported; with this recipe's clip it is refused, as
     # the JAX factory refuses it.
     with pytest.raises(ValueError, match="grad_clip_norm"):
         topt.make_optimizer(
             dataclasses.replace(tschema.OptimizerConfig(**OPT),
                                 name="fused_adamw"),
-            tschema.TrainerConfig(**TRAINER))
-    with pytest.raises(NotImplementedError, match="block_remat"):
-        GPT(dataclasses.replace(tschema.GPTConfig(**TINY), block_remat="full"),
+            tschema.TrainerConfig(**TRAINER), cfg)
+    with pytest.raises(KeyError, match="block_remat"):
+        GPT(dataclasses.replace(tschema.GPTConfig(**TINY), block_remat="dots"),
             get_policy("fp32"), device="cpu")
 
 
@@ -290,7 +307,7 @@ def test_ema_follows_the_params(params):
     model.load_state_dict(params_from_jax(params, cfg))
     tx, _ = topt.make_optimizer(
         tschema.OptimizerConfig(**dict(OPT, warmup_steps=0)),
-        tschema.TrainerConfig(**TRAINER))
+        tschema.TrainerConfig(**TRAINER), cfg)
     state = TrainState.create(dict(model.named_parameters()), tx,
                               with_ema=True, device="cpu")
     assert all(torch.equal(state.ema_params[k], p)

@@ -312,7 +312,8 @@ def test_mnist_matches_jax(tmp_path, source):
 
 def test_refusals():
     """The video classifier refuses the tensor-parallel hooks (queue A
-    item 11) and training dropout; so does the MLP."""
+    item 11). Training dropout, in it and in the MLP, runs with a seed
+    and raises without one."""
     _, tv = _video_configs()
     _, tm = _mlp_configs()
     pol = get_policy("fp32")
@@ -323,5 +324,7 @@ def test_refusals():
                    (tm.model, torch.zeros(1, 28, 28, 1))):
         model = create_model(dataclasses.replace(cfg, dropout=0.1), pol,
                              device="cpu")
-        with pytest.raises(NotImplementedError, match="dropout"):
+        with pytest.raises(ValueError, match="needs a seed"):
             model(x, train=True)
+        # The weights are left uninitialised: only the shape is read.
+        assert model(x, train=True, rng=0).shape == (1, cfg.num_classes)

@@ -235,8 +235,9 @@ def test_example_input_matches_jax(name):
 
 
 def test_refusals():
-    """The tensor-parallel hooks, training dropout and an unknown pool
-    raise; the hooks name ROADMAP queue A item 11."""
+    """The tensor-parallel hooks and an unknown pool raise; the hooks
+    name ROADMAP queue A item 11. Training dropout runs with a seed and
+    raises without one; eval ignores it."""
     _, t = _configs()
     pol = get_policy("fp32")
     with pytest.raises(NotImplementedError, match="item 11"):
@@ -250,5 +251,6 @@ def test_refusals():
     model.load_state_dict(init_vit_params(t.model, torch.Generator()))
     x = torch.zeros(1, 32, 32, 3)
     assert tuple(model(x).shape) == (1, 10)  # eval: dropout is a no-op
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(ValueError, match="needs a seed"):
         model(x, train=True)
+    assert tuple(model(x, train=True, rng=0).shape) == (1, 10)
