@@ -267,7 +267,29 @@ no final line):
    loss of the run without a file. The AdamW kernel's checks and timings
    (item 12) include a bf16 p, and the kernels line's AdamW row its
    bf16-p times.
-33. ``phase_seconds`` (the build, each phase above and the whole run),
+33. mesh_path (after fp32_train_check), in a process group of one NCCL
+   rank on the card whose mesh keeps its data / fsdp / model groups at
+   size 1 (``build_mesh(unit_groups=True)``), so every collective of the
+   step runs: train_path again through the mesh path (``mesh_setup``:
+   the layout of ``parallel/layout.py``, ZeRO-1's specs over fsdp=1, a
+   state of plain shards with fp32 moments, ``make_train_step`` over the
+   layout), same weights and batches: losses and grad_norms equal
+   train_path's bit for bit, the params' checksum equal, 384 / 192 / 192
+   flash launches a step; the collectives and NCCL kernels a step, step
+   seconds beside train_path's. rn50_mesh_path (after rn50_path):
+   rn50_path through the mesh path from its weights and batches, sync-BN
+   wired (each BatchNorm's statistics all-reduced, one all-reduce of the
+   two sums between the BN kernels): 53 launches of each a step, the
+   all-reduces counted, losses within ``RN50_MESH_LOSS_TOL``.
+   launch_mesh: ``mnist_mlp`` through ``launch.main`` with
+   ``--num-processes=1 --process-id=0 --coordinator=127.0.0.1:<port>``
+   on the card, a checkpoint and a resume.
+34. rn101_path / vitl_path (after mlp_path): ``imagenet_rn101_ddp`` +
+   fused BN at batch 128 and ``imagenet_vitl_fsdp`` at batch 64 (cut
+   from 1024 to fit one card), full width and depth, seeded weights: a
+   warm-up and one timed step each; the BN kernels once per BatchNorm a
+   step (RN101), none (ViT-L).
+35. ``phase_seconds`` (the build, each phase above and the whole run),
    the ``kernels`` line (twelve kernels) and, last, ``{"ok": true,
    "device": ...}``.
 
@@ -2061,7 +2083,7 @@ def _train_setup(cfg, sd, device="cuda"):
     return model, policy, tx, schedule, state, make_lm_loss(model)
 
 
-def _step_fn(cfg, loss_fn, tx, policy):
+def _step_fn(cfg, loss_fn, tx, policy, device="cuda"):
     from frl_distributed_ml_scaffold_tpu_torch.trainer.train_step import (
         make_train_step,
     )
@@ -2071,7 +2093,7 @@ def _step_fn(cfg, loss_fn, tx, policy):
         loss_fn, tx, policy, seed=t.seed, grad_accum=t.grad_accum,
         remat=t.remat, ema_decay=t.ema_decay,
         offload_opt_state=t.offload_opt_state, mesh=cfg.mesh,
-        parallel=cfg.parallel, device="cuda")
+        parallel=cfg.parallel, device=device)
 
 
 def train_phase(sd, card: str) -> tuple:
@@ -2169,6 +2191,7 @@ def train_phase(sd, card: str) -> tuple:
         "fallbacks": fa.flash_attention.fallbacks - fallbacks,
         "params_unchanged_after_step0": True,
         "params_changed_after_step1": True,
+        "params_checksum": params_checksum(state.params),
     }
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2182,6 +2205,17 @@ def train_phase(sd, card: str) -> tuple:
     del model, state, step, prof
     torch.cuda.empty_cache()
     return report, counts, profile_report
+
+
+def params_checksum(params: dict) -> int:
+    """An exact fingerprint of fp32 params: the int64 sum of their bit
+    patterns, leaf by leaf in name order (equal params give equal sums;
+    one flipped bit changes it)."""
+    total = 0
+    for k in sorted(params):
+        total += int(params[k].detach().float().contiguous().view(
+            torch.int32).to(torch.int64).sum())
+    return total
 
 
 def state_bytes(tree) -> int:
@@ -2322,6 +2356,379 @@ MLP_LAUNCH = ["--config=mnist_mlp", "trainer.total_steps=200",
               "trainer.log_every=10", "checkpoint.enabled=true",
               "checkpoint.save_every=1000"]
 MLP_PREEMPT_STEP = 100
+
+
+# ---------------------------------------------------------------- the mesh
+# The mesh phases run in a process group of one NCCL rank, with the mesh's
+# data / fsdp / model groups kept at size 1 (``build_mesh(unit_groups=
+# True)``), so every collective of the step runs on the card (over one
+# rank, a copy) and nothing of the layout is skipped.
+MESH_COLLECTIVES = ("all_reduce", "all_gather", "reduce_scatter",
+                    "all_gather_into_tensor", "reduce_scatter_tensor",
+                    "broadcast")
+RN50_MESH_STEPS = 2
+# sync-BN's statistics are (sum x, sum x^2) / M where the plain forward
+# takes torch.mean: the losses agree to this, relative, not bit for bit.
+RN50_MESH_LOSS_TOL = 1e-5
+LAUNCH_MESH = ["--config=mnist_mlp", "--device=cuda", "--num-processes=1",
+               "--process-id=0", "trainer.log_every=10",
+               "trainer.eval_every=0", "checkpoint.enabled=true",
+               "checkpoint.save_every=20"]
+LAUNCH_MESH_STEPS = (20, 30)
+# The two recipes this slice adds, one step each after a warm-up, at a
+# batch that fits one card (cut from the recipes' 1024).
+SCALEUP = {
+    "rn101_path": ("imagenet_rn101_ddp",
+                   ["model.fused_bn=true", "data.global_batch_size=128"]),
+    "vitl_path": ("imagenet_vitl_fsdp", ["data.global_batch_size=64"]),
+}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def nccl_init() -> float:
+    """Join a process group of one NCCL rank on card 0; its seconds."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    check(dist.get_backend() == "nccl", "the process group is not NCCL")
+    return time.perf_counter() - t0
+
+
+def nccl_close() -> None:
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+class CountCollectives:
+    """Counts the ``torch.distributed`` collectives called inside the
+    block (the port calls them through the module, so patching the
+    module's names sees every call)."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.counts = dict.fromkeys(MESH_COLLECTIVES, 0)
+        self._real = {n: getattr(dist, n) for n in MESH_COLLECTIVES}
+
+        def wrap(name, fn):
+            def counted(*a, **k):
+                self.counts[name] += 1
+                return fn(*a, **k)
+            return counted
+
+        for n, fn in self._real.items():
+            setattr(dist, n, wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for n, fn in self._real.items():
+            setattr(dist, n, fn)
+        return False
+
+
+def device_events(prof, pattern: str) -> int:
+    """Device events in a profiled window whose name matches ``pattern``
+    (NCCL kernels: ``nccl``; copies: ``Memcpy DtoD``)."""
+    from torch.autograd import DeviceType
+
+    rx = re.compile(pattern, re.IGNORECASE)
+    return sum(e.device_type == DeviceType.CUDA and bool(rx.search(e.name))
+               for e in prof.events())
+
+
+def mesh_setup(cfg, env, tx, policy, loss_fn, state, device="cuda"):
+    """The mesh path of ``cfg`` over ``env`` from a one-device ``state``
+    (whose params and extras it takes): the layout of the model's params
+    (``parallel/layout.py``, the Trainer's rules), a state of this rank's
+    shards with fp32 optimizer templates, and ``make_train_step`` over
+    the layout. Returns (state, step, layout)."""
+    from frl_distributed_ml_scaffold_tpu_torch.parallel.layout import (
+        StateLayout,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.loop import (
+        model_partition_rules,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.train_state import (
+        TrainState,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.train_step import (
+        make_train_step,
+    )
+
+    whole = ()
+    if cfg.model.family == "gpt":
+        from frl_distributed_ml_scaffold_tpu_torch.models.gpt import (
+            TP_COMPUTE_WHOLE as whole,
+        )
+    shapes = {k: tuple(p.shape) for k, p in state.params.items()}
+    layout = StateLayout.build(env, cfg.model, cfg.parallel, shapes,
+                               rules=model_partition_rules(cfg.model, env),
+                               compute_whole=whole)
+    params = {k: layout.shard(k, p, layout.param[k])
+              for k, p in state.params.items()}
+    mesh_state = TrainState.create(
+        params, tx, state.extras, with_ema=cfg.trainer.ema_decay > 0,
+        opt_template=layout.opt_template(torch.float32, device),
+        device=device)
+    t = cfg.trainer
+    step = make_train_step(
+        loss_fn, tx, policy, seed=t.seed, grad_accum=t.grad_accum,
+        remat=t.remat, ema_decay=t.ema_decay, mesh=cfg.mesh,
+        parallel=cfg.parallel, layout=layout, device=device)
+    return mesh_state, step, layout
+
+
+def mesh_path_phase(sd, card: str, train: dict) -> dict:
+    """train_path again through the mesh path on one NCCL rank:
+    ``gpt2_medium_zero1`` + flash at full width and depth, its mesh
+    (``data=1 fsdp=-1`` -> 1) with the data / fsdp / model groups kept,
+    ZeRO-1's specs (whole over an fsdp axis of 1), a state of plain
+    shards with fp32 moments, the step over the layout. The same weights
+    and batches as train_path: one warm-up and ``TRAIN_STEPS`` timed
+    steps whose losses and grad_norms equal train_path's bit for bit and
+    whose params' checksum equals train_path's (the collectives over one
+    rank are copies; the sums are in train_path's order); 384 / 192 / 192
+    flash launches a step; the collectives a step; then one profiled
+    step for the NCCL kernels a step and the idle share. Step seconds
+    beside train_path's: the mesh path's host cost."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from frl_distributed_ml_scaffold_tpu_torch.config import (
+        apply_overrides,
+        get_config,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.data.synthetic import SyntheticLM
+    from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import build_mesh
+
+    cfg = apply_overrides(get_config("gpt2_medium_zero1"), TRAIN_OVERRIDES)
+    env = build_mesh(cfg.mesh, unit_groups=True)
+    check(env.num_devices == 1 and env.group(("data", "fsdp")) is not None,
+          f"mesh_path: mesh {env.shape} without its unit groups")
+    model, policy, tx, schedule, state, loss_fn = _train_setup(cfg, sd)
+    state, step, layout = mesh_setup(cfg, env, tx, policy, loss_fn, state)
+    check(layout.trivial,
+          "mesh_path: the ZeRO-1 specs over fsdp=1 split something")
+    data = SyntheticLM(cfg.data, split="train")
+    gb = cfg.data.global_batch_size
+    layers, accum = cfg.model.num_layers, cfg.trainer.grad_accum
+    per_step = {"flash_attention_fwd": 2 * layers * accum,
+                "flash_attention_bwd_dq": layers * accum,
+                "flash_attention_bwd_dkv": layers * accum}
+    torch.cuda.synchronize()
+    reset_launches()
+    rows, collectives = [], []
+    for s in range(1 + TRAIN_STEPS):
+        batch = data.batch(s, gb)
+        before = read_launches()
+        with CountCollectives() as cc:
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        after = read_launches()
+        for name in after:
+            n = after[name] - before[name]
+            check(n == per_step.get(name, 0),
+                  f"mesh_path step {s}: {name} launched {n} times, want "
+                  f"{per_step.get(name, 0)}")
+        want = train["steps"][s]
+        rec = {"step": s, "loss": float(m["loss"]),
+               "grad_norm": float(m["grad_norm"]), "step_s": wall,
+               "train_path_step_s": want["step_s"]}
+        check(rec["loss"] == want["loss"]
+              and rec["grad_norm"] == want["grad_norm"],
+              f"mesh_path step {s}: {rec} against train_path's {want}")
+        rows.append(rec)
+        collectives.append(cc.counts)
+    checksum = params_checksum(state.params)
+    check(checksum == train["params_checksum"],
+          f"mesh_path: params checksum {checksum} != train_path's "
+          f"{train['params_checksum']}")
+    counts = read_launches()
+    step_s = statistics.median(r["step_s"] for r in rows[1:])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, data.batch(1 + TRAIN_STEPS, gb))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    nccl = device_events(prof, "nccl")
+    dtod = device_events(prof, "Memcpy DtoD")
+    prof_report = device_profile(prof, wall)
+    # Every step all-reduces the loss and each gradient leaf over the
+    # batch axes' group (of one rank): the collectives ran.
+    want_ar = 1 + len(state.params)
+    check(all(c["all_reduce"] == want_ar for c in collectives),
+          f"mesh_path: all-reduces a step {collectives}, want {want_ar}")
+    report = {
+        "card": card, "config": cfg.name, "mesh": env.shape,
+        "unit_groups": True, "backend": "nccl", "ranks": 1,
+        "parallel": dataclasses.asdict(cfg.parallel),
+        "steps": rows, "step_s_median": step_s,
+        "train_path_step_s_median": train["step_s_median"],
+        "step_ratio_to_train_path": step_s / train["step_s_median"],
+        "losses_equal_train_path": True, "params_checksum_equal": True,
+        "collectives_per_step": collectives[-1],
+        "nccl_kernels_per_step": nccl,
+        "memcpy_dtod_per_step": dtod,
+        "profiled_step_s": wall,
+        "device_idle_share": prof_report["device_idle_share"],
+        "device_busy_s": prof_report["device_busy_s"],
+        "launches": counts, "launches_per_step": per_step,
+    }
+    del model, state, step, prof
+    torch.cuda.empty_cache()
+    return report
+
+
+def rn50_mesh_phase(gen, card: str, weights, batches, rn50: dict) -> dict:
+    """rn50_path through the mesh path on one NCCL rank (unit groups):
+    ``imagenet_rn50_ddp`` + ``model.fused_bn=true`` at rn50_path's batch,
+    from rn50_path's weights and batches, sync-BN wired: each BatchNorm's
+    statistics all-reduced over the batch axes' group, and in the
+    backward one all-reduce of the two sums between the sums kernel and
+    the dx kernel. 53 launches of each a step (and the all-reduces the
+    count says), losses within ``RN50_MESH_LOSS_TOL`` of rn50_path's."""
+    from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import build_mesh
+
+    from frl_distributed_ml_scaffold_tpu_torch.config import (
+        apply_overrides,
+        get_config,
+    )
+
+    cfg = apply_overrides(get_config("imagenet_rn50_ddp"), RN50_OVERRIDES)
+    env = build_mesh(cfg.mesh, unit_groups=True)
+    with CountCollectives() as cc:
+        report, counts, _ = rn50_phase(gen, card, RN50_OVERRIDES,
+                                       RN50_MESH_STEPS, batches, False,
+                                       weights, env)
+    steps = 1 + RN50_MESH_STEPS
+    # Per step: two all-reduces a BatchNorm a microbatch (statistics,
+    # sums), the loss and metrics, and one a gradient leaf.
+    want_ar = steps * (2 * RN50_BNS + 1 + RN50_LEAVES)
+    check(cc.counts["all_reduce"] == want_ar,
+          f"rn50_mesh_path: {cc.counts['all_reduce']} all-reduces, want "
+          f"{want_ar}")
+    worst = 0.0
+    for got, want in zip(report["steps"], rn50["steps"]):
+        rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+        worst = max(worst, rel)
+    check(worst <= RN50_MESH_LOSS_TOL,
+          f"rn50_mesh_path: losses {worst} from rn50_path's (relative)")
+    report.update({
+        "mesh": env.shape, "unit_groups": True, "backend": "nccl",
+        "collectives": cc.counts,
+        "all_reduces_per_step": cc.counts["all_reduce"] // steps,
+        "loss_max_rel_diff_to_rn50_path": worst,
+        "losses_bit_equal": all(g["loss"] == w["loss"] for g, w in zip(
+            report["steps"], rn50["steps"])),
+        "rn50_path_step_s_median": rn50["step_s_median"],
+        "step_ratio_to_rn50_path":
+            report["step_s_median"] / rn50["step_s_median"],
+    })
+    return report
+
+
+def launch_mesh_phase(work: str) -> dict:
+    """``mnist_mlp`` through ``launch.main`` with the distributed flags
+    of a one-process run (``--num-processes=1 --process-id=0
+    --coordinator=127.0.0.1:<free port>``: one process initialises no
+    group, as in the JAX package) on the card: 20 steps with a checkpoint
+    at 20, then a resume from it to 30 (saved at 30); the markers, the
+    records (10, 20, 30) and the falling loss."""
+    args = LAUNCH_MESH + [f"--coordinator=127.0.0.1:{free_port()}",
+                          f"workdir={work}"]
+    run_dir = os.path.join(work, "mnist_mlp")
+    walls = []
+    for total in LAUNCH_MESH_STEPS:
+        rc, wall = launch_main(args + [f"trainer.total_steps={total}"])
+        check(rc == 0, f"launch_mesh: the run to {total} exited {rc}")
+        walls.append(wall)
+    recs = read_jsonl(os.path.join(run_dir, "metrics.jsonl"))
+    markers = sorted(os.listdir(os.path.join(run_dir, "ckpt", "commits")))
+    want = ["step_20", "step_30"]  # max_to_keep of the recipe aside
+    check([r["step"] for r in recs] == [10, 20, 30]
+          and all(m in markers for m in want),
+          f"launch_mesh: records {[r['step'] for r in recs]}, markers "
+          f"{markers}")
+    check(recs[-1]["loss"] < recs[0]["loss"],
+          f"launch_mesh: loss {recs[0]['loss']} -> {recs[-1]['loss']}")
+    return {"args": args, "seconds": walls,
+            "records": [{k: r[k] for k in ("step", "loss") if k in r}
+                        for r in recs], "markers": markers}
+
+
+def scaleup_phase(name: str, gen, card: str) -> dict:
+    """One of ``SCALEUP``'s recipes at full width and depth, cut to a
+    batch that fits one card: seeded weights, synthetic ImageNet on the
+    card, one warm-up step and one timed step; the params, the loss, the
+    step seconds, images/s, peak memory, and the kernels a step (the
+    ResNet's BN kernels once per BatchNorm; the ViT none)."""
+    from frl_distributed_ml_scaffold_tpu_torch.config import (
+        apply_overrides,
+        get_config,
+    )
+
+    recipe, overrides = SCALEUP[name]
+    cfg = apply_overrides(get_config(recipe), overrides)
+    if cfg.model.family == "resnet":
+        model, policy, tx, schedule, state, loss_fn = rn50_setup(cfg, gen)
+        n_bn = len(model.batch_norms())
+        per_step = {"bn_bwd_sums": n_bn, "bn_bwd_dx": n_bn}
+    else:
+        model, policy, tx, schedule, state, loss_fn = family_setup(cfg, gen)
+        per_step = {}
+    step = _step_fn(cfg, loss_fn, tx, policy)
+    batches = rn50_batches(cfg, 2)
+    gb = cfg.data.global_batch_size
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    rows = []
+    for s, batch in enumerate(batches):
+        before = read_launches()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = read_launches()
+        for k in after:
+            n = after[k] - before[k]
+            check(n == per_step.get(k, 0),
+                  f"{name} step {s}: {k} launched {n} times, want "
+                  f"{per_step.get(k, 0)}")
+        rec = {"step": s, "loss": float(m["loss"]),
+               "grad_norm": float(m["grad_norm"]), "step_s": wall}
+        check(math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"]),
+              f"{name} step {s}: {rec}")
+        rows.append(rec)
+    peak = torch.cuda.max_memory_allocated()
+    report = {"card": card, "config": cfg.name, "overrides": overrides,
+              "cut": f"global batch {gb} of the recipe's 1024; seeded "
+                     "weights, synthetic ImageNet",
+              "params": sum(p.numel() for p in state.params.values()),
+              "policy": cfg.precision.policy, "remat": cfg.trainer.remat,
+              "steps": rows, "step_s": rows[-1]["step_s"],
+              "images_per_s": gb / rows[-1]["step_s"],
+              "max_memory_allocated_bytes": peak,
+              "launches_per_step": per_step}
+    del model, state, step, batches
+    torch.cuda.empty_cache()
+    return report
 
 
 def read_jsonl(path: str) -> list:
@@ -2978,13 +3385,16 @@ def flop_count(loss_fn, policy, state, batch) -> int:
 
 
 def rn50_phase(gen, card: str, overrides: list, steps: int, batches: list,
-               profiled: bool) -> tuple:
+               profiled: bool, weights=None, env=None) -> tuple:
     """``imagenet_rn50_ddp`` with ``overrides`` at full width and depth:
     one warm-up step (step 0, lr 0: params unchanged, every running
     statistic moved) and ``steps`` timed steps of 256 images. Each step
     launches each BN kernel 53 times, the AdamW kernel 42 times under
     fused_adamw, and no other kernel of the port. Then, if ``profiled``,
-    one step under ``torch.profiler``."""
+    one step under ``torch.profiler``. ``weights`` as ``rn50_setup``'s;
+    with a mesh ``env`` the state and the step are the mesh path's
+    (``mesh_setup``: sync-BN over the batch axes' group between the two
+    BN kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
     from frl_distributed_ml_scaffold_tpu_torch.config import (
@@ -2993,8 +3403,12 @@ def rn50_phase(gen, card: str, overrides: list, steps: int, batches: list,
     )
 
     cfg = apply_overrides(get_config("imagenet_rn50_ddp"), overrides)
-    model, policy, tx, schedule, state, loss_fn = rn50_setup(cfg, gen)
-    step = _step_fn(cfg, loss_fn, tx, policy)
+    model, policy, tx, schedule, state, loss_fn = rn50_setup(cfg, gen,
+                                                             weights)
+    if env is None:
+        step = _step_fn(cfg, loss_fn, tx, policy)
+    else:
+        state, step, _ = mesh_setup(cfg, env, tx, policy, loss_fn, state)
     n_params = sum(p.numel() for p in state.params.values())
     big = sum(p.numel() >= 65536 for p in state.params.values())
     n_bn = len(model.batch_norms())
@@ -4682,7 +5096,10 @@ def main() -> int:
         apply_overrides,
         get_config,
     )
-    from frl_distributed_ml_scaffold_tpu_torch.models.convert import init_params
+    from frl_distributed_ml_scaffold_tpu_torch.models.convert import (
+        init_params,
+        init_resnet_params,
+    )
     from frl_distributed_ml_scaffold_tpu_torch.ops import _build
 
     start = time.perf_counter()
@@ -4762,11 +5179,20 @@ def main() -> int:
     report, counts, profile = timed_phase("train_path", train_phase, sd, card)
     launches.update({k: n for k, n in counts.items() if n})
     emit("train_path", report)
+    train_report = report
     train_step_s = report["step_s_median"]
     adamw_state_bytes = report["opt_state_bytes"]
     emit("train_profile", profile)
     emit("fp32_train_check", timed_phase("fp32_train_check",
                                          fp32_train_phase, sd))
+    # The mesh path on one NCCL rank: train_path again through the
+    # layout, the collectives and the mesh's groups.
+    emit("nccl_init", {"seconds": timed_phase("nccl_init", nccl_init)})
+    try:
+        emit("mesh_path", timed_phase("mesh_path", mesh_path_phase, sd,
+                                      card, train_report))
+    finally:
+        nccl_close()
     # The rest of the one-card training surface: gpt2_long end to end
     # under each remat mode, adafactor, the other optimizers, dropout.
     emit("long_path", timed_phase("long_path", long_phase, gen, card))
@@ -4808,12 +5234,32 @@ def main() -> int:
                                RN50_OVERRIDES)
     batches = timed_phase("rn50_data", rn50_batches, rn50_cfg,
                           RN50_STEPS + 2)
+    # rn50_path's weights, drawn where rn50_setup would draw them, kept
+    # for the mesh path.
+    rn50_weights = init_resnet_params(rn50_cfg.model, gen,
+                                      in_channels=rn50_cfg.data.channels)
     report, counts, profile = timed_phase(
         "rn50_path", rn50_phase, gen, card, RN50_OVERRIDES, RN50_STEPS,
-        batches, True)
+        batches, True, rn50_weights)
     launches.update({k: counts[k] for k in ("bn_bwd_sums", "bn_bwd_dx")})
     emit("rn50_path", report)
     emit("rn50_profile", profile)
+    rn50_report = report
+    nccl_init()
+    try:
+        emit("rn50_mesh_path", timed_phase(
+            "rn50_mesh_path", rn50_mesh_phase, gen, card, rn50_weights,
+            batches, rn50_report))
+    finally:
+        nccl_close()
+    del rn50_weights
+    mesh_work = tempfile.mkdtemp(prefix="mesh_",
+                                 dir=os.path.join(REPO, "build"))
+    try:
+        emit("launch_mesh", timed_phase("launch_mesh", launch_mesh_phase,
+                                        mesh_work))
+    finally:
+        shutil.rmtree(mesh_work, ignore_errors=True)
     report, counts, _ = timed_phase(
         "rn50_adamw_path", rn50_phase, gen, card, RN50_ADAMW_OVERRIDES,
         RN50_ADAMW_STEPS, batches, False)
@@ -4844,6 +5290,9 @@ def main() -> int:
     emit("video_profile", profile)
     del clips
     emit("mlp_path", timed_phase("mlp_path", mlp_phase, gen, card))
+    # The two scale-up recipes, one step each at a batch one card holds.
+    for name in SCALEUP:
+        emit(name, timed_phase(name, scaleup_phase, name, gen, card))
     # The loaders, the native data core, the s2d stem and the mask pool:
     # seeded shards and token bins under a temporary directory of build/,
     # removed after.

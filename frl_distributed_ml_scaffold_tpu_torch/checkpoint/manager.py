@@ -7,8 +7,14 @@ Format. ``<directory>/<step>/state.pt`` is one ``torch.save`` file of
 a Python int), beside ``meta.json`` (the step, the tensor payload's
 bytes, the seconds the snapshot and the write took). A step is written
 into ``<step>.tmp.<pid>`` and renamed into place once its bytes are
-flushed to disk. ``torch.distributed.checkpoint`` was not used: the port
-has one process, and one file per step is all that one process needs.
+flushed to disk. The file holds the whole state whatever the mesh:
+under a sharded layout (the ``Trainer`` sets ``layout``) every rank
+takes part in gathering it and rank 0 alone writes it, so the payload
+is byte for byte what one rank writes; the other ranks wait for it on
+a barrier. A restore reads the whole state and re-shards it by the
+layout, so a checkpoint of N ranks restores on any mesh.
+``torch.distributed.checkpoint`` was not used: one file per step, whole,
+is what every mesh can read.
 
 Checkpoints do not cross packages: the port cannot read the JAX
 package's Orbax directories, and the JAX package cannot read these.
@@ -51,6 +57,7 @@ import torch
 
 from frl_distributed_ml_scaffold_tpu_torch import faults, resolve_device
 from frl_distributed_ml_scaffold_tpu_torch.config.schema import CheckpointConfig
+from frl_distributed_ml_scaffold_tpu_torch.dist.collectives import barrier
 from frl_distributed_ml_scaffold_tpu_torch.trainer.train_state import TrainState
 from frl_distributed_ml_scaffold_tpu_torch.utils.logging import (
     get_logger,
@@ -106,6 +113,19 @@ def _check_tree(raw: dict, want: dict, step: int) -> None:
                             + ", ".join(bad[:5]))
 
 
+def _to_device(state: TrainState, device) -> TrainState:
+    def move(x):
+        if isinstance(x, dict):
+            return {k: move(v) for k, v in x.items()}
+        return x.to(device) if isinstance(x, torch.Tensor) else x
+
+    return TrainState(step=state.step, params=move(state.params),
+                      opt_state=move(state.opt_state),
+                      extras=move(state.extras),
+                      ema_params=(None if state.ema_params is None
+                                  else move(state.ema_params)))
+
+
 class Checkpointer:
     """Async save and restore of a ``TrainState`` (module docstring).
 
@@ -118,8 +138,7 @@ class Checkpointer:
         if cfg.restore_redistribute:
             raise NotImplementedError(
                 "checkpoint.restore_redistribute (a restore through the "
-                "redistribution service) is not ported yet (ROADMAP queue "
-                "A item 13)"
+                "redistribution service) is not ported yet (ROADMAP A13)"
             )
         self.directory = directory
         self.cfg = cfg
@@ -135,6 +154,9 @@ class Checkpointer:
         self._pinned: dict[str, torch.Tensor] = {}
         #: Committed steps that failed to restore, left on disk.
         self.corrupt_steps: list[int] = []
+        #: The state's specs over the mesh (``parallel/layout.py``), set
+        #: by the ``Trainer``; None holds the state as it is given.
+        self.layout = None
 
     # ------------------------------------------------------ commit markers
 
@@ -168,10 +190,13 @@ class Checkpointer:
         its step is never committed."""
         pending, self._pending = self._pending, None
         steps, self._uncommitted = self._uncommitted, []
-        if pending is not None:
-            pending.result()
-        for step in steps:
-            self._commit(step)
+        try:
+            if pending is not None:
+                pending.result()
+            for step in steps:
+                self._commit(step)
+        finally:
+            barrier("checkpoint")  # every rank sees rank 0's commits
 
     def is_committed(self, step: int) -> bool:
         return os.path.exists(self._marker(step))
@@ -255,6 +280,9 @@ class Checkpointer:
         if step in on_disk:
             raise ValueError(f"checkpoint step {step} already exists under "
                              f"{self.directory}")
+        barrier("checkpoint")  # every rank has decided before rank 0 writes
+        if self.layout is not None:
+            state = self.layout.gather_state(state)
         if not is_primary_process():
             return True
         t0 = time.perf_counter()
@@ -394,10 +422,16 @@ class Checkpointer:
                 "write or crash mid-save): skipping them; directories "
                 "left in place for inspection", self.directory, torn)
         steps = self.all_steps()
+        layout = self.layout
+        split = layout is not None and not layout.trivial
         for step in reversed(steps):
             try:
                 state = self._restore_bridging_ema(
-                    trainer.state_shapes, step, trainer.device)
+                    trainer.state_shapes, step,
+                    "cpu" if split else trainer.device)
+                if split:
+                    state = _to_device(layout.shard_state(state),
+                                       trainer.device)
                 self.logger.info("restored checkpoint step %d from %s",
                                  step, self.directory)
                 return state

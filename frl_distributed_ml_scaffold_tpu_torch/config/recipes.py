@@ -3,10 +3,11 @@ serving and training, and the training of the BASELINE model families
 (MNIST MLP, ResNet-50, ViT-B/16, the video classifier).
 
 Every section is kept (model, data, trainer, optimizer, mesh, parallel,
-precision, checkpoint, serving), with the JAX recipe's values. The
-mesh sections name the JAX recipes' multi-device layouts; the port runs
-them on one card, where ``zero1`` and ``fsdp=-1`` are the replicated
-layout (ROADMAP queue A item 7 brings meshes of more than one card).
+precision, checkpoint, serving), with the JAX recipe's values. The mesh
+sections are the JAX recipes' layouts, laid over the run's ranks
+(``dist/mesh.py``): on one card ``zero1`` and ``fsdp=-1`` are the
+replicated layout; over N ranks they split the state (``parallel/``).
+``gpt2_tp`` needs an even rank count (``model=2``).
 """
 
 from __future__ import annotations
@@ -125,6 +126,18 @@ def gpt2_long() -> ExperimentConfig:
     )
 
 
+def gpt2_tp() -> ExperimentConfig:
+    """Tensor-parallel transformer: Megatron column / row splits over a
+    ``model`` axis of 2 (``models/gpt.py`` ``gpt_tp_rules``)."""
+    base = gpt2_medium_zero1()
+    return base.replace(
+        name="gpt2_tp",
+        mesh=MeshConfig(data=-1, model=2),
+        parallel=ParallelConfig(param_sharding="replicated"),
+        trainer=base.trainer,
+    )
+
+
 def imagenet_rn50_ddp() -> ExperimentConfig:
     """BASELINE config 2: ResNet-50 on ImageNet, data parallel (the DDP
     equivalent), bf16_mixed; SGD with nesterov momentum, weight decay and
@@ -152,8 +165,9 @@ def imagenet_rn50_ddp() -> ExperimentConfig:
 def imagenet_vitb_fsdp() -> ExperimentConfig:
     """BASELINE config 3: ViT-B/16 on ImageNet, FSDP full-shard and full
     remat; AdamW with weight decay, a cosine schedule after warmup and a
-    global-norm clip. On one card ``fsdp=-1`` is an axis of size 1, so
-    every param is whole."""
+    global-norm clip. ``fsdp=-1`` takes every rank: one card holds every
+    param whole, N ranks split each one of ``fsdp_min_size`` elements or
+    more over N."""
     return ExperimentConfig(
         name="imagenet_vitb_fsdp",
         model=ViTConfig(image_size=224, patch_size=16, hidden_dim=768,
@@ -174,12 +188,33 @@ def imagenet_vitb_fsdp() -> ExperimentConfig:
     )
 
 
+def imagenet_rn101_ddp() -> ExperimentConfig:
+    """ResNet-101 on the RN50 recipe (the same schedule, depth-101
+    bottleneck stacks)."""
+    base = imagenet_rn50_ddp()
+    return base.replace(
+        name="imagenet_rn101_ddp",
+        model=dataclasses.replace(base.model, depth=101),
+    )
+
+
+def imagenet_vitl_fsdp() -> ExperimentConfig:
+    """ViT-L/16 (307M params) on the ViT-B FSDP recipe."""
+    base = imagenet_vitb_fsdp()
+    return base.replace(
+        name="imagenet_vitl_fsdp",
+        model=dataclasses.replace(
+            base.model, hidden_dim=1024, num_layers=24, num_heads=16
+        ),
+    )
+
+
 def ego4d_video_elastic() -> ExperimentConfig:
     """BASELINE config 5: the video-clip classifier, full remat, AdamW
     with a clip, checkpoints every 500 steps (``checkpoint/manager.py``,
     read by ``trainer/loop.py``). The JAX recipe runs under the elastic
     supervisor, which the port's launcher refuses (``--elastic``,
-    ROADMAP queue A item 13)."""
+    ROADMAP A13)."""
     return ExperimentConfig(
         name="ego4d_video_elastic",
         model=VideoConfig(num_frames=8, num_classes=400),
@@ -206,8 +241,11 @@ _RECIPES = {
     "gpt2_medium_serve": gpt2_medium_serve,
     "gpt2_medium_adafactor": gpt2_medium_adafactor,
     "gpt2_long": gpt2_long,
+    "gpt2_tp": gpt2_tp,
     "imagenet_rn50_ddp": imagenet_rn50_ddp,
+    "imagenet_rn101_ddp": imagenet_rn101_ddp,
     "imagenet_vitb_fsdp": imagenet_vitb_fsdp,
+    "imagenet_vitl_fsdp": imagenet_vitl_fsdp,
     "ego4d_video_elastic": ego4d_video_elastic,
 }
 

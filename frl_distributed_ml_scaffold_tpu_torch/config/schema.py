@@ -22,10 +22,11 @@ from typing import Any, Optional
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Logical device-mesh shape. The port runs on one card: every axis
-    of size 1 (``data = -1`` absorbs the one device). Larger meshes are
-    refused where they would take effect (``trainer/train_step.py``,
-    ROADMAP queue A item 7)."""
+    """Logical device-mesh shape over the run's ranks (one per device;
+    ``dist/mesh.py``): ``data``, ``fsdp`` and ``model`` split the batch,
+    the params and the tensor-parallel products; one axis may be ``-1``
+    and absorb the ranks left. ``seq``, ``expert`` and ``pipe`` above 1
+    are refused by the step (ROADMAP A12)."""
 
     data: int = -1
     fsdp: int = 1
@@ -48,9 +49,11 @@ class MeshConfig:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """How state is laid out over the mesh. On one card every layout is
-    the replicated one: ``opt_sharding="zero1"`` shards the optimizer
-    state over an fsdp axis of size 1, which leaves it whole."""
+    """How the state is laid out over the mesh (``parallel/``): params
+    ``replicated`` or split over ``fsdp`` (leaves of ``fsdp_min_size``
+    elements and more), the optimizer state ``like_params`` or split over
+    ``fsdp`` (``zero1``). Over an fsdp axis of size 1 every layout is the
+    replicated one."""
 
     param_sharding: str = "replicated"  # replicated | fsdp
     opt_sharding: str = "like_params"  # like_params | zero1
@@ -98,7 +101,7 @@ class OptimizerConfig:
 class TrainerConfig:
     """The training loop's knobs. ``make_train_step`` reads
     ``grad_accum``, ``remat``, ``ema_decay`` and ``offload_opt_state``
-    (refused, ROADMAP queue A item 7); ``trainer/loop.py`` ``Trainer``
+    (refused, ROADMAP A7); ``trainer/loop.py`` ``Trainer``
     reads the rest: ``total_steps``, ``log_every``, ``eval_every`` /
     ``eval_steps``, ``seed`` (the seeded init), ``profile_steps`` /
     ``profile_start_step`` (a ``torch.profiler`` window),
@@ -134,7 +137,7 @@ class TrainerConfig:
 class CheckpointConfig:
     """Checkpoints of the train state (``checkpoint/manager.py``).
     ``restore_redistribute`` (and its scratch budget) is refused:
-    redistribution across meshes is ROADMAP queue A item 13."""
+    redistribution across meshes is ROADMAP A13."""
 
     enabled: bool = False
     save_every: int = 1000
@@ -149,7 +152,7 @@ class CheckpointConfig:
 class ElasticConfig:
     """The JAX package's checkpoint-restart supervisor's knobs, kept so
     one override string means the same to both packages; the port's
-    launcher refuses ``--elastic`` (ROADMAP queue A item 13)."""
+    launcher refuses ``--elastic`` (ROADMAP A13)."""
 
     max_restarts: int = 3
     backoff_s: float = 1.0
@@ -168,8 +171,7 @@ class DataConfig:
     (``data/lm.py``) for ``lm``, ``ImageNet`` (``data/imagenet.py``) for
     ``imagenet``, ``MNIST`` (``data/mnist.py``) for ``mnist`` and
     ``VideoClips`` (``data/video.py``) for ``video``; ``data_dir`` names
-    their shards or token bins. ``streaming`` is refused (ROADMAP queue A
-    item 9, A13)."""
+    their shards or token bins. ``streaming`` is refused (ROADMAP A13)."""
 
     name: str = "synthetic_mnist"
     global_batch_size: int = 128

@@ -14,7 +14,7 @@ same in every process, so a batch equals the JAX package's bit for bit.
 A ``data_dir`` without shards warns and takes the synthetic source.
 
 ``data.streaming=true`` on the train split raises: the streaming reader
-is ROADMAP queue A item 9 (A13, ``data/streaming.py``).
+is ROADMAP A13 (``data/streaming.py``).
 """
 
 from __future__ import annotations

@@ -14,7 +14,7 @@ for bit. An eval split without its bin samples ``train.bin`` and says
 so; a ``data_dir`` without the bin warns and takes the synthetic source.
 
 ``data.streaming=true`` on the train split raises: the streaming reader
-is ROADMAP queue A item 9 (A13, ``data/streaming.py``). Other splits
+is ROADMAP A13 (``data/streaming.py``). Other splits
 under it read a frozen view cut to whole 8192-token blocks, as the JAX
 package does.
 """

@@ -3,7 +3,15 @@ trainer's device. The port of the JAX package's ``data/pipeline.py``.
 
 The pull model (``batch(step)``) makes the stream a pure function of the
 step: a resume at step k reproduces the batch the failed run would have
-seen. The port runs one process, so the local batch is the global one.
+seen.
+
+Under a mesh (``env``) each rank draws its rows of the global batch:
+``global / batch axes`` rows at ``host_offset =`` its index over the
+batch axes ``("data", "fsdp")``, which seeds the sources' draw as the
+JAX package's process index does; ranks along ``model`` draw the same
+rows. The JAX package's per-key placement (``shardings_for``) is the
+rank's slice itself: the step reads its rows as plain tensors. Without a
+mesh, or over a mesh of one device, the local batch is the global one.
 """
 
 from __future__ import annotations
@@ -15,6 +23,10 @@ import torch
 
 from frl_distributed_ml_scaffold_tpu_torch import faults, resolve_device
 from frl_distributed_ml_scaffold_tpu_torch.config.schema import DataConfig
+from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import (
+    MeshEnv,
+    local_batch_size,
+)
 from frl_distributed_ml_scaffold_tpu_torch.faults import RetryPolicy
 
 Batch = dict[str, np.ndarray]
@@ -58,18 +70,20 @@ def _build_source(cfg: DataConfig, split: str):
 class DataPipeline:
     """Step-indexed batches on one device.
 
-    ``local_batch(step)`` is the host batch (numpy), built under the
-    ``RetryPolicy`` and the ``data.loader`` fault site; ``global_batch``
-    returns it as tensors on ``device`` (``None`` means ``cuda`` and
-    raises without a card)."""
+    ``local_batch(step)`` is this rank's host batch (numpy), built under
+    the ``RetryPolicy`` and the ``data.loader`` fault site;
+    ``global_batch`` returns it as tensors on ``device`` (``None`` means
+    ``cuda`` and raises without a card): this rank's rows of the global
+    batch under a mesh ``env`` (module docstring)."""
 
     def __init__(self, cfg: DataConfig, *, split: str = "train",
-                 device=None):
+                 device=None, env: MeshEnv | None = None):
         self.cfg = cfg
         self.split = split
         self.device = resolve_device(device)
         self.source = _build_source(cfg, split)
-        self.local_batch_size = cfg.global_batch_size
+        self.local_batch_size = local_batch_size(cfg.global_batch_size, env)
+        self.host_offset = 0 if env is None else env.batch_index
         # The batch is a pure function of step, so a transient failure is
         # safely rebuilt; the budget's last exception propagates.
         self._retry = RetryPolicy(
@@ -87,7 +101,7 @@ class DataPipeline:
         def build() -> Batch:
             faults.maybe_raise("data.loader", key=step)
             return self.source.batch(step, self.local_batch_size,
-                                     host_offset=0)
+                                     host_offset=self.host_offset)
 
         return self._retry.call(build,
                                 describe=f"{self.split} batch(step={step})",
@@ -173,10 +187,12 @@ class PrefetchingPipeline:
             self._ex = None
 
 
-def build_pipeline(cfg: DataConfig, split: str = "train", *, device=None):
-    """A ``DataPipeline`` on ``device``, behind a ``PrefetchingPipeline``
-    for the train split when ``cfg.prefetch > 0``."""
-    pipeline = DataPipeline(cfg, split=split, device=device)
+def build_pipeline(cfg: DataConfig, split: str = "train", *, device=None,
+                   env: MeshEnv | None = None):
+    """A ``DataPipeline`` on ``device`` (this rank's rows under ``env``),
+    behind a ``PrefetchingPipeline`` for the train split when
+    ``cfg.prefetch > 0``."""
+    pipeline = DataPipeline(cfg, split=split, device=device, env=env)
     if split == "train" and cfg.prefetch > 0:
         return PrefetchingPipeline(pipeline, depth=cfg.prefetch)
     return pipeline

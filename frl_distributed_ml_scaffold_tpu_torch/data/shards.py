@@ -130,7 +130,7 @@ def sealed_save(path: str, arr: np.ndarray) -> None:
     """Write a shard ATOMICALLY: ``*.tmp`` then ``os.replace``.
 
     A streaming reader (the JAX package's ``data/streaming.py``; ROADMAP
-    queue A item 9, A13, in the port) re-scans the directory while
+    A13 in the port) re-scans the directory while
     producers write; a plain ``np.save`` exposes a torn half-written file
     under the final name. The open-file form keeps np.save from appending
     a second ``.npy`` to the tmp name.
@@ -147,8 +147,7 @@ def refuse_streaming(cfg: DataConfig, split: str) -> None:
     if cfg.data_dir and cfg.streaming and split == "train":
         raise NotImplementedError(
             "data.streaming=true (the streaming shard and token-bin reader, "
-            "data/streaming.py) is not ported yet (ROADMAP queue A item 9, "
-            "A13); set data.streaming=false to read the frozen shards")
+            "data/streaming.py) is not ported yet (ROADMAP A13); set data.streaming=false to read the frozen shards")
 
 
 class ShardedNpyCorpus:

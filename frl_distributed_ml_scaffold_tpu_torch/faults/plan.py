@@ -20,8 +20,8 @@ mechanism. The port's training loop, data pipeline and checkpointer
 consult ``trainer.*``, ``data.loader`` and ``checkpoint.torn_write``;
 the serving engine and the disaggregated scheduler the ``serve.*``
 sites. The elastic sites are kept so plans mean the same in both
-packages (the port's launcher does not consult them yet: ROADMAP queue
-A item 9, A13).
+packages (the port's launcher does not consult them yet: ROADMAP
+A13).
 """
 
 from __future__ import annotations

@@ -4,16 +4,27 @@ Usage::
 
     python -m frl_distributed_ml_scaffold_tpu_torch.launcher.launch \\
         --config=mnist_mlp [--device=cuda|cpu] [--list-configs] \\
-        [--describe] [--eval-only] [path.to.field=value ...]
+        [--describe] [--eval-only] [--coordinator=HOST:PORT \\
+        --num-processes=N --process-id=I] [--sim-devices=N] \\
+        [path.to.field=value ...]
 
-One process trains on one card (``--device=cuda``, the default: it raises
-without a card and never falls back to the CPU) or, when asked, on the
-CPU (``--device=cpu``). Refused, each naming its ROADMAP item:
-``--elastic`` (queue A item 13), ``--coordinator``,
-``--num-processes``, ``--process-id`` and ``--sim-devices`` (item 7),
+One process per rank. Without the distributed flags (or the
+``FRL_TPU_COORDINATOR`` / ``FRL_TPU_NUM_PROCESSES`` /
+``FRL_TPU_PROCESS_ID`` variables) one process trains on one card
+(``--device=cuda``, the default: it raises without a card and never
+falls back to the CPU) or, when asked, on the CPU (``--device=cpu``).
+With ``--num-processes=N`` each of N processes, started with its own
+``--process-id``, joins the process group at ``--coordinator``
+(``host:port`` of rank 0, or a ``file://`` path): NCCL on the cards,
+rank i on card ``i % device_count``; gloo on the CPU. The run's mesh is
+``cfg.mesh`` over the N ranks. ``--device=cpu --sim-devices=N`` runs N
+gloo ranks on this machine: this process is rank 0 and starts the other
+N - 1 (the counterpart of the JAX package's N simulated devices).
+
+Refused, each naming its ROADMAP item: ``--elastic`` (A13),
 ``--hlo-dump`` (the port runs no XLA) and ``FRL_TPU_SANITIZE`` in the
-environment (item 13). ``FRL_FAULT_PLAN``, when set, arms that fault
-plan for the length of each ``main()`` call (``faults/``).
+environment (A13). ``FRL_FAULT_PLAN``, when set, arms that fault plan
+for the length of each ``main()`` call (``faults/``).
 """
 
 from __future__ import annotations
@@ -22,21 +33,25 @@ import argparse
 import contextlib
 import json
 import os
+import subprocess
 import sys
+import tempfile
+
+MODULE = "frl_distributed_ml_scaffold_tpu_torch.launcher.launch"
 
 
 def _parse_args(argv=None):
     p = argparse.ArgumentParser(
-        description="FRL scaffold launcher (PyTorch port, one card)")
+        description="FRL scaffold launcher (PyTorch port)")
     p.add_argument("--config",
                    help="registered config name (see --list-configs)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--sim-devices", type=int, default=0,
-                   help="refused: simulated devices (ROADMAP queue A item 7)")
+                   help="with --device=cpu: run N gloo ranks on this machine "
+                   "(this process is rank 0 and starts the others)")
     p.add_argument("--list-configs", action="store_true")
     p.add_argument("--elastic", action="store_true",
-                   help="refused: the elastic supervisor (ROADMAP queue A "
-                   "item 13)")
+                   help="refused: the elastic supervisor (ROADMAP A13)")
     p.add_argument("--eval-only", action="store_true",
                    help="restore the latest checkpoint and run the eval loop "
                    "only")
@@ -44,11 +59,13 @@ def _parse_args(argv=None):
                    help="print the resolved config, the parameters and the "
                    "train step's FLOPs, then exit without training (dry run)")
     p.add_argument("--coordinator", default=None,
-                   help="refused: multi-process runs (ROADMAP queue A item 7)")
+                   help="rank 0's rendezvous, host:port or file://path")
     p.add_argument("--hlo-dump", default=None, metavar="DIR",
                    help="refused: the port runs no XLA")
-    p.add_argument("--num-processes", type=int, default=None)
-    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="the run's process count (one rank each)")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank")
     p.add_argument("overrides", nargs="*",
                    help="config overrides: path.to.field=value")
     return p.parse_intermixed_args(argv)
@@ -58,16 +75,15 @@ def _refuse_unported(args) -> None:
     if args.elastic:
         raise NotImplementedError(
             "--elastic (the checkpoint-restart supervisor) is not ported "
-            "yet (ROADMAP queue A item 13)")
-    for flag, value in (("--coordinator", args.coordinator),
-                        ("--num-processes", args.num_processes),
-                        ("--process-id", args.process_id),
-                        ("--sim-devices", args.sim_devices or None)):
-        if value is not None:
-            raise NotImplementedError(
-                f"{flag}: multi-process and simulated-device runs are not "
-                "ported yet (ROADMAP queue A item 7); the port trains in "
-                "one process on one card")
+            "yet (ROADMAP A13)")
+    if args.sim_devices and args.device != "cpu":
+        raise ValueError(
+            "--sim-devices runs gloo ranks on the CPU: pass --device=cpu "
+            "(on the cards, start one process per rank with "
+            "--num-processes / --process-id / --coordinator)")
+    if args.sim_devices and args.num_processes is not None:
+        raise ValueError("--sim-devices starts its own processes; do not "
+                         "combine it with --num-processes")
     if args.hlo_dump:
         raise NotImplementedError(
             "--hlo-dump writes XLA's optimized HLO; the port runs no XLA "
@@ -75,8 +91,18 @@ def _refuse_unported(args) -> None:
     if os.environ.get("FRL_TPU_SANITIZE"):
         raise NotImplementedError(
             f"FRL_TPU_SANITIZE={os.environ['FRL_TPU_SANITIZE']!r}: the "
-            "NaN / Inf / leak sanitizer is not ported yet (ROADMAP queue A "
-            "item 13); unset it")
+            "NaN / Inf / leak sanitizer is not ported yet (ROADMAP A13); "
+            "unset it")
+
+
+def _spawn_sim_ranks(argv: list[str], n: int, rendezvous: str):
+    """Start ranks 1..n-1 of a ``--sim-devices=n`` run: this launcher's
+    own arguments, with the process flags in place of ``--sim-devices``."""
+    rest = [a for a in argv if not a.startswith("--sim-devices")]
+    return [subprocess.Popen(
+        [sys.executable, "-m", MODULE, *rest, f"--num-processes={n}",
+         f"--process-id={i}", f"--coordinator={rendezvous}"])
+        for i in range(1, n)]
 
 
 @contextlib.contextmanager
@@ -161,12 +187,19 @@ def describe(cfg, *, device=None) -> int:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = _parse_args(argv)
     from frl_distributed_ml_scaffold_tpu_torch.config import (
         apply_overrides,
         get_config,
         list_configs,
         pretty_config,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.dist.initialize import (
+        initialize_distributed,
+        local_device,
+        process_index,
+        shutdown_distributed,
     )
     from frl_distributed_ml_scaffold_tpu_torch.utils.logging import get_logger
 
@@ -178,18 +211,41 @@ def main(argv=None) -> int:
         return 2
     _refuse_unported(args)
     cfg = apply_overrides(get_config(args.config), args.overrides)
-    logger = get_logger()
-    with _env_fault_plan():
-        if args.describe:
-            return describe(cfg, device=args.device)
-        logger.info("launching %s on %s\n%s", cfg.name, args.device,
-                    pretty_config(cfg))
-        if args.eval_only:
-            last = run_eval(cfg, device=args.device)
-        else:
-            _, last = run_experiment(cfg, device=args.device)
-    logger.info("done: %s", json.dumps(last, default=str))
-    return 0
+    children, rendezvous = [], None
+    coordinator, n_proc, proc_id = (args.coordinator, args.num_processes,
+                                    args.process_id)
+    if args.sim_devices > 1:
+        fd, path = tempfile.mkstemp(prefix="frl_sim_rendezvous_")
+        os.close(fd)
+        os.remove(path)  # the file store creates it
+        rendezvous = f"file://{path}"
+        coordinator, n_proc, proc_id = rendezvous, args.sim_devices, 0
+        children = _spawn_sim_ranks(argv, args.sim_devices, rendezvous)
+    rc = 0
+    try:
+        initialize_distributed(coordinator, n_proc, proc_id,
+                               device=args.device)
+        device = local_device(process_index(), args.device)
+        logger = get_logger()  # after the process group: rank 0 logs
+        with _env_fault_plan():
+            if args.describe:
+                return describe(cfg, device=device)
+            logger.info("launching %s on %s\n%s", cfg.name, device,
+                        pretty_config(cfg))
+            if args.eval_only:
+                last = run_eval(cfg, device=device)
+            else:
+                _, last = run_experiment(cfg, device=device)
+        logger.info("done: %s", json.dumps(last, default=str))
+    finally:
+        shutdown_distributed()
+        for child in children:
+            rc = child.wait() or rc
+        if rendezvous is not None and os.path.exists(rendezvous[7:]):
+            os.remove(rendezvous[7:])
+    if rc:
+        get_logger().error("a simulated rank exited with code %d", rc)
+    return rc
 
 
 if __name__ == "__main__":

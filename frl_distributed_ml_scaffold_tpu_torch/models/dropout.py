@@ -17,6 +17,13 @@ and the gradients would be silently wrong. Here the recompute builds
 the same generator and draws the same mask, under ``trainer.remat`` and
 ``model.block_remat`` alike.
 
+Under a mesh (``dist/mesh.py`` ``mesh_context``) a rank holds its rows
+of the global batch, and of a tensor split over ``model`` its slice: a
+site draws the mask of the whole tensor and keeps this rank's part, so
+the masks do not depend on the mesh (the counterpart of the JAX
+package's partitionable generator): rank r's rows are rows r of the
+one-rank masks at the same seed.
+
 ``rate == 0`` and eval are the identity with no generator and no mask
 op, so a model that trains without dropout launches what it did before.
 """
@@ -24,6 +31,11 @@ op, so a model that trains without dropout launches what it did before.
 from __future__ import annotations
 
 import torch
+
+from frl_distributed_ml_scaffold_tpu_torch.parallel.tensor_parallel import (
+    batch_shard,
+    model_shard,
+)
 
 _MASK64 = (1 << 64) - 1
 
@@ -44,22 +56,36 @@ def mix_seed(seed: int, *key: int) -> int:
     return x >> 1
 
 
-def keep_mask(shape, rate: float, seed: int, *site: int,
-              device) -> torch.Tensor:
+def keep_mask(shape, rate: float, seed: int, *site: int, device,
+              model_dim: int | None = None) -> torch.Tensor:
     """The boolean mask of one site: each value kept with probability
-    ``1 - rate``, from a generator seeded by ``mix_seed(seed, *site)``."""
+    ``1 - rate``, from a generator seeded by ``mix_seed(seed, *site)``.
+    Under a mesh, ``shape`` is this rank's part (dim 0 its rows, dim
+    ``model_dim`` its ``model`` slice): the whole tensor's mask is drawn
+    and this part kept."""
     gen = torch.Generator(device=device)
     gen.manual_seed(mix_seed(seed, *site))
-    return torch.rand(shape, generator=gen, device=device) < 1.0 - rate
+    full, index = list(shape), [slice(None)] * len(shape)
+    cuts = [(0, *batch_shard())]
+    if model_dim is not None:
+        cuts.append((model_dim, *model_shard()))
+    for dim, i, n in cuts:
+        full[dim] = shape[dim] * n
+        index[dim] = slice(i * shape[dim], (i + 1) * shape[dim])
+    keep = torch.rand(full, generator=gen, device=device) < 1.0 - rate
+    return keep[tuple(index)]
 
 
 def dropout(x: torch.Tensor, rate: float, seed: int | None,
-            *site: int) -> torch.Tensor:
+            *site: int, model_dim: int | None = None) -> torch.Tensor:
     """flax's ``Dropout(rate)`` in training at one site; ``seed`` None
-    (eval) or ``rate`` 0 returns ``x`` itself."""
+    (eval) or ``rate`` 0 returns ``x`` itself. ``model_dim``: the dim of
+    ``x`` split over ``model`` (``keep_mask``)."""
     if seed is None or rate <= 0.0:
         return x
-    keep = keep_mask(x.shape, rate, seed, *site, device=x.device)
+    split = model_dim is not None and model_shard()[1] > 1
+    keep = keep_mask(x.shape, rate, seed, *site, device=x.device,
+                     **({"model_dim": model_dim} if split else {}))
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 

@@ -88,6 +88,14 @@ from frl_distributed_ml_scaffold_tpu_torch.ops.quantization import (
 from frl_distributed_ml_scaffold_tpu_torch.ops.ring_attention import (
     dense_attention,
 )
+from frl_distributed_ml_scaffold_tpu_torch.parallel.partition import (
+    PartitionRules,
+)
+from frl_distributed_ml_scaffold_tpu_torch.parallel.tensor_parallel import (
+    copy_to_model,
+    model_shard,
+    reduce_from_model,
+)
 from frl_distributed_ml_scaffold_tpu_torch.precision import Policy
 
 _TRAIN_ATTENTION = {"dense": dense_attention, "flash": flash_attention}
@@ -106,13 +114,46 @@ def stacked_name(name: str) -> str:
     return name
 
 
+def gpt_tp_rules() -> PartitionRules:
+    """Megatron column / row splits over ``model`` (the JAX package's
+    non-pipelined ``gpt_tp_rules``), against the port's names and
+    ``[out, in]`` weights: q / k / v and ``fc_in`` split their outputs
+    (column-parallel), ``out`` and ``fc_out`` their inputs
+    (row-parallel), and ``wte`` its vocabulary. The training forward
+    reads ``wte`` whole (``TP_COMPUTE_WHOLE``): its split is storage,
+    gathered for the step, and the tied head and the loss run on every
+    rank along ``model`` over the whole vocabulary."""
+    col, row = ("model", None), (None, "model")
+    return PartitionRules(rules=(
+        (r"^blocks\.\d+\.attn\.(query|key|value)\.weight$", col),
+        (r"^blocks\.\d+\.attn\.(query|key|value)\.bias$", ("model",)),
+        (r"^blocks\.\d+\.attn\.out\.weight$", row),
+        (r"^blocks\.\d+\.mlp\.fc_in\.weight$", col),
+        (r"^blocks\.\d+\.mlp\.fc_in\.bias$", ("model",)),
+        (r"^blocks\.\d+\.mlp\.fc_out\.weight$", row),
+        (r"^wte\.weight$", ("model", None)),
+    ))
+
+
+# The parameters the training forward reads whole under tensor
+# parallelism (their ``model`` split is storage only).
+TP_COMPUTE_WHOLE = ("wte.weight",)
+
+
+def _row_parallel(lin: nn.Linear, y, cd):
+    """A row-parallel product: this rank's partial sums over its input
+    slice, summed over ``model``, then the (replicated) bias."""
+    out = reduce_from_model(F.linear(y.to(cd), lin.weight.to(cd)))
+    return out + lin.bias.to(cd)
+
+
 def _check_supported(cfg: GPTConfig) -> None:
     """Refuse the configurations this slice does not port yet, each with
     the ROADMAP item that brings it."""
     if cfg.attention in ("ring", "ulysses"):
         raise NotImplementedError(
             f"model.attention={cfg.attention!r} (sequence-parallel "
-            "attention) is not ported yet (ROADMAP queue A item 12)"
+            "attention) is not ported yet (ROADMAP A12)"
         )
     if cfg.attention not in _TRAIN_ATTENTION:
         raise ValueError(
@@ -129,7 +170,7 @@ def _check_supported(cfg: GPTConfig) -> None:
     if cfg.moe.num_experts > 0 or cfg.pipeline_stages > 1:
         raise NotImplementedError(
             "MoE blocks and pipeline_stages > 1 are not ported yet "
-            "(ROADMAP queue A item 12, pipelines and MoE)"
+            "(ROADMAP A12, pipelines and MoE)"
         )
     if cfg.hidden_dim % cfg.num_heads:
         raise ValueError(
@@ -197,7 +238,28 @@ class CausalSelfAttention(nn.Module):
             lin.bias.to(self.dtype),
         )
 
+    def _train(self, x):
+        """The training / eval forward, causal over this call's tokens;
+        under tensor parallelism (a current mesh with ``model > 1``) over
+        this rank's heads: column-parallel q / k / v, row-parallel
+        ``out``."""
+        cfg = self.cfg
+        b, t, d = x.shape
+        hd = d // cfg.num_heads
+        if model_shard()[1] > 1:
+            x = copy_to_model(x)
+        h = self.query.weight.shape[0] // hd  # this rank's heads
+        q, k, v = (self._dense(lin, x).view(b, t, h, hd)
+                   for lin in (self.query, self.key, self.value))
+        y = _TRAIN_ATTENTION[cfg.attention](q, k, v, causal=True)
+        if model_shard()[1] > 1:
+            return _row_parallel(self.out, y.reshape(b, t, h * hd),
+                                 self.dtype)
+        return self._dense(self.out, y.reshape(b, t, d))
+
     def forward(self, x, cache: dict | None, layer: int, lens):
+        if cache is None:
+            return self._train(x)
         cfg = self.cfg
         b, t, d = x.shape
         h = cfg.num_heads
@@ -205,9 +267,6 @@ class CausalSelfAttention(nn.Module):
         q = self._dense(self.query, x).view(b, t, h, hd)
         k_w = self._dense(self.key, x).view(b, t, h, hd)
         v_w = self._dense(self.value, x).view(b, t, h, hd)
-        if cache is None:  # training / eval: causal over this call's tokens
-            y = _TRAIN_ATTENTION[cfg.attention](q, k_w, v_w, causal=True)
-            return self._dense(self.out, y.reshape(b, t, d))
         if "key_pool" in cache:
             y = self._paged(q, k_w, v_w, cache, layer)
             return self._dense(self.out, y.reshape(b, t, d))
@@ -307,9 +366,16 @@ class GptMlp(nn.Module):
         self.fc_out = nn.Linear(d * cfg.mlp_ratio, d, device=device, dtype=pd)
 
     def forward(self, x):
+        """Under tensor parallelism ``fc_in`` is column-parallel and
+        ``fc_out`` row-parallel (``CausalSelfAttention._train``)."""
         cd = self.dtype
+        tp = model_shard()[1] > 1
+        if tp:
+            x = copy_to_model(x)
         y = F.linear(x.to(cd), self.fc_in.weight.to(cd), self.fc_in.bias.to(cd))
         y = F.gelu(y, approximate="tanh")
+        if tp:
+            return _row_parallel(self.fc_out, y, cd)
         return F.linear(y, self.fc_out.weight.to(cd), self.fc_out.bias.to(cd))
 
 

@@ -40,7 +40,7 @@ gradient equally (``max_pool_mask_grad``). Both are plain PyTorch: XLA
 fused them in the reference; neither was a Pallas kernel.
 
 Not ported, and refused: ``param_hooks``, the FSDP per-block gather
-hooks (ROADMAP queue A item 11).
+hooks (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -260,7 +260,7 @@ class ResNet(nn.Module):
         if param_hooks is not None:
             raise NotImplementedError(
                 "param_hooks (the FSDP per-block gather hooks) are not ported "
-                "yet (ROADMAP queue A item 11)")
+                "yet (ROADMAP A11)")
         if config.depth not in STAGE_SIZES:
             raise KeyError(f"unknown ResNet depth {config.depth}; have "
                            f"{sorted(STAGE_SIZES)}")

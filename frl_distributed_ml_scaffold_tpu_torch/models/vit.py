@@ -38,9 +38,14 @@ probabilities (flax's ``dropout_rate``: the probabilities times ``keep /
 (1 - rate)`` in the compute dtype), after the MLP's GELU and after its
 output projection.
 
-Not ported, and refused where they would take effect: the
-tensor-parallel hooks (``tp_overlap`` / ``tp``; the JAX package's
-``vit_tp_rules`` is sharding, ROADMAP queue A item 11).
+Tensor parallelism (``vit_tp_rules``, a current mesh with ``model >
+1``): each rank holds its heads of q / k / v (column-parallel) and
+their rows of ``out`` (row-parallel), and its slice of ``fc_in``'s
+outputs and ``fc_out``'s inputs; one all-reduce over ``model`` follows
+``out`` and one ``fc_out``, before their biases
+(``parallel/tensor_parallel.py``). Not ported, and refused where they
+would take effect: the collective-matmul hooks (``tp_overlap`` / ``tp``,
+ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -58,17 +63,45 @@ from frl_distributed_ml_scaffold_tpu_torch.models.dropout import (
     dropout,
     keep_mask,
 )
-from frl_distributed_ml_scaffold_tpu_torch.models.gpt import _layer_norm
+from frl_distributed_ml_scaffold_tpu_torch.models.gpt import (
+    _layer_norm,
+    _row_parallel,
+)
+from frl_distributed_ml_scaffold_tpu_torch.parallel.partition import (
+    PartitionRules,
+)
+from frl_distributed_ml_scaffold_tpu_torch.parallel.tensor_parallel import (
+    copy_to_model,
+    model_shard,
+)
 from frl_distributed_ml_scaffold_tpu_torch.precision import Policy
 
 LN_EPS = 1e-6  # flax LayerNorm's default
+
+
+def vit_tp_rules() -> PartitionRules:
+    """Megatron column / row splits over ``model`` for the encoder (the
+    JAX package's ``vit_tp_rules``, also the video classifier's), against
+    the port's names: the heads of q / k / v (the leading factor of their
+    ``[heads * head_dim, D]`` weights) and of ``out``'s input, the outputs
+    of ``fc_in`` and the inputs of ``fc_out``."""
+    col, row = ("model", None), (None, "model")
+    blk = r"^blocks\.\d+\."
+    return PartitionRules(rules=(
+        (blk + r"attn\.(query|key|value)\.weight$", col),
+        (blk + r"attn\.(query|key|value)\.bias$", ("model",)),
+        (blk + r"attn\.out\.weight$", row),
+        (blk + r"mlp\.fc_in\.weight$", col),
+        (blk + r"mlp\.fc_in\.bias$", ("model",)),
+        (blk + r"mlp\.fc_out\.weight$", row),
+    ))
 
 
 def refuse_hook(hook, name: str) -> None:
     if hook is not None:
         raise NotImplementedError(
             f"{name} (the collective-matmul tensor-parallel hooks) is not "
-            "ported yet (ROADMAP queue A item 11)")
+            "ported yet (ROADMAP A11)")
 
 
 def patchify(x: torch.Tensor, sizes: tuple[int, ...]) -> torch.Tensor:
@@ -108,16 +141,23 @@ class MultiHeadAttention(nn.Module):
         cd = self.dtype
         b, n, d = x.shape
         hd = d // self.num_heads
-        q, k, v = (_dense(p, x, cd).view(b, n, self.num_heads, hd)
+        tp = model_shard()[1] > 1
+        if tp:
+            x = copy_to_model(x)
+        h = self.query.weight.shape[0] // hd  # this rank's heads
+        q, k, v = (_dense(p, x, cd).view(b, n, h, hd)
                    for p in (self.query, self.key, self.value))
         q = q / torch.tensor(math.sqrt(hd), dtype=cd)
         s = torch.einsum("bqhd,bkhd->bhqk", q, k)
         p = torch.softmax(s, dim=-1)
         if seed is not None and self.rate > 0.0:
             keep = keep_mask(p.shape, self.rate, seed, layer, 0,
-                             device=p.device)
+                             device=p.device,
+                             **({"model_dim": 1} if tp else {}))
             p = p * (keep.to(cd) / torch.tensor(1.0 - self.rate, dtype=cd))
-        o = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(b, n, d)
+        o = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(b, n, h * hd)
+        if tp:
+            return _row_parallel(self.out, o, cd)
         return _dense(self.out, o, cd)
 
 
@@ -131,10 +171,14 @@ class MlpBlock(nn.Module):
         self.fc_out = nn.Linear(dim * mlp_ratio, dim, device=device, dtype=pd)
 
     def forward(self, x, seed: int | None = None, layer: int = 0):
+        tp = model_shard()[1] > 1
+        if tp:
+            x = copy_to_model(x)
         y = F.gelu(_dense(self.fc_in, x, self.dtype), approximate="tanh")
-        y = dropout(y, self.rate, seed, layer, 1)
-        return dropout(_dense(self.fc_out, y, self.dtype), self.rate, seed,
-                       layer, 2)
+        y = dropout(y, self.rate, seed, layer, 1, model_dim=2)
+        y = (_row_parallel(self.fc_out, y, self.dtype) if tp
+             else _dense(self.fc_out, y, self.dtype))
+        return dropout(y, self.rate, seed, layer, 2)
 
 
 class EncoderBlock(nn.Module):

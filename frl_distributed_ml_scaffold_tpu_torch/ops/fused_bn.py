@@ -39,9 +39,17 @@ running averages instead of writing them (``ra = 0.9 ra + 0.1 batch``,
 with the biased batch variance), so a forward that runs twice cannot
 apply the update twice.
 
-The JAX module's sync-BN under a batch-sharded mesh (one all-reduce of
-the sums between the passes) comes with sharding, ROADMAP queue A
-item 7.
+Sync-BN, the JAX module's semantics under a batch-sharded mesh: with a
+current mesh (``dist/mesh.py`` ``mesh_context``) whose batch axes span
+more than one rank, the forward's statistics are the global batch's
+(one all-reduce of ``(Σx, Σx²)`` over the batch axes, whose backward is
+the same sum: ``parallel/tensor_parallel.py`` ``all_reduce_batch``), and
+the backward runs the sums pass on the local rows, ONE all-reduce of
+``(Σdy, Σdy·x̂)``, then the dx pass over the local rows with the global
+sums and the global row count. The scale and bias get this rank's own
+sums as their gradient: the step sums the gradients over the batch axes.
+The running statistics, made from the global batch's, stay identical on
+every rank.
 """
 
 from __future__ import annotations
@@ -49,9 +57,14 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from frl_distributed_ml_scaffold_tpu_torch.ops import _build
+from frl_distributed_ml_scaffold_tpu_torch.parallel.tensor_parallel import (
+    all_reduce_batch,
+    batch_group,
+)
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Row splits of the sums pass: enough blocks to fill the card (about
@@ -76,8 +89,15 @@ def bn_train_forward(x, scale, bias, eps, out_dtype):
     at 0) and ``_normalize``."""
     x32 = x.float()
     axes = tuple(range(x.dim() - 1))
-    mean = x32.mean(axes)
-    mean2 = x32.square().mean(axes)
+    group = batch_group()
+    if group is None:
+        mean = x32.mean(axes)
+        mean2 = x32.square().mean(axes)
+    else:  # sync-BN: the global batch's statistics
+        m = x32[..., 0].numel() * dist.get_world_size(group)
+        sums = all_reduce_batch(torch.stack((x32.sum(axes),
+                                             x32.square().sum(axes))))
+        mean, mean2 = sums[0] / m, sums[1] / m
     var = torch.clamp_min(mean2 - mean.square(), 0.0)
     return normalize(x32, mean, var, scale, bias, eps, out_dtype), mean, var
 
@@ -254,6 +274,7 @@ class _FusedBNTrain(torch.autograd.Function):
         y, mean, var = bn_train_forward(x, scale, bias, eps, out_dtype)
         ctx.save_for_backward(x, scale, mean, var)
         ctx.eps, ctx.bias_dtype = eps, bias.dtype
+        ctx.group = batch_group()
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -263,8 +284,13 @@ class _FusedBNTrain(torch.autograd.Function):
         eps = ctx.eps
         x2d, dy2d = _rows(x), _rows(dy)
         dbeta, dgamma = bn_sums(x2d, dy2d, mean, var, eps)
-        dx = bn_dx(x2d, dy2d, scale, mean, var, dgamma, dbeta, eps,
-                   x2d.shape[0])
+        g_beta, g_gamma, m = dbeta, dgamma, x2d.shape[0]
+        if ctx.group is not None:  # sync-BN: one all-reduce between passes
+            sums = torch.stack((dbeta, dgamma))
+            dist.all_reduce(sums, group=ctx.group)
+            g_beta, g_gamma = sums.unbind()
+            m *= dist.get_world_size(ctx.group)
+        dx = bn_dx(x2d, dy2d, scale, mean, var, g_gamma, g_beta, eps, m)
         return (dx.view(x.shape), dgamma.to(scale.dtype),
                 dbeta.to(ctx.bias_dtype), None, None)
 

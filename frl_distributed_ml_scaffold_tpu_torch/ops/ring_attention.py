@@ -1,8 +1,7 @@
 """Dense training attention: the port of ``dense_attention`` from the
 JAX package's ``ops/ring_attention.py``, the plain attention of
 ``model.attention=dense`` and the numerics every attention mode reduces
-to. Ring hops (the rest of that module) come with ROADMAP queue A item
-12.
+to. Ring hops (the rest of that module) come with ROADMAP A12.
 """
 
 from __future__ import annotations

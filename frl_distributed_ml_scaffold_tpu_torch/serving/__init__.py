@@ -27,11 +27,11 @@ def build_engine(model, *, serving, rules=None, **kw):
     and deadline knobs from ``serving``. ``kw`` passes through
     (num_slots, eos_id, tenants, draft_model, device, ...). ``rules``
     (placing the params onto a model-sharded serving layout) is refused:
-    the port serves on one card (ROADMAP queue A item 5, A7)."""
+    the port serves on one card (ROADMAP A7)."""
     if rules is not None:
         raise NotImplementedError(
             "build_engine(rules=...) (tensor-parallel serving params on a "
-            "mesh) is not ported yet (ROADMAP queue A item 5, A7)"
+            "mesh) is not ported yet (ROADMAP A7)"
         )
     cls = DisaggServingEngine if serving.disaggregate else ServingEngine
     return cls(model, serving=serving, **kw)

@@ -56,7 +56,7 @@ The port of the JAX package's ``serving/engine.py``:
   ``resume_parked`` and ``retire_parked``, which the disaggregated
   scheduler (``serving/scheduler.py``) drives.
 
-Waiting for a later slice (ROADMAP queue A item 5, A7): mesh sharding
+Waiting for a later slice (ROADMAP A7): mesh sharding
 and ``respread_pool``.
 """
 
@@ -766,7 +766,7 @@ class ServingEngine:
         ported: the port serves on one card."""
         raise NotImplementedError(
             "respread_pool (the live model-axis re-spread of the paged "
-            "pool) is not ported yet (ROADMAP queue A item 5, A7)"
+            "pool) is not ported yet (ROADMAP A7)"
         )
 
     def run(self, max_steps: int | None = None) -> list[Completion]:

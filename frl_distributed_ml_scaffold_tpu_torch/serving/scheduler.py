@@ -46,7 +46,7 @@ samples every request from one generator stream: a prefill-worker fault
 fires before the draw, so it leaves sampled output as a fault-free run
 would; a handoff fault fires after it, and its retry draws again.
 
-Not ported (ROADMAP queue A item 5, A7): a prefill worker on its own
+Not ported (ROADMAP A7): a prefill worker on its own
 partition (``prefill_env``) with its own params replica and the counted
 transfer of suffix blocks.
 """
@@ -88,7 +88,7 @@ _RANK = {c: i for i, c in enumerate(SLO_CLASSES)}
 _PARTITION_TODO = (
     "a prefill worker on its own partition (prefill_env: its own params "
     "replica and the counted transfer of suffix blocks) is not ported "
-    "yet (ROADMAP queue A item 5, A7); the port's workers share one pool"
+    "yet (ROADMAP A7); the port's workers share one pool"
 )
 
 

@@ -1,24 +1,35 @@
 """Trainer: the port of the JAX package's ``trainer/loop.py``, one
-process on one card.
+process per rank of the run's mesh (one rank, one card, by default).
+
+The mesh (``dist/mesh.py``) is built over the run's ranks from
+``cfg.mesh``; the state's specs over it (``parallel/layout.py``) from
+``cfg.parallel`` and the model's partition rules
+(``model_partition_rules``). Every rank builds the same seeded init and
+keeps its shards; the optimizer state is built from fp32 templates of
+its per-rank shapes, as the JAX trainer builds it from its fp32 init
+(a bf16 params file keeps fp32 moments). Each rank draws its rows of
+the global batch (``data/pipeline.py``). Checkpoints hold the whole
+state: rank 0 writes it, gathered, and a restore re-shards it.
 
 Seeded init on the device, then the loop. Per step the loop builds (or
 takes the prefetched) batch and launches the step; it reads the device
 only at a log boundary (``StepTimer.tick_window``): the step's metrics
 are 0-d tensors on the device, handed to ``on_step`` as they are.
 
-A run writes ``<workdir>/<name>/``: ``config.json``, ``metrics.jsonl``
-(one record per log boundary and per eval), ``telemetry.jsonl`` (the
-phase timeline and a metrics snapshot at each boundary), ``metrics.prom``
-(the Prometheus text of the same registry), ``trace_events.json`` (the
-host spans as a Chrome trace), ``ckpt/`` when checkpoints are on,
-``trace/`` when a profiler window is set, ``stall_dump.txt`` when the
-watchdog fires and ``tb/`` with ``trainer.tensorboard``.
+A run writes ``<workdir>/<name>/`` (rank 0 only): ``config.json``,
+``metrics.jsonl`` (one record per log boundary and per eval),
+``telemetry.jsonl`` (the phase timeline and a metrics snapshot at each
+boundary), ``metrics.prom`` (the Prometheus text of the same registry),
+``trace_events.json`` (the host spans as a Chrome trace), ``ckpt/``
+when checkpoints are on, ``trace/`` when a profiler window is set,
+``stall_dump.txt`` when the watchdog fires and ``tb/`` with
+``trainer.tensorboard``.
 
-Refused, each naming its ROADMAP item: meshes of more than one device and
-``offload_opt_state`` (queue A item 7, raised by ``make_train_step``),
-the overlap schedule and low-precision collectives (item 11), sequence
-parallelism, pipelines (SPMD or MPMD) and MoE (item 12, raised by the
-GPT model for the last two).
+Refused, each naming its ROADMAP item: ``offload_opt_state`` (A7, raised
+by ``make_train_step``), the overlap schedule and low-precision
+collectives (A11), sequence parallelism, the ``seq``, ``expert`` and
+``pipe`` axes, pipelines (SPMD or MPMD) and MoE (A12, raised by the step
+and the GPT model for the last two).
 
 ``trainer.init_params_path`` starts the run from a flax msgpack params
 file (``tools/import_hf_gpt2.py``'s output, or ``checkpoint/
@@ -30,6 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import signal
 import threading
@@ -44,7 +56,12 @@ from frl_distributed_ml_scaffold_tpu_torch.checkpoint.manager import Checkpointe
 from frl_distributed_ml_scaffold_tpu_torch.config.core import config_to_dict
 from frl_distributed_ml_scaffold_tpu_torch.config.schema import ExperimentConfig
 from frl_distributed_ml_scaffold_tpu_torch.data.pipeline import build_pipeline
+from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import MeshEnv, build_mesh
 from frl_distributed_ml_scaffold_tpu_torch.models import convert, create_model
+from frl_distributed_ml_scaffold_tpu_torch.parallel.layout import StateLayout
+from frl_distributed_ml_scaffold_tpu_torch.parallel.partition import (
+    PartitionRules,
+)
 from frl_distributed_ml_scaffold_tpu_torch.precision import get_policy
 from frl_distributed_ml_scaffold_tpu_torch.telemetry import (
     MetricsRegistry,
@@ -94,14 +111,52 @@ def _check_ported(cfg: ExperimentConfig) -> None:
             or p.low_precision != "none"):
         raise NotImplementedError(
             "the overlap schedule (parallel.schedule, fsdp_overlap, "
-            "tp_overlap, low_precision) is not ported yet (ROADMAP queue A "
-            "item 11)"
+            "tp_overlap, low_precision) is not ported yet (ROADMAP A11)"
         )
     if p.sequence != "none":
         raise NotImplementedError(
             f"parallel.sequence={p.sequence!r} (sequence parallelism) is not "
-            "ported yet (ROADMAP queue A item 12)"
+            "ported yet (ROADMAP A12)"
         )
+
+
+def model_partition_rules(model_cfg: Any, env: MeshEnv
+                          ) -> PartitionRules | None:
+    """The model's tensor-parallel rules when the ``model`` axis is
+    populated (the JAX trainer's ``model_partition_rules``; the expert
+    and pipe axes are refused by the step). A family without rules on a
+    ``model > 1`` mesh raises, as it would silently replicate."""
+    m = env.axis_size("model")
+    if m <= 1:
+        return None
+    family = getattr(model_cfg, "family", None)
+    if family == "gpt":
+        from frl_distributed_ml_scaffold_tpu_torch.models.gpt import (
+            gpt_tp_rules,
+        )
+
+        rules = gpt_tp_rules()
+    elif family in ("vit", "video"):
+        from frl_distributed_ml_scaffold_tpu_torch.models.vit import (
+            vit_tp_rules,
+        )
+
+        rules = vit_tp_rules()
+    else:
+        # ResNet has no TP rules by design (conv channel counts don't
+        # split Megatron-style); a model>1 mesh would silently replicate.
+        raise ValueError(
+            f"model family {family!r} has no tensor-parallel partition "
+            "rules; mesh.model must be 1"
+        )
+    hidden = model_cfg.hidden_dim
+    for what, n in (("num_heads", model_cfg.num_heads),
+                    ("the MLP width", hidden * model_cfg.mlp_ratio)):
+        if n % m:
+            raise ValueError(f"{what} {n} not divisible by mesh.model={m}: "
+                             "each rank holds whole heads and an even MLP "
+                             "slice")
+    return rules
 
 
 def _model_kwargs(cfg: ExperimentConfig) -> dict:
@@ -136,7 +191,9 @@ def _cast_tree(tree, dtype: torch.dtype):
 
 class Trainer:
     """End-to-end training loop for one ``ExperimentConfig`` on
-    ``device`` (``None`` means ``cuda`` and raises without a card)."""
+    ``device`` (``None`` means ``cuda`` and raises without a card), as
+    this rank of the mesh of ``cfg.mesh`` over the run's ranks
+    (``dist/mesh.py`` ``build_mesh``)."""
 
     def __init__(self, cfg: ExperimentConfig, *, device=None):
         self.cfg = cfg
@@ -155,6 +212,7 @@ class Trainer:
                 )
         _check_ported(cfg)
         self.device = resolve_device(device)
+        self.env = build_mesh(cfg.mesh)
         self.policy = get_policy(cfg.precision)
         self._model_kw = _model_kwargs(cfg)
         self.model = create_model(cfg.model, self.policy, device=self.device,
@@ -162,10 +220,11 @@ class Trainer:
         self.tx, self.schedule = make_optimizer(cfg.optimizer, cfg.trainer,
                                                 cfg.model)
         self.loss_fn = make_loss_fn(self.model, cfg.data.name)
+        self.layout = self._build_layout()
         self._compile_steps()
         self.state_shapes = self._state_template()
         self.pipeline = build_pipeline(cfg.data, split="train",
-                                       device=self.device)
+                                       device=self.device, env=self.env)
         self._eval_pipeline = None
         self.checkpointer = None  # attached by attach_checkpointer()
         if cfg.checkpoint.enabled:
@@ -174,29 +233,49 @@ class Trainer:
 
     # ---------------------------------------------------------------- setup
 
+    def _build_layout(self) -> StateLayout:
+        """The state's specs over the mesh (``parallel/layout.py``)."""
+        cfg = self.cfg
+        shapes = {k: tuple(p.shape) for k, p in self.model.named_parameters()}
+        whole = ()
+        if cfg.model.family == "gpt":
+            from frl_distributed_ml_scaffold_tpu_torch.models.gpt import (
+                TP_COMPUTE_WHOLE,
+            )
+
+            whole = TP_COMPUTE_WHOLE
+        return StateLayout.build(
+            self.env, cfg.model, cfg.parallel, shapes,
+            rules=model_partition_rules(cfg.model, self.env),
+            compute_whole=whole)
+
     def _compile_steps(self) -> None:
         cfg, t = self.cfg, self.cfg.trainer
         self.train_step = make_train_step(
             self.loss_fn, self.tx, self.policy, seed=t.seed,
             grad_accum=t.grad_accum, remat=t.remat, ema_decay=t.ema_decay,
             offload_opt_state=t.offload_opt_state, mesh=cfg.mesh,
-            parallel=cfg.parallel, device=self.device)
+            parallel=cfg.parallel, layout=self.layout, device=self.device)
         self.eval_step = make_eval_step(self.loss_fn, self.policy,
-                                        seed=t.seed, device=self.device)
+                                        seed=t.seed, layout=self.layout,
+                                        device=self.device)
 
     def _state_template(self) -> TrainState:
-        """The state's tree on the meta device: names, shapes, dtypes
-        (what a restore is checked against; nothing is allocated)."""
+        """The whole state's tree on the meta device: names, shapes,
+        dtypes (what a checkpoint is checked against; nothing is
+        allocated). The params are fp32 from the seeded init and in the
+        policy's param dtype from a file; the optimizer state is fp32
+        either way."""
         meta = create_model(self.cfg.model, self.policy, device="meta",
                             **self._model_kw)
-        # fp32 from the seeded init, the policy's param dtype from a file.
         dtype = (self.policy.param_dtype if self.cfg.trainer.init_params_path
                  else torch.float32)
         params = {k: p.detach().to(dtype) for k, p in meta.named_parameters()}
         extras = ({"batch_stats": dict(meta.named_buffers())}
                   if self.cfg.model.family == "resnet" else {})
         return TrainState(
-            step=0, params=params, opt_state=self.tx.init(params),
+            step=0, params=params,
+            opt_state=self.tx.init({k: p.float() for k, p in params.items()}),
             extras=extras,
             ema_params=(dict(params) if self.cfg.trainer.ema_decay > 0.0
                         else None))
@@ -225,11 +304,15 @@ class Trainer:
         if cfg.trainer.init_params_path:
             del params  # the seeded params are not kept beside the file's
             params = self._load_init_params(cfg.trainer.init_params_path)
-        state = TrainState.create(params, self.tx, extras,
-                                  with_ema=cfg.trainer.ema_decay > 0.0,
-                                  device=self.device)
-        self.logger.info("initialized %s: %.2fM params on %s", cfg.name,
-                         tree_param_count(state.params) / 1e6, self.device)
+        lay = self.layout
+        params = {k: lay.shard(k, p, lay.param[k]) for k, p in params.items()}
+        state = TrainState.create(
+            params, self.tx, extras, with_ema=cfg.trainer.ema_decay > 0.0,
+            opt_template=lay.opt_template(torch.float32, self.device),
+            device=self.device)
+        self.logger.info("initialized %s: %.2fM params over mesh %s on %s",
+                         cfg.name, self._param_count() / 1e6,
+                         self.env.shape, self.device)
         return state
 
     def _jax_tree(self, params: dict, extras: dict) -> dict:
@@ -291,6 +374,9 @@ class Trainer:
                          tree_param_count(params) / 1e6)
         return params
 
+    def _param_count(self) -> int:
+        return sum(math.prod(s) for s in self.layout.shapes.values())
+
     def step_cost_analysis(self, state: TrainState, batch) -> dict | None:
         """Model FLOPs of ONE train step (``utils/flops.py``), with the
         count used as ``flops_source``: ``analytic`` for the GPT (the
@@ -298,12 +384,13 @@ class Trainer:
         ``flop_counter`` for the other families (one forward and backward
         on ``batch`` on the state's device, no recompute)."""
         if self.cfg.model.family == "gpt":
-            n = tree_param_count(state.params)
-            return {"flops": float(gpt_train_flops(self.cfg, n)["flops"]),
+            flops = gpt_train_flops(self.cfg, self._param_count())["flops"]
+            return {"flops": float(flops) / self.env.num_devices,
                     "flops_source": "analytic"}
         try:
-            dev = next(iter(state.params.values())).device
-            flops = grad_flops(self.loss_fn, self.policy, state.params,
+            params = self.layout.whole_params(state.params)
+            dev = next(iter(params.values())).device
+            flops = grad_flops(self.loss_fn, self.policy, params,
                                state.extras, batch, dev)
             return {"flops": float(flops), "flops_source": "flop_counter"}
         except Exception as e:
@@ -315,6 +402,9 @@ class Trainer:
     # ----------------------------------------------------------------- loop
 
     def attach_checkpointer(self, checkpointer) -> None:
+        """Checkpoints of this trainer's state: whole, gathered from the
+        ranks' shards on save and re-sharded on restore."""
+        checkpointer.layout = self.layout
         self.checkpointer = checkpointer
 
     def fit(self, state: TrainState | None = None, *,
@@ -450,7 +540,8 @@ class Trainer:
                     win_steps = step + 1 - last_logged
                     dt = timer.tick_window(metrics["loss"], win_steps)
                     last_logged = step + 1
-                    perf = timer.summary(samples_per_step)
+                    perf = timer.summary(samples_per_step,
+                                         self.env.num_devices)
                     # The host waits data_wait for the batch; the rest of
                     # the step is the device's (window-averaged: the loop
                     # only reads the device here).
@@ -565,7 +656,8 @@ class Trainer:
         state keeps them; one transfer to the host at the end."""
         if self._eval_pipeline is None:
             self._eval_pipeline = build_pipeline(self.cfg.data, split="eval",
-                                                 device=self.device)
+                                                 device=self.device,
+                                                 env=self.env)
         if state.ema_params is not None:
             state = dataclasses.replace(state, params=state.ema_params)
         n = num_steps or self.cfg.trainer.eval_steps

@@ -38,10 +38,12 @@ The updates are optax's, written out:
 
 The updates work in place on the params and the optimizer state (the
 JAX step donates its state, and in place is what keeps one copy of them
-live). The state takes the params' dtype, as optax makes it: a bf16
-param (``trainer.init_params_path`` under ``precision.policy=bf16``)
-has bf16 moments. A leaf that is not fp32 is updated in fp32 and each of
-its tensors rounded once to its own dtype.
+live). ``init`` gives the state the dtype of the tensors it is handed,
+as optax's ``init`` does. The ``Trainer`` hands it fp32 templates, as
+the JAX trainer builds its state from its fp32 init: a bf16 param
+(``trainer.init_params_path`` under ``precision.policy=bf16``) keeps
+fp32 moments. A tensor that is not fp32 (the bf16 param there) is
+updated in fp32 and rounded once to its own dtype.
 """
 
 from __future__ import annotations

@@ -29,16 +29,24 @@ class TrainState:
 
     @classmethod
     def create(cls, params: dict, tx, extras: dict | None = None, *,
-               with_ema: bool = False, device=None) -> "TrainState":
+               with_ema: bool = False, opt_template: dict | None = None,
+               device=None) -> "TrainState":
         """A state at step 0 holding COPIES of ``params`` and ``extras``
         on ``device`` (``None`` means ``cuda`` and raises without a card),
-        detached from any module, and ``tx.init`` of the params."""
+        detached from any module, and ``tx.init`` of ``opt_template``:
+        tensors by name whose shapes and dtypes the optimizer state takes
+        (only those are read; default: the params). The ``Trainer`` hands
+        fp32 templates, as the JAX trainer builds its optimizer state
+        from its fp32 init whatever dtype a params file brings, and under
+        sharding the templates have the state's per-rank shapes."""
         dev = resolve_device(device)
         own = {k: p.detach().to(dev, copy=True) for k, p in params.items()}
+        if opt_template is None:
+            opt_template = own
         return cls(
             step=0,
             params=own,
-            opt_state=tx.init(own),
+            opt_state=tx.init(opt_template),
             extras=_copy_to(extras or {}, dev),
             ema_params=({k: p.clone() for k, p in own.items()}
                         if with_ema else None),

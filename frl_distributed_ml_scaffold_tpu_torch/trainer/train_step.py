@@ -28,17 +28,36 @@ statistics) thread through the microbatches: each microbatch's forward
 reads the statistics the previous one returned, as the JAX step's scan
 carries them, and the state keeps the last.
 
-The port runs on one card. ZeRO-1 (``parallel.opt_sharding=zero1``) on
-one card is the replicated layout: the optimizer state is sharded over
-an fsdp axis of size 1, i.e. kept whole, which is what this step does.
-FSDP (``parallel.param_sharding=fsdp`` with ``mesh.fsdp=-1``, the ViT-B
-and video recipes' layout) on one card is the same: an fsdp axis of one
-device holds every param whole.
-A mesh of more than one device, ``offload_opt_state`` and
-``grad_shardings`` raise, naming ROADMAP queue A item 7. The fused AdamW
+With a ``layout`` (``parallel/layout.py``; the ``Trainer`` builds it
+from the run's mesh, ``parallel`` and the model's partition rules) the
+step runs on every rank of the mesh, each on its rows of the global
+batch and its shards of the state:
+
+- the params are gathered from their stored spec to the compute spec
+  once per step (an all-gather over ``fsdp``; a ``model`` split the
+  model reads whole is gathered too), and the forward and backward run
+  on plain local tensors, the model's own tensor-parallel products and
+  sync-BN taking part in their collectives;
+- each microbatch's gradient is reduce-scattered into the accumulator
+  under FSDP, which stays in the params' spec; otherwise it accumulates
+  locally and is reduced once; then it is summed over the batch axes
+  into the optimizer state's spec and divided by the batch-axis size,
+  the gradient of the global batch's mean loss;
+- the loss and the metrics are the global batch's means (one all-reduce
+  over the batch axes);
+- ``grad_norm`` sums each shard's squares over the axes its tensor is
+  split on, so a replicated tensor counts once;
+- the optimizer updates this rank's part of the params (its ``zero1``
+  slice of a replicated param, a view), and a param whose state is
+  split finer than it is all-gathered back.
+
+A mesh of more than one device needs a ``layout``. ``offload_opt_state``
+(host-memory optimizer state) raises, naming ROADMAP A7; ``grad_shardings``
+raises too: the accumulator's spec is the layout's. The fused AdamW
 (``optimizer.name=fused_adamw``) is refused under sharded state, or a
 model, expert or pipe axis above 1, with the JAX trainer's message, as
-the JAX trainer refuses it when it builds its step.
+the JAX trainer refuses it when it builds its step. Axes ``seq``,
+``expert`` and ``pipe`` above 1 raise, naming ROADMAP A12.
 """
 
 from __future__ import annotations
@@ -48,6 +67,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -59,10 +79,17 @@ from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
     MeshConfig,
     ParallelConfig,
 )
+from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import (
+    BATCH_AXES,
+    mesh_context,
+    resolve_axis_sizes,
+)
 from frl_distributed_ml_scaffold_tpu_torch.models.dropout import mix_seed
 from frl_distributed_ml_scaffold_tpu_torch.ops.fused_adamw import FusedAdamW
+from frl_distributed_ml_scaffold_tpu_torch.parallel.layout import StateLayout
 from frl_distributed_ml_scaffold_tpu_torch.precision import Policy
 from frl_distributed_ml_scaffold_tpu_torch.trainer.optimizers import (
+    Adafactor,
     global_norm,
 )
 from frl_distributed_ml_scaffold_tpu_torch.trainer.train_state import TrainState
@@ -102,16 +129,20 @@ def _remat_wrap(loss_fn: LossFn, remat: str) -> LossFn:
     return wrapped
 
 
-def _check_one_device(mesh: MeshConfig | None) -> None:
+def check_mesh(mesh: MeshConfig | None, layout: StateLayout | None) -> None:
+    """Refuse the axes the step does not port (``seq``, ``expert``,
+    ``pipe`` above 1) and a mesh of more than one device without a
+    layout."""
     if mesh is None:
         return
-    big = {k: n for k, n in mesh.axis_sizes().items() if n > 1}
-    if big or mesh.dcn_data > 1:
+    sizes = mesh.axis_sizes()
+    big = {k: sizes[k] for k in ("seq", "expert", "pipe") if sizes[k] > 1}
+    if big:
         raise NotImplementedError(
-            f"mesh axes {big or {'dcn_data': mesh.dcn_data}} span more than "
-            "one device; the port trains on one card (ROADMAP queue A item "
-            "7, sharding)"
-        )
+            f"mesh axes {big}: sequence, expert and pipeline parallelism "
+            "are not ported yet (ROADMAP A12)")
+    n = 1 if layout is None else layout.env.num_devices
+    resolve_axis_sizes(mesh, n)  # raises when the mesh needs more devices
 
 
 def _check_fused_optimizer(tx, parallel: ParallelConfig | None,
@@ -141,8 +172,22 @@ def _to_device(batch: dict, dev: torch.device) -> dict:
     }
 
 
+def _batch_mean(values: list[torch.Tensor], layout: StateLayout | None,
+                scale: float) -> list[torch.Tensor]:
+    """Each of ``values`` (0-d fp32 local sums) times ``scale``, summed
+    over the batch axes in one all-reduce and divided by their size."""
+    group = None if layout is None else layout.env.group(BATCH_AXES)
+    if group is None:
+        return [v * scale for v in values]
+    packed = torch.stack(values)
+    dist.all_reduce(packed, group=group)
+    packed *= scale / layout.env.batch_axis_size
+    return list(packed.unbind())
+
+
 def make_grad_fn(loss_fn: LossFn, policy: Policy, *, grad_accum: int = 1,
-                 remat: str = "none", seed: int = 0, device=None):
+                 remat: str = "none", seed: int = 0,
+                 layout: StateLayout | None = None, device=None):
     """``grad_fn(params, extras, batch, step=0) -> (loss, metrics,
     extras, grads)``: the step's forward and backward without the
     update. Microbatch i of step ``step`` hands the loss the dropout seed
@@ -150,11 +195,16 @@ def make_grad_fn(loss_fn: LossFn, policy: Policy, *, grad_accum: int = 1,
     key and splits it per microbatch.
     ``params`` are the fp32 master params (left untouched); ``grads`` are
     averaged over the ``grad_accum`` microbatches and cast to the param
-    dtype; ``loss`` and ``metrics`` are averaged 0-d fp32 tensors."""
+    dtype; ``loss`` and ``metrics`` are averaged 0-d fp32 tensors. With a
+    ``layout``, ``params`` are this rank's shards, ``batch`` its rows,
+    ``grads`` the global batch's, under the optimizer state's spec, and
+    ``loss`` and ``metrics`` the global batch's (module docstring)."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     dev = resolve_device(device)
     wrapped = _remat_wrap(loss_fn, remat)
+    scatter = ({} if layout is None else
+               {k: layout.scatter_axes(k) for k in layout.shapes})
 
     def grad_fn(params: dict, extras: dict, batch: Any, step: int = 0):
         batch = _to_device(batch, dev)
@@ -166,7 +216,14 @@ def make_grad_fn(loss_fn: LossFn, policy: Policy, *, grad_accum: int = 1,
                 )
         micro = [{k: x.chunk(grad_accum)[i] for k, x in batch.items()}
                  for i in range(grad_accum)]
-        acc = {k: torch.zeros(p.shape, dtype=policy.reduce_dtype,
+        if layout is None:
+            full, acc_shape = params, {k: p.shape for k, p in params.items()}
+        else:
+            full = {k: layout.gather(k, p, layout.param[k], layout.compute[k])
+                    for k, p in params.items()}
+            acc_shape = {k: layout.local_shape(k, layout.accum[k])
+                         for k in params}
+        acc = {k: torch.zeros(acc_shape[k], dtype=policy.reduce_dtype,
                               device=p.device)
                for k, p in params.items()}
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
@@ -175,22 +232,36 @@ def make_grad_fn(loss_fn: LossFn, policy: Policy, *, grad_accum: int = 1,
             # Fresh compute-dtype leaves: the gradients are taken with
             # respect to them, as the JAX step differentiates params_c.
             params_c = policy.cast_to_compute(
-                {k: p.detach() for k, p in params.items()})
+                {k: p.detach() for k, p in full.items()})
             for p in params_c.values():
                 p.requires_grad_()
             loss, (metrics, extras) = wrapped(params_c, extras, mb,
                                               mix_seed(seed, step, i), True)
             grads = torch.autograd.grad(loss, list(params_c.values()))
             for k, g in zip(params_c, grads):
-                acc[k].add_(g.to(policy.reduce_dtype))
+                g = g.to(policy.reduce_dtype)
+                if layout is not None and scatter[k]:
+                    g = layout.reduce(k, g, layout.compute[k],
+                                      layout.accum[k], scatter[k])
+                acc[k].add_(g)
             loss_sum += loss.detach().float()
             for k, m in metrics.items():
                 metric_sums[k] = metric_sums.get(k, 0.0) + m.float()
             del params_c, grads
+        del full
         inv = 1.0 / grad_accum
+        names = list(metric_sums)
+        loss, *ms = _batch_mean([loss_sum] + [metric_sums[k] for k in names],
+                                layout, inv)
+        metrics = dict(zip(names, ms))
+        if layout is not None:
+            inv /= layout.env.batch_axis_size
+            acc = {k: layout.reduce(
+                       k, g, layout.accum[k], layout.opt[k],
+                       tuple(a for a in BATCH_AXES if a not in scatter[k]))
+                   for k, g in acc.items()}
         grads = policy.cast_to_param({k: g.mul_(inv) for k, g in acc.items()})
-        metrics = {k: m * inv for k, m in metric_sums.items()}
-        return loss_sum * inv, metrics, extras, grads
+        return loss, metrics, extras, grads
 
     return grad_fn
 
@@ -208,6 +279,7 @@ def make_train_step(
     grad_shardings: Any = None,
     mesh: MeshConfig | None = None,
     parallel: ParallelConfig | None = None,
+    layout: StateLayout | None = None,
     device=None,
 ) -> Callable[[TrainState, Any], tuple[TrainState, dict]]:
     """The step function ``step(state, batch) -> (state, metrics)``,
@@ -217,23 +289,48 @@ def make_train_step(
     seeds training dropout, one seed per step and microbatch
     (``make_grad_fn``). ``metrics`` are 0-d fp32 tensors on the device:
     the averaged loss and task metrics, and ``grad_norm`` before the
-    clip. ``parallel`` and ``mesh`` are the run's sections: what the port
-    cannot lay out on one card raises."""
+    clip. ``parallel`` and ``mesh`` are the run's sections, ``layout``
+    the state's specs over the run's mesh (module docstring)."""
     _check_fused_optimizer(tx, parallel, mesh)
-    if offload_opt_state or grad_shardings is not None:
+    if offload_opt_state:
         raise NotImplementedError(
-            "offload_opt_state and grad_shardings are not ported yet "
-            "(ROADMAP queue A item 7, sharding)"
+            "offload_opt_state (optimizer state in host memory) is not "
+            "ported yet (ROADMAP A7)"
         )
-    _check_one_device(mesh)
+    if grad_shardings is not None:
+        raise ValueError(
+            "grad_shardings: the port's accumulator takes the layout's "
+            "specs (the params' under parallel.param_sharding=fsdp); pass "
+            "layout="
+        )
+    check_mesh(mesh, layout)
+    if layout is not None and not layout.trivial and isinstance(tx,
+                                                                Adafactor):
+        raise NotImplementedError(
+            "optimizer.name=adafactor over split state (its factored "
+            "moments and block RMS reduce over whole leaves) is not ported "
+            "yet (ROADMAP A7)")
     grad_fn = make_grad_fn(loss_fn, policy, grad_accum=grad_accum,
-                           remat=remat, seed=seed, device=device)
+                           remat=remat, seed=seed, layout=layout,
+                           device=device)
+    env = None if layout is None else layout.env
+    regather = ([] if layout is None else
+                [k for k in layout.shapes if layout.opt[k] != layout.param[k]])
 
     def step_fn(state: TrainState, batch: Any) -> tuple[TrainState, dict]:
-        loss, metrics, state.extras, grads = grad_fn(
-            state.params, state.extras, batch, state.step)
-        norm = global_norm(grads.values())
-        tx.update(grads, state.opt_state, state.params, norm=norm)
+        with mesh_context(env):
+            loss, metrics, state.extras, grads = grad_fn(
+                state.params, state.extras, batch, state.step)
+        if layout is None:
+            norm, params = global_norm(grads.values()), state.params
+        else:
+            norm = layout.global_sq_norm(grads, layout.opt).sqrt()
+            params = {k: layout.narrow(k, p, layout.param[k], layout.opt[k])
+                      for k, p in state.params.items()}
+        tx.update(grads, state.opt_state, params, norm=norm)
+        for k in regather:
+            layout.gather(k, params[k], layout.opt[k], layout.param[k],
+                          out=state.params[k])
         if ema_decay > 0.0:
             for k, e in state.ema_params.items():
                 e.mul_(ema_decay).add_(state.params[k].to(e.dtype),
@@ -245,18 +342,29 @@ def make_train_step(
 
 
 def make_eval_step(loss_fn: LossFn, policy: Policy, *, seed: int = 0,
-                   device=None):
-    """Forward-only metrics step (``device`` as in ``make_train_step``)."""
+                   layout: StateLayout | None = None, device=None):
+    """Forward-only metrics step (``device`` as in ``make_train_step``);
+    with a ``layout``, on this rank's rows, the metrics the global
+    batch's means."""
     del seed
     dev = resolve_device(device)
+    env = None if layout is None else layout.env
 
     def eval_fn(state: TrainState, batch: Any) -> dict:
-        params_c = policy.cast_to_compute(state.params)
-        with torch.no_grad():
+        params = state.params
+        if layout is not None:
+            params = {k: layout.gather(k, p, layout.param[k],
+                                       layout.compute[k])
+                      for k, p in params.items()}
+        params_c = policy.cast_to_compute(params)
+        with torch.no_grad(), mesh_context(env):
             loss, (metrics, _) = loss_fn(params_c, state.extras,
                                          _to_device(batch, dev), None, False)
-        out = dict(metrics)
-        out["loss"] = loss.float()
+        names = list(metrics)
+        loss, *ms = _batch_mean([loss.float()] + [metrics[k].float()
+                                                  for k in names], layout, 1.0)
+        out = dict(zip(names, ms))
+        out["loss"] = loss
         return out
 
     return eval_fn

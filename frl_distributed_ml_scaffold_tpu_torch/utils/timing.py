@@ -72,9 +72,10 @@ class StepTimer:
     def count(self) -> int:
         return len(self._times)
 
-    def summary(self, samples_per_step: int | None = None) -> dict:
-        """Step-time percentiles, mean and (given the batch) samples/s;
-        the port trains on one card, so per chip is the same."""
+    def summary(self, samples_per_step: int | None = None,
+                n_chips: int = 1) -> dict:
+        """Step-time percentiles, mean and (given the global batch)
+        samples/s, in all and per chip over ``n_chips``."""
         if not self._times:
             return {"steps_timed": 0}
         arr = np.asarray(self._times)
@@ -90,5 +91,5 @@ class StepTimer:
         }
         if samples_per_step is not None:
             out["samples_per_sec"] = float(samples_per_step / np.median(arr))
-            out["samples_per_sec_per_chip"] = out["samples_per_sec"]
+            out["samples_per_sec_per_chip"] = out["samples_per_sec"] / n_chips
         return out

@@ -1,0 +1,193 @@
+"""A rank of the port's multi-rank CPU tests: one process of a gloo run.
+
+    python tests/_torch_ranks.py RANK WORLD RENDEZVOUS JOBS OUT
+
+joins the process group at ``RENDEZVOUS`` (a ``file://`` path), runs
+every job of the ``torch.save`` list ``JOBS`` (``{"name", "kind",
+"args"}``; ``kind`` names a function below) in order, and writes
+``{name: result}`` to ``OUT/rank<RANK>.pt``. It imports torch and the
+port only: the tests hold its results against the JAX package in their
+own process. ``start_ranks`` starts a run, ``spawn_ranks`` also waits
+for its results.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(HERE)
+
+
+def start_ranks(world: int, jobs: list, tmp, timeout: float = 240):
+    """Start ``jobs`` on ``world`` gloo ranks; returns ``wait()``, which
+    returns each rank's results (a list by rank). A rank that fails
+    fails ``wait`` with its output."""
+    tmp = str(tmp)
+    jobs_path = os.path.join(tmp, "jobs.pt")
+    torch.save(jobs, jobs_path)
+    rdv = "file://" + os.path.join(tmp, "rendezvous")
+    # A rank that fails leaves the others in a collective: a short
+    # process-group timeout ends them instead of the test's.
+    env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1",
+           "FRL_TPU_INIT_TIMEOUT_S": "90"}
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "_torch_ranks.py"), str(r),
+         str(world), rdv, jobs_path, tmp],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env, cwd=REPO)
+        for r in range(world)]
+
+    def wait():
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=timeout)[0].decode())
+        finally:
+            for p in procs:
+                p.kill()
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                raise RuntimeError(f"rank {r} exited {p.returncode}:\n"
+                                   + outs[r][-6000:])
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                           weights_only=False) for r in range(world)]
+
+    return wait
+
+
+def spawn_ranks(world: int, jobs: list, tmp, timeout: float = 240):
+    """``start_ranks`` and wait for them."""
+    return start_ranks(world, jobs, tmp, timeout)()
+
+
+# ------------------------------------------------------------------ jobs
+
+
+def _numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach()
+        return (t.float() if t.is_floating_point() else t).numpy().copy()
+    return tree
+
+
+def collectives(env_cfg: dict) -> dict:
+    """Each collective of ``dist/collectives.py`` over a data=4 mesh, on
+    the shard ``arange`` of the JAX tests' cases."""
+    from frl_distributed_ml_scaffold_tpu_torch.config.schema import MeshConfig
+    from frl_distributed_ml_scaffold_tpu_torch.dist import collectives as C
+    from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import (
+        build_mesh,
+        mesh_context,
+    )
+
+    env = build_mesh(MeshConfig(**env_cfg))
+    n, i = env.axis_size("data"), env.axis_index("data")
+    out = {}
+    with mesh_context(env):
+        x = torch.arange(float(n))[i:i + 1]  # this shard of arange(n)
+        out["all_reduce"] = C.all_reduce(x, "data")
+        out["all_mean"] = C.all_mean(x, "data")
+        m = torch.arange(2.0 * n).reshape(n, 2)[i:i + 1]
+        full = C.all_gather(m, "data")
+        out["all_gather"] = full
+        out["reduce_scatter"] = C.reduce_scatter(full, "data")
+        out["broadcast"] = C.broadcast(x, "data", source=3)
+        out["ring_shift"] = C.ring_shift(x, "data", shift=1)
+        sq = torch.arange(float(n * n)).reshape(n, n)[i:i + 1]
+        out["all_to_all"] = C.all_to_all(sq, "data", split_axis=1,
+                                         concat_axis=0)
+        out["axis"] = torch.tensor([C.axis_index("data"),
+                                    C.axis_size("data")])
+        out["tree"] = C.all_reduce({"a": x, "b": {"c": 2 * x}}, "data")
+    out["host_all_gather"] = C.host_all_gather(np.array([float(i)]))
+    out["host_broadcast"] = C.host_broadcast({"rank": i})
+    C.barrier("test")
+    return _numpy(out)
+
+
+def train(config: str, overrides: list, steps: int, *,
+          keep_local: bool = False) -> dict:
+    """``steps`` steps of the ``Trainer``'s step on this rank, from the
+    config's init (``trainer.init_params_path`` when the overrides set
+    it): per-step metrics, this rank's batches, the layout's specs and
+    per-rank bytes, and the whole params at the end (and this rank's own
+    shards with ``keep_local``)."""
+    from frl_distributed_ml_scaffold_tpu_torch import config as tconfig
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.loop import Trainer
+    from frl_distributed_ml_scaffold_tpu_torch.utils.trees import (
+        tree_size_bytes,
+    )
+
+    cfg = tconfig.apply_overrides(tconfig.get_config(config), overrides)
+    trainer = Trainer(cfg, device="cpu")
+    state = trainer.init_state()
+    lay = trainer.layout
+    out = {"metrics": [], "batches": [],
+           "specs": {"param": lay.param, "opt": lay.opt,
+                     "accum": lay.accum, "compute": lay.compute},
+           "accum_shapes": {k: lay.local_shape(k, s)
+                            for k, s in lay.accum.items()},
+           "param_bytes": tree_size_bytes(state.params),
+           "opt_bytes": sum(tree_size_bytes(v) for k, v in
+                            state.opt_state.items() if k != "count"),
+           "coords": trainer.env.coords}
+    for step in range(steps):
+        batch = trainer.pipeline.global_batch(step)  # this rank's rows
+        out["batches"].append(_numpy(batch))
+        state, m = trainer.train_step(state, batch)
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+    out["params"] = _numpy(lay.whole_params(state.params))
+    out["extras"] = _numpy(state.extras)
+    if keep_local:
+        out["local_params"] = _numpy(state.params)
+    return out
+
+
+def dropout_rows(rate: float, seed: int, shape: tuple) -> dict:
+    """This rank's dropout mask of a ``shape`` (this rank's rows) site on
+    a data=N mesh."""
+    from frl_distributed_ml_scaffold_tpu_torch.config.schema import MeshConfig
+    from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import (
+        build_mesh,
+        mesh_context,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.models.dropout import keep_mask
+
+    env = build_mesh(MeshConfig(data=-1))
+    with mesh_context(env):
+        mask = keep_mask(shape, rate, seed, 3, 1, device="cpu")
+    return {"mask": mask.numpy(), "index": env.batch_index}
+
+
+JOBS = {"collectives": collectives, "train": train,
+        "dropout_rows": dropout_rows}
+
+
+def main(argv) -> None:
+    rank, world, rdv, jobs_path, out = argv
+    torch.set_num_threads(1)
+    from frl_distributed_ml_scaffold_tpu_torch.dist.initialize import (
+        initialize_distributed,
+        shutdown_distributed,
+    )
+
+    initialize_distributed(rdv, int(world), int(rank), device="cpu")
+    results = {}
+    try:
+        for job in torch.load(jobs_path, weights_only=False):
+            results[job["name"]] = JOBS[job["kind"]](**job["args"])
+    finally:
+        shutdown_distributed()
+    torch.save(results, os.path.join(out, f"rank{rank}.pt"))
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, REPO)
+    main(sys.argv[1:])

@@ -77,6 +77,9 @@ def test_scans_cover_every_port_module():
     "faults/retry.py", "telemetry/metrics.py", "telemetry/timeline.py",
     "telemetry/tracing.py", "telemetry/watchdog.py", "data/native.py",
     "data/shards.py", "data/imagenet.py", "data/lm.py",
+    "dist/initialize.py", "dist/mesh.py", "dist/collectives.py",
+    "parallel/partition.py", "parallel/layout.py",
+    "parallel/tensor_parallel.py",
 ], ids=lambda r: r.replace("/", "."))
 def test_scans_cover_the_training_modules(rel):
     """The training slice's modules are among those both scans walk."""
@@ -205,6 +208,31 @@ def test_training_entry_points_default_to_cuda_and_raise_without_a_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--config=mnist_mlp", "data.global_batch_size=8"])
     assert Trainer(get_config("mnist_mlp"), device="cpu").device.type == "cpu"
+
+
+def test_distributed_entry_points_default_to_cuda_and_raise_without_a_card():
+    """A multi-process run defaults to NCCL on the cards and raises
+    without one; gloo is only for the CPU when asked for. One process
+    initialises nothing."""
+    _no_card()
+    import torch.distributed as dist
+
+    from frl_distributed_ml_scaffold_tpu_torch.dist.initialize import (
+        initialize_distributed,
+        local_device,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.launcher.launch import main
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        initialize_distributed("localhost:1", 2, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        local_device(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--config=mnist_mlp", "--num-processes=2", "--process-id=1",
+              "--coordinator=localhost:1"])
+    initialize_distributed("localhost:1", 1, 0)
+    assert not dist.is_initialized()
+    assert local_device(3, "cpu") == torch.device("cpu")
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["repo", "script_alone"])

@@ -108,7 +108,7 @@ def test_loader_budget_exhaustion_raises_alike():
 def test_lm_shards_and_unknown_sources_are_refused(tmp_path):
     """Streaming token bins are refused, naming their item; an unknown
     dataset raises."""
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
         tpipeline.build_pipeline(
             tschema.DataConfig(name="lm", data_dir=str(tmp_path),
                                streaming=True), device="cpu")

@@ -278,7 +278,7 @@ def test_create_model_and_refusals():
                        device="cpu")
     assert tuple(s2d.stem_s2d.weight.shape) == (64, 12, 4, 4)
     assert not hasattr(s2d, "stem_conv")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         tresnet.ResNet(cfg, pol, param_hooks=object(), device="cpu")
     with pytest.raises(ValueError, match="stem"):
         create_model(dataclasses.replace(cfg, stem="conv9"), pol,
@@ -292,6 +292,6 @@ def test_create_model_and_refusals():
         assert type(create_model(own, pol, device="meta")) is cls
     with pytest.raises(KeyError, match="unknown model family"):
         create_model(dataclasses.replace(cfg, family="nope"), pol)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
         ImageNet(tschema.DataConfig(name="imagenet", data_dir="/data",
                                     streaming=True), split="train")

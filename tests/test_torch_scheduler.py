@@ -404,7 +404,7 @@ def test_disagg_refusals(pair, case):
     jm, params, tm = pair
     paged = ServingConfig(kv_block_size=8, disaggregate=True)
     if case in ("partition", "rules", "respread"):
-        with pytest.raises(NotImplementedError, match="queue A item 5, A7"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
             if case == "partition":
                 DisaggServingEngine(tm, serving=paged, prefill_env="mesh",
                                     device="cpu")

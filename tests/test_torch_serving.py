@@ -163,7 +163,7 @@ def test_unported_serving_options_raise(pair, override):
     kw = {k: override.pop(k) for k in ("prefill_env", "rules")
           if k in override}
     if kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A item 5"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
             build_engine(tm, serving=ServingConfig(**override), device="cpu",
                          **kw)
         return

@@ -263,7 +263,7 @@ def test_streaming_is_refused_naming_a13(tmp_path):
     _image_shards(tmp_path, np.uint8)
     for cls, cfg in ((timagenet.ImageNet, IMAGE), (tvideo.VideoClips, VIDEO),
                      (tlm.TokenBinLM, LM)):
-        with pytest.raises(NotImplementedError, match="item 9, A13"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
             cls(tschema.DataConfig(**dict(cfg, data_dir=str(tmp_path),
                                           streaming=True)), split="train")
     # The eval split keeps the frozen view, as in the JAX package.

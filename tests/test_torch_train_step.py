@@ -253,8 +253,8 @@ def test_synthetic_lm_batches_match_jax():
 
 def test_training_refusals():
     """What the port still does not train raises, naming its ROADMAP
-    item: meshes of more than one card and optimizer offload (item 7),
-    per-block remat under the overlap schedule (item 11), fused_adamw
+    item: optimizer offload (A7), seq / expert / pipe axes (A12),
+    per-block remat under the overlap schedule (A11), fused_adamw
     with a clip. Training dropout needs its seed; an unknown block_remat
     raises."""
     cfg = tschema.GPTConfig(**TINY, dropout=0.1)
@@ -267,23 +267,35 @@ def test_training_refusals():
     loss = ttasks.make_lm_loss(model)
     tx, _ = topt.make_optimizer(tschema.OptimizerConfig(**OPT),
                                 tschema.TrainerConfig(**TRAINER), cfg)
-    for kw in ({"offload_opt_state": True}, {"grad_shardings": object()},
-               {"mesh": tschema.MeshConfig(data=2)},
-               {"mesh": tschema.MeshConfig(data=1, fsdp=4)}):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A item 7"):
-            make_train_step(loss, tx, get_policy("fp32"), device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        make_train_step(loss, tx, get_policy("fp32"), device="cpu",
+                        offload_opt_state=True)
+    with pytest.raises(ValueError, match="grad_shardings"):
+        make_train_step(loss, tx, get_policy("fp32"), device="cpu",
+                        grad_shardings=object())
+    # A mesh of more than one device needs a layout over as many ranks
+    # (the Trainer builds it); seq / expert / pipe stay with A12.
+    for mesh in (tschema.MeshConfig(data=2),
+                 tschema.MeshConfig(data=1, fsdp=4)):
+        with pytest.raises(ValueError, match="needs [24] devices"):
+            make_train_step(loss, tx, get_policy("fp32"), device="cpu",
+                            mesh=mesh)
+    for axis in ("seq", "expert", "pipe"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+            make_train_step(loss, tx, get_policy("fp32"), device="cpu",
+                            mesh=tschema.MeshConfig(**{axis: 2}))
     # The recipe's own mesh (data=1, fsdp=-1) is one card.
     make_train_step(loss, tx, get_policy("fp32"), device="cpu",
                     mesh=tschema.MeshConfig(data=1, fsdp=-1))
     # Per-block remat under the overlap schedule (the JAX model's
-    # overlap remat policies) stays with the schedule, item 11.
+    # overlap remat policies) stays with the schedule, A11.
     for flag in ("fsdp_overlap", "tp_overlap"):
         ov = ["model.num_layers=2", "model.hidden_dim=128",
               "model.num_heads=4", "model.vocab_size=512",
               "model.seq_len=128", "data.vocab_size=512",
               "data.seq_len=128", "model.block_remat=full",
               f"parallel.{flag}=true"]
-        with pytest.raises(NotImplementedError, match="item 11"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
             Trainer(apply_overrides(get_config("gpt2_medium_zero1"), ov),
                     device="cpu")
     # fused_adamw is ported; with this recipe's clip it is refused, as

@@ -261,7 +261,7 @@ def test_synthetic_video_matches_jax():
                 assert got["label"].dtype == np.int32
                 for k in want:
                     np.testing.assert_array_equal(got[k], want[k])
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
         VideoClips(tschema.DataConfig(name="video", data_dir="/data",
                                       streaming=True), split="train")
 
@@ -312,12 +312,12 @@ def test_mnist_matches_jax(tmp_path, source):
 
 def test_refusals():
     """The video classifier refuses the tensor-parallel hooks (queue A
-    item 11). Training dropout, in it and in the MLP, runs with a seed
+    A11). Training dropout, in it and in the MLP, runs with a seed
     and raises without one."""
     _, tv = _video_configs()
     _, tm = _mlp_configs()
     pol = get_policy("fp32")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         tvideo.VideoClassifier(tv.model, pol, tp_overlap=object(),
                                device="cpu")
     for cfg, x in ((tv.model, torch.zeros(VIDEO_SHAPE)),

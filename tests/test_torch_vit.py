@@ -236,13 +236,13 @@ def test_example_input_matches_jax(name):
 
 def test_refusals():
     """The tensor-parallel hooks and an unknown pool raise; the hooks
-    name ROADMAP queue A item 11. Training dropout runs with a seed and
+    name ROADMAP A11. Training dropout runs with a seed and
     raises without one; eval ignores it."""
     _, t = _configs()
     pol = get_policy("fp32")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         tvit.ViT(t.model, pol, tp_overlap=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         tvit.EncoderBlock(64, 4, 4, pol, "cpu", tp=object())
     with pytest.raises(ValueError, match="pool"):
         tvit.ViT(dataclasses.replace(t.model, pool="max"), pol, device="cpu")
