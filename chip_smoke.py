@@ -289,7 +289,28 @@ no final line):
    from 1024 to fit one card), full width and depth, seeded weights: a
    warm-up and one timed step each; the BN kernels once per BatchNorm a
    step (RN101), none (ViT-L).
-35. ``phase_seconds`` (the build, each phase above and the whole run),
+35. tp_serve_path (after beam_path): tensor-parallel serving over two
+   processes of this script on the one card (``--tp-rank``; a gloo group
+   carrying the CUDA tensors, chosen because NCCL refuses two ranks on
+   one device), mesh ``data=1 model=2``: ``gpt2_medium_serve`` at full
+   width and depth from seeded weights placed by ``build_engine(rules=
+   gpt_tp_rules())``, 8 heads a rank, through the contiguous engine and
+   the paged + ngram engine, fp32 then bf16_mixed, 8 requests of 32 new
+   tokens each. Both ranks end with the same tokens; fp32 they are the
+   one-rank engine's (top-2-gap rule); B4, B5 and B6 launch 24 times a
+   step of their kind at 8 heads and agree with their plain versions
+   there; the first step's bf16 logits within ``TP_BF16_LOGIT_ULPS`` of
+   one rank's, and the first position the bf16 tokens part. Launches and
+   collectives a step, tokens/s (gloo's host copies: no measure of TP
+   serving speed). The disaggregated phase (item 7a's ``disagg_path``)
+   also serves its workload with ``prefill_env=cuda:0``, a separate
+   prefill partition: tokens equal the shared pool's, and the bytes
+   moved equal the handoffs' analytic window bytes.
+36. offload_path (after train_path): train_path's first three steps with
+   ``trainer.offload_opt_state=true``: losses and grad_norms bit-equal,
+   every state tensor pinned host memory, the peak memory below
+   train_path's, the step beside train_path's.
+37. ``phase_seconds`` (the build, each phase above and the whole run),
    the ``kernels`` line (twelve kernels) and, last, ``{"ok": true,
    "device": ...}``.
 
@@ -1575,6 +1596,48 @@ def disagg_phase(cfg, sd, seed: int, card: str) -> dict:
     for (_, i), (_, c) in zip(ids, comps):
         check(np.array_equal(chaos[i].tokens, c.tokens),
               f"disagg chaos: request {i} differs from the fault-free run")
+    # A separate prefill partition on this card: the worker's own params
+    # replica, and each handoff's private-block window moved back,
+    # counted.
+    sep = build_engine(model, serving=cfgd.serving, num_slots=slots,
+                       temperature=0.0, tenants=tenants,
+                       prefill_env=torch.device("cuda:0"))
+    check(sep.prefill_worker.separate, "disagg path: no separate partition")
+    sep_ids = submit_all(sep, True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sep_done = {c.id: c for c in sep.run()}
+    torch.cuda.synchronize()
+    sep_wall = time.perf_counter() - t0
+    for (_, i), (_, c) in zip(sep_ids, comps):
+        check(np.array_equal(sep_done[i].tokens, c.tokens),
+              f"disagg partition: request {i} differs from the shared pool")
+    bs = cfgd.serving.kv_block_size
+    hd = cfgd.model.hidden_dim // cfgd.model.num_heads
+    per_pos = (layers * 2 * cfgd.model.num_heads * hd
+               * model.policy.compute_dtype.itemsize)
+
+    def window(tok: int) -> int:  # K/V of tok positions + the cursors
+        return per_pos * tok + layers * 4 + 4
+
+    want = 0
+    for c in sep_done.values():
+        saved = c.prefill_tokens_saved
+        want += window(-(-c.prompt_len // bs) * bs - saved)
+        want += window(saved) if saved else 0
+    sst = sep.stats
+    moved = sst["handoff_transfer_bytes"]
+    counter = sep.telemetry.snapshot()["serve_handoff_transfer_bytes_total"]
+    check(moved == want == counter,
+          f"disagg partition: moved {moved}, counter {counter}, the "
+          f"windows {want}")
+    partition = {"prefill_env": "cuda:0", "token_identical": True,
+                 "handoffs": sst["handoffs"], "wall_s": sep_wall,
+                 "handoff_transfer_bytes": moved,
+                 "analytic_window_bytes": want,
+                 "prefix_hits": sst.get("prefix_hits", 0)}
+    del sep
+    torch.cuda.empty_cache()
     fg_c, fg_d = colo_rep["fg"], rep["fg"]
     report = {
         "card": card, "config": cfgd.name, "overrides": DISAGG_OVERRIDES,
@@ -1599,6 +1662,7 @@ def disagg_phase(cfg, sd, seed: int, card: str) -> dict:
         "handoff_transfer_bytes": transfer,
         "handoff_transfer_bytes_note": "0 by construction: one shared pool, "
                                        "no transfer path",
+        "separate_partition": partition,
         "stats": st,
         "profile": {"ticks": DISAGG_PROFILE_TICKS, **{
             k: profile_rep[k] for k in (
@@ -2057,6 +2121,10 @@ TRAIN_OVERRIDES = ["model.attention=flash"]
 # Optimizer steps timed after one warm-up step (step 0, lr 0 under the
 # recipe's 2000-step warmup).
 TRAIN_STEPS = 3
+# offload_path: train_path's warm-up and first two timed steps with the
+# optimizer state in pinned host memory.
+OFFLOAD_OVERRIDES = ["trainer.offload_opt_state=true"]
+OFFLOAD_STEPS = 3
 H100_BF16_PEAK = PEAK_FLOPS[torch.bfloat16]
 
 
@@ -2416,11 +2484,14 @@ class CountCollectives:
     block (the port calls them through the module, so patching the
     module's names sees every call)."""
 
+    def __init__(self, names=None):
+        self.names = MESH_COLLECTIVES if names is None else names
+
     def __enter__(self):
         import torch.distributed as dist
 
-        self.counts = dict.fromkeys(MESH_COLLECTIVES, 0)
-        self._real = {n: getattr(dist, n) for n in MESH_COLLECTIVES}
+        self.counts = dict.fromkeys(self.names, 0)
+        self._real = {n: getattr(dist, n) for n in self.names}
 
         def wrap(name, fn):
             def counted(*a, **k):
@@ -4994,6 +5065,422 @@ def init_params_phase(gen, sd, work: str) -> dict:
                             "first_loss": first}}
 
 
+# tp_serve_path: two ranks on the one card, model=2 (8 of 16 heads a
+# rank), 8 requests of each paths' kind, 32 new tokens.
+TP_RANKS = 2
+TP_REQUESTS = 8
+TP_NEW = 32
+TP_TIMEOUT_S = 300
+# What a lock-stepped engine calls: the row-parallel all-reduces, the
+# token broadcasts, the step's plan and the admission flag.
+TP_COLLECTIVES = ("all_reduce", "all_gather", "broadcast",
+                  "broadcast_object_list")
+# bf16 logits of the first step, two ranks against one: the row-parallel
+# products round each rank's partial sum to bf16 before the sum, once a
+# sublayer, where one rank rounds the whole sum once; allow the logits
+# gate of the serving paths, 8 bf16 ulps of the largest logit.
+TP_BF16_LOGIT_ULPS = 8
+
+
+def _tp_engine_run(eng, reqs, new: int) -> dict:
+    """Serve ``reqs`` through ``eng`` with the launch counts and the
+    collectives counted: tokens per request, stats, tokens/s."""
+    ids = [eng.submit(p, new) for p in reqs]
+    reset_launches()
+    torch.cuda.synchronize()
+    with CountCollectives(TP_COLLECTIVES) as cc:
+        t0 = time.perf_counter()
+        done = {c.id: c for c in eng.run()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = read_launches()
+    check(sorted(done) == sorted(ids), "tp_serve_path: a request is missing")
+    comps = [done[i] for i in ids]
+    check(all(c.ok for c in comps), "tp_serve_path: a request did not end ok")
+    n_tok = sum(len(c.tokens) - c.prompt_len for c in comps)
+    st = dict(eng.stats)
+    return {"tokens": [c.tokens.tolist() for c in comps],
+            "prompt_lens": [c.prompt_len for c in comps],
+            "generated_tokens": n_tok, "wall_s": wall,
+            "tokens_per_s": n_tok / wall, "stats": st,
+            "launches": {k: n for k, n in counts.items() if n},
+            "collectives": cc.counts}
+
+
+def _tp_kernel_watch(da) -> dict:
+    """Wrap the contiguous decode, paged decode and verify launchers of
+    ``ops/decode_attention.py`` (the routers call them by module name):
+    while ``on``, each call records its q's head count, and the first
+    call of each kernel and dtype holds the kernel's output against the
+    plain version on the same inputs (these plain calls launch
+    nothing)."""
+    seen = {"decode_attention": [], "paged_decode_attention": [],
+            "paged_verify_attention": []}
+    state = {"on": False, "seen": seen, "err": {}}
+
+    def watch(name, real, plain):
+        def launch(q, *a, **k):
+            out = real(q, *a, **k)
+            if not state["on"]:
+                return out
+            seen[name].append(int(q.shape[-2]))
+            key = f"{name} {str(q.dtype)[6:]}"
+            if key not in state["err"]:
+                ref = plain(q, *a)
+                state["err"][key] = {
+                    "heads": int(q.shape[-2]), "dtype": str(q.dtype),
+                    "max_abs_err": (out.float() - ref.float())
+                    .abs().max().item()}
+            return out
+        return launch
+
+    def plain_decode(q, k, v, kv_len, *_):
+        return da.dense_decode_attention(q, k, v, kv_len.clamp_min(1))
+
+    def plain_paged(fn):
+        def run(q, kp, vp, kv_len, tables, ks=None, vs=None, *_):
+            return fn(q, kp, vp, kv_len, tables, ks, vs)
+        return run
+
+    da._flash_decode = watch("decode_attention", da._flash_decode,
+                             plain_decode)
+    da._flash_paged_decode = watch(
+        "paged_decode_attention", da._flash_paged_decode,
+        plain_paged(da.dense_paged_decode_attention))
+    da._flash_paged_verify = watch(
+        "paged_verify_attention", da._flash_paged_verify,
+        plain_paged(da.dense_paged_verify_attention))
+    return state
+
+
+def _first_diff(a: list, b: list, start: int):
+    """The first position at or past ``start`` where ``a`` and ``b``
+    differ (None when they agree)."""
+    for j in range(start, min(len(a), len(b))):
+        if a[j] != b[j]:
+            return j
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def tp_serve_rank(rank: int, port: int, out: str, seed: int) -> int:
+    """One rank of tp_serve_path (``--tp-rank``): joins a gloo group of
+    ``TP_RANKS`` processes on the one card (NCCL refuses two ranks on one
+    device; gloo carries the CUDA tensors through host copies, chosen
+    here for that reason), builds the ``data=1 model=2`` mesh, and serves
+    ``gpt2_medium_serve`` at full width and depth from seeded weights
+    (the same on both ranks) through ``build_engine(rules=
+    gpt_tp_rules())``: the contiguous engine and the paged + ngram engine,
+    fp32 then bf16_mixed. Rank 0 also serves the same requests on one
+    rank (no mesh) as the reference, holds the fp32 tokens to them (the
+    top-2-gap rule where they differ) and measures the first step's
+    logits two ranks against one. Writes ``out/tp_rank<rank>.json``."""
+    import datetime
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from frl_distributed_ml_scaffold_tpu_torch.config import (
+        apply_overrides,
+        get_config,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
+        MeshConfig,
+        PrecisionConfig,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import (
+        build_mesh,
+        mesh_context,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.models import generation
+    from frl_distributed_ml_scaffold_tpu_torch.models.convert import (
+        init_params,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.models.gpt import (
+        GPT,
+        gpt_tp_rules,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.ops import decode_attention
+    from frl_distributed_ml_scaffold_tpu_torch.precision import get_policy
+    from frl_distributed_ml_scaffold_tpu_torch.serving import build_engine
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=TP_RANKS,
+        rank=rank, timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    env = build_mesh(MeshConfig(data=1, model=TP_RANKS))
+    watch = _tp_kernel_watch(decode_attention)
+    base = get_config("gpt2_medium_serve")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 17)
+    sd = init_params(base.model, gen)
+    vocab, layers = base.model.vocab_size, base.model.num_layers
+    reqs = {"contiguous": requests(seed, vocab)[:TP_REQUESTS],
+            "paged": paged_requests(seed, vocab)[:TP_REQUESTS]}
+    report = {"rank": rank, "backend": dist.get_backend(),
+              "coords": env.coords, "policies": {}}
+    for policy in ("fp32", "bf16_mixed"):
+        cfgs = {"contiguous": base.replace(
+            precision=PrecisionConfig(policy=policy))}
+        cfgs["paged"] = apply_overrides(cfgs["contiguous"], PAGED_OVERRIDES)
+        cfg = cfgs["contiguous"]
+        entry = {}
+        one = None
+        if rank == 0:
+            one = GPT(cfg.model, get_policy(cfg.precision), device="cuda")
+            one.load_state_dict(sd)
+            entry["one_rank"] = {
+                kind: _tp_engine_run(build_engine(
+                    one, serving=c.serving, num_slots=8, eos_id=50256,
+                    temperature=0.0), reqs[kind], TP_NEW)
+                for kind, c in cfgs.items()}
+        model = GPT(cfg.model, get_policy(cfg.precision), device="cuda")
+        model.load_state_dict(sd)
+        with mesh_context(env):
+            engines = {"contiguous": build_engine(
+                model, serving=cfgs["contiguous"].serving,
+                rules=gpt_tp_rules(), num_slots=8, eos_id=50256,
+                temperature=0.0)}
+            # The params are placed: the paged engine takes them as they
+            # are.
+            engines["paged"] = build_engine(
+                model, serving=cfgs["paged"].serving, num_slots=8,
+                eos_id=50256, temperature=0.0)
+        report["heads_per_rank"] = model.local_heads()
+        check(model.local_heads() == base.model.num_heads // TP_RANKS,
+              f"tp_serve_path: {model.local_heads()} heads a rank")
+        for kind, eng in engines.items():
+            watch["on"] = True
+            run = _tp_engine_run(eng, reqs[kind], TP_NEW)
+            watch["on"] = False
+            st, n = run["stats"], run["launches"]
+            per = ({"decode_attention": st["decode_steps"]}
+                   if kind == "contiguous" else
+                   {"paged_decode_attention": st.get("decode_paged", 0),
+                    "paged_verify_attention": st.get("decode_verify", 0)})
+            check_launches(read_launches(), per, layers,
+                           f"tp_serve_path {policy} {kind}")
+            run["launches_per_step"] = {
+                k: n.get(k, 0) / max(v, 1) for k, v in per.items()}
+            run["collectives_per_step"] = {
+                k: v / max(st["decode_steps"], 1)
+                for k, v in run["collectives"].items()}
+            entry[kind] = run
+        # The first step's logits, two ranks against one.
+        prompt = torch.from_numpy(reqs["contiguous"][0])[None].cuda()
+        bucket = generation.next_cache_bucket(base.model.seq_len,
+                                              prompt.shape[1])
+        with mesh_context(env), torch.no_grad():
+            tp_logits, _ = generation._prefill(model, prompt, None,
+                                               cache_len=bucket)
+        if rank == 0:
+            with torch.no_grad():
+                one_logits, _ = generation._prefill(one, prompt, None,
+                                                    cache_len=bucket)
+            diff = (tp_logits.float() - one_logits.float()).abs().max().item()
+            top = one_logits.float().abs().max().item()
+            entry["first_step_logits"] = {
+                "max_abs_diff": diff, "max_abs_logit": top,
+                "tol": (TP_BF16_LOGIT_ULPS * 2 ** -7 * top
+                        if policy == "bf16_mixed" else None)}
+            for kind in cfgs:
+                div = []
+                for i, (a, b) in enumerate(zip(
+                        entry[kind]["tokens"],
+                        entry["one_rank"][kind]["tokens"])):
+                    start = entry[kind]["prompt_lens"][i]
+                    j = _first_diff(a, b, start)
+                    rec = {"request": i, "first_diff_step":
+                           None if j is None else j - start}
+                    if j is not None and policy == "fp32":
+                        gap = _top2_gap(one, cfg, np.asarray(b[:j],
+                                                             np.int32))
+                        rec.update(top2_gap=gap, gap_tol=FP32_GAP_TOL)
+                        check(gap <= FP32_GAP_TOL,
+                              f"tp_serve_path fp32 {kind}: request {i} "
+                              f"differs at step {j - start} with top-2 "
+                              f"gap {gap}")
+                    div.append(rec)
+                entry[kind]["vs_one_rank"] = div
+        del engines, model, one
+        torch.cuda.empty_cache()
+        report["policies"][policy] = entry
+    report["kernel_heads"] = {k: sorted(set(v))
+                              for k, v in watch["seen"].items()}
+    report["kernel_vs_plain"] = watch["err"]
+    with open(os.path.join(out, f"tp_rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_serve_phase(seed: int, card: str) -> dict:
+    """tp_serve_path: ``TP_RANKS`` processes of this script
+    (``tp_serve_rank``) on the one card. Both ranks end with the same
+    tokens; fp32 they are the one-rank engine's (top-2-gap rule); B4, B5
+    and B6 launch 24 times a step of their kind at 8 heads a rank and
+    agree with their plain versions there; the first step's bf16 logits
+    are within ``TP_BF16_LOGIT_ULPS`` ulps of one rank's. gloo copies
+    every collective through the host, so its times are no measure of
+    tensor-parallel serving over NVLink."""
+    out = tempfile.mkdtemp(prefix="tp_", dir=os.path.join(REPO, "build"))
+    port = free_port()
+    log_paths = [os.path.join(out, f"rank{r}.log") for r in range(TP_RANKS)]
+    procs = []
+    for r in range(TP_RANKS):
+        with open(log_paths[r], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--seed",
+                 str(seed), "--tp-rank", str(r), "--tp-port", str(port),
+                 "--tp-out", out],
+                stdout=log, stderr=subprocess.STDOUT, cwd=REPO))
+    deadline = time.perf_counter() + TP_TIMEOUT_S
+    try:
+        # A rank that fails leaves the other in a collective: stop both.
+        while any(p.poll() is None for p in procs):
+            if (any(p.poll() not in (None, 0) for p in procs)
+                    or time.perf_counter() > deadline):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    logs = []
+    for path in log_paths:
+        with open(path) as f:
+            logs.append(f.read())
+    with open(os.path.join(OUT_DIR, "tp_serve_ranks.log"), "w") as f:
+        f.write("\n".join(logs))
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"tp_serve_path: rank {r} exited "
+              f"{p.returncode}: {logs[r][-3000:]}")
+    ranks = []
+    for r in range(TP_RANKS):
+        with open(os.path.join(out, f"tp_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(out, ignore_errors=True)
+    return tp_report(ranks, card)
+
+
+def tp_report(ranks: list, card: str) -> dict:
+    """tp_serve_path's checks across the ranks' results, and its line."""
+    r0 = ranks[0]
+    for r in ranks[1:]:
+        for policy, entry in r["policies"].items():
+            for kind in ("contiguous", "paged"):
+                check(entry[kind]["tokens"]
+                      == r0["policies"][policy][kind]["tokens"],
+                      f"tp_serve_path {policy} {kind}: rank {r['rank']} "
+                      "differs from rank 0")
+    heads = {k: v for r in ranks for k, v in r["kernel_heads"].items()}
+    check(all(v == [r0["heads_per_rank"]] for v in heads.values())
+          and len(heads) == 3, f"tp_serve_path: kernel heads {heads}")
+    for r in ranks:
+        for name, e in r["kernel_vs_plain"].items():
+            check(e["max_abs_err"] <= TOL[getattr(torch, e["dtype"][6:])],
+                  f"tp_serve_path: {name} vs plain {e}")
+    bf16 = r0["policies"]["bf16_mixed"]["first_step_logits"]
+    check(bf16["max_abs_diff"] <= bf16["tol"],
+          f"tp_serve_path: bf16 first-step logits {bf16}")
+    report = {"card": card, "config": "gpt2_medium_serve",
+              "mesh": {"data": 1, "model": TP_RANKS},
+              "backend": r0["backend"],
+              "backend_note": "gloo over CUDA tensors, every collective "
+                              "copied through the host: not a measure "
+                              "of tensor-parallel serving speed",
+              "requests": TP_REQUESTS, "new_tokens": TP_NEW,
+              "heads_per_rank": r0["heads_per_rank"],
+              "kernel_heads": heads,
+              "kernel_vs_plain": {r["rank"]: r["kernel_vs_plain"]
+                                  for r in ranks}}
+    for policy, entry in r0["policies"].items():
+        rep = {"first_step_logits": entry["first_step_logits"]}
+        for kind in ("contiguous", "paged"):
+            run, one = entry[kind], entry["one_rank"][kind]
+            rep[kind] = {k: run[k] for k in (
+                "generated_tokens", "wall_s", "tokens_per_s",
+                "launches", "launches_per_step", "collectives",
+                "collectives_per_step", "vs_one_rank")}
+            rep[kind]["decode_steps"] = run["stats"]["decode_steps"]
+            rep[kind]["one_rank_tokens_per_s"] = one["tokens_per_s"]
+            rep[kind]["identical_to_one_rank"] = all(
+                d["first_diff_step"] is None for d in run["vs_one_rank"])
+        report[policy] = rep
+    return report
+
+
+def offload_phase(sd, card: str, train: dict) -> dict:
+    """offload_path: train_path's first three steps (the warm-up and two
+    timed ones, same weights and batches) with
+    ``trainer.offload_opt_state=true``: the AdamW state lives in pinned
+    host memory and each update streams it through the card a leaf at a
+    time. Losses and grad_norms equal train_path's bit for bit; every
+    state tensor is pinned; the peak memory of the steps against
+    train_path's; the step against train_path's."""
+    from frl_distributed_ml_scaffold_tpu_torch.config import (
+        apply_overrides,
+        get_config,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.data.synthetic import SyntheticLM
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.train_step import (
+        offload_state,
+    )
+
+    cfg = apply_overrides(get_config("gpt2_medium_zero1"),
+                          TRAIN_OVERRIDES + OFFLOAD_OVERRIDES)
+    model, policy, tx, schedule, state, loss_fn = _train_setup(cfg, sd)
+    step = _step_fn(cfg, loss_fn, tx, policy)
+    offload_state(state.opt_state)
+    data = SyntheticLM(cfg.data, split="train")
+    gb = cfg.data.global_batch_size
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for s in range(OFFLOAD_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, data.batch(s, gb))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps.append({"step": s, "loss": float(m["loss"]),
+                      "grad_norm": float(m["grad_norm"]), "step_s": wall})
+    peak = torch.cuda.max_memory_allocated()
+    for got, want in zip(steps, train["steps"]):
+        check(got["loss"] == want["loss"]
+              and got["grad_norm"] == want["grad_norm"],
+              f"offload_path step {got['step']}: {got} against train_path's "
+              f"{want}")
+    tensors = [t for v in state.opt_state.values() if isinstance(v, dict)
+               for t in v.values()]
+    check(all(t.device.type == "cpu" and t.is_pinned() for t in tensors),
+          "offload_path: an optimizer-state tensor is not pinned host memory")
+    host_bytes = sum(t.numel() * t.element_size() for t in tensors)
+    check(host_bytes == train["opt_state_bytes"],
+          f"offload_path: {host_bytes} state bytes on the host, train_path "
+          f"holds {train['opt_state_bytes']}")
+    check(peak < train["max_memory_allocated_bytes"],
+          f"offload_path: peak {peak} not below train_path's "
+          f"{train['max_memory_allocated_bytes']}")
+    timed_s = [r["step_s"] for r in steps[1:]]
+    report = {"card": card, "config": cfg.name,
+              "overrides": TRAIN_OVERRIDES + OFFLOAD_OVERRIDES,
+              "steps": steps, "step_s_median": statistics.median(timed_s),
+              "train_path_step_s_median": train["step_s_median"],
+              "step_ratio": statistics.median(timed_s)
+              / train["step_s_median"],
+              "losses_bit_equal_to_train_path": True,
+              "opt_state_host_bytes": host_bytes, "all_pinned": True,
+              "max_memory_allocated_bytes": peak,
+              "train_path_max_memory_allocated_bytes":
+                  train["max_memory_allocated_bytes"],
+              "peak_saved_bytes": train["max_memory_allocated_bytes"] - peak}
+    del model, state, step
+    torch.cuda.empty_cache()
+    return report
+
+
 def beam_phase(cfg, sd, seed: int, card: str) -> dict:
     """beam_path: ``gpt2_medium_serve`` (bf16_mixed, seeded weights),
     ``BEAM_PROMPTS`` ragged prompts of 32-64 tokens, ``BEAM_WIDTH``
@@ -5087,11 +5574,19 @@ def beam_phase(cfg, sd, seed: int, card: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    # One rank of tp_serve_path (the script starts them itself).
+    ap.add_argument("--tp-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--tp-port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-out", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    if args.tp_rank is not None:
+        return tp_serve_rank(args.tp_rank, args.tp_port, args.tp_out,
+                             args.seed)
     from frl_distributed_ml_scaffold_tpu_torch.config import (
         apply_overrides,
         get_config,
@@ -5175,6 +5670,10 @@ def main() -> int:
     # Beam search over the same weights: its own launch counts.
     emit("beam_path", timed_phase("beam_path", beam_phase, cfg, sd,
                                   args.seed, card))
+    # Tensor-parallel serving: two processes on the card, model=2.
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    emit("tp_serve_path", timed_phase("tp_serve_path", tp_serve_phase,
+                                      args.seed, card))
     kern.update(timed_phase("flash_kernel", flash_kernel_phase, gen))
     report, counts, profile = timed_phase("train_path", train_phase, sd, card)
     launches.update({k: n for k, n in counts.items() if n})
@@ -5183,6 +5682,8 @@ def main() -> int:
     train_step_s = report["step_s_median"]
     adamw_state_bytes = report["opt_state_bytes"]
     emit("train_profile", profile)
+    emit("offload_path", timed_phase("offload_path", offload_phase, sd,
+                                     card, train_report))
     emit("fp32_train_check", timed_phase("fp32_train_check",
                                          fp32_train_phase, sd))
     # The mesh path on one NCCL rank: train_path again through the

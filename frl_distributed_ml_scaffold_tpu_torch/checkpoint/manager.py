@@ -113,6 +113,21 @@ def _check_tree(raw: dict, want: dict, step: int) -> None:
                             + ", ".join(bad[:5]))
 
 
+def _cast_like(raw: Any, want: Any) -> Any:
+    """``raw`` with each floating-point tensor cast to the dtype of the
+    template's tensor at its path, as the JAX checkpointer restores into
+    its template's dtypes: Adafactor's moments are saved in the param
+    dtype and come back in the fp32 the state is built with (an exact
+    widening). Anything else is left for ``_check_tree`` to judge."""
+    if isinstance(raw, dict) and isinstance(want, dict):
+        return {k: _cast_like(v, want.get(k)) for k, v in raw.items()}
+    if (isinstance(raw, torch.Tensor) and isinstance(want, torch.Tensor)
+            and raw.dtype != want.dtype and raw.is_floating_point()
+            and want.is_floating_point()):
+        return raw.to(want.dtype)
+    return raw
+
+
 def _to_device(state: TrainState, device) -> TrainState:
     def move(x):
         if isinstance(x, dict):
@@ -353,6 +368,7 @@ class Checkpointer:
     @staticmethod
     def _as_state(raw: dict, shapes: TrainState, step: int) -> TrainState:
         want = _state_tree(shapes)
+        raw = _cast_like(raw, want)
         _check_tree({k: raw.get(k) for k in want}, want, step)
         return TrainState(step=int(raw["step"]), params=raw["params"],
                           opt_state=raw["opt_state"], extras=raw["extras"],

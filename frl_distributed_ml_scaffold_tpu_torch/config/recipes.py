@@ -79,8 +79,12 @@ def gpt2_medium_zero1() -> ExperimentConfig:
 def gpt2_medium_serve() -> ExperimentConfig:
     """The GPT-2-medium weights served through the continuous-batching
     engine with the hand-written decode kernel
-    (``model.decode_attention=flash``). The JAX recipe's 2-way ``model``
-    axis is kept in the config; the port serves on one card."""
+    (``model.decode_attention=flash``), over the JAX recipe's mesh: the
+    engine serves over its ``model=2`` ranks when built inside
+    ``mesh_context(build_mesh(cfg.mesh))`` with ``build_engine(...,
+    rules=gpt_tp_rules())`` (8 of the 16 heads a rank; along ``data``
+    the ranks share the requests, the contiguous cache's rows split
+    over them), and on one card without a mesh."""
     base = gpt2_medium_zero1()
     return base.replace(
         name="gpt2_medium_serve",

@@ -101,7 +101,8 @@ class OptimizerConfig:
 class TrainerConfig:
     """The training loop's knobs. ``make_train_step`` reads
     ``grad_accum``, ``remat``, ``ema_decay`` and ``offload_opt_state``
-    (refused, ROADMAP A7); ``trainer/loop.py`` ``Trainer``
+    (the state in pinned host memory, on a card); ``trainer/loop.py``
+    ``Trainer``
     reads the rest: ``total_steps``, ``log_every``, ``eval_every`` /
     ``eval_steps``, ``seed`` (the seeded init), ``profile_steps`` /
     ``profile_start_step`` (a ``torch.profiler`` window),

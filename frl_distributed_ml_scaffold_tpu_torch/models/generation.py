@@ -9,6 +9,13 @@ The serving engine's paged pool adds the speculative verify step and
 cursor rewind, and the block-pool taxonomy (``POOL_LEAF_OF``,
 ``splice_pool_blocks``, ``pool_block_bytes``) at the end of the module.
 
+Under a mesh (``mesh_context``) with the model's parameters placed by
+``shard_params_for_serving``, ``generate`` and ``beam_search`` decode
+over this rank's heads and, when they divide, this rank's rows of the
+batch (``GPT.cache_rows``), every rank ending with every row's tokens.
+The byte counts report the whole arrays, as the JAX functions count
+them, when given the model's head count.
+
 Sampling: greedy (``temperature=0``), temperature, top-k and nucleus
 (top-p), drawing from an explicit ``torch.Generator``. The draws differ
 from ``jax.random``'s; greedy decoding is the same function in both.
@@ -170,7 +177,15 @@ def _gather_cache_rows(cache: dict, rows: torch.Tensor,
     """The per-beam rows of a contiguous decode cache reordered by
     ``rows``: K/V, scales and the per-row bookkeeping (``cache_index``,
     ``pos_index``) follow their beam, since under ragged prompts the
-    beams of different rows sit at different positions."""
+    beams of different rows sit at different positions. A cache split
+    over the batch axes (``GPT.cache_rows``) holds this rank's slice of
+    the ``batch_rows`` rows, and each of them takes a parent of the same
+    prompt, so of the same slice."""
+    held = cache["pos_index"].shape[0]
+    if held != batch_rows:
+        lo = _row0(held)
+        rows = rows[lo:lo + held] - lo
+        batch_rows = held
     out = {}
     for name, leaf in cache.items():
         ax = cache_batch_axis(leaf, batch_rows)
@@ -178,9 +193,21 @@ def _gather_cache_rows(cache: dict, rows: torch.Tensor,
     return out
 
 
+def _row0(held: int) -> int:
+    """The first global row of this rank's ``held`` rows of a cache split
+    over the batch axes of the current mesh."""
+    from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import (
+        current_mesh_env,
+    )
+
+    return current_mesh_env().batch_index * held
+
+
 def _repeat_cache_rows(cache: dict, w: int, batch_rows: int) -> dict:
     """A ``[B]``-row cache as ``[B * W]`` beams, each row repeated ``w``
-    times in place (row b's beams are rows ``b * w .. b * w + w - 1``)."""
+    times in place (row b's beams are rows ``b * w .. b * w + w - 1``;
+    a split cache's slice of them, since its rows are whole prompts)."""
+    batch_rows = cache["pos_index"].shape[0]
     out = {}
     for name, leaf in cache.items():
         ax = cache_batch_axis(leaf, batch_rows)
@@ -329,15 +356,32 @@ def cache_capacity_axis(leaf: torch.Tensor, cache_len: int) -> int | None:
     return None
 
 
-def cache_bytes_per_slot(cache: dict, num_slots: int) -> int:
+def _heads_scale(leaf: torch.Tensor, axis: int | None,
+                 num_heads: int | None) -> float:
+    """How many times the whole array holds ``leaf``'s heads: a leaf of
+    this rank's ``leaf.shape[axis]`` heads counts ``num_heads`` of them
+    (1 when not asked for, or for a leaf without heads)."""
+    if num_heads is None or axis is None:
+        return 1
+    return num_heads / leaf.shape[axis]
+
+
+def cache_bytes_per_slot(cache: dict, num_slots: int, *,
+                         num_heads: int | None = None) -> int:
     """Per-slot device bytes of a decode cache, from its actual leaves
-    (scale leaves and bookkeeping included)."""
+    (scale leaves and bookkeeping included). ``num_slots`` is the rows
+    the leaves hold. With ``num_heads`` the count is the whole array's,
+    as the JAX function counts it: leaves holding this rank's heads
+    (axis 3 of the K/V ``[L, B, S, H, hd]`` and scale ``[L, B, S, H]``
+    stacks) count every head."""
     total = 0
     for leaf in cache.values():
         ax = cache_batch_axis(leaf, num_slots)
         if ax is None:
             continue
-        total += leaf.numel() // leaf.shape[ax] * leaf.element_size()
+        per_row = leaf.numel() // leaf.shape[ax] * leaf.element_size()
+        heads = 3 if leaf.dim() >= 4 else None
+        total += int(per_row * _heads_scale(leaf, heads, num_heads))
     return int(total)
 
 
@@ -415,15 +459,56 @@ def splice_pool_blocks(cache: dict, slot_cache: dict, blk_ids, m0: int,
     return cache
 
 
-def pool_block_bytes(cache: dict) -> int:
+def pool_block_bytes(cache: dict, *, num_heads: int | None = None) -> int:
     """Device bytes of ONE pool block across all layers, from the actual
-    pool leaves (the unit paged admission is priced in)."""
+    pool leaves (the unit paged admission is priced in). With
+    ``num_heads`` the whole pool's block, as the JAX function counts it:
+    a leaf of this rank's heads (``pool_heads_axis``) counts every
+    head."""
     total = 0
     for name, leaf in cache.items():
         if name in SLOT_LEAF_OF:
             # [L, N, bs, ...] stacked pool leaf: bytes per all-layer block.
-            total += leaf.numel() // leaf.shape[1] * leaf.element_size()
+            per = leaf.numel() // leaf.shape[1] * leaf.element_size()
+            total += int(per * _heads_scale(leaf, pool_heads_axis(name, leaf),
+                                            num_heads))
     return int(total)
+
+
+def pool_cache_bytes(cache: dict, *, num_heads: int | None = None) -> int:
+    """Device bytes of a whole paged cache (pools, tables, cursors); with
+    ``num_heads`` the whole arrays' count, the pools at every head."""
+    return int(sum(
+        t.numel() * t.element_size()
+        * _heads_scale(t, pool_heads_axis(name, t), num_heads)
+        for name, t in cache.items()))
+
+
+def pool_heads_axis(name: str, leaf: torch.Tensor) -> int | None:
+    """Which axis of a POOL leaf carries the attention heads, the axis
+    tensor-parallel serving splits over ``model``: K/V pools ``[..., N,
+    bs, H, hd]`` at ``ndim - 2``, scale pools ``[..., N, bs, H]`` at
+    ``ndim - 1``; tables and cursors carry none. Keyed by name like
+    ``POOL_LEAF_OF`` (a pool's shape is a slot cache's by shape alone)."""
+    if name in ("key_pool", "value_pool"):
+        return leaf.dim() - 2
+    if name in ("key_pool_scale", "value_pool_scale"):
+        return leaf.dim() - 1
+    return None
+
+
+def pool_leaf_spec(name: str, leaf: torch.Tensor) -> tuple | None:
+    """The spec of one paged-cache leaf under a ``model`` axis (one entry
+    per dim, ``parallel/partition.py``'s form): a pool leaf splits its
+    heads over ``model`` and is whole over every batch axis (blocks are
+    shared by the slot rows); None for the bookkeeping leaves, which
+    every rank holds whole."""
+    ax = pool_heads_axis(name, leaf)
+    if ax is None:
+        return None
+    entries = [None] * leaf.dim()
+    entries[ax] = "model"
+    return tuple(entries)
 
 
 def estimate_pool_block_bytes(cfg, block_size: int, *,

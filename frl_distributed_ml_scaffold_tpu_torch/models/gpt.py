@@ -48,6 +48,16 @@ call takes one token per row (``paged_decode_attention``) or a verify
 tile of t tokens (``paged_verify_attention``); prefill stays contiguous
 and the serving engine splices it into the pool block by block.
 
+Tensor-parallel decode (the params placed by ``parallel/partition.py``
+``shard_params_for_serving``): each rank holds ``H / model`` heads of
+q / k / v, ``out`` and ``fc_out`` row-parallel (one all-reduce each a
+block), ``fc_in`` column-parallel, ``wte`` whole, so the logits come out
+whole and the same on every rank. The cache and the pool hold the
+rank's heads (``local_heads``); the contiguous cache's rows split over
+the batch axes when they divide (``cache_rows``) and the logits are
+gathered over them; the pool stays whole over them. Where the heads do
+not divide over ``model`` the attention stays whole on every rank.
+
 ``GPT.forward`` updates the cache IN PLACE (the JAX model returns a new
 cache and the serving engine donates the old one; in place is what keeps
 one cache live here). The capacity S is the tensors' own shape, so a
@@ -66,6 +76,11 @@ from torch.utils.checkpoint import checkpoint
 
 from frl_distributed_ml_scaffold_tpu_torch import resolve_device
 from frl_distributed_ml_scaffold_tpu_torch.config.schema import GPTConfig
+from frl_distributed_ml_scaffold_tpu_torch.dist.collectives import all_gather
+from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import (
+    BATCH_AXES,
+    current_mesh_env,
+)
 from frl_distributed_ml_scaffold_tpu_torch.models.dropout import (
     check_seed,
     dropout,
@@ -262,14 +277,18 @@ class CausalSelfAttention(nn.Module):
             return self._train(x)
         cfg = self.cfg
         b, t, d = x.shape
-        h = cfg.num_heads
-        hd = d // h
+        hd = d // cfg.num_heads
+        # This rank's heads, from its weights: under tensor-parallel
+        # serving q / k / v are column-parallel and ``out`` row-parallel
+        # (``shard_params_for_serving``); whole weights attend every head.
+        h = self.query.weight.shape[0] // hd
+        tp = h < cfg.num_heads
         q = self._dense(self.query, x).view(b, t, h, hd)
         k_w = self._dense(self.key, x).view(b, t, h, hd)
         v_w = self._dense(self.value, x).view(b, t, h, hd)
         if "key_pool" in cache:
             y = self._paged(q, k_w, v_w, cache, layer)
-            return self._dense(self.out, y.reshape(b, t, d))
+            return self._out(y.reshape(b, t, h * hd), tp)
         ck = cache["cached_key"][layer]  # [B, S, H, hd] view
         cv = cache["cached_value"][layer]
         ks = vs = None
@@ -309,7 +328,15 @@ class CausalSelfAttention(nn.Module):
                 cv = dequantize(cv, vs[..., None], self.dtype)
             y = _masked_dense_attention(q, ck, cv, mask)
         idx.add_(lens)
-        return self._dense(self.out, y.reshape(b, t, d))
+        return self._out(y.reshape(b, t, h * hd), tp)
+
+    def _out(self, y, tp: bool):
+        """The output projection of decode mode: row-parallel over
+        ``model`` (one all-reduce of the partial sums) when this rank
+        holds a slice of the heads."""
+        if tp:
+            return _row_parallel(self.out, y, self.dtype)
+        return self._dense(self.out, y)
 
     def _to_store(self, kc, vc, ks, vs, k_w, v_w):
         """``(leaf, values)`` pairs to write: K/V as they are, or, with
@@ -364,12 +391,15 @@ class GptMlp(nn.Module):
         d, pd = cfg.hidden_dim, policy.param_dtype
         self.fc_in = nn.Linear(d, d * cfg.mlp_ratio, device=device, dtype=pd)
         self.fc_out = nn.Linear(d * cfg.mlp_ratio, d, device=device, dtype=pd)
+        self.width = d * cfg.mlp_ratio
 
     def forward(self, x):
         """Under tensor parallelism ``fc_in`` is column-parallel and
-        ``fc_out`` row-parallel (``CausalSelfAttention._train``)."""
+        ``fc_out`` row-parallel (``CausalSelfAttention._train``): this
+        rank holds a slice of ``fc_in``'s outputs (the training step's
+        compute spec, or ``shard_params_for_serving``)."""
         cd = self.dtype
-        tp = model_shard()[1] > 1
+        tp = self.fc_in.weight.shape[0] < self.width
         if tp:
             x = copy_to_model(x)
         y = F.linear(x.to(cd), self.fc_in.weight.to(cd), self.fc_in.bias.to(cd))
@@ -433,6 +463,9 @@ class GPT(nn.Module):
     the forward over its own compute-dtype parameters with
     ``torch.func.functional_call``."""
 
+    # The parameters the forward reads whole under tensor parallelism.
+    TP_COMPUTE_WHOLE = TP_COMPUTE_WHOLE
+
     def __init__(self, config: GPTConfig, policy: Policy, *, device=None):
         super().__init__()
         _check_supported(config)
@@ -457,6 +490,26 @@ class GPT(nn.Module):
     def device(self) -> torch.device:
         return self.wpe.device
 
+    def local_heads(self) -> int:
+        """The attention heads this rank holds: all of them, or its slice
+        when ``shard_params_for_serving`` split q / k / v over
+        ``model``."""
+        cfg = self.config
+        return (self.blocks[0].attn.query.weight.shape[0]
+                // (cfg.hidden_dim // cfg.num_heads))
+
+    def cache_rows(self, batch: int) -> int:
+        """This rank's rows of a ``batch``-row contiguous cache. With the
+        heads split over ``model`` the rows split over the batch axes of
+        the current mesh when they divide, as the JAX model pins the
+        cache (``_constrain_kv_cache``); else every rank holds every
+        row."""
+        env = current_mesh_env()
+        if env is None or self.local_heads() == self.config.num_heads:
+            return batch
+        n = env.batch_axis_size
+        return batch // n if batch % n == 0 else batch
+
     def _kv_leaves(self, scale_of: dict, shape) -> dict:
         """The K/V leaves named by ``scale_of``'s keys, ``[*shape, hd]``
         in the compute dtype; under a quantized cache 1-byte payloads,
@@ -474,13 +527,15 @@ class GPT(nn.Module):
         return out
 
     def init_cache(self, batch: int, cache_len: int) -> dict:
-        """An empty decode cache of capacity ``cache_len``."""
+        """An empty decode cache of capacity ``cache_len`` for ``batch``
+        rows, over this rank's heads and rows (``cache_rows``)."""
         cfg = self.config
         dev = self.device
+        batch = self.cache_rows(batch)
         return {
             **self._kv_leaves(
                 {"cached_key": "key_scale", "cached_value": "value_scale"},
-                (cfg.num_layers, batch, cache_len, cfg.num_heads),
+                (cfg.num_layers, batch, cache_len, self.local_heads()),
             ),
             "cache_index": torch.zeros(
                 (cfg.num_layers, batch), dtype=torch.int32, device=dev
@@ -492,8 +547,11 @@ class GPT(nn.Module):
         self, num_slots: int, block_size: int, pool_blocks: int
     ) -> dict:
         """An empty paged decode cache: a pool of ``pool_blocks`` blocks of
-        ``block_size`` positions per layer, and all-zero tables (every row
-        pointing at the trash block 0)."""
+        ``block_size`` positions per layer over this rank's heads, and
+        all-zero tables (every row pointing at the trash block 0). The
+        pool is shared by every row, so it is whole on every rank of a
+        batch group, as the JAX model keeps it (``_constrain_kv_pool``),
+        and every rank computes every row."""
         cfg = self.config
         dev = self.device
         m_blocks = -(-cfg.seq_len // block_size)
@@ -501,7 +559,7 @@ class GPT(nn.Module):
             **self._kv_leaves(
                 {"key_pool": "key_pool_scale",
                  "value_pool": "value_pool_scale"},
-                (cfg.num_layers, pool_blocks, block_size, cfg.num_heads),
+                (cfg.num_layers, pool_blocks, block_size, self.local_heads()),
             ),
             "block_tables": torch.zeros(
                 (num_slots, m_blocks), dtype=torch.int32, device=dev
@@ -552,6 +610,21 @@ class GPT(nn.Module):
             if lengths is None
             else lengths.to(device=tokens.device, dtype=torch.int32)
         )
+        rows = cache["pos_index"].shape[0]
+        if rows != b:
+            # A cache split over the batch axes (``cache_rows``): this
+            # rank decodes its rows, and every rank gets every row's
+            # logits.
+            env = current_mesh_env()
+            n = 1 if env is None else env.batch_axis_size
+            if rows * n != b:
+                raise ValueError(
+                    f"cache holds {rows} rows for a batch of {b} over "
+                    f"{n} batch shards")
+            lo = env.batch_index * rows
+            logits = self.forward(tokens[lo:lo + rows], cache,
+                                  lens[lo:lo + rows])
+            return all_gather(logits, BATCH_AXES, env=env)
         # Absolute positions per row; left-pad columns clip to 0 (their
         # lanes are masked out and never read).
         pos = cache["pos_index"]

@@ -41,6 +41,12 @@ Two versions of each function:
   ``decode_splits`` picks), launched on the current stream through
   ``ctypes``.
 
+Under tensor-parallel serving each rank calls the routers on its own
+heads (q, the cache or pools and the scales all hold ``H / model`` of
+them; the routers check they agree and raise when they do not): no
+collective runs inside, the one sum per block is the model's ``out``
+projection, as the JAX package's ``shard_map`` regions have it.
+
 The routers (``decode_attention``, ``paged_decode_attention``,
 ``paged_verify_attention``) choose by the tensor's device only: a CPU
 tensor takes the plain version, a CUDA tensor launches the kernel or
@@ -309,6 +315,20 @@ def _flash_decode_quant(q, k, v, kv_len, k_scale, v_scale, splits=None):
     return out
 
 
+def _check_heads(q, k, v, k_scale, v_scale, what: str) -> None:
+    """q, the cache (or pool) and its scales hold the same heads: under
+    tensor parallelism each takes this rank's heads, and a cache sized
+    for another head count must raise, not attend over the wrong ones."""
+    h = q.shape[-2]
+    got = [k.shape[2], v.shape[2]]
+    got += [s.shape[-1] for s in (k_scale, v_scale) if s is not None]
+    if any(n != h for n in got):
+        raise ValueError(
+            f"q holds {h} heads but the {what} and its scales hold {got}: "
+            "q, the cache and the scales must agree on the local head count"
+        )
+
+
 def _quantized(k_scale, v_scale, what: str) -> bool:
     """Both scales or neither (the reference's rule and message)."""
     if (k_scale is None) != (v_scale is None):
@@ -338,6 +358,7 @@ def decode_attention(
     version on a CPU tensor. ``decode_attention.launches`` /
     ``.quant_launches`` count kernel launches."""
     quant = _quantized(k_scale, v_scale, "cache")
+    _check_heads(q, k, v, k_scale, v_scale, "cache")
     if not _use_kernel(q, impl):
         lens = kv_len
         if impl == "flash":
@@ -587,6 +608,7 @@ def paged_decode_attention(
     ``paged_decode_attention.launches`` /
     ``.quant_launches`` count kernel launches."""
     _quantized(k_scale, v_scale, "pool")
+    _check_heads(q, k_pool, v_pool, k_scale, v_scale, "pool")
     if not _use_kernel(q, impl):
         return dense_paged_decode_attention(
             q, k_pool, v_pool, kv_len, block_tables, k_scale, v_scale
@@ -615,6 +637,7 @@ def paged_verify_attention(
     ``paged_verify_attention.launches`` / ``.quant_launches`` count kernel
     launches."""
     _quantized(k_scale, v_scale, "pool")
+    _check_heads(q, k_pool, v_pool, k_scale, v_scale, "pool")
     if not _use_kernel(q, impl):
         return dense_paged_verify_attention(
             q, k_pool, v_pool, kv_len, block_tables, k_scale, v_scale

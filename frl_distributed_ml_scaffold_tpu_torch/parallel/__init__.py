@@ -11,8 +11,9 @@ for DP, FSDP, ZeRO-1 and TP, as specs over one mesh.
   ``vit_tp_rules``), the forward's collectives in
   ``tensor_parallel.py``.
 
-``partition.py`` derives the specs, ``layout.py`` holds them for a run
-and moves tensors between them.
+``partition.py`` derives the specs (and places a model's parameters on a
+serving mesh: ``shard_params_for_serving``), ``layout.py`` holds them
+for a run and moves tensors between them.
 """
 
 from frl_distributed_ml_scaffold_tpu_torch.parallel.partition import (
@@ -23,4 +24,5 @@ from frl_distributed_ml_scaffold_tpu_torch.parallel.partition import (
     jax_spec_of,
     opt_state_specs,
     param_specs,
+    shard_params_for_serving,
 )

@@ -155,21 +155,26 @@ class StateLayout:
         if not moves:
             return x
         for d, e in moves:
-            k, group = self.env.axis_size(e), self.env.group(e)
-            n = self.shapes[name][d]
-            c = -(-n // k)
-            if x.shape[d] < c:  # the short last chunk: pad, then trim
-                pad = list(x.shape)
-                pad[d] = c - x.shape[d]
-                x = torch.cat([x, x.new_zeros(pad)], d)
-            parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
-                     for _ in range(k)]
-            dist.all_gather(parts, x.contiguous(), group=group)
-            x = torch.cat(parts, d).narrow(d, 0, n)
+            x = self.gather_dim(x, d, self.shapes[name][d], e)
         if out is not None:
             out.copy_(x)
             return out
         return x
+
+    def gather_dim(self, x: torch.Tensor, d: int, n: int, axis: str
+                   ) -> torch.Tensor:
+        """``x``, this rank's chunk of a dim ``d`` of size ``n`` split
+        over ``axis``, all-gathered whole along it."""
+        k = self.env.axis_size(axis)
+        c = -(-n // k)
+        if x.shape[d] < c:  # the short last chunk: pad, then trim
+            pad = list(x.shape)
+            pad[d] = c - x.shape[d]
+            x = torch.cat([x, x.new_zeros(pad)], d)
+        parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+                 for _ in range(k)]
+        dist.all_gather(parts, x.contiguous(), group=self.env.group(axis))
+        return torch.cat(parts, d).narrow(d, 0, n)
 
     def reduce(self, name: str, g: torch.Tensor, src: Spec, dst: Spec,
                sum_axes: tuple[str, ...]) -> torch.Tensor:
@@ -224,11 +229,15 @@ class StateLayout:
     def map_opt(self, fn: Callable[[str, torch.Tensor], torch.Tensor],
                 opt_state: dict) -> dict:
         """``opt_state`` with ``fn(name, tensor)`` applied to every
-        parameter-shaped tensor (the dicts keyed by parameter name)."""
+        parameter-shaped tensor (whole or this rank's shard, in the dicts
+        keyed by parameter name); the rest (Adafactor's factored moments
+        and placeholders, whole on every rank) as they are."""
         out = {}
         for key, v in opt_state.items():
             if isinstance(v, dict) and v and set(v) <= set(self.shapes):
-                out[key] = {k: fn(k, t) for k, t in v.items()}
+                out[key] = {k: (fn(k, t) if tuple(t.shape) in (
+                    self.shapes[k], self.local_shape(k, self.opt[k]))
+                    else t) for k, t in v.items()}
             else:
                 out[key] = v
         return out

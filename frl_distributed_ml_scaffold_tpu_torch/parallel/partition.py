@@ -172,6 +172,64 @@ def opt_state_specs(p_specs: dict[str, Spec], parallel: ParallelConfig,
             for name, spec in p_specs.items()}
 
 
+def shard_params_for_serving(model, env, rules: PartitionRules):
+    """Place a model's parameters onto a serving mesh by its TP rules, in
+    place: each parameter a rule splits over ``model`` keeps this rank's
+    slice (``layout.chunk_bounds``), every other one stays whole. Serving
+    has no optimizer state and no FSDP overlay (the JAX function's
+    replicated ``ParallelConfig()`` base), so only ``rules`` decides.
+    Returns the model.
+
+    Two choices of the port: the tensors the model reads whole
+    (``TP_COMPUTE_WHOLE``: the GPT's tied embedding and head) stay whole
+    on every rank, so the logits come out whole and the same on every
+    rank without a gather; and where the heads do not divide over
+    ``model`` (the JAX model leaves that cache unconstrained and decodes
+    every head) the attention's projections stay whole and each rank
+    attends every head, while the MLP still splits.
+
+    The module must hold the whole parameters (a host tree): a module
+    already holding split ones (a training layout's shards, the
+    train-to-serve handoff) moves through the redistribution service,
+    which is not ported (ROADMAP A13)."""
+    import torch
+
+    from frl_distributed_ml_scaffold_tpu_torch.parallel.layout import (
+        chunk_bounds,
+    )
+
+    whole = dict(type(model)(model.config, model.policy,
+                             device="meta").named_parameters())
+    params = dict(model.named_parameters())
+    if any(p.shape != whole[k].shape for k, p in params.items()):
+        raise NotImplementedError(
+            "shard_params_for_serving: the model holds split parameters (a "
+            "training layout's shards); the train-to-serve handoff moves "
+            "them through the redistribution service, which is not ported "
+            "yet (ROADMAP A13)")
+    keep = set(getattr(type(model), "TP_COMPUTE_WHOLE", ()))
+    cfg = model.config
+    if cfg.num_heads % env.axis_size("model"):
+        keep |= {k for k in params if ".attn." in k}
+    with torch.no_grad():
+        for name, p in params.items():
+            spec = normalize(rules.match(name), p.dim())
+            if name in keep or all(e is None for e in spec):
+                continue
+            for d, e in enumerate(spec):
+                if e is None:
+                    continue
+                if e != "model":
+                    raise ValueError(
+                        f"{name}: serving splits over model only, the rule "
+                        f"gives {spec}")
+                lo, hi = chunk_bounds(p.shape[d], env.axis_size(e),
+                                      env.axis_index(e))
+                p.data = p.data.narrow(d, lo, hi - lo).clone(
+                    memory_format=torch.contiguous_format)
+    return model
+
+
 # --------------------------------------------------------------- JAX leaves
 
 

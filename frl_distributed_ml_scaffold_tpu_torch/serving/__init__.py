@@ -25,14 +25,25 @@ def build_engine(model, *, serving, rules=None, **kw):
     ``serving.disaggregate`` to the ``DisaggServingEngine`` or the
     colocated ``ServingEngine``; both read the paged, speculation, queue
     and deadline knobs from ``serving``. ``kw`` passes through
-    (num_slots, eos_id, tenants, draft_model, device, ...). ``rules``
-    (placing the params onto a model-sharded serving layout) is refused:
-    the port serves on one card (ROADMAP A7)."""
+    (num_slots, eos_id, tenants, draft_model, prefill_env, device, ...).
+
+    ``rules``: the model's tensor-parallel partition rules (``models/
+    gpt.py`` ``gpt_tp_rules()``). Given inside ``mesh_context(env)``, the
+    model's parameters are first placed on this rank's shards
+    (``parallel.partition.shard_params_for_serving``, in place) and the
+    engine serves over the mesh; with no current mesh they do nothing,
+    as in the JAX package."""
     if rules is not None:
-        raise NotImplementedError(
-            "build_engine(rules=...) (tensor-parallel serving params on a "
-            "mesh) is not ported yet (ROADMAP A7)"
+        from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import (
+            current_mesh_env,
         )
+        from frl_distributed_ml_scaffold_tpu_torch.parallel.partition import (
+            shard_params_for_serving,
+        )
+
+        env = current_mesh_env()
+        if env is not None:
+            shard_params_for_serving(model, env, rules)
     cls = DisaggServingEngine if serving.disaggregate else ServingEngine
     return cls(model, serving=serving, **kw)
 

@@ -55,9 +55,27 @@ The port of the JAX package's ``serving/engine.py``:
 - **Handoff surface**: ``admit_handoff``, ``park_slot``,
   ``resume_parked`` and ``retire_parked``, which the disaggregated
   scheduler (``serving/scheduler.py``) drives.
+- **Tensor-parallel serving**: built inside ``mesh_context(env)`` with
+  the params placed by ``shard_params_for_serving``
+  (``build_engine(rules=)``), the engine captures the mesh once and
+  every rank of it runs the engine on the same requests: each attends
+  its own heads through the same kernels, the cache and the pool hold
+  its heads, and the contiguous cache's rows split over the batch axes
+  when they divide (``GPT.cache_rows``; the pool stays whole over them,
+  every rank computing every row). The host schedulers of the ranks stay
+  in LOCK STEP: a rank that admitted, expired, quarantined or sampled
+  differently would hang the next collective, so each step starts with
+  one plan that the mesh's rank 0 broadcasts (the requests its clock
+  finds past their deadlines; every deadline check of the step reads
+  it), the sampled and verified tokens are rank 0's (one broadcast a
+  step and one an admission), and an admission that failed on any rank
+  fails on all (one all-reduce of the failure flag). Everything else
+  the scheduler decides follows from state that is the same on every
+  rank: the queue bounds, the pool and the fault plan (seeded draws
+  taken in the same order).
 
-Waiting for a later slice (ROADMAP A7): mesh sharding
-and ``respread_pool``.
+Waiting for ROADMAP A13: ``respread_pool``, which moves the params and
+the pool through the redistribution service.
 """
 
 from __future__ import annotations
@@ -69,10 +87,18 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from frl_distributed_ml_scaffold_tpu_torch import faults, resolve_device
 from frl_distributed_ml_scaffold_tpu_torch.config.schema import ServingConfig
+from frl_distributed_ml_scaffold_tpu_torch.dist.collectives import (
+    host_broadcast,
+)
+from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import (
+    current_mesh_env,
+    mesh_context,
+)
 from frl_distributed_ml_scaffold_tpu_torch.models.generation import (
     SLOT_LEAF_OF,
     _decode_step,
@@ -86,6 +112,7 @@ from frl_distributed_ml_scaffold_tpu_torch.models.generation import (
     generate,
     next_cache_bucket,
     pool_block_bytes,
+    pool_cache_bytes,
     rewind_cache_indices,
     splice_pool_blocks,
 )
@@ -295,6 +322,16 @@ class ServingEngine:
         serving = ServingConfig() if serving is None else serving
         self.model = model
         self.num_slots = int(num_slots)
+        # The mesh, captured once: every step runs under it, and over
+        # more than one rank the engines run in lock step.
+        self._env = current_mesh_env()
+        self._lockstep = self._env is not None and self._env.num_devices > 1
+        self._plan_expired: set[int] = set()
+        # This rank's rows of the contiguous cache (all of them unless
+        # they split over the batch axes) and the first one's slot.
+        self._rows = model.cache_rows(self.num_slots)
+        self._row0 = (0 if self._rows == self.num_slots
+                      else self._env.batch_index * self._rows)
         self.eos_id = eos_id
         self._sample_kw = dict(
             temperature=temperature, top_k=top_k, top_p=top_p
@@ -546,7 +583,7 @@ class ServingEngine:
             help="prefix hits / admissions since engine start",
         )
         # Registered for the full catalog; 0 until the mesh re-spread
-        # lands (ROADMAP A7).
+        # lands with the redistribution service (ROADMAP A13).
         t.counter(
             "serve_pool_respread_total",
             help="live model-axis re-spreads of the paged pool "
@@ -706,10 +743,54 @@ class ServingEngine:
         req.span.end(finish_reason=reason, n_tokens=0)
 
     def _expired(self, req: ServeRequest, now: float | None = None) -> bool:
+        """Whether ``req`` is past its deadline: by this process's clock,
+        or in lock step by the step's plan (``_plan_step``)."""
+        if self._lockstep:
+            return req.id in self._plan_expired
+        return self._clock_expired(req, now)
+
+    @staticmethod
+    def _clock_expired(req: ServeRequest, now: float | None = None) -> bool:
         if not req.deadline_s:
             return False
         now = time.perf_counter() if now is None else now
         return now - req.t_submit > req.deadline_s
+
+    # ----------------------------------------------------------- lock step
+
+    def _mesh(self):
+        return mesh_context(self._env)
+
+    def _live_requests(self) -> list[ServeRequest]:
+        return list(self._queue) + [r for r in self._req if r is not None]
+
+    def _plan_step(self, reqs=None) -> None:
+        """The step's plan, in lock step: the ids of the live requests
+        (``reqs``, default the queue and the slots) that rank 0's clock
+        finds past their deadlines, broadcast from rank 0 once."""
+        if not self._lockstep:
+            return
+        reqs = self._live_requests() if reqs is None else reqs
+        now = time.perf_counter()
+        self._plan_expired = host_broadcast(
+            {r.id for r in reqs if self._clock_expired(r, now)})
+
+    def _agree(self, toks: torch.Tensor) -> torch.Tensor:
+        """Rank 0's sampled (or verified) tokens on every rank, in lock
+        step."""
+        if not self._lockstep:
+            return toks
+        toks = toks.contiguous()
+        dist.broadcast(toks, src=0)
+        return toks
+
+    def _agree_failed(self, failed: bool) -> bool:
+        """Whether an admission failed on any rank, in lock step."""
+        if not self._lockstep:
+            return failed
+        flag = torch.tensor([int(failed)], device=self.model.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
 
     @property
     def pending(self) -> int:
@@ -749,11 +830,10 @@ class ServingEngine:
         cursors) over ``num_slots``. 0 before the first admission."""
         if self.cache is None:
             return 0
+        heads = self.model.config.num_heads
         if self.paged:
-            total = sum(t.numel() * t.element_size()
-                        for t in self.cache.values())
-            return total // self.num_slots
-        return cache_bytes_per_slot(self.cache, self.num_slots)
+            return pool_cache_bytes(self.cache, num_heads=heads) // self.num_slots
+        return cache_bytes_per_slot(self.cache, self._rows, num_heads=heads)
 
     def export_trace(self, path: str) -> None:
         """Write the span ring as Chrome-trace-event JSON (Perfetto /
@@ -762,11 +842,13 @@ class ServingEngine:
         self.tracing.write_chrome_trace(path)
 
     def respread_pool(self, new_env, *, scratch_limit_bytes=None) -> dict:
-        """Re-spreading the paged pool across a mesh's model axis is not
-        ported: the port serves on one card."""
+        """Re-spreading the params and the paged pool onto another
+        mesh's model axis moves them through the redistribution service,
+        which is not ported."""
         raise NotImplementedError(
-            "respread_pool (the live model-axis re-spread of the paged "
-            "pool) is not ported yet (ROADMAP A7)"
+            "respread_pool (the live model-axis re-spread of the params "
+            "and the paged pool through the redistribution service) is "
+            "not ported yet (ROADMAP A13)"
         )
 
     def run(self, max_steps: int | None = None) -> list[Completion]:
@@ -907,7 +989,7 @@ class ServingEngine:
             self.model, self.cache, torch.from_numpy(tile).to(self.model.device)
         )
         preds = torch.argmax(logits.float(), dim=-1).to(torch.int32)
-        preds = preds.cpu().numpy()
+        preds = self._agree(preds).cpu().numpy()
         dt = time.perf_counter() - t0
         n_active = int(self._active.sum())
         self.stats["decode_verify"] += 1
@@ -1118,7 +1200,8 @@ class ServingEngine:
         admission is priced in. 0 before the pool exists."""
         if not self.paged or self.cache is None:
             return 0
-        return pool_block_bytes(self.cache)
+        return pool_block_bytes(self.cache,
+                                num_heads=self.model.config.num_heads)
 
     # --------------------------------------------------------- scheduling
 
@@ -1168,15 +1251,20 @@ class ServingEngine:
     def _graft(self, slot_cache: dict, slot: int, s_p: int) -> None:
         """Write one prefilled request's cache rows (capacity ``s_p``)
         into the engine cache at ``slot``; positions past ``s_p`` keep
-        what the row held before, masked by the new row's occupancy."""
+        what the row held before, masked by the new row's occupancy. A
+        cache split over the batch axes takes the slot on the rank that
+        holds its row."""
+        row = slot - self._row0
+        if not 0 <= row < self._rows:
+            return
         for name, e in self.cache.items():
             p = slot_cache[name]
-            ax = cache_batch_axis(e, self.num_slots)
+            ax = cache_batch_axis(e, self._rows)
             if ax is None:
                 raise ValueError(
                     f"cache leaf {name} {tuple(e.shape)} carries no slot rows"
                 )
-            dst = e.narrow(ax, slot, 1)
+            dst = e.narrow(ax, row, 1)
             cap = cache_capacity_axis(p, s_p)
             if cap is not None:
                 dst = dst.narrow(cap, 0, s_p)
@@ -1219,16 +1307,19 @@ class ServingEngine:
         return seed
 
     def _graft_package(self, slot: int, req: ServeRequest, res: dict | None,
-                       slot_cache: dict, s_p: int, m: int) -> None:
+                       slot_cache: dict, s_p: int, m: int,
+                       sliced: bool = False) -> None:
         """Move the prefilled cache into the engine cache. Paged: splice
         only the private blocks that change owner into the pool, then
-        write the slot's table row. Bucketed: the slot-row graft."""
+        write the slot's table row (``sliced``: the slot cache holds only
+        those blocks' window, from its position 0). Bucketed: the
+        slot-row graft."""
         l = int(req.prompt.size)
         if self.paged:
             n_g = blocks_for_tokens(l, self.block_size)
             splice_pool_blocks(
-                self.cache, slot_cache, res["priv"][: n_g - m], m, slot,
-                block_size=self.block_size,
+                self.cache, slot_cache, res["priv"][: n_g - m],
+                0 if sliced else m, slot, block_size=self.block_size,
             )
             blocks = res["shared"] + res["priv"]
             self._tables[slot, :] = 0
@@ -1322,10 +1413,17 @@ class ServingEngine:
                 **({"blocks": blocks_for_tokens(l, self.block_size) - m,
                     "shared": m} if self.paged else {}),
             )
-            tok = int(tok[0])
+            first = int(tok[0])
+            err = None
         except Exception as e:
             if is_device_failure(e):
                 raise
+            err = e
+        if self._agree_failed(err is not None):
+            e = err or RuntimeError("admission failed on another rank")
+            if self.paged:
+                self._tables[slot, :] = 0
+                self._tables_dirty = True
             if rng_state is not None:
                 gen.set_state(rng_state)
             if res is not None:
@@ -1339,7 +1437,9 @@ class ServingEngine:
             )
             self._complete_unadmitted(req, "error")
             return False
-        self._finish_admit(slot, req, res, tok, t0=t0,
+        if self._lockstep:
+            first = int(self._agree(tok)[0])
+        self._finish_admit(slot, req, res, first, t0=t0,
                            dt=time.perf_counter() - t0, s_p=s_p, m=m,
                            l_suf=l_suf)
         return True
@@ -1398,12 +1498,15 @@ class ServingEngine:
 
     def admit_handoff(self, slot: int, req: ServeRequest, res: dict,
                       slot_cache: dict, tok: int, *, m: int,
-                      prefill_s: float) -> None:
+                      prefill_s: float, sliced: bool = False) -> None:
         """Decode-worker admission of a prefill-worker package: splice its
         private blocks into the pool (``splice_pool_blocks``, as colocated
         admission does) and activate the slot. ``prefill_s`` is the
-        prefill worker's wall time, folded into the request's TTFT.
-        Raises on a splice failure (the
+        prefill worker's wall time, folded into the request's TTFT;
+        ``sliced``: the package carries only the private blocks' window
+        (a separate prefill partition's transfer). The splice writes this
+        rank's heads of the pool from this rank's heads of the slot cache:
+        no collective. Raises on a splice failure (the
         scheduler re-queues the request); the slot's bookkeeping runs
         only after the splice."""
         assert self.paged, "handoff admission is a paged-engine contract"
@@ -1414,7 +1517,7 @@ class ServingEngine:
         if self.cache is None:
             self._init_paged_cache()
         s_p = self._bucket_for(l - m * bs)
-        self._graft_package(slot, req, res, slot_cache, s_p, m)
+        self._graft_package(slot, req, res, slot_cache, s_p, m, sliced)
         dt_splice = time.perf_counter() - t0
         self.stats["handoff_splices"] += 1
         self._phase(
@@ -1667,6 +1770,13 @@ class ServingEngine:
         over the slot array, retire finished rows. Returns the requests
         completed during this step (possibly at admission, for 1-token
         budgets; typed shed / deadline / error resolutions ride along)."""
+        with self._mesh():
+            self._plan_step()
+            return self._step()
+
+    def _step(self) -> list[Completion]:
+        """``step`` after its plan (the disaggregated scheduler plans its
+        own tick and then runs this)."""
         self._m_queue.set(len(self._queue))
         self._admit()
         self._completed.extend(self._early)
@@ -1717,7 +1827,7 @@ class ServingEngine:
         tok = torch.from_numpy(self._last_tok).to(self.model.device)
         logits, self.cache = _decode_step(self.model, self.cache, tok)
         nxt = _sample(logits, self._generator, **self._sample_kw)
-        nxt = nxt.cpu().numpy()
+        nxt = self._agree(nxt).cpu().numpy()
         dt = time.perf_counter() - t0
         n_active = int(self._active.sum())
         self.stats["decode_paged" if self.paged

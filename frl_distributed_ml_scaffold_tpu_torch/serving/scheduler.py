@@ -9,17 +9,33 @@ prefills ahead of the next token. This module splits the two:
 
 - **PrefillWorker** owns admission's prefill (the bucketed ragged
   prefill and the shared-prefix seeded suffix prefill, the recipe of
-  ``engine.prefill_request``). It shares the decode worker's pool and
-  runs on the engine's stream, as colocated admission does; fetching
-  the first token completes the package.
+  ``engine.prefill_request``). By default it shares the decode worker's
+  model and pool and runs on the engine's stream, as colocated admission
+  does; fetching the first token completes the package. With
+  ``prefill_env`` (a ``torch.device`` of this process) it is a SEPARATE
+  PARTITION: it holds its own params replica there, copied plainly from
+  the decode model, and prefills there.
 - **The decode worker** is a paged ``ServingEngine`` driven with an
   empty queue: it runs the decode / verify steps (speculation rides it
   unchanged) and splices handoffs.
 - **The handoff is a block-table splice** (``generation.
   splice_pool_blocks``, as colocated admission): the prefilled private
   blocks land in their pool homes and ownership moves as one table-row
-  write. The partitions share the pool, so the blocks merely re-own and
-  ``stats["handoff_transfer_bytes"]`` stays 0.
+  write. When the partitions share the pool the blocks merely re-own and
+  ``stats["handoff_transfer_bytes"]`` stays 0. A separate partition's
+  handoff moves exactly the private blocks' window ``[m bs, n_g bs)`` of
+  the slot cache to the decode side (``_capacity_slice``), and a prefix
+  hit first moves the seed's occupied prefix out to the worker; both are
+  counted in ``handoff_transfer_bytes`` and
+  ``serve_handoff_transfer_bytes_total`` at the one site ``_put``, as
+  the JAX engine counts them (every leaf of what moves, the window's
+  K/V and scales and the cursors beside them).
+- **Over a mesh** (tensor-parallel serving, ``build_engine(rules=)``)
+  every rank runs the scheduler in lock step with the decode worker
+  (``serving/engine.py``): each tick starts with rank 0's plan of the
+  deadlines, and the prefill worker's first tokens are rank 0's. The
+  shared pool holds each rank's heads, so the splice moves no bytes
+  between ranks.
 
 On top sits the SLO scheduler:
 
@@ -46,14 +62,15 @@ samples every request from one generator stream: a prefill-worker fault
 fires before the draw, so it leaves sampled output as a fault-free run
 would; a handoff fault fires after it, and its retry draws again.
 
-Not ported (ROADMAP A7): a prefill worker on its own
-partition (``prefill_env``) with its own params replica and the counted
-transfer of suffix blocks.
+Waiting for ROADMAP A13 (the redistribution service): a prefill
+partition made of other ranks (a mesh), or one beside a live ``model``
+axis, whose replica and transfers move between ranks.
 """
 
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
 import re
 import time
@@ -65,6 +82,8 @@ import torch
 from frl_distributed_ml_scaffold_tpu_torch import faults
 from frl_distributed_ml_scaffold_tpu_torch.config.schema import ServingConfig
 from frl_distributed_ml_scaffold_tpu_torch.models.generation import (
+    blocks_for_tokens,
+    cache_capacity_axis,
     next_cache_bucket,
 )
 from frl_distributed_ml_scaffold_tpu_torch.ops._build import is_device_failure
@@ -86,10 +105,42 @@ SLO_CLASSES = ("latency", "standard", "best_effort")
 _RANK = {c: i for i, c in enumerate(SLO_CLASSES)}
 
 _PARTITION_TODO = (
-    "a prefill worker on its own partition (prefill_env: its own params "
-    "replica and the counted transfer of suffix blocks) is not ported "
-    "yet (ROADMAP A7); the port's workers share one pool"
+    "a prefill partition {what} moves its params replica and its "
+    "handoffs between ranks through the redistribution service, which is "
+    "not ported yet (ROADMAP A13); prefill_env takes a torch.device of "
+    "this process"
 )
+
+
+def _capacity_slice(cache: dict, start_tok: int, stop_tok: int,
+                    cap: int) -> dict:
+    """A slot cache's capacity-bearing leaves (``cache_capacity_axis``:
+    K/V and scale stacks at capacity ``cap``) cut to positions
+    ``[start_tok, stop_tok)``; the bookkeeping leaves as they are. What a
+    cross-partition handoff moves: the blocks that change owner, never
+    the whole bucket."""
+    out = {}
+    for name, leaf in cache.items():
+        ax = cache_capacity_axis(leaf, cap)
+        out[name] = (leaf if ax is None
+                     else leaf.narrow(ax, start_tok, stop_tok - start_tok))
+    return out
+
+
+def _capacity_pad(cache: dict, cap_from: int, cap_to: int) -> dict:
+    """``_capacity_slice``'s inverse on the receiving side: the
+    capacity-bearing leaves zero-padded from ``cap_from`` back to
+    ``cap_to`` (the zeros the whole tree carried)."""
+    out = {}
+    for name, leaf in cache.items():
+        ax = cache_capacity_axis(leaf, cap_from)
+        if ax is None:
+            out[name] = leaf
+            continue
+        shape = list(leaf.shape)
+        shape[ax] = cap_to - cap_from
+        out[name] = torch.cat([leaf, leaf.new_zeros(shape)], ax)
+    return out
 
 
 def _sanitize(name: str) -> str:
@@ -149,15 +200,25 @@ class PrefillWorker:
     """The prefill half of the disaggregated engine. Stateless across
     requests: every package it emits is self-contained, which is what
     makes a worker failure recoverable by re-queueing. It shares the
-    decode worker's model and pool."""
+    decode worker's model and pool, or with ``partition`` (a
+    ``torch.device``) holds its own params replica there, a plain copy
+    of the decode model."""
 
     def __init__(self, model, *, sample_kw: dict, min_bucket: int,
-                 seq_len: int, generator: torch.Generator | None = None):
+                 seq_len: int, generator: torch.Generator | None = None,
+                 partition: torch.device | None = None):
+        self.partition = partition
+        if partition is not None:
+            model = copy.deepcopy(model).to(partition)
         self.model = model
         self.seq_len = seq_len
         self.min_bucket = int(min_bucket)
         self._sample_kw = dict(sample_kw)
         self._generator = generator
+
+    @property
+    def separate(self) -> bool:
+        return self.partition is not None
 
     def _bucket_for(self, needed: int) -> int:
         return next_cache_bucket(self.seq_len, needed, floor=self.min_bucket)
@@ -218,8 +279,6 @@ class DisaggServingEngine:
         device=None,
     ):
         serving = ServingConfig() if serving is None else serving
-        if prefill_env is not None:
-            raise NotImplementedError(_PARTITION_TODO)
         if serving.kv_block_size <= 0:
             raise ValueError(
                 "disaggregated serving requires the paged cache "
@@ -260,6 +319,7 @@ class DisaggServingEngine:
             self.decode.model, sample_kw=self.decode._sample_kw,
             min_bucket=self.decode.min_bucket, seq_len=self.decode.seq_len,
             generator=generator,
+            partition=self._partition(prefill_env),
         )
 
         # Tenant registry and queues. Unknown tenants at submit() register
@@ -311,16 +371,31 @@ class DisaggServingEngine:
             help="scheduler ticks that deferred queued prefills "
             "(decoupled admission: the burst queues, decodes keep cadence)",
         )
-        # Registered for the full catalog. Shared-pool handoffs have no
-        # transfer path, so it reads 0 by construction (the separate
-        # partition that counts its transfers is ROADMAP A7).
-        t.counter(
+        # Shared-pool handoffs have no transfer path, so it reads 0 there
+        # by construction; a separate partition counts its moves (_put).
+        self._m_transfer = t.counter(
             "serve_handoff_transfer_bytes_total",
             help="bytes moved across partitions at handoff (0 when the "
             "partitions share the pool — the blocks merely re-own)",
         )
         for spec in tenants or ():
             self.register_tenant(spec)
+
+    def _partition(self, prefill_env):
+        """``prefill_env`` as the worker's device: None (the decode
+        worker's partition) or a ``torch.device`` of this process. A
+        partition of other ranks (a mesh), or one beside a live ``model``
+        axis, raises, naming ROADMAP A13."""
+        if prefill_env is None:
+            return None
+        if not isinstance(prefill_env, (torch.device, str)):
+            raise NotImplementedError(
+                _PARTITION_TODO.format(what="made of other ranks"))
+        env = self.decode._env
+        if env is not None and env.axis_size("model") > 1:
+            raise NotImplementedError(
+                _PARTITION_TODO.format(what="beside a live model axis"))
+        return torch.device(prefill_env)
 
     # ------------------------------------------------------------- plumbing
 
@@ -569,9 +644,17 @@ class DisaggServingEngine:
                 dur_s=t_launch - req.t_submit,
                 trace=req.trace, parent=req.span, tenant=spec.name,
             )
+            err = None
             try:
-                # The shared-prefix seed gathers from the decode pool.
+                # The shared-prefix seed gathers from the decode pool; a
+                # separate partition takes only its occupied prefix.
                 seed_cache = self.decode._seed_for(req, res)
+                if seed_cache is not None and self.prefill_worker.separate:
+                    m_tok = res["m"] * self.decode.block_size
+                    s_c = self.decode._bucket_for(int(req.prompt.size))
+                    seed_cache = _capacity_pad(self._put(
+                        _capacity_slice(seed_cache, 0, m_tok, s_c),
+                        self.prefill_worker.partition), m_tok, s_c)
                 tok, slot_cache, _, m, _ = self.prefill_worker.prefill(
                     req, res, block_size=self.decode.block_size,
                     seed_cache=seed_cache,
@@ -580,16 +663,23 @@ class DisaggServingEngine:
                 # waits for it, as colocated admission's does, and a
                 # prefill that failed on the device surfaces here, before
                 # any preemption could park a victim for it.
-                tok = int(tok[0])
+                first = int(tok[0])
             except Exception as e:
                 if is_device_failure(e):
                     raise
-                self._worker_failed(req, res, spec, e, site="prefill_worker")
+                err = e
+            if self.decode._agree_failed(err is not None):
+                self._worker_failed(
+                    req, res, spec,
+                    err or RuntimeError("prefill failed on another rank"),
+                    site="prefill_worker")
                 continue
+            if self.decode._lockstep:
+                first = int(self.decode._agree(tok)[0])
             self._seq += 1
             self._ready.append(_Package(
                 req=req, res=res, spec=spec, t_launch=t_launch,
-                seq=self._seq, tok=tok, slot_cache=slot_cache, m=m,
+                seq=self._seq, tok=first, slot_cache=slot_cache, m=m,
                 t_ready=time.perf_counter(),
             ))
             self._stats["prefills_launched"] += 1
@@ -696,18 +786,42 @@ class DisaggServingEngine:
             self._m_resume.inc()
         self._parked = still
 
+    def _count_transfer(self, moved: int) -> None:
+        self._stats["handoff_transfer_bytes"] += moved
+        self._m_transfer.inc(moved)
+
+    def _put(self, cache: dict, device: torch.device) -> dict:
+        """Move a cache tree to ``device`` and count its bytes, every
+        leaf: the one site that prices the cross-partition traffic."""
+        self._count_transfer(sum(t.numel() * t.element_size()
+                                 for t in cache.values()))
+        return {k: t.to(device, copy=True) for k, t in cache.items()}
+
     def _complete_handoff(self, pkg: _Package, slot: int) -> None:
         """Splice the package's private blocks into the pool (a table
-        re-own: the pool is shared)."""
+        re-own when the pool is shared; from a separate partition, the
+        blocks' window moves to the decode side first)."""
         req, res, spec = pkg.req, pkg.res, pkg.spec
         # Prefill wall = launch -> completion; slot-wait stays out of TTFT.
         prefill_s = pkg.t_ready - pkg.t_launch
         t_h0 = time.perf_counter()
         try:
             faults.maybe_raise("serve.handoff", key=req.id)
+            slot_cache, sliced = pkg.slot_cache, False
+            if self.prefill_worker.separate:
+                # Exactly the private blocks that change owner: the
+                # [m bs, n_g bs) window (the shared prefix already lives
+                # in the decode pool; the bucket's tail carries nothing).
+                bs = self.decode.block_size
+                n_g = blocks_for_tokens(int(req.prompt.size), bs)
+                cap = slot_cache["cached_key"].shape[2]
+                slot_cache = self._put(
+                    _capacity_slice(slot_cache, pkg.m * bs, n_g * bs, cap),
+                    self.decode.model.device)
+                sliced = True
             self.decode.admit_handoff(
-                slot, req, res, pkg.slot_cache, pkg.tok,
-                m=pkg.m, prefill_s=prefill_s,
+                slot, req, res, slot_cache, pkg.tok,
+                m=pkg.m, prefill_s=prefill_s, sliced=sliced,
             )
         except Exception as e:
             if is_device_failure(e):
@@ -762,16 +876,26 @@ class DisaggServingEngine:
         requests, launch at most ``prefill_max_per_tick`` prefills, then
         run ONE decode iteration. Returns completions, tenant-annotated,
         typed resolutions included."""
-        self._fill_slots()
-        self._launch_prefills()
-        self._fill_slots()
-        out = self.decode.step()
+        with self.decode._mesh():
+            self.decode._plan_step(self._live_requests())
+            self._fill_slots()
+            self._launch_prefills()
+            self._fill_slots()
+            out = self.decode._step()
         self.decode._m_queue.set(
             float(sum(len(q) for q in self._queues.values()))
         )
         for c in out:
             self._annotate(c)
         return out
+
+    def _live_requests(self) -> list[ServeRequest]:
+        """Every request the tick may judge: queued, prefilled, parked or
+        decoding."""
+        return ([r for q in self._queues.values() for r in q]
+                + [p.req for p in self._ready]
+                + [e["state"]["req"] for e in self._parked]
+                + [r for r in self.decode._req if r is not None])
 
     def run(self, max_steps: int | None = None) -> list[Completion]:
         """Drain everything: every submitted id resolves exactly once,

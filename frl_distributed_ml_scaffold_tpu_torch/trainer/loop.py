@@ -25,11 +25,15 @@ when checkpoints are on, ``trace/`` when a profiler window is set,
 ``stall_dump.txt`` when the watchdog fires and ``tb/`` with
 ``trainer.tensorboard``.
 
-Refused, each naming its ROADMAP item: ``offload_opt_state`` (A7, raised
-by ``make_train_step``), the overlap schedule and low-precision
-collectives (A11), sequence parallelism, the ``seq``, ``expert`` and
-``pipe`` axes, pipelines (SPMD or MPMD) and MoE (A12, raised by the step
-and the GPT model for the last two).
+``trainer.offload_opt_state`` keeps the optimizer state in pinned host
+memory, built there from the start (``make_train_step`` streams it
+through the card a leaf at a time); off the card it raises, as the JAX
+trainer refuses a backend without ``pinned_host`` memory.
+
+Refused, each naming its ROADMAP item: the overlap schedule and
+low-precision collectives (A11), sequence parallelism, the ``seq``,
+``expert`` and ``pipe`` axes, pipelines (SPMD or MPMD) and MoE (A12,
+raised by the step and the GPT model for the last two).
 
 ``trainer.init_params_path`` starts the run from a flax msgpack params
 file (``tools/import_hf_gpt2.py``'s output, or ``checkpoint/
@@ -79,6 +83,7 @@ from frl_distributed_ml_scaffold_tpu_torch.trainer.train_state import TrainState
 from frl_distributed_ml_scaffold_tpu_torch.trainer.train_step import (
     make_eval_step,
     make_train_step,
+    offload_state,
 )
 from frl_distributed_ml_scaffold_tpu_torch.utils.flops import (
     gpt_train_flops,
@@ -306,10 +311,14 @@ class Trainer:
             params = self._load_init_params(cfg.trainer.init_params_path)
         lay = self.layout
         params = {k: lay.shard(k, p, lay.param[k]) for k, p in params.items()}
+        offload = cfg.trainer.offload_opt_state
         state = TrainState.create(
             params, self.tx, extras, with_ema=cfg.trainer.ema_decay > 0.0,
-            opt_template=lay.opt_template(torch.float32, self.device),
+            opt_template=lay.opt_template(
+                torch.float32, "cpu" if offload else self.device),
             device=self.device)
+        if offload:
+            offload_state(state.opt_state)
         self.logger.info("initialized %s: %.2fM params over mesh %s on %s",
                          cfg.name, self._param_count() / 1e6,
                          self.env.shape, self.device)

@@ -54,6 +54,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
     OptimizerConfig,
@@ -61,6 +62,7 @@ from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
 )
 from frl_distributed_ml_scaffold_tpu_torch.models import jax_leaf_of
 from frl_distributed_ml_scaffold_tpu_torch.ops.fused_adamw import FusedAdamW
+from frl_distributed_ml_scaffold_tpu_torch.parallel.layout import chunk_bounds
 
 Schedule = Callable[[int], float]
 
@@ -315,13 +317,32 @@ class Adafactor:
     JAX leaf it belongs to (``models.jax_leaf_of``), and the two
     reductions run over all the port leaves of one JAX leaf.
 
-    State: ``{"count": int, "v_row", "v_col", "v": {name: tensor}}`` in
-    the parameters' dtypes. A factored leaf keeps ``v_row`` (its shape
-    without d0) and ``v_col`` (without d1) and a ``(1,)`` placeholder
-    ``v``; any other leaf keeps a param-shaped ``v`` and ``(1,)``
-    placeholders, as optax's ``FactoredState`` does. The three counts of
-    the JAX chain (the factored moments', the schedule's and the decay's)
-    advance together, so one host integer stands for them."""
+    State: ``{"count": int, "v_row", "v_col", "v": {name: tensor}}``. A
+    factored leaf keeps ``v_row`` (its shape without d0) and ``v_col``
+    (without d1) and a ``(1,)`` placeholder ``v``; any other leaf keeps a
+    param-shaped ``v`` and ``(1,)`` placeholders, as optax's
+    ``FactoredState`` does. ``init`` gives them the template's dtype;
+    every update writes them back in the PARAM's dtype, as optax's
+    ``scale_by_factored_rms`` does (``factorized.py``: the new moments
+    are mixed in fp32 with the fp32 decay rate and cast with
+    ``astype(param.dtype)``, and the row and column factors read the cast
+    values): under a bf16 params file the state is fp32 at init and bf16
+    from the first update on. The gradient's square, its means and the
+    factored product keep the gradient's dtype, as optax computes them.
+    The three counts of the JAX chain (the factored moments', the
+    schedule's and the decay's) advance together, so one host integer
+    stands for them.
+
+    With a ``layout`` (``parallel/layout.py``, set by the ``Trainer``
+    over a mesh) the params, gradients and ``v`` are this rank's shards
+    under the optimizer state's spec, and ``v_row`` / ``v_col`` are whole
+    on every rank, as the JAX state keeps them (no param-shaped leaf to
+    take a spec from). The reductions run over the whole leaf: a
+    factored mean sums over the split axes of its dim and gathers the
+    split dims it keeps, and the block RMS and the parameter scale sum
+    each shard's squares over the axes it is split on."""
+
+    layout = None
 
     def __init__(self, schedule: Schedule, *, leaf_of: Callable[[str], str],
                  weight_decay: float, clip: float | None):
@@ -329,19 +350,23 @@ class Adafactor:
         self.leaf_of = leaf_of
         self.weight_decay, self.clip = weight_decay, clip
 
+    def _whole(self, k: str, shape) -> tuple[int, ...]:
+        return tuple(shape) if self.layout is None else self.layout.shapes[k]
+
     def init(self, params: dict) -> dict:
         state = {"count": 0, "v_row": {}, "v_col": {}, "v": {}}
         for k, p in params.items():
             one = functools.partial(torch.zeros, (1,), dtype=p.dtype,
                                     device=p.device)
-            dims = _factored_dims(tuple(p.shape))
+            whole = self._whole(k, p.shape)
+            dims = _factored_dims(whole)
             if dims is None:
                 state["v_row"][k], state["v_col"][k] = one(), one()
                 state["v"][k] = torch.zeros_like(p)
                 continue
             d1, d0 = dims
-            row = [n for i, n in enumerate(p.shape) if i != d0]
-            col = [n for i, n in enumerate(p.shape) if i != d1]
+            row = [n for i, n in enumerate(whole) if i != d0]
+            col = [n for i, n in enumerate(whole) if i != d1]
             state["v_row"][k] = torch.zeros(row, dtype=p.dtype,
                                             device=p.device)
             state["v_col"][k] = torch.zeros(col, dtype=p.dtype,
@@ -349,26 +374,72 @@ class Adafactor:
             state["v"][k] = one()
         return state
 
-    def _scaled(self, k: str, g: torch.Tensor, state: dict, rho: float,
-                omr: float) -> torch.Tensor:
-        """Leaf ``k``'s gradient over its factored (or plain) RMS, the
-        second moments advanced in place."""
+    def _split(self, k: str, ndim: int) -> tuple:
+        """Leaf ``k``'s spec under the layout (all None without one)."""
+        return (None,) * ndim if self.layout is None else self.layout.opt[k]
+
+    def _mean(self, k: str, sq: torch.Tensor, dim: int) -> torch.Tensor:
+        """``mean(sq, dim)`` over the whole leaf, in ``sq``'s dtype (fp32
+        sums, one rounding, as ``jnp.mean``), whole on every rank."""
+        spec, whole = self._split(k, sq.dim()), self._whole(k, sq.shape)
+        s = sq.float().sum(dim)
+        if spec[dim] is not None:
+            dist.all_reduce(s, group=self.layout.env.group(spec[dim]))
+        s = s / whole[dim]
+        for j, e in enumerate(spec):
+            if e is not None and j != dim:
+                s = self.layout.gather_dim(s, j - (j > dim), whole[j], e)
+        return s.to(sq.dtype)
+
+    def _local(self, k: str, t: torch.Tensor, dims) -> torch.Tensor:
+        """This rank's part of a whole factor ``t`` whose dims are the
+        leaf's ``dims``."""
+        spec = self._split(k, t.dim() + 1)
+        for i, j in enumerate(dims):
+            if spec[j] is not None:
+                env = self.layout.env
+                lo, hi = chunk_bounds(t.shape[i], env.axis_size(spec[j]),
+                                      env.axis_index(spec[j]))
+                t = t.narrow(i, lo, hi - lo)
+        return t
+
+    def _scaled(self, k: str, g: torch.Tensor, pd: torch.dtype, state: dict,
+                rho: float, omr: float) -> torch.Tensor:
+        """Leaf ``k``'s gradient over its factored (or plain) RMS, fp32;
+        the second moments written back in the param dtype ``pd``."""
         sq = g.square().add_(ADAFACTOR_EPS)
-        dims = _factored_dims(tuple(g.shape))
+        dims = _factored_dims(self._whole(k, g.shape))
         if dims is None:
             v = _f32(state["v"][k])
-            v.mul_(rho).add_(sq, alpha=omr)
-            _store(state["v"][k], v)
-            return g * v.rsqrt()
+            v.mul_(rho).add_(sq.float(), alpha=omr)
+            v = _put(state, "v", k, v.to(pd))
+            _put(state, "v_row", k, state["v_row"][k].to(pd))
+            _put(state, "v_col", k, state["v_col"][k].to(pd))
+            return (g * v.rsqrt()).float()
         d1, d0 = dims
         row, col = _f32(state["v_row"][k]), _f32(state["v_col"][k])
-        row.mul_(rho).add_(sq.mean(d0), alpha=omr)
-        col.mul_(rho).add_(sq.mean(d1), alpha=omr)
-        _store(state["v_row"][k], row)
-        _store(state["v_col"][k], col)
+        row.mul_(rho).add_(self._mean(k, sq, d0).float(), alpha=omr)
+        col.mul_(rho).add_(self._mean(k, sq, d1).float(), alpha=omr)
+        row = _put(state, "v_row", k, row.to(pd))
+        col = _put(state, "v_col", k, col.to(pd))
+        _put(state, "v", k, state["v"][k].to(pd))
         r1 = d1 - 1 if d1 > d0 else d1
-        row_factor = (row / row.mean(r1, keepdim=True)).rsqrt()
-        return (g * row_factor.unsqueeze(d0)) * col.rsqrt().unsqueeze(d1)
+        mean = row.float().mean(r1, keepdim=True).to(pd)
+        row_factor = (row / mean).rsqrt()
+        n = len(self._whole(k, g.shape))
+        row_factor = self._local(k, row_factor, [i for i in range(n)
+                                                 if i != d0])
+        col_factor = self._local(k, col.rsqrt(), [i for i in range(n)
+                                                  if i != d1])
+        return ((g * row_factor.unsqueeze(d0))
+                * col_factor.unsqueeze(d1)).float()
+
+    def _sq_sum(self, tensors: dict) -> torch.Tensor:
+        """The sum of squares of the whole leaves ``tensors`` are (this
+        rank's shards of) under the layout."""
+        if self.layout is None:
+            return sum(t.float().square().sum() for t in tensors.values())
+        return self.layout.global_sq_norm(tensors, self.layout.opt)
 
     def update(self, grads: dict, state: dict, params: dict,
                norm: torch.Tensor | None = None) -> dict:
@@ -387,12 +458,12 @@ class Adafactor:
         for names in blocks.values():
             # One block at a time: its updates, then the RMS of the
             # updates and of the params over the whole block.
-            us = {k: self._scaled(k, grads[k].float(), state, rho, omr)
+            us = {k: self._scaled(k, grads[k], params[k].dtype, state, rho,
+                                  omr)
                   for k in names}
-            n = sum(u.numel() for u in us.values())
-            rms_u = (sum(u.square().sum() for u in us.values()) / n).sqrt()
-            rms_p = (sum(params[k].float().square().sum() for k in names)
-                     / n).sqrt()
+            n = sum(math.prod(self._whole(k, us[k].shape)) for k in names)
+            rms_u = (self._sq_sum(us) / n).sqrt()
+            rms_p = (self._sq_sum({k: params[k] for k in names}) / n).sqrt()
             scale = (lr / torch.clamp(rms_u / ADAFACTOR_CLIP, min=1.0)
                      * torch.clamp(rms_p, min=ADAFACTOR_MIN_SCALE))
             for k in names:
@@ -405,6 +476,18 @@ class Adafactor:
                 _store(p, p32)
         state["count"] = count + 1
         return state
+
+
+def _put(state: dict, key: str, k: str, t: torch.Tensor) -> torch.Tensor:
+    """``state[key][k] = t`` in place when the dtypes agree (the tensor
+    keeps its storage), else as a new tensor of ``t``'s dtype."""
+    cur = state[key][k]
+    if cur.dtype == t.dtype and cur.shape == t.shape:
+        if t is not cur:
+            cur.copy_(t)
+        return cur
+    state[key][k] = t
+    return t
 
 
 def make_optimizer(cfg: OptimizerConfig, trainer_cfg: TrainerConfig,

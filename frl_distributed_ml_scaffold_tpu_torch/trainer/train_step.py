@@ -51,9 +51,20 @@ batch and its shards of the state:
   slice of a replicated param, a view), and a param whose state is
   split finer than it is all-gathered back.
 
-A mesh of more than one device needs a ``layout``. ``offload_opt_state``
-(host-memory optimizer state) raises, naming ROADMAP A7; ``grad_shardings``
-raises too: the accumulator's spec is the layout's. The fused AdamW
+``offload_opt_state`` keeps the optimizer state in pinned host memory:
+each update brings one leaf's state in (a ``non_blocking`` copy), updates
+it and writes it back the same way, so the card holds one leaf's state
+at a time, not the tree's (a group of leaves for Adafactor, which
+reduces over a JAX leaf's group). The state a step is handed on the card
+(a fresh or a restored one) moves to pinned host memory at its first
+update. The update is the same arithmetic on the same card, so the
+losses are those of the resident state, bit for bit. On the CPU it
+raises a ``ValueError``, as the JAX trainer refuses a backend without
+``pinned_host`` memory. Adafactor over split state (``layout``) reduces
+over whole leaves (``trainer/optimizers.py``).
+
+A mesh of more than one device needs a ``layout``. ``grad_shardings``
+raises: the accumulator's spec is the layout's. The fused AdamW
 (``optimizer.name=fused_adamw``) is refused under sharded state, or a
 model, expert or pipe axis above 1, with the JAX trainer's message, as
 the JAX trainer refuses it when it builds its step. Axes ``seq``,
@@ -185,6 +196,65 @@ def _batch_mean(values: list[torch.Tensor], layout: StateLayout | None,
     return list(packed.unbind())
 
 
+OFFLOAD_REFUSAL = (
+    "trainer.offload_opt_state=true keeps the optimizer state in pinned "
+    "host memory and streams it to the card for each update (platform="
+    "{platform!r}); the CPU has no pinned_host memory apart from the one "
+    "it computes in: run it on a card"
+)
+
+
+def check_offload(device) -> None:
+    """The refusal of ``offload_opt_state`` off the card."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(OFFLOAD_REFUSAL.format(platform=dev.type))
+
+
+def offload_state(opt_state: dict) -> dict:
+    """``opt_state`` with every tensor in pinned host memory (in place:
+    the same dicts; tensors already there stay)."""
+    for key, v in opt_state.items():
+        if isinstance(v, dict):
+            for k, t in v.items():
+                if t.device.type != "cpu" or not t.is_pinned():
+                    v[k] = t.to("cpu").pin_memory()
+    return opt_state
+
+
+def _offloaded_update(tx, grads: dict, opt_state: dict, params: dict,
+                      norm: torch.Tensor, dev: torch.device) -> None:
+    """``tx.update`` over a pinned host-memory state (module docstring):
+    one group of leaves at a time in, updated, and back out."""
+    offload_state(opt_state)
+    leaf_of = getattr(tx, "leaf_of", None) or (lambda k: k)
+    groups: dict[str, list[str]] = {}
+    for k in params:
+        groups.setdefault(leaf_of(k), []).append(k)
+    count = opt_state["count"]
+    for names in groups.values():
+        sub = {key: ({k: v[k].to(dev, non_blocking=True) for k in names}
+                     if isinstance(v, dict) else v)
+               for key, v in opt_state.items()}
+        tx.update({k: grads[k] for k in names}, sub,
+                  {k: params[k] for k in names}, norm=norm)
+        for key, v in sub.items():
+            if not isinstance(v, dict):
+                continue
+            for k, t in v.items():
+                host = opt_state[key][k]
+                if host.dtype != t.dtype or host.shape != t.shape:
+                    # Adafactor's moments take the param dtype.
+                    host = torch.empty(t.shape, dtype=t.dtype,
+                                       pin_memory=True)
+                    opt_state[key][k] = host
+                host.copy_(t, non_blocking=True)
+        del sub
+    opt_state["count"] = count + 1
+    # The host copies are complete before anything reads them.
+    torch.cuda.current_stream(dev).synchronize()
+
+
 def make_grad_fn(loss_fn: LossFn, policy: Policy, *, grad_accum: int = 1,
                  remat: str = "none", seed: int = 0,
                  layout: StateLayout | None = None, device=None):
@@ -293,10 +363,7 @@ def make_train_step(
     the state's specs over the run's mesh (module docstring)."""
     _check_fused_optimizer(tx, parallel, mesh)
     if offload_opt_state:
-        raise NotImplementedError(
-            "offload_opt_state (optimizer state in host memory) is not "
-            "ported yet (ROADMAP A7)"
-        )
+        check_offload(resolve_device(device))
     if grad_shardings is not None:
         raise ValueError(
             "grad_shardings: the port's accumulator takes the layout's "
@@ -304,12 +371,8 @@ def make_train_step(
             "layout="
         )
     check_mesh(mesh, layout)
-    if layout is not None and not layout.trivial and isinstance(tx,
-                                                                Adafactor):
-        raise NotImplementedError(
-            "optimizer.name=adafactor over split state (its factored "
-            "moments and block RMS reduce over whole leaves) is not ported "
-            "yet (ROADMAP A7)")
+    if isinstance(tx, Adafactor) and layout is not None:
+        tx.layout = None if layout.trivial else layout
     grad_fn = make_grad_fn(loss_fn, policy, grad_accum=grad_accum,
                            remat=remat, seed=seed, layout=layout,
                            device=device)
@@ -327,7 +390,11 @@ def make_train_step(
             norm = layout.global_sq_norm(grads, layout.opt).sqrt()
             params = {k: layout.narrow(k, p, layout.param[k], layout.opt[k])
                       for k, p in state.params.items()}
-        tx.update(grads, state.opt_state, params, norm=norm)
+        if offload_opt_state:
+            _offloaded_update(tx, grads, state.opt_state, params, norm,
+                              norm.device)
+        else:
+            tx.update(grads, state.opt_state, params, norm=norm)
         for k in regather:
             layout.gather(k, params[k], layout.opt[k], layout.param[k],
                           out=state.params[k])

@@ -166,8 +166,134 @@ def dropout_rows(rate: float, seed: int, shape: tuple) -> dict:
     return {"mask": mask.numpy(), "index": env.batch_index}
 
 
+_CALLS: dict | None = None
+
+
+def _count_collectives() -> dict:
+    """Count this process's calls of the ``torch.distributed`` collectives
+    (``calls["n"]``), wrapping them in place once."""
+    global _CALLS
+    if _CALLS is not None:
+        return _CALLS
+    import torch.distributed as dist
+
+    _CALLS = {"n": 0}
+    for name in ("all_reduce", "all_gather", "broadcast", "reduce_scatter",
+                 "all_to_all", "broadcast_object_list", "all_gather_object",
+                 "send", "recv", "isend", "irecv", "batch_isend_irecv"):
+        def counted(*a, _fn=getattr(dist, name), **k):
+            _CALLS["n"] += 1
+            return _fn(*a, **k)
+
+        setattr(dist, name, counted)
+    return _CALLS
+
+
+def serve(model_cfg: dict, state: dict, mesh: dict, cases: list,
+          skew_rank: int = -1) -> dict:
+    """Tensor-parallel serving on this rank: the port's GPT (``model_cfg``
+    fields, fp32) loaded with ``state`` (numpy, the whole params), placed
+    by ``build_engine(rules=gpt_tp_rules())`` inside the mesh of
+    ``mesh``, then each case of ``cases`` (``{"name", "kind", ...}``):
+    ``generate`` (``prompt``, ``new``), ``beam`` (also ``beams``) or
+    ``engine`` (``serving`` fields, ``temperature``,
+    ``requests`` as ``(prompt, new, deadline_s, tenant)``, ``slots``,
+    ``kv_cache_quant``). Each case builds its model anew from
+    ``state``. On rank ``skew_rank`` the clock runs a million times
+    fast, so every deadline this process judged on its own would pass at
+    once. Returns each case's tokens and finish reasons (by request id),
+    the engine's byte counts, its stats and, for a disaggregated engine,
+    the collectives its handoff splices made."""
+    import time
+
+    from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
+        GPTConfig,
+        MeshConfig,
+        ServingConfig,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import (
+        build_mesh,
+        mesh_context,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.models.generation import (
+        beam_search,
+        generate,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.models.gpt import (
+        GPT,
+        gpt_tp_rules,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.parallel.partition import (
+        shard_params_for_serving,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.precision import get_policy
+    from frl_distributed_ml_scaffold_tpu_torch.serving import build_engine
+
+    env = build_mesh(MeshConfig(**mesh))
+    if env.rank == skew_rank:
+        real, t0 = time.perf_counter, time.perf_counter()
+        time.perf_counter = lambda: t0 + (real() - t0) * 1e6
+    out = {"coords": env.coords}
+    splices = {"n": 0, "calls": 0}
+    for case in cases:
+        cfg = GPTConfig(**{**model_cfg, **case.get("model", {})})
+        model = GPT(cfg, get_policy("fp32"), device="cpu")
+        model.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in state.items()})
+        res = {}
+        with mesh_context(env):
+            if case["kind"] in ("generate", "beam"):
+                shard_params_for_serving(model, env, gpt_tp_rules())
+                res["heads"] = model.local_heads()
+                if case["kind"] == "generate":
+                    res["tokens"] = generate(
+                        model, case["prompt"], max_new_tokens=case["new"],
+                        temperature=0.0, device="cpu").numpy()
+                else:
+                    toks, scores = beam_search(
+                        model, case["prompt"], max_new_tokens=case["new"],
+                        num_beams=case["beams"], device="cpu")
+                    res["tokens"], res["scores"] = (toks.numpy(),
+                                                    scores.numpy())
+                out[case["name"]] = res
+                continue
+            serving = ServingConfig(**case.get("serving", {}))
+            # A sampled case draws from a generator seeded by the rank:
+            # only the lock step's broadcast keeps the ranks' tokens equal.
+            gen = (torch.Generator().manual_seed(env.rank)
+                   if case.get("temperature") else None)
+            eng = build_engine(model, serving=serving,
+                               rules=gpt_tp_rules(), num_slots=case["slots"],
+                               temperature=case.get("temperature", 0.0),
+                               generator=gen, device="cpu")
+        if serving.disaggregate:
+            calls = _count_collectives()
+
+            def admit(*a, _inner=eng.decode.admit_handoff, **k):
+                n0 = calls["n"]
+                _inner(*a, **k)
+                splices["n"] += 1
+                splices["calls"] += calls["n"] - n0
+
+            eng.decode.admit_handoff = admit
+        for prompt, new, deadline, tenant in case["requests"]:
+            kw = {"deadline_s": deadline}
+            if serving.disaggregate:
+                kw["tenant"] = tenant
+            eng.submit(np.asarray(prompt, np.int32), new, **kw)
+        done = eng.run()
+        res["done"] = {c.id: (np.asarray(c.tokens), c.finish_reason)
+                       for c in done}
+        res["bytes_per_slot"] = eng.bytes_per_slot()
+        res["block_bytes"] = eng.block_bytes()
+        res["stats"] = dict(eng.stats)
+        out[case["name"]] = res
+    out["splices"] = splices
+    return out
+
+
 JOBS = {"collectives": collectives, "train": train,
-        "dropout_rows": dropout_rows}
+        "dropout_rows": dropout_rows, "serve": serve}
 
 
 def main(argv) -> None:

@@ -1,7 +1,9 @@
 """The harness of the port's sharded-step tests
-(``test_torch_sharded_train.py``, ``test_torch_sharded_tp.py``): cases
-cut from a recipe to a few layers at narrow widths, fp32, two steps (the
-first at the warmup's lr 0), run on four gloo ranks (``_torch_ranks.py``)
+(``test_torch_sharded_train.py``, ``test_torch_sharded_tp.py``,
+``test_torch_sharded_adafactor.py``): cases cut from a recipe to a few
+layers at narrow widths, fp32, two steps unless a test asks for more
+(the first at the warmup's lr 0), run on four gloo ranks
+(``_torch_ranks.py``)
 beside the JAX step on the same mesh (4 of the 8 simulated devices) and
 the port's one-rank step, on the same global batch and from one params
 file (``trainer.init_params_path``).
@@ -77,7 +79,7 @@ def _port_params(cfg, params, batch_stats=None) -> dict:
     return convert.vit_params_from_jax(params)
 
 
-def _global_batches(tcfg) -> tuple[list, int]:
+def _global_batches(tcfg, steps: int = STEPS) -> tuple[list, int]:
     """The global batch of each step, built from the 4 ranks' draws
     (microbatch m of it = every rank's microbatch m, in batch-index
     order), and the batch-axis size."""
@@ -89,7 +91,7 @@ def _global_batches(tcfg) -> tuple[list, int]:
         pipes.setdefault(env.batch_index, DataPipeline(
             tcfg.data, device="cpu", env=env))
     out = []
-    for step in range(STEPS):
+    for step in range(steps):
         local = [pipes[b].local_batch(step) for b in sorted(pipes)]
         out.append({k: np.concatenate([
             np.array_split(x[k], ga)[m] for m in range(ga) for x in local])
@@ -107,15 +109,16 @@ def _run_port(cfg, batches) -> dict:
     return {"metrics": metrics,
             "params": {k: v.numpy() for k, v in state.params.items()},
             "extras": state.extras,
-            "lr": sum(trainer.schedule(c) for c in range(STEPS))}
+            "lr": sum(trainer.schedule(c) for c in range(len(batches)))}
 
 
-def run_cases(cases: dict, tmp, extra_jobs=()) -> dict:
+def run_cases(cases: dict, tmp, extra_jobs=(), steps: int = STEPS) -> dict:
     """Each case (``name: (recipe, overrides, with_jax)``) from its own
     random params file: the four ranks' results (``ranks``), the one-rank
     step's (``one``) and, ``with_jax``, the JAX step's (``jax``), on the
-    global batches built from the ranks' draws. ``extra_jobs`` run on the
-    ranks after the cases; their results come back under ``extra``."""
+    global batches built from the ranks' draws, ``steps`` of them.
+    ``extra_jobs`` run on the ranks after the cases; their results come
+    back under ``extra``."""
     jobs, jax_side = [], {}
     for i, (name, (recipe, ov, with_jax)) in enumerate(cases.items()):
         path = tmp / f"{name}.msgpack"
@@ -128,12 +131,12 @@ def run_cases(cases: dict, tmp, extra_jobs=()) -> dict:
         jax_side[name] = (jt, tcfg, with_jax)
         jobs.append({"name": name, "kind": "train",
                      "args": {"config": recipe, "overrides": ov,
-                              "steps": STEPS,
+                              "steps": steps,
                               "keep_local": name == "mlp"}})
     wait = start_ranks(4, jobs + list(extra_jobs), tmp)
     out = {}
     for name, (jt, tcfg, with_jax) in jax_side.items():
-        batches, nb = _global_batches(tcfg)
+        batches, nb = _global_batches(tcfg, steps)
         one = tconfig.apply_overrides(tcfg, ONE_RANK)
         res = {"batches": batches, "nb": nb,
                "one": _run_port(one, batches)}

@@ -30,7 +30,11 @@ from frl_distributed_ml_scaffold_tpu.serving import (
 )
 from frl_distributed_ml_scaffold_tpu.serving import TenantSpec as JaxTenant
 from frl_distributed_ml_scaffold_tpu_torch import faults
-from frl_distributed_ml_scaffold_tpu_torch.config.schema import ServingConfig
+from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
+    MeshConfig,
+    ServingConfig,
+)
+from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import build_mesh
 from frl_distributed_ml_scaffold_tpu_torch.models import generation as tgen
 from frl_distributed_ml_scaffold_tpu_torch.ops._build import KernelError
 from frl_distributed_ml_scaffold_tpu_torch.serving import (
@@ -398,18 +402,25 @@ def test_build_engine_dispatches_on_disaggregate(pair):
 @pytest.mark.parametrize("case", ["partition", "rules", "respread",
                                   "bucketed", "zero_per_tick"])
 def test_disagg_refusals(pair, case):
-    """What stays refused: the separate prefill partition, the
-    tensor-parallel serving layout and the pool's re-spread (ROADMAP A7),
-    and, as in JAX, the bucketed cache and a zero launch budget."""
+    """What stays refused: a prefill partition made of other ranks and
+    the pool's re-spread (the redistribution service, ROADMAP A13), and,
+    as in JAX, the bucketed cache and a zero launch budget. ``rules=``
+    with no current mesh places nothing and serves, as in JAX."""
     jm, params, tm = pair
     paged = ServingConfig(kv_block_size=8, disaggregate=True)
-    if case in ("partition", "rules", "respread"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    if case == "rules":
+        eng = build_engine(tm, serving=paged, rules=["tp"], device="cpu")
+        eng.submit([1, 2, 3], 3)
+        (c,) = eng.run()
+        assert c.ok and len(c.tokens) == 6
+        return
+    if case in ("partition", "respread"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
             if case == "partition":
-                DisaggServingEngine(tm, serving=paged, prefill_env="mesh",
-                                    device="cpu")
-            elif case == "rules":
-                build_engine(tm, serving=paged, rules=["tp"], device="cpu")
+                DisaggServingEngine(
+                    tm, serving=paged,
+                    prefill_env=build_mesh(MeshConfig(data=1), 1),
+                    device="cpu")
             else:
                 build_engine(tm, serving=paged, device="cpu").decode \
                     .respread_pool(2)

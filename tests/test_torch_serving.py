@@ -21,8 +21,13 @@ from frl_distributed_ml_scaffold_tpu.models.generation import (
     generate as jax_generate,
 )
 from frl_distributed_ml_scaffold_tpu.serving import ServingEngine as JaxEngine
-from frl_distributed_ml_scaffold_tpu_torch.config.schema import ServingConfig
+from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
+    MeshConfig,
+    ServingConfig,
+)
+from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import build_mesh
 from frl_distributed_ml_scaffold_tpu_torch.models.generation import generate
+from frl_distributed_ml_scaffold_tpu_torch.models.gpt import gpt_tp_rules
 from frl_distributed_ml_scaffold_tpu_torch.ops import decode_attention as tda
 from frl_distributed_ml_scaffold_tpu_torch.serving import (
     ServingEngine,
@@ -147,8 +152,10 @@ def test_engine_refuses_zero_slots(pair):
         # Disaggregation without the paged cache, as JAX.
         {"disaggregate": True},
         {"max_queue_depth": -1},
-        # Still to port (ROADMAP A7): the separate prefill partition and
-        # the tensor-parallel serving layout.
+        # Ported with tensor-parallel serving: the separate prefill
+        # partition on a device of this process and the rules with no
+        # current mesh, which place nothing, as in JAX. A partition of
+        # other ranks waits for the redistribution (ROADMAP A13).
         {"disaggregate": True, "kv_block_size": 16, "prefill_env": "mesh"},
         {"rules": "gpt_tp_rules"},
     ],
@@ -157,15 +164,29 @@ def test_engine_refuses_zero_slots(pair):
 )
 def test_unported_serving_options_raise(pair, override):
     """The options the port refuses: those JAX refuses too, with JAX's
-    message, and those still to port, naming their ROADMAP item."""
+    message, and those still to port, naming their ROADMAP item; the two
+    that tensor-parallel serving brought (a prefill partition on a
+    device, ``rules=``) serve."""
     jm, params, tm = pair
     override = dict(override)
     kw = {k: override.pop(k) for k in ("prefill_env", "rules")
           if k in override}
-    if kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    if "prefill_env" in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
             build_engine(tm, serving=ServingConfig(**override), device="cpu",
-                         **kw)
+                         prefill_env=build_mesh(MeshConfig(data=1), 1))
+        eng = build_engine(tm, serving=ServingConfig(**override),
+                           device="cpu", prefill_env=torch.device("cpu"))
+        assert eng.prefill_worker.separate
+    if "rules" in kw:
+        shapes = {k: p.shape for k, p in tm.named_parameters()}
+        eng = build_engine(tm, serving=ServingConfig(**override),
+                           device="cpu", rules=gpt_tp_rules())
+        assert {k: p.shape for k, p in tm.named_parameters()} == shapes
+    if kw:
+        eng.submit([1, 2, 3], 3)
+        (c,) = eng.run()
+        assert c.ok and len(c.tokens) == 6
         return
     from frl_distributed_ml_scaffold_tpu.config.schema import (
         ServingConfig as JaxServingConfig,
