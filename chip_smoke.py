@@ -310,6 +310,28 @@ no final line):
    ``trainer.offload_opt_state=true``: losses and grad_norms bit-equal,
    every state tensor pinned host memory, the peak memory below
    train_path's, the step beside train_path's.
+36a. lowp_check (after tp_serve_path): ``qdot`` (``ops/quantization.py``)
+   through each format's card route (int8 ``torch._int_mm``, fp8_e4m3
+   ``torch._scaled_mm``, fp8_e5m2 the bf16 tensor cores into fp32) at
+   GPT-2-medium's tensor-parallel products per rank at ``model=2`` (q /
+   k / v [1024, 512], out [512, 1024], fc_in [1024, 2048], fc_out [2048,
+   1024]) on 8192 rows, against its plain version on the same card
+   operands (``LOWP_TOL``), timed beside bf16 ``torch.matmul`` at the
+   same shape, with ``quantized_matmul`` and its straight-through
+   backward. overlap_path: two processes of this script on the card
+   (``--overlap-rank``, gloo) train ``gpt2_medium_tp_overlap``, its
+   ``_int8`` twin (``model=2``, 8 heads a rank) and
+   ``gpt2_medium_fsdp_overlap`` (``fsdp=2``) through the ``Trainer``
+   with ``model.attention=flash`` at full width and depth, bf16_mixed,
+   seeded weights, 8 x 1024 tokens in 2 microbatches (the FSDP run in
+   one): a warm-up and two timed steps each, the warm-up against the
+   plain Megatron / FSDP step of the same processes from the same
+   weights and batch (losses within ``OVERLAP_RTOL``),
+   and one fp32 step of the tensor-parallel pair (1e-4). Per step: B1-B3
+   launches (2L, L, L a microbatch) at their heads, ring hops and bytes
+   by dtype equal to ``ring_bytes_per_step``, staged bytes, block
+   gathers, seconds and peak memory (gloo: no measure of overlap). The
+   ranks' log goes to ``OUT_DIR/overlap_ranks.log``.
 37. ``phase_seconds`` (the build, each phase above and the whole run),
    the ``kernels`` line (twelve kernels) and, last, ``{"ok": true,
    "device": ...}``.
@@ -5571,6 +5593,388 @@ def beam_phase(cfg, sd, seed: int, card: str) -> dict:
     return out
 
 
+# lowp_check: the scaled low-precision products of the rings
+# (ops/quantization.py) at GPT-2-medium's four tensor-parallel products
+# per rank at model=2 (q, k and v each; out; fc_in; fc_out), [K, N], on
+# LOWP_ROWS rows of bf16 activations.
+LOWP_SHAPES = {"qkv": (1024, 512), "out": (512, 1024),
+               "fc_in": (1024, 2048), "fc_out": (2048, 1024)}
+LOWP_ROWS = 8192
+# qdot on the card against its plain version on the same card operands,
+# relative to the largest value: int8 exact (integer products); fp8_e5m2
+# (bf16 tensor cores, fp32 accumulation) the order of the sums; fp8_e4m3
+# through cuBLASLt's fp8 product, whose tensor-core accumulation keeps
+# fewer bits than fp32 between its promotions (2.2e-4 measured at K=1024
+# on an H100).
+LOWP_TOL = {"int8": 0.0, "fp8_e4m3": 1e-3, "fp8_e5m2": 1e-5}
+# Published peaks (dense) of the routes' operand types, for the bound.
+LOWP_PEAK = {"int8": 1979e12, "fp8_e4m3": 1979e12, "fp8_e5m2": 989e12}
+
+
+def lowp_phase(gen, card: str) -> dict:
+    """``qdot`` through each format's card route (``QDOT_ROUTES``) at
+    the shapes above, held against ``raw_plain`` scaled the same way on
+    the same operands, and timed beside bf16 ``torch.matmul`` at the
+    same shape; ``quantized_matmul`` (quantize both operands, then the
+    product) timed too, and its straight-through backward held against
+    the plain matmul's gradients once per format."""
+    from frl_distributed_ml_scaffold_tpu_torch.ops import quantization as q
+
+    report = {"card": card, "rows": LOWP_ROWS, "routes": q.QDOT_ROUTES,
+              "products": {}}
+    for name, (k, n) in LOWP_SHAPES.items():
+        x = torch.randn(LOWP_ROWS, k, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        w = (torch.randn(k, n, generator=gen, device="cuda")
+             * k ** -0.5).to(torch.bfloat16)
+        entry = {"K": k, "N": n,
+                 "bf16_matmul_ms": cuda_time_ms(lambda: torch.matmul(x, w))}
+        for fmt in QUANT_FORMATS:
+            route = q.QDOT_ROUTES[fmt]
+            qx, sx = q.quantize(x, fmt)
+            qw, sw = q.quantize(w, fmt, channel_axes=1)
+            sx = sx.reshape(())
+            before = q.qdot_calls[route]
+            got = q.qdot(qx, sx, qw, sw[0])
+            check(q.qdot_calls[route] == before + 1,
+                  f"lowp_check {name} {fmt}: the {route} route did not run")
+            want = q.raw_plain(qx, qw) * (sx * sw[0])
+            top = want.abs().max().item()
+            err = (got - want).abs().max().item() / top
+            check(err <= LOWP_TOL[fmt],
+                  f"lowp_check {name} {fmt}: {route} vs plain {err}")
+            ms = cuda_time_ms(lambda: q.qdot(qx, sx, qw, sw[0]))
+            ops = 2 * LOWP_ROWS * k * n
+            moved = (LOWP_ROWS * k + k * n) * 1 + LOWP_ROWS * n * 4
+            bound = max(ops / LOWP_PEAK[fmt], moved / HBM_BYTES_PER_S) * 1e3
+            entry[fmt] = {
+                "route": route, "max_rel_err": err, "qdot_ms": ms,
+                "plain_ms": cuda_time_ms(
+                    lambda: q.raw_plain(qx, qw) * (sx * sw[0]), repeats=5),
+                "quantized_matmul_ms": cuda_time_ms(
+                    lambda: q.quantized_matmul(x, w, fmt)),
+                "bound_ms": bound,
+                "bound_by": ("operations" if ops / LOWP_PEAK[fmt]
+                             > moved / HBM_BYTES_PER_S else "bytes"),
+                "vs_bf16_matmul": entry["bf16_matmul_ms"] / ms}
+            if name == "qkv":
+                xg = x[:256].float().requires_grad_()
+                wg = w.float().requires_grad_()
+                dy = torch.randn(256, n, generator=gen, device="cuda")
+                q.quantized_matmul(xg, wg, fmt).backward(dy)
+                dx_err = (xg.grad - dy @ w.float().t()).abs().max().item()
+                dw_err = (wg.grad - x[:256].float().t() @ dy).abs().max().item()
+                check(max(dx_err, dw_err) <= 1e-3,
+                      f"lowp_check {fmt}: straight-through backward "
+                      f"{dx_err} {dw_err}")
+                entry[fmt]["ste_backward_max_abs_err"] = max(dx_err, dw_err)
+        report["products"][name] = entry
+    report["qdot_calls"] = dict(q.qdot_calls)
+    return report
+
+
+# overlap_path: two processes of this script on the one card, like
+# tp_serve_path. Each run: one warm-up step (lr 0) and OVERLAP_STEPS timed
+# steps of 8 x 1024 tokens in 2 microbatches (cut from the recipes' 64 in
+# 8 to fit the phase's time: gloo stages every ring hop through the host),
+# bf16_mixed, flash attention, seeded weights.
+OVERLAP_RANKS = 2
+OVERLAP_STEPS = 2
+OVERLAP_TIMEOUT_S = 600
+OVERLAP_OVERRIDES = ["model.attention=flash", "data.global_batch_size=8",
+                     "trainer.grad_accum=2", "checkpoint.enabled=false"]
+# name: (recipe, mesh and batch, the plain step's overrides: the Megatron
+# pair, or FSDP gathered at the start of the step). The FSDP run takes
+# its 8 rows in one microbatch: its gathers move every block's params
+# once a microbatch, whatever its rows.
+OVERLAP_RUNS = {
+    "tp_overlap": ("gpt2_medium_tp_overlap", ["mesh.model=2"],
+                   ["parallel.tp_overlap=false"]),
+    "tp_overlap_int8": ("gpt2_medium_tp_overlap_int8", ["mesh.model=2"],
+                        ["parallel.tp_overlap=false",
+                         "parallel.low_precision=none"]),
+    "fsdp_overlap": ("gpt2_medium_fsdp_overlap",
+                     ["mesh.fsdp=2", "trainer.grad_accum=1"],
+                     ["parallel.fsdp_overlap=false"]),
+}
+# The fp32 step of gpt2_medium_tp_overlap: one step of 2 x 1024 tokens.
+OVERLAP_FP32 = ["precision.policy=fp32", "data.global_batch_size=2",
+                "trainer.grad_accum=1"]
+# Losses against the plain step from the same weights and batches:
+# bf16 1e-2 relative, the int8 rings the reference's 5e-3 band, fp32
+# 1e-4.
+OVERLAP_RTOL = {"tp_overlap": 1e-2, "tp_overlap_int8": 5e-3,
+                "fsdp_overlap": 1e-2, "fp32": 1e-4}
+
+
+def ring_bytes_per_step(cfg, n: int) -> dict:
+    """What each rank sends on the ``model`` rings in one step of
+    ``cfg`` under dots remat, by dtype: per block and microbatch 8 gather
+    passes (q / k / v and fc_in forward, again in the recompute, and the
+    backward's four) and 6 rotating passes (out and fc_out forward, again
+    in the recompute, and the backward's two), each n - 1 hops of the
+    microbatch's chunk of the stream (both halves); under ``lowp`` a
+    1-byte payload and a 4-byte scale beside each half."""
+    from frl_distributed_ml_scaffold_tpu_torch.ops.quantization import (
+        lowp_dtype,
+        resolve_lowp,
+    )
+
+    m, t = cfg.model, cfg.trainer
+    rows = cfg.data.global_batch_size // t.grad_accum
+    chunk = rows * (m.seq_len // n) * m.hidden_dim
+    passes = (8 + 6) * (n - 1) * m.num_layers * t.grad_accum
+    lowp = resolve_lowp(cfg.parallel.low_precision)
+    if lowp is None:
+        return {"bfloat16": passes * chunk * 2}
+    return {str(lowp_dtype(lowp)).removeprefix("torch."): passes * chunk,
+            "float32": passes * 2 * 4}
+
+
+def _overlap_run(cfg, steps: int, flash) -> dict:
+    """``steps`` steps of ``cfg`` through the ``Trainer`` on this rank,
+    each with its loss, grad_norm, seconds, flash launches and the heads
+    they ran at, ring hops and bytes, staged bytes and block gathers."""
+    from frl_distributed_ml_scaffold_tpu_torch.dist import collectives
+    from frl_distributed_ml_scaffold_tpu_torch.ops import collective_matmul
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.loop import Trainer
+
+    trainer = Trainer(cfg, device="cuda")
+    state = trainer.init_state()
+    hooks = trainer.model.param_hooks
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = []
+    for s in range(steps):
+        batch = trainer.pipeline.global_batch(s)
+        collectives.reset_counters()
+        collective_matmul.ring_stats["hops"] = 0
+        flash["heads"].clear()
+        before = {k: f.launches for k, f in flash["fns"].items()}
+        g0 = 0 if hooks is None else hooks.gathers + hooks.regathers
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out.append({
+            "step": s, "loss": float(m["loss"]),
+            "grad_norm": float(m["grad_norm"]), "step_s": wall,
+            "launches": {k: f.launches - before[k]
+                         for k, f in flash["fns"].items()},
+            "heads": sorted(set(flash["heads"])),
+            "ring_hops": collective_matmul.ring_stats["hops"],
+            "ring_bytes": dict(collectives.wire_bytes.get("model", {})),
+            "staged_bytes": dict(collectives.staged_bytes),
+            "block_gathers": (None if hooks is None else
+                              hooks.gathers + hooks.regathers - g0)})
+    peak = torch.cuda.max_memory_allocated()
+    del trainer, state
+    torch.cuda.empty_cache()
+    return {"steps": out, "max_memory_allocated_bytes": peak}
+
+
+def overlap_rank(rank: int, port: int, out: str, seed: int) -> int:
+    """One rank of overlap_path (``--overlap-rank``): joins a gloo group
+    of ``OVERLAP_RANKS`` processes on the one card (NCCL refuses two
+    ranks on one device; gloo takes CUDA tensors through pinned host
+    copies, ``dist/collectives.py``), then for each of ``OVERLAP_RUNS``
+    trains the plain step and the recipe's overlap step from the
+    same seeded weights and batches through the ``Trainer``, then one
+    fp32 step of each of the tensor-parallel pair. Writes
+    ``out/overlap_rank<rank>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from frl_distributed_ml_scaffold_tpu_torch.config import (
+        apply_overrides,
+        get_config,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.ops import flash_attention as fa
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}",
+        world_size=OVERLAP_RANKS, rank=rank,
+        timeout=datetime.timedelta(seconds=OVERLAP_TIMEOUT_S))
+    fns = {"flash_attention_fwd": fa.flash_fwd,
+           "flash_attention_bwd_dq": fa.flash_bwd_dq,
+           "flash_attention_bwd_dkv": fa.flash_bwd_dkv}
+    flash = {"fns": fns, "heads": []}
+    dims = fa._dims
+
+    def watched_dims(q, seq_dim, causal):
+        # Each launch reads its dims once: (B, H, T, D, dtype, causal).
+        out = dims(q, seq_dim, causal)
+        flash["heads"].append(int(out[1]))
+        return out
+
+    fa._dims = watched_dims
+    report = {"rank": rank, "backend": dist.get_backend(), "runs": {},
+              "plain": {}}
+    base = OVERLAP_OVERRIDES + [f"trainer.seed={seed}"]
+    for name, (recipe, mesh, plain_ov) in OVERLAP_RUNS.items():
+        cfg = apply_overrides(get_config(recipe), base + mesh)
+        key = " ".join(mesh)
+        if key not in report["plain"]:
+            # The plain step at the warm-up: the same weights and batch.
+            report["plain"][key] = _overlap_run(
+                apply_overrides(cfg, plain_ov), 1, flash)
+        run = _overlap_run(cfg, 1 + OVERLAP_STEPS, flash)
+        run.update(plain=key, config=recipe, mesh=mesh,
+                   heads=cfg.model.num_heads, layers=cfg.model.num_layers,
+                   grad_accum=cfg.trainer.grad_accum,
+                   rows=cfg.data.global_batch_size,
+                   want_ring_bytes=(ring_bytes_per_step(cfg, 2)
+                                    if "model" in key else {}))
+        report["runs"][name] = run
+    cfg = apply_overrides(get_config("gpt2_medium_tp_overlap"),
+                          base + ["mesh.model=2"] + OVERLAP_FP32)
+    report["fp32"] = {
+        "plain": _overlap_run(apply_overrides(
+            cfg, ["parallel.tp_overlap=false"]), 1, flash),
+        "overlap": _overlap_run(cfg, 1, flash)}
+    with open(os.path.join(out, f"overlap_rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def overlap_phase(seed: int, card: str) -> dict:
+    """overlap_path: ``OVERLAP_RANKS`` processes of this script
+    (``overlap_rank``) on the one card, and the checks across their
+    results. gloo copies every collective through the host, so the step
+    seconds are no measure of how well the schedule overlaps."""
+    out = tempfile.mkdtemp(prefix="overlap_", dir=os.path.join(REPO, "build"))
+    port = free_port()
+    log_paths = [os.path.join(out, f"rank{r}.log")
+                 for r in range(OVERLAP_RANKS)]
+    procs = []
+    for r in range(OVERLAP_RANKS):
+        with open(log_paths[r], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--seed",
+                 str(seed), "--overlap-rank", str(r), "--tp-port", str(port),
+                 "--tp-out", out],
+                stdout=log, stderr=subprocess.STDOUT, cwd=REPO))
+    deadline = time.perf_counter() + OVERLAP_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if (any(p.poll() not in (None, 0) for p in procs)
+                    or time.perf_counter() > deadline):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    logs = []
+    for path in log_paths:
+        with open(path) as f:
+            logs.append(f.read())
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "overlap_ranks.log"), "w") as f:
+        f.write("\n".join(logs))
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"overlap_path: rank {r} exited "
+              f"{p.returncode}: {logs[r][-3000:]}")
+    ranks = []
+    for r in range(OVERLAP_RANKS):
+        with open(os.path.join(out, f"overlap_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(out, ignore_errors=True)
+    return overlap_report(ranks, card)
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b)
+
+
+def overlap_report(ranks: list, card: str) -> dict:
+    """overlap_path's checks: the ranks agree (one global loss); each
+    run's warm-up loss (the same weights and batch) within
+    ``OVERLAP_RTOL`` of the plain step's; B1-B3
+    launched as train_path's per microbatch (twice, once and once per
+    layer) at 8 heads a rank under the rings (16 under FSDP); the ring
+    bytes each step equal ``ring_bytes_per_step``; the fsdp run gathered
+    its blocks."""
+    r0 = ranks[0]
+    for r in ranks[1:]:
+        for name, run in r["runs"].items():
+            check([s["loss"] for s in run["steps"]]
+                  == [s["loss"] for s in r0["runs"][name]["steps"]],
+                  f"overlap_path {name}: rank {r['rank']} differs")
+    report = {"card": card, "backend": r0["backend"],
+              "backend_note": "gloo over CUDA tensors, every collective "
+                              "staged through pinned host memory: not a "
+                              "measure of how well the schedule overlaps",
+              "overrides": OVERLAP_OVERRIDES, "runs": {}}
+    for name, run in r0["runs"].items():
+        plain = r0["plain"][run["plain"]]
+        layers, accum = run["layers"], run["grad_accum"]
+        per = {"flash_attention_fwd": 2 * layers * accum,
+               "flash_attention_bwd_dq": layers * accum,
+               "flash_attention_bwd_dkv": layers * accum}
+        heads = run["heads"] // (2 if "model" in run["plain"] else 1)
+        a, b = run["steps"][0], plain["steps"][0]
+        rel = _rel(a["loss"], b["loss"])
+        check(rel <= OVERLAP_RTOL[name],
+              f"overlap_path {name}: warm-up loss {a['loss']} vs plain "
+              f"{b['loss']}")
+        for a in run["steps"]:
+            check(math.isfinite(a["loss"]) and math.isfinite(a["grad_norm"]),
+                  f"overlap_path {name} step {a['step']}: {a}")
+            check(a["launches"] == per,
+                  f"overlap_path {name} step {a['step']}: flash launches "
+                  f"{a['launches']}, want {per}")
+            check(a["heads"] == [heads],
+                  f"overlap_path {name}: flash heads {a['heads']}")
+            check(a["ring_bytes"] == run["want_ring_bytes"],
+                  f"overlap_path {name} step {a['step']}: ring bytes "
+                  f"{a['ring_bytes']}, want {run['want_ring_bytes']}")
+            if name == "fsdp_overlap":
+                check(a["block_gathers"] > 0 and a["staged_bytes"]
+                      ["all_gather"] > 0, f"overlap_path {name}: no gathers")
+        timed = [s["step_s"] for s in run["steps"][1:]]
+        report["runs"][name] = {
+            "config": run["config"], "mesh": run["mesh"],
+            "global_batch": run["rows"], "grad_accum": accum,
+            "heads_per_rank": heads,
+            "losses": [s["loss"] for s in run["steps"]],
+            "plain_loss": plain["steps"][0]["loss"],
+            "loss_rel_vs_plain": rel, "rtol": OVERLAP_RTOL[name],
+            "grad_norms": [s["grad_norm"] for s in run["steps"]],
+            "plain_grad_norm": plain["steps"][0]["grad_norm"],
+            "grad_norm_rel_vs_plain": _rel(run["steps"][0]["grad_norm"],
+                                           plain["steps"][0]["grad_norm"]),
+            "flash_launches_per_step": run["steps"][-1]["launches"],
+            "ring_hops_per_step": run["steps"][-1]["ring_hops"],
+            "ring_bytes_per_step": run["steps"][-1]["ring_bytes"],
+            "ring_bytes_analytic": run["want_ring_bytes"],
+            "staged_bytes_per_step": run["steps"][-1]["staged_bytes"],
+            "block_gathers_per_step": run["steps"][-1]["block_gathers"],
+            "step_s": timed, "step_s_median": statistics.median(timed),
+            "warmup_step_s": run["steps"][0]["step_s"],
+            "plain_warmup_step_s": plain["steps"][0]["step_s"],
+            "max_memory_allocated_bytes": run["max_memory_allocated_bytes"],
+            "plain_max_memory_allocated_bytes":
+                plain["max_memory_allocated_bytes"]}
+    fp = r0["fp32"]
+    a, b = fp["overlap"]["steps"][0], fp["plain"]["steps"][0]
+    check(_rel(a["loss"], b["loss"]) <= OVERLAP_RTOL["fp32"],
+          f"overlap_path fp32: loss {a['loss']} vs plain {b['loss']}")
+    report["fp32_tp_overlap"] = {
+        "overrides": OVERLAP_FP32, "loss": a["loss"], "plain_loss": b["loss"],
+        "loss_rel": _rel(a["loss"], b["loss"]),
+        "grad_norm": a["grad_norm"], "plain_grad_norm": b["grad_norm"],
+        "rtol": OVERLAP_RTOL["fp32"]}
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5579,6 +5983,9 @@ def main() -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--tp-port", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--tp-out", help=argparse.SUPPRESS)
+    # One rank of overlap_path (the script starts them itself).
+    ap.add_argument("--overlap-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5587,6 +5994,9 @@ def main() -> int:
     if args.tp_rank is not None:
         return tp_serve_rank(args.tp_rank, args.tp_port, args.tp_out,
                              args.seed)
+    if args.overlap_rank is not None:
+        return overlap_rank(args.overlap_rank, args.tp_port, args.tp_out,
+                            args.seed)
     from frl_distributed_ml_scaffold_tpu_torch.config import (
         apply_overrides,
         get_config,
@@ -5674,6 +6084,13 @@ def main() -> int:
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     emit("tp_serve_path", timed_phase("tp_serve_path", tp_serve_phase,
                                       args.seed, card))
+    # The overlap schedule: the rings' low-precision products, then two
+    # processes training the overlap recipes on the card.
+    emit("lowp_check", timed_phase(
+        "lowp_check", lowp_phase,
+        torch.Generator(device="cuda").manual_seed(args.seed + 18), card))
+    emit("overlap_path", timed_phase("overlap_path", overlap_phase,
+                                     args.seed, card))
     kern.update(timed_phase("flash_kernel", flash_kernel_phase, gen))
     report, counts, profile = timed_phase("train_path", train_phase, sd, card)
     launches.update({k: n for k, n in counts.items() if n})

@@ -7,7 +7,10 @@ precision, checkpoint, serving), with the JAX recipe's values. The mesh
 sections are the JAX recipes' layouts, laid over the run's ranks
 (``dist/mesh.py``): on one card ``zero1`` and ``fsdp=-1`` are the
 replicated layout; over N ranks they split the state (``parallel/``).
-``gpt2_tp`` needs an even rank count (``model=2``).
+``gpt2_tp`` needs an even rank count (``model=2``). The five
+``*_overlap*`` recipes run the overlap schedule (``parallel/
+schedule.py``); ``gpt2_medium_tp_overlap`` and its ``_int8`` twin need
+``model > 1``, the ``fsdp_tp`` pair ``model=2``.
 """
 
 from __future__ import annotations
@@ -142,6 +145,78 @@ def gpt2_tp() -> ExperimentConfig:
     )
 
 
+def gpt2_medium_fsdp_overlap() -> ExperimentConfig:
+    """The LM under overlap-scheduled FSDP (``parallel/fsdp_overlap.py``):
+    params split over ``fsdp``, each block gathering its own shards one
+    block ahead and reduce-scattering its gradient as its backward
+    ends."""
+    base = gpt2_medium_zero1()
+    return base.replace(
+        name="gpt2_medium_fsdp_overlap",
+        mesh=MeshConfig(data=1, fsdp=-1),
+        parallel=ParallelConfig(
+            param_sharding="fsdp",
+            opt_sharding="like_params",
+            fsdp_overlap=True,
+            fsdp_prefetch=1,
+        ),
+    )
+
+
+def gpt2_medium_tp_overlap() -> ExperimentConfig:
+    """The LM under tensor parallelism on the collective-matmul rings
+    (``parallel/tp_overlap.py``): the four per-block ``model`` products
+    as bidirectional rings, the residual stream split over ``model``
+    along the tokens between them."""
+    base = gpt2_medium_zero1()
+    return base.replace(
+        name="gpt2_medium_tp_overlap",
+        mesh=MeshConfig(data=1, model=-1),
+        parallel=ParallelConfig(
+            param_sharding="replicated",
+            opt_sharding="zero1",
+            tp_overlap=True,
+        ),
+    )
+
+
+def gpt2_medium_tp_overlap_int8() -> ExperimentConfig:
+    """``gpt2_medium_tp_overlap`` with int8 rings: chunks and scales on
+    the wire, the products through ``qdot``, straight-through
+    gradients (``ops/quantization.py``)."""
+    base = gpt2_medium_tp_overlap()
+    return base.replace(
+        name="gpt2_medium_tp_overlap_int8",
+        parallel=dataclasses.replace(base.parallel, low_precision="int8"),
+    )
+
+
+def gpt2_medium_fsdp_tp_overlap() -> ExperimentConfig:
+    """Both schedules at once: the blockwise FSDP gathers over ``fsdp``
+    and the collective-matmul rings over ``model=2``."""
+    base = gpt2_medium_zero1()
+    return base.replace(
+        name="gpt2_medium_fsdp_tp_overlap",
+        mesh=MeshConfig(data=1, fsdp=-1, model=2),
+        parallel=ParallelConfig(
+            param_sharding="fsdp",
+            opt_sharding="like_params",
+            fsdp_overlap=True,
+            fsdp_prefetch=1,
+            tp_overlap=True,
+        ),
+    )
+
+
+def gpt2_medium_fsdp_tp_overlap_int8() -> ExperimentConfig:
+    """``gpt2_medium_fsdp_tp_overlap`` with int8 rings."""
+    base = gpt2_medium_fsdp_tp_overlap()
+    return base.replace(
+        name="gpt2_medium_fsdp_tp_overlap_int8",
+        parallel=dataclasses.replace(base.parallel, low_precision="int8"),
+    )
+
+
 def imagenet_rn50_ddp() -> ExperimentConfig:
     """BASELINE config 2: ResNet-50 on ImageNet, data parallel (the DDP
     equivalent), bf16_mixed; SGD with nesterov momentum, weight decay and
@@ -246,6 +321,11 @@ _RECIPES = {
     "gpt2_medium_adafactor": gpt2_medium_adafactor,
     "gpt2_long": gpt2_long,
     "gpt2_tp": gpt2_tp,
+    "gpt2_medium_fsdp_overlap": gpt2_medium_fsdp_overlap,
+    "gpt2_medium_tp_overlap": gpt2_medium_tp_overlap,
+    "gpt2_medium_tp_overlap_int8": gpt2_medium_tp_overlap_int8,
+    "gpt2_medium_fsdp_tp_overlap": gpt2_medium_fsdp_tp_overlap,
+    "gpt2_medium_fsdp_tp_overlap_int8": gpt2_medium_fsdp_tp_overlap_int8,
     "imagenet_rn50_ddp": imagenet_rn50_ddp,
     "imagenet_rn101_ddp": imagenet_rn101_ddp,
     "imagenet_vitb_fsdp": imagenet_vitb_fsdp,

@@ -14,6 +14,23 @@ each is the identity and communicates nothing. None is differentiable:
 the autograd pairs that the models need are in
 ``parallel/tensor_parallel.py``.
 
+**Async tier**, what the overlap schedule needs (``ops/
+collective_matmul.py``'s rings, ``parallel/fsdp_overlap.py``'s block
+gathers): ``exchange_start`` posts one ring hop's sends and receives
+over an axis and ``all_gather_start`` one all-gather along a dim; each
+returns a ``Pending`` whose ``wait()`` gives the received tensors, so
+the caller computes between the post and the wait. ``reduce_scatter_dim``
+(and ``all_gather_dim``, the wait of ``all_gather_start``) handle a dim
+the axis does not divide by the padded bounds of ``parallel/layout.py``.
+``wire_bytes`` counts the bytes this process sends point to point, by
+axis and dtype, at the send (payloads and scales alike).
+
+A gloo group does not take CUDA tensors in point-to-point sends, all-
+gathers or reduce-scatters, so on a gloo group a CUDA tensor is staged
+through pinned host memory there and back (``staged_bytes`` counts what
+was staged, by collective); an NCCL group takes the device tensor as it
+is, and nothing is staged on the CPU.
+
 **Host tier**, process-level coordination over every rank:
 ``host_all_gather`` (each rank's array stacked on a new leading axis),
 ``host_broadcast`` (rank 0's value to all) and ``barrier``; in one
@@ -191,6 +208,146 @@ def axis_index(axis: AxisName, *, env: MeshEnv | None = None) -> int:
 def axis_size(axis: AxisName, *, env: MeshEnv | None = None) -> int:
     """The number of members of ``axis``."""
     return _env(env).axis_size(axis)
+
+
+# ------------------------------ async tier --------------------------------
+
+#: Bytes this process sent point to point: ``{axis: {dtype: bytes}}``.
+wire_bytes: dict[str, dict[str, int]] = {}
+
+#: Bytes staged through pinned host memory for gloo, by collective.
+staged_bytes: dict[str, int] = {"p2p": 0, "all_gather": 0,
+                                "reduce_scatter": 0}
+
+
+def reset_counters() -> None:
+    wire_bytes.clear()
+    for k in staged_bytes:
+        staged_bytes[k] = 0
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """``float32``, ``int8``, ``float8_e4m3fn``: the JAX dtype names."""
+    return str(dtype).removeprefix("torch.")
+
+
+def _staged(group, t: torch.Tensor) -> bool:
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _to_host(t: torch.Tensor, kind: str) -> torch.Tensor:
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    staged_bytes[kind] += t.numel() * t.element_size()
+    return host
+
+
+class Pending:
+    """Posted communication; ``wait()`` finishes it and returns what it
+    produced (``finish`` of the received tensors)."""
+
+    def __init__(self, reqs, finish):
+        self._reqs, self._finish, self._out = reqs, finish, None
+        self._done = False
+
+    def wait(self):
+        if not self._done:
+            for r in self._reqs:
+                r.wait()
+            self._out = self._finish()
+            self._done = True
+        return self._out
+
+
+def exchange_start(sends: Sequence[tuple[torch.Tensor, int]],
+                   recvs: Sequence[tuple[torch.Tensor, int]], axis: str, *,
+                   env: MeshEnv | None = None) -> Pending:
+    """Post point-to-point sends ``(tensor, dst coordinate)`` and
+    receives ``(like, src coordinate)`` over ``axis`` in one batch; the
+    ``Pending`` gives the received tensors (shaped and typed like their
+    ``like``) in order. Counts the sent bytes in ``wire_bytes``."""
+    env = _env(env)
+    ranks, group = env.group_ranks(axis), env.group(axis)
+    counts = wire_bytes.setdefault(axis, {})
+    ops, outs, back = [], [], []
+    for t, dst in sends:
+        t = t.contiguous()
+        name = dtype_name(t.dtype)
+        counts[name] = counts.get(name, 0) + t.numel() * t.element_size()
+        if _staged(group, t):
+            t = _to_host(t, "p2p")
+        ops.append(dist.P2POp(dist.isend, t, ranks[dst], group))
+    for like, src in recvs:
+        buf = torch.empty(like.shape, dtype=like.dtype,
+                          device=like.device)
+        if _staged(group, buf):
+            host = torch.empty(like.shape, dtype=like.dtype,
+                               pin_memory=True)
+            back.append((buf, host))
+            staged_bytes["p2p"] += buf.numel() * buf.element_size()
+            ops.append(dist.P2POp(dist.irecv, host, ranks[src], group))
+        else:
+            ops.append(dist.P2POp(dist.irecv, buf, ranks[src], group))
+        outs.append(buf)
+    reqs = dist.batch_isend_irecv(ops) if ops else []
+
+    def finish():
+        for buf, host in back:
+            buf.copy_(host)
+        return outs
+
+    return Pending(reqs, finish)
+
+
+def all_gather_start(x: torch.Tensor, axis: str, dim: int, n: int, *,
+                     env: MeshEnv | None = None) -> Pending:
+    """Post the all-gather over ``axis`` of ``x``, this member's chunk of
+    a dim ``dim`` of size ``n``; the ``Pending`` gives the whole tensor
+    (the short last chunk padded for the exchange, then cut)."""
+    env = _env(env)
+    group, k = env.group(axis), env.axis_size(axis)
+    c = -(-n // k)
+    if x.shape[dim] < c:
+        pad = list(x.shape)
+        pad[dim] = c - x.shape[dim]
+        x = torch.cat([x, x.new_zeros(pad)], dim)
+    x = x.contiguous()
+    dev = x.device
+    if _staged(group, x):
+        x = _to_host(x, "all_gather")
+    parts = [torch.empty_like(x) for _ in range(k)]
+    req = dist.all_gather(parts, x, group=group, async_op=True)
+    return Pending([req], lambda: torch.cat(parts, dim).narrow(
+        dim, 0, n).to(dev))
+
+
+def all_gather_dim(x: torch.Tensor, axis: str, dim: int, n: int, *,
+                   env: MeshEnv | None = None) -> torch.Tensor:
+    """``all_gather_start(...).wait()``."""
+    return all_gather_start(x, axis, dim, n, env=env).wait()
+
+
+def reduce_scatter_dim(g: torch.Tensor, axis: str, dim: int, *,
+                       env: MeshEnv | None = None) -> torch.Tensor:
+    """The sum of ``g`` over the members of ``axis``, and this member's
+    chunk of ``dim`` by the padded bounds (``ceil(n / k)`` rows a
+    member, the last cut at n)."""
+    env = _env(env)
+    group, k, i = env.group(axis), env.axis_size(axis), env.axis_index(axis)
+    n = g.shape[dim]
+    c = -(-n // k)
+    if c * k != n:
+        pad = list(g.shape)
+        pad[dim] = c * k - n
+        g = torch.cat([g, g.new_zeros(pad)], dim)
+    dev = g.device
+    chunks = [ch.contiguous() for ch in g.chunk(k, dim)]
+    if _staged(group, g):
+        chunks = [_to_host(ch, "reduce_scatter") for ch in chunks]
+    out = torch.empty_like(chunks[0])
+    dist.reduce_scatter(out, chunks, group=group)
+    lo, hi = min(i * c, n), min((i + 1) * c, n)
+    return out.narrow(dim, 0, hi - lo).to(dev)
 
 
 # ------------------------------ host tier ---------------------------------

@@ -61,13 +61,19 @@ def keep_mask(shape, rate: float, seed: int, *site: int, device,
     """The boolean mask of one site: each value kept with probability
     ``1 - rate``, from a generator seeded by ``mix_seed(seed, *site)``.
     Under a mesh, ``shape`` is this rank's part (dim 0 its rows, dim
-    ``model_dim`` its ``model`` slice): the whole tensor's mask is drawn
-    and this part kept."""
+    ``model_dim`` its ``model`` slice; with ``model_dim=0`` the rows are
+    split over ``model`` too, inside the batch shard): the whole tensor's
+    mask is drawn and this part kept."""
     gen = torch.Generator(device=device)
     gen.manual_seed(mix_seed(seed, *site))
     full, index = list(shape), [slice(None)] * len(shape)
     cuts = [(0, *batch_shard())]
-    if model_dim is not None:
+    if model_dim == 0:
+        # Rows split over the batch axes and then over ``model`` (the
+        # ViT's stream between the collective-matmul rings).
+        (bi, bn), (mi, mn) = batch_shard(), model_shard()
+        cuts = [(0, bi * mn + mi, bn * mn)]
+    elif model_dim is not None:
         cuts.append((model_dim, *model_shard()))
     for dim, i, n in cuts:
         full[dim] = shape[dim] * n

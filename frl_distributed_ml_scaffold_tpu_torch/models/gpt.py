@@ -246,6 +246,7 @@ class CausalSelfAttention(nn.Module):
         self.key = nn.Linear(d, d, device=device, dtype=pd)
         self.value = nn.Linear(d, d, device=device, dtype=pd)
         self.out = nn.Linear(d, d, device=device, dtype=pd)
+        self.tp = None  # collective-matmul hooks (GPT.attach)
 
     def _dense(self, lin: nn.Linear, x):
         return F.linear(
@@ -257,13 +258,24 @@ class CausalSelfAttention(nn.Module):
         """The training / eval forward, causal over this call's tokens;
         under tensor parallelism (a current mesh with ``model > 1``) over
         this rank's heads: column-parallel q / k / v, row-parallel
-        ``out``."""
+        ``out``, by the Megatron pair or, with ``tp`` hooks, on the
+        collective-matmul rings over this rank's tokens."""
         cfg = self.cfg
         b, t, d = x.shape
         hd = d // cfg.num_heads
+        h = self.query.weight.shape[0] // hd  # this rank's heads
+        if self.tp is not None:
+            # The collective-matmul rings: x is this rank's tokens; q / k /
+            # v come out over every token, for this rank's heads.
+            q, k, v = (y.view(b, -1, h, hd) for y in self.tp.qkv(
+                x.to(self.dtype), (self.query, self.key, self.value),
+                self.dtype))
+            y = _TRAIN_ATTENTION[cfg.attention](q, k, v, causal=True)
+            return self.tp.row(y.reshape(b, -1, h * hd),
+                               self.out.weight.to(self.dtype),
+                               self.out.bias.to(self.dtype))
         if model_shard()[1] > 1:
             x = copy_to_model(x)
-        h = self.query.weight.shape[0] // hd  # this rank's heads
         q, k, v = (self._dense(lin, x).view(b, t, h, hd)
                    for lin in (self.query, self.key, self.value))
         y = _TRAIN_ATTENTION[cfg.attention](q, k, v, causal=True)
@@ -392,6 +404,7 @@ class GptMlp(nn.Module):
         self.fc_in = nn.Linear(d, d * cfg.mlp_ratio, device=device, dtype=pd)
         self.fc_out = nn.Linear(d * cfg.mlp_ratio, d, device=device, dtype=pd)
         self.width = d * cfg.mlp_ratio
+        self.tp = None  # collective-matmul hooks (GPT.attach)
 
     def forward(self, x):
         """Under tensor parallelism ``fc_in`` is column-parallel and
@@ -399,6 +412,12 @@ class GptMlp(nn.Module):
         rank holds a slice of ``fc_in``'s outputs (the training step's
         compute spec, or ``shard_params_for_serving``)."""
         cd = self.dtype
+        if self.tp is not None:
+            y = self.tp.column(x.to(cd), self.fc_in.weight.to(cd),
+                               self.fc_in.bias.to(cd))
+            return self.tp.row(F.gelu(y, approximate="tanh"),
+                               self.fc_out.weight.to(cd),
+                               self.fc_out.bias.to(cd))
         tp = self.fc_in.weight.shape[0] < self.width
         if tp:
             x = copy_to_model(x)
@@ -428,16 +447,22 @@ class Block(nn.Module):
         self.mlp = GptMlp(cfg, policy, device)
         self.rate = cfg.dropout
 
+    def _stream_dim(self):
+        """The dim of the stream split over ``model`` (the rings' tokens),
+        or None."""
+        return None if self.attn.tp is None else self.attn.tp.chunk_axis
+
     def attn_sublayer(self, x, layer: int, seed: int | None):
         """The training forward's attention sublayer, its dropout after
         the output projection (site 0 of ``layer``)."""
         y = self.attn(_layer_norm(self.ln1, x), None, layer, None)
-        return dropout(y, self.rate, seed, layer, 0)
+        return dropout(y, self.rate, seed, layer, 0,
+                       model_dim=self._stream_dim())
 
     def mlp_sublayer(self, x, layer: int, seed: int | None):
         """The MLP sublayer, its dropout after ``fc_out`` (site 1)."""
         return dropout(self.mlp(_layer_norm(self.ln2, x)), self.rate, seed,
-                       layer, 1)
+                       layer, 1, model_dim=self._stream_dim())
 
     def forward(self, x, cache: dict | None, layer: int, lens,
                 seed: int | None = None, part: str = "block"):
@@ -485,6 +510,22 @@ class GPT(nn.Module):
             cfg.hidden_dim, eps=cfg.layer_norm_epsilon, device=device,
             dtype=pd,
         )
+
+        # The overlap schedule's hooks (``attach``): the training and eval
+        # forward read them, decode does not.
+        self.param_hooks = None
+        self.tp_overlap = None
+
+    def attach(self, *, param_hooks=None, tp_overlap=None) -> None:
+        """Hook the training / eval forward to the overlap schedule
+        (``parallel/schedule.py`` ``hooked_model``): ``param_hooks``, the
+        blockwise FSDP gathers (``parallel/fsdp_overlap.py``
+        ``BlockGather``); ``tp_overlap``, the collective-matmul rings
+        (``parallel/tp_overlap.py`` ``TpHooks``), the residual stream
+        sharded over ``model`` along the tokens between them."""
+        self.param_hooks, self.tp_overlap = param_hooks, tp_overlap
+        for block in self.blocks:
+            block.attn.tp = block.mlp.tp = tp_overlap
 
     @property
     def device(self) -> torch.device:
@@ -647,8 +688,19 @@ class GPT(nn.Module):
         x = x + self.wpe[:t].to(cd)
         # The embedding's site sits after every block's: (L, 0).
         x = dropout(x, cfg.dropout, seed, cfg.num_layers, 0)
+        tp, hooks = self.tp_overlap, self.param_hooks
+        if tp is not None:
+            x = tp.scatter(x)
+        if hooks is not None:
+            hooks.start((f"blocks.{i}.", dict(b.named_parameters()))
+                        for i, b in enumerate(self.blocks))
         for layer, block in enumerate(self.blocks):
-            x = self._block_train(block, x, layer, seed)
+            if hooks is not None:
+                x = self._block_gathered(block, x, layer, seed)
+            else:
+                x = self._block_train(block, x, layer, seed)
+        if tp is not None:
+            x = tp.gather(x)
         x = _layer_norm(self.ln_f, x).to(cd)
         if return_features:
             return x
@@ -685,3 +737,35 @@ class GPT(nn.Module):
             return checkpoint(run, x, "block", *tensors, use_reentrant=False)
         x = x + checkpoint(run, x, "attn", *tensors, use_reentrant=False)
         return x + checkpoint(run, x, "mlp", *tensors, use_reentrant=False)
+
+    def _block_gathered(self, block: Block, x, layer: int, seed: int | None):
+        """One block under the blockwise FSDP gathers (``param_hooks``):
+        its shards gathered whole for its compute, ``prefetch`` blocks
+        ahead. Under ``block_remat=none`` every activation is saved but
+        the gathered parameters, which the backward gathers again;
+        ``full`` and ``save_attn`` checkpoint as ``_block_train`` does,
+        with the gather inside, so the recompute gathers again."""
+        hooks = self.param_hooks
+        hooks.begin(layer)
+        names, shards = zip(*block.named_parameters())
+        parts = {"block": None,
+                 "attn": {n for n in names if n.startswith(("ln1.", "attn."))},
+                 "mlp": {n for n in names if n.startswith(("ln2.", "mlp."))}}
+
+        def run(x, part, *shards):
+            params = hooks.params(layer, dict(zip(names, shards)),
+                                  parts[part])
+            return functional_call(block, params,
+                                   (x, None, layer, None, seed),
+                                   {"part": part})
+
+        mode = self.config.block_remat
+        if not torch.is_grad_enabled():
+            return run(x, "block", *shards)
+        if mode == "none":
+            with hooks.no_save():
+                return run(x, "block", *shards)
+        if mode == "full":
+            return checkpoint(run, x, "block", *shards, use_reentrant=False)
+        x = x + checkpoint(run, x, "attn", *shards, use_reentrant=False)
+        return x + checkpoint(run, x, "mlp", *shards, use_reentrant=False)

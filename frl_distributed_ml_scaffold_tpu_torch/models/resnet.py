@@ -39,15 +39,21 @@ in place of autodiff's route-to-the-first-maximum: tied maxima split the
 gradient equally (``max_pool_mask_grad``). Both are plain PyTorch: XLA
 fused them in the reference; neither was a Pallas kernel.
 
-Not ported, and refused: ``param_hooks``, the FSDP per-block gather
-hooks (ROADMAP A11).
+``param_hooks`` (``parallel/fsdp_overlap.py`` ``BlockGather``, set by
+the overlap schedule): each residual block gathers its ``fsdp`` shards
+just before its compute, block k's gather posted once block
+k - 1 - prefetch has run, and the backward gathers them again rather
+than keeping them saved (the reference's policy for the ResNet).
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 
 from frl_distributed_ml_scaffold_tpu_torch import resolve_device
 from frl_distributed_ml_scaffold_tpu_torch.config.schema import ResNetConfig
@@ -257,10 +263,6 @@ class ResNet(nn.Module):
         if config.pool_grad not in ("scatter", "mask"):
             raise ValueError(f"unknown pool_grad {config.pool_grad!r}; "
                              "expected 'scatter' or 'mask'")
-        if param_hooks is not None:
-            raise NotImplementedError(
-                "param_hooks (the FSDP per-block gather hooks) are not ported "
-                "yet (ROADMAP A11)")
         if config.depth not in STAGE_SIZES:
             raise KeyError(f"unknown ResNet depth {config.depth}; have "
                            f"{sorted(STAGE_SIZES)}")
@@ -295,6 +297,12 @@ class ResNet(nn.Module):
         for name, mod in self.named_modules():
             if isinstance(mod, BatchNorm):
                 mod.stats_name = name + "."
+        self.param_hooks = param_hooks
+
+    def attach(self, *, param_hooks=None) -> None:
+        """Hook the blocks to the blockwise FSDP gathers (module
+        docstring)."""
+        self.param_hooks = param_hooks
 
     def batch_norms(self) -> list[BatchNorm]:
         return [m for m in self.modules() if isinstance(m, BatchNorm)]
@@ -316,8 +324,19 @@ class ResNet(nn.Module):
             x = max_pool_mask_grad(x)
         else:
             x = max_pool_same(x)
-        for block in self.blocks:
-            x = block(x, train, updates)
+        hooks = self.param_hooks
+        if hooks is None:
+            for block in self.blocks:
+                x = block(x, train, updates)
+        else:
+            hooks.start((f"blocks.{i}.", dict(b.named_parameters()))
+                        for i, b in enumerate(self.blocks))
+            for k, block in enumerate(self.blocks):
+                hooks.begin(k)
+                with (hooks.no_save() if torch.is_grad_enabled()
+                      else contextlib.nullcontext()):
+                    x = functional_call(block, hooks.params(
+                        k, dict(block.named_parameters())), (x, train, updates))
         x = x.mean(dim=(1, 2))  # global average pool
         x = F.linear(x, self.head.weight.to(cd), self.head.bias.to(cd))
         return x.to(self.policy.output_dtype), updates

@@ -17,7 +17,6 @@ from frl_distributed_ml_scaffold_tpu_torch.config.schema import VideoConfig
 from frl_distributed_ml_scaffold_tpu_torch.models.vit import (
     TokenClassifier,
     patchify,
-    refuse_hook,
 )
 from frl_distributed_ml_scaffold_tpu_torch.precision import Policy
 
@@ -29,7 +28,6 @@ class VideoClassifier(TokenClassifier):
 
     def __init__(self, config: VideoConfig, policy: Policy, *,
                  in_channels: int = 3, tp_overlap=None, device=None):
-        refuse_hook(tp_overlap, "VideoClassifier tp_overlap")
         tt, th, tw = config.tubelet_size
         tokens = ((config.num_frames // tt) * (config.image_size // th)
                   * (config.image_size // tw))
@@ -37,6 +35,7 @@ class VideoClassifier(TokenClassifier):
                          patch_features=math.prod(config.tubelet_size)
                          * in_channels,
                          tokens=tokens, cls_token=False, device=device)
+        self.attach(tp_overlap=tp_overlap)
 
     def forward(self, x, *, train: bool = False, rng: int | None = None):
         """``x`` [B, T, H, W, C] -> logits [B, classes]."""

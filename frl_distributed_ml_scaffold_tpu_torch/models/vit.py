@@ -43,9 +43,10 @@ Tensor parallelism (``vit_tp_rules``, a current mesh with ``model >
 their rows of ``out`` (row-parallel), and its slice of ``fc_in``'s
 outputs and ``fc_out``'s inputs; one all-reduce over ``model`` follows
 ``out`` and one ``fc_out``, before their biases
-(``parallel/tensor_parallel.py``). Not ported, and refused where they
-would take effect: the collective-matmul hooks (``tp_overlap`` / ``tp``,
-ROADMAP A11).
+(``parallel/tensor_parallel.py``). With the collective-matmul hooks
+(``tp_overlap``, ``parallel/tp_overlap.py``; ``attach``) the same
+products run on the rings, and between them the residual stream is
+split over ``model`` along the batch (the token count does not divide).
 """
 
 from __future__ import annotations
@@ -97,13 +98,6 @@ def vit_tp_rules() -> PartitionRules:
     ))
 
 
-def refuse_hook(hook, name: str) -> None:
-    if hook is not None:
-        raise NotImplementedError(
-            f"{name} (the collective-matmul tensor-parallel hooks) is not "
-            "ported yet (ROADMAP A11)")
-
-
 def patchify(x: torch.Tensor, sizes: tuple[int, ...]) -> torch.Tensor:
     """``x`` [B, *dims, C] -> [B, prod(dims // sizes), prod(sizes) * C]:
     the non-overlapping patches of a ``VALID`` convolution whose stride is
@@ -136,17 +130,24 @@ class MultiHeadAttention(nn.Module):
         pd = policy.param_dtype
         self.query, self.key, self.value, self.out = (
             nn.Linear(dim, dim, device=device, dtype=pd) for _ in range(4))
+        self.tp = None  # collective-matmul hooks (TokenClassifier.attach)
 
     def forward(self, x, seed: int | None = None, layer: int = 0):
         cd = self.dtype
         b, n, d = x.shape
         hd = d // self.num_heads
         tp = model_shard()[1] > 1
-        if tp:
-            x = copy_to_model(x)
         h = self.query.weight.shape[0] // hd  # this rank's heads
-        q, k, v = (_dense(p, x, cd).view(b, n, h, hd)
-                   for p in (self.query, self.key, self.value))
+        if self.tp is not None:
+            # The rings: x is this rank's rows; q / k / v come out over
+            # every row of the batch shard, for this rank's heads.
+            q, k, v = (y.view(-1, n, h, hd) for y in self.tp.qkv(
+                x.to(cd), (self.query, self.key, self.value), cd))
+        else:
+            if tp:
+                x = copy_to_model(x)
+            q, k, v = (_dense(p, x, cd).view(b, n, h, hd)
+                       for p in (self.query, self.key, self.value))
         q = q / torch.tensor(math.sqrt(hd), dtype=cd)
         s = torch.einsum("bqhd,bkhd->bhqk", q, k)
         p = torch.softmax(s, dim=-1)
@@ -155,7 +156,10 @@ class MultiHeadAttention(nn.Module):
                              device=p.device,
                              **({"model_dim": 1} if tp else {}))
             p = p * (keep.to(cd) / torch.tensor(1.0 - self.rate, dtype=cd))
-        o = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(b, n, h * hd)
+        o = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(-1, n, h * hd)
+        if self.tp is not None:
+            return self.tp.row(o, self.out.weight.to(cd),
+                               self.out.bias.to(cd))
         if tp:
             return _row_parallel(self.out, o, cd)
         return _dense(self.out, o, cd)
@@ -169,8 +173,19 @@ class MlpBlock(nn.Module):
         self.rate = dropout
         self.fc_in = nn.Linear(dim, dim * mlp_ratio, device=device, dtype=pd)
         self.fc_out = nn.Linear(dim * mlp_ratio, dim, device=device, dtype=pd)
+        self.tp = None  # collective-matmul hooks (TokenClassifier.attach)
 
     def forward(self, x, seed: int | None = None, layer: int = 0):
+        cd = self.dtype
+        if self.tp is not None:
+            y = self.tp.column(x.to(cd), self.fc_in.weight.to(cd),
+                               self.fc_in.bias.to(cd))
+            y = F.gelu(y, approximate="tanh")
+            y = dropout(y, self.rate, seed, layer, 1, model_dim=2)
+            y = self.tp.row(y, self.fc_out.weight.to(cd),
+                            self.fc_out.bias.to(cd))
+            return dropout(y, self.rate, seed, layer, 2,
+                           model_dim=self.tp.chunk_axis)
         tp = model_shard()[1] > 1
         if tp:
             x = copy_to_model(x)
@@ -187,13 +202,13 @@ class EncoderBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: int,
                  policy: Policy, device, *, tp=None, dropout: float = 0.0):
         super().__init__()
-        refuse_hook(tp, "EncoderBlock tp")
         pd = policy.param_dtype
         self.ln1 = nn.LayerNorm(dim, eps=LN_EPS, device=device, dtype=pd)
         self.attn = MultiHeadAttention(dim, num_heads, policy, device,
                                        dropout=dropout)
         self.ln2 = nn.LayerNorm(dim, eps=LN_EPS, device=device, dtype=pd)
         self.mlp = MlpBlock(dim, mlp_ratio, policy, device, dropout=dropout)
+        self.attn.tp = self.mlp.tp = tp
 
     def forward(self, x, seed: int | None = None, layer: int = 0):
         """``seed`` (None in eval) seeds this block's dropout sites, each
@@ -226,6 +241,16 @@ class TokenClassifier(nn.Module):
             for _ in range(cfg.num_layers))
         self.ln = nn.LayerNorm(d, eps=LN_EPS, device=dev, dtype=pd)
         self.head = nn.Linear(d, cfg.num_classes, device=dev, dtype=pd)
+        self.tp_overlap = None
+
+    def attach(self, *, tp_overlap=None) -> None:
+        """Hook the encoder to the collective-matmul rings
+        (``parallel/tp_overlap.py`` ``TpHooks``, ``chunk_axis=0``): the
+        residual stream split over ``model`` along the batch between
+        them. Decode-free families: the forward always reads them."""
+        self.tp_overlap = tp_overlap
+        for block in self.blocks:
+            block.attn.tp = block.mlp.tp = tp_overlap
 
     def classify(self, patches, *, pool: str, train: bool,
                  rng: int | None = None):
@@ -240,8 +265,13 @@ class TokenClassifier(nn.Module):
         x = x + self.pos_embedding.to(cd)
         # The embedding's site sits after every block's: (L, 0).
         x = dropout(x, self.config.dropout, seed, len(self.blocks), 0)
+        tp = self.tp_overlap
+        if tp is not None:
+            x = tp.scatter(x)
         for layer, block in enumerate(self.blocks):
             x = block(x, seed, layer)
+        if tp is not None:
+            x = tp.gather(x)
         x = _layer_norm(self.ln, x)
         x = x[:, 0] if pool == "cls" else x.mean(dim=1)
         return _dense(self.head, x, cd).to(self.policy.output_dtype)
@@ -255,7 +285,6 @@ class ViT(TokenClassifier):
 
     def __init__(self, config: ViTConfig, policy: Policy, *,
                  in_channels: int = 3, tp_overlap=None, device=None):
-        refuse_hook(tp_overlap, "ViT tp_overlap")
         if config.pool not in ("cls", "mean"):
             raise ValueError(f"unknown ViT pool {config.pool!r}; expected "
                              "'cls' or 'mean'")
@@ -263,6 +292,7 @@ class ViT(TokenClassifier):
         super().__init__(config, policy, patch_features=p * p * in_channels,
                          tokens=(config.image_size // p) ** 2,
                          cls_token=config.pool == "cls", device=device)
+        self.attach(tp_overlap=tp_overlap)
 
     def forward(self, x, *, train: bool = False, rng: int | None = None):
         """``x`` [B, H, W, C] -> logits [B, classes]."""

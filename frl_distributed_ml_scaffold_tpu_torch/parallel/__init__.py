@@ -13,7 +13,11 @@ for DP, FSDP, ZeRO-1 and TP, as specs over one mesh.
 
 ``partition.py`` derives the specs (and places a model's parameters on a
 serving mesh: ``shard_params_for_serving``), ``layout.py`` holds them
-for a run and moves tensors between them.
+for a run and moves tensors between them. The overlap schedule
+(``schedule.py``) rewrites the FSDP gathers block by block
+(``fsdp_overlap.py``) and the TP products as collective-matmul rings
+(``tp_overlap.py``, ``ops/collective_matmul.py``), with low precision on
+the rings' wire.
 """
 
 from frl_distributed_ml_scaffold_tpu_torch.parallel.partition import (

@@ -19,6 +19,11 @@ parameter:
   gathered fp32 copy of the model is kept) and in the compute spec
   otherwise.
 
+Under the overlap schedule (``with_overlap``) the blocks' FSDP
+parameters stay split for the forward, which gathers them itself, and
+the parameters used on the ``model``-sharded stream are summed over
+``model`` too.
+
 Each rank's gradient is that of its own rows' loss. ``reduce`` sums it
 over the batch axes, as a reduce-scatter where the target splits a dim
 over a batch axis and an all-reduce over the rest; a ``model`` split the
@@ -41,6 +46,7 @@ from typing import Any, Callable
 import torch
 import torch.distributed as dist
 
+from frl_distributed_ml_scaffold_tpu_torch.dist import collectives
 from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import BATCH_AXES, MeshEnv
 from frl_distributed_ml_scaffold_tpu_torch.parallel.partition import (
     PartitionRules,
@@ -73,6 +79,13 @@ class StateLayout:
     opt: dict[str, Spec]
     compute: dict[str, Spec]
     accum: dict[str, Spec]
+    # Under the overlap schedule (``with_overlap``): the axes a
+    # parameter's gradient is already summed over when the backward ends,
+    # and the axes over which each rank holds only a part of it.
+    presummed: dict[str, tuple[str, ...]] = dataclasses.field(
+        default_factory=dict)
+    partial: dict[str, tuple[str, ...]] = dataclasses.field(
+        default_factory=dict)
 
     @classmethod
     def build(cls, env: MeshEnv, model_cfg: Any, parallel, shapes: dict,
@@ -98,6 +111,33 @@ class StateLayout:
                             f"{k}: spec {s} splits over {e!r}; the step "
                             "splits params over fsdp and model only")
         return cls(env, shapes, p, o, c, dict(a))
+
+    def with_overlap(self, gathered=(), stream=()) -> "StateLayout":
+        """This layout under the overlap schedule: the parameters of
+        ``gathered`` (the blockwise FSDP gathers,
+        ``parallel/fsdp_overlap.py``) stay split over ``fsdp`` for the
+        forward, which gathers them block by block, and their gradients
+        come out of the backward reduce-scattered over ``fsdp``; the
+        parameters of ``stream`` (used on the stream the
+        collective-matmul rings shard over ``model``,
+        ``parallel/tp_overlap.py``) take a part of their gradient on
+        each ``model`` rank, summed over ``model`` by the step."""
+        compute = dict(self.compute)
+        for k in gathered:
+            compute[k] = self.param[k]
+        return dataclasses.replace(
+            self, compute=compute,
+            presummed={k: ("fsdp",) for k in gathered},
+            partial={k: ("model",) for k in stream})
+
+    def step_sum_axes(self, name: str) -> tuple[str, ...]:
+        """The axes the accumulated gradient of ``name`` is summed over
+        at the end of the step: the batch axes its microbatch gradients
+        were not reduce-scattered or summed over, and the axes each rank
+        holds a part over."""
+        done = self.scatter_axes(name) + self.presummed.get(name, ())
+        return (tuple(a for a in BATCH_AXES if a not in done)
+                + self.partial.get(name, ()))
 
     # ------------------------------------------------------------ queries
 
@@ -165,16 +205,7 @@ class StateLayout:
                    ) -> torch.Tensor:
         """``x``, this rank's chunk of a dim ``d`` of size ``n`` split
         over ``axis``, all-gathered whole along it."""
-        k = self.env.axis_size(axis)
-        c = -(-n // k)
-        if x.shape[d] < c:  # the short last chunk: pad, then trim
-            pad = list(x.shape)
-            pad[d] = c - x.shape[d]
-            x = torch.cat([x, x.new_zeros(pad)], d)
-        parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
-                 for _ in range(k)]
-        dist.all_gather(parts, x.contiguous(), group=self.env.group(axis))
-        return torch.cat(parts, d).narrow(d, 0, n)
+        return collectives.all_gather_dim(x, axis, d, n, env=self.env)
 
     def reduce(self, name: str, g: torch.Tensor, src: Spec, dst: Spec,
                sum_axes: tuple[str, ...]) -> torch.Tensor:
@@ -187,9 +218,7 @@ class StateLayout:
             k, i = self.env.axis_size(e), self.env.axis_index(e)
             if e in left:
                 left.remove(e)
-                chunks = [ch.contiguous() for ch in g.chunk(k, d)]
-                g = torch.empty_like(chunks[i])
-                dist.reduce_scatter(g, chunks, group=self.env.group(e))
+                g = collectives.reduce_scatter_dim(g, e, d, env=self.env)
             else:
                 lo, hi = chunk_bounds(self.shapes[name][d], k, i)
                 g = g.narrow(d, lo, hi - lo)

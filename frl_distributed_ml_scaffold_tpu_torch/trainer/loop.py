@@ -30,10 +30,17 @@ memory, built there from the start (``make_train_step`` streams it
 through the card a leaf at a time); off the card it raises, as the JAX
 trainer refuses a backend without ``pinned_host`` memory.
 
-Refused, each naming its ROADMAP item: the overlap schedule and
-low-precision collectives (A11), sequence parallelism, the ``seq``,
-``expert`` and ``pipe`` axes, pipelines (SPMD or MPMD) and MoE (A12,
-raised by the step and the GPT model for the last two).
+The overlap schedule (``parallel/schedule.py``): the config's declared
+schedule (``parallel.schedule``, or the ``fsdp_overlap`` /
+``fsdp_prefetch`` / ``tp_overlap`` / ``low_precision`` knobs) is derived
+and checked when the Trainer is built, a contradiction raising a
+``ScheduleError``, and ``_attach_schedule`` hooks the model to it (the
+blockwise FSDP gathers, the collective-matmul rings) and the layout
+(``StateLayout.with_overlap``).
+
+Refused, each naming its ROADMAP item: sequence parallelism, the
+``seq``, ``expert`` and ``pipe`` axes, pipelines (SPMD or MPMD) and MoE
+(A12, raised by the step and the GPT model for the last two).
 
 ``trainer.init_params_path`` starts the run from a flax msgpack params
 file (``tools/import_hf_gpt2.py``'s output, or ``checkpoint/
@@ -65,6 +72,14 @@ from frl_distributed_ml_scaffold_tpu_torch.models import convert, create_model
 from frl_distributed_ml_scaffold_tpu_torch.parallel.layout import StateLayout
 from frl_distributed_ml_scaffold_tpu_torch.parallel.partition import (
     PartitionRules,
+)
+from frl_distributed_ml_scaffold_tpu_torch.parallel.schedule import (
+    hooked_model,
+    schedule_from_config,
+    validate_schedule_config,
+)
+from frl_distributed_ml_scaffold_tpu_torch.parallel.tp_overlap import (
+    stream_param_names,
 )
 from frl_distributed_ml_scaffold_tpu_torch.precision import get_policy
 from frl_distributed_ml_scaffold_tpu_torch.telemetry import (
@@ -112,12 +127,6 @@ def _check_ported(cfg: ExperimentConfig) -> None:
     mesh, optimizer-offload and pipeline refusals are the step's and the
     model's own."""
     p = cfg.parallel
-    if (p.schedule not in ("", "auto") or p.fsdp_overlap or p.tp_overlap
-            or p.low_precision != "none"):
-        raise NotImplementedError(
-            "the overlap schedule (parallel.schedule, fsdp_overlap, "
-            "tp_overlap, low_precision) is not ported yet (ROADMAP A11)"
-        )
     if p.sequence != "none":
         raise NotImplementedError(
             f"parallel.sequence={p.sequence!r} (sequence parallelism) is not "
@@ -216,6 +225,9 @@ class Trainer:
                     "silently NaN the loss — override both together"
                 )
         _check_ported(cfg)
+        self.overlap_schedule = schedule_from_config(cfg)
+        if self.overlap_schedule is not None:
+            validate_schedule_config(self.overlap_schedule, cfg)
         self.device = resolve_device(device)
         self.env = build_mesh(cfg.mesh)
         self.policy = get_policy(cfg.precision)
@@ -226,6 +238,8 @@ class Trainer:
                                                 cfg.model)
         self.loss_fn = make_loss_fn(self.model, cfg.data.name)
         self.layout = self._build_layout()
+        if self.overlap_schedule is not None:
+            self._attach_schedule()
         self._compile_steps()
         self.state_shapes = self._state_template()
         self.pipeline = build_pipeline(cfg.data, split="train",
@@ -253,6 +267,21 @@ class Trainer:
             self.env, cfg.model, cfg.parallel, shapes,
             rules=model_partition_rules(cfg.model, self.env),
             compute_whole=whole)
+
+    def _attach_schedule(self) -> None:
+        """Hook the model to the declared overlap schedule
+        (``parallel/schedule.py`` ``hooked_model``: the blockwise FSDP
+        gathers and / or the collective-matmul rings, both when both
+        axes are declared) and the layout to it: the gathered blocks'
+        shards stay split for the forward, and the parameters used on
+        the ``model``-sharded stream are summed over ``model``."""
+        model, sched = self.model, self.overlap_schedule
+        hooked_model(sched, model, self.cfg, self.env, self.layout)
+        gathered = (model.param_hooks.gathered_names()
+                    if sched.block_gather() is not None else ())
+        stream = (stream_param_names(self.layout.shapes)
+                  if sched.ring_gather() is not None else ())
+        self.layout = self.layout.with_overlap(gathered, stream)
 
     def _compile_steps(self) -> None:
         cfg, t = self.cfg, self.cfg.trainer

@@ -37,7 +37,11 @@ batch and its shards of the state:
   once per step (an all-gather over ``fsdp``; a ``model`` split the
   model reads whole is gathered too), and the forward and backward run
   on plain local tensors, the model's own tensor-parallel products and
-  sync-BN taking part in their collectives;
+  sync-BN taking part in their collectives; under the overlap schedule
+  the blocks' FSDP shards are not gathered here (the model gathers them
+  block by block and its backward reduce-scatters their gradients), and
+  the gradients of the parameters used on the ``model``-sharded stream
+  are summed over ``model`` at the end (``StateLayout.with_overlap``);
 - each microbatch's gradient is reduce-scattered into the accumulator
   under FSDP, which stays in the params' spec; otherwise it accumulates
   locally and is reduced once; then it is summed over the batch axes
@@ -326,9 +330,8 @@ def make_grad_fn(loss_fn: LossFn, policy: Policy, *, grad_accum: int = 1,
         metrics = dict(zip(names, ms))
         if layout is not None:
             inv /= layout.env.batch_axis_size
-            acc = {k: layout.reduce(
-                       k, g, layout.accum[k], layout.opt[k],
-                       tuple(a for a in BATCH_AXES if a not in scatter[k]))
+            acc = {k: layout.reduce(k, g, layout.accum[k], layout.opt[k],
+                                    layout.step_sum_axes(k))
                    for k, g in acc.items()}
         grads = policy.cast_to_param({k: g.mul_(inv) for k, g in acc.items()})
         return loss, metrics, extras, grads

@@ -71,6 +71,8 @@ def spawn_ranks(world: int, jobs: list, tmp, timeout: float = 240):
 def _numpy(tree):
     if isinstance(tree, dict):
         return {k: _numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_numpy(v) for v in tree]
     if isinstance(tree, torch.Tensor):
         t = tree.detach()
         return (t.float() if t.is_floating_point() else t).numpy().copy()
@@ -125,10 +127,13 @@ def train(config: str, overrides: list, steps: int, *,
         tree_size_bytes,
     )
 
+    from frl_distributed_ml_scaffold_tpu_torch.dist import collectives
+
     cfg = tconfig.apply_overrides(tconfig.get_config(config), overrides)
     trainer = Trainer(cfg, device="cpu")
     state = trainer.init_state()
     lay = trainer.layout
+    collectives.reset_counters()
     out = {"metrics": [], "batches": [],
            "specs": {"param": lay.param, "opt": lay.opt,
                      "accum": lay.accum, "compute": lay.compute},
@@ -143,11 +148,107 @@ def train(config: str, overrides: list, steps: int, *,
         out["batches"].append(_numpy(batch))
         state, m = trainer.train_step(state, batch)
         out["metrics"].append({k: float(v) for k, v in m.items()})
+    # The overlap schedule's counts over the steps: bytes sent point to
+    # point by axis and dtype, and the blockwise gathers.
+    out["wire_bytes"] = {a: dict(v) for a, v in
+                         collectives.wire_bytes.items()}
+    hooks = getattr(trainer.model, "param_hooks", None)
+    out["gathers"] = (None if hooks is None else
+                      {"gathers": hooks.gathers, "regathers": hooks.regathers,
+                       "names": sorted(hooks.gathered_names()),
+                       "events": hooks.events})
     out["params"] = _numpy(lay.whole_params(state.params))
     out["extras"] = _numpy(state.extras)
     if keep_local:
         out["local_params"] = _numpy(state.params)
     return out
+
+
+def rings(cases: list) -> dict:
+    """The collective-matmul rings on this rank of a ``model=N`` mesh:
+    each case (``{"name", "op": "agm" | "mrs", "x", "w", "dy", "dfull",
+    "chunk_axis", "return_full", "lowp"}``, numpy arrays of this rank's
+    shards) forward, then backward with the given cotangents. Returns the
+    outputs and gradients, the first hop's sends (as sent: payloads and
+    scales) and the bytes sent by dtype."""
+    from frl_distributed_ml_scaffold_tpu_torch.config.schema import MeshConfig
+    from frl_distributed_ml_scaffold_tpu_torch.dist import collectives as C
+    from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import build_mesh
+    from frl_distributed_ml_scaffold_tpu_torch.ops import (
+        collective_matmul as cm,
+    )
+
+    env = build_mesh(MeshConfig(data=1, model=-1))
+    first: list = []
+    start = C.exchange_start
+
+    def record(sends, recvs, axis, env=None):
+        if not first:
+            first.append([t.detach().clone() for t, _ in sends])
+        return start(sends, recvs, axis, env=env)
+
+    C.exchange_start = record
+    out = {"index": env.axis_index("model")}
+    for case in cases:
+        C.reset_counters()
+        first.clear()
+        x = torch.from_numpy(case["x"]).requires_grad_()
+        w = torch.from_numpy(case["w"]).requires_grad_()
+        if case["op"] == "agm":
+            y = cm.all_gather_matmul(x, w, "model", case["chunk_axis"],
+                                     case["return_full"], case["lowp"],
+                                     env=env)
+        else:
+            y = cm.matmul_reduce_scatter(x, w, "model", case["chunk_axis"],
+                                         case["lowp"], env=env)
+        outs = y if isinstance(y, tuple) else (y,)
+        cts = [torch.from_numpy(case["dy"])]
+        if case.get("return_full"):
+            cts.append(torch.from_numpy(case["dfull"]))
+        fwd_first = list(first)
+        first.clear()
+        torch.autograd.backward(outs, cts)
+        out[case["name"]] = _numpy({
+            "outs": list(outs), "dx": x.grad, "dw": w.grad,
+            "first_fwd": fwd_first[0] if fwd_first else [],
+            "first_bwd": first[0] if first else [],
+            "wire": dict(C.wire_bytes.get("model", {}))})
+    C.exchange_start = start
+    return out
+
+
+def saved_shapes(config: str, overrides: list) -> dict:
+    """One step of the ``Trainer``'s step under an outer
+    ``torch.autograd.graph.saved_tensors_hooks`` that records the shape
+    of every tensor autograd saves for the backward; with the shapes of
+    the blockwise-gathered params, whole, and the hooks' counts."""
+    from frl_distributed_ml_scaffold_tpu_torch import config as tconfig
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.loop import Trainer
+
+    cfg = tconfig.apply_overrides(tconfig.get_config(config), overrides)
+    trainer = Trainer(cfg, device="cpu")
+    state = trainer.init_state()
+    lay = trainer.layout
+    seen = []
+
+    def pack(t):
+        seen.append(tuple(t.shape))
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        trainer.train_step(state, trainer.pipeline.global_batch(0))
+    hooks = trainer.model.param_hooks
+    names = ([k for k in lay.shapes if k.startswith("blocks.")
+              and "fsdp" in lay.param[k]] if hooks is None
+             else sorted(hooks.gathered_names()))
+    return {"saved": seen,
+            "gathered": {k: lay.local_shape(k, tuple(
+                None if e == "fsdp" else e for e in lay.param[k]))
+                for k in names},
+            "counts": (None if hooks is None else
+                       {"gathers": hooks.gathers,
+                        "regathers": hooks.regathers,
+                        "events": hooks.events})}
 
 
 def dropout_rows(rate: float, seed: int, shape: tuple) -> dict:
@@ -167,6 +268,7 @@ def dropout_rows(rate: float, seed: int, shape: tuple) -> dict:
 
 
 _CALLS: dict | None = None
+_RANK = 0  # this process's rank (``main``)
 
 
 def _count_collectives() -> dict:
@@ -293,7 +395,9 @@ def serve(model_cfg: dict, state: dict, mesh: dict, cases: list,
 
 
 JOBS = {"collectives": collectives, "train": train,
-        "dropout_rows": dropout_rows, "serve": serve}
+        "dropout_rows": dropout_rows, "serve": serve,
+        "saved_shapes": saved_shapes, "rings": rings,
+        "rings_by_rank": lambda by_rank: rings(by_rank[_RANK])}
 
 
 def main(argv) -> None:
@@ -304,6 +408,8 @@ def main(argv) -> None:
         shutdown_distributed,
     )
 
+    global _RANK
+    _RANK = int(rank)
     initialize_distributed(rdv, int(world), int(rank), device="cpu")
     results = {}
     try:

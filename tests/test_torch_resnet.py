@@ -278,8 +278,32 @@ def test_create_model_and_refusals():
                        device="cpu")
     assert tuple(s2d.stem_s2d.weight.shape) == (64, 12, 4, 4)
     assert not hasattr(s2d, "stem_conv")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        tresnet.ResNet(cfg, pol, param_hooks=object(), device="cpu")
+    # The blockwise FSDP gathers (param_hooks) build and run: over one
+    # rank nothing is split, so the hooked forward is the plain one, each
+    # block run after its (empty) gather is posted, in order.
+    from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import build_mesh
+    from frl_distributed_ml_scaffold_tpu_torch.parallel.fsdp_overlap import (
+        BlockGather,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.parallel.layout import (
+        StateLayout,
+    )
+
+    plain = tresnet.ResNet(cfg, pol, device="cpu")
+    params, extras = init_resnet_params(cfg, torch.Generator().manual_seed(0))
+    plain.load_state_dict({**params, **extras["batch_stats"]})
+    shapes = {k: tuple(v.shape) for k, v in plain.named_parameters()}
+    layout = StateLayout.build(build_mesh(tschema.MeshConfig()), cfg,
+                               tschema.ParallelConfig(param_sharding="fsdp"),
+                               shapes)
+    hooks = BlockGather(layout, prefetch=1)
+    hooked = tresnet.ResNet(cfg, pol, param_hooks=hooks, device="cpu")
+    hooked.load_state_dict(plain.state_dict())
+    x = torch.randn(2, 32, 32, 3, generator=torch.Generator().manual_seed(1))
+    torch.testing.assert_close(hooked(x)[0], plain(x)[0], rtol=0, atol=0)
+    runs = [k for e, k in hooks.events if e == "run"]
+    assert runs == list(range(len(hooked.blocks)))
+    assert hooks.gathered_names() == frozenset()
     with pytest.raises(ValueError, match="stem"):
         create_model(dataclasses.replace(cfg, stem="conv9"), pol,
                      device="cpu")

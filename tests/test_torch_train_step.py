@@ -253,8 +253,8 @@ def test_synthetic_lm_batches_match_jax():
 
 def test_training_refusals():
     """What the port still does not train raises, naming its ROADMAP
-    item: seq / expert / pipe axes (A12), per-block remat under the
-    overlap schedule (A11), fused_adamw with a clip. Optimizer offload
+    item: seq / expert / pipe axes (A12); fused_adamw with a clip. Per-block
+    remat under the overlap schedule trains; its rings need model > 1. Optimizer offload
     off the card raises as the JAX trainer's refusal does. Training
     dropout needs its seed; an unknown block_remat raises."""
     cfg = tschema.GPTConfig(**TINY, dropout=0.1)
@@ -289,17 +289,27 @@ def test_training_refusals():
     # The recipe's own mesh (data=1, fsdp=-1) is one card.
     make_train_step(loss, tx, get_policy("fp32"), device="cpu",
                     mesh=tschema.MeshConfig(data=1, fsdp=-1))
-    # Per-block remat under the overlap schedule (the JAX model's
-    # overlap remat policies) stays with the schedule, A11.
-    for flag in ("fsdp_overlap", "tp_overlap"):
-        ov = ["model.num_layers=2", "model.hidden_dim=128",
-              "model.num_heads=4", "model.vocab_size=512",
-              "model.seq_len=128", "data.vocab_size=512",
-              "data.seq_len=128", "model.block_remat=full",
-              f"parallel.{flag}=true"]
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            Trainer(apply_overrides(get_config("gpt2_medium_zero1"), ov),
+    # Per-block remat under the overlap schedule: the blockwise FSDP
+    # gathers build and train (over one card nothing is split: the
+    # plain step's loss); the rings on a model=1 mesh raise, as the
+    # reference's make_tp_hooks refuses them.
+    ov = ["model.num_layers=2", "model.hidden_dim=128",
+          "model.num_heads=4", "model.vocab_size=512",
+          "model.seq_len=128", "data.vocab_size=512",
+          "data.seq_len=128", "model.block_remat=full",
+          "data.global_batch_size=2", "trainer.grad_accum=1",
+          "precision.policy=fp32", "parallel.param_sharding=fsdp"]
+    base = apply_overrides(get_config("gpt2_medium_zero1"), ov)
+    losses = []
+    for flag in ("false", "true"):
+        t = Trainer(apply_overrides(base, [f"parallel.fsdp_overlap={flag}"]),
                     device="cpu")
+        _, m = t.train_step(t.init_state(), t.pipeline.global_batch(0))
+        losses.append(float(m["loss"]))
+    assert t.model.param_hooks is not None and losses[0] == losses[1]
+    with pytest.raises(ValueError, match="requires mesh.model > 1"):
+        Trainer(apply_overrides(base, ["parallel.tp_overlap=true"]),
+                device="cpu")
     # fused_adamw is ported; with this recipe's clip it is refused, as
     # the JAX factory refuses it.
     with pytest.raises(ValueError, match="grad_clip_norm"):

@@ -311,15 +311,27 @@ def test_mnist_matches_jax(tmp_path, source):
 
 
 def test_refusals():
-    """The video classifier refuses the tensor-parallel hooks (queue A
-    A11). Training dropout, in it and in the MLP, runs with a seed
-    and raises without one."""
+    """The video classifier builds and runs with the collective-matmul
+    hooks. Training dropout, in it and in the MLP, runs with a seed and
+    raises without one."""
     _, tv = _video_configs()
     _, tm = _mlp_configs()
     pol = get_policy("fp32")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        tvideo.VideoClassifier(tv.model, pol, tp_overlap=object(),
-                               device="cpu")
+    # The collective-matmul hooks build and run: out of a mesh the rings
+    # are this rank's local products, so the hooked model is the plain.
+    from frl_distributed_ml_scaffold_tpu_torch.parallel.tp_overlap import (
+        TpHooks,
+    )
+
+    plain = tvideo.VideoClassifier(tv.model, pol, device="cpu")
+    plain.load_state_dict(init_video_params(tv.model, torch.Generator()))
+    hooked = tvideo.VideoClassifier(tv.model, pol,
+                                    tp_overlap=TpHooks(chunk_axis=0),
+                                    device="cpu")
+    hooked.load_state_dict(plain.state_dict())
+    clip = torch.randn(VIDEO_SHAPE, generator=torch.Generator().manual_seed(2))
+    torch.testing.assert_close(hooked(clip), plain(clip), rtol=1e-6,
+                               atol=1e-6)
     for cfg, x in ((tv.model, torch.zeros(VIDEO_SHAPE)),
                    (tm.model, torch.zeros(1, 28, 28, 1))):
         model = create_model(dataclasses.replace(cfg, dropout=0.1), pol,

@@ -235,15 +235,26 @@ def test_example_input_matches_jax(name):
 
 
 def test_refusals():
-    """The tensor-parallel hooks and an unknown pool raise; the hooks
-    name ROADMAP A11. Training dropout runs with a seed and
-    raises without one; eval ignores it."""
+    """The collective-matmul hooks build and run the model; an unknown
+    pool raises. Training dropout runs with a seed and raises without
+    one; eval ignores it."""
     _, t = _configs()
     pol = get_policy("fp32")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        tvit.ViT(t.model, pol, tp_overlap=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        tvit.EncoderBlock(64, 4, 4, pol, "cpu", tp=object())
+    # The collective-matmul hooks build and run: out of a mesh the rings
+    # are this rank's local products, so the hooked model is the plain.
+    from frl_distributed_ml_scaffold_tpu_torch.parallel.tp_overlap import (
+        TpHooks,
+    )
+
+    plain = tvit.ViT(t.model, pol, device="cpu")
+    plain.load_state_dict(init_vit_params(t.model, torch.Generator()))
+    hooked = tvit.ViT(t.model, pol, tp_overlap=TpHooks(chunk_axis=0),
+                      device="cpu")
+    hooked.load_state_dict(plain.state_dict())
+    img = torch.randn(2, 32, 32, 3, generator=torch.Generator().manual_seed(3))
+    torch.testing.assert_close(hooked(img), plain(img), rtol=1e-6, atol=1e-6)
+    block = tvit.EncoderBlock(64, 4, 4, pol, "cpu", tp=TpHooks(chunk_axis=0))
+    assert block.attn.tp == block.mlp.tp == TpHooks(chunk_axis=0)
     with pytest.raises(ValueError, match="pool"):
         tvit.ViT(dataclasses.replace(t.model, pool="max"), pol, device="cpu")
     model = tvit.ViT(dataclasses.replace(t.model, dropout=0.1), pol,
