@@ -322,9 +322,10 @@ no final line):
    (``--overlap-rank``, gloo) train ``gpt2_medium_tp_overlap``, its
    ``_int8`` twin (``model=2``, 8 heads a rank) and
    ``gpt2_medium_fsdp_overlap`` (``fsdp=2``) through the ``Trainer``
-   with ``model.attention=flash`` at full width and depth, bf16_mixed,
-   seeded weights, 8 x 1024 tokens in 2 microbatches (the FSDP run in
-   one): a warm-up and two timed steps each, the warm-up against the
+   with ``model.attention=flash`` at full width, 12 of the 24 layers,
+   bf16_mixed, seeded weights, 8 x 1024 tokens in 2 microbatches (the
+   FSDP run in one): a warm-up and two timed steps each, the warm-up
+   against the
    plain Megatron / FSDP step of the same processes from the same
    weights and batch (losses within ``OVERLAP_RTOL``),
    and one fp32 step of the tensor-parallel pair (1e-4). Per step: B1-B3
@@ -332,6 +333,16 @@ no final line):
    by dtype equal to ``ring_bytes_per_step``, staged bytes, block
    gathers, seconds and peak memory (gloo: no measure of overlap). The
    ranks' log goes to ``OUT_DIR/overlap_ranks.log``.
+36b. moe_path, ep_path, sp_path (after overlap_path): ``gpt2_moe`` at
+   full width and depth on one card (``moe_phase``), then over
+   ``expert=2`` (``ep_phase``), and ``gpt2_ring`` at T 8192 over
+   ``seq=2``, ring then Ulysses (``sp_phase``): two processes each
+   (``--a12-rank``, gloo), against the one-rank step (loss and
+   grad_norm; ``expert=2`` also in fp32 at 2 layers). Each rank then
+   holds one MoE layer (``ep_layer_check``) or the attention
+   (``sp_attention_check``) alone at the path's shapes against one rank,
+   beside a control that a broken sum or ring would read; the ranks'
+   logs go to ``OUT_DIR/{ep,sp}_ranks.log``.
 37. ``phase_seconds`` (the build, each phase above and the whole run),
    the ``kernels`` line (twelve kernels) and, last, ``{"ok": true,
    "device": ...}``.
@@ -5345,44 +5356,8 @@ def tp_serve_phase(seed: int, card: str) -> dict:
     are within ``TP_BF16_LOGIT_ULPS`` ulps of one rank's. gloo copies
     every collective through the host, so its times are no measure of
     tensor-parallel serving over NVLink."""
-    out = tempfile.mkdtemp(prefix="tp_", dir=os.path.join(REPO, "build"))
-    port = free_port()
-    log_paths = [os.path.join(out, f"rank{r}.log") for r in range(TP_RANKS)]
-    procs = []
-    for r in range(TP_RANKS):
-        with open(log_paths[r], "w") as log:
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--seed",
-                 str(seed), "--tp-rank", str(r), "--tp-port", str(port),
-                 "--tp-out", out],
-                stdout=log, stderr=subprocess.STDOUT, cwd=REPO))
-    deadline = time.perf_counter() + TP_TIMEOUT_S
-    try:
-        # A rank that fails leaves the other in a collective: stop both.
-        while any(p.poll() is None for p in procs):
-            if (any(p.poll() not in (None, 0) for p in procs)
-                    or time.perf_counter() > deadline):
-                break
-            time.sleep(0.5)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-    logs = []
-    for path in log_paths:
-        with open(path) as f:
-            logs.append(f.read())
-    with open(os.path.join(OUT_DIR, "tp_serve_ranks.log"), "w") as f:
-        f.write("\n".join(logs))
-    for r, p in enumerate(procs):
-        check(p.returncode == 0, f"tp_serve_path: rank {r} exited "
-              f"{p.returncode}: {logs[r][-3000:]}")
-    ranks = []
-    for r in range(TP_RANKS):
-        with open(os.path.join(out, f"tp_rank{r}.json")) as f:
-            ranks.append(json.load(f))
-    shutil.rmtree(out, ignore_errors=True)
+    ranks = _spawn_ranks("--tp-rank", ["--seed", str(seed)], TP_RANKS,
+                         TP_TIMEOUT_S, "tp_serve", "tp")
     return tp_report(ranks, card)
 
 
@@ -5677,12 +5652,14 @@ def lowp_phase(gen, card: str) -> dict:
 # tp_serve_path. Each run: one warm-up step (lr 0) and OVERLAP_STEPS timed
 # steps of 8 x 1024 tokens in 2 microbatches (cut from the recipes' 64 in
 # 8 to fit the phase's time: gloo stages every ring hop through the host),
-# bf16_mixed, flash attention, seeded weights.
+# 12 of the 24 layers (cut to make room for the A12 phases in the
+# script's time limit), bf16_mixed, flash attention, seeded weights.
 OVERLAP_RANKS = 2
 OVERLAP_STEPS = 2
 OVERLAP_TIMEOUT_S = 600
 OVERLAP_OVERRIDES = ["model.attention=flash", "data.global_batch_size=8",
-                     "trainer.grad_accum=2", "checkpoint.enabled=false"]
+                     "trainer.grad_accum=2", "checkpoint.enabled=false",
+                     "model.num_layers=12"]
 # name: (recipe, mesh and batch, the plain step's overrides: the Megatron
 # pair, or FSDP gathered at the start of the step). The FSDP run takes
 # its 8 rows in one microbatch: its gathers move every block's params
@@ -5848,45 +5825,9 @@ def overlap_phase(seed: int, card: str) -> dict:
     (``overlap_rank``) on the one card, and the checks across their
     results. gloo copies every collective through the host, so the step
     seconds are no measure of how well the schedule overlaps."""
-    out = tempfile.mkdtemp(prefix="overlap_", dir=os.path.join(REPO, "build"))
-    port = free_port()
-    log_paths = [os.path.join(out, f"rank{r}.log")
-                 for r in range(OVERLAP_RANKS)]
-    procs = []
-    for r in range(OVERLAP_RANKS):
-        with open(log_paths[r], "w") as log:
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--seed",
-                 str(seed), "--overlap-rank", str(r), "--tp-port", str(port),
-                 "--tp-out", out],
-                stdout=log, stderr=subprocess.STDOUT, cwd=REPO))
-    deadline = time.perf_counter() + OVERLAP_TIMEOUT_S
-    try:
-        while any(p.poll() is None for p in procs):
-            if (any(p.poll() not in (None, 0) for p in procs)
-                    or time.perf_counter() > deadline):
-                break
-            time.sleep(0.5)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-    logs = []
-    for path in log_paths:
-        with open(path) as f:
-            logs.append(f.read())
-    os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "overlap_ranks.log"), "w") as f:
-        f.write("\n".join(logs))
-    for r, p in enumerate(procs):
-        check(p.returncode == 0, f"overlap_path: rank {r} exited "
-              f"{p.returncode}: {logs[r][-3000:]}")
-    ranks = []
-    for r in range(OVERLAP_RANKS):
-        with open(os.path.join(out, f"overlap_rank{r}.json")) as f:
-            ranks.append(json.load(f))
-    shutil.rmtree(out, ignore_errors=True)
+    ranks = _spawn_ranks("--overlap-rank", ["--seed", str(seed)],
+                         OVERLAP_RANKS, OVERLAP_TIMEOUT_S, "overlap",
+                         "overlap")
     return overlap_report(ranks, card)
 
 
@@ -5975,6 +5916,829 @@ def overlap_report(ranks: list, card: str) -> dict:
     return report
 
 
+# ------------------------------------------------- A12: MoE and sequence
+# parallelism. moe_path: gpt2_moe on this process (expert=1); ep_path and
+# sp_path: two gloo processes of this script on the one card, like
+# overlap_path.
+MOE_OVERRIDES = ["model.attention=flash", "mesh.expert=1"]
+MOE_STEPS = 2  # timed steps a dispatch, after a warm-up (lr 0)
+# The two dispatches' step-0 losses (the same weights and batch) in
+# fp32, at 2 x 1024 tokens: the reference's own tolerance between them
+# (tests/test_models.py test_moe_sorted_matches_einsum, an fp32 test:
+# outputs to 1e-5, aux to 1e-6). In bf16 the einsum combine rounds once
+# and the sort combine once a slot, so the bf16 steps agree to
+# MOE_BF16_RTOL.
+MOE_LOSS_TOL = {"rtol": 1e-5, "atol": 1e-5}
+MOE_AUX_RTOL = 1e-6
+MOE_FP32 = ["precision.policy=fp32", "data.global_batch_size=2",
+            "trainer.grad_accum=1"]
+MOE_BF16_RTOL = 1e-3
+MOE_REQUESTS, MOE_NEW = 8, 32
+# The decode-step logits, kernel against impl="dense", in fp32: routing
+# is discrete, and bf16 noise between the two attention routes can flip a
+# near-tied top-k pick (or a capacity seat) and with it a whole row.
+MOE_LOGITS_TOL = 1e-4
+A12_RANKS = 2
+A12_TIMEOUT_S = 480
+# ep_path: gpt2_moe at full width and depth over expert=2 (4 experts a
+# rank), one microbatch of 8 x 1024 tokens (the recipe: 64 in 8).
+EP_OVERRIDES = ["model.attention=flash", "data.global_batch_size=8",
+                "trainer.grad_accum=1", "checkpoint.enabled=false"]
+EP_MESH = ["mesh.expert=2"]
+EP_STEPS = 1  # timed, after the warm-up
+# The same step in fp32 at 2 of the 12 layers (the cut is the time):
+# without bf16 rounding the two routes route alike.
+EP_FP32 = ["precision.policy=fp32", "model.num_layers=2"]
+# Step 0 against the one-rank step, relative, loss and grad_norm. bf16:
+# the expert outputs summed over two ranks round once more than one
+# rank's combine, and a later layer's router sees the difference (read
+# on an H100: loss 2.5e-5, grad_norm 3.0e-3; in fp32 8.6e-8 and 0). The
+# control, the one-rank step with the other rank's experts left out
+# (rank 0's output unsummed), reads loss 3.7e-5 and grad_norm 0.129: at
+# random init the loss cannot tell them apart, grad_norm and the layer
+# check can.
+EP_RTOL = {"ep": {"loss": 1e-4, "grad_norm": 1e-2},
+           "ep_fp32": {"loss": 1e-5, "grad_norm": 1e-5}}
+# One MoE layer alone at the path's shapes and policy (8 x 1024 tokens,
+# bf16_mixed), the two ranks' against the whole layer on one rank:
+# max |diff| / max |ref| of y, aux and the gradients of x, the router and
+# the rank's experts, and of the router under ``aux`` alone (the term
+# every rank computes whole). Controls: rank r's output unsummed (the
+# other experts left out) and that router gradient summed over expert;
+# each must read above the limit. (Under the whole loss the aux term's
+# share of the router's gradient is too small for a control.) Read on
+# an H100: y 3.9e-3, the rest 0; controls 0.92-1.0 and 1.0.
+EP_LAYER_TOL = 2e-2
+# sp_path: gpt2_ring at full width and depth, T 8192, over seq=2; global
+# batch 8 -> 4 (two ranks and the one-rank reference on one card).
+SP_OVERRIDES = ["data.global_batch_size=4", "checkpoint.enabled=false"]
+SP_MESH = ["mesh.seq=2"]
+SP_PLAIN = ["mesh.seq=1", "model.attention=flash", "parallel.sequence=none"]
+SP_RUNS = {"ring": [],
+           "ulysses": ["model.attention=ulysses", "parallel.sequence=ulysses"]}
+SP_STEPS = 1
+# Step 0 against the one-rank flash step, relative, loss and grad_norm
+# (bf16: the ring merges its hops in fp32 and rounds once, Ulysses
+# attends over whole rows of half the heads; read on an H100: ring
+# 1.7e-7 and 1.8e-4, Ulysses 0 and 4.3e-5). At random init attention
+# is near uniform and moves the loss little, so the check below is what
+# holds the hops and the exchange.
+SP_RTOL = {"loss": 1e-4, "grad_norm": 1e-3}
+# The attention alone at the path's shapes (4 rows, T 8192, 16 heads of
+# 64, bf16; q, k, v and the output's gradient drawn N(0, 1)), each
+# rank's output and q/k/v gradients against one flash attention over
+# all T: max |diff| / max |ref|. Control: the rank's block attending to
+# itself alone (the ring with its live hops skipped, Ulysses without its
+# exchange); it must read above the limit. Read on an H100: ring up to
+# 6.5e-3, Ulysses 0; the control 0.081 on rank 0 (dK), 10-25 on rank 1.
+SP_ATTN_TOL = 2e-2
+FLASH_FNS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+
+
+def _flash_per_layer(fwd: int, bwd: int) -> dict:
+    return {"flash_attention_fwd": fwd, "flash_attention_bwd_dq": bwd,
+            "flash_attention_bwd_dkv": bwd}
+
+
+def moe_dispatch_ms(cfg, sd, tokens: int) -> dict:
+    """Where one MoE layer's time goes, at the path's microbatch of
+    ``tokens`` tokens (layer 0's weights, bf16_mixed, forward and
+    backward, CUDA events): the whole layer, its router (fp32 product,
+    softmax, top-k, seating) and its experts alone at the same capacity;
+    the dispatch (the token exchange there and back) is the rest."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from frl_distributed_ml_scaffold_tpu_torch.models.moe import (
+        MoEMlp,
+        route,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.precision import get_policy
+
+    m, policy = cfg.model, get_policy(cfg.precision)
+    cd = policy.compute_dtype
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    x = torch.randn((tokens // m.seq_len, m.seq_len, m.hidden_dim),
+                    generator=gen, device="cuda").to(cd).requires_grad_()
+    e, k = m.moe.num_experts, m.moe.top_k
+    cap = max(1, int(m.moe.capacity_factor * tokens * k / e))
+    layer = {n.removeprefix("blocks.0.moe."): t for n, t in sd.items()
+             if n.startswith("blocks.0.moe.")}
+    out = {}
+    for dispatch in ("einsum", "sort"):
+        mcfg = dataclasses.replace(m, moe=dataclasses.replace(
+            m.moe, dispatch=dispatch))
+        mlp = MoEMlp(mcfg, policy, device="cuda")
+        mlp.load_state_dict(layer)
+
+        def full():
+            y, aux = mlp(x, train=True)
+            (y.float().square().mean() + aux).backward()
+
+        out[dispatch] = cuda_time_ms(full, repeats=10)
+    wi = layer["wi"].to(cd).requires_grad_()
+    wo = layer["wo"].to(cd).requires_grad_()
+    xin = torch.randn((e, 1, cap, m.hidden_dim), generator=gen,
+                      device="cuda").to(cd).requires_grad_()
+
+    def experts():
+        h = F.gelu(torch.einsum("egcd,edh->egch", xin, wi),
+                   approximate="tanh")
+        torch.einsum("egch,ehd->egcd", h, wo).float().square().mean(
+        ).backward()
+
+    wr = layer["router.weight"].to(cd).requires_grad_()
+    br = layer["router.bias"].to(cd).requires_grad_()
+
+    def router():
+        logits = F.linear(x.reshape(1, tokens, -1).float(), wr.float(),
+                          br.float())
+        probs, gates, *_ = route(logits, k, cap)
+        (gates.sum() + probs.mean()).backward()
+
+    exp_ms, router_ms = cuda_time_ms(experts, 10), cuda_time_ms(router, 10)
+    return {dispatch: {"layer_ms": out[dispatch], "experts_ms": exp_ms,
+                       "router_ms": router_ms,
+                       "dispatch_ms": out[dispatch] - exp_ms - router_ms,
+                       "dispatch_share_of_layer":
+                           (out[dispatch] - exp_ms - router_ms)
+                           / out[dispatch]}
+            for dispatch in out}
+
+
+def moe_phase(gen, card: str, seed: int) -> dict:
+    """moe_path: ``gpt2_moe`` at full width and depth (12 layers, width
+    1024, 16 heads, T 1024, 8 experts top-2, cf 1.25, bf16_mixed) on one
+    card (expert=1), flash attention: a warm-up and ``MOE_STEPS`` timed
+    steps of the recipe's 64 x 1024 tokens in 8 microbatches under each
+    dispatch from the same weights and batches. B1-B3 launch 2 / 1 / 1
+    times a layer and microbatch (dots remat reruns the forward), nothing
+    else launches and nothing falls back; the two dispatches' step-0
+    losses agree within the reference's tolerance and ``aux_loss`` is
+    finite and above 0 (in fp32, one step each at 2 x 1024 tokens; in
+    bf16 to ``MOE_BF16_RTOL``). Then ``build_engine`` serves ``MOE_REQUESTS``
+    requests on the same weights: B4 launches 12 times a decode step and
+    no other kernel; one decode step's logits against ``impl="dense"``
+    (fp32). Step time, peak memory, one microbatch's forward and backward
+    under the profiler (device busy time, idle share, the kernels that
+    take it), and the dispatch's share of a layer and of the step, from
+    CUDA-event times of one layer alone (``moe_dispatch_ms``)."""
+    import dataclasses
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from frl_distributed_ml_scaffold_tpu_torch.config import (
+        apply_overrides,
+        get_config,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.data.synthetic import SyntheticLM
+    from frl_distributed_ml_scaffold_tpu_torch.models import generation
+    from frl_distributed_ml_scaffold_tpu_torch.models.convert import (
+        init_params,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.models.gpt import GPT
+    from frl_distributed_ml_scaffold_tpu_torch.ops import flash_attention as fa
+    from frl_distributed_ml_scaffold_tpu_torch.precision import get_policy
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.train_step import (
+        make_grad_fn,
+    )
+
+    cfg = apply_overrides(get_config("gpt2_moe"),
+                          MOE_OVERRIDES + [f"trainer.seed={seed}"])
+    m = cfg.model
+    sd = init_params(m, gen)
+    data = SyntheticLM(cfg.data, split="train")
+    gb, accum, layers = (cfg.data.global_batch_size, cfg.trainer.grad_accum,
+                         m.num_layers)
+    batches = [data.batch(s, gb) for s in range(1 + MOE_STEPS)]
+    per_step = {k: v * layers * accum
+                for k, v in _flash_per_layer(2, 1).items()}
+    fallbacks = fa.flash_attention.fallbacks
+    runs = {}
+    for dispatch in ("einsum", "sort"):
+        c = apply_overrides(cfg, [f"model.moe.dispatch={dispatch}"])
+        model, policy, tx, schedule, state, loss_fn = _train_setup(c, sd)
+        step = _step_fn(c, loss_fn, tx, policy)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps = []
+        for s in range(1 + MOE_STEPS):
+            reset_launches()
+            t0 = time.perf_counter()
+            state, met = step(state, batches[s])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_launches()
+            for name, n in counts.items():
+                check(n == per_step.get(name, 0),
+                      f"moe_path {dispatch} step {s}: {name} launched {n} "
+                      f"times, want {per_step.get(name, 0)}")
+            rec = {k: float(v) for k, v in met.items()}
+            rec.update(step=s, step_s=wall,
+                       tokens_per_s=gb * m.seq_len / wall)
+            check(all(math.isfinite(v) for v in rec.values()),
+                  f"moe_path {dispatch} step {s}: {rec}")
+            check(rec["aux_loss"] > 0, f"moe_path {dispatch}: aux_loss "
+                  f"{rec['aux_loss']}")
+            steps.append(rec)
+        timed = [r["step_s"] for r in steps[1:]]
+        peak = torch.cuda.max_memory_allocated()
+        # One microbatch's forward and backward (the step's without the
+        # update) under the profiler: its device time by kernel. A whole
+        # step's events take the profiler a minute to process.
+        grad_fn = make_grad_fn(loss_fn, policy, remat=c.trainer.remat,
+                               device="cuda")
+        mb = {k: v[:gb // accum] for k, v in batches[0].items()}
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            grad_fn(state.params, state.extras, mb)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        micro = device_profile(prof, wall)
+        runs[dispatch] = {
+            "steps": steps, "step_s_median": statistics.median(timed),
+            "tokens_per_s": gb * m.seq_len / statistics.median(timed),
+            "max_memory_allocated_bytes": peak,
+            "launches_per_step": counts,
+            "microbatch_profile": {k: micro[k] for k in (
+                "wall_s", "device_busy_s", "device_idle_share",
+                "top_device_s")}}
+        del grad_fn, prof
+        del model, state, step, tx
+        torch.cuda.empty_cache()
+    check(fa.flash_attention.fallbacks == fallbacks,
+          "moe_path: flash attention fell back")
+    a, b = runs["einsum"]["steps"][0], runs["sort"]["steps"][0]
+    bf16_rel = _rel(a["loss"], b["loss"])
+    check(bf16_rel <= MOE_BF16_RTOL, f"moe_path: bf16 step-0 loss einsum "
+          f"{a['loss']} vs sort {b['loss']}")
+    # The reference's tolerance, in fp32 (one step each from sd).
+    fp32 = {}
+    c32 = apply_overrides(cfg, MOE_FP32)
+    batch32 = data.batch(0, c32.data.global_batch_size)
+    for dispatch in ("einsum", "sort"):
+        c = apply_overrides(c32, [f"model.moe.dispatch={dispatch}"])
+        model, policy, tx, schedule, state, loss_fn = _train_setup(c, sd)
+        _, met = _step_fn(c, loss_fn, tx, policy)(state, batch32)
+        fp32[dispatch] = {k: float(v) for k, v in met.items()}
+        del model, state, tx
+        torch.cuda.empty_cache()
+    a, b = fp32["einsum"], fp32["sort"]
+    gap = abs(a["loss"] - b["loss"])
+    tol = MOE_LOSS_TOL["atol"] + MOE_LOSS_TOL["rtol"] * abs(b["loss"])
+    check(gap <= tol, f"moe_path: fp32 step-0 loss einsum {a['loss']} vs "
+          f"sort {b['loss']}")
+    aux_rel = abs(a["aux_loss"] - b["aux_loss"]) / b["aux_loss"]
+    check(aux_rel <= MOE_AUX_RTOL, f"moe_path: fp32 aux_loss einsum "
+          f"{a['aux_loss']} vs sort {b['aux_loss']}")
+    share = moe_dispatch_ms(cfg, sd, gb // accum * m.seq_len)
+    for dispatch, d in share.items():
+        d["dispatch_share_of_step"] = (d["dispatch_ms"] * layers * accum
+                                       / 1e3 / runs[dispatch]["step_s_median"])
+
+    # Serving: the bucketed contiguous engine on the same weights.
+    policy = get_policy(cfg.precision)
+    model = GPT(m, policy, device="cuda")
+    model.load_state_dict(sd)
+    reqs = requests(seed, m.vocab_size)[:MOE_REQUESTS]
+    serve(model, cfg, reqs[:2], 4)  # warm-up
+    reset_launches()
+    eng, comps, wall = serve(model, cfg, reqs, MOE_NEW)
+    counts = read_launches()
+    dsteps = eng.stats["decode_steps"]
+    check_launches(counts, {"decode_attention": dsteps}, layers,
+                   "moe_path serve")
+    del model, eng
+    # One decode step's logits, kernel against dense, fp32.
+    rng = np.random.default_rng(seed + 19)
+    lens = torch.tensor([16, 100, 257, 200, 33, 180, 64, 256],
+                        dtype=torch.int32, device="cuda")
+    prompt = torch.from_numpy(rng.integers(0, m.vocab_size, (8, 256))
+                              .astype(np.int32)).cuda()
+    tok = torch.from_numpy(rng.integers(0, m.vocab_size, (8,))
+                           .astype(np.int32)).cuda()
+    logits = {}
+    for impl in ("flash", "dense"):
+        mm = GPT(dataclasses.replace(m, decode_attention=impl),
+                 get_policy("fp32"), device="cuda")
+        mm.load_state_dict(sd)
+        reset_launches()
+        _, cache = generation._prefill(mm, prompt, lens, cache_len=512)
+        logits[impl] = generation._decode_step(mm, cache, tok)[0].float()
+        check(read_launches()["decode_attention"]
+              == (layers if impl == "flash" else 0),
+              f"moe_path: the fp32 {impl} decode step's B4 launches")
+        del mm, cache
+    err = (logits["flash"] - logits["dense"]).abs().max().item()
+    scale = max(1.0, logits["dense"].abs().max().item())
+    check(err <= MOE_LOGITS_TOL * scale,
+          f"moe_path decode logits kernel vs dense: {err}")
+    torch.cuda.empty_cache()
+    return {
+        "card": card, "config": cfg.name, "overrides": MOE_OVERRIDES,
+        "policy": cfg.precision.policy, "layers": layers,
+        "d_model": m.hidden_dim, "heads": m.num_heads, "seq_len": m.seq_len,
+        "experts": m.moe.num_experts, "top_k": m.moe.top_k,
+        "capacity_factor": m.moe.capacity_factor, "global_batch": gb,
+        "grad_accum": accum, "remat": cfg.trainer.remat,
+        "flash_launches_per_step": per_step,
+        "runs": runs, "bf16_step0_loss_rel_gap": bf16_rel,
+        "bf16_rtol": MOE_BF16_RTOL,
+        "fp32_check": {"overrides": MOE_FP32, "steps": fp32,
+                       "step0_loss_gap": gap, "step0_loss_tol": tol,
+                       "aux_rel_gap": aux_rel, "aux_rtol": MOE_AUX_RTOL},
+        "dispatch": share,
+        "fallbacks": fa.flash_attention.fallbacks - fallbacks,
+        "serve": {"requests": len(comps), "new_tokens_max": MOE_NEW,
+                  "decode_steps": dsteps, "launches": counts,
+                  **_latencies(comps, wall)},
+        "decode_logits_kernel_vs_dense_fp32": {
+            "max_abs_err": err, "tol": MOE_LOGITS_TOL * scale}}
+
+
+def a12_bytes(cfg, rank: int, name: str) -> dict:
+    """What rank ``rank`` of sp_path sends over ``seq`` in one step of
+    ``cfg`` under dots remat, by dtype. Ring (2 ranks): rank 0 sends its
+    K/V block a forward (twice: the recompute replays the hop) and again
+    with its fp32 dK/dV in the backward; rank 1 sends rank 0's dK/dV
+    home. Ulysses: 12 exchanges a layer (q, k, v and the output, forward,
+    recompute and backward), half of each to the other rank."""
+    m = cfg.model
+    rows = cfg.data.global_batch_size // cfg.trainer.grad_accum
+    block = rows * (m.seq_len // 2) * m.hidden_dim  # elements of K (or V)
+    per = m.num_layers * cfg.trainer.grad_accum
+    if name == "ulysses":
+        return {"bfloat16": per * 12 * block * 2 // 2}
+    if rank == 0:
+        return {"bfloat16": per * 3 * 2 * block * 2,
+                "float32": per * 2 * block * 4}
+    return {"float32": per * 2 * block * 4}
+
+
+def _a12_run(cfg, steps: int, flash, tweak=None) -> dict:
+    """``steps`` steps of ``cfg`` through the ``Trainer`` on this rank:
+    losses, grad_norms and metrics, seconds, every kernel's launches and
+    the flash kernels' heads, bytes sent by axis and dtype, staged
+    bytes, peak memory. ``tweak(params)`` edits the initial params."""
+    from frl_distributed_ml_scaffold_tpu_torch.dist import collectives
+    from frl_distributed_ml_scaffold_tpu_torch.ops import flash_attention as fa
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.loop import Trainer
+
+    trainer = Trainer(cfg, device="cuda")
+    state = trainer.init_state()
+    if tweak is not None:
+        with torch.no_grad():
+            tweak(state.params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fallbacks = fa.flash_attention.fallbacks
+    out = []
+    for s in range(steps):
+        batch = trainer.pipeline.global_batch(s)
+        collectives.reset_counters()
+        flash["heads"].clear()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out.append({
+            "step": s, **{k: float(v) for k, v in met.items()},
+            "step_s": wall, "launches": read_launches(),
+            "heads": sorted(set(flash["heads"])),
+            "wire_bytes": {a: dict(v) for a, v in
+                           collectives.wire_bytes.items()},
+            "staged_bytes": dict(collectives.staged_bytes)})
+    peak = torch.cuda.max_memory_allocated()
+    res = {"steps": out, "max_memory_allocated_bytes": peak,
+           "fallbacks": fa.flash_attention.fallbacks - fallbacks,
+           "coords": trainer.env.coords}
+    del trainer, state
+    torch.cuda.empty_cache()
+    return res
+
+
+def _a12_configs(phase: str, seed: int) -> dict:
+    from frl_distributed_ml_scaffold_tpu_torch.config import (
+        apply_overrides,
+        get_config,
+    )
+
+    ov = [f"trainer.seed={seed}"]
+    if phase == "ep":
+        cfg = apply_overrides(get_config("gpt2_moe"),
+                              EP_OVERRIDES + EP_MESH + ov)
+        return {"ep": cfg, "ep_fp32": apply_overrides(cfg, EP_FP32)}
+    base = apply_overrides(get_config("gpt2_ring"), SP_OVERRIDES + ov)
+    return {name: apply_overrides(base, SP_MESH + extra)
+            for name, extra in SP_RUNS.items()}
+
+
+def _rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |got - ref| / max |ref|."""
+    return float((got.float() - ref.float()).abs().max()
+                 / ref.float().abs().max().clamp_min(1e-30))
+
+
+def ep_layer_check(cfg, env, seed: int) -> dict:
+    """One MoE layer of ``cfg`` alone on this rank of ``expert`` against
+    the whole layer on one rank, at the path's tokens and policy (seeded
+    weights ~ N(0, 0.02), input and output gradient ~ N(0, 1)): the loss
+    ``sum(y * dy) + aux``, then ``aux`` alone (whose router gradient every
+    rank computes whole). ``EP_LAYER_TOL`` errors and their controls."""
+    from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import mesh_context
+    from frl_distributed_ml_scaffold_tpu_torch.models.moe import MoEMlp
+    from frl_distributed_ml_scaffold_tpu_torch.precision import get_policy
+
+    m = cfg.model
+    r, n = env.axis_index("expert"), env.axis_size("expert")
+    el = m.moe.num_experts // n
+    mine = slice(r * el, (r + 1) * el)
+    policy = get_policy(cfg.precision.policy)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1919)
+    rows = cfg.data.global_batch_size // cfg.trainer.grad_accum
+
+    def draw(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    full = MoEMlp(m, policy, "cuda")
+    with torch.no_grad():
+        for p in (full.router.weight, full.wi, full.wo):
+            p.copy_(draw(p.shape, 0.02))
+        full.router.bias.zero_()
+    x = draw((rows, m.seq_len, m.hidden_dim))
+    dy = draw(x.shape)
+
+    def grads(mod, on, aux_only=False):
+        xx = x.clone().requires_grad_()
+        with mesh_context(on):
+            y, aux = mod(xx, train=True)
+            (aux if aux_only else (y.float() * dy).sum() + aux).backward()
+        out = {"y": y.detach(), "aux": aux.detach(), "dx": xx.grad,
+               "drouter": mod.router.weight.grad, "dwi": mod.wi.grad,
+               "dwo": mod.wo.grad}
+        mod.zero_grad(set_to_none=True)
+        return out
+
+    ref, ref_aux = grads(full, None), grads(full, None, True)
+    local = MoEMlp(m, policy, "cuda")
+    local.router.load_state_dict(full.router.state_dict())
+    local.wi = torch.nn.Parameter(full.wi.detach()[mine].clone())
+    local.wo = torch.nn.Parameter(full.wo.detach()[mine].clone())
+    got, got_aux = grads(local, env), grads(local, env, True)
+    errs = {k: _rel_err(got[k], ref[k]) for k in ("y", "aux", "dx",
+                                                   "drouter")}
+    errs["dwi"] = _rel_err(got["dwi"], ref["dwi"][mine])
+    errs["dwo"] = _rel_err(got["dwo"], ref["dwo"][mine])
+    errs["drouter_aux_only"] = _rel_err(got_aux["drouter"],
+                                        ref_aux["drouter"])
+    with torch.no_grad():
+        full.wo[:mine.start].zero_()
+        full.wo[mine.stop:].zero_()
+    controls = {
+        "y_unsummed": _rel_err(grads(full, None)["y"], ref["y"]),
+        "drouter_aux_only_summed": _rel_err(n * ref_aux["drouter"],
+                                            ref_aux["drouter"])}
+    return {"rank": r, "tokens": rows * m.seq_len,
+            "dispatch": m.moe.dispatch, "errs": errs, "controls": controls}
+
+
+def sp_attention_check(name: str, cfg, env, seed: int) -> dict:
+    """``name`` attention (ring or ulysses) alone on this rank of ``seq``
+    at the path's shapes (``SP_ATTN_TOL``): its output and q/k/v
+    gradients against one flash attention over all T, and the control,
+    this rank's block attending to itself alone."""
+    from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import mesh_context
+    from frl_distributed_ml_scaffold_tpu_torch.ops.flash_attention import (
+        flash_attention,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.ops.ring_attention import (
+        ring_attention,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.ops.ulysses import (
+        ulysses_attention,
+    )
+
+    m = cfg.model
+    r, n = env.axis_index("seq"), env.axis_size("seq")
+    rows = cfg.data.global_batch_size // cfg.trainer.grad_accum
+    t, h = m.seq_len, m.num_heads
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1917)
+    q, k, v, do = (torch.randn((rows, t, h, m.hidden_dim // h),
+                               generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    mine = slice(r * t // n, (r + 1) * t // n)
+
+    def grads(fn, ins, dout, on):
+        leaves = [a.detach().clone().requires_grad_() for a in ins]
+        with mesh_context(on):
+            o = fn(*leaves, causal=True)
+            o.backward(dout)
+        return [o.detach()] + [a.grad for a in leaves]
+
+    ref = [a[:, mine] for a in grads(flash_attention, (q, k, v), do, None)]
+    part = (q[:, mine], k[:, mine], v[:, mine])
+    fn = ring_attention if name == "ring" else ulysses_attention
+    got = grads(fn, part, do[:, mine], env)
+    own = grads(flash_attention, part, do[:, mine], None)
+    keys = ("o", "dq", "dk", "dv")
+    return {"rank": r, "shape": list(q.shape),
+            "errs": {key: _rel_err(a, b) for key, a, b in zip(keys, got, ref)},
+            "control": {key: _rel_err(a, b)
+                        for key, a, b in zip(keys, own, ref)}}
+
+
+def a12_rank(phase: str, rank: int, port: int, out: str, seed: int) -> int:
+    """One rank of ep_path or sp_path (``--a12-rank``): joins a gloo
+    group of ``A12_RANKS`` processes on the one card and trains each of
+    the phase's runs through the ``Trainer`` (a warm-up and one timed
+    step). Writes ``out/a12_rank<rank>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import build_mesh
+    from frl_distributed_ml_scaffold_tpu_torch.ops import flash_attention as fa
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}",
+        world_size=A12_RANKS, rank=rank,
+        timeout=datetime.timedelta(seconds=A12_TIMEOUT_S))
+    flash = {"heads": []}
+    dims = fa._dims
+
+    def watched_dims(q, seq_dim, causal):
+        # Each launch reads its dims once: (B, H, T, D, dtype, causal).
+        got = dims(q, seq_dim, causal)
+        flash["heads"].append(int(got[1]))
+        return got
+
+    fa._dims = watched_dims
+    steps = 1 + (EP_STEPS if phase == "ep" else SP_STEPS)
+    report = {"rank": rank, "backend": dist.get_backend(), "runs": {}}
+    cfgs = _a12_configs(phase, seed)
+    for name, cfg in cfgs.items():
+        report["runs"][name] = _a12_run(cfg, steps, flash)
+    env = build_mesh(next(iter(cfgs.values())).mesh)
+    if phase == "ep":
+        report["layer_check"] = ep_layer_check(cfgs["ep"], env, seed)
+    else:
+        report["attention_check"] = {
+            name: sp_attention_check(name, cfg, env, seed)
+            for name, cfg in cfgs.items()}
+    with open(os.path.join(out, f"a12_rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _spawn_ranks(rank_flag: str, args: list, n: int, timeout: float,
+                 tag: str, result: str, env: dict | None = None) -> list:
+    """Start ``n`` processes of this script (``rank_flag r`` and ``args``
+    after ``--tp-port`` and ``--tp-out``), wait for them up to
+    ``timeout`` seconds, and stop them all when one fails (it leaves the
+    others in a collective). Keeps their log in
+    ``OUT_DIR/<tag>_ranks.log`` and returns each rank's
+    ``<result>_rank<r>.json``."""
+    out = tempfile.mkdtemp(prefix=f"{tag}_", dir=os.path.join(REPO, "build"))
+    port = free_port()
+    log_paths = [os.path.join(out, f"rank{r}.log") for r in range(n)]
+    procs = []
+    for r in range(n):
+        with open(log_paths[r], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), rank_flag,
+                 str(r), *args, "--tp-port", str(port), "--tp-out", out],
+                stdout=log, stderr=subprocess.STDOUT, cwd=REPO, env=env))
+    deadline = time.perf_counter() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if (any(p.poll() not in (None, 0) for p in procs)
+                    or time.perf_counter() > deadline):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    logs = []
+    for path in log_paths:
+        with open(path) as f:
+            logs.append(f.read())
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, f"{tag}_ranks.log"), "w") as f:
+        f.write("\n".join(logs))
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"{tag}_path: rank {r} exited "
+              f"{p.returncode}: {logs[r][-3000:]}")
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(out, f"{result}_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(out, ignore_errors=True)
+    return ranks
+
+
+def _a12_spawn(phase: str, seed: int) -> list:
+    """The ``A12_RANKS`` processes of ``phase`` (``a12_rank``)."""
+    # Two ranks of ~35 GB each share the card: segments that grow keep
+    # the allocator's reserve close to what is allocated.
+    env = {**os.environ, "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+    return _spawn_ranks("--a12-rank", ["--seed", str(seed), "--a12-phase",
+                                       phase], A12_RANKS, A12_TIMEOUT_S,
+                        phase, "a12", env)
+
+
+def _one_rank_step0(cfg, tweak=None) -> dict:
+    """The one-rank step 0 of ``cfg`` on this process (the same seeded
+    weights and batch as the ranks', edited by ``tweak``)."""
+    run = _a12_run(cfg, 1, {"heads": []}, tweak)
+    return {**run["steps"][0],
+            "max_memory_allocated_bytes": run["max_memory_allocated_bytes"]}
+
+
+def _a12_check_steps(what: str, run: dict, per_step: dict, heads: int):
+    for s in run["steps"]:
+        check(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]),
+              f"{what} step {s['step']}: {s}")
+        for name, n in s["launches"].items():
+            check(n == per_step.get(name, 0),
+                  f"{what} step {s['step']}: {name} launched {n} times, "
+                  f"want {per_step.get(name, 0)}")
+        check(s["heads"] == [heads], f"{what}: flash heads {s['heads']}")
+    check(run["fallbacks"] == 0, f"{what}: flash attention fell back")
+
+
+def ep_phase(seed: int, card: str) -> dict:
+    """ep_path: ``gpt2_moe`` at full width and depth over ``expert=2``,
+    two gloo processes on the one card, each holding 4 of the 8 experts,
+    against the one-rank step (expert=1) on the same seeded weights and
+    batch; then the same in fp32 at 2 layers. The ranks agree, their
+    step-0 loss and grad_norm are within ``EP_RTOL`` of the one-rank
+    step's, B1-B3 launch 2 / 1 / 1 a layer at 16 heads, and one layer
+    alone is within ``EP_LAYER_TOL`` of one rank's while its controls
+    are not. The control step (the other rank's experts left out of the
+    one-rank step: rank 0's output unsummed) is recorded beside it."""
+    from frl_distributed_ml_scaffold_tpu_torch.config import apply_overrides
+
+    cfgs = _a12_configs("ep", seed)
+    one = {name: _one_rank_step0(apply_overrides(c, ["mesh.expert=1"]))
+           for name, c in cfgs.items()}
+    cfg = cfgs["ep"]
+    el = cfg.model.moe.num_experts // A12_RANKS
+
+    def unsummed(params):
+        for key, p in params.items():
+            if key.endswith("moe.wo"):
+                p[el:].zero_()
+
+    control = _one_rank_step0(apply_overrides(cfg, ["mesh.expert=1"]),
+                              unsummed)
+    ranks = _a12_spawn("ep", seed)
+    report = {
+        "card": card, "config": cfg.name, "mesh": EP_MESH,
+        "overrides": EP_OVERRIDES, "backend": ranks[0]["backend"],
+        "backend_note": "two gloo processes on one card: every all-reduce "
+                        "over expert goes through the host",
+        "experts_per_rank": el, "global_batch": cfg.data.global_batch_size,
+        "runs": {}}
+    for name, c in cfgs.items():
+        per_step = {k: v * c.model.num_layers
+                    for k, v in _flash_per_layer(2, 1).items()}
+        runs = [r["runs"][name] for r in ranks]
+        for r, run in enumerate(runs):
+            _a12_check_steps(f"ep_path {name} rank {r}", run, per_step,
+                             c.model.num_heads)
+            check([s["loss"] for s in run["steps"]]
+                  == [s["loss"] for s in runs[0]["steps"]],
+                  f"ep_path {name}: rank {r}'s losses differ from rank 0's")
+        a = runs[0]["steps"][0]
+        gaps = {k: _rel(a[k], one[name][k]) for k in ("loss", "grad_norm")}
+        for k, gap in gaps.items():
+            check(gap <= EP_RTOL[name][k], f"ep_path {name}: step-0 {k} "
+                  f"{a[k]} vs one rank {one[name][k]}")
+        report["runs"][name] = {
+            "layers": c.model.num_layers, "policy": c.precision.policy,
+            "losses": [s["loss"] for s in runs[0]["steps"]],
+            "aux_losses": [s["aux_loss"] for s in runs[0]["steps"]],
+            "one_rank": {k: one[name][k] for k in ("loss", "grad_norm")},
+            "rel_vs_one_rank": gaps, "rtol": EP_RTOL[name],
+            "grad_norm": a["grad_norm"],
+            "flash_launches_per_step": per_step,
+            "step_s": [s["step_s"] for s in runs[0]["steps"][1:]],
+            "warmup_step_s": a["step_s"],
+            "one_rank_step_s": one[name]["step_s"],
+            "staged_bytes_per_step": runs[0]["steps"][-1]["staged_bytes"],
+            "max_memory_allocated_bytes": [r["max_memory_allocated_bytes"]
+                                           for r in runs],
+            "one_rank_max_memory_allocated_bytes":
+                one[name]["max_memory_allocated_bytes"]}
+    report["control_unsummed"] = {
+        k: {"value": control[k], "rel_vs_one_rank": _rel(control[k],
+                                                         one["ep"][k])}
+        for k in ("loss", "grad_norm")}
+    layer = []
+    for rep in ranks:
+        lc = rep["layer_check"]
+        for k, e in lc["errs"].items():
+            check(e <= EP_LAYER_TOL, f"ep_path layer, rank {lc['rank']}: "
+                  f"{k} {e} over {EP_LAYER_TOL}")
+        for k, e in lc["controls"].items():
+            check(e > EP_LAYER_TOL, f"ep_path layer, rank {lc['rank']}: "
+                  f"control {k} {e} does not exceed {EP_LAYER_TOL}")
+        layer.append(lc)
+    report["layer_check"] = {"tol": EP_LAYER_TOL, "ranks": layer}
+    return report
+
+
+def sp_phase(seed: int, card: str) -> dict:
+    """sp_path: ``gpt2_ring`` at full width and depth, T 8192, over
+    ``seq=2`` (two gloo processes on the one card), first ring, then
+    Ulysses, against the one-rank flash step on the same seeded weights
+    and tokens: step-0 loss and grad_norm within ``SP_RTOL``, and the
+    attention alone within ``SP_ATTN_TOL`` while its control is not; per
+    rank and layer B1 twice (the recompute) and B2 / B3 once for every
+    hop it computes (the ring: rank 0 once, rank 1 twice; Ulysses once
+    at 8 heads); the bytes sent over seq at the send equal
+    ``a12_bytes``."""
+    from frl_distributed_ml_scaffold_tpu_torch.config import apply_overrides
+
+    cfgs = _a12_configs("sp", seed)
+    one = _one_rank_step0(apply_overrides(cfgs["ring"], SP_PLAIN))
+    ranks = _a12_spawn("sp", seed)
+    m = cfgs["ring"].model
+    layers = m.num_layers
+    report = {"card": card, "config": cfgs["ring"].name, "mesh": SP_MESH,
+              "overrides": SP_OVERRIDES,
+              "cuts": {"global_batch": "8 -> 4 (two ranks and the one-rank "
+                                       "reference on one card)"},
+              "backend": ranks[0]["backend"],
+              "backend_note": "two gloo processes on one card: every hop "
+                              "and all_to_all is staged through the host",
+              "seq_len": m.seq_len, "layers": layers,
+              "one_rank_flash_loss": one["loss"],
+              "one_rank_step_s": one["step_s"],
+              "one_rank_max_memory_allocated_bytes":
+                  one["max_memory_allocated_bytes"], "runs": {}}
+    for name in SP_RUNS:
+        runs = [r["runs"][name] for r in ranks]
+        per_rank = {}
+        for run in runs:
+            r = run["coords"]["seq"]
+            hops = r + 1 if name == "ring" else 1
+            heads = m.num_heads if name == "ring" else m.num_heads // 2
+            per_step = {k: v * layers for k, v in
+                        _flash_per_layer(2 * hops, hops).items()}
+            _a12_check_steps(f"sp_path {name} rank {r}", run, per_step,
+                             heads)
+            want = a12_bytes(cfgs[name], r, name)
+            for s in run["steps"]:
+                got = s["wire_bytes"].get("seq", {})
+                check(got == want, f"sp_path {name} rank {r}: bytes {got}, "
+                      f"want {want}")
+            check([s["loss"] for s in run["steps"]]
+                  == [s["loss"] for s in runs[0]["steps"]],
+                  f"sp_path {name}: rank {r}'s losses differ")
+            per_rank[r] = {
+                "flash_launches_per_step": per_step, "heads": heads,
+                "bytes_per_step": want,
+                "staged_bytes_per_step": run["steps"][-1]["staged_bytes"],
+                "step_s": [s["step_s"] for s in run["steps"][1:]],
+                "warmup_step_s": run["steps"][0]["step_s"],
+                "max_memory_allocated_bytes":
+                    run["max_memory_allocated_bytes"]}
+        a = runs[0]["steps"][0]
+        gaps = {k: _rel(a[k], one[k]) for k in ("loss", "grad_norm")}
+        for k, gap in gaps.items():
+            check(gap <= SP_RTOL[k], f"sp_path {name}: step-0 {k} {a[k]} "
+                  f"vs one-rank flash {one[k]}")
+        attn = [rep["attention_check"][name] for rep in ranks]
+        for ac in attn:
+            for k, e in ac["errs"].items():
+                check(e <= SP_ATTN_TOL, f"sp_path {name} attention, rank "
+                      f"{ac['rank']}: {k} {e} over {SP_ATTN_TOL}")
+            check(max(ac["control"].values()) > SP_ATTN_TOL,
+                  f"sp_path {name} attention, rank {ac['rank']}: the "
+                  f"control {ac['control']} does not exceed {SP_ATTN_TOL}")
+        report["runs"][name] = {
+            "losses": [s["loss"] for s in runs[0]["steps"]],
+            "rel_vs_one_rank": gaps, "rtol": SP_RTOL,
+            "grad_norm": a["grad_norm"],
+            "one_rank_grad_norm": one["grad_norm"], "ranks": per_rank,
+            "attention_check": {"tol": SP_ATTN_TOL, "ranks": attn}}
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5985,6 +6749,11 @@ def main() -> int:
     ap.add_argument("--tp-out", help=argparse.SUPPRESS)
     # One rank of overlap_path (the script starts them itself).
     ap.add_argument("--overlap-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    # One rank of ep_path / sp_path (the script starts them itself).
+    ap.add_argument("--a12-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--a12-phase", choices=("ep", "sp"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -5997,6 +6766,9 @@ def main() -> int:
     if args.overlap_rank is not None:
         return overlap_rank(args.overlap_rank, args.tp_port, args.tp_out,
                             args.seed)
+    if args.a12_rank is not None:
+        return a12_rank(args.a12_phase, args.a12_rank, args.tp_port,
+                        args.tp_out, args.seed)
     from frl_distributed_ml_scaffold_tpu_torch.config import (
         apply_overrides,
         get_config,
@@ -6091,6 +6863,14 @@ def main() -> int:
         torch.Generator(device="cuda").manual_seed(args.seed + 18), card))
     emit("overlap_path", timed_phase("overlap_path", overlap_phase,
                                      args.seed, card))
+    # MoE on one card, then expert and sequence parallelism: two
+    # processes each on the card.
+    emit("moe_path", timed_phase(
+        "moe_path", moe_phase,
+        torch.Generator(device="cuda").manual_seed(args.seed + 19), card,
+        args.seed))
+    emit("ep_path", timed_phase("ep_path", ep_phase, args.seed, card))
+    emit("sp_path", timed_phase("sp_path", sp_phase, args.seed, card))
     kern.update(timed_phase("flash_kernel", flash_kernel_phase, gen))
     report, counts, profile = timed_phase("train_path", train_phase, sd, card)
     launches.update({k: n for k, n in counts.items() if n})

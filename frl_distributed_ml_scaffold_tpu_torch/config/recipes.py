@@ -10,7 +10,12 @@ replicated layout; over N ranks they split the state (``parallel/``).
 ``gpt2_tp`` needs an even rank count (``model=2``). The five
 ``*_overlap*`` recipes run the overlap schedule (``parallel/
 schedule.py``); ``gpt2_medium_tp_overlap`` and its ``_int8`` twin need
-``model > 1``, the ``fsdp_tp`` pair ``model=2``.
+``model > 1``, the ``fsdp_tp`` pair ``model=2``. ``gpt2_ring`` splits
+its 8192 tokens over ``seq=4`` (ring attention; ``ops/
+ring_attention.py``) and ``gpt2_moe`` its 8 experts over ``expert=4``
+(``models/moe.py``): both need a multiple of 4 ranks, or their mesh
+overridden (``mesh.seq=1`` with ``model.attention=flash``,
+``mesh.expert=1``) on one card.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
     GPTConfig,
     MeshConfig,
     MLPConfig,
+    MoEConfig,
     OptimizerConfig,
     ParallelConfig,
     PrecisionConfig,
@@ -142,6 +148,40 @@ def gpt2_tp() -> ExperimentConfig:
         mesh=MeshConfig(data=-1, model=2),
         parallel=ParallelConfig(param_sharding="replicated"),
         trainer=base.trainer,
+    )
+
+
+def gpt2_ring() -> ExperimentConfig:
+    """Sequence-parallel long context: 8k tokens split over a ``seq``
+    axis of 4, ring attention over the flash kernels."""
+    base = gpt2_medium_zero1()
+    return base.replace(
+        name="gpt2_ring",
+        model=GPTConfig(
+            vocab_size=50257, num_layers=24, num_heads=16, hidden_dim=1024,
+            seq_len=8192, attention="ring",
+        ),
+        data=DataConfig(name="lm_synthetic", global_batch_size=8,
+                        seq_len=8192),
+        mesh=MeshConfig(data=-1, seq=4),
+        parallel=ParallelConfig(param_sharding="replicated",
+                                sequence="ring"),
+        trainer=dataclasses.replace(base.trainer, grad_accum=1),
+    )
+
+
+def gpt2_moe() -> ExperimentConfig:
+    """Expert-parallel MoE LM: 12 layers, 8 experts top-2 over an
+    ``expert`` axis of 4."""
+    base = gpt2_medium_zero1()
+    return base.replace(
+        name="gpt2_moe",
+        model=GPTConfig(
+            vocab_size=50257, num_layers=12, num_heads=16, hidden_dim=1024,
+            seq_len=1024, moe=MoEConfig(num_experts=8, top_k=2),
+        ),
+        mesh=MeshConfig(data=-1, expert=4),
+        parallel=ParallelConfig(param_sharding="replicated"),
     )
 
 
@@ -321,6 +361,8 @@ _RECIPES = {
     "gpt2_medium_adafactor": gpt2_medium_adafactor,
     "gpt2_long": gpt2_long,
     "gpt2_tp": gpt2_tp,
+    "gpt2_ring": gpt2_ring,
+    "gpt2_moe": gpt2_moe,
     "gpt2_medium_fsdp_overlap": gpt2_medium_fsdp_overlap,
     "gpt2_medium_tp_overlap": gpt2_medium_tp_overlap,
     "gpt2_medium_tp_overlap_int8": gpt2_medium_tp_overlap_int8,

@@ -24,9 +24,10 @@ from typing import Any, Optional
 class MeshConfig:
     """Logical device-mesh shape over the run's ranks (one per device;
     ``dist/mesh.py``): ``data``, ``fsdp`` and ``model`` split the batch,
-    the params and the tensor-parallel products; one axis may be ``-1``
-    and absorb the ranks left. ``seq``, ``expert`` and ``pipe`` above 1
-    are refused by the step (ROADMAP A12)."""
+    the params and the tensor-parallel products, ``seq`` every row's
+    tokens (ring or Ulysses attention) and ``expert`` the MoE experts;
+    one axis may be ``-1`` and absorb the ranks left. ``pipe`` above 1 is
+    refused by the step (ROADMAP A12)."""
 
     data: int = -1
     fsdp: int = 1

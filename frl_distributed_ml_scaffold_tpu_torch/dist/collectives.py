@@ -19,11 +19,15 @@ collective_matmul.py``'s rings, ``parallel/fsdp_overlap.py``'s block
 gathers): ``exchange_start`` posts one ring hop's sends and receives
 over an axis and ``all_gather_start`` one all-gather along a dim; each
 returns a ``Pending`` whose ``wait()`` gives the received tensors, so
-the caller computes between the post and the wait. ``reduce_scatter_dim``
+the caller computes between the post and the wait (the ring attention's
+hops too). ``reduce_scatter_dim``
 (and ``all_gather_dim``, the wait of ``all_gather_start``) handle a dim
 the axis does not divide by the padded bounds of ``parallel/layout.py``.
-``wire_bytes`` counts the bytes this process sends point to point, by
-axis and dtype, at the send (payloads and scales alike).
+``wire_bytes`` counts the bytes this process sends point to point, and
+its chunks of ``all_to_all`` bound for the other members, by axis and
+dtype, at the send (payloads and scales alike). ``all_to_all`` posts
+its chunks point to point too: not every gloo build has the collective,
+and NCCL's is grouped sends and receives all the same.
 
 A gloo group does not take CUDA tensors in point-to-point sends, all-
 gathers or reduce-scatters, so on a gloo group a CUDA tensor is staged
@@ -184,7 +188,8 @@ def all_to_all(x: Any, axis: str, *, split_axis: int, concat_axis: int,
                tiled: bool = True, env: MeshEnv | None = None) -> Any:
     """Chunk ``split_axis`` over the members of ``axis``, send chunk j to
     member j, and concatenate what arrives along ``concat_axis`` (or
-    stack it there when not ``tiled``)."""
+    stack it there when not ``tiled``). The chunks sent to the other
+    members count in ``wire_bytes``."""
     env = _env(env)
     group = env.group(axis)
     n = env.axis_size(axis)
@@ -193,8 +198,10 @@ def all_to_all(x: Any, axis: str, *, split_axis: int, concat_axis: int,
         if group is None:
             return a if tiled else a.unsqueeze(concat_axis)
         ins = [c.contiguous() for c in a.chunk(n, split_axis)]
-        outs = [torch.empty_like(c) for c in ins]
-        dist.all_to_all(outs, ins, group=group)
+        me = env.axis_index(axis)
+        others = [(c, j) for j, c in enumerate(ins) if j != me]
+        outs = exchange_start(others, others, axis, env=env).wait()
+        outs.insert(me, ins[me])
         return (torch.cat if tiled else torch.stack)(outs, concat_axis)
 
     return _map(one, x)

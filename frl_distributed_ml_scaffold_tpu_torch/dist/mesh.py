@@ -24,7 +24,9 @@ drives the mesh path's collectives.
 Batch semantics, the JAX package's: FSDP is data parallelism with the
 parameters sharded, so the global batch shards over ``("data",
 "fsdp")`` jointly (``BATCH_AXES``); ranks that differ only along
-``model`` hold the same rows.
+``model`` or ``expert`` hold the same rows. Ranks along ``seq`` hold the
+same rows and split their tokens, so the global loss is the mean over
+``LOSS_AXES`` of the ranks' means.
 """
 
 from __future__ import annotations
@@ -47,6 +49,10 @@ AXES: tuple[str, ...] = ("pipe", "data", "fsdp", "seq", "expert", "model")
 
 # Axes that jointly shard the global batch dimension.
 BATCH_AXES: tuple[str, ...] = ("data", "fsdp")
+
+# Axes whose ranks hold distinct tokens of the global batch: the batch
+# axes and ``seq``.
+LOSS_AXES: tuple[str, ...] = BATCH_AXES + ("seq",)
 
 # The axes whose groups ``build_mesh(unit_groups=True)`` keeps at size 1.
 UNIT_AXES: tuple[str, ...] = ("data", "fsdp", "model")
@@ -88,6 +94,10 @@ class MeshEnv:
     @property
     def batch_axis_size(self) -> int:
         return self.axis_size(BATCH_AXES)
+
+    @property
+    def loss_axis_size(self) -> int:
+        return self.axis_size(LOSS_AXES)
 
     @functools.cached_property
     def coords(self) -> dict[str, int]:

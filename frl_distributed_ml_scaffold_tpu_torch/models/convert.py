@@ -11,7 +11,11 @@ of numpy arrays) stacks every block leaf on a leading ``[L]`` axis:
 ``blocks/attn/{query,key,value,out}/{kernel,bias}``,
 ``blocks/mlp/{fc_in,fc_out}/{kernel,bias}``, ``ln_f/{scale,bias}``.
 A flax ``Dense.kernel`` is ``[in, out]``; a torch ``Linear.weight`` is
-``[out, in]``.
+``[out, in]``. With ``moe.num_experts > 0`` the blocks hold
+``blocks/moe/{wi (L, E, D, H), wo (L, E, H, D), router/{kernel,bias}}``
+in place of ``blocks/mlp``: the experts keep their layout
+(``blocks.i.moe.wi`` / ``wo``), the router is a Dense like the others
+(``blocks.i.moe.router``).
 
 ResNet: the flax tree names modules by class and order: ``Conv_0`` (the
 stem, HWIO kernel; the port's weights are OIHW; ``stem_s2d`` under
@@ -88,6 +92,13 @@ _DENSE = (
 )
 
 
+def _dense_names(cfg: GPTConfig):
+    """The (sub, name) pairs of a block's Dense layers."""
+    if cfg.moe.num_experts > 0:
+        return _DENSE[:4] + (("moe", "router"),)
+    return _DENSE
+
+
 def params_from_jax(tree: dict, cfg: GPTConfig) -> dict[str, torch.Tensor]:
     """The JAX package's GPT params (numpy leaves) as the port's state
     dict (CPU tensors; ``load_state_dict`` moves and casts them)."""
@@ -104,10 +115,13 @@ def params_from_jax(tree: dict, cfg: GPTConfig) -> dict[str, torch.Tensor]:
         for ln in ("ln1", "ln2"):
             sd[pre + ln + ".weight"] = _t(blocks[ln]["scale"][i])
             sd[pre + ln + ".bias"] = _t(blocks[ln]["bias"][i])
-        for sub, name in _DENSE:
+        for sub, name in _dense_names(cfg):
             leaf = blocks[sub][name]
             sd[f"{pre}{sub}.{name}.weight"] = _t(leaf["kernel"][i].T)
             sd[f"{pre}{sub}.{name}.bias"] = _t(leaf["bias"][i])
+        if cfg.moe.num_experts > 0:
+            for w in ("wi", "wo"):
+                sd[f"{pre}moe.{w}"] = _t(blocks["moe"][w][i])
     return sd
 
 
@@ -124,10 +138,13 @@ def params_to_jax(sd: dict, cfg: GPTConfig) -> dict:
 
     blocks = {ln: {"scale": stack(ln + ".weight"), "bias": stack(ln + ".bias")}
               for ln in ("ln1", "ln2")}
-    for sub, name in _DENSE:
+    for sub, name in _dense_names(cfg):
         blocks.setdefault(sub, {})[name] = {
             "kernel": stack(f"{sub}.{name}.weight", transpose=True),
             "bias": stack(f"{sub}.{name}.bias")}
+    if cfg.moe.num_experts > 0:
+        for w in ("wi", "wo"):
+            blocks["moe"][w] = stack(f"moe.{w}")
     return {"wte": {"embedding": sd["wte.weight"]}, "wpe": sd["wpe"],
             "blocks": blocks,
             "ln_f": {"scale": sd["ln_f.weight"], "bias": sd["ln_f.bias"]}}
@@ -138,8 +155,9 @@ def init_params(
 ) -> dict[str, torch.Tensor]:
     """A seeded state dict following the JAX model's init distributions:
     normal(0.02) for ``wte``/``wpe``, LeCun-normal (truncated at two
-    standard deviations, flax's ``lecun_normal``) for Dense kernels, zero
-    biases, unit LayerNorm scales. Tensors are made on the generator's
+    standard deviations, flax's ``lecun_normal``) for Dense kernels (the
+    MoE router's too), normal(0.02) for the MoE experts, zero biases,
+    unit LayerNorm scales. Tensors are made on the generator's
     device. The numbers differ from the JAX init's (another generator);
     the distributions are the same."""
     dev = generator.device
@@ -164,19 +182,23 @@ def init_params(
         "ln_f.weight": ones(d),
         "ln_f.bias": zeros(d),
     }
+    e = cfg.moe.num_experts
     shapes = {
         "query": (d, d), "key": (d, d), "value": (d, d), "out": (d, d),
-        "fc_in": (f, d), "fc_out": (d, f),
+        "fc_in": (f, d), "fc_out": (d, f), "router": (e, d),
     }
     for i in range(cfg.num_layers):
         pre = f"blocks.{i}."
         for ln in ("ln1", "ln2"):
             sd[pre + ln + ".weight"] = ones(d)
             sd[pre + ln + ".bias"] = zeros(d)
-        for sub, name in _DENSE:
+        for sub, name in _dense_names(cfg):
             out_f, in_f = shapes[name]
             sd[f"{pre}{sub}.{name}.weight"] = lecun(out_f, in_f)
             sd[f"{pre}{sub}.{name}.bias"] = zeros(out_f)
+        if e > 0:
+            sd[pre + "moe.wi"] = normal((e, d, f), 0.02)
+            sd[pre + "moe.wo"] = normal((e, f, d), 0.02)
     return sd
 
 

@@ -22,7 +22,8 @@ of the global batch, and of a tensor split over ``model`` its slice: a
 site draws the mask of the whole tensor and keeps this rank's part, so
 the masks do not depend on the mesh (the counterpart of the JAX
 package's partitionable generator): rank r's rows are rows r of the
-one-rank masks at the same seed.
+one-rank masks at the same seed. Under sequence parallelism a GPT site
+(``seq_dim=1``) keeps the rank's tokens of the whole mask the same way.
 
 ``rate == 0`` and eval are the identity with no generator and no mask
 op, so a model that trains without dropout launches what it did before.
@@ -35,6 +36,7 @@ import torch
 from frl_distributed_ml_scaffold_tpu_torch.parallel.tensor_parallel import (
     batch_shard,
     model_shard,
+    seq_shard,
 )
 
 _MASK64 = (1 << 64) - 1
@@ -57,13 +59,15 @@ def mix_seed(seed: int, *key: int) -> int:
 
 
 def keep_mask(shape, rate: float, seed: int, *site: int, device,
-              model_dim: int | None = None) -> torch.Tensor:
+              model_dim: int | None = None,
+              seq_dim: int | None = None) -> torch.Tensor:
     """The boolean mask of one site: each value kept with probability
     ``1 - rate``, from a generator seeded by ``mix_seed(seed, *site)``.
     Under a mesh, ``shape`` is this rank's part (dim 0 its rows, dim
     ``model_dim`` its ``model`` slice; with ``model_dim=0`` the rows are
-    split over ``model`` too, inside the batch shard): the whole tensor's
-    mask is drawn and this part kept."""
+    split over ``model`` too, inside the batch shard; dim ``seq_dim`` its
+    tokens over ``seq``): the whole tensor's mask is drawn and this part
+    kept."""
     gen = torch.Generator(device=device)
     gen.manual_seed(mix_seed(seed, *site))
     full, index = list(shape), [slice(None)] * len(shape)
@@ -75,6 +79,8 @@ def keep_mask(shape, rate: float, seed: int, *site: int, device,
         cuts = [(0, bi * mn + mi, bn * mn)]
     elif model_dim is not None:
         cuts.append((model_dim, *model_shard()))
+    if seq_dim is not None:
+        cuts.append((seq_dim, *seq_shard()))
     for dim, i, n in cuts:
         full[dim] = shape[dim] * n
         index[dim] = slice(i * shape[dim], (i + 1) * shape[dim])
@@ -83,15 +89,18 @@ def keep_mask(shape, rate: float, seed: int, *site: int, device,
 
 
 def dropout(x: torch.Tensor, rate: float, seed: int | None,
-            *site: int, model_dim: int | None = None) -> torch.Tensor:
+            *site: int, model_dim: int | None = None,
+            seq_dim: int | None = None) -> torch.Tensor:
     """flax's ``Dropout(rate)`` in training at one site; ``seed`` None
-    (eval) or ``rate`` 0 returns ``x`` itself. ``model_dim``: the dim of
-    ``x`` split over ``model`` (``keep_mask``)."""
+    (eval) or ``rate`` 0 returns ``x`` itself. ``model_dim`` / ``seq_dim``:
+    the dims of ``x`` split over ``model`` / ``seq`` (``keep_mask``)."""
     if seed is None or rate <= 0.0:
         return x
     split = model_dim is not None and model_shard()[1] > 1
+    seq = seq_dim is not None and seq_shard()[1] > 1
     keep = keep_mask(x.shape, rate, seed, *site, device=x.device,
-                     **({"model_dim": model_dim} if split else {}))
+                     **({"model_dim": model_dim} if split else {}),
+                     **({"seq_dim": seq_dim} if seq else {}))
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 

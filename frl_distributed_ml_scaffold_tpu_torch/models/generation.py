@@ -68,6 +68,11 @@ def next_cache_bucket(seq_len: int, needed: int, floor: int = 8) -> int:
     return min(b, seq_len)
 
 
+def _take_logits(out):
+    """The logits of a forward: an MoE model returns ``(logits, aux)``."""
+    return out[0] if isinstance(out, tuple) else out
+
+
 @torch.no_grad()
 def _prefill(model, prompt, lengths, *, cache_len: int, cache=None):
     """One pass over the (possibly left-padded ragged) prompt creates and
@@ -84,7 +89,7 @@ def _prefill(model, prompt, lengths, *, cache_len: int, cache=None):
     prefill."""
     if cache is None:
         cache = model.init_cache(prompt.shape[0], cache_len)
-    logits = model(prompt, cache, lengths)
+    logits = _take_logits(model(prompt, cache, lengths))
     return logits[:, -1], cache
 
 
@@ -92,7 +97,7 @@ def _prefill(model, prompt, lengths, *, cache_len: int, cache=None):
 def _decode_step(model, cache: dict, tok: torch.Tensor):
     """One single-token decode step for every row: returns (logits
     ``[B, V]``, the cache, advanced in place)."""
-    return model(tok[:, None], cache)[:, 0], cache
+    return _take_logits(model(tok[:, None], cache))[:, 0], cache
 
 
 @torch.no_grad()
@@ -104,7 +109,7 @@ def _verify_step(model, cache: dict, toks: torch.Tensor):
     single-token step's and greedy acceptance is exact. The cursors
     advance by T; ``rewind_cache_indices`` rolls rejected positions
     back."""
-    return model(toks, cache), cache
+    return _take_logits(model(toks, cache)), cache
 
 
 def rewind_cache_indices(cache: dict, new_idx) -> dict:

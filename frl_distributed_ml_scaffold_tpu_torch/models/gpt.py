@@ -1,15 +1,26 @@
 """GPT-2 transformer LM: the port of the JAX package's ``models/gpt.py``,
 in training/eval mode (no cache) and in decode mode (over a KV cache).
 
-The non-pipelined, non-MoE stack. ``GPT(tokens)`` with no cache is the
+The non-pipelined stack. ``GPT(tokens)`` with no cache is the
 training/eval forward: positions ``wpe[:t]``, causal attention through
 ``model.attention`` (``dense``: ``ops/ring_attention.py``
 ``dense_attention``; ``flash``: ``ops/flash_attention.py``, the
-hand-written kernels on the card), and ``return_features=True`` returns
-the compute-dtype ``ln_f`` output for the chunked-vocab loss
-(``trainer/tasks.py``). Training dropout (``model.dropout``) sits where
-the JAX model's does: after the embedding and after each block's
-attention output projection and ``fc_out`` (``models/dropout.py``).
+hand-written kernels on the card; ``ring`` and ``ulysses``: sequence
+parallelism over the mesh's ``seq`` axis, ``ops/ring_attention.py``
+``ring_attention`` and ``ops/ulysses.py``, on the same kernels), and
+``return_features=True`` returns the compute-dtype ``ln_f`` output for
+the chunked-vocab loss (``trainer/tasks.py``). Training dropout
+(``model.dropout``) sits where the JAX model's does: after the embedding
+and after each block's attention output projection and ``fc_out``
+(``models/dropout.py``).
+
+Under ``seq = n`` rank r holds every row's tokens ``[r T/n, (r+1) T/n)``
+through the whole model: its positions start at ``r T/n``, and only the
+attention (ring or Ulysses) sees the other ranks' tokens. With
+``model.moe.num_experts > 0`` each block's MLP is the MoE MLP
+(``models/moe.py``) and the model returns ``(logits, aux)`` (or
+``(features, aux)``, and in decode mode too), ``aux`` the fp32 sum of
+the blocks' auxiliary losses, as the JAX model does.
 ``model.block_remat`` checkpoints each block on its own. ``GPT(tokens,
 cache)`` is decode mode, over a contiguous or paged KV cache; it ignores
 ``block_remat`` and dropout, and its prefill is dense whatever
@@ -85,6 +96,7 @@ from frl_distributed_ml_scaffold_tpu_torch.models.dropout import (
     check_seed,
     dropout,
 )
+from frl_distributed_ml_scaffold_tpu_torch.models.moe import MoEMlp
 from frl_distributed_ml_scaffold_tpu_torch.ops.decode_attention import (
     decode_attention,
     paged_decode_attention,
@@ -102,6 +114,10 @@ from frl_distributed_ml_scaffold_tpu_torch.ops.quantization import (
 )
 from frl_distributed_ml_scaffold_tpu_torch.ops.ring_attention import (
     dense_attention,
+    ring_attention,
+)
+from frl_distributed_ml_scaffold_tpu_torch.ops.ulysses import (
+    ulysses_attention,
 )
 from frl_distributed_ml_scaffold_tpu_torch.parallel.partition import (
     PartitionRules,
@@ -110,10 +126,14 @@ from frl_distributed_ml_scaffold_tpu_torch.parallel.tensor_parallel import (
     copy_to_model,
     model_shard,
     reduce_from_model,
+    seq_shard,
 )
 from frl_distributed_ml_scaffold_tpu_torch.precision import Policy
 
-_TRAIN_ATTENTION = {"dense": dense_attention, "flash": flash_attention}
+_TRAIN_ATTENTION = {"dense": dense_attention, "flash": flash_attention,
+                    "ring": ring_attention, "ulysses": ulysses_attention}
+# The attention modes that see the other ``seq`` ranks' tokens.
+_SEQ_ATTENTION = ("ring", "ulysses")
 _BLOCK_REMAT = ("none", "full", "save_attn")
 
 
@@ -137,7 +157,10 @@ def gpt_tp_rules() -> PartitionRules:
     (row-parallel), and ``wte`` its vocabulary. The training forward
     reads ``wte`` whole (``TP_COMPUTE_WHOLE``): its split is storage,
     gathered for the step, and the tied head and the loss run on every
-    rank along ``model`` over the whole vocabulary."""
+    rank along ``model`` over the whole vocabulary. The MoE experts
+    ``wi [E, D, H]`` and ``wo [E, H, D]`` split their experts over
+    ``expert`` (and their hidden dim over ``model``, which MoE refuses),
+    and the router stays whole, as the JAX rules place them."""
     col, row = ("model", None), (None, "model")
     return PartitionRules(rules=(
         (r"^blocks\.\d+\.attn\.(query|key|value)\.weight$", col),
@@ -146,6 +169,9 @@ def gpt_tp_rules() -> PartitionRules:
         (r"^blocks\.\d+\.mlp\.fc_in\.weight$", col),
         (r"^blocks\.\d+\.mlp\.fc_in\.bias$", ("model",)),
         (r"^blocks\.\d+\.mlp\.fc_out\.weight$", row),
+        (r"^blocks\.\d+\.moe\.wi$", ("expert", None, "model")),
+        (r"^blocks\.\d+\.moe\.wo$", ("expert", "model", None)),
+        (r"^blocks\.\d+\.moe\.router\.weight$", (None, None)),
         (r"^wte\.weight$", ("model", None)),
     ))
 
@@ -163,17 +189,12 @@ def _row_parallel(lin: nn.Linear, y, cd):
 
 
 def _check_supported(cfg: GPTConfig) -> None:
-    """Refuse the configurations this slice does not port yet, each with
+    """Refuse the configurations the port does not have yet, each with
     the ROADMAP item that brings it."""
-    if cfg.attention in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"model.attention={cfg.attention!r} (sequence-parallel "
-            "attention) is not ported yet (ROADMAP A12)"
-        )
     if cfg.attention not in _TRAIN_ATTENTION:
         raise ValueError(
             f"unknown model.attention {cfg.attention!r} "
-            f"(have {sorted(_TRAIN_ATTENTION)}, ring, ulysses)"
+            f"(have {sorted(_TRAIN_ATTENTION)})"
         )
     if cfg.block_remat not in _BLOCK_REMAT:
         raise KeyError(
@@ -182,10 +203,10 @@ def _check_supported(cfg: GPTConfig) -> None:
         )
     if cfg.kv_cache_quant != "none":
         lowp_dtype(cfg.kv_cache_quant)  # KeyError naming the formats
-    if cfg.moe.num_experts > 0 or cfg.pipeline_stages > 1:
+    if cfg.pipeline_stages > 1:
         raise NotImplementedError(
-            "MoE blocks and pipeline_stages > 1 are not ported yet "
-            "(ROADMAP A12, pipelines and MoE)"
+            "pipeline_stages > 1 (pipeline parallelism) is not ported yet "
+            "(ROADMAP A12)"
         )
     if cfg.hidden_dim % cfg.num_heads:
         raise ValueError(
@@ -437,6 +458,14 @@ def _layer_norm(ln: nn.LayerNorm, x):
     )
 
 
+def _residual(x, out):
+    """``x`` plus a sublayer's output; an MoE sublayer's ``(y, aux)``
+    gives ``(x + y, aux)``."""
+    if isinstance(out, tuple):
+        return x + out[0], out[1]
+    return x + out
+
+
 class Block(nn.Module):
     def __init__(self, cfg: GPTConfig, policy: Policy, device):
         super().__init__()
@@ -444,7 +473,11 @@ class Block(nn.Module):
         self.ln1 = nn.LayerNorm(d, eps=eps, device=device, dtype=pd)
         self.attn = CausalSelfAttention(cfg, policy, device)
         self.ln2 = nn.LayerNorm(d, eps=eps, device=device, dtype=pd)
-        self.mlp = GptMlp(cfg, policy, device)
+        if cfg.moe.num_experts > 0:
+            self.moe = MoEMlp(cfg, policy, device)
+        else:
+            self.mlp = GptMlp(cfg, policy, device)
+        self.is_moe = cfg.moe.num_experts > 0
         self.rate = cfg.dropout
 
     def _stream_dim(self):
@@ -457,27 +490,35 @@ class Block(nn.Module):
         the output projection (site 0 of ``layer``)."""
         y = self.attn(_layer_norm(self.ln1, x), None, layer, None)
         return dropout(y, self.rate, seed, layer, 0,
-                       model_dim=self._stream_dim())
+                       model_dim=self._stream_dim(), seq_dim=1)
 
-    def mlp_sublayer(self, x, layer: int, seed: int | None):
-        """The MLP sublayer, its dropout after ``fc_out`` (site 1)."""
+    def mlp_sublayer(self, x, layer: int, seed: int | None, train: bool):
+        """The MLP sublayer, its dropout after ``fc_out`` (site 1); the
+        MoE MLP's ``(y, aux)`` (no dropout, as in the reference)."""
+        if self.is_moe:
+            return self.moe(_layer_norm(self.ln2, x), train=train,
+                            sharded_rows=True)
         return dropout(self.mlp(_layer_norm(self.ln2, x)), self.rate, seed,
-                       layer, 1, model_dim=self._stream_dim())
+                       layer, 1, model_dim=self._stream_dim(), seq_dim=1)
 
     def forward(self, x, cache: dict | None, layer: int, lens,
-                seed: int | None = None, part: str = "block"):
-        """The block over ``x``; in training, ``part`` ``attn`` or
-        ``mlp`` returns that sublayer's output alone (``GPT._block_train``
-        checkpoints them apart)."""
+                seed: int | None = None, part: str = "block",
+                train: bool = False):
+        """The block over ``x`` (an MoE block returns ``(x, aux)``); in
+        training, ``part`` ``attn`` or ``mlp`` returns that sublayer's
+        output alone (``GPT._block_train`` checkpoints them apart)."""
         if cache is not None:
             x = x + self.attn(_layer_norm(self.ln1, x), cache, layer, lens)
+            if self.is_moe:
+                return _residual(x, self.moe(_layer_norm(self.ln2, x),
+                                             train=False))
             return x + self.mlp(_layer_norm(self.ln2, x))
         if part == "attn":
             return self.attn_sublayer(x, layer, seed)
         if part == "mlp":
-            return self.mlp_sublayer(x, layer, seed)
+            return self.mlp_sublayer(x, layer, seed, train)
         x = x + self.attn_sublayer(x, layer, seed)
-        return x + self.mlp_sublayer(x, layer, seed)
+        return _residual(x, self.mlp_sublayer(x, layer, seed, train))
 
 
 class GPT(nn.Module):
@@ -525,7 +566,9 @@ class GPT(nn.Module):
         sharded over ``model`` along the tokens between them."""
         self.param_hooks, self.tp_overlap = param_hooks, tp_overlap
         for block in self.blocks:
-            block.attn.tp = block.mlp.tp = tp_overlap
+            block.attn.tp = tp_overlap
+            if not block.is_moe:  # the rings refuse MoE (tp_overlap.py)
+                block.mlp.tp = tp_overlap
 
     @property
     def device(self) -> torch.device:
@@ -544,10 +587,16 @@ class GPT(nn.Module):
         heads split over ``model`` the rows split over the batch axes of
         the current mesh when they divide, as the JAX model pins the
         cache (``_constrain_kv_cache``); else every rank holds every
-        row."""
+        row. An MoE model refuses the split: its heads split only under
+        ``model > 1``, where MoE is not ported yet."""
         env = current_mesh_env()
         if env is None or self.local_heads() == self.config.num_heads:
             return batch
+        if self.config.moe.num_experts > 0:
+            raise NotImplementedError(
+                "an MoE model's cache split over the batch axes (heads "
+                "split over model): MoE under tensor parallelism is not "
+                "ported yet (ROADMAP A12)")
         n = env.batch_axis_size
         return batch // n if batch % n == 0 else batch
 
@@ -628,7 +677,8 @@ class GPT(nn.Module):
         With a ``cache``: tokens ``[B, t]`` (LEFT-padded when ``lengths
         [B]`` is given) against ``cache``, which advances in place by each
         row's length. Returns logits ``[B, t, vocab]`` in the compute
-        dtype."""
+        dtype. An MoE model returns ``(output, aux)`` in every mode, aux
+        the fp32 sum of its blocks' auxiliary losses."""
         if cache is None:
             if lengths is not None:
                 raise ValueError(
@@ -636,7 +686,7 @@ class GPT(nn.Module):
                     "argument; training/eval batches are dense"
                 )
             return self._forward_train(tokens, check_seed(
-                self.config.dropout, train, rng), return_features)
+                self.config.dropout, train, rng), return_features, train)
         cfg, cd = self.config, self.policy.compute_dtype
         b, t = tokens.shape
         if "key_pool" in cache and t > 1 and lengths is not None:
@@ -675,38 +725,69 @@ class GPT(nn.Module):
         )
         x = self.wte.weight[tokens].to(cd) + self.wpe[pos_ids].to(cd)
         pos.add_(lens)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer, block in enumerate(self.blocks):
-            x = block(x, cache, layer, lens)
+            x, aux = self._carry(block(x, cache, layer, lens), aux)
         x = _layer_norm(self.ln_f, x)
-        return F.linear(x.to(cd), self.wte.weight.to(cd))  # weight-tied head
+        logits = F.linear(x.to(cd), self.wte.weight.to(cd))  # tied head
+        return (logits, aux) if cfg.moe.num_experts > 0 else logits
+
+    @staticmethod
+    def _carry(out, aux):
+        """(stream, aux so far) after a block: an MoE block's ``(x,
+        aux)`` adds its auxiliary loss."""
+        if isinstance(out, tuple):
+            return out[0], aux + out[1]
+        return out, aux
+
+    def _positions(self, t: int) -> int:
+        """The first position of this rank's ``t`` tokens: ``r t`` under
+        ``seq`` ranks, which only the sequence-parallel attention modes
+        take (each other mode attends over its own tokens alone)."""
+        r, n = seq_shard()
+        if n == 1:
+            return 0
+        if self.config.attention not in _SEQ_ATTENTION:
+            raise NotImplementedError(
+                f"mesh.seq={n} with model.attention="
+                f"{self.config.attention!r}: the port splits the tokens "
+                "over seq for ring and ulysses attention only (ROADMAP A12)")
+        if n * t > self.config.seq_len:
+            raise ValueError(f"{n} x {t} tokens exceed seq_len "
+                             f"{self.config.seq_len}")
+        return r * t
 
     def _forward_train(self, tokens, seed: int | None,
-                       return_features: bool):
+                       return_features: bool, train: bool = False):
         cfg, cd = self.config, self.policy.compute_dtype
         t = tokens.shape[1]
         x = F.embedding(tokens, self.wte.weight).to(cd)
-        x = x + self.wpe[:t].to(cd)
+        p0 = self._positions(t)
+        x = x + self.wpe[p0:p0 + t].to(cd)
         # The embedding's site sits after every block's: (L, 0).
-        x = dropout(x, cfg.dropout, seed, cfg.num_layers, 0)
+        x = dropout(x, cfg.dropout, seed, cfg.num_layers, 0, seq_dim=1)
         tp, hooks = self.tp_overlap, self.param_hooks
         if tp is not None:
             x = tp.scatter(x)
         if hooks is not None:
             hooks.start((f"blocks.{i}.", dict(b.named_parameters()))
                         for i, b in enumerate(self.blocks))
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer, block in enumerate(self.blocks):
             if hooks is not None:
-                x = self._block_gathered(block, x, layer, seed)
+                out = self._block_gathered(block, x, layer, seed, train)
             else:
-                x = self._block_train(block, x, layer, seed)
+                out = self._block_train(block, x, layer, seed, train)
+            x, aux = self._carry(out, aux)
         if tp is not None:
             x = tp.gather(x)
         x = _layer_norm(self.ln_f, x).to(cd)
-        if return_features:
-            return x
-        return F.linear(x, self.wte.weight.to(cd))  # weight-tied head
+        if not return_features:
+            x = F.linear(x, self.wte.weight.to(cd))  # weight-tied head
+        return (x, aux) if cfg.moe.num_experts > 0 else x
 
-    def _block_train(self, block: Block, x, layer: int, seed: int | None):
+    def _block_train(self, block: Block, x, layer: int, seed: int | None,
+                     train: bool = False):
         """One block of the training forward under ``model.block_remat``:
         ``none``; ``full``, the block under ``torch.utils.checkpoint``
         (non-reentrant), only its input kept, everything in it
@@ -725,20 +806,22 @@ class GPT(nn.Module):
         the checkpoint and swapped in again around the recompute."""
         mode = self.config.block_remat
         if mode == "none" or not torch.is_grad_enabled():
-            return block(x, None, layer, None, seed)
+            return block(x, None, layer, None, seed, train=train)
         names, tensors = zip(*block.named_parameters())
 
         def run(x, part, *tensors):
             return functional_call(block, dict(zip(names, tensors)),
                                    (x, None, layer, None, seed),
-                                   {"part": part})
+                                   {"part": part, "train": train})
 
         if mode == "full":
             return checkpoint(run, x, "block", *tensors, use_reentrant=False)
         x = x + checkpoint(run, x, "attn", *tensors, use_reentrant=False)
-        return x + checkpoint(run, x, "mlp", *tensors, use_reentrant=False)
+        return _residual(x, checkpoint(run, x, "mlp", *tensors,
+                                       use_reentrant=False))
 
-    def _block_gathered(self, block: Block, x, layer: int, seed: int | None):
+    def _block_gathered(self, block: Block, x, layer: int, seed: int | None,
+                        train: bool = False):
         """One block under the blockwise FSDP gathers (``param_hooks``):
         its shards gathered whole for its compute, ``prefetch`` blocks
         ahead. Under ``block_remat=none`` every activation is saved but
@@ -750,14 +833,15 @@ class GPT(nn.Module):
         names, shards = zip(*block.named_parameters())
         parts = {"block": None,
                  "attn": {n for n in names if n.startswith(("ln1.", "attn."))},
-                 "mlp": {n for n in names if n.startswith(("ln2.", "mlp."))}}
+                 "mlp": {n for n in names
+                         if n.startswith(("ln2.", "mlp.", "moe."))}}
 
         def run(x, part, *shards):
             params = hooks.params(layer, dict(zip(names, shards)),
                                   parts[part])
             return functional_call(block, params,
                                    (x, None, layer, None, seed),
-                                   {"part": part})
+                                   {"part": part, "train": train})
 
         mode = self.config.block_remat
         if not torch.is_grad_enabled():
@@ -768,4 +852,5 @@ class GPT(nn.Module):
         if mode == "full":
             return checkpoint(run, x, "block", *shards, use_reentrant=False)
         x = x + checkpoint(run, x, "attn", *shards, use_reentrant=False)
-        return x + checkpoint(run, x, "mlp", *shards, use_reentrant=False)
+        return _residual(x, checkpoint(run, x, "mlp", *shards,
+                                       use_reentrant=False))

@@ -24,13 +24,16 @@ parameters stay split for the forward, which gathers them itself, and
 the parameters used on the ``model``-sharded stream are summed over
 ``model`` too.
 
-Each rank's gradient is that of its own rows' loss. ``reduce`` sums it
-over the batch axes, as a reduce-scatter where the target splits a dim
-over a batch axis and an all-reduce over the rest; a ``model`` split the
+Each rank's gradient is that of its own rows' loss (under ``seq``, its
+own tokens'). ``reduce`` sums it over the batch axes and ``seq``
+(``LOSS_AXES``), as a reduce-scatter where the target splits a dim over
+a batch axis and an all-reduce over the rest; a ``model`` split the
 compute spec lacks is taken as this rank's slice (every rank along
 ``model`` computed the same whole gradient). The step divides by the
-batch-axis size once, so the gradient is that of the global batch's mean
-loss, as GSPMD computes it.
+size of those axes once, so the gradient is that of the global batch's
+mean loss, as GSPMD computes it. ``expert`` splits parameters as
+``model`` does: its ranks see the same rows and compute the same
+gradients of everything but their own experts.
 
 A split dim of size n over k members gives member i the rows ``[i c,
 (i+1) c)`` cut at n, ``c = ceil(n / k)`` (the JAX package's bounds).
@@ -47,7 +50,11 @@ import torch
 import torch.distributed as dist
 
 from frl_distributed_ml_scaffold_tpu_torch.dist import collectives
-from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import BATCH_AXES, MeshEnv
+from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import (
+    BATCH_AXES,
+    LOSS_AXES,
+    MeshEnv,
+)
 from frl_distributed_ml_scaffold_tpu_torch.parallel.partition import (
     PartitionRules,
     Spec,
@@ -56,6 +63,11 @@ from frl_distributed_ml_scaffold_tpu_torch.parallel.partition import (
     opt_state_specs,
     param_specs,
 )
+
+
+# The axes a parameter may be split over. ``expert`` splits like
+# ``model``: its ranks hold different experts and see the same rows.
+SPLIT_AXES = ("fsdp", "model", "expert")
 
 
 def chunk_bounds(n: int, k: int, i: int) -> tuple[int, int]:
@@ -99,6 +111,10 @@ class StateLayout:
         leaves = (jax_leaves(model_cfg, shapes) if sizes["fsdp"] > 1
                   else {})
         p = param_specs(shapes, parallel, sizes, leaves, rules)
+        # An axis of size 1 splits nothing (the JAX rules name every
+        # axis; ``expert = n`` alone leaves their ``model`` entries idle).
+        p = {k: tuple(None if e is None or sizes[e] == 1 else e for e in s)
+             for k, s in p.items()}
         o = opt_state_specs(p, parallel, sizes, leaves)
         c = {k: (_drop(s, ("fsdp", "model")) if k in compute_whole
                  else _drop(s, ("fsdp",))) for k, s in p.items()}
@@ -106,10 +122,10 @@ class StateLayout:
         for specs in (p, o):
             for k, s in specs.items():
                 for e in s:
-                    if e is not None and e not in ("fsdp", "model"):
+                    if e is not None and e not in SPLIT_AXES:
                         raise NotImplementedError(
                             f"{k}: spec {s} splits over {e!r}; the step "
-                            "splits params over fsdp and model only")
+                            f"splits params over {SPLIT_AXES} only")
         return cls(env, shapes, p, o, c, dict(a))
 
     def with_overlap(self, gathered=(), stream=()) -> "StateLayout":
@@ -132,11 +148,11 @@ class StateLayout:
 
     def step_sum_axes(self, name: str) -> tuple[str, ...]:
         """The axes the accumulated gradient of ``name`` is summed over
-        at the end of the step: the batch axes its microbatch gradients
-        were not reduce-scattered or summed over, and the axes each rank
-        holds a part over."""
+        at the end of the step: the batch axes and ``seq`` its microbatch
+        gradients were not reduce-scattered or summed over, and the axes
+        each rank holds a part over."""
         done = self.scatter_axes(name) + self.presummed.get(name, ())
-        return (tuple(a for a in BATCH_AXES if a not in done)
+        return (tuple(a for a in LOSS_AXES if a not in done)
                 + self.partial.get(name, ()))
 
     # ------------------------------------------------------------ queries

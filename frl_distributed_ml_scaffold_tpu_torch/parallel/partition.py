@@ -244,11 +244,14 @@ def _gpt_leaf(name: str, shape, cfg) -> JaxLeaf:
     parts = rest.split(".")[1:]  # drop the layer index
     mod, leaf = "/".join(parts[:-1]), parts[-1]
     stack = (cfg.num_layers,)
+    if mod == "moe" and leaf in ("wi", "wo"):  # the experts, as they are
+        return JaxLeaf(f"blocks/moe/{leaf}", stack + shape,
+                       (None,) + tuple(range(len(shape))))
     if leaf == "weight" and len(shape) == 2:  # Dense: [out, in] -> [in, out]
         return JaxLeaf(f"blocks/{mod}/kernel", stack + shape[::-1],
                        (None, 1, 0))
     jleaf = {"weight": "scale", "bias": "bias"}[leaf]
-    if mod.startswith(("attn", "mlp")):
+    if mod.startswith(("attn", "mlp", "moe")):
         jleaf = "bias"
     return JaxLeaf(f"blocks/{mod}/{jleaf}", stack + shape, (None, 0))
 

@@ -12,6 +12,10 @@ row-parallel one over the ``model`` axis:
   identity backward (the partial sums of the row-parallel ``out`` and
   ``fc_out``).
 
+``copy_to`` / ``reduce_from`` are the same pair over any axis: the MoE
+block runs it over ``expert`` (``models/moe.py``), whose ranks see the
+same rows and each compute their own experts.
+
 ``all_reduce_batch``: a sum over the batch axes whose backward is the
 same sum, for the statistics of sync-BN: the gradient of the sum of
 every rank's loss reaches each rank's rows through it.
@@ -74,14 +78,24 @@ class _AllReduceSum(torch.autograd.Function):
         return _sum(dy, ctx.group), None
 
 
-def copy_to_model(x: torch.Tensor) -> torch.Tensor:
-    group = _group("model")
+def copy_to(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """The identity forward, a sum over ``axis`` backward."""
+    group = _group(axis)
     return x if group is None else _CopyToModel.apply(x, group)
 
 
-def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
-    group = _group("model")
+def reduce_from(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """A sum over ``axis`` forward, the identity backward."""
+    group = _group(axis)
     return x if group is None else _ReduceFromModel.apply(x, group)
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    return copy_to(x, "model")
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    return reduce_from(x, "model")
 
 
 def all_reduce_batch(x: torch.Tensor) -> torch.Tensor:
@@ -112,3 +126,9 @@ def batch_shard() -> tuple[int, int]:
 def model_shard() -> tuple[int, int]:
     """(index, count) along ``model``."""
     return shard_of("model")
+
+
+def seq_shard() -> tuple[int, int]:
+    """(index, count) along ``seq``: this rank's block of every row's
+    tokens under sequence parallelism."""
+    return shard_of("seq")

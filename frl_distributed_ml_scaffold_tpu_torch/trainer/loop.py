@@ -38,9 +38,14 @@ and checked when the Trainer is built, a contradiction raising a
 blockwise FSDP gathers, the collective-matmul rings) and the layout
 (``StateLayout.with_overlap``).
 
-Refused, each naming its ROADMAP item: sequence parallelism, the
-``seq``, ``expert`` and ``pipe`` axes, pipelines (SPMD or MPMD) and MoE
-(A12, raised by the step and the GPT model for the last two).
+Sequence parallelism (``mesh.seq``, ``model.attention=ring|ulysses``)
+and MoE over the ``expert`` axis run here: each rank draws its batch
+index's rows whole (``seq_len + 1`` tokens), the loss splits them into
+inputs and targets and keeps the rank's block of the tokens
+(``trainer/tasks.py``), and the step averages over ``seq``
+(``trainer/train_step.py``). Refused, each naming ROADMAP A12: the
+``pipe`` axis and pipelines (SPMD or MPMD; raised by the step and the
+GPT model), and MoE under ``mesh.model > 1``.
 
 ``trainer.init_params_path`` starts the run from a flax msgpack params
 file (``tools/import_hf_gpt2.py``'s output, or ``checkpoint/
@@ -125,24 +130,29 @@ from frl_distributed_ml_scaffold_tpu_torch.utils.trees import tree_param_count
 def _check_ported(cfg: ExperimentConfig) -> None:
     """Refuse what the loop does not port yet (module docstring); the
     mesh, optimizer-offload and pipeline refusals are the step's and the
-    model's own."""
+    model's own, MoE under tensor parallelism ``model_partition_rules``'."""
     p = cfg.parallel
-    if p.sequence != "none":
-        raise NotImplementedError(
-            f"parallel.sequence={p.sequence!r} (sequence parallelism) is not "
-            "ported yet (ROADMAP A12)"
-        )
+    if p.sequence not in ("none", "ring", "ulysses"):
+        raise ValueError(f"unknown parallel.sequence {p.sequence!r} "
+                         "(none | ring | ulysses)")
 
 
 def model_partition_rules(model_cfg: Any, env: MeshEnv
                           ) -> PartitionRules | None:
-    """The model's tensor-parallel rules when the ``model`` axis is
-    populated (the JAX trainer's ``model_partition_rules``; the expert
-    and pipe axes are refused by the step). A family without rules on a
-    ``model > 1`` mesh raises, as it would silently replicate."""
+    """The model's partition rules when the ``model`` or ``expert`` axis
+    is populated (the JAX trainer's ``model_partition_rules``; the pipe
+    axis is refused by the step): a spec's axes of size 1 split nothing,
+    so ``expert = n`` alone splits the MoE experts. A family without rules
+    on a ``model > 1`` mesh raises, as it would silently replicate; MoE
+    under ``model > 1`` raises (ROADMAP A12)."""
     m = env.axis_size("model")
-    if m <= 1:
+    if m <= 1 and env.axis_size("expert") <= 1:
         return None
+    moe = getattr(model_cfg, "moe", None)
+    if moe is not None and moe.num_experts > 0 and m > 1:
+        raise NotImplementedError(
+            f"model.moe.num_experts={moe.num_experts} with mesh.model={m}: "
+            "MoE under tensor parallelism is not ported yet (ROADMAP A12)")
     family = getattr(model_cfg, "family", None)
     if family == "gpt":
         from frl_distributed_ml_scaffold_tpu_torch.models.gpt import (
@@ -156,6 +166,8 @@ def model_partition_rules(model_cfg: Any, env: MeshEnv
         )
 
         rules = vit_tp_rules()
+    elif m <= 1:
+        return None
     else:
         # ResNet has no TP rules by design (conv channel counts don't
         # split Megatron-style); a model>1 mesh would silently replicate.

@@ -30,6 +30,10 @@ import torch.nn.functional as F
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
+from frl_distributed_ml_scaffold_tpu_torch.parallel.tensor_parallel import (
+    seq_shard,
+)
+
 _log = logging.getLogger(__name__)
 
 
@@ -43,7 +47,13 @@ def _chunk_ce(feats, emb, targets):
 
 
 def make_lm_loss(model):
-    """Next-token CE over ``batch["tokens"]`` ([B, L+1] int).
+    """Next-token CE over ``batch["tokens"]`` ([B, L+1] int), plus the MoE
+    model's auxiliary loss (``metrics["aux_loss"]``) when it returns one.
+
+    Under sequence parallelism (a current mesh with ``seq = n``) every
+    rank holds the rows whole: they are split into inputs and targets
+    first, then rank r keeps tokens ``[r L/n, (r+1) L/n)`` of both, and
+    its CE is the mean over those (the step averages over ``seq``).
 
     With ``model.config.lm_loss_chunk > 0`` (dividing L) the weight-tied
     head and the CE run chunk by chunk over the sequence, each chunk
@@ -68,6 +78,14 @@ def make_lm_loss(model):
     def loss_fn(params, extras, batch, rng, train):
         tokens = batch["tokens"]
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        r, n = seq_shard()
+        if n > 1:
+            if inputs.shape[1] % n:
+                raise ValueError(f"sequence length {inputs.shape[1]} not "
+                                 f"divisible by mesh.seq={n}")
+            t = inputs.shape[1] // n
+            inputs = inputs[:, r * t:(r + 1) * t]
+            targets = targets[:, r * t:(r + 1) * t]
         use_chunks = chunk > 0 and inputs.shape[1] % chunk == 0
         if chunk > 0 and not use_chunks and not warned:
             _log.warning(
@@ -79,6 +97,9 @@ def make_lm_loss(model):
         out = functional_call(model, params, (inputs,),
                               {"train": train, "rng": rng,
                                "return_features": use_chunks})
+        aux = None
+        if isinstance(out, tuple):  # MoE: (logits or features, aux)
+            out, aux = out
         if use_chunks:
             emb = params["wte.weight"].to(out.dtype)
             ce = chunked_ce(out, emb, targets)
@@ -86,7 +107,10 @@ def make_lm_loss(model):
             ce = F.cross_entropy(out.float().reshape(-1, out.shape[-1]),
                                  targets.reshape(-1).long())
         metrics = {"ce_loss": ce.detach(), "perplexity": torch.exp(ce.detach())}
-        return ce, (metrics, extras)
+        if aux is None:
+            return ce, (metrics, extras)
+        metrics["aux_loss"] = aux.detach()
+        return ce + aux, (metrics, extras)
 
     return loss_fn
 

@@ -45,10 +45,14 @@ batch and its shards of the state:
 - each microbatch's gradient is reduce-scattered into the accumulator
   under FSDP, which stays in the params' spec; otherwise it accumulates
   locally and is reduced once; then it is summed over the batch axes
-  into the optimizer state's spec and divided by the batch-axis size,
-  the gradient of the global batch's mean loss;
+  and ``seq`` into the optimizer state's spec and divided by their size,
+  the gradient of the global batch's mean loss (under ``seq = n`` each
+  rank's loss is the mean over its own tokens, ``trainer/tasks.py``);
 - the loss and the metrics are the global batch's means (one all-reduce
-  over the batch axes);
+  over the batch axes and ``seq``);
+- ``expert`` splits the MoE experts as ``model`` splits the
+  tensor-parallel products: its ranks see the same rows, and the
+  model's own collectives make every other gradient whole on each;
 - ``grad_norm`` sums each shard's squares over the axes its tensor is
   split on, so a replicated tensor counts once;
 - the optimizer updates this rank's part of the params (its ``zero1``
@@ -71,8 +75,9 @@ A mesh of more than one device needs a ``layout``. ``grad_shardings``
 raises: the accumulator's spec is the layout's. The fused AdamW
 (``optimizer.name=fused_adamw``) is refused under sharded state, or a
 model, expert or pipe axis above 1, with the JAX trainer's message, as
-the JAX trainer refuses it when it builds its step. Axes ``seq``,
-``expert`` and ``pipe`` above 1 raise, naming ROADMAP A12.
+the JAX trainer refuses it when it builds its step. A ``pipe`` axis
+above 1 (pipeline parallelism, with or without ``seq``) raises, naming
+ROADMAP A12.
 """
 
 from __future__ import annotations
@@ -95,7 +100,7 @@ from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
     ParallelConfig,
 )
 from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import (
-    BATCH_AXES,
+    LOSS_AXES,
     mesh_context,
     resolve_axis_sizes,
 )
@@ -145,17 +150,16 @@ def _remat_wrap(loss_fn: LossFn, remat: str) -> LossFn:
 
 
 def check_mesh(mesh: MeshConfig | None, layout: StateLayout | None) -> None:
-    """Refuse the axes the step does not port (``seq``, ``expert``,
-    ``pipe`` above 1) and a mesh of more than one device without a
-    layout."""
+    """Refuse the axis the step does not port (``pipe`` above 1) and a
+    mesh of more than one device without a layout."""
     if mesh is None:
         return
     sizes = mesh.axis_sizes()
-    big = {k: sizes[k] for k in ("seq", "expert", "pipe") if sizes[k] > 1}
-    if big:
+    if sizes["pipe"] > 1:
         raise NotImplementedError(
-            f"mesh axes {big}: sequence, expert and pipeline parallelism "
-            "are not ported yet (ROADMAP A12)")
+            f"mesh.pipe={sizes['pipe']}: pipeline parallelism (and "
+            "sequence parallelism inside a pipeline) is not ported yet "
+            "(ROADMAP A12)")
     n = 1 if layout is None else layout.env.num_devices
     resolve_axis_sizes(mesh, n)  # raises when the mesh needs more devices
 
@@ -190,13 +194,14 @@ def _to_device(batch: dict, dev: torch.device) -> dict:
 def _batch_mean(values: list[torch.Tensor], layout: StateLayout | None,
                 scale: float) -> list[torch.Tensor]:
     """Each of ``values`` (0-d fp32 local sums) times ``scale``, summed
-    over the batch axes in one all-reduce and divided by their size."""
-    group = None if layout is None else layout.env.group(BATCH_AXES)
+    over the batch axes and ``seq`` in one all-reduce and divided by
+    their size."""
+    group = None if layout is None else layout.env.group(LOSS_AXES)
     if group is None:
         return [v * scale for v in values]
     packed = torch.stack(values)
     dist.all_reduce(packed, group=group)
-    packed *= scale / layout.env.batch_axis_size
+    packed *= scale / layout.env.loss_axis_size
     return list(packed.unbind())
 
 
@@ -329,7 +334,7 @@ def make_grad_fn(loss_fn: LossFn, policy: Policy, *, grad_accum: int = 1,
                                 layout, inv)
         metrics = dict(zip(names, ms))
         if layout is not None:
-            inv /= layout.env.batch_axis_size
+            inv /= layout.env.loss_axis_size
             acc = {k: layout.reduce(k, g, layout.accum[k], layout.opt[k],
                                     layout.step_sum_axes(k))
                    for k, g in acc.items()}

@@ -164,6 +164,33 @@ def train(config: str, overrides: list, steps: int, *,
     return out
 
 
+def grads(config: str, overrides: list) -> dict:
+    """The gradients of step 0 on this rank (``make_grad_fn`` through the
+    ``Trainer``'s layout), gathered whole, with the loss, the metrics and
+    this rank's batch."""
+    from frl_distributed_ml_scaffold_tpu_torch import config as tconfig
+    from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import mesh_context
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.loop import Trainer
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.train_step import (
+        make_grad_fn,
+    )
+
+    cfg = tconfig.apply_overrides(tconfig.get_config(config), overrides)
+    trainer = Trainer(cfg, device="cpu")
+    state = trainer.init_state()
+    lay, t = trainer.layout, cfg.trainer
+    fn = make_grad_fn(trainer.loss_fn, trainer.policy,
+                      grad_accum=t.grad_accum, remat=t.remat, seed=t.seed,
+                      layout=lay, device="cpu")
+    batch = trainer.pipeline.global_batch(0)
+    with mesh_context(trainer.env):
+        loss, metrics, _, g = fn(state.params, state.extras, batch)
+        whole = {k: lay.gather(k, x, lay.opt[k], (None,) * x.dim())
+                 for k, x in g.items()}
+    return _numpy({"loss": loss, "metrics": metrics, "grads": whole,
+                   "batch": batch, "coords": trainer.env.coords})
+
+
 def rings(cases: list) -> dict:
     """The collective-matmul rings on this rank of a ``model=N`` mesh:
     each case (``{"name", "op": "agm" | "mrs", "x", "w", "dy", "dfull",
@@ -265,6 +292,57 @@ def dropout_rows(rate: float, seed: int, shape: tuple) -> dict:
     with mesh_context(env):
         mask = keep_mask(shape, rate, seed, 3, 1, device="cpu")
     return {"mask": mask.numpy(), "index": env.batch_index}
+
+
+def seq_attention(mesh: dict, cases: list) -> dict:
+    """Ring and Ulysses attention on this rank of a ``seq`` (and
+    ``model``) mesh: each case (``{"name", "op": "ring" | "ulysses",
+    "causal", "q", "k", "v", "do"}``, numpy (B, T, H, D) arrays of the
+    whole problem) on this rank's tokens (and heads along ``model``),
+    forward then backward with its part of ``do``. Returns this rank's
+    output and gradients, its coordinates, the flash launches' count on
+    the CPU route (0) and the bytes it sent over ``seq`` by dtype."""
+    from frl_distributed_ml_scaffold_tpu_torch.config.schema import MeshConfig
+    from frl_distributed_ml_scaffold_tpu_torch.dist import collectives as C
+    from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import (
+        build_mesh,
+        mesh_context,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.ops import flash_attention as fa
+    from frl_distributed_ml_scaffold_tpu_torch.ops.ring_attention import (
+        ring_attention,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.ops.ulysses import (
+        ulysses_attention,
+    )
+
+    env = build_mesh(MeshConfig(**mesh))
+    r, n = env.axis_index("seq"), env.axis_size("seq")
+    m, mn = env.axis_index("model"), env.axis_size("model")
+    out = {"coords": env.coords}
+    ops = {"ring": ring_attention, "ulysses": ulysses_attention}
+    for case in cases:
+        t, h = case["q"].shape[1] // n, case["q"].shape[2] // mn
+
+        def part(a):
+            return torch.from_numpy(np.ascontiguousarray(
+                a[:, r * t:(r + 1) * t, m * h:(m + 1) * h]))
+
+        q, k, v = (part(case[x]).requires_grad_() for x in "qkv")
+        C.reset_counters()
+        fallbacks = fa.flash_attention.fallbacks
+        with mesh_context(env):
+            try:
+                o = ops[case["op"]](q, k, v, causal=case["causal"])
+            except ValueError as e:
+                out[case["name"]] = {"error": str(e)}
+                continue
+            o.backward(part(case["do"]))
+        out[case["name"]] = _numpy({
+            "o": o, "dq": q.grad, "dk": k.grad, "dv": v.grad,
+            "wire": {a: dict(b) for a, b in C.wire_bytes.items()},
+            "fallbacks": fa.flash_attention.fallbacks - fallbacks})
+    return out
 
 
 _CALLS: dict | None = None
@@ -397,6 +475,7 @@ def serve(model_cfg: dict, state: dict, mesh: dict, cases: list,
 JOBS = {"collectives": collectives, "train": train,
         "dropout_rows": dropout_rows, "serve": serve,
         "saved_shapes": saved_shapes, "rings": rings,
+        "seq_attention": seq_attention, "grads": grads,
         "rings_by_rank": lambda by_rank: rings(by_rank[_RANK])}
 
 

@@ -44,7 +44,8 @@ GPT = ["model.num_layers=2", "model.hidden_dim=64", "model.num_heads=4",
 VIT = TINY_VIT + ["data.global_batch_size=8"]
 # The one-rank step runs without the overlap schedule: a ring or a
 # blockwise gather over one rank is refused, as the reference refuses it.
-ONE_RANK = ["mesh.data=1", "mesh.fsdp=1", "mesh.model=1",
+ONE_RANK = ["mesh.data=1", "mesh.fsdp=1", "mesh.model=1", "mesh.seq=1",
+            "mesh.expert=1",
             "parallel.tp_overlap=false", "parallel.fsdp_overlap=false",
             "parallel.low_precision=none"]
 

@@ -79,7 +79,7 @@ def test_scans_cover_every_port_module():
     "data/shards.py", "data/imagenet.py", "data/lm.py",
     "dist/initialize.py", "dist/mesh.py", "dist/collectives.py",
     "parallel/partition.py", "parallel/layout.py",
-    "parallel/tensor_parallel.py",
+    "parallel/tensor_parallel.py", "models/moe.py", "ops/ulysses.py",
 ], ids=lambda r: r.replace("/", "."))
 def test_scans_cover_the_training_modules(rel):
     """The training slice's modules are among those both scans walk."""

@@ -276,16 +276,19 @@ def test_training_refusals():
         make_train_step(loss, tx, get_policy("fp32"), device="cpu",
                         grad_shardings=object())
     # A mesh of more than one device needs a layout over as many ranks
-    # (the Trainer builds it); seq / expert / pipe stay with A12.
+    # (the Trainer builds it), seq and expert meshes too
+    # (tests/test_torch_sequence_parallel.py, test_torch_expert_parallel.py
+    # run them); pipe stays with A12.
     for mesh in (tschema.MeshConfig(data=2),
-                 tschema.MeshConfig(data=1, fsdp=4)):
+                 tschema.MeshConfig(data=1, fsdp=4),
+                 tschema.MeshConfig(data=1, seq=2),
+                 tschema.MeshConfig(data=1, expert=2)):
         with pytest.raises(ValueError, match="needs [24] devices"):
             make_train_step(loss, tx, get_policy("fp32"), device="cpu",
                             mesh=mesh)
-    for axis in ("seq", "expert", "pipe"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            make_train_step(loss, tx, get_policy("fp32"), device="cpu",
-                            mesh=tschema.MeshConfig(**{axis: 2}))
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        make_train_step(loss, tx, get_policy("fp32"), device="cpu",
+                        mesh=tschema.MeshConfig(pipe=2))
     # The recipe's own mesh (data=1, fsdp=-1) is one card.
     make_train_step(loss, tx, get_policy("fp32"), device="cpu",
                     mesh=tschema.MeshConfig(data=1, fsdp=-1))
