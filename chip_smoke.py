@@ -322,7 +322,7 @@ no final line):
    (``--overlap-rank``, gloo) train ``gpt2_medium_tp_overlap``, its
    ``_int8`` twin (``model=2``, 8 heads a rank) and
    ``gpt2_medium_fsdp_overlap`` (``fsdp=2``) through the ``Trainer``
-   with ``model.attention=flash`` at full width, 12 of the 24 layers,
+   with ``model.attention=flash`` at full width, 6 of the 24 layers,
    bf16_mixed, seeded weights, 8 x 1024 tokens in 2 microbatches (the
    FSDP run in one): a warm-up and two timed steps each, the warm-up
    against the
@@ -335,7 +335,8 @@ no final line):
    ranks' log goes to ``OUT_DIR/overlap_ranks.log``.
 36b. moe_path, ep_path, sp_path (after overlap_path): ``gpt2_moe`` at
    full width and depth on one card (``moe_phase``), then over
-   ``expert=2`` (``ep_phase``), and ``gpt2_ring`` at T 8192 over
+   ``expert=2`` at 6 of its 12 layers (``ep_phase``), and ``gpt2_ring``
+   at 12 of its 24 layers, T 8192, over
    ``seq=2``, ring then Ulysses (``sp_phase``): two processes each
    (``--a12-rank``, gloo), against the one-rank step (loss and
    grad_norm; ``expert=2`` also in fp32 at 2 layers). Each rank then
@@ -343,6 +344,22 @@ no final line):
    (``sp_attention_check``) alone at the path's shapes against one rank,
    beside a control that a broken sum or ring would read; the ranks'
    logs go to ``OUT_DIR/{ep,sp}_ranks.log``.
+36c. pp_path (after sp_path): ``gpt2_pp``, ``gpt2_pp_circular`` and
+   ``gpt2_pipeline_mpmd`` as published (24 layers, D 1024, 16 heads,
+   vocab 50257, T 1024, bf16_mixed, batch 64 in 8 microbatches, dots
+   remat) with ``model.attention=flash`` over ``pipe=4``: four processes
+   of this script on the card (``--a12-rank``, ``--a12-phase pp``, gloo),
+   one stage each, three steps each, held to the one-process run of the
+   same params and batches (``PP_REFERENCE``; ``PP_RTOL`` on every
+   step's loss and grad_norm and on the params after the steps) beside
+   a control (``gpt2_pp`` with one stage's cotangent zeroed) that must
+   fail the gate; per rank and step B1-B3 at 16 heads (GPipe and
+   circular 96 / 48 / 48, the MPMD stages 144 / 48 / 48 and its last
+   96 / 48 / 48), bytes over ``pipe`` at the send equal to
+   ``pp_bytes``, staged bytes, peak memory, the 1F1B stage peaks; rank
+   0 decodes the gathered ``gpt2_pp`` params through B4 (24 a decode
+   step) to the plain model's tokens. The ranks' log goes to
+   ``OUT_DIR/pp_ranks.log``.
 37. ``phase_seconds`` (the build, each phase above and the whole run),
    the ``kernels`` line (twelve kernels) and, last, ``{"ok": true,
    "device": ...}``.
@@ -5652,14 +5669,15 @@ def lowp_phase(gen, card: str) -> dict:
 # tp_serve_path. Each run: one warm-up step (lr 0) and OVERLAP_STEPS timed
 # steps of 8 x 1024 tokens in 2 microbatches (cut from the recipes' 64 in
 # 8 to fit the phase's time: gloo stages every ring hop through the host),
-# 12 of the 24 layers (cut to make room for the A12 phases in the
-# script's time limit), bf16_mixed, flash attention, seeded weights.
+# 6 of the 24 layers (cut to 12 to make room for the A12 phases in the
+# script's time limit, then to 6 for pp_path), bf16_mixed, flash
+# attention, seeded weights.
 OVERLAP_RANKS = 2
 OVERLAP_STEPS = 2
 OVERLAP_TIMEOUT_S = 600
 OVERLAP_OVERRIDES = ["model.attention=flash", "data.global_batch_size=8",
                      "trainer.grad_accum=2", "checkpoint.enabled=false",
-                     "model.num_layers=12"]
+                     "model.num_layers=6"]
 # name: (recipe, mesh and batch, the plain step's overrides: the Megatron
 # pair, or FSDP gathered at the start of the step). The FSDP run takes
 # its 8 rows in one microbatch: its gathers move every block's params
@@ -5940,10 +5958,12 @@ MOE_REQUESTS, MOE_NEW = 8, 32
 MOE_LOGITS_TOL = 1e-4
 A12_RANKS = 2
 A12_TIMEOUT_S = 480
-# ep_path: gpt2_moe at full width and depth over expert=2 (4 experts a
-# rank), one microbatch of 8 x 1024 tokens (the recipe: 64 in 8).
+# ep_path: gpt2_moe at full width over expert=2 (4 experts a rank), 6 of
+# its 12 layers (cut to make room for pp_path in the script's time
+# limit), one microbatch of 8 x 1024 tokens (the recipe: 64 in 8).
 EP_OVERRIDES = ["model.attention=flash", "data.global_batch_size=8",
-                "trainer.grad_accum=1", "checkpoint.enabled=false"]
+                "trainer.grad_accum=1", "checkpoint.enabled=false",
+                "model.num_layers=6"]
 EP_MESH = ["mesh.expert=2"]
 EP_STEPS = 1  # timed, after the warm-up
 # The same step in fp32 at 2 of the 12 layers (the cut is the time):
@@ -5969,9 +5989,11 @@ EP_RTOL = {"ep": {"loss": 1e-4, "grad_norm": 1e-2},
 # share of the router's gradient is too small for a control.) Read on
 # an H100: y 3.9e-3, the rest 0; controls 0.92-1.0 and 1.0.
 EP_LAYER_TOL = 2e-2
-# sp_path: gpt2_ring at full width and depth, T 8192, over seq=2; global
-# batch 8 -> 4 (two ranks and the one-rank reference on one card).
-SP_OVERRIDES = ["data.global_batch_size=4", "checkpoint.enabled=false"]
+# sp_path: gpt2_ring at full width, T 8192, over seq=2; global batch 8 ->
+# 4 (two ranks and the one-rank reference on one card), 12 of its 24
+# layers (cut to make room for pp_path in the script's time limit).
+SP_OVERRIDES = ["data.global_batch_size=4", "checkpoint.enabled=false",
+                "model.num_layers=12"]
 SP_MESH = ["mesh.seq=2"]
 SP_PLAIN = ["mesh.seq=1", "model.attention=flash", "parallel.sequence=none"]
 SP_RUNS = {"ring": [],
@@ -6580,7 +6602,7 @@ def _a12_check_steps(what: str, run: dict, per_step: dict, heads: int):
 
 
 def ep_phase(seed: int, card: str) -> dict:
-    """ep_path: ``gpt2_moe`` at full width and depth over ``expert=2``,
+    """ep_path: ``gpt2_moe`` at full width over ``expert=2`` (6 layers),
     two gloo processes on the one card, each holding 4 of the 8 experts,
     against the one-rank step (expert=1) on the same seeded weights and
     batch; then the same in fp32 at 2 layers. The ranks agree, their
@@ -6662,7 +6684,7 @@ def ep_phase(seed: int, card: str) -> dict:
 
 
 def sp_phase(seed: int, card: str) -> dict:
-    """sp_path: ``gpt2_ring`` at full width and depth, T 8192, over
+    """sp_path: ``gpt2_ring`` at full width (12 layers), T 8192, over
     ``seq=2`` (two gloo processes on the one card), first ring, then
     Ulysses, against the one-rank flash step on the same seeded weights
     and tokens: step-0 loss and grad_norm within ``SP_RTOL``, and the
@@ -6739,6 +6761,388 @@ def sp_phase(seed: int, card: str) -> dict:
     return report
 
 
+# pp_path: gpt2_pp, gpt2_pp_circular and gpt2_pipeline_mpmd as published
+# (24 layers, 4 stages of 6 (circular: two groups of 3), D 1024, 16
+# heads, vocab 50257, T 1024, bf16_mixed, global batch 64 in M = 8
+# microbatches, trainer.remat=dots) with model.attention=flash, over
+# pipe=4: four gloo processes on the one card, one stage each. A warm-up
+# at lr 0, then full lr (warmup 1), PP_STEPS steps each.
+PP_RANKS = 4
+PP_STEPS = 3
+PP_TIMEOUT_S = 600
+PP_OVERRIDES = ["model.attention=flash", "optimizer.warmup_steps=1",
+                "checkpoint.enabled=false"]
+PP_RUNS = ("gpt2_pp", "gpt2_pp_circular", "gpt2_pipeline_mpmd")
+# The one-process run each is held to (mesh.pipe=1, every stage in one
+# process): the same recipe; the MPMD backend refuses mesh.pipe=1 (as
+# the reference does), and gpt2_pipeline_mpmd is gpt2_pp's function of
+# the same params and batches (M = 8, one CE mean a microbatch), so it
+# is held to gpt2_pp's.
+PP_REFERENCE = {"gpt2_pp": "gpt2_pp", "gpt2_pp_circular": "gpt2_pp_circular",
+                "gpt2_pipeline_mpmd": "gpt2_pp"}
+# The control: gpt2_pp with stage 2's input cotangent to stage 1 zeroed
+# (a broken boundary), two steps. Its first loss equals the sound run's
+# (the forward is whole); grad_norm and the params must fail PP_RTOL.
+PP_CONTROL_STEPS = 2
+# Every step's loss and grad_norm, relative to the one-process run's,
+# and the params after the steps, |p - p_ref| / |p_ref - p_0| over the
+# whole model (``_pp_gaps``). The stages run the same kernels on the
+# same inputs as the one-process run, and only the order of some fp32
+# sums differs (the tied embedding's two gradients summed over pipe,
+# the norm's squares, the MPMD backward's microbatch order). Read on an
+# H100: losses equal at every step, grad_norm 1.4e-7 (MPMD 6.7e-8),
+# params 8.2e-10 (MPMD 4.4e-9); the control (a zeroed cotangent): loss
+# equal, grad_norm 0.56, params 0.69. At random init the loss cannot
+# tell a broken boundary; grad_norm and the params can.
+PP_RTOL = {"loss": 1e-6, "grad_norm": 1e-5, "params": 1e-6}
+PP_DECODE_NEW = 8
+
+
+def _pp_configs(seed: int) -> dict:
+    from frl_distributed_ml_scaffold_tpu_torch.config import (
+        apply_overrides,
+        get_config,
+    )
+
+    ov = PP_OVERRIDES + [f"trainer.seed={seed}"]
+    return {name: apply_overrides(get_config(name), ov) for name in PP_RUNS}
+
+
+def _whole_copy(params: dict) -> dict:
+    """A copy of whole params on the card (rank 0 compares there)."""
+    return {k: v.detach().float().clone() for k, v in params.items()}
+
+
+def _pp_run(cfg, steps: int, flash, *, rank0: bool, init=None,
+            zero=None, snap_at=None) -> dict:
+    """``steps`` steps of ``cfg`` through the ``Trainer`` on this process
+    (every stage with mesh.pipe=1, its own with pipe ranks): per step the
+    losses, grad_norms, seconds, kernel launches and flash heads, bytes
+    sent over pipe and staged; the peak memory, the 1F1B counters, and,
+    on rank 0, copies on the card of the whole params after the steps
+    (and after ``snap_at`` steps) and of the initial ones (``init``).
+    ``zero(frm, to)`` zeroes the matching cotangent handoffs (the
+    control)."""
+    from frl_distributed_ml_scaffold_tpu_torch.dist import collectives
+    from frl_distributed_ml_scaffold_tpu_torch.ops import flash_attention as fa
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.loop import Trainer
+
+    # Rank 0 keeps the references' copies on the card: the peaks below
+    # leave them (and this run's own copies) out.
+    held = torch.cuda.memory_allocated()
+    trainer = Trainer(cfg, device="cuda")
+    state = trainer.init_state()
+    lay = trainer.layout
+    p0 = _whole_copy(lay.whole_params(state.params)) if init else None
+    copies = state_bytes(p0) if init else 0
+    if zero is not None:
+        bmail = trainer.grad_fn.schedule.bmail
+        put = bmail.put
+
+        def zeroed(t, frm, to, *, remote):
+            return put(torch.zeros_like(t) if zero(frm, to) else t, frm, to,
+                       remote=remote)
+
+        bmail.put = zeroed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fallbacks = fa.flash_attention.fallbacks
+    out = []
+    for s in range(steps):
+        batch = trainer.pipeline.global_batch(s)
+        collectives.reset_counters()
+        flash["heads"].clear()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out.append({
+            "step": s, **{k: float(v) for k, v in met.items()},
+            "step_s": wall, "launches": read_launches(),
+            "heads": sorted(set(flash["heads"])),
+            "wire_bytes": {a: dict(v) for a, v in
+                           collectives.wire_bytes.items()},
+            "staged_bytes": dict(collectives.staged_bytes)})
+        if rank0 and s + 1 == snap_at:
+            snap = _whole_copy(lay.whole_params(state.params))
+            copies += state_bytes(snap)
+    res = {"steps": out,
+           "max_memory_allocated_bytes":
+               torch.cuda.max_memory_allocated() - held - copies,
+           "fallbacks": fa.flash_attention.fallbacks - fallbacks,
+           "coords": trainer.env.coords}
+    if snap_at:
+        res["params_at_snap"] = snap
+    runner = getattr(trainer, "_mpmd", None)
+    if runner is not None:
+        res["peak_live"] = runner.last_peak_live
+        res["boundary_bytes"] = runner.last_boundary_bytes
+        res["stage_idle_s"] = runner.last_stage_idle_s
+    whole = lay.whole_params(state.params)
+    if rank0:
+        res["params"] = _whole_copy(whole)
+        res["p0"] = p0
+    del trainer, state, whole
+    torch.cuda.empty_cache()
+    return res
+
+
+def _pp_gaps(run: dict, ref: dict) -> dict:
+    """Each step's loss and grad_norm relative to the reference's; the
+    params' difference over the reference's update, ``|p - p_ref| /
+    |p_ref - p_0|`` over the whole model (L2: Adam turns the rounding
+    noise of the exact-zero ``attn.key.bias`` gradients into full-size
+    updates of either sign, ROADMAP C.7, a handful of elements a norm
+    does not see), and the largest element's difference over the largest
+    update beside it."""
+    gaps = {k: max(_rel(a[k], b[k]) for a, b in zip(run["steps"],
+                                                     ref["steps"]))
+            for k in ("loss", "grad_norm")}
+    diff = upd = 0.0
+    dmax = umax = 0.0
+    for k, p_ref in ref["params"].items():
+        d = (run["params"][k] - p_ref).double()
+        u = (p_ref - ref["p0"][k]).double()
+        diff += float(d.square().sum())
+        upd += float(u.square().sum())
+        dmax = max(dmax, float(d.abs().max()))
+        umax = max(umax, float(u.abs().max()))
+    gaps["params"] = math.sqrt(diff / upd)
+    gaps["params_max_element"] = dmax / umax
+    return gaps
+
+
+def pp_decode(params: dict, cfg, seed: int) -> dict:
+    """Rank 0's decode of the gathered gpt2_pp params: ``generate`` on
+    the pipelined model (its ``stages=1`` twin, B4 24 a decode step)
+    against the plain model built from the same state dict."""
+    from frl_distributed_ml_scaffold_tpu_torch.models.generation import (
+        generate,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.models.gpt import GPT
+    from frl_distributed_ml_scaffold_tpu_torch.precision import get_policy
+
+    m = cfg.model
+    policy = get_policy(cfg.precision.policy)
+    gen = torch.Generator().manual_seed(seed + 20)
+    prompt = torch.randint(0, m.vocab_size, (4, 16), generator=gen)
+    toks, b4 = {}, {}
+    for name, model_cfg in (("pipelined", m), ("plain", dataclasses.replace(
+            m, pipeline_stages=1))):
+        model = GPT(model_cfg, policy, device="cuda")
+        model.load_state_dict(params)
+        reset_launches()
+        toks[name] = generate(model, prompt, max_new_tokens=PP_DECODE_NEW,
+                              temperature=0.0, device="cuda").cpu()
+        torch.cuda.synchronize()
+        b4[name] = read_launches()["decode_attention"]
+        del model
+    check(torch.equal(toks["pipelined"], toks["plain"]),
+          "pp_path decode: the pipelined model's tokens differ from the "
+          "plain model's")
+    want = m.num_layers * (PP_DECODE_NEW - 1)
+    for name, n in b4.items():
+        check(n == want, f"pp_path decode: B4 launched {n} times in the "
+              f"{name} model's generate, want {want}")
+    return {"prompt_shape": list(prompt.shape), "new": PP_DECODE_NEW,
+            "decode_attention_launches": b4["pipelined"],
+            "plain_decode_attention_launches": b4["plain"],
+            "tokens_equal_plain": True,
+            "tokens": toks["pipelined"][:, 16:].tolist()}
+
+
+def pp_rank(rank: int, port: int, out: str, seed: int) -> int:
+    """One rank of pp_path (``--a12-rank`` with ``--a12-phase pp``).
+    Rank 0 first runs the one-process references (mesh.pipe=1), before
+    the group exists; then the four processes join a gloo group and
+    train each recipe, then the control; rank 0 holds each run against
+    its reference and decodes the gathered gpt2_pp params. Writes
+    ``out/a12_rank<rank>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from frl_distributed_ml_scaffold_tpu_torch.config import apply_overrides
+    from frl_distributed_ml_scaffold_tpu_torch.ops import flash_attention as fa
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    flash = {"heads": []}
+    dims = fa._dims
+
+    def watched_dims(q, seq_dim, causal):
+        got = dims(q, seq_dim, causal)
+        flash["heads"].append(int(got[1]))
+        return got
+
+    fa._dims = watched_dims
+    cfgs = _pp_configs(seed)
+    refs = {}
+    if rank == 0:  # ranks 1-3 wait in init_process_group meanwhile
+        for name in sorted(set(PP_REFERENCE.values())):
+            refs[name] = _pp_run(apply_overrides(cfgs[name], ["mesh.pipe=1"]),
+                                 PP_STEPS, flash, rank0=True, init=True,
+                                 snap_at=PP_CONTROL_STEPS)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}",
+        world_size=PP_RANKS, rank=rank,
+        timeout=datetime.timedelta(seconds=PP_TIMEOUT_S))
+    report = {"rank": rank, "backend": dist.get_backend(), "runs": {}}
+    for name in PP_RUNS:
+        run = _pp_run(cfgs[name], PP_STEPS, flash, rank0=rank == 0)
+        if rank == 0:
+            ref = refs[PP_REFERENCE[name]]
+            run["gaps"] = _pp_gaps(run, ref)
+            run["reference"] = {
+                "config": PP_REFERENCE[name],
+                "steps": [{k: s[k] for k in ("loss", "grad_norm", "step_s",
+                                             "launches")}
+                          for s in ref["steps"]],
+                "max_memory_allocated_bytes":
+                    ref["max_memory_allocated_bytes"],
+                "params_checksum": params_checksum(ref["params"])}
+            run["params_checksum"] = params_checksum(run["params"])
+            if name == "gpt2_pp":
+                run["decode"] = pp_decode(run["params"], cfgs[name], seed)
+            del run["params"], run["p0"]
+        report["runs"][name] = run
+    control = _pp_run(cfgs["gpt2_pp"], PP_CONTROL_STEPS, flash,
+                      rank0=rank == 0,
+                      zero=lambda frm, to: frm == 2 and to == 1)
+    if rank == 0:
+        ref = refs["gpt2_pp"]
+        control["gaps"] = _pp_gaps(control, {
+            **ref, "steps": ref["steps"][:PP_CONTROL_STEPS],
+            "params": ref["params_at_snap"]})
+        del control["params"], control["p0"]
+    report["control"] = control
+    with open(os.path.join(out, f"a12_rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def pp_bytes(cfg, stage: int) -> dict:
+    """What pipe rank ``stage`` sends over ``pipe`` in one step of
+    ``cfg``, by dtype: each (non-final) output of its ticks and each
+    cotangent of an input it received, one bf16 [mb, T, D] block each
+    (GPipe: M and M; circular: the ring's v M less the final or first
+    repeat's); under MPMD also the embedding mirror (bf16, stage 0) and
+    the head's fp32 gradient of it (the last stage)."""
+    m = cfg.model
+    s, mt = m.pipeline_stages, m.pipeline_microbatches * cfg.trainer.grad_accum
+    v = m.pipeline_circular_repeat
+    blk = cfg.data.global_batch_size // mt * m.seq_len * m.hidden_dim * 2
+    acts = v * mt if stage < s - 1 else (v - 1) * mt
+    cots = v * mt if stage > 0 else (v - 1) * mt
+    out = {"bfloat16": (acts + cots) * blk}
+    if m.pipeline_impl == "mpmd":
+        emb = m.vocab_size * m.hidden_dim
+        if stage == 0:
+            out["bfloat16"] += emb * 2
+        if stage == s - 1:
+            out["float32"] = emb * 4
+    return out
+
+
+def pp_phase(seed: int, card: str) -> dict:
+    """pp_path: the three pipeline recipes over ``pipe=4`` (four gloo
+    processes on the one card, ``pp_rank``), each held to its
+    one-process run (``PP_REFERENCE``) on every step's loss and grad_norm
+    and the params after the steps (``PP_RTOL``), beside the control (a
+    zeroed cotangent) that must fail it; per rank and step B1-B3 at 16
+    heads (the stage's 6 layers x M = 8: 2 / 1 / 1 a layer and
+    microbatch under dots, the MPMD stages' forward then its recompute
+    3 / 1 / 1, its last stage 2 / 1 / 1), every other kernel never, no
+    fallback, the bytes over pipe at the send equal to ``pp_bytes``, the
+    ranks' losses equal; the 1F1B stage peaks; rank 0's decode of the
+    gathered gpt2_pp params. The ranks' log goes to
+    ``OUT_DIR/pp_ranks.log``."""
+    cfgs = _pp_configs(seed)
+    env = {**os.environ, "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+    ranks = _spawn_ranks("--a12-rank", ["--seed", str(seed), "--a12-phase",
+                                        "pp"], PP_RANKS, PP_TIMEOUT_S, "pp",
+                         "a12", env)
+    report = {"card": card, "overrides": PP_OVERRIDES,
+              "backend": ranks[0]["backend"],
+              "backend_note": "four gloo processes on one card: every "
+                              "boundary handoff is staged through the host",
+              "rtol": PP_RTOL, "runs": {}}
+    for name in PP_RUNS:
+        c = cfgs[name]
+        m = c.model
+        mpmd = m.pipeline_impl == "mpmd"
+        lps = m.num_layers // m.pipeline_stages
+        mt = m.pipeline_microbatches * c.trainer.grad_accum
+        runs = [r["runs"][name] for r in ranks]
+        per_rank = {}
+        for run in runs:
+            j = run["coords"]["pipe"]
+            fwd = 3 if mpmd and j < m.pipeline_stages - 1 else 2
+            per_step = {k: v * lps * mt
+                        for k, v in _flash_per_layer(fwd, 1).items()}
+            what = f"pp_path {name} rank {j}"
+            _a12_check_steps(what, run, per_step, m.num_heads)
+            want = pp_bytes(c, j)
+            for st in run["steps"]:
+                got = st["wire_bytes"].get("pipe", {})
+                check(got == want, f"{what}: bytes {got}, want {want}")
+            check([st["loss"] for st in run["steps"]]
+                  == [st["loss"] for st in runs[0]["steps"]],
+                  f"{what}: losses differ from rank 0's")
+            per_rank[j] = {
+                "flash_launches_per_step": per_step, "bytes_per_step": want,
+                "staged_bytes_per_step": run["steps"][-1]["staged_bytes"],
+                "step_s": [st["step_s"] for st in run["steps"]],
+                "max_memory_allocated_bytes":
+                    run["max_memory_allocated_bytes"]}
+        r0 = runs[0]
+        gaps = r0["gaps"]
+        for k, tol in PP_RTOL.items():
+            check(gaps[k] <= tol, f"pp_path {name}: {k} gap {gaps[k]} "
+                  f"over {tol} against the one-process run")
+        entry = {
+            "stages": m.pipeline_stages, "microbatches": mt,
+            "circular_repeat": m.pipeline_circular_repeat,
+            "impl": m.pipeline_impl, "remat": c.trainer.remat,
+            "losses": [st["loss"] for st in r0["steps"]],
+            "grad_norms": [st["grad_norm"] for st in r0["steps"]],
+            "gaps": gaps, "params_checksum": r0["params_checksum"],
+            "reference": r0["reference"],
+            "step_s_median": statistics.median(
+                st["step_s"] for st in r0["steps"][1:]),
+            "ranks": per_rank}
+        if mpmd:
+            s = m.pipeline_stages
+            peak = r0["peak_live"]
+            check(peak[:-1] == [min(s - j, mt) for j in range(s - 1)]
+                  and max(peak) < mt,
+                  f"pp_path {name}: 1F1B peaks {peak}")
+            entry["peak_live"] = peak
+            entry["stage_idle_s"] = r0["stage_idle_s"]
+        if "decode" in r0:
+            entry["decode"] = r0["decode"]
+        report["runs"][name] = entry
+    control = ranks[0]["control"]
+    check(control["gaps"]["grad_norm"] > PP_RTOL["grad_norm"]
+          and control["gaps"]["params"] > PP_RTOL["params"],
+          f"pp_path control: a zeroed cotangent passes the gate "
+          f"{control['gaps']}")
+    report["control"] = {
+        "what": "gpt2_pp, stage 2's input cotangent to stage 1 zeroed",
+        "steps": PP_CONTROL_STEPS, "gaps": control["gaps"],
+        "losses": [st["loss"] for st in control["steps"]],
+        "grad_norms": [st["grad_norm"] for st in control["steps"]]}
+    report["peak_rank0_gpipe_vs_1f1b_bytes"] = [
+        report["runs"]["gpt2_pp"]["ranks"][0]["max_memory_allocated_bytes"],
+        report["runs"]["gpt2_pipeline_mpmd"]["ranks"][0][
+            "max_memory_allocated_bytes"]]
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6753,7 +7157,7 @@ def main() -> int:
     # One rank of ep_path / sp_path (the script starts them itself).
     ap.add_argument("--a12-rank", type=int, default=None,
                     help=argparse.SUPPRESS)
-    ap.add_argument("--a12-phase", choices=("ep", "sp"),
+    ap.add_argument("--a12-phase", choices=("ep", "sp", "pp"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -6766,6 +7170,8 @@ def main() -> int:
     if args.overlap_rank is not None:
         return overlap_rank(args.overlap_rank, args.tp_port, args.tp_out,
                             args.seed)
+    if args.a12_rank is not None and args.a12_phase == "pp":
+        return pp_rank(args.a12_rank, args.tp_port, args.tp_out, args.seed)
     if args.a12_rank is not None:
         return a12_rank(args.a12_phase, args.a12_rank, args.tp_port,
                         args.tp_out, args.seed)
@@ -6871,6 +7277,8 @@ def main() -> int:
         args.seed))
     emit("ep_path", timed_phase("ep_path", ep_phase, args.seed, card))
     emit("sp_path", timed_phase("sp_path", sp_phase, args.seed, card))
+    # Pipelines: four processes on the card, one stage each.
+    emit("pp_path", timed_phase("pp_path", pp_phase, args.seed, card))
     kern.update(timed_phase("flash_kernel", flash_kernel_phase, gen))
     report, counts, profile = timed_phase("train_path", train_phase, sd, card)
     launches.update({k: n for k, n in counts.items() if n})

@@ -12,7 +12,10 @@ under a sharded layout (the ``Trainer`` sets ``layout``) every rank
 takes part in gathering it and rank 0 alone writes it, so the payload
 is byte for byte what one rank writes; the other ranks wait for it on
 a barrier. A restore reads the whole state and re-shards it by the
-layout, so a checkpoint of N ranks restores on any mesh.
+layout, so a checkpoint of N ranks restores on any mesh. Over ``pipe``
+ranks the gather takes every stage's layers (the layout's ``owner``),
+so the file holds the plain GPT's names whatever the pipeline, and a
+restore keeps each rank's stage or, on one rank, the whole model.
 ``torch.distributed.checkpoint`` was not used: one file per step, whole,
 is what every mesh can read.
 

@@ -15,7 +15,10 @@ its 8192 tokens over ``seq=4`` (ring attention; ``ops/
 ring_attention.py``) and ``gpt2_moe`` its 8 experts over ``expert=4``
 (``models/moe.py``): both need a multiple of 4 ranks, or their mesh
 overridden (``mesh.seq=1`` with ``model.attention=flash``,
-``mesh.expert=1``) on one card.
+``mesh.expert=1``) on one card. ``gpt2_pp``, ``gpt2_pp_circular``
+(SPMD backend: GPipe, circular) and ``gpt2_pipeline_mpmd`` (1F1B) lay
+their 4 stages over ``pipe=4``: 4 ranks, one stage each, or
+``mesh.pipe=1`` to run every stage of the SPMD two in one process.
 """
 
 from __future__ import annotations
@@ -182,6 +185,45 @@ def gpt2_moe() -> ExperimentConfig:
         ),
         mesh=MeshConfig(data=-1, expert=4),
         parallel=ParallelConfig(param_sharding="replicated"),
+    )
+
+
+def gpt2_pp() -> ExperimentConfig:
+    """Pipeline-parallel LM: 4 stages over the ``pipe`` axis, GPipe
+    schedule with 8 microbatches (bubble = 3/11 of a step)."""
+    base = gpt2_medium_zero1()
+    return base.replace(
+        name="gpt2_pp",
+        model=GPTConfig(
+            vocab_size=50257, num_layers=24, num_heads=16, hidden_dim=1024,
+            seq_len=1024, pipeline_stages=4, pipeline_microbatches=8,
+        ),
+        mesh=MeshConfig(data=-1, pipe=4),
+        parallel=ParallelConfig(param_sharding="replicated"),
+        trainer=dataclasses.replace(base.trainer, grad_accum=1),
+    )
+
+
+def gpt2_pipeline_mpmd() -> ExperimentConfig:
+    """The ``gpt2_pp`` operating point on the MPMD backend
+    (``parallel/mpmd_pipeline.py``): one stage program a pipe rank,
+    driven in 1F1B order, so a stage holds min(S, M) = 4 microbatch
+    activations instead of GPipe's 8."""
+    base = gpt2_pp()
+    return base.replace(
+        name="gpt2_pipeline_mpmd",
+        model=dataclasses.replace(base.model, pipeline_impl="mpmd"),
+    )
+
+
+def gpt2_pp_circular() -> ExperimentConfig:
+    """Circular (interleaved) pipeline: the 4 stages of ``gpt2_pp``
+    each hold 2 layer groups, cutting the bubble from 3/11 to 3/19 of a
+    step at the cost of rotating activations through the ring twice."""
+    base = gpt2_pp()
+    return base.replace(
+        name="gpt2_pp_circular",
+        model=dataclasses.replace(base.model, pipeline_circular_repeat=2),
     )
 
 
@@ -363,6 +405,9 @@ _RECIPES = {
     "gpt2_tp": gpt2_tp,
     "gpt2_ring": gpt2_ring,
     "gpt2_moe": gpt2_moe,
+    "gpt2_pp": gpt2_pp,
+    "gpt2_pp_circular": gpt2_pp_circular,
+    "gpt2_pipeline_mpmd": gpt2_pipeline_mpmd,
     "gpt2_medium_fsdp_overlap": gpt2_medium_fsdp_overlap,
     "gpt2_medium_tp_overlap": gpt2_medium_tp_overlap,
     "gpt2_medium_tp_overlap_int8": gpt2_medium_tp_overlap_int8,

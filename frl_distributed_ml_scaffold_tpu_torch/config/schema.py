@@ -26,8 +26,11 @@ class MeshConfig:
     ``dist/mesh.py``): ``data``, ``fsdp`` and ``model`` split the batch,
     the params and the tensor-parallel products, ``seq`` every row's
     tokens (ring or Ulysses attention) and ``expert`` the MoE experts;
-    one axis may be ``-1`` and absorb the ranks left. ``pipe`` above 1 is
-    refused by the step (ROADMAP A12)."""
+    one axis may be ``-1`` and absorb the ranks left; ``pipe`` the
+    pipeline stages, one a rank (``mesh.pipe == model.pipeline_stages``;
+    ``parallel/pipeline.py``), beside ``data`` only: ``fsdp``, ``model``,
+    ``seq`` and ``expert`` inside a pipeline are refused (ROADMAP
+    A12)."""
 
     data: int = -1
     fsdp: int = 1
@@ -258,6 +261,10 @@ class GPTConfig:
     kv_cache_quant: str = "none"
     lm_loss_chunk: int = 0
     moe: MoEConfig = field(default_factory=MoEConfig)
+    # Pipeline parallelism: > 1 stages the block stack over the ``pipe``
+    # axis (``parallel/pipeline.py``: "spmd", the GPipe or circular
+    # timeline; ``parallel/mpmd_pipeline.py``: "mpmd", the 1F1B loop).
+    # ``pipeline_microbatches`` 0 means the stage count.
     pipeline_stages: int = 1
     pipeline_microbatches: int = 0
     pipeline_impl: str = "spmd"  # spmd | mpmd

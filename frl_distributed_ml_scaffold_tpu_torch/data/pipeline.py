@@ -9,7 +9,9 @@ Under a mesh (``env``) each rank draws its rows of the global batch:
 ``global / batch axes`` rows at ``host_offset =`` its index over the
 batch axes ``("data", "fsdp")``, which seeds the sources' draw as the
 JAX package's process index does; ranks along ``model`` draw the same
-rows. The JAX package's per-key placement (``shardings_for``) is the
+rows, and so do a batch index's ``pipe`` ranks (its pipeline stages:
+stage 0 reads the inputs and the last stage the targets of the same
+rows, so no token crosses ranks). The JAX package's per-key placement (``shardings_for``) is the
 rank's slice itself: the step reads its rows as plain tensors. Without a
 mesh, or over a mesh of one device, the local batch is the global one.
 """

@@ -24,9 +24,9 @@ drives the mesh path's collectives.
 Batch semantics, the JAX package's: FSDP is data parallelism with the
 parameters sharded, so the global batch shards over ``("data",
 "fsdp")`` jointly (``BATCH_AXES``); ranks that differ only along
-``model`` or ``expert`` hold the same rows. Ranks along ``seq`` hold the
-same rows and split their tokens, so the global loss is the mean over
-``LOSS_AXES`` of the ranks' means.
+``model``, ``expert`` or ``pipe`` hold the same rows. Ranks along
+``seq`` hold the same rows and split their tokens, so the global loss is
+the mean over ``LOSS_AXES`` of the ranks' means.
 """
 
 from __future__ import annotations

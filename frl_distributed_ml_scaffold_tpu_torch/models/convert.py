@@ -99,10 +99,90 @@ def _dense_names(cfg: GPTConfig):
     return _DENSE
 
 
+def _map_tree(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _map_tree(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _cat(leaves):
+    if isinstance(leaves[0], torch.Tensor):
+        return torch.cat(leaves)
+    return np.concatenate(leaves)
+
+
+def plain_tree(tree: dict, cfg: GPTConfig) -> dict:
+    """Any of the JAX GPT's params layouts as its plain one (``blocks``
+    leaves ``[L, ...]``): GPipe's ``pipeline/ticks/blocks`` leaves ``[S,
+    L/S, ...]`` and the circular schedule's ``pipeline/blocks`` leaves
+    ``[v, S, L/(S v), ...]`` fold their leading dims (both enumerate the
+    layers row-major), and the MPMD backend's ``{"stage_j": ...}`` trees
+    concatenate their blocks in stage order, the embedding from stage 0
+    and ``ln_f`` from the last."""
+    if "stage_0" in tree:
+        stages = [tree[f"stage_{j}"] for j in range(len(tree))]
+        out = {k: v for st in stages for k, v in st.items() if k != "blocks"}
+        out["blocks"] = _map_tree(lambda *ls: _cat(list(ls)),
+                                  *[st["blocks"] for st in stages])
+        return out
+    if "pipeline" not in tree:
+        return tree
+    pipe = tree["pipeline"]
+    blocks = pipe["ticks"]["blocks"] if "ticks" in pipe else pipe["blocks"]
+    lead = 2 if "ticks" in pipe else 3
+    L = cfg.num_layers
+
+    def fold(leaf):
+        if int(np.prod(leaf.shape[:lead])) != L:
+            raise ValueError(
+                f"stacked leaf {tuple(leaf.shape)} does not fold into "
+                f"{L} layers ({lead} leading dims)")
+        return leaf.reshape((L,) + tuple(leaf.shape[lead:]))
+
+    out = {k: v for k, v in tree.items() if k != "pipeline"}
+    out["blocks"] = _map_tree(fold, blocks)
+    return out
+
+
+def pipelined_tree(tree: dict, cfg: GPTConfig) -> dict:
+    """The plain JAX tree in ``cfg``'s pipelined layout (the inverse of
+    ``plain_tree``): the MPMD stage trees under ``pipeline_impl=mpmd``,
+    else GPipe's or the circular schedule's stacked blocks; a plain
+    config's tree as it is."""
+    s = cfg.pipeline_stages
+    if s <= 1:
+        return tree
+    L = cfg.num_layers
+    if cfg.pipeline_impl == "mpmd":
+        lps = L // s
+        out = {}
+        for j in range(s):
+            st = {"blocks": _map_tree(
+                lambda l, _j=j: l[_j * lps:(_j + 1) * lps], tree["blocks"])}
+            if j == 0:
+                st.update({k: v for k, v in tree.items()
+                           if k not in ("blocks", "ln_f")})
+            if j == s - 1:
+                st["ln_f"] = tree["ln_f"]
+            out[f"stage_{j}"] = st
+        return out
+    v = cfg.pipeline_circular_repeat or 1
+    lead = (s, L // s) if v == 1 else (v, s, L // (s * v))
+    blocks = _map_tree(lambda l: l.reshape(lead + tuple(l.shape[1:])),
+                       tree["blocks"])
+    out = {k: val for k, val in tree.items() if k != "blocks"}
+    out["pipeline"] = ({"ticks": {"blocks": blocks}} if v == 1
+                       else {"blocks": blocks})
+    return out
+
+
 def params_from_jax(tree: dict, cfg: GPTConfig) -> dict[str, torch.Tensor]:
     """The JAX package's GPT params (numpy leaves) as the port's state
-    dict (CPU tensors; ``load_state_dict`` moves and casts them)."""
+    dict (CPU tensors; ``load_state_dict`` moves and casts them), from
+    the plain layout or any pipelined one (``plain_tree``): the port
+    keeps the plain names under every pipeline backend."""
 
+    tree = plain_tree(tree, cfg)
     blocks = tree["blocks"]
     sd = {
         "wte.weight": _t(tree["wte"]["embedding"]),
@@ -129,7 +209,8 @@ def params_to_jax(sd: dict, cfg: GPTConfig) -> dict:
     """The inverse of ``params_from_jax``: the port's GPT state dict as
     the JAX package's params tree (nested dicts of tensors on ``sd``'s
     device, block leaves stacked on ``[L]``, Dense kernels ``[in,
-    out]``), for writing a flax params file on a machine without JAX."""
+    out]``; a pipelined ``cfg``'s layout, ``pipelined_tree``), for
+    writing a flax params file on a machine without JAX."""
     layers = range(cfg.num_layers)
 
     def stack(suffix: str, transpose: bool = False):
@@ -145,9 +226,10 @@ def params_to_jax(sd: dict, cfg: GPTConfig) -> dict:
     if cfg.moe.num_experts > 0:
         for w in ("wi", "wo"):
             blocks["moe"][w] = stack(f"moe.{w}")
-    return {"wte": {"embedding": sd["wte.weight"]}, "wpe": sd["wpe"],
-            "blocks": blocks,
-            "ln_f": {"scale": sd["ln_f.weight"], "bias": sd["ln_f.bias"]}}
+    return pipelined_tree(
+        {"wte": {"embedding": sd["wte.weight"]}, "wpe": sd["wpe"],
+         "blocks": blocks,
+         "ln_f": {"scale": sd["ln_f.weight"], "bias": sd["ln_f.bias"]}}, cfg)
 
 
 def init_params(
@@ -157,7 +239,8 @@ def init_params(
     normal(0.02) for ``wte``/``wpe``, LeCun-normal (truncated at two
     standard deviations, flax's ``lecun_normal``) for Dense kernels (the
     MoE router's too), normal(0.02) for the MoE experts, zero biases,
-    unit LayerNorm scales. Tensors are made on the generator's
+    unit LayerNorm scales (a pipelined config draws the same: its
+    stages hold the plain names). Tensors are made on the generator's
     device. The numbers differ from the JAX init's (another generator);
     the distributions are the same."""
     dev = generator.device

@@ -19,7 +19,10 @@ them, when given the model's head count.
 Sampling: greedy (``temperature=0``), temperature, top-k and nucleus
 (top-p), drawing from an explicit ``torch.Generator``. The draws differ
 from ``jax.random``'s; greedy decoding is the same function in both.
-``beam_search`` runs over the same prefill and decode step.
+``beam_search`` runs over the same prefill and decode step. A
+pipelined model (``pipeline_stages > 1``) decodes on its ``stages=1``
+twin (``_plain_stack``): the port keeps the plain names under every
+pipeline backend, so the twin takes the same tensors.
 """
 
 from __future__ import annotations
@@ -55,6 +58,29 @@ def _sample(
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
         torch.int32
     )
+
+
+def _plain_stack(model):
+    """Decode always runs on the plain layer stack: a pipeline-trained
+    model (``pipeline_stages > 1``) is swapped for its ``stages=1`` twin
+    holding the same tensors (the JAX ``_plain_stack``; its restack is a
+    reshape there, nothing here). Callers that decode many times can do
+    this once and pass the twin."""
+    cfg = getattr(model, "config", None)
+    if cfg is None or getattr(cfg, "pipeline_stages", 1) <= 1:
+        return model
+    import dataclasses
+
+    from frl_distributed_ml_scaffold_tpu_torch.models.gpt import (
+        GPT,
+        unstack_pipeline_params,
+    )
+
+    plain = GPT(dataclasses.replace(cfg, pipeline_stages=1), model.policy,
+                device="meta")
+    plain.load_state_dict(unstack_pipeline_params(cfg, model.state_dict()),
+                          assign=True)
+    return plain
 
 
 def next_cache_bucket(seq_len: int, needed: int, floor: int = 8) -> int:
@@ -144,6 +170,7 @@ def generate(
     ``eos_id`` emission are padded with ``eos_id``. Ragged batches pass
     LEFT-padded prompts plus ``prompt_lengths [B]``. ``device=None``
     means ``cuda``; the model must live on the resolved device."""
+    model = _plain_stack(model)
     dev = resolve_device(device)
     if model.device != dev:
         raise ValueError(f"model lives on {model.device}, asked for {dev}")
@@ -252,6 +279,7 @@ def beam_search(
     keeping ties in the search's order. The returned score is the ranked
     quantity. ``device=None`` means ``cuda``; the model must live on the
     resolved device."""
+    model = _plain_stack(model)
     dev = resolve_device(device)
     if model.device != dev:
         raise ValueError(f"model lives on {model.device}, asked for {dev}")

@@ -149,7 +149,30 @@ def stacked_name(name: str) -> str:
     return name
 
 
-def gpt_tp_rules() -> PartitionRules:
+def gpt_pipe_stage(cfg: GPTConfig):
+    """``name -> pipe rank`` of a pipelined GPT (the JAX pipelined
+    rules' ``pipe`` entry): a block's parameters on the rank that holds
+    its layer (``parallel/pipeline.py`` ``layer_stage``); the embedding
+    and ``ln_f`` on every rank under the SPMD backend (None), under the
+    MPMD backend the embedding on stage 0 and ``ln_f`` on the last."""
+    from frl_distributed_ml_scaffold_tpu_torch.parallel.pipeline import (
+        layer_stage,
+    )
+
+    mpmd = cfg.pipeline_impl == "mpmd"
+    last = cfg.pipeline_stages - 1
+
+    def stage(name: str) -> int | None:
+        if name.startswith("blocks."):
+            return layer_stage(cfg, int(name.split(".")[1]))
+        if not mpmd:
+            return None
+        return last if name.startswith("ln_f.") else 0
+
+    return stage
+
+
+def gpt_tp_rules(pipeline: GPTConfig | None = None) -> PartitionRules:
     """Megatron column / row splits over ``model`` (the JAX package's
     non-pipelined ``gpt_tp_rules``), against the port's names and
     ``[out, in]`` weights: q / k / v and ``fc_in`` split their outputs
@@ -160,9 +183,13 @@ def gpt_tp_rules() -> PartitionRules:
     rank along ``model`` over the whole vocabulary. The MoE experts
     ``wi [E, D, H]`` and ``wo [E, H, D]`` split their experts over
     ``expert`` (and their hidden dim over ``model``, which MoE refuses),
-    and the router stays whole, as the JAX rules place them."""
+    and the router stays whole, as the JAX rules place them. With a
+    pipelined ``pipeline`` config the rules also place each parameter on
+    its ``pipe`` rank (``gpt_pipe_stage``)."""
     col, row = ("model", None), (None, "model")
-    return PartitionRules(rules=(
+    stage = (gpt_pipe_stage(pipeline) if pipeline is not None
+             and pipeline.pipeline_stages > 1 else None)
+    return PartitionRules(stage=stage, rules=(
         (r"^blocks\.\d+\.attn\.(query|key|value)\.weight$", col),
         (r"^blocks\.\d+\.attn\.(query|key|value)\.bias$", ("model",)),
         (r"^blocks\.\d+\.attn\.out\.weight$", row),
@@ -203,10 +230,11 @@ def _check_supported(cfg: GPTConfig) -> None:
         )
     if cfg.kv_cache_quant != "none":
         lowp_dtype(cfg.kv_cache_quant)  # KeyError naming the formats
-    if cfg.pipeline_stages > 1:
+    if cfg.pipeline_stages > 1 and cfg.attention in _SEQ_ATTENTION:
         raise NotImplementedError(
-            "pipeline_stages > 1 (pipeline parallelism) is not ported yet "
-            "(ROADMAP A12)"
+            f"model.attention={cfg.attention!r} inside a pipeline "
+            "(pipeline_stages > 1): sequence parallelism within a stage is "
+            "not ported yet (ROADMAP A12)"
         )
     if cfg.hidden_dim % cfg.num_heads:
         raise ValueError(
@@ -685,8 +713,19 @@ class GPT(nn.Module):
                     "lengths (ragged left-padded prompts) is a decode-mode "
                     "argument; training/eval batches are dense"
                 )
-            return self._forward_train(tokens, check_seed(
-                self.config.dropout, train, rng), return_features, train)
+            seed = check_seed(self.config.dropout, train, rng)
+            if self.config.pipeline_stages > 1:
+                return self._forward_pipelined(tokens, seed,
+                                               return_features, train)
+            return self._forward_train(tokens, seed, return_features, train)
+        if self.config.pipeline_stages > 1:
+            raise NotImplementedError(
+                "KV-cache decoding runs on the plain layer stack (pipeline "
+                "parallelism is a training-throughput schedule). "
+                "models.generation.generate/beam_search restack pipeline "
+                "params automatically (unstack_pipeline_params); only a "
+                "direct apply(decode=True) needs pipeline_stages=1"
+            )
         cfg, cd = self.config, self.policy.compute_dtype
         b, t = tokens.shape
         if "key_pool" in cache and t > 1 and lengths is not None:
@@ -786,6 +825,53 @@ class GPT(nn.Module):
             x = F.linear(x, self.wte.weight.to(cd))  # weight-tied head
         return (x, aux) if cfg.moe.num_experts > 0 else x
 
+    def pipeline_block(self, i: int) -> Block:
+        """Block ``i`` (a global layer index)."""
+        return self.blocks[i]
+
+    def _forward_pipelined(self, tokens, seed: int | None,
+                           return_features: bool, train: bool):
+        """The pipelined forward (``pipeline_stages > 1``) in one process:
+        the batch splits into the M microbatches, each runs the embedding
+        and every layer in order (what every schedule computes for it:
+        the circular one too visits the layer groups in order), microbatch
+        m's dropout with seed ``mix_seed(seed, m)``, and the MoE aux is
+        the sum over the microbatches divided by M, as the JAX model's.
+        The Trainer runs the schedule itself (``parallel/pipeline.py``,
+        with ``trainer.remat`` and ``pipeline_stage_remat``);
+        ``model.block_remat`` does not apply inside a pipeline, as in the
+        reference."""
+        from frl_distributed_ml_scaffold_tpu_torch.models.dropout import (
+            mix_seed,
+        )
+        from frl_distributed_ml_scaffold_tpu_torch.parallel.pipeline import (
+            check_schedule,
+            effective_microbatches,
+            embed,
+            final_norm,
+            run_layers,
+        )
+
+        cfg, cd = self.config, self.policy.compute_dtype
+        check_schedule(cfg, tokens.shape[0])
+        m = effective_microbatches(cfg)
+        params = dict(self.named_parameters())
+        outs, aux = [], None
+        for i, chunk in enumerate(tokens.chunk(m)):
+            s = None if seed is None else mix_seed(seed, i)
+            x = embed(params, chunk, cfg, self.policy, s)
+            x, a = run_layers(self, range(cfg.num_layers), x, s, train)
+            outs.append(x)
+            if a is not None:
+                aux = a.float() if aux is None else aux + a.float()
+        x = final_norm(params, torch.cat(outs), cfg).to(cd)
+        if not return_features:
+            x = F.linear(x, self.wte.weight.to(cd))  # weight-tied head
+        if cfg.moe.num_experts > 0:
+            zero = torch.zeros((), dtype=torch.float32, device=x.device)
+            return x, (zero if aux is None else aux / m)
+        return x
+
     def _block_train(self, block: Block, x, layer: int, seed: int | None,
                      train: bool = False):
         """One block of the training forward under ``model.block_remat``:
@@ -854,3 +940,123 @@ class GPT(nn.Module):
         x = x + checkpoint(run, x, "attn", *shards, use_reentrant=False)
         return _residual(x, checkpoint(run, x, "mlp", *shards,
                                        use_reentrant=False))
+
+
+class GptStage(nn.Module):
+    """The layers one ``pipe`` rank holds of a pipelined GPT (the JAX
+    package's ``GptStage``): stage j's blocks (``parallel/pipeline.py``
+    ``stage_layers``: its contiguous run under GPipe and MPMD, its ``v``
+    layer groups under the circular schedule), with the plain GPT's
+    names and global layer indices (``blocks.<i>.``), so a stage's state
+    dict is a slice of the plain one. ``embed`` holds the embedding
+    (``wte``, ``wpe``), ``final`` the final LayerNorm: the SPMD backend's
+    ranks hold both (the JAX rules replicate them over ``pipe``), the
+    MPMD backend's first stage the embedding and its last ``ln_f``; the
+    weight-tied head reads ``wte``, which the MPMD last stage receives as
+    a mirror each step. ``forward`` is the stage program: the embedding
+    front on stage 0, the stage's layers, ``ln_f`` on the last stage,
+    features out, no head."""
+
+    def __init__(self, config: GPTConfig, policy: Policy, stage: int, *,
+                 embed: bool = True, final: bool = True, device=None):
+        super().__init__()
+        _check_supported(config)
+        from frl_distributed_ml_scaffold_tpu_torch.parallel.pipeline import (
+            check_schedule,
+            stage_layers,
+        )
+
+        check_schedule(config)
+        device = resolve_device(device)
+        self.config, self.policy, self.stage = config, policy, stage
+        cfg, pd = config, policy.param_dtype
+        self.layers = stage_layers(cfg, stage)
+        if embed:
+            self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_dim,
+                                    device=device, dtype=pd)
+            self.wpe = nn.Parameter(torch.zeros(
+                cfg.seq_len, cfg.hidden_dim, device=device, dtype=pd))
+        self.blocks = nn.ModuleDict(
+            {str(i): Block(cfg, policy, device) for i in self.layers})
+        if final:
+            self.ln_f = nn.LayerNorm(cfg.hidden_dim,
+                                     eps=cfg.layer_norm_epsilon,
+                                     device=device, dtype=pd)
+
+    def pipeline_block(self, i: int) -> Block:
+        return self.blocks[str(i)]
+
+    def forward(self, x, *, train: bool = False, rng: int | None = None):
+        from frl_distributed_ml_scaffold_tpu_torch.parallel.pipeline import (
+            embed,
+            final_norm,
+            run_layers,
+        )
+
+        cfg = self.config
+        seed = check_seed(cfg.dropout, train, rng)
+        params = dict(self.named_parameters())
+        if self.stage == 0:
+            x = embed(params, x, cfg, self.policy, seed)
+        x, _ = run_layers(self, self.layers, x, seed, train)
+        if self.stage == cfg.pipeline_stages - 1:
+            x = final_norm(params, x, cfg)
+        return x
+
+
+def mpmd_stage_params(cfg: GPTConfig, params: dict, num_stages: int) -> dict:
+    """A plain state dict sliced into the MPMD backend's per-stage dicts
+    (the JAX ``mpmd_stage_params`` on the port's names): ``{"stage_j":
+    ...}``, stage j owning its layers ``blocks.<i>.`` for i in ``[j L/S,
+    (j+1) L/S)``, the first stage also everything outside the block stack
+    but ``ln_f`` (the embedding, and with it the tied head's master
+    copy), the last stage ``ln_f``. Inverse: ``mpmd_merge_params``."""
+    if "stage_0" in params:
+        raise ValueError(
+            "mpmd_stage_params expects the PLAIN-layout params tree "
+            "(blocks leaves [L, ...]); restack pipeline-trained params "
+            "via unstack_pipeline_params first"
+        )
+    L, s = cfg.num_layers, num_stages
+    if s < 2:
+        raise ValueError(f"MPMD stage slicing needs >= 2 stages, got {s}")
+    if L % s:
+        raise ValueError(f"{L} layers not divisible by {s} stages")
+    lps = L // s
+    out: dict = {f"stage_{j}": {} for j in range(s)}
+    for k, v in params.items():
+        if k.startswith("blocks."):
+            j = int(k.split(".")[1]) // lps
+        elif k.startswith("ln_f."):
+            j = s - 1
+        else:
+            j = 0
+        out[f"stage_{j}"][k] = v
+    return out
+
+
+def mpmd_merge_params(cfg: GPTConfig, stage_params: dict) -> dict:
+    """The per-stage dicts merged back into the plain state dict."""
+    stages = sorted(
+        (k for k in stage_params if k.startswith("stage_")),
+        key=lambda k: int(k.split("_", 1)[1]),
+    )
+    if len(stages) < 2 or stages != [f"stage_{j}" for j in range(len(stages))]:
+        raise ValueError(
+            f"not an MPMD stage-params tree (keys: {sorted(stage_params)})"
+        )
+    out: dict = {}
+    for k in stages:
+        out.update(stage_params[k])
+    return out
+
+
+def unstack_pipeline_params(cfg: GPTConfig, params: dict) -> dict:
+    """Pipeline-trained params as the plain state dict a
+    ``pipeline_stages=1`` model of the same config loads: the port keeps
+    the plain names under every backend, so a plain dict is returned as
+    it is and the MPMD per-stage dicts are merged; restacking is a
+    gather, never a reshape of the model."""
+    if "stage_0" in params:
+        return mpmd_merge_params(cfg, params)
+    return params

@@ -6,10 +6,12 @@ The port's own copy of the JAX package's ``ops/quantization.py``
 ``quantize``, ``dequantize``, ``qdot``, ``quantized_matmul``), so a
 format name means the same thing to both packages and a quantized cache
 or ring payload holds the same bytes in both. ``quantize`` follows the
-reference step for step: ``scale = max|x| / qmax`` in fp32 over every
-axis but the kept channel axes (all of them with ``channel_axes=None``,
-per-tensor; 1 where the slice is all zero), ``y = x / scale`` in fp32,
-then int8 rounds half to even and clips, fp8 clips and casts.
+reference step for step as it runs compiled: ``scale = max|x| / qmax``
+in fp32 over every axis but the kept channel axes (all of them with
+``channel_axes=None``, per-tensor; 1 where the slice is all zero), the
+division taken as XLA compiles it, a product with the fp32 reciprocal
+of qmax; ``y = x / scale`` in fp32, then int8 rounds half to even and
+clips, fp8 clips and casts.
 
 ``qdot`` contracts ``[..., K] x [K, M]`` quantized operands and scales
 the raw fp32 product by ``s_lhs * s_rhs`` in fp32, as the reference
@@ -79,6 +81,11 @@ def qmax(fmt: str) -> float:
     return LOWP_FORMATS[fmt][1]
 
 
+def _inverse(m: float) -> float:
+    """``1 / m`` divided in fp32 (held exactly in a Python float)."""
+    return float(torch.tensor(m, dtype=torch.float32).reciprocal())
+
+
 def quantize(
     x: torch.Tensor, fmt: str,
     channel_axes: tuple[int, ...] | int | None = None,
@@ -101,7 +108,11 @@ def quantize(
     amax = (torch.amax(x32.abs(), dim=reduce_axes, keepdim=True)
             if reduce_axes is not None else x32.abs())
     # All-zero slices quantize to zeros with scale 1 (never divide by 0).
-    scale = torch.where(amax > 0.0, amax / m, torch.ones_like(amax))
+    # ``max|x| / qmax`` as the reference computes it compiled (it always
+    # runs so): the division by the constant becomes a product with the
+    # constant's fp32 reciprocal, a last bit apart from the quotient for
+    # about half of all amax values.
+    scale = torch.where(amax > 0.0, amax * _inverse(m), torch.ones_like(amax))
     y = x32 / scale
     if fmt == "int8":
         q = torch.clamp(torch.round(y), -m, m).to(dtype)

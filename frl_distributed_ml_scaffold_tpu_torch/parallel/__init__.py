@@ -1,5 +1,5 @@
 """The parallelism layer: the port of the JAX package's ``parallel/``
-for DP, FSDP, ZeRO-1 and TP, as specs over one mesh.
+for DP, FSDP, ZeRO-1, TP and PP, as specs over one mesh.
 
 - DP: every param whole, the batch split over ``("data", "fsdp")``; the
   step all-reduces the gradients.
@@ -10,6 +10,9 @@ for DP, FSDP, ZeRO-1 and TP, as specs over one mesh.
   (``models/gpt.py`` ``gpt_tp_rules``, ``models/vit.py``
   ``vit_tp_rules``), the forward's collectives in
   ``tensor_parallel.py``.
+- PP: one stage a ``pipe`` rank (or every stage in one process), the
+  boundary point to point: the GPipe and circular timelines
+  (``pipeline.py``) and the MPMD 1F1B loop (``mpmd_pipeline.py``).
 
 ``partition.py`` derives the specs (and places a model's parameters on a
 serving mesh: ``shard_params_for_serving``), ``layout.py`` holds them

@@ -244,6 +244,13 @@ def validate_block_schedule(cfg, *, prefetch: int) -> None:
             "own block schedule); set model.pipeline_stages=1 or "
             "model.pipeline_impl='mpmd'"
         )
+    if getattr(cfg.model, "pipeline_stages", 1) > 1:
+        raise NotImplementedError(
+            "parallel.fsdp_overlap under model.pipeline_impl='mpmd': the "
+            "overlap schedule inside the per-stage programs is not "
+            "ported yet "
+            "(ROADMAP A12)"
+        )
     if prefetch < 0:
         raise ValueError(
             f"parallel.fsdp_prefetch must be >= 0, got {prefetch}"

@@ -39,6 +39,19 @@ A split dim of size n over k members gives member i the rows ``[i c,
 (i+1) c)`` cut at n, ``c = ceil(n / k)`` (the JAX package's bounds).
 Over a mesh of one device every spec is whole, every collective the
 identity and every shard the tensor itself.
+
+Pipeline parallelism (``pipe`` above 1): the rules' ``stage`` places
+each parameter on one pipe rank (``owner``: a stage's layers, under the
+MPMD backend also the embedding on stage 0 and ``ln_f`` on the last) or
+on every one (None: the SPMD backend's embedding and ``ln_f``, whole on
+every stage as the JAX rules leave them). A rank's layout holds its own
+parameters and their optimizer state only (``shapes``; ``whole_shapes``
+has every name). The gradient of a leaf every stage holds is summed over
+``pipe`` too (the stages that do not use it add zeros), and the global
+norm sums a stage-held leaf's squares over ``pipe`` and counts a shared
+one once. ``gather_state`` fills in the other stages' tensors (a
+broadcast from the rank that holds each), ``shard_state`` keeps this
+rank's.
 """
 
 from __future__ import annotations
@@ -98,6 +111,11 @@ class StateLayout:
         default_factory=dict)
     partial: dict[str, tuple[str, ...]] = dataclasses.field(
         default_factory=dict)
+    # Under pipe > 1: each name's pipe rank (None: every rank) and the
+    # whole model's shapes (``shapes`` holds this rank's names only).
+    owner: dict[str, int | None] = dataclasses.field(default_factory=dict)
+    whole_shapes: dict[str, tuple[int, ...]] = dataclasses.field(
+        default_factory=dict)
 
     @classmethod
     def build(cls, env: MeshEnv, model_cfg: Any, parallel, shapes: dict,
@@ -107,6 +125,14 @@ class StateLayout:
         name) under ``parallel`` over ``env``. ``compute_whole`` names the
         parameters the model reads whole."""
         shapes = {k: tuple(int(d) for d in s) for k, s in shapes.items()}
+        whole_shapes = dict(shapes)
+        owner = {}
+        stage = getattr(rules, "stage", None)
+        if stage is not None and env.axis_size("pipe") > 1:
+            owner = {k: stage(k) for k in shapes}
+            me = env.axis_index("pipe")
+            shapes = {k: s for k, s in shapes.items()
+                      if owner[k] is None or owner[k] == me}
         sizes = env.shape
         leaves = (jax_leaves(model_cfg, shapes) if sizes["fsdp"] > 1
                   else {})
@@ -126,7 +152,8 @@ class StateLayout:
                         raise NotImplementedError(
                             f"{k}: spec {s} splits over {e!r}; the step "
                             f"splits params over {SPLIT_AXES} only")
-        return cls(env, shapes, p, o, c, dict(a))
+        return cls(env, shapes, p, o, c, dict(a), owner=owner,
+                   whole_shapes=whole_shapes)
 
     def with_overlap(self, gathered=(), stream=()) -> "StateLayout":
         """This layout under the overlap schedule: the parameters of
@@ -152,17 +179,19 @@ class StateLayout:
         gradients were not reduce-scattered or summed over, and the axes
         each rank holds a part over."""
         done = self.scatter_axes(name) + self.presummed.get(name, ())
+        shared = ("pipe",) if self.owner and self.owner[name] is None else ()
         return (tuple(a for a in LOSS_AXES if a not in done)
-                + self.partial.get(name, ()))
+                + self.partial.get(name, ()) + shared)
 
     # ------------------------------------------------------------ queries
 
     @property
     def trivial(self) -> bool:
-        """True when every spec is whole (one device, or nothing split)."""
-        return not any(any(e is not None for e in s)
-                       for specs in (self.param, self.opt)
-                       for s in specs.values())
+        """True when every spec is whole and every rank holds every
+        parameter (one device, or nothing split)."""
+        return not self.owner and not any(
+            any(e is not None for e in s)
+            for specs in (self.param, self.opt) for s in specs.values())
 
     def local_shape(self, name: str, spec: Spec) -> tuple[int, ...]:
         out = []
@@ -258,7 +287,10 @@ class StateLayout:
         is split over (a replicated tensor counts once)."""
         by_axes: dict[tuple, list[torch.Tensor]] = {}
         for k, g in grads.items():
-            axes = tuple(sorted({e for e in specs[k] if e is not None}))
+            axes = {e for e in specs[k] if e is not None}
+            if self.owner.get(k) is not None:
+                axes.add("pipe")  # each stage holds its own
+            axes = tuple(sorted(axes))
             by_axes.setdefault(axes, []).append(g.float().square().sum())
         total = None
         for axes, parts in by_axes.items():
@@ -294,34 +326,66 @@ class StateLayout:
                                device=device)
                 for k, s in self.opt.items()}
 
+    def _pipe_fill(self, tensors: dict) -> dict:
+        """``tensors`` (this rank's names, whole) with every other
+        stage's filled in, in the whole model's order: each from the pipe
+        rank that holds it (a broadcast over ``pipe``)."""
+        if not self.owner:
+            return tensors
+        like = next(iter(tensors.values()))
+        out = {}
+        for k, shape in self.whole_shapes.items():
+            o = self.owner[k]
+            if o is None:
+                out[k] = tensors[k]
+                continue
+            t = (tensors[k].contiguous() if k in tensors else torch.empty(
+                shape, dtype=like.dtype, device=like.device))
+            out[k] = collectives.broadcast(t, "pipe", source=o, env=self.env)
+        return out
+
     def whole_params(self, params: dict) -> dict:
-        return {k: self.gather(k, p, self.param[k], normalize((), p.dim()))
-                for k, p in params.items()}
+        """Every parameter whole (every rank takes part and gets it)."""
+        return self._pipe_fill(
+            {k: self.gather(k, p, self.param[k], normalize((), p.dim()))
+             for k, p in params.items()})
 
     def gather_state(self, state):
         """The whole state (every rank takes part; every rank gets it)."""
         if self.trivial:
             return state
         whole = {k: (None,) * len(s) for k, s in self.shapes.items()}
+        opt = self.map_opt(
+            lambda k, t: self.gather(k, t, self.opt[k], whole[k]),
+            state.opt_state)
+        if self.owner:
+            opt = {key: (self._pipe_fill(v) if isinstance(v, dict) and v
+                         and set(v) <= set(self.shapes) else v)
+                   for key, v in opt.items()}
         return dataclasses.replace(
             state,
             params=self.whole_params(state.params),
-            opt_state=self.map_opt(
-                lambda k, t: self.gather(k, t, self.opt[k], whole[k]),
-                state.opt_state),
+            opt_state=opt,
             ema_params=(None if state.ema_params is None
                         else self.whole_params(state.ema_params)))
 
+    def _mine(self, tree: dict) -> dict:
+        return {k: v for k, v in tree.items() if k in self.shapes}
+
     def shard_state(self, state):
-        """This rank's shards of a whole state."""
+        """This rank's shards of a whole state (its stage's parameters
+        under ``pipe``)."""
         if self.trivial:
             return state
+        opt = {key: (self._mine(v) if isinstance(v, dict) and v
+                     and set(v) <= set(self.whole_shapes or self.shapes)
+                     else v) for key, v in state.opt_state.items()}
         return dataclasses.replace(
             state,
             params={k: self.shard(k, p, self.param[k])
-                    for k, p in state.params.items()},
+                    for k, p in self._mine(state.params).items()},
             opt_state=self.map_opt(lambda k, t: self.shard(k, t, self.opt[k]),
-                                   state.opt_state),
+                                   opt),
             ema_params=(None if state.ema_params is None else
                         {k: self.shard(k, p, self.param[k])
-                         for k, p in state.ema_params.items()}))
+                         for k, p in self._mine(state.ema_params).items()}))

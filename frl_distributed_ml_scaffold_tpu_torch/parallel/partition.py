@@ -49,9 +49,14 @@ Spec = tuple
 
 @dataclass(frozen=True)
 class PartitionRules:
-    """Ordered regex -> spec rules (first match wins)."""
+    """Ordered regex -> spec rules (first match wins). ``stage`` (the
+    pipelined GPT's rules) places each parameter on the ``pipe`` rank
+    that holds it (None: on every one): the port's counterpart of the
+    JAX pipelined rules' leading ``pipe`` entry, a layer being a tensor
+    of its own here (``parallel/layout.py``)."""
 
     rules: tuple[tuple[str, Spec], ...] = ()
+    stage: Any = None
 
     def match(self, name: str) -> Spec | None:
         for pattern, spec in self.rules:

@@ -205,6 +205,13 @@ def validate_ring_schedule(cfg, *, lowp: str | None = None) -> None:
             "its own block schedule); set model.pipeline_stages=1 or "
             "model.pipeline_impl='mpmd'"
         )
+    if getattr(cfg.model, "pipeline_stages", 1) > 1:
+        raise NotImplementedError(
+            "parallel.tp_overlap under model.pipeline_impl='mpmd': the "
+            "overlap schedule inside the per-stage programs is not "
+            "ported yet "
+            "(ROADMAP A12)"
+        )
     if cfg.parallel.sequence != "none" or cfg.mesh.seq > 1:
         raise ValueError(
             "parallel.tp_overlap owns the token dim's model-axis sharding; "

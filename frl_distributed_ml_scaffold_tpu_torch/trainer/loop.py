@@ -43,9 +43,25 @@ and MoE over the ``expert`` axis run here: each rank draws its batch
 index's rows whole (``seq_len + 1`` tokens), the loss splits them into
 inputs and targets and keeps the rank's block of the tokens
 (``trainer/tasks.py``), and the step averages over ``seq``
-(``trainer/train_step.py``). Refused, each naming ROADMAP A12: the
-``pipe`` axis and pipelines (SPMD or MPMD; raised by the step and the
-GPT model), and MoE under ``mesh.model > 1``.
+(``trainer/train_step.py``). MoE under ``mesh.model > 1`` is refused,
+naming ROADMAP A12.
+
+Pipelines (``model.pipeline_stages > 1``): ``model.pipeline_impl``
+picks the backend (``spmd``: the GPipe / circular timeline of
+``parallel/pipeline.py``; ``mpmd``: the 1F1B loop of
+``parallel/mpmd_pipeline.py``; anything else raises the JAX
+``KeyError``). With ``mesh.pipe == pipeline_stages`` each pipe rank
+builds and holds its own stage (``models/gpt.py`` ``GptStage``; the
+layout's ``owner``), draws the same rows as the other pipe ranks of its
+batch index and exchanges the boundary activations point to point; with
+``mesh.pipe == 1`` (SPMD only, as in the reference) one process runs
+every stage. The seeded init draws the whole model and each rank keeps
+its stage; ``trainer.init_params_path`` reads the SPMD backend's own
+stacked tree and the plain tree under MPMD, as the JAX trainer does;
+checkpoints hold the whole state under the plain names. Inside a
+pipeline, ``fsdp``, ``model``, ``seq`` and ``expert`` ranks, FSDP and
+ZeRO-1 state over pipe ranks and the overlap schedule under ``mpmd`` are
+refused, naming ROADMAP A12.
 
 ``trainer.init_params_path`` starts the run from a flax msgpack params
 file (``tools/import_hf_gpt2.py``'s output, or ``checkpoint/
@@ -72,8 +88,24 @@ from frl_distributed_ml_scaffold_tpu_torch.checkpoint.manager import Checkpointe
 from frl_distributed_ml_scaffold_tpu_torch.config.core import config_to_dict
 from frl_distributed_ml_scaffold_tpu_torch.config.schema import ExperimentConfig
 from frl_distributed_ml_scaffold_tpu_torch.data.pipeline import build_pipeline
-from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import MeshEnv, build_mesh
+from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import (
+    MeshEnv,
+    build_mesh,
+    local_batch_size,
+)
 from frl_distributed_ml_scaffold_tpu_torch.models import convert, create_model
+from frl_distributed_ml_scaffold_tpu_torch.models.gpt import GptStage
+from frl_distributed_ml_scaffold_tpu_torch.parallel.mpmd_pipeline import (
+    MpmdPipelineRunner,
+    check_mpmd,
+)
+from frl_distributed_ml_scaffold_tpu_torch.parallel.pipeline import (
+    check_pipeline,
+    check_schedule,
+    make_pipeline_eval_fn,
+    make_pipeline_grad_fn,
+    pipeline_summary,
+)
 from frl_distributed_ml_scaffold_tpu_torch.parallel.layout import StateLayout
 from frl_distributed_ml_scaffold_tpu_torch.parallel.partition import (
     PartitionRules,
@@ -98,7 +130,10 @@ from frl_distributed_ml_scaffold_tpu_torch.telemetry import (
 from frl_distributed_ml_scaffold_tpu_torch.trainer.optimizers import (
     make_optimizer,
 )
-from frl_distributed_ml_scaffold_tpu_torch.trainer.tasks import make_loss_fn
+from frl_distributed_ml_scaffold_tpu_torch.trainer.tasks import (
+    lm_head_loss,
+    make_loss_fn,
+)
 from frl_distributed_ml_scaffold_tpu_torch.trainer.train_state import TrainState
 from frl_distributed_ml_scaffold_tpu_torch.trainer.train_step import (
     make_eval_step,
@@ -135,18 +170,29 @@ def _check_ported(cfg: ExperimentConfig) -> None:
     if p.sequence not in ("none", "ring", "ulysses"):
         raise ValueError(f"unknown parallel.sequence {p.sequence!r} "
                          "(none | ring | ulysses)")
+    if _pipelined(cfg.model):
+        impl = cfg.model.pipeline_impl
+        if impl not in ("spmd", "mpmd"):
+            raise KeyError(
+                f"unknown model.pipeline_impl={impl!r} (spmd | mpmd)")
+        check_pipeline(cfg.model, cfg.mesh, cfg.parallel)
+
+
+def _pipelined(model_cfg: Any) -> bool:
+    return (getattr(model_cfg, "family", None) == "gpt"
+            and model_cfg.pipeline_stages > 1)
 
 
 def model_partition_rules(model_cfg: Any, env: MeshEnv
                           ) -> PartitionRules | None:
     """The model's partition rules when the ``model`` or ``expert`` axis
-    is populated (the JAX trainer's ``model_partition_rules``; the pipe
-    axis is refused by the step): a spec's axes of size 1 split nothing,
+    is populated or the model is pipelined (the JAX trainer's
+    ``model_partition_rules``): a spec's axes of size 1 split nothing,
     so ``expert = n`` alone splits the MoE experts. A family without rules
     on a ``model > 1`` mesh raises, as it would silently replicate; MoE
     under ``model > 1`` raises (ROADMAP A12)."""
     m = env.axis_size("model")
-    if m <= 1 and env.axis_size("expert") <= 1:
+    if m <= 1 and env.axis_size("expert") <= 1 and not _pipelined(model_cfg):
         return None
     moe = getattr(model_cfg, "moe", None)
     if moe is not None and moe.num_experts > 0 and m > 1:
@@ -159,7 +205,9 @@ def model_partition_rules(model_cfg: Any, env: MeshEnv
             gpt_tp_rules,
         )
 
-        rules = gpt_tp_rules()
+        # A pipelined GPT's rules also place each parameter on its pipe
+        # rank (the JAX pipelined rules' leading ``pipe`` entry).
+        rules = gpt_tp_rules(model_cfg if _pipelined(model_cfg) else None)
     elif family in ("vit", "video"):
         from frl_distributed_ml_scaffold_tpu_torch.models.vit import (
             vit_tp_rules,
@@ -244,11 +292,19 @@ class Trainer:
         self.env = build_mesh(cfg.mesh)
         self.policy = get_policy(cfg.precision)
         self._model_kw = _model_kwargs(cfg)
-        self.model = create_model(cfg.model, self.policy, device=self.device,
-                                  **self._model_kw)
+        self.pipelined = _pipelined(cfg.model)
+        self.mpmd = self.pipelined and cfg.model.pipeline_impl == "mpmd"
+        if self.mpmd:
+            check_mpmd(cfg, self.env)
+        elif self.pipelined:
+            check_schedule(cfg.model, local_batch_size(
+                cfg.data.global_batch_size, self.env)
+                // cfg.trainer.grad_accum)
+        self.model = self._create_model()
         self.tx, self.schedule = make_optimizer(cfg.optimizer, cfg.trainer,
                                                 cfg.model)
         self.loss_fn = make_loss_fn(self.model, cfg.data.name)
+        self._mpmd = None
         self.layout = self._build_layout()
         if self.overlap_schedule is not None:
             self._attach_schedule()
@@ -264,10 +320,28 @@ class Trainer:
 
     # ---------------------------------------------------------------- setup
 
-    def _build_layout(self) -> StateLayout:
-        """The state's specs over the mesh (``parallel/layout.py``)."""
+    def _create_model(self):
+        """The model this rank runs: the whole model, or under ``pipe``
+        ranks its own stage (``GptStage``; under MPMD the embedding on
+        stage 0 only and ``ln_f`` on the last stage only)."""
         cfg = self.cfg
-        shapes = {k: tuple(p.shape) for k, p in self.model.named_parameters()}
+        if self.pipelined and self.env.axis_size("pipe") > 1:
+            j, s = self.env.axis_index("pipe"), cfg.model.pipeline_stages
+            return GptStage(cfg.model, self.policy, j,
+                            embed=not self.mpmd or j == 0,
+                            final=not self.mpmd or j == s - 1,
+                            device=self.device)
+        return create_model(cfg.model, self.policy, device=self.device,
+                            **self._model_kw)
+
+    def _build_layout(self) -> StateLayout:
+        """The state's specs over the mesh (``parallel/layout.py``), of
+        the whole model's parameters (a pipe rank keeps its stage's)."""
+        cfg = self.cfg
+        model = (create_model(cfg.model, self.policy, device="meta",
+                              **self._model_kw) if self.pipelined
+                 else self.model)
+        shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
         whole = ()
         if cfg.model.family == "gpt":
             from frl_distributed_ml_scaffold_tpu_torch.models.gpt import (
@@ -297,14 +371,32 @@ class Trainer:
 
     def _compile_steps(self) -> None:
         cfg, t = self.cfg, self.cfg.trainer
+        grad_fn = None  # a pipeline's own forward and backward
+        if self.mpmd:  # the head dense per microbatch, as the reference's
+            self._mpmd = grad_fn = MpmdPipelineRunner(
+                cfg, self.env, self.policy, self.model, self.layout,
+                self.device, lm_head_loss(self.policy, 0))
+            self.eval_step = grad_fn.eval_fn
+        elif self.pipelined:
+            head_loss = lm_head_loss(self.policy, cfg.model.lm_loss_chunk)
+            grad_fn = make_pipeline_grad_fn(
+                self.model, self.policy, head_loss=head_loss,
+                grad_accum=t.grad_accum, remat=t.remat, seed=t.seed,
+                layout=self.layout, device=self.device)
+            self.eval_step = make_pipeline_eval_fn(
+                self.model, self.policy, head_loss=head_loss,
+                layout=self.layout, device=self.device)
+        else:
+            self.eval_step = make_eval_step(self.loss_fn, self.policy,
+                                            seed=t.seed, layout=self.layout,
+                                            device=self.device)
+        self.grad_fn = grad_fn
         self.train_step = make_train_step(
             self.loss_fn, self.tx, self.policy, seed=t.seed,
             grad_accum=t.grad_accum, remat=t.remat, ema_decay=t.ema_decay,
             offload_opt_state=t.offload_opt_state, mesh=cfg.mesh,
-            parallel=cfg.parallel, layout=self.layout, device=self.device)
-        self.eval_step = make_eval_step(self.loss_fn, self.policy,
-                                        seed=t.seed, layout=self.layout,
-                                        device=self.device)
+            parallel=cfg.parallel, layout=self.layout, device=self.device,
+            grad_fn=grad_fn, model_cfg=cfg.model)
 
     def _state_template(self) -> TrainState:
         """The whole state's tree on the meta device: names, shapes,
@@ -351,7 +443,8 @@ class Trainer:
             del params  # the seeded params are not kept beside the file's
             params = self._load_init_params(cfg.trainer.init_params_path)
         lay = self.layout
-        params = {k: lay.shard(k, p, lay.param[k]) for k, p in params.items()}
+        params = {k: lay.shard(k, p, lay.param[k]) for k, p in params.items()
+                  if k in lay.shapes}
         offload = cfg.trainer.offload_opt_state
         state = TrainState.create(
             params, self.tx, extras, with_ema=cfg.trainer.ema_decay > 0.0,
@@ -363,6 +456,11 @@ class Trainer:
         self.logger.info("initialized %s: %.2fM params over mesh %s on %s",
                          cfg.name, self._param_count() / 1e6,
                          self.env.shape, self.device)
+        summary = pipeline_summary(cfg.model)
+        if summary:
+            # The fill/drain cost: the number to watch when tuning
+            # pipeline_microbatches.
+            self.logger.info("%s", summary)
         return state
 
     def _jax_tree(self, params: dict, extras: dict) -> dict:
@@ -370,6 +468,9 @@ class Trainer:
         (``models/convert.py``'s inverse converters)."""
         m = self.cfg.model
         if m.family == "gpt":
+            if self.mpmd:
+                # The MPMD backend reads the plain (stages=1) tree.
+                m = dataclasses.replace(m, pipeline_stages=1)
             return convert.params_to_jax(params, m)
         if m.family == "resnet":
             return convert.resnet_params_to_jax(params, extras, m)[0]
@@ -425,7 +526,8 @@ class Trainer:
         return params
 
     def _param_count(self) -> int:
-        return sum(math.prod(s) for s in self.layout.shapes.values())
+        shapes = self.layout.whole_shapes or self.layout.shapes
+        return sum(math.prod(s) for s in shapes.values())
 
     def step_cost_analysis(self, state: TrainState, batch) -> dict | None:
         """Model FLOPs of ONE train step (``utils/flops.py``), with the
@@ -538,6 +640,11 @@ class Trainer:
             # Beats flow once steps do: the first deadline absorbs the
             # first step's set-up.
             first_beat_scale=cfg.trainer.stall_timeout_first_beat_scale)
+        if self._mpmd is not None:
+            # The 1F1B loop's stage spans, idle gauges, transfer
+            # counter and watchdog beats, into this fit's telemetry.
+            self._mpmd.attach_telemetry(registry=telem, tracer=tracer,
+                                        trace=train_trace, watchdog=watchdog)
         peak = peak_flops_per_chip(self.device)
         flops_per_step: dict | None | bool = None  # False once probing failed
         window_wait = 0.0

@@ -46,6 +46,48 @@ def _chunk_ce(feats, emb, targets):
                            targets.reshape(-1).long(), reduction="sum")
 
 
+def _chunked_ce(feats, emb, targets, chunk: int):
+    """Mean next-token CE chunk by chunk over the sequence, each chunk
+    under ``torch.utils.checkpoint`` (only ``[B, chunk, vocab]`` logits
+    exist, recomputed in the backward)."""
+    b, t, _ = feats.shape
+    total = torch.zeros((), dtype=torch.float32, device=feats.device)
+    for i in range(t // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        total = total + checkpoint(_chunk_ce, feats[:, sl], emb,
+                                   targets[:, sl], use_reentrant=False)
+    return total / (b * t)
+
+
+def lm_head_ce(feats, emb, targets, policy, chunk: int = 0):
+    """Mean next-token CE of ``ln_f`` output ``feats`` ([B, T, D], fp32)
+    through the weight-tied head ``emb`` ([vocab, D]): the compute-dtype
+    product, fp32 softmax-CE after it, chunk by chunk over T under
+    ``torch.utils.checkpoint`` when ``chunk`` divides T (as
+    ``make_lm_loss``). The pipelines' last stage runs it (``lm_head_loss``)
+    on each microbatch as the microbatch emerges, so at most one
+    microbatch's logits exist (``parallel/pipeline.py``,
+    ``parallel/mpmd_pipeline.py``: the mean of the microbatch means is the
+    batch's mean)."""
+    cd = policy.compute_dtype
+    feats, emb = feats.to(cd), emb.to(cd)
+    if chunk > 0 and feats.shape[1] % chunk == 0:
+        return _chunked_ce(feats, emb, targets, chunk)
+    logits = (feats @ emb.T).float()
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           targets.reshape(-1).long())
+
+
+def lm_head_loss(policy, chunk: int = 0):
+    """``lm_head_ce`` under ``policy`` and ``chunk`` as the pipelines'
+    ``head_loss(feats, emb, targets)``."""
+
+    def head_loss(feats, emb, targets):
+        return lm_head_ce(feats, emb, targets, policy, chunk)
+
+    return head_loss
+
+
 def make_lm_loss(model):
     """Next-token CE over ``batch["tokens"]`` ([B, L+1] int), plus the MoE
     model's auxiliary loss (``metrics["aux_loss"]``) when it returns one.
@@ -64,16 +106,6 @@ def make_lm_loss(model):
     chunk = int(getattr(getattr(model, "config", None), "lm_loss_chunk", 0)
                 or 0)
     warned = []
-
-    def chunked_ce(feats, emb, targets):
-        b, t, _ = feats.shape
-        n = t // chunk
-        total = torch.zeros((), dtype=torch.float32, device=feats.device)
-        for i in range(n):
-            sl = slice(i * chunk, (i + 1) * chunk)
-            total = total + checkpoint(_chunk_ce, feats[:, sl], emb,
-                                       targets[:, sl], use_reentrant=False)
-        return total / (b * t)
 
     def loss_fn(params, extras, batch, rng, train):
         tokens = batch["tokens"]
@@ -102,7 +134,7 @@ def make_lm_loss(model):
             out, aux = out
         if use_chunks:
             emb = params["wte.weight"].to(out.dtype)
-            ce = chunked_ce(out, emb, targets)
+            ce = _chunked_ce(out, emb, targets, chunk)
         else:
             ce = F.cross_entropy(out.float().reshape(-1, out.shape[-1]),
                                  targets.reshape(-1).long())

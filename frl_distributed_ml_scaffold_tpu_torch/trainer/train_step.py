@@ -75,21 +75,28 @@ A mesh of more than one device needs a ``layout``. ``grad_shardings``
 raises: the accumulator's spec is the layout's. The fused AdamW
 (``optimizer.name=fused_adamw``) is refused under sharded state, or a
 model, expert or pipe axis above 1, with the JAX trainer's message, as
-the JAX trainer refuses it when it builds its step. A ``pipe`` axis
-above 1 (pipeline parallelism, with or without ``seq``) raises, naming
-ROADMAP A12.
+the JAX trainer refuses it when it builds its step.
+
+A pipelined model (``pipeline_stages > 1``) brings its own forward and
+backward (``grad_fn``: the GPipe / circular timeline of
+``parallel/pipeline.py`` or the 1F1B loop of
+``parallel/mpmd_pipeline.py``), with the same contract as
+``make_grad_fn``'s; the update, the norm and the EMA are this module's.
+Over ``pipe`` ranks each rank updates its own stage's parameters, and
+the global norm is the layout's (``StateLayout.global_sq_norm``), so the
+one clip factor is the same on every stage. ``pipe`` other than 1 or
+the stage count, and ``fsdp``, ``model``, ``seq`` or ``expert`` inside a
+pipeline, raise, naming ROADMAP A12.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any, Callable
 
-import numpy as np
 import torch
-import torch.distributed as dist
 from torch.utils.checkpoint import (
-    CheckpointPolicy,
     checkpoint,
     create_selective_checkpoint_contexts,
 )
@@ -100,13 +107,20 @@ from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
     ParallelConfig,
 )
 from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import (
-    LOSS_AXES,
     mesh_context,
     resolve_axis_sizes,
 )
 from frl_distributed_ml_scaffold_tpu_torch.models.dropout import mix_seed
 from frl_distributed_ml_scaffold_tpu_torch.ops.fused_adamw import FusedAdamW
 from frl_distributed_ml_scaffold_tpu_torch.parallel.layout import StateLayout
+from frl_distributed_ml_scaffold_tpu_torch.parallel.pipeline import (
+    check_pipeline,
+)
+from frl_distributed_ml_scaffold_tpu_torch.parallel.step_utils import (
+    batch_mean as _batch_mean,
+    save_dots as _save_dots,
+    to_device as _to_device,
+)
 from frl_distributed_ml_scaffold_tpu_torch.precision import Policy
 from frl_distributed_ml_scaffold_tpu_torch.trainer.optimizers import (
     Adafactor,
@@ -115,21 +129,6 @@ from frl_distributed_ml_scaffold_tpu_torch.trainer.optimizers import (
 from frl_distributed_ml_scaffold_tpu_torch.trainer.train_state import TrainState
 
 LossFn = Callable[..., tuple[torch.Tensor, tuple[dict, Any]]]
-
-# The matrix products whose outputs ``remat="dots"`` saves.
-_DOTS = frozenset({
-    torch.ops.aten.mm.default,
-    torch.ops.aten.addmm.default,
-    torch.ops.aten.bmm.default,
-    torch.ops.aten.baddbmm.default,
-})
-
-
-def _save_dots(ctx, op, *args, **kwargs):
-    if op in _DOTS:
-        return CheckpointPolicy.MUST_SAVE
-    return CheckpointPolicy.PREFER_RECOMPUTE
-
 
 def _remat_wrap(loss_fn: LossFn, remat: str) -> LossFn:
     if remat == "none":
@@ -149,17 +148,16 @@ def _remat_wrap(loss_fn: LossFn, remat: str) -> LossFn:
     return wrapped
 
 
-def check_mesh(mesh: MeshConfig | None, layout: StateLayout | None) -> None:
-    """Refuse the axis the step does not port (``pipe`` above 1) and a
+def check_mesh(mesh: MeshConfig | None, layout: StateLayout | None,
+               model_cfg: Any = None,
+               parallel: ParallelConfig | None = None) -> None:
+    """Refuse what the step does not run over ``pipe`` (``parallel/
+    pipeline.py`` ``check_pipeline``: pipe ranks only with a pipelined
+    ``model_cfg``, one stage a rank, beside the batch axes alone) and a
     mesh of more than one device without a layout."""
     if mesh is None:
         return
-    sizes = mesh.axis_sizes()
-    if sizes["pipe"] > 1:
-        raise NotImplementedError(
-            f"mesh.pipe={sizes['pipe']}: pipeline parallelism (and "
-            "sequence parallelism inside a pipeline) is not ported yet "
-            "(ROADMAP A12)")
+    check_pipeline(model_cfg, mesh, parallel)
     n = 1 if layout is None else layout.env.num_devices
     resolve_axis_sizes(mesh, n)  # raises when the mesh needs more devices
 
@@ -181,28 +179,6 @@ def _check_fused_optimizer(tx, parallel: ParallelConfig | None,
             "opt_sharding=like_params) on a mesh with model=1, "
             "expert=1 and pipe=1; use adamw for sharded-state configs"
         )
-
-
-def _to_device(batch: dict, dev: torch.device) -> dict:
-    return {
-        k: (torch.from_numpy(np.ascontiguousarray(v)) if isinstance(
-            v, np.ndarray) else v).to(dev, non_blocking=True)
-        for k, v in batch.items()
-    }
-
-
-def _batch_mean(values: list[torch.Tensor], layout: StateLayout | None,
-                scale: float) -> list[torch.Tensor]:
-    """Each of ``values`` (0-d fp32 local sums) times ``scale``, summed
-    over the batch axes and ``seq`` in one all-reduce and divided by
-    their size."""
-    group = None if layout is None else layout.env.group(LOSS_AXES)
-    if group is None:
-        return [v * scale for v in values]
-    packed = torch.stack(values)
-    dist.all_reduce(packed, group=group)
-    packed *= scale / layout.env.loss_axis_size
-    return list(packed.unbind())
 
 
 OFFLOAD_REFUSAL = (
@@ -359,6 +335,8 @@ def make_train_step(
     parallel: ParallelConfig | None = None,
     layout: StateLayout | None = None,
     device=None,
+    grad_fn: Callable | None = None,
+    model_cfg: Any = None,
 ) -> Callable[[TrainState, Any], tuple[TrainState, dict]]:
     """The step function ``step(state, batch) -> (state, metrics)``,
     which updates ``state`` in place and returns it. ``batch`` is a dict
@@ -368,7 +346,11 @@ def make_train_step(
     (``make_grad_fn``). ``metrics`` are 0-d fp32 tensors on the device:
     the averaged loss and task metrics, and ``grad_norm`` before the
     clip. ``parallel`` and ``mesh`` are the run's sections, ``layout``
-    the state's specs over the run's mesh (module docstring)."""
+    the state's specs over the run's mesh (module docstring). A pipelined
+    ``model_cfg`` brings its own ``grad_fn`` (``parallel/pipeline.py``,
+    ``parallel/mpmd_pipeline.py``): the norm then sums each stage's
+    squares over ``pipe``, counting the leaves every stage holds once,
+    and one clip factor serves every stage."""
     _check_fused_optimizer(tx, parallel, mesh)
     if offload_opt_state:
         check_offload(resolve_device(device))
@@ -378,12 +360,14 @@ def make_train_step(
             "specs (the params' under parallel.param_sharding=fsdp); pass "
             "layout="
         )
-    check_mesh(mesh, layout)
+    check_mesh(mesh, layout, model_cfg, parallel)
     if isinstance(tx, Adafactor) and layout is not None:
         tx.layout = None if layout.trivial else layout
-    grad_fn = make_grad_fn(loss_fn, policy, grad_accum=grad_accum,
-                           remat=remat, seed=seed, layout=layout,
-                           device=device)
+    if grad_fn is None:
+        grad_fn = make_grad_fn(loss_fn, policy, grad_accum=grad_accum,
+                               remat=remat, seed=seed, layout=layout,
+                               device=device)
+    update_span = getattr(grad_fn, "update_span", None)
     env = None if layout is None else layout.env
     regather = ([] if layout is None else
                 [k for k in layout.shapes if layout.opt[k] != layout.param[k]])
@@ -398,11 +382,13 @@ def make_train_step(
             norm = layout.global_sq_norm(grads, layout.opt).sqrt()
             params = {k: layout.narrow(k, p, layout.param[k], layout.opt[k])
                       for k, p in state.params.items()}
-        if offload_opt_state:
-            _offloaded_update(tx, grads, state.opt_state, params, norm,
-                              norm.device)
-        else:
-            tx.update(grads, state.opt_state, params, norm=norm)
+        with (update_span(state.step) if update_span is not None
+              else contextlib.nullcontext()):
+            if offload_opt_state:
+                _offloaded_update(tx, grads, state.opt_state, params, norm,
+                                  norm.device)
+            else:
+                tx.update(grads, state.opt_state, params, norm=norm)
         for k in regather:
             layout.gather(k, params[k], layout.opt[k], layout.param[k],
                           out=state.params[k])

@@ -157,7 +157,13 @@ def train(config: str, overrides: list, steps: int, *,
                       {"gathers": hooks.gathers, "regathers": hooks.regathers,
                        "names": sorted(hooks.gathered_names()),
                        "events": hooks.events})
+    runner = getattr(trainer, "_mpmd", None)
+    if runner is not None:  # the 1F1B loop's counters of the last step
+        out["pipeline"] = {"peak_live": runner.last_peak_live,
+                           "boundary_bytes": runner.last_boundary_bytes,
+                           "idle_s": runner.last_stage_idle_s}
     out["params"] = _numpy(lay.whole_params(state.params))
+    out["local_names"] = sorted(state.params)
     out["extras"] = _numpy(state.extras)
     if keep_local:
         out["local_params"] = _numpy(state.params)
@@ -472,7 +478,68 @@ def serve(model_cfg: dict, state: dict, mesh: dict, cases: list,
     return out
 
 
+def checkpoint(config: str, overrides: list, workdir: str,
+               steps: int) -> dict:
+    """``steps`` steps through ``Trainer.fit`` with a checkpoint at the
+    last one (``workdir``), then a new ``Trainer`` on the same mesh
+    restoring it: the whole params after the run and after the restore,
+    and this rank's own names in each."""
+    from frl_distributed_ml_scaffold_tpu_torch import config as tconfig
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.loop import Trainer
+
+    ov = overrides + [f"workdir={workdir}", "checkpoint.enabled=true",
+                      f"checkpoint.save_every={steps}",
+                      "checkpoint.async_save=false",
+                      f"trainer.total_steps={steps}", "trainer.log_every=1"]
+    cfg = tconfig.apply_overrides(tconfig.get_config(config), ov)
+    trainer = Trainer(cfg, device="cpu")
+    state, _ = trainer.fit()
+    out = {"fit": _numpy(trainer.layout.whole_params(state.params)),
+           "fit_local": sorted(state.params), "fit_step": int(state.step)}
+    again = Trainer(cfg, device="cpu")
+    restored = again.checkpointer.restore_or_init(again)
+    out["restored"] = _numpy(again.layout.whole_params(restored.params))
+    out["restored_local"] = sorted(restored.params)
+    out["restored_opt_local"] = sorted(restored.opt_state["mu"])
+    out["restored_step"] = int(restored.step)
+    return out
+
+
+def mpmd_telemetry(config: str, overrides: list) -> dict:
+    """One step of the MPMD 1F1B loop with telemetry attached (a registry, a
+    tracer and a counting watchdog): the span names, the beats and the
+    registry's snapshot on this rank, and its stage's op count."""
+    from frl_distributed_ml_scaffold_tpu_torch import config as tconfig
+    from frl_distributed_ml_scaffold_tpu_torch.telemetry import (
+        MetricsRegistry,
+        Tracer,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.loop import Trainer
+
+    cfg = tconfig.apply_overrides(tconfig.get_config(config), overrides)
+    trainer = Trainer(cfg, device="cpu")
+    state = trainer.init_state()
+
+    class Beats:
+        n = 0
+
+        def beat(self):
+            self.n += 1
+
+    reg, tracer, beats = MetricsRegistry(), Tracer(), Beats()
+    runner = trainer._mpmd
+    runner.attach_telemetry(registry=reg, tracer=tracer,
+                            trace=tracer.new_trace("t"), watchdog=beats)
+    trainer.train_step(state, trainer.pipeline.global_batch(0))
+    return {"spans": sorted({sp["name"] for sp in tracer.spans()}),
+            "beats": beats.n, "snapshot": reg.snapshot(),
+            "ops": runner.total_micro * (1 if runner.stage
+                                         == runner.num_stages - 1 else 2),
+            "coords": trainer.env.coords}
+
+
 JOBS = {"collectives": collectives, "train": train,
+        "checkpoint": checkpoint, "mpmd_telemetry": mpmd_telemetry,
         "dropout_rows": dropout_rows, "serve": serve,
         "saved_shapes": saved_shapes, "rings": rings,
         "seq_attention": seq_attention, "grads": grads,

@@ -45,7 +45,7 @@ VIT = TINY_VIT + ["data.global_batch_size=8"]
 # The one-rank step runs without the overlap schedule: a ring or a
 # blockwise gather over one rank is refused, as the reference refuses it.
 ONE_RANK = ["mesh.data=1", "mesh.fsdp=1", "mesh.model=1", "mesh.seq=1",
-            "mesh.expert=1",
+            "mesh.expert=1", "mesh.pipe=1",
             "parallel.tp_overlap=false", "parallel.fsdp_overlap=false",
             "parallel.low_precision=none"]
 
@@ -87,9 +87,14 @@ def _port_params(cfg, params, batch_stats=None) -> dict:
 def _global_batches(tcfg, steps: int = STEPS) -> tuple[list, int]:
     """The global batch of each step, built from the 4 ranks' draws
     (microbatch m of it = every rank's microbatch m, in batch-index
-    order), and the batch-axis size."""
+    order; a pipeline's microbatches are ``grad_accum`` times its M), and
+    the batch-axis size."""
+    from frl_distributed_ml_scaffold_tpu_torch.parallel.pipeline import (
+        effective_microbatches,
+    )
+
     ranks = rank_layout(tcfg.mesh, 4)
-    ga = tcfg.trainer.grad_accum
+    ga = tcfg.trainer.grad_accum * effective_microbatches(tcfg.model)
     pipes = {}
     for r in range(4):
         env = MeshEnv(config=tcfg.mesh, ranks=ranks, rank=r)

@@ -153,17 +153,44 @@ def test_writes_past_capacity_are_dropped_not_clipped(width):
     [
         {"attention": "ulysses", "pipeline_stages": 2},
         {"attention": "ring", "pipeline_stages": 2},
-        {"moe": tschema.MoEConfig(num_experts=4), "pipeline_stages": 2},
-        {"pipeline_stages": 2},
     ],
-    ids=["ulysses", "ring", "moe", "pipeline"],
+    ids=["ulysses", "ring"],
 )
 def test_unported_model_options_raise(override):
-    """Ring, Ulysses and MoE run (tests/test_torch_ring_attention.py,
-    test_torch_moe.py); inside a pipeline they stay refused with it."""
+    """Ring and Ulysses run (tests/test_torch_ring_attention.py); inside
+    a pipeline they stay refused."""
     cfg = dataclasses.replace(tschema.GPTConfig(**TINY), **override)
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         GPT(cfg, get_policy("fp32"), device="cpu")
+
+
+@pytest.mark.parametrize(
+    "override",
+    [
+        {"moe": tschema.MoEConfig(num_experts=4), "pipeline_stages": 2},
+        {"pipeline_stages": 2},
+    ],
+    ids=["moe", "pipeline"],
+)
+def test_pipeline_model_options_build_and_run(params, override):
+    """A pipeline (and MoE inside one) builds and runs: the pipelined
+    model on the plain model's weights gives the plain model's logits,
+    and the MoE one its aux (tests/test_torch_pp_model.py holds both
+    against the JAX pipelined GPT)."""
+    cfg = dataclasses.replace(tschema.GPTConfig(**TINY), **override)
+    model = GPT(cfg, get_policy("fp32"), device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, TINY["vocab_size"], (4, 16)).astype(np.int64))
+    if "moe" in override:
+        logits, aux = model(tokens)
+        assert torch.isfinite(logits).all() and float(aux.detach()) > 0
+        return
+    model.load_state_dict(params_from_jax(params, cfg))
+    plain = GPT(tschema.GPTConfig(**TINY), get_policy("fp32"), device="cpu")
+    plain.load_state_dict(params_from_jax(params, plain.config))
+    with torch.no_grad():
+        torch.testing.assert_close(model(tokens), plain(tokens), rtol=1e-5,
+                                   atol=1e-5)
 
 
 def test_params_from_jax_fills_every_parameter(params):

@@ -80,6 +80,8 @@ def test_scans_cover_every_port_module():
     "dist/initialize.py", "dist/mesh.py", "dist/collectives.py",
     "parallel/partition.py", "parallel/layout.py",
     "parallel/tensor_parallel.py", "models/moe.py", "ops/ulysses.py",
+    "parallel/pipeline.py", "parallel/mpmd_pipeline.py",
+    "parallel/step_utils.py",
 ], ids=lambda r: r.replace("/", "."))
 def test_scans_cover_the_training_modules(rel):
     """The training slice's modules are among those both scans walk."""

@@ -4,7 +4,9 @@
 made from a numpy seed, in int8, fp8_e4m3 and fp8_e5m2:
 
 - ``quantize`` with ``channel_axes`` None, an int and a tuple: payload
-  bytes and scales bit-equal;
+  bytes and scales bit-equal to the JAX function compiled, as the JAX
+  package runs it (``jq_quantize``); the scale is the compiled one on
+  every draw, where eager JAX's differs in the last bit on some;
 - ``qdot`` of those payloads: int8 bit-equal (exact integer products,
   the same fp32 scaling), fp8 within 1e-6 relative (fp32 products
   summed in another order);
@@ -30,6 +32,10 @@ import torch
 from frl_distributed_ml_scaffold_tpu_torch.ops import quantization as tq
 
 jq = importlib.import_module("frl_distributed_ml_scaffold_tpu.ops.quantization")
+# The JAX package's ``quantize`` as it runs there: compiled, where XLA
+# takes ``max|x| / qmax`` as a product with qmax's fp32 reciprocal (eager
+# JAX divides; ROADMAP C.15).
+jq_quantize = jax.jit(jq.quantize, static_argnums=(1, 2))
 
 FORMATS = ["int8", "fp8_e4m3", "fp8_e5m2"]
 AXES = [None, 1, -1, (0, 2)]
@@ -68,11 +74,31 @@ def test_quantize_axes_bit_identical_to_jax(fmt, axes):
     x = _x((3, 5, 8), 1)
     x[1] = 0.0  # an all-zero slice: scale 1
     tqv, ts = tq.quantize(torch.from_numpy(x), fmt, channel_axes=axes)
-    jqv, js = jq.quantize(jnp.asarray(x), fmt, channel_axes=axes)
+    jqv, js = jq_quantize(jnp.asarray(x), fmt, axes)
     assert tuple(ts.shape) == js.shape and tuple(tqv.shape) == jqv.shape
     np.testing.assert_array_equal(_bits(tqv), _bits(jqv))
     np.testing.assert_array_equal(ts.numpy().view(np.uint32),
                                   np.asarray(js).view(np.uint32))
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_scale_is_the_compiled_references(fmt):
+    """Per-tensor scales of 400 draws over a wide range: the port's equal
+    the compiled JAX ``quantize``'s bit for bit; eager JAX's (a true
+    division) differ from them in the last bit on some draws, which is
+    what held the port to the compiled form."""
+    rng = np.random.default_rng(7)
+    eager_apart = 0
+    for _ in range(400):
+        x = (rng.standard_normal((3, 5)) * np.exp(rng.uniform(-8, 8))
+             ).astype(np.float32)
+        _, ts = tq.quantize(torch.from_numpy(x), fmt)
+        _, js = jq_quantize(jnp.asarray(x), fmt, None)
+        _, es = jq.quantize(jnp.asarray(x), fmt)
+        np.testing.assert_array_equal(ts.numpy().view(np.uint32),
+                                      np.asarray(js).view(np.uint32))
+        eager_apart += bool((np.asarray(es) != np.asarray(js)).any())
+    assert eager_apart > 0
 
 
 def _operands(fmt, seed=3):
@@ -80,8 +106,8 @@ def _operands(fmt, seed=3):
     w = _x((24, 16), seed + 1)
     return (tq.quantize(torch.from_numpy(x), fmt),
             tq.quantize(torch.from_numpy(w), fmt, channel_axes=1),
-            jq.quantize(jnp.asarray(x), fmt),
-            jq.quantize(jnp.asarray(w), fmt, channel_axes=(1,)))
+            jq_quantize(jnp.asarray(x), fmt, None),
+            jq_quantize(jnp.asarray(w), fmt, (1,)))
 
 
 @pytest.mark.parametrize("fmt", FORMATS)

@@ -17,7 +17,8 @@ moe.py``) and the MoE GPT against the JAX package's, on the CPU in fp32:
 - the refusals: an unknown dispatch and a ``num_groups`` that does not
   divide the training batch (the JAX messages), a group across ranks,
   MoE under ``mesh.model > 1`` (in the partition rules and in a decode
-  cache split over the batch axes) and pipelines (ROADMAP A12).
+  cache split over the batch axes, ROADMAP A12); MoE inside a pipeline
+  builds and runs.
 """
 
 from __future__ import annotations
@@ -279,9 +280,15 @@ def test_moe_refusals():
     env = MeshEnv(config=mesh, ranks=rank_layout(mesh, 4), rank=0)
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         model_partition_rules(tcfg, env)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        GPT(dataclasses.replace(tcfg, pipeline_stages=2), get_policy("fp32"),
-            device="cpu")
+    # MoE inside a pipeline builds and runs (its aux averaged over the
+    # microbatches, tests/test_torch_pp_model.py holds it against JAX).
+    pp = GPT(dataclasses.replace(tcfg, moe=dataclasses.replace(
+        tcfg.moe, num_groups=0), pipeline_stages=2, num_layers=2),
+        get_policy("fp32"), device="cpu")
+    with torch.no_grad():
+        logits, aux = pp(torch.zeros((2, 8), dtype=torch.long))
+    assert logits.shape == (2, 8, tcfg.vocab_size)
+    assert torch.isfinite(logits).all() and float(aux) > 0
     # Heads split over model would split the decode cache's rows over
     # data: refused before any rank decodes its rows.
     model = GPT(tcfg, get_policy("fp32"), device="cpu")

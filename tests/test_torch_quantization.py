@@ -1,5 +1,6 @@
 """The port's quantization primitives (frl_distributed_ml_scaffold_tpu_torch/
-ops/quantization.py) held to the JAX package's bit for bit: the same
+ops/quantization.py) held to the JAX package's, compiled as it runs
+there (``jq_quantize``), bit for bit: the same
 inputs, made from a numpy seed, give the same payload bytes and the same
 scales in int8, fp8_e4m3 and fp8_e5m2, from fp32 and from bf16, with
 all-zero head vectors among them (scale 1). A quantized cache written by
@@ -12,6 +13,7 @@ import _torch_threads  # noqa: F401  (before any torch op)
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +22,10 @@ import torch
 from frl_distributed_ml_scaffold_tpu_torch.ops import quantization as tq
 
 jq = importlib.import_module("frl_distributed_ml_scaffold_tpu.ops.quantization")
+# The JAX package's ``quantize`` as it runs there: compiled, where XLA
+# takes ``max|x| / qmax`` as a product with qmax's fp32 reciprocal (eager
+# JAX divides; ROADMAP C.15).
+jq_quantize = jax.jit(jq.quantize, static_argnums=(1, 2))
 
 FORMATS = ["int8", "fp8_e4m3", "fp8_e5m2"]
 
@@ -59,8 +65,8 @@ def test_quantize_is_bit_identical_to_jax(fmt, dtype, stacked):
     assert tqv.dtype == tq.lowp_dtype(fmt) and ts.dtype == torch.float32
     assert tuple(ts.shape) == xs.shape[:-1] + (1,)
     for i, xi in enumerate(xs):
-        jqv, js = jq.quantize(jnp.asarray(xi, getattr(jnp, dtype)), fmt,
-                              channel_axes=(0, 1, 2))
+        jqv, js = jq_quantize(jnp.asarray(xi, getattr(jnp, dtype)), fmt,
+                              (0, 1, 2))
         np.testing.assert_array_equal(_bytes(tqv[i]), _bytes(jqv))
         np.testing.assert_array_equal(ts[i].numpy(), np.asarray(js))
         # The stored form: scales cast to bf16, as the cache keeps them.
@@ -80,7 +86,7 @@ def test_quantize_is_bit_identical_to_jax(fmt, dtype, stacked):
 @pytest.mark.parametrize("fmt", FORMATS)
 def test_dequantize_matches_jax_and_round_trips(fmt):
     x = _x(1)
-    jqv, js = jq.quantize(jnp.asarray(x), fmt, channel_axes=(0, 1, 2))
+    jqv, js = jq_quantize(jnp.asarray(x), fmt, (0, 1, 2))
     tqv, ts = tq.quantize(torch.from_numpy(x), fmt, channel_axes=(0, 1, 2))
     for dt in ("float32", "bfloat16"):
         got = tq.dequantize(tqv, ts, getattr(torch, dt)).float().numpy()

@@ -278,7 +278,7 @@ def test_training_refusals():
     # A mesh of more than one device needs a layout over as many ranks
     # (the Trainer builds it), seq and expert meshes too
     # (tests/test_torch_sequence_parallel.py, test_torch_expert_parallel.py
-    # run them); pipe stays with A12.
+    # run them).
     for mesh in (tschema.MeshConfig(data=2),
                  tschema.MeshConfig(data=1, fsdp=4),
                  tschema.MeshConfig(data=1, seq=2),
@@ -286,9 +286,21 @@ def test_training_refusals():
         with pytest.raises(ValueError, match="needs [24] devices"):
             make_train_step(loss, tx, get_policy("fp32"), device="cpu",
                             mesh=mesh)
+    # pipe ranks take a pipelined model, one stage a rank, beside the
+    # batch axes only (tests/test_torch_pp_ranks.py runs them); without
+    # one, or beside model / seq / expert / fsdp, they stay with A12.
+    pp = tschema.GPTConfig(pipeline_stages=2)
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         make_train_step(loss, tx, get_policy("fp32"), device="cpu",
                         mesh=tschema.MeshConfig(pipe=2))
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        make_train_step(loss, tx, get_policy("fp32"), device="cpu",
+                        mesh=tschema.MeshConfig(data=1, pipe=2, model=2),
+                        model_cfg=pp)
+    with pytest.raises(ValueError, match="needs 2 devices"):
+        make_train_step(loss, tx, get_policy("fp32"), device="cpu",
+                        mesh=tschema.MeshConfig(data=1, pipe=2),
+                        model_cfg=pp)
     # The recipe's own mesh (data=1, fsdp=-1) is one card.
     make_train_step(loss, tx, get_policy("fp32"), device="cpu",
                     mesh=tschema.MeshConfig(data=1, fsdp=-1))
