@@ -322,7 +322,7 @@ no final line):
    (``--overlap-rank``, gloo) train ``gpt2_medium_tp_overlap``, its
    ``_int8`` twin (``model=2``, 8 heads a rank) and
    ``gpt2_medium_fsdp_overlap`` (``fsdp=2``) through the ``Trainer``
-   with ``model.attention=flash`` at full width, 6 of the 24 layers,
+   with ``model.attention=flash`` at full width, 4 of the 24 layers,
    bf16_mixed, seeded weights, 8 x 1024 tokens in 2 microbatches (the
    FSDP run in one): a warm-up and two timed steps each, the warm-up
    against the
@@ -334,9 +334,9 @@ no final line):
    gathers, seconds and peak memory (gloo: no measure of overlap). The
    ranks' log goes to ``OUT_DIR/overlap_ranks.log``.
 36b. moe_path, ep_path, sp_path (after overlap_path): ``gpt2_moe`` at
-   full width and depth on one card (``moe_phase``), then over
+   full width, 6 of its 12 layers, on one card (``moe_phase``), then over
    ``expert=2`` at 6 of its 12 layers (``ep_phase``), and ``gpt2_ring``
-   at 12 of its 24 layers, T 8192, over
+   at 4 of its 24 layers, T 8192, over
    ``seq=2``, ring then Ulysses (``sp_phase``): two processes each
    (``--a12-rank``, gloo), against the one-rank step (loss and
    grad_norm; ``expert=2`` also in fp32 at 2 layers). Each rank then
@@ -345,9 +345,10 @@ no final line):
    beside a control that a broken sum or ring would read; the ranks'
    logs go to ``OUT_DIR/{ep,sp}_ranks.log``.
 36c. pp_path (after sp_path): ``gpt2_pp``, ``gpt2_pp_circular`` and
-   ``gpt2_pipeline_mpmd`` as published (24 layers, D 1024, 16 heads,
-   vocab 50257, T 1024, bf16_mixed, batch 64 in 8 microbatches, dots
-   remat) with ``model.attention=flash`` over ``pipe=4``: four processes
+   ``gpt2_pipeline_mpmd`` as published but for depth (8 of the 24
+   layers, D 1024, 16 heads, vocab 50257, T 1024, bf16_mixed, batch 64
+   in 8 microbatches, dots remat) with ``model.attention=flash`` over
+   ``pipe=4``: four processes
    of this script on the card (``--a12-rank``, ``--a12-phase pp``, gloo),
    one stage each, three steps each, held to the one-process run of the
    same params and batches (``PP_REFERENCE``; ``PP_RTOL`` on every
@@ -360,6 +361,33 @@ no final line):
    0 decodes the gathered ``gpt2_pp`` params through B4 (24 a decode
    step) to the plain model's tokens. The ranks' log goes to
    ``OUT_DIR/pp_ranks.log``.
+36d. elastic_path (after rn50_shards_path): ``imagenet_rn50_ddp`` at
+   rn50_shards_path's point (s2d stem, mask pool, fused BatchNorm,
+   batch 512, full width and depth) through ``launch.main([... "--elastic"
+   ...])``: the supervisor runs in this process, its children
+   (``launch`` without ``--elastic``) as subprocesses on the card. The
+   data is a fresh directory of hard links to pairs 0-1 of the shards
+   phase, ``data.streaming=true`` refreshed every 2 steps; pairs 2-3 are
+   sealed into it (``os.replace``) once the first child's
+   ``metrics.jsonl`` shows step 2. ``FRL_FAULT_AT_STEP=7`` kills the
+   first child after step 7 (``FRL_STEP_DELAY_S=0.5`` a step);
+   checkpoints every 2 steps; the restarted child resumes from step 6 to
+   10. Gates: exit 0, the supervisor's trace ``child_run`` rcs [43, 0]
+   and one ``restart_wait``, ``elastic_restarts_total 1``, steps [2, 4,
+   6, 8, 10] once each with finite losses, the first child's view
+   widened from 2 to 4 pairs (1024 -> 2048 images) at step 4 or 6, the
+   restarted child's view 4 pairs from its start, and 53 B10 and 53 B11
+   kernels in the restarted child's profiled step (its
+   ``torch.profiler`` trace: this process's counters do not see a
+   child's launches). The children's log goes to
+   ``OUT_DIR/elastic_path.log``.
+36e. sanitize_check (beside elastic_path): ``sanitize("nans")`` traps
+   ``0 / 0`` on the card naming ``aten.div.Tensor``; a NaN row of ``q``
+   through B1 is trapped at ``aten.mul.Tensor``, the first operator
+   reading the kernel's output (the launch itself goes through ctypes,
+   past the dispatcher); ``mnist_mlp`` through ``launch.main`` under
+   ``FRL_TPU_SANITIZE=nans,infs`` gives losses bit-equal to the run
+   without it.
 37. ``phase_seconds`` (the build, each phase above and the whole run),
    the ``kernels`` line (twelve kernels) and, last, ``{"ok": true,
    "device": ...}``.
@@ -4197,6 +4225,24 @@ STEM_TOL, POOL_TOL = 1e-5, 1e-6
 LM_TOKENS, LM_STEPS = 4 * 1024 * 1024, 3
 # Clip shards of video_shards_path: 64 uint8 clips of 8 x 224^2 x 3.
 VIDEO_CLIPS, VIDEO_SHARD_STEPS = 64, 6
+# elastic_path: the pairs in the directory at the start and sealed after
+# the first child logs step SEAL_AT_STEP; the fault step, the delay a
+# step, the steps, and the kernels of one profiled step (B10 / B11).
+ELASTIC_START_PAIRS, ELASTIC_SEALED_PAIRS, SEAL_AT_STEP = 2, 2, 2
+ELASTIC_FAULT_STEP, ELASTIC_STEP_DELAY_S, ELASTIC_STEPS = 7, 0.5, 10
+ELASTIC_OVERRIDES = [
+    "data.streaming=true", "data.streaming_refresh_every=2",
+    f"trainer.total_steps={ELASTIC_STEPS}", "trainer.log_every=2",
+    "trainer.eval_every=0", "trainer.profile_steps=1",
+    "trainer.profile_start_step=1", "checkpoint.save_every=2",
+    "checkpoint.async_save=false", "elastic.backoff_s=0.1"]
+ELASTIC_KERNELS = {"bn_bwd_sums": r"(^|[\s:])sums_kernel<",
+                   "bn_bwd_dx": r"(^|[\s:])dx_kernel<"}
+# sanitize_check: mnist_mlp through launch.main with and without the
+# variable.
+SANITIZE_MLP = ["--config=mnist_mlp", "--device=cuda",
+                "trainer.total_steps=20", "trainer.log_every=1",
+                "trainer.eval_every=0"]
 
 
 def proc_threads() -> int:
@@ -4536,6 +4582,280 @@ def rn50_shards_phase(shard_dir: str, work: str, card: str) -> dict:
               "steps_profiled_first": {k: list(v)
                                        for k, v in RN50_SHARD_RUNS.items()}}
     return report
+
+
+class _FdsTo:
+    """Send this process's stdout and stderr (file descriptors 1 and 2,
+    which child processes inherit) to ``path`` for the scope."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def __enter__(self):
+        sys.stdout.flush()
+        sys.stderr.flush()
+        self.saved = [os.dup(1), os.dup(2)]
+        fd = os.open(self.path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+        os.dup2(fd, 1)
+        os.dup2(fd, 2)
+        os.close(fd)
+        return self
+
+    def __exit__(self, *exc):
+        sys.stdout.flush()
+        sys.stderr.flush()
+        for fd, saved in zip((1, 2), self.saved):
+            os.dup2(saved, fd)
+            os.close(saved)
+
+
+_LOG_TIME = re.compile(r"^(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d{3}) ")
+
+
+def _log_lines(path: str) -> list:
+    """(epoch seconds, text) of each timestamped line of a port log."""
+    import datetime
+
+    out = []
+    with open(path, errors="replace") as f:
+        for line in f:
+            m = _LOG_TIME.match(line)
+            if m:
+                t = datetime.datetime.strptime(m.group(1),
+                                               "%Y-%m-%d %H:%M:%S,%f")
+                out.append((t.timestamp(), line.rstrip()))
+    return out
+
+
+def _first(lines: list, pattern: str, after: float = 0.0):
+    rx = re.compile(pattern)
+    return next(((t, line) for t, line in lines
+                 if t >= after and rx.search(line)), (None, None))
+
+
+def kernel_events(trace_path: str) -> dict:
+    """Kernels of a ``torch.profiler`` Chrome trace whose name matches
+    each ``ELASTIC_KERNELS`` pattern, and the whole window's kernels."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    out = {k: sum(bool(re.search(rx, n)) for n in names)
+           for k, rx in ELASTIC_KERNELS.items()}
+    out["kernels_in_window"] = len(names)
+    return out
+
+
+def elastic_phase(shard_dir: str, work: str, card: str) -> dict:
+    """elastic_path: a supervised, streaming ``imagenet_rn50_ddp`` run on
+    the card whose first child is killed after step 7 and resumed
+    (module docstring, 36d)."""
+    import threading
+
+    data, staging = os.path.join(work, "data"), os.path.join(work, "staging")
+    os.makedirs(data)
+    os.makedirs(staging)
+    pairs = ELASTIC_START_PAIRS + ELASTIC_SEALED_PAIRS
+    for i in range(pairs):
+        dst = data if i < ELASTIC_START_PAIRS else staging
+        for kind in ("images", "labels"):
+            name = f"train_{kind}_{i:03d}.npy"
+            os.link(os.path.join(shard_dir, name), os.path.join(dst, name))
+    run_dir = os.path.join(work, "imagenet_rn50_ddp")
+    metrics = os.path.join(run_dir, "metrics.jsonl")
+    seen, stop = {}, threading.Event()
+
+    def watch():
+        """Seal pairs 2-3 once step SEAL_AT_STEP is logged; note when
+        each record first shows."""
+        while not stop.wait(0.05):
+            try:
+                recs = read_jsonl(metrics)
+            except (OSError, ValueError):
+                continue
+            for r in recs:
+                seen.setdefault(r["step"], time.time())
+            if SEAL_AT_STEP in seen and "sealed" not in seen:
+                for i in range(ELASTIC_START_PAIRS, pairs):
+                    for kind in ("images", "labels"):  # labels commit
+                        name = f"train_{kind}_{i:03d}.npy"
+                        os.replace(os.path.join(staging, name),
+                                   os.path.join(data, name))
+                seen["sealed"] = time.time()
+
+    args = (["--config=imagenet_rn50_ddp", "--device=cuda", "--elastic"]
+            + RN50_SHARD_OVERRIDES + ELASTIC_OVERRIDES
+            + [f"data.data_dir={data}", f"workdir={work}"])
+    log = os.path.join(OUT_DIR, "elastic_path.log")
+    env = {"FRL_FAULT_AT_STEP": str(ELASTIC_FAULT_STEP),
+           "FRL_STEP_DELAY_S": str(ELASTIC_STEP_DELAY_S)}
+    os.environ.update(env)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the children's memory
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    t0 = time.time()
+    try:
+        with _FdsTo(log):
+            rc, _ = launch_main(args)
+    finally:
+        stop.set()
+        watcher.join()
+        for k in env:
+            os.environ.pop(k, None)
+    wall = time.time() - t0
+    check(rc == 0, f"elastic_path: the supervisor returned {rc} "
+          f"(log: {log})")
+    with open(os.path.join(run_dir, "supervisor_0_trace.json")) as f:
+        spans = [e for e in json.load(f)["traceEvents"] if e["ph"] == "X"]
+    runs = [e for e in spans if e["name"] == "child_run"]
+    rcs = [e["args"]["rc"] for e in runs]
+    waits = [e for e in spans if e["name"] == "restart_wait"]
+    check(rcs == [43, 0] and len(waits) == 1,
+          f"elastic_path: child rcs {rcs}, {len(waits)} restart waits")
+    prom = read_prom(os.path.join(run_dir, "supervisor_0.prom"))
+    check(prom.get("elastic_restarts_total") == 1.0,
+          f"elastic_path: supervisor series {prom}")
+    recs = read_jsonl(metrics)
+    steps = [r["step"] for r in recs]
+    check(steps == list(range(2, ELASTIC_STEPS + 1, 2)),
+          f"elastic_path: metrics.jsonl steps {steps}")
+    for r in recs:
+        check(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]),
+              f"elastic_path: non-finite record {r}")
+    lines = _log_lines(log)
+    t_fault, _ = _first(lines, r"fault injection: hard-exit\(43\) after "
+                        f"step {ELASTIC_FAULT_STEP}")
+    check(t_fault is not None, "elastic_path: no fault line in the log")
+    starts = [(t, line) for t, line in lines
+              if "streaming: train/images view starts at" in line]
+    widened = [(t, line) for t, line in lines
+               if "streaming: widened train/images view" in line]
+    images = ELASTIC_START_PAIRS * SHARD_SIZE
+    check(len(starts) == 2
+          and f"at {ELASTIC_START_PAIRS} shards ({images} items)"
+          in starts[0][1] and starts[0][0] < t_fault
+          and f"at {pairs} shards ({pairs * SHARD_SIZE} items)"
+          in starts[1][1] and starts[1][0] > t_fault,
+          f"elastic_path: views at the start {starts}")
+    m = re.search(r"view (\d+) -> (\d+) shards \((\d+) items\) at step "
+                  r"(\d+)", widened[0][1]) if len(widened) == 1 else None
+    widen = ([int(g) for g in m.groups()] if m else None)
+    check(widen is not None and widen[:3] == [
+        ELASTIC_START_PAIRS, pairs, pairs * SHARD_SIZE]
+          and widen[3] in (4, 6) and widened[0][0] < t_fault,
+          f"elastic_path: widenings {widened}")
+    # Both children traced their step 1 of the window; the file is the
+    # restarted child's (written after the fault).
+    trace_path = os.path.join(run_dir, "trace", "trace.json")
+    traced = [t for t, line in lines if "profiler: trace written" in line]
+    check(len(traced) == 2 and traced[1] > t_fault
+          and os.path.getmtime(trace_path) > t_fault,
+          f"elastic_path: profiler traces written at {traced}")
+    kernels = kernel_events(trace_path)
+    for name in ELASTIC_KERNELS:
+        check(kernels[name] == RN50_BNS,
+              f"elastic_path: {name} kernels {kernels[name]} in the "
+              f"restarted child's profiled step, want {RN50_BNS}")
+    launching = [t for t, line in lines
+                 if "launching imagenet_rn50_ddp on cuda" in line]
+    first_rec = {2: seen.get(2), 8: seen.get(8)}
+    restart_ready = _first(lines, r"restored checkpoint step 6", t_fault)[0]
+    by_step = {r["step"]: r for r in recs}
+    report = {
+        "card": card, "overrides": RN50_SHARD_OVERRIDES + ELASTIC_OVERRIDES,
+        "fault": env, "rc": rc, "wall_s": wall, "child_rcs": rcs,
+        "child_run_s": [e["dur"] / 1e6 for e in runs],
+        "restart_wait_s": waits[0]["dur"] / 1e6,
+        "supervisor_series": prom,
+        "steps": steps,
+        "records": [{k: r.get(k) for k in (
+            "step", "loss", "grad_norm", "data_wait_s", "compute_s",
+            "step_time_median_s")} for r in recs],
+        # Host clock between records (polled every 0.05 s), a step: the
+        # delay included; 4-6 also holds the loop's one FLOP-count pass.
+        "record_gap_s_a_step": {
+            f"{a}-{b}": (seen[b] - seen[a]) / (b - a)
+            for a, b in ((2, 4), (4, 6), (8, 10)) if a in seen and b in seen},
+        "step_time_median_s_first_child": by_step[6].get(
+            "step_time_median_s"),
+        "delay_s_a_step": ELASTIC_STEP_DELAY_S,
+        "child_spawn_to_launch_s": [
+            launching[0] - t0 if launching else None,
+            launching[1] - (t_fault + waits[0]["dur"] / 1e6)
+            if len(launching) == 2 else None],
+        "first_record_after_spawn_s": (first_rec[2] - t0
+                                       if first_rec[2] else None),
+        "fault_to_restored_s": (restart_ready - t_fault
+                                if restart_ready else None),
+        "restart_wall_s": (first_rec[8] - t_fault if first_rec[8] else None),
+        "sealed_at_s": seen.get("sealed", t0) - t0,
+        "views": {"first_child": [ELASTIC_START_PAIRS, pairs],
+                  "widened_at_step": widen[3],
+                  "restarted_child": pairs},
+        "profiled_step_kernels": kernels,
+        "log": log,
+    }
+    return report
+
+
+def sanitize_phase(work: str) -> dict:
+    """sanitize_check (module docstring, 36e)."""
+    from frl_distributed_ml_scaffold_tpu_torch.ops import flash_attention
+    from frl_distributed_ml_scaffold_tpu_torch.utils import debugging
+
+    traps = {}
+    t0 = time.perf_counter()
+    z = torch.zeros(4, device="cuda")
+    try:
+        with debugging.sanitize("nans"):
+            z / z
+        traps["div"] = None
+    except FloatingPointError as e:
+        traps["div"] = str(e)
+    check(traps["div"] is not None and "aten.div.Tensor" in traps["div"],
+          f"sanitize_check: 0 / 0 on the card: {traps['div']}")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    q, k, v = (torch.randn(1, 16, 1024, 64, generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    q[0, 3, 100] = float("nan")
+    before = flash_attention.flash_fwd.launches
+    outs = {}
+    try:
+        with debugging.sanitize("nans"):
+            o, lse = flash_attention.flash_fwd(q, k, v, causal=True)
+            outs["o"] = o
+            o * 2
+        traps["flash"] = None
+    except FloatingPointError as e:
+        traps["flash"] = str(e)
+    torch.cuda.synchronize()
+    launched = flash_attention.flash_fwd.launches - before
+    flash_attention.flash_fwd.launches = before
+    check(launched == 1 and "o" in outs
+          and bool(torch.isnan(outs["o"]).any())
+          and traps["flash"] is not None
+          and "aten.mul.Tensor" in traps["flash"],
+          f"sanitize_check: NaN q through B1 ({launched} launch): "
+          f"{traps['flash']}")
+    losses, seconds = {}, {"traps": time.perf_counter() - t0}
+    for value in ("", "nans,infs"):
+        os.environ["FRL_TPU_SANITIZE"] = value
+        out = os.path.join(work, value.replace(",", "_") or "off")
+        try:
+            rc, seconds[value or "off"] = launch_main(
+                SANITIZE_MLP + [f"workdir={out}"])
+        finally:
+            os.environ.pop("FRL_TPU_SANITIZE", None)
+        check(rc == 0, f"sanitize_check: mnist_mlp exited {rc}")
+        check(debugging.active_checks() == frozenset(),
+              "sanitize_check: checks left on after launch.main")
+        losses[value or "off"] = [r["loss"] for r in read_jsonl(
+            os.path.join(out, "mnist_mlp", "metrics.jsonl"))]
+    check(len(losses["off"]) == 20 and losses["nans,infs"] == losses["off"],
+          f"sanitize_check: losses {losses}")
+    return {"traps": traps, "flash_launches": launched,
+            "mlp_losses_bit_equal": True, "mlp_steps": len(losses["off"]),
+            "mlp_seconds": seconds}
 
 
 def lm_shards_phase(work: str, seed: int) -> dict:
@@ -5669,15 +5989,15 @@ def lowp_phase(gen, card: str) -> dict:
 # tp_serve_path. Each run: one warm-up step (lr 0) and OVERLAP_STEPS timed
 # steps of 8 x 1024 tokens in 2 microbatches (cut from the recipes' 64 in
 # 8 to fit the phase's time: gloo stages every ring hop through the host),
-# 6 of the 24 layers (cut to 12 to make room for the A12 phases in the
-# script's time limit, then to 6 for pp_path), bf16_mixed, flash
-# attention, seeded weights.
+# 4 of the 24 layers (cut to 12 to make room for the A12 phases in the
+# script's time limit, to 6 for pp_path, then to 4 for elastic_path),
+# bf16_mixed, flash attention, seeded weights.
 OVERLAP_RANKS = 2
 OVERLAP_STEPS = 2
 OVERLAP_TIMEOUT_S = 600
 OVERLAP_OVERRIDES = ["model.attention=flash", "data.global_batch_size=8",
                      "trainer.grad_accum=2", "checkpoint.enabled=false",
-                     "model.num_layers=6"]
+                     "model.num_layers=4"]
 # name: (recipe, mesh and batch, the plain step's overrides: the Megatron
 # pair, or FSDP gathered at the start of the step). The FSDP run takes
 # its 8 rows in one microbatch: its gathers move every block's params
@@ -5937,8 +6257,10 @@ def overlap_report(ranks: list, card: str) -> dict:
 # ------------------------------------------------- A12: MoE and sequence
 # parallelism. moe_path: gpt2_moe on this process (expert=1); ep_path and
 # sp_path: two gloo processes of this script on the one card, like
-# overlap_path.
-MOE_OVERRIDES = ["model.attention=flash", "mesh.expert=1"]
+# overlap_path. moe_path runs 6 of gpt2_moe's 12 layers (cut for
+# elastic_path in the script's time limit).
+MOE_OVERRIDES = ["model.attention=flash", "mesh.expert=1",
+                 "model.num_layers=6"]
 MOE_STEPS = 2  # timed steps a dispatch, after a warm-up (lr 0)
 # The two dispatches' step-0 losses (the same weights and batch) in
 # fp32, at 2 x 1024 tokens: the reference's own tolerance between them
@@ -5990,10 +6312,11 @@ EP_RTOL = {"ep": {"loss": 1e-4, "grad_norm": 1e-2},
 # an H100: y 3.9e-3, the rest 0; controls 0.92-1.0 and 1.0.
 EP_LAYER_TOL = 2e-2
 # sp_path: gpt2_ring at full width, T 8192, over seq=2; global batch 8 ->
-# 4 (two ranks and the one-rank reference on one card), 12 of its 24
-# layers (cut to make room for pp_path in the script's time limit).
+# 4 (two ranks and the one-rank reference on one card), 4 of its 24
+# layers (cut to 12 to make room for pp_path in the script's time limit,
+# then to 4 for elastic_path).
 SP_OVERRIDES = ["data.global_batch_size=4", "checkpoint.enabled=false",
-                "model.num_layers=12"]
+                "model.num_layers=4"]
 SP_MESH = ["mesh.seq=2"]
 SP_PLAIN = ["mesh.seq=1", "model.attention=flash", "parallel.sequence=none"]
 SP_RUNS = {"ring": [],
@@ -6091,7 +6414,7 @@ def moe_dispatch_ms(cfg, sd, tokens: int) -> dict:
 
 
 def moe_phase(gen, card: str, seed: int) -> dict:
-    """moe_path: ``gpt2_moe`` at full width and depth (12 layers, width
+    """moe_path: ``gpt2_moe`` at full width (6 of its 12 layers, width
     1024, 16 heads, T 1024, 8 experts top-2, cf 1.25, bf16_mixed) on one
     card (expert=1), flash attention: a warm-up and ``MOE_STEPS`` timed
     steps of the recipe's 64 x 1024 tokens in 8 microbatches under each
@@ -6684,7 +7007,7 @@ def ep_phase(seed: int, card: str) -> dict:
 
 
 def sp_phase(seed: int, card: str) -> dict:
-    """sp_path: ``gpt2_ring`` at full width (12 layers), T 8192, over
+    """sp_path: ``gpt2_ring`` at full width (4 layers), T 8192, over
     ``seq=2`` (two gloo processes on the one card), first ring, then
     Ulysses, against the one-rank flash step on the same seeded weights
     and tokens: step-0 loss and grad_norm within ``SP_RTOL``, and the
@@ -6762,7 +7085,8 @@ def sp_phase(seed: int, card: str) -> dict:
 
 
 # pp_path: gpt2_pp, gpt2_pp_circular and gpt2_pipeline_mpmd as published
-# (24 layers, 4 stages of 6 (circular: two groups of 3), D 1024, 16
+# but for depth: 8 of the 24 layers (cut for elastic_path in the script's
+# time limit), 4 stages of 2 (circular: two groups of 1), D 1024, 16
 # heads, vocab 50257, T 1024, bf16_mixed, global batch 64 in M = 8
 # microbatches, trainer.remat=dots) with model.attention=flash, over
 # pipe=4: four gloo processes on the one card, one stage each. A warm-up
@@ -6771,7 +7095,7 @@ PP_RANKS = 4
 PP_STEPS = 3
 PP_TIMEOUT_S = 600
 PP_OVERRIDES = ["model.attention=flash", "optimizer.warmup_steps=1",
-                "checkpoint.enabled=false"]
+                "checkpoint.enabled=false", "model.num_layers=8"]
 PP_RUNS = ("gpt2_pp", "gpt2_pp_circular", "gpt2_pipeline_mpmd")
 # The one-process run each is held to (mesh.pipe=1, every stage in one
 # process): the same recipe; the MPMD backend refuses mesh.pipe=1 (as
@@ -7054,7 +7378,7 @@ def pp_phase(seed: int, card: str) -> dict:
     one-process run (``PP_REFERENCE``) on every step's loss and grad_norm
     and the params after the steps (``PP_RTOL``), beside the control (a
     zeroed cotangent) that must fail it; per rank and step B1-B3 at 16
-    heads (the stage's 6 layers x M = 8: 2 / 1 / 1 a layer and
+    heads (the stage's 2 layers x M = 8: 2 / 1 / 1 a layer and
     microbatch under dots, the MPMD stages' forward then its recompute
     3 / 1 / 1, its last stage 2 / 1 / 1), every other kernel never, no
     fallback, the bytes over pipe at the send equal to ``pp_bytes``, the
@@ -7416,6 +7740,14 @@ def main() -> int:
         emit("rn50_shards_path", timed_phase(
             "rn50_shards_path", rn50_shards_phase, shard_dir,
             os.path.join(data_work, "rn50"), card))
+        elastic_report = timed_phase(
+            "elastic_path", elastic_phase, shard_dir,
+            os.path.join(data_work, "elastic"), card)
+        emit("elastic_path", elastic_report)
+        sanitize_work = os.path.join(data_work, "sanitize")
+        os.makedirs(sanitize_work)
+        emit("sanitize_check", timed_phase("sanitize_check", sanitize_phase,
+                                           sanitize_work))
         emit("lm_shards_path", timed_phase(
             "lm_shards_path", lm_shards_phase,
             os.path.join(data_work, "lm"), args.seed))
@@ -7464,6 +7796,11 @@ def main() -> int:
         "bound_ms": kern[name]["timing"]["bound_ms"],
         "bound_by": kern[name]["timing"]["bound_by"],
         "library_ms": kern[name]["timing"]["library_ms"],
+        **({"elastic_path_launches":
+            elastic_report["profiled_step_kernels"][name],
+            "elastic_path_launches_in": "the restarted child's profiled "
+                                        "step (its torch.profiler trace)"}
+           if name in ELASTIC_KERNELS else {}),
         **({"bf16_p_max_abs_err": kern[name]["bf16_p"]["max_abs_err"],
             "bf16_p_bit_equal_share":
                 kern[name]["bf16_p"]["p_bit_equal_share"],

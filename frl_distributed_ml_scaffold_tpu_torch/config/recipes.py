@@ -373,9 +373,8 @@ def imagenet_vitl_fsdp() -> ExperimentConfig:
 def ego4d_video_elastic() -> ExperimentConfig:
     """BASELINE config 5: the video-clip classifier, full remat, AdamW
     with a clip, checkpoints every 500 steps (``checkpoint/manager.py``,
-    read by ``trainer/loop.py``). The JAX recipe runs under the elastic
-    supervisor, which the port's launcher refuses (``--elastic``,
-    ROADMAP A13)."""
+    read by ``trainer/loop.py``), run under the elastic supervisor
+    (``launch --elastic``, ``launcher/elastic.py``)."""
     return ExperimentConfig(
         name="ego4d_video_elastic",
         model=VideoConfig(num_frames=8, num_classes=400),

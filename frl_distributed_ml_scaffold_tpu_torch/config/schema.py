@@ -142,7 +142,9 @@ class TrainerConfig:
 class CheckpointConfig:
     """Checkpoints of the train state (``checkpoint/manager.py``).
     ``restore_redistribute`` (and its scratch budget) is refused:
-    redistribution across meshes is ROADMAP A13."""
+    the redistribution service is ROADMAP A13c. A plain restore
+    re-shards the whole state onto any mesh, so the elastic supervisor's
+    re-formed world restores without it."""
 
     enabled: bool = False
     save_every: int = 1000
@@ -155,9 +157,12 @@ class CheckpointConfig:
 
 @dataclass(frozen=True)
 class ElasticConfig:
-    """The JAX package's checkpoint-restart supervisor's knobs, kept so
-    one override string means the same to both packages; the port's
-    launcher refuses ``--elastic`` (ROADMAP A13)."""
+    """The checkpoint-restart supervisor's knobs (``launcher/elastic.py``,
+    run by ``--elastic``), the JAX package's fields and defaults: the
+    restart budget and its backoff (``faults/retry.py``), the budget's
+    reset after a long child run, the shrink to settled survivors after
+    ``shrink_after`` failures (0: never), the membership heartbeats'
+    staleness and retirement, and the grow-back watcher."""
 
     max_restarts: int = 3
     backoff_s: float = 1.0
@@ -176,7 +181,9 @@ class DataConfig:
     (``data/lm.py``) for ``lm``, ``ImageNet`` (``data/imagenet.py``) for
     ``imagenet``, ``MNIST`` (``data/mnist.py``) for ``mnist`` and
     ``VideoClips`` (``data/video.py``) for ``video``; ``data_dir`` names
-    their shards or token bins. ``streaming`` is refused (ROADMAP A13)."""
+    their shards or token bins. ``streaming`` reads the train split
+    through the growing views of ``data/streaming.py``, re-scanned every
+    ``streaming_refresh_every`` steps."""
 
     name: str = "synthetic_mnist"
     global_batch_size: int = 128

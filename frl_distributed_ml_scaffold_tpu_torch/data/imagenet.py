@@ -13,8 +13,11 @@ normalize for train, center crop and normalize for eval, seeded with
 same in every process, so a batch equals the JAX package's bit for bit.
 A ``data_dir`` without shards warns and takes the synthetic source.
 
-``data.streaming=true`` on the train split raises: the streaming reader
-is ROADMAP A13 (``data/streaming.py``).
+``data.streaming=true`` reads the train split through a
+``StreamingShardCorpus`` (``data/streaming.py``): its window widens to
+pairs a producer seals while the run trains, checked once a batch; a
+directory with no sealed pair raises. The eval split keeps the frozen
+view.
 """
 
 from __future__ import annotations
@@ -25,21 +28,29 @@ from frl_distributed_ml_scaffold_tpu_torch.config.schema import DataConfig
 from frl_distributed_ml_scaffold_tpu_torch.data import native
 from frl_distributed_ml_scaffold_tpu_torch.data.shards import (
     ShardedNpyCorpus,
-    refuse_streaming,
     warn_missing,
+)
+from frl_distributed_ml_scaffold_tpu_torch.data.streaming import (
+    StreamingShardCorpus,
 )
 from frl_distributed_ml_scaffold_tpu_torch.data.synthetic import SyntheticImages
 
 
 class ImageNet:
     def __init__(self, cfg: DataConfig, *, split: str):
-        refuse_streaming(cfg, split)
         self.cfg = cfg
         self._fallback = None
         self._corpus = None
         self._train = split == "train"
         if cfg.data_dir:
-            corpus = ShardedNpyCorpus(cfg.data_dir, split, "images")
+            if cfg.streaming and self._train:
+                # Train split only: a producer streaming train_* must not
+                # fail the eval pipeline, which keeps the frozen view.
+                corpus = StreamingShardCorpus(
+                    cfg.data_dir, split, "images",
+                    refresh_every=cfg.streaming_refresh_every)
+            else:
+                corpus = ShardedNpyCorpus(cfg.data_dir, split, "images")
             if corpus.found:
                 shape = corpus.item_shape
                 if min(shape[0], shape[1]) < cfg.image_size:
@@ -62,6 +73,8 @@ class ImageNet:
         """``{"image": float32 [B, S, S, C], "label": int32 [B]}``."""
         if self._fallback is not None:
             return self._fallback.batch(step, batch_size, host_offset)
+        if hasattr(self._corpus, "maybe_refresh"):
+            self._corpus.maybe_refresh(step)  # see data/streaming.py
         rng = np.random.default_rng((self._seed, step, host_offset))
         idx = np.sort(rng.integers(0, self._corpus.n, size=batch_size))
         x, labels = self._corpus.gather(idx)

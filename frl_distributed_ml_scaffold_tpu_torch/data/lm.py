@@ -13,10 +13,11 @@ native core's ``gather_windows``; a batch equals the JAX package's bit
 for bit. An eval split without its bin samples ``train.bin`` and says
 so; a ``data_dir`` without the bin warns and takes the synthetic source.
 
-``data.streaming=true`` on the train split raises: the streaming reader
-is ROADMAP A13 (``data/streaming.py``). Other splits
-under it read a frozen view cut to whole 8192-token blocks, as the JAX
-package does.
+``data.streaming=true`` reads the train split's bin through a
+``StreamingTokenBin`` (``data/streaming.py``): its window widens to the
+tokens a producer appends, checked once a batch; a missing bin, or one
+under ``TOKEN_BLOCK`` tokens, raises. Other splits under it read a frozen
+view cut to whole ``TOKEN_BLOCK``-token blocks, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -28,14 +29,14 @@ import numpy as np
 
 from frl_distributed_ml_scaffold_tpu_torch.config.schema import DataConfig
 from frl_distributed_ml_scaffold_tpu_torch.data import native
-from frl_distributed_ml_scaffold_tpu_torch.data.shards import refuse_streaming
+from frl_distributed_ml_scaffold_tpu_torch.data.streaming import (
+    TOKEN_BLOCK,
+    StreamingTokenBin,
+)
 from frl_distributed_ml_scaffold_tpu_torch.data.synthetic import SyntheticLM
 from frl_distributed_ml_scaffold_tpu_torch.utils.logging import get_logger
 
 _BIN_DTYPES = {"uint16": np.uint16, "uint32": np.uint32}
-# The JAX streaming reader's block: a frozen view of a bin a producer may
-# be appending to is cut to whole blocks of this many tokens.
-TOKEN_BLOCK = 8192
 
 
 def write_token_bin(path: str, tokens, *,
@@ -110,6 +111,14 @@ def _bin_path(cfg: DataConfig, split: str) -> str | None:
                 "on TRAINING data", f"{split}.bin", cfg.data_dir, split)
         path = train_path
     if not os.path.exists(path):
+        if cfg.streaming and split == "train":
+            # A missing bin refuses like the shard view: the synthetic
+            # fallback, decided once, would train on noise forever.
+            raise ValueError(
+                f"data.streaming=true but {path} does not exist. "
+                "Start the tokenizer/producer first (write_token_"
+                "bin creates the bin + sidecar) — the streaming "
+                "loader refuses to guess.")
         get_logger().warning(
             "lm data: data_dir=%s has no %s.bin — falling back to SYNTHETIC "
             "random tokens; fix data.data_dir if a real corpus was intended",
@@ -122,10 +131,10 @@ class TokenBinLM:
     """Memmapped token-bin corpus with step-indexed window sampling."""
 
     def __init__(self, cfg: DataConfig, *, split: str):
-        refuse_streaming(cfg, split)
         self.cfg = cfg
         self._fallback = None
         self._mm = None
+        self._stream = None
         path = _bin_path(cfg, split) if cfg.data_dir else None
         if path is not None:
             sidecar = _read_sidecar(path)
@@ -134,7 +143,11 @@ class TokenBinLM:
                 raise ValueError(
                     f"{path}.json names unsupported dtype "
                     f"{sidecar.get('dtype')!r}; expected uint16/uint32")
-            if cfg.streaming:
+            if cfg.streaming and split == "train":
+                self._stream = StreamingTokenBin(
+                    path, dtype, refresh_every=cfg.streaming_refresh_every)
+                self._mm = self._stream.tokens
+            elif cfg.streaming:
                 n_tok = os.path.getsize(path) // np.dtype(dtype).itemsize
                 if n_tok >= TOKEN_BLOCK:
                     n_tok = (n_tok // TOKEN_BLOCK) * TOKEN_BLOCK
@@ -164,6 +177,9 @@ class TokenBinLM:
         """``{"tokens": int32 [batch_size, seq_len + 1]}``."""
         if self._fallback is not None:
             return self._fallback.batch(step, batch_size, host_offset)
+        if self._stream is not None:
+            self._stream.maybe_refresh(step)  # see data/streaming.py
+            self._mm = self._stream.tokens
         window = self.cfg.seq_len + 1
         rng = np.random.default_rng((self._seed, step, host_offset))
         starts = rng.integers(0, len(self._mm) - window, size=batch_size)

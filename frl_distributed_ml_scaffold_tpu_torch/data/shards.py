@@ -17,8 +17,6 @@ import sys
 
 import numpy as np
 
-from frl_distributed_ml_scaffold_tpu_torch.config.schema import DataConfig
-
 
 def derive_label_classes(
     raw_dir: str, split: str, splits_arg: str = "", out_dir: str = ""
@@ -129,8 +127,7 @@ def aligned_pair_paths(
 def sealed_save(path: str, arr: np.ndarray) -> None:
     """Write a shard ATOMICALLY: ``*.tmp`` then ``os.replace``.
 
-    A streaming reader (the JAX package's ``data/streaming.py``; ROADMAP
-    A13 in the port) re-scans the directory while
+    The streaming tier (``data/streaming.py``) re-scans the directory while
     producers write; a plain ``np.save`` exposes a torn half-written file
     under the final name. The open-file form keeps np.save from appending
     a second ``.npy`` to the tmp name.
@@ -141,15 +138,6 @@ def sealed_save(path: str, arr: np.ndarray) -> None:
     os.replace(tmp, path)
 
 
-def refuse_streaming(cfg: DataConfig, split: str) -> None:
-    """Refuse ``data.streaming=true`` on the train split (where the JAX
-    package streams): the streaming reader is not ported."""
-    if cfg.data_dir and cfg.streaming and split == "train":
-        raise NotImplementedError(
-            "data.streaming=true (the streaming shard and token-bin reader, "
-            "data/streaming.py) is not ported yet (ROADMAP A13); set data.streaming=false to read the frozen shards")
-
-
 class ShardedNpyCorpus:
     """``{split}_{kind}_XXX.npy`` data shards + ``{split}_labels_XXX.npy``.
 
@@ -157,13 +145,25 @@ class ShardedNpyCorpus:
     caller decides how to fall back); any *inconsistent* shard set raises.
     """
 
-    def __init__(self, data_dir: str, split: str, kind: str):
-        """The strict all-shards view: its pairing check RAISES on any
-        inconsistency, so a partially-copied corpus is an error, not a
-        window."""
+    def __init__(self, data_dir: str, split: str, kind: str,
+                 max_shards: int = 0):
+        """``max_shards > 0`` caps the view to the first N index-contiguous
+        sealed PAIRS (``aligned_pair_paths``): the streaming tier holds
+        every host to the same agreed shard count this way while
+        producers keep appending in any file order. The default (0, the
+        frozen tier) keeps the strict all-shards view, whose pairing
+        check RAISES on any inconsistency: a partially-copied frozen
+        corpus is an error, not a window."""
         self.found = False
-        xs = sorted(glob.glob(os.path.join(data_dir, f"{split}_{kind}_*.npy")))
-        ys = sorted(glob.glob(os.path.join(data_dir, f"{split}_labels_*.npy")))
+        if max_shards > 0:
+            pairs = aligned_pair_paths(data_dir, split, kind)[:max_shards]
+            xs = [x for x, _ in pairs]
+            ys = [y for _, y in pairs]
+        else:
+            xs = sorted(
+                glob.glob(os.path.join(data_dir, f"{split}_{kind}_*.npy")))
+            ys = sorted(
+                glob.glob(os.path.join(data_dir, f"{split}_labels_*.npy")))
         if not xs and not ys:
             return
         def _idx(paths, tag):

@@ -11,8 +11,9 @@ host_offset)``, the eval split's seed salted by 7919, so a batch equals
 the JAX package's bit for bit. A ``data_dir`` without shards warns and
 takes the synthetic source.
 
-``data.streaming=true`` on the train split raises: the streaming reader
-is ROADMAP A13 (``data/streaming.py``).
+``data.streaming=true`` reads the train split through a
+``StreamingShardCorpus`` (``data/streaming.py``), as ``data/imagenet.py``
+does.
 """
 
 from __future__ import annotations
@@ -24,8 +25,10 @@ import numpy as np
 from frl_distributed_ml_scaffold_tpu_torch.config.schema import DataConfig
 from frl_distributed_ml_scaffold_tpu_torch.data.shards import (
     ShardedNpyCorpus,
-    refuse_streaming,
     warn_missing,
+)
+from frl_distributed_ml_scaffold_tpu_torch.data.streaming import (
+    StreamingShardCorpus,
 )
 from frl_distributed_ml_scaffold_tpu_torch.data.synthetic import SyntheticVideo
 
@@ -53,12 +56,17 @@ def write_clip_shards(out_dir: str, clips: np.ndarray, labels: np.ndarray,
 
 class VideoClips:
     def __init__(self, cfg: DataConfig, *, split: str):
-        refuse_streaming(cfg, split)
         self.cfg = cfg
         self._fallback = None
         self._corpus = None
         if cfg.data_dir:
-            corpus = ShardedNpyCorpus(cfg.data_dir, split, "clips")
+            if cfg.streaming and split == "train":
+                # Train split only, as data/imagenet.py.
+                corpus = StreamingShardCorpus(
+                    cfg.data_dir, split, "clips",
+                    refresh_every=cfg.streaming_refresh_every)
+            else:
+                corpus = ShardedNpyCorpus(cfg.data_dir, split, "clips")
             if corpus.found:
                 want = (cfg.num_frames, cfg.image_size, cfg.image_size,
                         cfg.channels)
@@ -82,6 +90,8 @@ class VideoClips:
         """``{"video": float32 [B, T, H, W, C], "label": int32 [B]}``."""
         if self._fallback is not None:
             return self._fallback.batch(step, batch_size, host_offset)
+        if hasattr(self._corpus, "maybe_refresh"):
+            self._corpus.maybe_refresh(step)  # see data/streaming.py
         rng = np.random.default_rng((self._seed, step, host_offset))
         idx = np.sort(rng.integers(0, self._corpus.n, size=batch_size))
         x, y = self._corpus.gather(idx)

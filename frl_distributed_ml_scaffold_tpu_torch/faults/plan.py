@@ -19,9 +19,8 @@ The ambient plan lives in ``faults/__init__.py``; this module is the
 mechanism. The port's training loop, data pipeline and checkpointer
 consult ``trainer.*``, ``data.loader`` and ``checkpoint.torn_write``;
 the serving engine and the disaggregated scheduler the ``serve.*``
-sites. The elastic sites are kept so plans mean the same in both
-packages (the port's launcher does not consult them yet: ROADMAP
-A13).
+sites; the elastic supervisor's membership heartbeat
+``elastic.heartbeat_write`` (``launcher/elastic.py``).
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ Usage::
 
     python -m frl_distributed_ml_scaffold_tpu_torch.launcher.launch \\
         --config=mnist_mlp [--device=cuda|cpu] [--list-configs] \\
-        [--describe] [--eval-only] [--coordinator=HOST:PORT \\
+        [--describe] [--eval-only] [--elastic] [--coordinator=HOST:PORT \\
         --num-processes=N --process-id=I] [--sim-devices=N] \\
         [path.to.field=value ...]
 
@@ -21,16 +21,21 @@ rank i on card ``i % device_count``; gloo on the CPU. The run's mesh is
 gloo ranks on this machine: this process is rank 0 and starts the other
 N - 1 (the counterpart of the JAX package's N simulated devices).
 
-Refused, each naming its ROADMAP item: ``--elastic`` (A13),
-``--hlo-dump`` (the port runs no XLA) and ``FRL_TPU_SANITIZE`` in the
-environment (A13). ``FRL_FAULT_PLAN``, when set, arms that fault plan
-for the length of each ``main()`` call (``faults/``).
+``--elastic`` runs the training as a supervised child process
+(``launcher/elastic.py``): restarted after a failure and resumed from
+the last checkpoint, with ``FRL_FAULT_AT_STEP`` / ``FRL_FAULT_SIGNAL`` /
+``FRL_STEP_DELAY_S`` for the drills. ``FRL_TPU_SANITIZE=nans,infs``
+turns on the NaN / Inf sanitizer (``utils/debugging.py``) for the
+length of the call, after the process group is up. ``FRL_FAULT_PLAN``,
+when set, arms that fault plan for the length of each ``main()`` call
+(``faults/``). ``--hlo-dump`` is refused: the port runs no XLA.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -51,7 +56,8 @@ def _parse_args(argv=None):
                    "(this process is rank 0 and starts the others)")
     p.add_argument("--list-configs", action="store_true")
     p.add_argument("--elastic", action="store_true",
-                   help="refused: the elastic supervisor (ROADMAP A13)")
+                   help="run the training as a supervised child: restarted "
+                   "on failure, resumed from the last checkpoint")
     p.add_argument("--eval-only", action="store_true",
                    help="restore the latest checkpoint and run the eval loop "
                    "only")
@@ -72,10 +78,6 @@ def _parse_args(argv=None):
 
 
 def _refuse_unported(args) -> None:
-    if args.elastic:
-        raise NotImplementedError(
-            "--elastic (the checkpoint-restart supervisor) is not ported "
-            "yet (ROADMAP A13)")
     if args.sim_devices and args.device != "cpu":
         raise ValueError(
             "--sim-devices runs gloo ranks on the CPU: pass --device=cpu "
@@ -88,11 +90,6 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(
             "--hlo-dump writes XLA's optimized HLO; the port runs no XLA "
             "(torch.profiler windows: trainer.profile_steps)")
-    if os.environ.get("FRL_TPU_SANITIZE"):
-        raise NotImplementedError(
-            f"FRL_TPU_SANITIZE={os.environ['FRL_TPU_SANITIZE']!r}: the "
-            "NaN / Inf / leak sanitizer is not ported yet (ROADMAP A13); "
-            "unset it")
 
 
 def _spawn_sim_ranks(argv: list[str], n: int, rendezvous: str):
@@ -103,6 +100,18 @@ def _spawn_sim_ranks(argv: list[str], n: int, rendezvous: str):
         [sys.executable, "-m", MODULE, *rest, f"--num-processes={n}",
          f"--process-id={i}", f"--coordinator={rendezvous}"])
         for i in range(1, n)]
+
+
+def _abandon_sim_ranks(children: list, rendezvous: str) -> None:
+    """Kill the ``--sim-devices`` ranks and remove their rendezvous file:
+    the fault hook's hard exit runs no ``finally``, and must not leave
+    them holding the rendezvous."""
+    for child in children:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if os.path.exists(rendezvous[7:]):
+        os.remove(rendezvous[7:])
 
 
 @contextlib.contextmanager
@@ -118,14 +127,20 @@ def _env_fault_plan():
         yield
 
 
-def run_experiment(cfg, *, device=None):
+def run_experiment(cfg, *, device=None, before_hard_exit=None):
     """Train one config to completion on ``device``; returns
-    ``(state, last_metrics)``."""
+    ``(state, last_metrics)``. The elastic drills' fault hook
+    (``FRL_FAULT_AT_STEP`` ...) runs after every step when set;
+    ``before_hard_exit`` runs just before its hard exit."""
+    from frl_distributed_ml_scaffold_tpu_torch.launcher.elastic import (
+        fault_hook_from_env,
+    )
     from frl_distributed_ml_scaffold_tpu_torch.trainer.loop import Trainer
 
     trainer = Trainer(cfg, device=device)
     try:
-        return trainer.fit()
+        return trainer.fit(on_step=fault_hook_from_env(
+            cfg, before_hard_exit=before_hard_exit))
     finally:
         if trainer.checkpointer is not None:
             trainer.checkpointer.close()
@@ -211,6 +226,14 @@ def main(argv=None) -> int:
         return 2
     _refuse_unported(args)
     cfg = apply_overrides(get_config(args.config), args.overrides)
+    if args.elastic:
+        from frl_distributed_ml_scaffold_tpu_torch.launcher.elastic import (
+            supervise,
+        )
+
+        return supervise(args, cfg)
+    from frl_distributed_ml_scaffold_tpu_torch.utils import debugging
+
     children, rendezvous = [], None
     coordinator, n_proc, proc_id = (args.coordinator, args.num_processes,
                                     args.process_id)
@@ -227,6 +250,7 @@ def main(argv=None) -> int:
                                device=args.device)
         device = local_device(process_index(), args.device)
         logger = get_logger()  # after the process group: rank 0 logs
+        debugging.sanitize_from_env()
         with _env_fault_plan():
             if args.describe:
                 return describe(cfg, device=device)
@@ -235,9 +259,14 @@ def main(argv=None) -> int:
             if args.eval_only:
                 last = run_eval(cfg, device=device)
             else:
-                _, last = run_experiment(cfg, device=device)
+                _, last = run_experiment(
+                    cfg, device=device,
+                    before_hard_exit=(functools.partial(
+                        _abandon_sim_ranks, children, rendezvous)
+                        if children else None))
         logger.info("done: %s", json.dumps(last, default=str))
     finally:
+        debugging.reset_process_sanitizers()
         shutdown_distributed()
         for child in children:
             rc = child.wait() or rc

@@ -1,8 +1,9 @@
 """The port's launcher (``python -m frl_distributed_ml_scaffold_tpu_torch.
 launcher.launch``) on the CPU: its config registry and errors against the
 JAX launcher's, the card by default (no silent CPU run), the refused
-flags, ``--describe``, ``--eval-only`` after a run, and ``mnist_mlp`` end
-to end with its loss halved."""
+flags, ``--describe``, ``--eval-only`` after a run, ``mnist_mlp`` end
+to end with its loss halved, under ``FRL_TPU_SANITIZE`` and as a
+supervised child (``--elastic``)."""
 
 from __future__ import annotations
 
@@ -69,7 +70,7 @@ def test_the_default_device_is_the_card(tmp_path):
 
 
 @pytest.mark.parametrize("flags,exc,match", [
-    (["--elastic"], NotImplementedError, "ROADMAP A13"),
+    (["--elastic", "--hlo-dump=/tmp/hlo"], NotImplementedError, "no XLA"),
     (["--coordinator=localhost:1234"], ValueError, "without a process count"),
     (["--num-processes=2"], ValueError, "needs a process id"),
     (["--process-id=2", "--num-processes=2", "--coordinator=localhost:1"],
@@ -83,10 +84,45 @@ def test_unported_flags_are_refused(flags, exc, match):
         launch.main(["--config=mnist_mlp", "--device=cpu", *flags])
 
 
-def test_sanitizer_variable_is_refused(monkeypatch):
+def test_sanitizer_variable_is_refused(tmp_path, monkeypatch):
+    """``FRL_TPU_SANITIZE`` is no longer refused: the run trains under the
+    NaN / Inf checks, which are off again when ``main`` returns."""
+    from frl_distributed_ml_scaffold_tpu_torch.utils import debugging
+
+    seen = []
+    fit = launch.run_experiment
+
+    def watched(cfg, **kw):
+        seen.append(debugging.active_checks())
+        return fit(cfg, **kw)
+
+    monkeypatch.setattr(launch, "run_experiment", watched)
     monkeypatch.setenv("FRL_TPU_SANITIZE", "nans")
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        launch.main(["--config=mnist_mlp", "--device=cpu"])
+    assert launch.main(["--config=mnist_mlp", "--device=cpu",
+                        f"workdir={tmp_path}", *TINY,
+                        "trainer.total_steps=3"]) == 0
+    assert seen == [{"nans"}]
+    assert debugging.active_checks() == frozenset()
+    assert [r["step"] for r in _records(tmp_path)] == [3]
+
+
+def test_elastic_supervises_a_child_to_the_end(tmp_path):
+    """``--elastic`` runs the training as a supervised child process of
+    the port's launcher, which checkpoints and exits 0."""
+    assert launch.main(["--config=mnist_mlp", "--device=cpu", "--elastic",
+                        f"workdir={tmp_path}", *TINY,
+                        "trainer.total_steps=4", "trainer.log_every=2",
+                        "checkpoint.save_every=2"]) == 0
+    assert [r["step"] for r in _records(tmp_path)] == [2, 4]
+    run = tmp_path / "mnist_mlp"
+    assert (run / "ckpt" / "commits" / "step_4").exists()
+    prom = (run / "supervisor_0.prom").read_text()
+    assert "elastic_restarts_total 0" in prom
+    spans = [e for e in json.loads((run / "supervisor_0_trace.json")
+                                   .read_text())["traceEvents"]
+             if e["ph"] == "X"]
+    assert [(e["name"], e["args"].get("rc")) for e in spans] == [
+        ("child_run", 0), ("supervise", None)]
 
 
 def test_describe_is_a_dry_run(tmp_path, capsys):

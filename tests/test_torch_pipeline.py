@@ -106,12 +106,31 @@ def test_loader_budget_exhaustion_raises_alike():
 
 
 def test_lm_shards_and_unknown_sources_are_refused(tmp_path):
-    """Streaming token bins are refused, naming their item; an unknown
-    dataset raises."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        tpipeline.build_pipeline(
-            tschema.DataConfig(name="lm", data_dir=str(tmp_path),
-                               streaming=True), device="cpu")
+    """A streaming token bin builds through ``build_pipeline`` and its
+    batches equal the JAX pipeline's over a widening; an unknown dataset
+    raises."""
+    from frl_distributed_ml_scaffold_tpu_torch.data import lm as tlm
+    from frl_distributed_ml_scaffold_tpu_torch.data.streaming import (
+        TOKEN_BLOCK,
+    )
+
+    path = str(tmp_path / "train.bin")
+    rng = np.random.default_rng(2)
+    tlm.write_token_bin(path, rng.integers(0, 50, TOKEN_BLOCK + 7),
+                        vocab_size=50)
+    jp, tp = _pair("lm", seq_len=16, vocab_size=50, data_dir=str(tmp_path),
+                   streaming=True, streaming_refresh_every=2, prefetch=0)
+    built = tpipeline.build_pipeline(
+        tschema.DataConfig(name="lm", seq_len=16, vocab_size=50,
+                           data_dir=str(tmp_path), streaming=True),
+        device="cpu")
+    assert not built.source.is_synthetic
+    for step in range(4):
+        if step == 1:
+            tlm.append_token_bin(path, rng.integers(0, 50, TOKEN_BLOCK))
+        want, got = jp.local_batch(step), tp.local_batch(step)
+        np.testing.assert_array_equal(got["tokens"], want["tokens"])
+    assert len(tp.source._stream) == 2 * TOKEN_BLOCK
     with pytest.raises(KeyError, match="unknown dataset"):
         tpipeline.build_pipeline(tschema.DataConfig(name="nope"),
                                  device="cpu")

@@ -316,6 +316,14 @@ def test_create_model_and_refusals():
         assert type(create_model(own, pol, device="meta")) is cls
     with pytest.raises(KeyError, match="unknown model family"):
         create_model(dataclasses.replace(cfg, family="nope"), pol)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        ImageNet(tschema.DataConfig(name="imagenet", data_dir="/data",
-                                    streaming=True), split="train")
+    # A streaming corpus with no sealed pair: the JAX loader's refusal.
+    from frl_distributed_ml_scaffold_tpu.data.imagenet import (
+        ImageNet as JaxImageNet,
+    )
+
+    empty = dict(name="imagenet", data_dir="/data", streaming=True)
+    with pytest.raises(ValueError, match="no sealed") as terr:
+        ImageNet(tschema.DataConfig(**empty), split="train")
+    with pytest.raises(ValueError) as jerr:
+        JaxImageNet(jschema.DataConfig(**empty), split="train")
+    assert str(terr.value) == str(jerr.value)

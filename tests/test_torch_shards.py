@@ -10,7 +10,8 @@ files the test writes from a numpy seed.
   row and label, and refuses unsorted indices.
 - The pairing, shape, vocab, length and dtype errors raise with the JAX
   package's messages; a ``data_dir`` without files warns and takes the
-  synthetic source in both; streaming is refused, naming A13.
+  synthetic source in both; streaming on a corpus with no sealed pair
+  raises the JAX package's ``ValueError``.
 - The port's ``DataPipeline`` with ``data.name=lm`` equals the JAX
   pipeline's batches, and two ``Trainer`` steps of a tiny GPT read a
   token bin through it on the CPU.
@@ -260,12 +261,27 @@ def test_missing_files_warn_and_go_synthetic(tmp_path):
 
 
 def test_streaming_is_refused_naming_a13(tmp_path):
+    """Streaming on a corpus with no sealed pair (no bin for the LM)
+    refuses with the JAX loaders' ``ValueError``; once the producer has
+    sealed shards the streaming view reads them as the JAX one does."""
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    for cls, jcls, cfg in ((timagenet.ImageNet, jimagenet.ImageNet, IMAGE),
+                           (tvideo.VideoClips, jvideo.VideoClips, VIDEO),
+                           (tlm.TokenBinLM, jlm.TokenBinLM, LM)):
+        cfg = dict(cfg, data_dir=str(empty), streaming=True)
+        with pytest.raises(ValueError) as terr:
+            cls(tschema.DataConfig(**cfg), split="train")
+        with pytest.raises(ValueError) as jerr:
+            jcls(jschema.DataConfig(**cfg), split="train")
+        assert str(terr.value) == str(jerr.value)
+        assert "refuses to guess" in str(terr.value)
     _image_shards(tmp_path, np.uint8)
-    for cls, cfg in ((timagenet.ImageNet, IMAGE), (tvideo.VideoClips, VIDEO),
-                     (tlm.TokenBinLM, LM)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-            cls(tschema.DataConfig(**dict(cfg, data_dir=str(tmp_path),
-                                          streaming=True)), split="train")
+    cfg = dict(IMAGE, data_dir=str(tmp_path), streaming=True)
+    _equal(timagenet.ImageNet(tschema.DataConfig(**cfg),
+                              split="train").batch(1, 4),
+           jimagenet.ImageNet(jschema.DataConfig(**cfg),
+                              split="train").batch(1, 4))
     # The eval split keeps the frozen view, as in the JAX package.
     _image_shards(tmp_path, np.uint8, split="eval")
     cfg = dict(IMAGE, data_dir=str(tmp_path), streaming=True)

@@ -261,9 +261,17 @@ def test_synthetic_video_matches_jax():
                 assert got["label"].dtype == np.int32
                 for k in want:
                     np.testing.assert_array_equal(got[k], want[k])
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        VideoClips(tschema.DataConfig(name="video", data_dir="/data",
-                                      streaming=True), split="train")
+    # A streaming corpus with no sealed pair: the JAX loader's refusal.
+    from frl_distributed_ml_scaffold_tpu.data.video import (
+        VideoClips as JaxVideoClips,
+    )
+
+    empty = dict(name="video", data_dir="/data", streaming=True)
+    with pytest.raises(ValueError, match="no sealed") as terr:
+        VideoClips(tschema.DataConfig(**empty), split="train")
+    with pytest.raises(ValueError) as jerr:
+        JaxVideoClips(jschema.DataConfig(**empty), split="train")
+    assert str(terr.value) == str(jerr.value)
 
 
 def _idx(path, arr: np.ndarray, opener=open):
