@@ -322,7 +322,7 @@ no final line):
    (``--overlap-rank``, gloo) train ``gpt2_medium_tp_overlap``, its
    ``_int8`` twin (``model=2``, 8 heads a rank) and
    ``gpt2_medium_fsdp_overlap`` (``fsdp=2``) through the ``Trainer``
-   with ``model.attention=flash`` at full width, 4 of the 24 layers,
+   with ``model.attention=flash`` at full width, 2 of the 24 layers,
    bf16_mixed, seeded weights, 8 x 1024 tokens in 2 microbatches (the
    FSDP run in one): a warm-up and two timed steps each, the warm-up
    against the
@@ -334,9 +334,9 @@ no final line):
    gathers, seconds and peak memory (gloo: no measure of overlap). The
    ranks' log goes to ``OUT_DIR/overlap_ranks.log``.
 36b. moe_path, ep_path, sp_path (after overlap_path): ``gpt2_moe`` at
-   full width, 6 of its 12 layers, on one card (``moe_phase``), then over
-   ``expert=2`` at 6 of its 12 layers (``ep_phase``), and ``gpt2_ring``
-   at 4 of its 24 layers, T 8192, over
+   full width, 2 of its 12 layers, on one card (``moe_phase``), then over
+   ``expert=2`` at 2 of its 12 layers (``ep_phase``), and ``gpt2_ring``
+   at 2 of its 24 layers, T 8192, over
    ``seq=2``, ring then Ulysses (``sp_phase``): two processes each
    (``--a12-rank``, gloo), against the one-rank step (loss and
    grad_norm; ``expert=2`` also in fp32 at 2 layers). Each rank then
@@ -372,14 +372,18 @@ no final line):
    ``metrics.jsonl`` shows step 2. ``FRL_FAULT_AT_STEP=7`` kills the
    first child after step 7 (``FRL_STEP_DELAY_S=0.5`` a step);
    checkpoints every 2 steps; the restarted child resumes from step 6 to
-   10. Gates: exit 0, the supervisor's trace ``child_run`` rcs [43, 0]
+   10, restoring through the redistribution service
+   (``checkpoint.restore_redistribute=true``: a restart on one host is
+   no re-form, which is where the supervisor adds the flag itself).
+   Gates: exit 0, the supervisor's trace ``child_run`` rcs [43, 0]
    and one ``restart_wait``, ``elastic_restarts_total 1``, steps [2, 4,
    6, 8, 10] once each with finite losses, the first child's view
    widened from 2 to 4 pairs (1024 -> 2048 images) at step 4 or 6, the
    restarted child's view 4 pairs from its start, and 53 B10 and 53 B11
    kernels in the restarted child's profiled step (its
    ``torch.profiler`` trace: this process's counters do not see a
-   child's launches). The children's log goes to
+   child's launches), and the restarted child's "via redistribution"
+   restore line with its plan's kinds. The children's log goes to
    ``OUT_DIR/elastic_path.log``.
 36e. sanitize_check (beside elastic_path): ``sanitize("nans")`` traps
    ``0 / 0`` on the card naming ``aten.div.Tensor``; a NaN row of ``q``
@@ -388,6 +392,26 @@ no final line):
    past the dispatcher); ``mnist_mlp`` through ``launch.main`` under
    ``FRL_TPU_SANITIZE=nans,infs`` gives losses bit-equal to the run
    without it.
+36f. redistribute_path (its line after elastic_path's; run in
+   tp_serve_path's two rank processes): (a) ``gpt2_medium``'s params,
+   fp32 at full width and depth, in the FSDP layout over fsdp=2
+   (``gpt2_medium_zero1`` with ``parallel.param_sharding=fsdp``), moved
+   by ``redistribute.train_to_serve`` onto model=2 under
+   ``gpt_tp_rules``: bit-equal to ``shard_params_for_serving`` of the
+   whole params, the bytes sent (summed over the ranks) equal to the
+   plan's ``bytes_moved``, executed scratch within the planned, the
+   ``max_memory_allocated`` rise within the placed params plus the
+   planned scratch; then the paged + ngram engine serves tp_serve_path's
+   paged requests on them, token for token, B5 / B6 24 launches a step
+   of their kind at 8 heads. (b) An fp32 paged + ngram engine of
+   ``gpt2_medium_serve`` cut to ``REDIST_RESPREAD_LAYERS`` layers:
+   ``respread_pool(1)`` after 2 steps (rank 1 goes dormant), 2 steps at
+   16 heads on rank 0 alone, ``respread_pool(2)`` (rank 1 joins) and the
+   rest: every request equal to one rank's engine never re-spread (the
+   top-2-gap rule), parked = resumed = active slots at each move, both
+   counters moved, the bytes each way. (c) elastic_path's restore line.
+   gloo stages every transfer through the host: the seconds are no
+   measure of NVLink.
 37. ``phase_seconds`` (the build, each phase above and the whole run),
    the ``kernels`` line (twelve kernels) and, last, ``{"ok": true,
    "device": ...}``.
@@ -4235,7 +4259,10 @@ ELASTIC_OVERRIDES = [
     f"trainer.total_steps={ELASTIC_STEPS}", "trainer.log_every=2",
     "trainer.eval_every=0", "trainer.profile_steps=1",
     "trainer.profile_start_step=1", "checkpoint.save_every=2",
-    "checkpoint.async_save=false", "elastic.backoff_s=0.1"]
+    "checkpoint.async_save=false", "elastic.backoff_s=0.1",
+    # A restart on one host is no re-form (the supervisor adds the flag
+    # only when the world changes): ask for the service's restore here.
+    "checkpoint.restore_redistribute=true"]
 ELASTIC_KERNELS = {"bn_bwd_sums": r"(^|[\s:])sums_kernel<",
                    "bn_bwd_dx": r"(^|[\s:])dx_kernel<"}
 # sanitize_check: mnist_mlp through launch.main with and without the
@@ -4760,6 +4787,18 @@ def elastic_phase(shard_dir: str, work: str, card: str) -> dict:
                  if "launching imagenet_rn50_ddp on cuda" in line]
     first_rec = {2: seen.get(2), 8: seen.get(8)}
     restart_ready = _first(lines, r"restored checkpoint step 6", t_fault)[0]
+    via = [line for t, line in lines if t > t_fault
+           and "via redistribution" in line]
+    plan_lines = [line for t, line in lines if t > t_fault
+                  and "redistribution plan:" in line]
+    check(len(via) == 1 and "restored checkpoint step 6" in via[0]
+          and len(plan_lines) == 1,
+          f"elastic_path: the restarted child's restore {via} "
+          f"{plan_lines}")
+    m = re.search(r"\((\d+) leaves, (\d+) bytes moved, lower bound (\d+), "
+                  r"peak scratch (\d+)\)", via[0])
+    kinds = re.search(r"leaves (.*); this rank read (\d+) bytes",
+                      plan_lines[0])
     by_step = {r["step"]: r for r in recs}
     report = {
         "card": card, "overrides": RN50_SHARD_OVERRIDES + ELASTIC_OVERRIDES,
@@ -4793,6 +4832,14 @@ def elastic_phase(shard_dir: str, work: str, card: str) -> dict:
                   "widened_at_step": widen[3],
                   "restarted_child": pairs},
         "profiled_step_kernels": kernels,
+        "restore": {"via_redistribution": True,
+                    "leaves": int(m.group(1)) if m else None,
+                    "bytes_moved": int(m.group(2)) if m else None,
+                    "bytes_lower_bound": int(m.group(3)) if m else None,
+                    "peak_scratch_bytes": int(m.group(4)) if m else None,
+                    "kinds": kinds.group(1) if kinds else None,
+                    "read_bytes": int(kinds.group(2)) if kinds else None,
+                    "line": via[0]},
         "log": log,
     }
     return report
@@ -5678,10 +5725,343 @@ def tp_serve_rank(rank: int, port: int, out: str, seed: int) -> int:
     report["kernel_heads"] = {k: sorted(set(v))
                               for k, v in watch["seen"].items()}
     report["kernel_vs_plain"] = watch["err"]
+    for v in watch["seen"].values():
+        v.clear()
+    report["redistribute"] = redistribute_rank(
+        rank, env, base, sd, reqs,
+        report["policies"]["fp32"]["paged"]["tokens"], watch, seed)
     with open(os.path.join(out, f"tp_rank{rank}.json"), "w") as f:
         json.dump(report, f)
     dist.destroy_process_group()
     return 0
+
+
+# redistribute_path (in tp_serve_path's two rank processes): the handoff
+# at full depth, then the re-spread on a cut engine.
+REDIST_RESPREAD_LAYERS = 4
+
+
+def _redist_handoff(env, base, sd, reqs, paged_tokens, watch) -> dict:
+    """(a) ``gpt2_medium``'s params in the FSDP layout over fsdp=2 (the
+    ``gpt2_medium_zero1`` recipe with ``parallel.param_sharding=fsdp``:
+    its own ``replicated`` params would make the handoff a local
+    narrow), fp32, moved by ``train_to_serve`` onto ``env`` (model=2)
+    under ``gpt_tp_rules``; then the paged + ngram engine serves
+    tp_serve_path's paged requests on the placed params."""
+    import dataclasses
+
+    from frl_distributed_ml_scaffold_tpu_torch import redistribute as rd
+    from frl_distributed_ml_scaffold_tpu_torch.config import (
+        apply_overrides,
+        get_config,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
+        MeshConfig,
+        PrecisionConfig,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.dist import collectives
+    from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import (
+        build_mesh,
+        mesh_context,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.models.gpt import (
+        GPT,
+        TP_COMPUTE_WHOLE,
+        gpt_tp_rules,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.parallel.layout import (
+        StateLayout,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.parallel.partition import (
+        shard_params_for_serving,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.precision import get_policy
+    from frl_distributed_ml_scaffold_tpu_torch.serving import build_engine
+
+    train = get_config("gpt2_medium_zero1")
+    parallel = dataclasses.replace(train.parallel, param_sharding="fsdp")
+    fsdp_env = build_mesh(MeshConfig(data=1, fsdp=TP_RANKS))
+    cfg = base.replace(precision=PrecisionConfig(policy="fp32"))
+    model = GPT(cfg.model, get_policy(cfg.precision), device="cuda")
+    shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
+    layout = StateLayout.build(fsdp_env, train.model, parallel, shapes,
+                               compute_whole=TP_COMPUTE_WHOLE)
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            p.data = layout.shard(k, sd[k], layout.param[k]).clone()
+    held = sum(p.numel() * p.element_size() for p in model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    staged0 = collectives.staged_bytes["p2p"]
+    t0 = time.perf_counter()
+    placed, plan = rd.train_to_serve(
+        {k: p.data for k, p in model.named_parameters()}, env,
+        gpt_tp_rules(), layout=layout, model=model, donate=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    rise = torch.cuda.max_memory_allocated() - mem0
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            p.data = placed[k]
+    placed_bytes = sum(t.numel() * t.element_size() for t in placed.values())
+    ref = GPT(cfg.model, get_policy(cfg.precision), device="cuda")
+    ref.load_state_dict(sd)
+    with mesh_context(env):
+        shard_params_for_serving(ref, env, gpt_tp_rules())
+    equal = all(torch.equal(a, b) for a, b in zip(model.parameters(),
+                                                  ref.parameters()))
+    del ref
+    check(equal, "redistribute_path: handed-over params differ from "
+          "shard_params_for_serving of the whole params")
+    check(plan.executed_scratch_bytes <= plan.peak_scratch_bytes,
+          f"redistribute_path: scratch {plan.executed_scratch_bytes} > "
+          f"planned {plan.peak_scratch_bytes}")
+    check(rise <= placed_bytes + plan.peak_scratch_bytes,
+          f"redistribute_path: memory rose {rise} bytes, placed "
+          f"{placed_bytes} + scratch {plan.peak_scratch_bytes}")
+    out = {"train_layout": {"config": "gpt2_medium_zero1",
+                            "param_sharding": "fsdp",
+                            "mesh": {"fsdp": TP_RANKS}},
+           "serve_layout": {"mesh": {"model": TP_RANKS},
+                            "rules": "gpt_tp_rules"},
+           "leaves": len(plan.leaves), "kinds": plan.kinds(),
+           "total_bytes": plan.total_bytes,
+           "bytes_moved": plan.bytes_moved,
+           "bytes_lower_bound": plan.bytes_lower_bound,
+           "peak_scratch_bytes": plan.peak_scratch_bytes,
+           "executed_scratch_bytes": plan.executed_scratch_bytes,
+           "bytes_sent": plan.executed_bytes_sent,
+           "staged_p2p_bytes": collectives.staged_bytes["p2p"] - staged0,
+           "held_bytes_before": held, "placed_bytes": placed_bytes,
+           "memory_rise_bytes": rise, "seconds": secs,
+           "bit_equal_to_host_path": equal}
+    serving = apply_overrides(cfg, PAGED_OVERRIDES).serving
+    with mesh_context(env):
+        eng = build_engine(model, serving=serving, num_slots=8,
+                           eos_id=50256, temperature=0.0)
+    watch["on"] = True
+    run = _tp_engine_run(eng, reqs["paged"], TP_NEW)
+    watch["on"] = False
+    st = run["stats"]
+    per = {"paged_decode_attention": st.get("decode_paged", 0),
+           "paged_verify_attention": st.get("decode_verify", 0)}
+    check_launches(read_launches(), per, cfg.model.num_layers,
+                   "redistribute_path handoff")
+    check(run["tokens"] == paged_tokens,
+          "redistribute_path: the handed-over engine's tokens differ from "
+          "tp_serve_path's paged engine")
+    heads = {k: sorted(set(v)) for k, v in watch["seen"].items() if v}
+    check(set(heads) == set(per) and all(
+        v == [cfg.model.num_heads // TP_RANKS] for v in heads.values()),
+          f"redistribute_path: handoff kernel heads {heads}")
+    out["serve"] = {
+        "tokens_equal_tp_serve_paged": True,
+        "generated_tokens": run["generated_tokens"],
+        "tokens_per_s": run["tokens_per_s"],
+        "launches": run["launches"],
+        "launches_per_step": {k: run["launches"].get(k, 0) / max(v, 1)
+                              for k, v in per.items()},
+        "kernel_heads": heads}
+    for v in watch["seen"].values():
+        v.clear()
+    del eng, model, placed
+    torch.cuda.empty_cache()
+    return out
+
+
+def _redist_respread(rank, env, base, reqs, watch, seed) -> dict:
+    """(b) an fp32 paged + ngram engine of ``gpt2_medium_serve`` cut to
+    ``REDIST_RESPREAD_LAYERS`` layers on model=2: two steps, then
+    ``respread_pool(1)`` (rank 1 goes dormant), two steps on rank 0 alone
+    at 16 heads, ``respread_pool(2)`` (rank 1 joins), and the rest. Rank 0
+    also serves the requests on one rank, never re-spread: the
+    reference."""
+    import numpy as np
+
+    from frl_distributed_ml_scaffold_tpu_torch.config import apply_overrides
+    from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
+        PrecisionConfig,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import mesh_context
+    from frl_distributed_ml_scaffold_tpu_torch.models.convert import (
+        init_params,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.models.gpt import (
+        GPT,
+        gpt_tp_rules,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.precision import get_policy
+    from frl_distributed_ml_scaffold_tpu_torch.serving import build_engine
+
+    cfg = apply_overrides(
+        base.replace(precision=PrecisionConfig(policy="fp32")),
+        [f"model.num_layers={REDIST_RESPREAD_LAYERS}"] + PAGED_OVERRIDES)
+    sd = init_params(cfg.model,
+                     torch.Generator(device="cuda").manual_seed(seed + 23))
+    kw = dict(serving=cfg.serving, num_slots=8, eos_id=50256,
+              temperature=0.0)
+    out = {"layers": REDIST_RESPREAD_LAYERS}
+    one = None
+    if rank == 0:
+        one = GPT(cfg.model, get_policy(cfg.precision), device="cuda")
+        one.load_state_dict(sd)
+        ref = _tp_engine_run(build_engine(one, **kw), reqs["paged"], TP_NEW)
+    model = GPT(cfg.model, get_policy(cfg.precision), device="cuda")
+    model.load_state_dict(sd)
+    with mesh_context(env):
+        eng = build_engine(model, rules=gpt_tp_rules(), **kw)
+    ids = [eng.submit(p, TP_NEW) for p in reqs["paged"]]
+    done = {}
+
+    def steps(n):
+        for _ in range(n):
+            done.update({c.id: c for c in eng.step()})
+
+    def respread(n):
+        active = int(eng._active.sum())
+        before = (eng.stats["parked"], eng.stats["resumed"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plans = eng.respread_pool(n)
+        torch.cuda.synchronize()
+        return {"to": n, "active_slots": active,
+                "parked": eng.stats["parked"] - before[0],
+                "resumed": eng.stats["resumed"] - before[1],
+                "seconds": time.perf_counter() - t0,
+                "dormant_after": eng._dormant,
+                "plans": {k: {"bytes_moved": p.bytes_moved,
+                              "bytes_lower_bound": p.bytes_lower_bound,
+                              "bytes_sent": p.executed_bytes_sent,
+                              "peak_scratch_bytes": p.peak_scratch_bytes,
+                              "executed_scratch_bytes":
+                                  p.executed_scratch_bytes,
+                              "kinds": p.kinds()}
+                          for k, p in plans.items()}}
+
+    steps(2)
+    out["shrink"] = respread(1)
+    reset_launches()
+    watch["on"] = True
+    st0 = dict(eng.stats)
+    steps(2)
+    watch["on"] = False
+    alone = {"launches": {k: n for k, n in read_launches().items() if n},
+             "kernel_heads": {k: sorted(set(v))
+                              for k, v in watch["seen"].items() if v},
+             "decode_paged": eng.stats["decode_paged"]
+             - st0.get("decode_paged", 0),
+             "decode_verify": eng.stats["decode_verify"]
+             - st0.get("decode_verify", 0),
+             "heads": model.local_heads()}
+    for v in watch["seen"].values():
+        v.clear()
+    if rank == 0:
+        per = {"paged_decode_attention": alone["decode_paged"],
+               "paged_verify_attention": alone["decode_verify"]}
+        check_launches(read_launches(), {k: n for k, n in per.items() if n},
+                       REDIST_RESPREAD_LAYERS, "redistribute_path one rank")
+        check(alone["heads"] == cfg.model.num_heads
+              and set(sum(alone["kernel_heads"].values(), []))
+              == {cfg.model.num_heads},
+              f"redistribute_path: heads on one rank {alone}")
+    out["one_rank_steps"] = alone
+    out["grow"] = respread(2)
+    done.update({c.id: c for c in eng.run()})
+    snap = eng.telemetry.snapshot()
+    out["counters"] = {k: snap[k] for k in (
+        "serve_pool_respread_total", "serve_pool_respread_bytes_total")}
+    out["tokens"] = {str(i): done[i].tokens.tolist() for i in ids
+                     if i in done}
+    out["heads_after"] = model.local_heads()
+    for name in ("shrink", "grow"):
+        r = out[name]
+        if rank == 0:
+            check(r["parked"] == r["resumed"] == r["active_slots"],
+                  f"redistribute_path {name}: parked/resumed {r}")
+        for k, p in r["plans"].items():
+            check(p["executed_scratch_bytes"] <= p["peak_scratch_bytes"],
+                  f"redistribute_path {name} {k}: scratch {p}")
+    check(out["counters"]["serve_pool_respread_total"] == 2
+          and out["counters"]["serve_pool_respread_bytes_total"] > 0,
+          f"redistribute_path: counters {out['counters']}")
+    if rank == 0:
+        check(sorted(done) == sorted(ids) and all(done[i].ok for i in ids),
+              "redistribute_path: a request did not end ok")
+        div = []
+        for i, (rid, want) in enumerate(zip(ids, ref["tokens"])):
+            got = done[rid].tokens.tolist()
+            start = done[rid].prompt_len
+            j = _first_diff(got, want, start)
+            rec = {"request": i, "first_diff_step":
+                   None if j is None else j - start}
+            if j is not None:
+                gap = _top2_gap(one, cfg, np.asarray(want[:j], np.int32))
+                rec.update(top2_gap=gap, gap_tol=FP32_GAP_TOL)
+                check(gap <= FP32_GAP_TOL,
+                      f"redistribute_path: request {i} differs from the "
+                      f"never re-spread engine at step {j - start} with "
+                      f"top-2 gap {gap}")
+            div.append(rec)
+        out["vs_never_respread"] = div
+    del eng, model, one
+    torch.cuda.empty_cache()
+    return out
+
+
+def redistribute_rank(rank, env, base, sd, reqs, paged_tokens, watch,
+                      seed) -> dict:
+    """redistribute_path's part on one rank: (a) the train-to-serve
+    handoff and (b) the live re-spread."""
+    t0 = time.perf_counter()
+    out = {"handoff": _redist_handoff(env, base, sd, reqs, paged_tokens,
+                                      watch)}
+    print(json.dumps({"redistribute_handoff": out["handoff"]}), flush=True)
+    out["respread"] = _redist_respread(rank, env, base, reqs, watch, seed)
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"redistribute_respread": out["respread"],
+                      "seconds": out["seconds"]}), flush=True)
+    return out
+
+
+def redistribute_report(ranks: list, elastic: dict | None,
+                        card: str) -> dict:
+    """redistribute_path's line: the ranks' handoff and re-spread across
+    both ranks (bytes sent summed over the ranks against the plans'),
+    and the elastic restore (item 36d's restarted child)."""
+    r0 = ranks[0]["redistribute"]
+    hand = [r["redistribute"]["handoff"] for r in ranks]
+    sent = sum(h["bytes_sent"] for h in hand)
+    check(sent == hand[0]["bytes_moved"],
+          f"redistribute_path: handoff sent {sent} bytes, the plan moves "
+          f"{hand[0]['bytes_moved']}")
+    resp = [r["redistribute"]["respread"] for r in ranks]
+    for name in ("shrink", "grow"):
+        for k, p in resp[0][name]["plans"].items():
+            got = sum(r[name]["plans"][k]["bytes_sent"] for r in resp)
+            check(got == p["bytes_moved"],
+                  f"redistribute_path {name} {k}: sent {got}, plan moves "
+                  f"{p['bytes_moved']}")
+    for rid, toks in resp[1]["tokens"].items():
+        check(toks == resp[0]["tokens"][rid],
+              f"redistribute_path: rank 1 request {rid} differs")
+    return {"card": card, "config": "gpt2_medium_serve",
+            "backend_note": "gloo over CUDA tensors, every transfer staged "
+                            "through pinned host memory: the seconds are "
+                            "no measure of NVLink",
+            "handoff": {**{k: v for k, v in r0["handoff"].items()
+                           if k != "serve"},
+                        "bytes_sent_by_rank": [h["bytes_sent"]
+                                               for h in hand],
+                        "executed_scratch_bytes_by_rank": [
+                            h["executed_scratch_bytes"] for h in hand],
+                        "seconds_by_rank": [h["seconds"] for h in hand],
+                        "serve": r0["handoff"]["serve"]},
+            "respread": {k: v for k, v in resp[0].items() if k != "tokens"},
+            "respread_rank1_requests_seen": len(resp[1]["tokens"]),
+            "restore": elastic,
+            "seconds_by_rank": [r["redistribute"]["seconds"]
+                                for r in ranks]}
 
 
 def tp_serve_phase(seed: int, card: str) -> dict:
@@ -5695,7 +6075,12 @@ def tp_serve_phase(seed: int, card: str) -> dict:
     tensor-parallel serving over NVLink."""
     ranks = _spawn_ranks("--tp-rank", ["--seed", str(seed)], TP_RANKS,
                          TP_TIMEOUT_S, "tp_serve", "tp")
+    TP_RESULTS["ranks"] = ranks
     return tp_report(ranks, card)
+
+
+# The tp_serve_path ranks' results, for redistribute_path's line.
+TP_RESULTS: dict = {}
 
 
 def tp_report(ranks: list, card: str) -> dict:
@@ -5989,15 +6374,16 @@ def lowp_phase(gen, card: str) -> dict:
 # tp_serve_path. Each run: one warm-up step (lr 0) and OVERLAP_STEPS timed
 # steps of 8 x 1024 tokens in 2 microbatches (cut from the recipes' 64 in
 # 8 to fit the phase's time: gloo stages every ring hop through the host),
-# 4 of the 24 layers (cut to 12 to make room for the A12 phases in the
-# script's time limit, to 6 for pp_path, then to 4 for elastic_path),
-# bf16_mixed, flash attention, seeded weights.
+# 2 of the 24 layers (cut to 12 to make room for the A12 phases in the
+# script's time limit, to 6 for pp_path, to 4 for elastic_path, then to
+# 2 for redistribute_path and the slowest hosts), bf16_mixed, flash
+# attention, seeded weights.
 OVERLAP_RANKS = 2
 OVERLAP_STEPS = 2
 OVERLAP_TIMEOUT_S = 600
 OVERLAP_OVERRIDES = ["model.attention=flash", "data.global_batch_size=8",
                      "trainer.grad_accum=2", "checkpoint.enabled=false",
-                     "model.num_layers=4"]
+                     "model.num_layers=2"]
 # name: (recipe, mesh and batch, the plain step's overrides: the Megatron
 # pair, or FSDP gathered at the start of the step). The FSDP run takes
 # its 8 rows in one microbatch: its gathers move every block's params
@@ -6257,10 +6643,10 @@ def overlap_report(ranks: list, card: str) -> dict:
 # ------------------------------------------------- A12: MoE and sequence
 # parallelism. moe_path: gpt2_moe on this process (expert=1); ep_path and
 # sp_path: two gloo processes of this script on the one card, like
-# overlap_path. moe_path runs 6 of gpt2_moe's 12 layers (cut for
-# elastic_path in the script's time limit).
+# overlap_path. moe_path runs 2 of gpt2_moe's 12 layers (cut for
+# elastic_path in the script's time limit, then for redistribute_path).
 MOE_OVERRIDES = ["model.attention=flash", "mesh.expert=1",
-                 "model.num_layers=6"]
+                 "model.num_layers=2"]
 MOE_STEPS = 2  # timed steps a dispatch, after a warm-up (lr 0)
 # The two dispatches' step-0 losses (the same weights and batch) in
 # fp32, at 2 x 1024 tokens: the reference's own tolerance between them
@@ -6280,12 +6666,13 @@ MOE_REQUESTS, MOE_NEW = 8, 32
 MOE_LOGITS_TOL = 1e-4
 A12_RANKS = 2
 A12_TIMEOUT_S = 480
-# ep_path: gpt2_moe at full width over expert=2 (4 experts a rank), 6 of
+# ep_path: gpt2_moe at full width over expert=2 (4 experts a rank), 2 of
 # its 12 layers (cut to make room for pp_path in the script's time
-# limit), one microbatch of 8 x 1024 tokens (the recipe: 64 in 8).
+# limit, then for redistribute_path), one microbatch of 8 x 1024 tokens
+# (the recipe: 64 in 8).
 EP_OVERRIDES = ["model.attention=flash", "data.global_batch_size=8",
                 "trainer.grad_accum=1", "checkpoint.enabled=false",
-                "model.num_layers=6"]
+                "model.num_layers=2"]
 EP_MESH = ["mesh.expert=2"]
 EP_STEPS = 1  # timed, after the warm-up
 # The same step in fp32 at 2 of the 12 layers (the cut is the time):
@@ -6312,11 +6699,11 @@ EP_RTOL = {"ep": {"loss": 1e-4, "grad_norm": 1e-2},
 # an H100: y 3.9e-3, the rest 0; controls 0.92-1.0 and 1.0.
 EP_LAYER_TOL = 2e-2
 # sp_path: gpt2_ring at full width, T 8192, over seq=2; global batch 8 ->
-# 4 (two ranks and the one-rank reference on one card), 4 of its 24
+# 4 (two ranks and the one-rank reference on one card), 2 of its 24
 # layers (cut to 12 to make room for pp_path in the script's time limit,
-# then to 4 for elastic_path).
+# to 4 for elastic_path, then to 2 for redistribute_path).
 SP_OVERRIDES = ["data.global_batch_size=4", "checkpoint.enabled=false",
-                "model.num_layers=4"]
+                "model.num_layers=2"]
 SP_MESH = ["mesh.seq=2"]
 SP_PLAIN = ["mesh.seq=1", "model.attention=flash", "parallel.sequence=none"]
 SP_RUNS = {"ring": [],
@@ -6414,7 +6801,7 @@ def moe_dispatch_ms(cfg, sd, tokens: int) -> dict:
 
 
 def moe_phase(gen, card: str, seed: int) -> dict:
-    """moe_path: ``gpt2_moe`` at full width (6 of its 12 layers, width
+    """moe_path: ``gpt2_moe`` at full width (2 of its 12 layers, width
     1024, 16 heads, T 1024, 8 experts top-2, cf 1.25, bf16_mixed) on one
     card (expert=1), flash attention: a warm-up and ``MOE_STEPS`` timed
     steps of the recipe's 64 x 1024 tokens in 8 microbatches under each
@@ -7744,6 +8131,8 @@ def main() -> int:
             "elastic_path", elastic_phase, shard_dir,
             os.path.join(data_work, "elastic"), card)
         emit("elastic_path", elastic_report)
+        emit("redistribute_path", redistribute_report(
+            TP_RESULTS["ranks"], elastic_report["restore"], card))
         sanitize_work = os.path.join(data_work, "sanitize")
         os.makedirs(sanitize_work)
         emit("sanitize_check", timed_phase("sanitize_check", sanitize_phase,

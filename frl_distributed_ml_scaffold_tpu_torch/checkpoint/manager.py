@@ -19,6 +19,19 @@ restore keeps each rank's stage or, on one rank, the whole model.
 ``torch.distributed.checkpoint`` was not used: one file per step, whole,
 is what every mesh can read.
 
+With ``checkpoint.restore_redistribute`` (the elastic supervisor's
+re-formed world sets it) a restore goes through the redistribution
+service instead: each rank memory-maps the one ``state.pt`` and reads
+its region of every leaf at ``restore_layout_spec``'s even layout (the
+target spec with every unused mesh axis laid onto a dim: about 1/N of
+the leaf a rank, never a whole copy), then the plan moves each leaf to
+the layout's target spec (a pure drop program, all-gathers on their own
+dims, or point-to-point chunks where a split is uneven) with each even
+leaf released as its target exists. ``last_restore_plan`` keeps the
+executed plan and ``last_restore_read_bytes`` the bytes this rank read.
+The ranks agree on the path before they restore: the flag on any rank
+takes them all through the service.
+
 Checkpoints do not cross packages: the port cannot read the JAX
 package's Orbax directories, and the JAX package cannot read these.
 Parameters cross through ``models/convert.py``.
@@ -56,11 +69,16 @@ import shutil
 import time
 from typing import Any
 
+import numpy as np
 import torch
 
 from frl_distributed_ml_scaffold_tpu_torch import faults, resolve_device
 from frl_distributed_ml_scaffold_tpu_torch.config.schema import CheckpointConfig
-from frl_distributed_ml_scaffold_tpu_torch.dist.collectives import barrier
+from frl_distributed_ml_scaffold_tpu_torch.dist.collectives import (
+    barrier,
+    host_all_gather,
+)
+from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import one_rank_mesh
 from frl_distributed_ml_scaffold_tpu_torch.trainer.train_state import TrainState
 from frl_distributed_ml_scaffold_tpu_torch.utils.logging import (
     get_logger,
@@ -144,6 +162,63 @@ def _to_device(state: TrainState, device) -> TrainState:
                                   else move(state.ema_params)))
 
 
+def _targets(state: TrainState, layout, env) -> dict:
+    """The target ``Placement`` of every tensor of ``state`` (whole), by
+    its ``_flatten`` path: the params and the EMA at the layout's param
+    specs, the parameter-shaped optimizer tensors at its opt specs,
+    anything else whole on every rank; under ``pipe`` the tensors of a
+    name-keyed dict are held by its owner's stage."""
+    from frl_distributed_ml_scaffold_tpu_torch.redistribute import Placement
+
+    names = ({} if layout is None
+             else (layout.whole_shapes or layout.shapes))
+    owner = {} if layout is None else layout.owner
+
+    def spec(which: str, name: str, t: torch.Tensor):
+        if layout is not None and tuple(t.shape) == names.get(name):
+            s = getattr(layout, which).get(name)
+            if s is not None:
+                return s
+        return (None,) * t.dim()
+
+    out = {}
+    for top, which in (("params", "param"), ("ema_params", "param"),
+                       ("opt_state", "opt"), ("extras", None)):
+        for path, t in _flatten(getattr(state, top) or {}, f"{top}/").items():
+            if not isinstance(t, torch.Tensor):
+                continue
+            name = path.rsplit("/", 1)[-1]
+            keyed = which is not None and name in names
+            out[path] = Placement(
+                env, spec(which, name, t) if keyed else (None,) * t.dim(),
+                owner.get(name) if keyed else None)
+    return out
+
+
+def _rebuild(state: TrainState, targets: dict, local: dict) -> TrainState:
+    """``state`` with every target tensor replaced by this rank's
+    ``local`` one, and the tensors this rank holds none of left out
+    (another pipeline stage's)."""
+    def walk(tree, prefix):
+        if not isinstance(tree, dict):
+            if prefix.rstrip("/") in targets:
+                return local.get(prefix.rstrip("/"))
+            return tree
+        out = {}
+        for k, v in tree.items():
+            path = f"{prefix}{k}"
+            if path in targets and path not in local:
+                continue
+            out[k] = walk(v, f"{path}/" if isinstance(v, dict) else path)
+        return out
+
+    return TrainState(step=state.step, params=walk(state.params, "params/"),
+                      opt_state=walk(state.opt_state, "opt_state/"),
+                      extras=walk(state.extras, "extras/"),
+                      ema_params=(None if state.ema_params is None else
+                                  walk(state.ema_params, "ema_params/")))
+
+
 class Checkpointer:
     """Async save and restore of a ``TrainState`` (module docstring).
 
@@ -153,11 +228,6 @@ class Checkpointer:
     torn or corrupt steps; otherwise a fresh init."""
 
     def __init__(self, directory: str, cfg: CheckpointConfig):
-        if cfg.restore_redistribute:
-            raise NotImplementedError(
-                "checkpoint.restore_redistribute (a restore through the "
-                "redistribution service) is not ported yet (ROADMAP A13)"
-            )
         self.directory = directory
         self.cfg = cfg
         self.logger = get_logger()
@@ -175,6 +245,10 @@ class Checkpointer:
         #: The state's specs over the mesh (``parallel/layout.py``), set
         #: by the ``Trainer``; None holds the state as it is given.
         self.layout = None
+        #: The plan of the last restore through the redistribution
+        #: service, and the tensor bytes this rank read for it.
+        self.last_restore_plan = None
+        self.last_restore_read_bytes = 0
 
     # ------------------------------------------------------ commit markers
 
@@ -403,12 +477,12 @@ class Checkpointer:
         return {k: v.to(dev, copy=True) for k, v in raw["params"].items()}
 
     def _restore_bridging_ema(self, shapes: TrainState, step: int,
-                              device) -> TrainState:
+                              device, *, mmap: bool = False) -> TrainState:
         """One step's restore, bridging an ``ema_decay`` toggle across
         the resume (the checkpoint has or lacks ``ema_params`` against the
         new run's template); a corrupt step raises and the caller falls
         back down the chain."""
-        raw = self._load(step, device)
+        raw = self._load(step, device, mmap=mmap)
         try:
             return self._as_state(raw, shapes, step)
         except StateMismatch:
@@ -443,31 +517,101 @@ class Checkpointer:
         steps = self.all_steps()
         layout = self.layout
         split = layout is not None and not layout.trivial
+        # The service's restore takes every rank, so the ranks agree on
+        # it: one rank's flag (a re-formed child beside a host started
+        # afresh) takes them all through it.
+        via = bool(host_all_gather(
+            np.array([self.cfg.restore_redistribute])).any())
         for step in reversed(steps):
+            # Reading a step is this rank's own work (through the service
+            # too: each rank narrows its regions of the memory map), so a
+            # step one rank cannot read is skipped by all of them, before
+            # any of them takes part in a move.
+            err = None
             try:
                 state = self._restore_bridging_ema(
                     trainer.state_shapes, step,
-                    "cpu" if split else trainer.device)
-                if split:
+                    "cpu" if split or via else trainer.device, mmap=via)
+                if via:
+                    even = self._read_even(state, trainer.device)
+                elif split:
                     state = _to_device(layout.shard_state(state),
                                        trainer.device)
+            except Exception as e:  # noqa: BLE001 (reported below)
+                err = e
+            bad = host_all_gather(np.array([err is not None]))
+            if not bad.any():
+                if via:
+                    # Outside the fallback: a failed plan or send raises
+                    # on every rank, it never restores an older step.
+                    return self._redistribute(state, even, trainer.device,
+                                              step)
                 self.logger.info("restored checkpoint step %d from %s",
                                  step, self.directory)
                 return state
-            except Exception as e:
-                # Damage a commit marker cannot see: report it, keep the
-                # directory, fall back to the previous committed step.
-                self.corrupt_steps.append(step)
-                self.logger.error(
-                    "checkpoint step %d is committed but unreadable "
-                    "(%s: %s); falling back to the previous committed "
-                    "step; directory left in place for inspection",
-                    step, type(e).__name__, e)
+            # Damage a commit marker cannot see: report it, keep the
+            # directory, fall back to the previous committed step.
+            self.corrupt_steps.append(step)
+            why = (f"{type(err).__name__}: {err}" if err is not None else
+                   f"unreadable on rank(s) {np.flatnonzero(bad).tolist()}")
+            self.logger.error(
+                "checkpoint step %d is committed but unreadable (%s); "
+                "falling back to the previous committed step; directory "
+                "left in place for inspection", step, why)
         if steps:
             self.logger.error(
                 "no committed checkpoint under %s was restorable (%d "
                 "tried); initializing fresh", self.directory, len(steps))
         return trainer.init_state()
+
+    def _read_even(self, state: TrainState, device) -> tuple:
+        """This rank's regions of ``state`` (memory-mapped, whole) at
+        ``restore_layout_spec``'s even layout, read with no
+        communication: ``(targets, even placements, local tensors)``."""
+        from frl_distributed_ml_scaffold_tpu_torch import redistribute as rd
+
+        env = (self.layout.env if self.layout is not None
+               else one_rank_mesh())
+        targets = _targets(state, self.layout, env)
+        flat = _flatten(_state_tree(state))
+        even, src = {}, {}
+        for path, target in targets.items():
+            x = flat[path]
+            spec = rd.restore_layout_spec(tuple(x.shape), target.spec, env,
+                                          owner=target.owner)
+            even[path] = rd.Placement(env, spec, target.owner)
+            src[path] = rd.Abstract.of(x.shape, x.dtype, None)
+        read = rd.compile_tree_plan(src, even)
+        local = rd.execute(read, {p: flat[p] for p in targets},
+                           donate=False, device=device)
+        return targets, {p: rd.Abstract.of(src[p].shape, src[p].dtype,
+                                           even[p]) for p in targets}, local
+
+    def _redistribute(self, state: TrainState, even: tuple, device,
+                      step: int) -> TrainState:
+        """``state``'s leaves from this rank's even regions (``even``, as
+        ``_read_even`` gives them) onto the layout's target specs through
+        the redistribution service (module docstring). Every rank of the
+        layout's mesh takes part."""
+        from frl_distributed_ml_scaffold_tpu_torch import redistribute as rd
+
+        targets, src, local = even
+        self.last_restore_read_bytes = sum(
+            t.numel() * t.element_size() for t in local.values())
+        scratch = (int(self.cfg.redistribute_scratch_mb * 1024 * 1024)
+                   if self.cfg.redistribute_scratch_mb else None)
+        plan = rd.compile_tree_plan(src, dict(targets),
+                                    scratch_limit_bytes=scratch)
+        local = rd.execute(plan, local, donate=True, device=device)
+        self.last_restore_plan = plan
+        self.logger.info(
+            "restored checkpoint step %d from %s via redistribution "
+            "(%d leaves, %d bytes moved, lower bound %d, peak scratch %d)",
+            step, self.directory, len(plan.leaves), plan.bytes_moved,
+            plan.bytes_lower_bound, plan.peak_scratch_bytes)
+        self.logger.info("%s; this rank read %d bytes", plan.summary_lines()[0],
+                         self.last_restore_read_bytes)
+        return _rebuild(state, targets, local)
 
     def wait(self) -> None:
         self._finish_pending()

@@ -141,10 +141,11 @@ class TrainerConfig:
 @dataclass(frozen=True)
 class CheckpointConfig:
     """Checkpoints of the train state (``checkpoint/manager.py``).
-    ``restore_redistribute`` (and its scratch budget) is refused:
-    the redistribution service is ROADMAP A13c. A plain restore
-    re-shards the whole state onto any mesh, so the elastic supervisor's
-    re-formed world restores without it."""
+    ``restore_redistribute`` restores through the redistribution service
+    (each rank reads about 1/N of every leaf, then the plan moves it to
+    the trainer's layout), its chunks bounded by
+    ``redistribute_scratch_mb`` (0: unbounded); the elastic supervisor's
+    re-formed world sets it."""
 
     enabled: bool = False
     save_every: int = 1000

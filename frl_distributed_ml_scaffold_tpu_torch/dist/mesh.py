@@ -87,6 +87,12 @@ class MeshEnv:
     def num_devices(self) -> int:
         return int(self.ranks.size)
 
+    @property
+    def member(self) -> bool:
+        """Whether this rank is one of the mesh's (a mesh over a subset
+        of the world's ranks leaves the others out)."""
+        return bool((self.ranks == self.rank).any())
+
     def axis_size(self, name) -> int:
         """The size of an axis, or the product over a tuple of axes."""
         return int(np.prod([self.shape[a] for a in _axes_key(name)]))
@@ -182,6 +188,13 @@ def rank_layout(cfg: MeshConfig, n_devices: int) -> np.ndarray:
     arr = ranks.reshape((cfg.dcn_data,) + ici_shape)
     # [dcn, pipe, data_ici, ...] -> [pipe, dcn, data_ici, ...]
     return np.moveaxis(arr, 0, 1).reshape(shape)
+
+
+def one_rank_mesh() -> MeshEnv:
+    """The mesh of this process alone (rank 0's coordinates, no group):
+    where a layout is asked of a run that has no mesh."""
+    cfg = MeshConfig(data=1)
+    return MeshEnv(config=cfg, ranks=rank_layout(cfg, 1))
 
 
 def build_mesh(cfg: MeshConfig, num_devices: int | None = None, *,

@@ -13,12 +13,11 @@ membership heartbeats in the run's workdir let survivors shrink to a
 smaller world after ``elastic.shrink_after`` failures and grow back when
 an evicted host beats again.
 
-A re-formed world restores through the plain path: the port's checkpoint
-holds the whole state under plain names and a restore re-shards it onto
-any mesh (``checkpoint/manager.py``), so the child's command line does
-not carry the JAX supervisor's ``checkpoint.restore_redistribute=true``
-(the redistribution service is ROADMAP A13c, and the port refuses that
-flag until then).
+A re-formed world restores through the redistribution service, as the
+JAX supervisor's does: its child's command line ends with
+``checkpoint.restore_redistribute=true``, so each rank reads about 1/N
+of every leaf at the even layout and the plan moves it to the new
+world's layout (``checkpoint/manager.py``).
 
 Fault injection for the drills lives here too: ``FRL_FAULT_AT_STEP=N``
 makes the child hard-exit (``os._exit(FAULT_EXIT_CODE)``: no checkpoint
@@ -427,9 +426,11 @@ def supervise(args, cfg: ExperimentConfig) -> int:
             # only now.
             held_port.close()
             held_port = None
-        # The plain restore re-shards onto the new world: no
-        # checkpoint.restore_redistribute (module docstring).
+        # A re-formed world restores through the redistribution service
+        # (module docstring); appended after _child_command's forced
+        # overrides so it wins.
         cmd = _child_command(args, topo)
+        cmd += ["checkpoint.restore_redistribute=true"]
         restarts = 0
         consecutive_failures = 0
         grow_grace = 3 if reason == "growing" else 0

@@ -177,57 +177,88 @@ def opt_state_specs(p_specs: dict[str, Spec], parallel: ParallelConfig,
             for name, spec in p_specs.items()}
 
 
-def shard_params_for_serving(model, env, rules: PartitionRules):
-    """Place a model's parameters onto a serving mesh by its TP rules, in
-    place: each parameter a rule splits over ``model`` keeps this rank's
-    slice (``layout.chunk_bounds``), every other one stays whole. Serving
-    has no optimizer state and no FSDP overlay (the JAX function's
-    replicated ``ParallelConfig()`` base), so only ``rules`` decides.
-    Returns the model.
+def serving_specs(model, env, rules: PartitionRules | None) -> dict[str, Spec]:
+    """The spec of every parameter of ``model`` on a serving mesh ``env``
+    by its TP ``rules``: each rule's ``model`` split, every other
+    parameter whole. Serving has no optimizer state and no FSDP overlay
+    (the JAX function's replicated ``ParallelConfig()`` base), so only
+    ``rules`` decides, with two choices of the port: the tensors the
+    model reads whole (``TP_COMPUTE_WHOLE``: the GPT's tied embedding and
+    head) stay whole on every rank, so the logits come out whole and the
+    same on every rank without a gather; and where the heads do not
+    divide over ``model`` (the JAX model leaves that cache unconstrained
+    and decodes every head) the attention's projections stay whole and
+    each rank attends every head, while the MLP still splits."""
+    shapes = {k: tuple(p.shape) for k, p in type(model)(
+        model.config, model.policy, device="meta").named_parameters()}
+    keep = set(getattr(type(model), "TP_COMPUTE_WHOLE", ()))
+    if model.config.num_heads % env.axis_size("model"):
+        keep |= {k for k in shapes if ".attn." in k}
+    out = {}
+    for name, shape in shapes.items():
+        spec = normalize(rules.match(name) if rules else None, len(shape))
+        if name in keep:
+            spec = (None,) * len(shape)
+        for e in spec:
+            if e is not None and e != "model":
+                raise ValueError(
+                    f"{name}: serving splits over model only, the rule "
+                    f"gives {spec}")
+        out[name] = spec
+    return out
 
-    Two choices of the port: the tensors the model reads whole
-    (``TP_COMPUTE_WHOLE``: the GPT's tied embedding and head) stay whole
-    on every rank, so the logits come out whole and the same on every
-    rank without a gather; and where the heads do not divide over
-    ``model`` (the JAX model leaves that cache unconstrained and decodes
-    every head) the attention's projections stay whole and each rank
-    attends every head, while the MLP still splits.
 
-    The module must hold the whole parameters (a host tree): a module
-    already holding split ones (a training layout's shards, the
-    train-to-serve handoff) moves through the redistribution service,
-    which is not ported (ROADMAP A13)."""
+def shard_params_for_serving(model, env, rules: PartitionRules, *,
+                             layout=None):
+    """Place a model's parameters onto a serving mesh by its TP rules
+    (``serving_specs``), in place: each parameter a rule splits over
+    ``model`` keeps this rank's slice (``layout.chunk_bounds``), every
+    other one stays whole. Returns the model.
+
+    A model holding the whole parameters (a host tree) narrows them
+    here, with no communication. A model holding a training layout's
+    shards (``layout``, the ``StateLayout`` they are split by) is placed
+    through the redistribution service (``redistribute.train_to_serve``):
+    every rank of the training and the serving mesh calls this, each
+    sends the chunks the others lack. A rank outside the serving mesh is
+    left holding no parameters (empty tensors) either way."""
     import torch
 
     from frl_distributed_ml_scaffold_tpu_torch.parallel.layout import (
         chunk_bounds,
     )
 
+    params = dict(model.named_parameters())
+    if layout is not None:
+        from frl_distributed_ml_scaffold_tpu_torch import redistribute
+
+        placed, _ = redistribute.train_to_serve(
+            {k: p.data for k, p in params.items()}, env, rules,
+            layout=layout, model=model, donate=True)
+        with torch.no_grad():
+            for name, p in params.items():
+                p.data = placed.get(name, p.data.new_empty(0))
+        return model
+    if not env.member:
+        # A rank outside the serving mesh serves nothing (a dormant
+        # engine, serving/engine.py): it keeps no parameters.
+        with torch.no_grad():
+            for p in params.values():
+                p.data = p.data.new_empty(0)
+        return model
+    specs = serving_specs(model, env, rules)
     whole = dict(type(model)(model.config, model.policy,
                              device="meta").named_parameters())
-    params = dict(model.named_parameters())
     if any(p.shape != whole[k].shape for k, p in params.items()):
-        raise NotImplementedError(
+        raise ValueError(
             "shard_params_for_serving: the model holds split parameters (a "
-            "training layout's shards); the train-to-serve handoff moves "
-            "them through the redistribution service, which is not ported "
-            "yet (ROADMAP A13)")
-    keep = set(getattr(type(model), "TP_COMPUTE_WHOLE", ()))
-    cfg = model.config
-    if cfg.num_heads % env.axis_size("model"):
-        keep |= {k for k in params if ".attn." in k}
+            "training layout's shards); pass layout= (the StateLayout they "
+            "are split by) to move them through the redistribution service")
     with torch.no_grad():
         for name, p in params.items():
-            spec = normalize(rules.match(name), p.dim())
-            if name in keep or all(e is None for e in spec):
-                continue
-            for d, e in enumerate(spec):
+            for d, e in enumerate(specs[name]):
                 if e is None:
                     continue
-                if e != "model":
-                    raise ValueError(
-                        f"{name}: serving splits over model only, the rule "
-                        f"gives {spec}")
                 lo, hi = chunk_bounds(p.shape[d], env.axis_size(e),
                                       env.axis_index(e))
                 p.data = p.data.narrow(d, lo, hi - lo).clone(

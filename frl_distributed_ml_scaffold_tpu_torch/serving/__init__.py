@@ -20,7 +20,7 @@ from frl_distributed_ml_scaffold_tpu_torch.serving.scheduler import (
 )
 
 
-def build_engine(model, *, serving, rules=None, **kw):
+def build_engine(model, *, serving, rules=None, layout=None, **kw):
     """Config-driven engine construction: dispatch on
     ``serving.disaggregate`` to the ``DisaggServingEngine`` or the
     colocated ``ServingEngine``; both read the paged, speculation, queue
@@ -32,7 +32,12 @@ def build_engine(model, *, serving, rules=None, **kw):
     model's parameters are first placed on this rank's shards
     (``parallel.partition.shard_params_for_serving``, in place) and the
     engine serves over the mesh; with no current mesh they do nothing,
-    as in the JAX package."""
+    as in the JAX package. The engine keeps ``rules``: a re-spread and a
+    prefill partition's replica place the params by them (None: whole
+    on every rank). ``layout``: the training ``StateLayout`` whose
+    shards the model holds, which then move through the redistribution
+    service (the train-to-serve handoff; every rank of both meshes
+    calls this)."""
     if rules is not None:
         from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import (
             current_mesh_env,
@@ -43,9 +48,9 @@ def build_engine(model, *, serving, rules=None, **kw):
 
         env = current_mesh_env()
         if env is not None:
-            shard_params_for_serving(model, env, rules)
+            shard_params_for_serving(model, env, rules, layout=layout)
     cls = DisaggServingEngine if serving.disaggregate else ServingEngine
-    return cls(model, serving=serving, **kw)
+    return cls(model, serving=serving, rules=rules, **kw)
 
 
 __all__ = [

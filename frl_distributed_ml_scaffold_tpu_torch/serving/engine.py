@@ -74,8 +74,28 @@ The port of the JAX package's ``serving/engine.py``:
   rank: the queue bounds, the pool and the fault plan (seeded draws
   taken in the same order).
 
-Waiting for ROADMAP A13: ``respread_pool``, which moves the params and
-the pool through the redistribution service.
+- **Re-spread** (``respread_pool``): a live ``model``-axis grow or
+  shrink moves the params, the draft params and the pool's K/V and scale
+  leaves through the redistribution service around a park and resume of
+  every active slot; block ids are logical, so the tables, cursors and
+  allocator keep their values. The port's engines run one a rank, so a
+  rank that leaves the mesh, or joins it, has no counterpart in the
+  single-controller JAX engine. The port's answer: EVERY rank of the
+  world holds an engine of the same config and calls ``respread_pool``
+  with the same argument. An engine on a rank outside its mesh is
+  DORMANT: it holds no parameters (empty tensors), no cache and no
+  requests, and its ``step`` / ``run`` do nothing, while the mesh's
+  engines keep their lock step among themselves (the plan and token
+  broadcasts run over the mesh's group, from its first rank). On a
+  re-spread the old mesh's first rank broadcasts its host state (queue,
+  slots, allocator, prefix cache, stats) to the world before any slot
+  parks; the plans move the device state (a leaving rank sends its
+  shards and goes dormant, a joining rank receives its shards and the
+  whole bookkeeping leaves); the staying ranks resume their parked
+  slots, and a joining rank adopts the broadcast state (its own request
+  objects where it knows the ids) with the same cursor rewind. Requests
+  that finished while a rank was dormant are reported by the mesh's
+  ranks only.
 """
 
 from __future__ import annotations
@@ -92,10 +112,12 @@ import torch.nn.functional as F
 
 from frl_distributed_ml_scaffold_tpu_torch import faults, resolve_device
 from frl_distributed_ml_scaffold_tpu_torch.config.schema import ServingConfig
-from frl_distributed_ml_scaffold_tpu_torch.dist.collectives import (
-    host_broadcast,
+from frl_distributed_ml_scaffold_tpu_torch.dist.initialize import (
+    process_index,
 )
 from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import (
+    AXES,
+    MeshEnv,
     current_mesh_env,
     mesh_context,
 )
@@ -128,6 +150,14 @@ from frl_distributed_ml_scaffold_tpu_torch.telemetry import (
     Tracer,
 )
 from frl_distributed_ml_scaffold_tpu_torch.utils.logging import get_logger
+
+
+def _release_params(model) -> None:
+    """Leave ``model`` holding no parameters (empty tensors): a dormant
+    engine's."""
+    with torch.no_grad():
+        for p in model.parameters():
+            p.data = p.data.new_empty(0)
 
 
 def ngram_propose(
@@ -309,6 +339,7 @@ class ServingEngine:
         draft_params: dict | None = None,
         telemetry: MetricsRegistry | None = None,
         tracer: Tracer | None = None,
+        rules=None,
         device=None,
     ):
         dev = resolve_device(device)
@@ -321,17 +352,17 @@ class ServingEngine:
             )
         serving = ServingConfig() if serving is None else serving
         self.model = model
+        # The TP partition rules the params were placed by
+        # (``build_engine(rules=)``; None: whole on every rank): a
+        # re-spread places them by the same rules on the new mesh.
+        self.rules = rules
         self.num_slots = int(num_slots)
         # The mesh, captured once: every step runs under it, and over
         # more than one rank the engines run in lock step.
-        self._env = current_mesh_env()
-        self._lockstep = self._env is not None and self._env.num_devices > 1
         self._plan_expired: set[int] = set()
-        # This rank's rows of the contiguous cache (all of them unless
-        # they split over the batch axes) and the first one's slot.
-        self._rows = model.cache_rows(self.num_slots)
-        self._row0 = (0 if self._rows == self.num_slots
-                      else self._env.batch_index * self._rows)
+        self._set_env(current_mesh_env())
+        if self._dormant:
+            _release_params(model)
         self.eos_id = eos_id
         self._sample_kw = dict(
             temperature=temperature, top_k=top_k, top_p=top_p
@@ -582,14 +613,13 @@ class ServingEngine:
             "serve_prefix_hit_rate",
             help="prefix hits / admissions since engine start",
         )
-        # Registered for the full catalog; 0 until the mesh re-spread
-        # lands with the redistribution service (ROADMAP A13).
-        t.counter(
+        # The live re-spreads and their moved bytes (respread_pool).
+        self._m_respread = t.counter(
             "serve_pool_respread_total",
             help="live model-axis re-spreads of the paged pool "
             "(redistribution service; in-flight slots park/resume)",
         )
-        t.counter(
+        self._m_respread_bytes = t.counter(
             "serve_pool_respread_bytes_total",
             help="bytes the re-spread plans actually moved across "
             "devices (the shard delta, not the pool size)",
@@ -761,6 +791,28 @@ class ServingEngine:
     def _mesh(self):
         return mesh_context(self._env)
 
+    def _set_env(self, env: MeshEnv | None) -> None:
+        """Adopt ``env`` as the engine's mesh: its lock step, whether this
+        rank is in it (``_dormant`` when not) and this rank's rows of the
+        contiguous cache (all of them unless they split over the batch
+        axes) and the first one's slot."""
+        self._env = env
+        self._lockstep = env is not None and env.num_devices > 1
+        self._dormant = env is not None and not env.member
+        if self._dormant:
+            self._rows, self._row0 = self.num_slots, 0
+            return
+        with mesh_context(env):
+            self._rows = self.model.cache_rows(self.num_slots)
+        self._row0 = (0 if self._rows == self.num_slots
+                      else env.batch_index * self._rows)
+
+    def _lead(self) -> tuple[Any, int]:
+        """The mesh's group over all its axes and its first rank: the
+        lock step's broadcasts run there, so ranks outside the mesh
+        (dormant engines) take no part."""
+        return self._env.group(AXES), int(self._env.ranks.flat[0])
+
     def _live_requests(self) -> list[ServeRequest]:
         return list(self._queue) + [r for r in self._req if r is not None]
 
@@ -772,16 +824,19 @@ class ServingEngine:
             return
         reqs = self._live_requests() if reqs is None else reqs
         now = time.perf_counter()
-        self._plan_expired = host_broadcast(
-            {r.id for r in reqs if self._clock_expired(r, now)})
+        group, lead = self._lead()
+        box = [{r.id for r in reqs if self._clock_expired(r, now)}]
+        dist.broadcast_object_list(box, src=lead, group=group)
+        self._plan_expired = box[0]
 
     def _agree(self, toks: torch.Tensor) -> torch.Tensor:
-        """Rank 0's sampled (or verified) tokens on every rank, in lock
-        step."""
+        """The mesh's first rank's sampled (or verified) tokens on every
+        rank, in lock step."""
         if not self._lockstep:
             return toks
         toks = toks.contiguous()
-        dist.broadcast(toks, src=0)
+        group, lead = self._lead()
+        dist.broadcast(toks, src=lead, group=group)
         return toks
 
     def _agree_failed(self, failed: bool) -> bool:
@@ -789,11 +844,13 @@ class ServingEngine:
         if not self._lockstep:
             return failed
         flag = torch.tensor([int(failed)], device=self.model.device)
-        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self._lead()[0])
         return bool(flag.item())
 
     @property
     def pending(self) -> int:
+        if self._dormant:
+            return 0
         return len(self._queue) + int(self._active.sum())
 
     def reset_cache(self) -> None:
@@ -842,14 +899,264 @@ class ServingEngine:
         self.tracing.write_chrome_trace(path)
 
     def respread_pool(self, new_env, *, scratch_limit_bytes=None) -> dict:
-        """Re-spreading the params and the paged pool onto another
-        mesh's model axis moves them through the redistribution service,
-        which is not ported."""
-        raise NotImplementedError(
-            "respread_pool (the live model-axis re-spread of the params "
-            "and the paged pool through the redistribution service) is "
-            "not ported yet (ROADMAP A13)"
+        """Live ``model``-axis RE-SPREAD: move the engine (params, draft
+        params, the paged pool with its scale leaves, and the bookkeeping
+        leaves) onto ``new_env`` when the model axis grows or shrinks,
+        without dropping in-flight work (module docstring, "Re-spread"):
+
+        1. every plan is compiled before any state is touched;
+        2. every active slot PARKS (its blocks stay owned);
+        3. the redistribution service moves the params and the cache
+           (pool leaves over heads, ``generation.pool_leaf_spec``; the
+           tables, cursors and allocator keep their values);
+        4. every parked slot RESUMES on the new mesh.
+
+        Every rank of the world calls it with the same ``new_env``: a
+        ``MeshEnv``, or an int n for a model-only mesh over the first n
+        ranks. Returns the executed plans (``{"params", "cache",
+        "draft_params"}``); ``bytes_moved`` is the shard delta, not the
+        pool size. The move is donated: each source leaf is released as
+        its destination exists."""
+        if not self.paged:
+            raise ValueError(
+                "respread_pool is a paged-engine contract "
+                "(serving.kv_block_size > 0): the bucketed cache has no "
+                "shared pool to re-spread"
+            )
+        from frl_distributed_ml_scaffold_tpu_torch import redistribute as rd
+        from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
+            MeshConfig,
         )
+        from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import (
+            build_mesh,
+            one_rank_mesh,
+        )
+        from frl_distributed_ml_scaffold_tpu_torch.models.generation import (
+            pool_leaf_spec,
+        )
+        from frl_distributed_ml_scaffold_tpu_torch.parallel.partition import (
+            serving_specs,
+        )
+
+        if isinstance(new_env, int):
+            new_env = build_mesh(MeshConfig(data=1, model=new_env), new_env)
+        heads = self.model.config.num_heads
+        n_model = new_env.axis_size("model")
+        if n_model > 1 and heads % n_model != 0:
+            raise ValueError(
+                f"model axis {n_model} does not divide num_heads="
+                f"{heads} — the pool shards heads"
+            )
+        old_env = self._env if self._env is not None else one_rank_mesh()
+        t0 = time.perf_counter()
+        was, will = old_env.member, new_env.member
+        # The old mesh's first rank's host state, to every rank: a rank
+        # that joins adopts it. Sent before any slot parks.
+        box = [self._host_state() if process_index() == int(
+            old_env.ranks.flat[0]) else None]
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            dist.broadcast_object_list(box, src=int(old_env.ranks.flat[0]))
+        lead_state = box[0]
+
+        # COMPILE every plan before touching any engine state: the params
+        # sit where the engine's rules placed them on the old mesh and go
+        # where the same rules place them on the new one.
+        meta = type(self.model)(self.model.config, self.model.policy,
+                                device="meta")
+        src_specs = serving_specs(self.model, old_env, self.rules)
+        dst_specs = serving_specs(self.model, new_env, self.rules)
+        plans: dict[str, Any] = {}
+        plans["params"] = rd.compile_tree_plan(
+            {k: rd.Abstract.of(p.shape, p.dtype,
+                               rd.Placement(old_env, src_specs[k]))
+             for k, p in meta.named_parameters()},
+            {k: rd.Placement(new_env, dst_specs[k]) for k in src_specs},
+            scratch_limit_bytes=scratch_limit_bytes)
+        if self._draft is not None:
+            plans["draft_params"] = rd.compile_tree_plan(
+                {k: rd.Abstract.of(p.shape, p.dtype,
+                                   rd.Placement(old_env, ()))
+                 for k, p in self._draft.named_parameters()},
+                {k: rd.Placement(new_env, ())
+                 for k, _ in self._draft.named_parameters()},
+                scratch_limit_bytes=scratch_limit_bytes)
+        if lead_state["has_cache"]:
+            template = meta.init_paged_cache(
+                self.num_slots, self.block_size, self.pool_blocks)
+
+            def cache_spec(specs, name, leaf):
+                # The pool splits its heads where the attention's
+                # params split them (GPT.local_heads).
+                spec = pool_leaf_spec(name, leaf)
+                split = any("model" in s for k, s in specs.items()
+                            if ".attn." in k)
+                return spec if spec is not None and split else ()
+
+            plans["cache"] = rd.compile_tree_plan(
+                {k: rd.Abstract.of(v.shape, v.dtype, rd.Placement(
+                    old_env, cache_spec(src_specs, k, v)))
+                 for k, v in template.items()},
+                {k: rd.Placement(new_env, cache_spec(dst_specs, k, v))
+                 for k, v in template.items()},
+                scratch_limit_bytes=scratch_limit_bytes)
+        # Every plan fits the tensors it moves, or this raises while
+        # nothing has moved yet.
+        rd.check_sources(plans["params"], {
+            k: p.data for k, p in self.model.named_parameters()})
+        if "cache" in plans:
+            rd.check_sources(plans["cache"], dict(self.cache or {}))
+        parked = ([(int(s), self.park_slot(int(s)))
+                   for s in np.flatnonzero(self._active)] if was else [])
+        dev = self.model.device
+        params = dict(self.model.named_parameters())
+        placed = rd.execute(plans["params"],
+                            {k: p.data for k, p in params.items()},
+                            donate=True, device=dev)
+        with torch.no_grad():
+            for k, p in params.items():
+                p.data = placed.get(k, p.data.new_empty(0))
+        if self._draft is not None:
+            dparams = dict(self._draft.named_parameters())
+            dplaced = rd.execute(plans["draft_params"],
+                                 {k: p.data for k, p in dparams.items()},
+                                 donate=True, device=dev)
+            with torch.no_grad():
+                for k, p in dparams.items():
+                    p.data = dplaced.get(k, p.data.new_empty(0))
+        if "cache" in plans:
+            cache = rd.execute(plans["cache"], dict(self.cache or {}),
+                               donate=True, device=dev)
+            self.cache = cache if will else None
+        self._set_env(new_env)
+        self._tables_dirty = True
+        if was and will:
+            for slot, p in parked:
+                self.resume_parked(p, slot)
+        elif will:
+            self._adopt(lead_state)
+        elif was:
+            self._go_dormant()
+        moved = sum(p.bytes_moved for p in plans.values())
+        self.stats["respread"] += 1
+        self._m_respread.inc()
+        self._m_respread_bytes.inc(moved)
+        self._phase(
+            "respread", t0=t0, dur_s=time.perf_counter() - t0,
+            trace=self._engine_trace, model_axis=n_model,
+            bytes_moved=moved, parked=len(parked),
+        )
+        return plans
+
+    def _host_state(self) -> dict:
+        """What a rank joining the mesh adopts (``respread_pool``): the
+        queue, the slots, the allocator, the prefix cache and the stats,
+        as plain values."""
+        def req(r):
+            return (r.id, r.prompt, r.max_new_tokens, r.deadline_s)
+
+        state = {"has_cache": self.cache is not None,
+                 "queue": [req(r) for r in self._queue],
+                 "next_id": self._next_id,
+                 "issued": set(self._issued_ids),
+                 "stats": dict(self.stats), "slots": []}
+        for slot in range(self.num_slots):
+            if not self._active[slot]:
+                state["slots"].append(None)
+                continue
+            state["slots"].append({
+                "req": req(self._req[slot]),
+                "tokens": list(self._tokens[slot]),
+                "len": int(self._len[slot]),
+                "last_tok": int(self._last_tok[slot]),
+                "blocks": list(self._slot_blocks[slot]),
+                "future": int(self._slot_future[slot]),
+                "prefix_hit": bool(self._slot_prefix_hit[slot]),
+                "tokens_saved": int(self._slot_tokens_saved[slot]),
+                "spec": (bool(self._slot_spec_degraded[slot]),
+                         int(self._slot_spec_proposed[slot]),
+                         int(self._slot_spec_accepted[slot])),
+            })
+        state.update(free=list(self._free), ref=self._ref.copy(),
+                     reserved=self._reserved_future,
+                     prefix=list(self._prefix_cache.items()))
+        return state
+
+    def _adopt(self, state: dict) -> None:
+        """Join the mesh with the host state of its first rank
+        (``_host_state``): this rank's own request objects where it knows
+        the ids, new traced ones where it does not; then the cursor
+        rewind a resume makes."""
+        own = {r.id: r for r in self._live_requests()}
+
+        def req(t):
+            rid, prompt, new, deadline = t
+            r = own.get(rid)
+            if r is None:
+                r = ServeRequest(rid, np.asarray(prompt), int(new))
+                r.deadline_s = deadline
+                r.trace = self.tracing.new_trace(f"request {rid}")
+                r.span = self.tracing.begin(
+                    "request", trace=r.trace, cat="serve", request=rid,
+                    prompt_len=int(r.prompt.size))
+                r.t_submit = (getattr(r.span, "t0", None)
+                              or time.perf_counter())
+            return r
+
+        self._go_dormant()
+        self._queue.extend(req(t) for t in state["queue"])
+        self._next_id = state["next_id"]
+        self._issued_ids = set(state["issued"])
+        self.stats = collections.Counter(state["stats"])
+        for slot, st in enumerate(state["slots"]):
+            if st is None:
+                continue
+            self._req[slot] = req(st["req"])
+            self._tokens[slot] = st["tokens"]
+            self._len[slot] = st["len"]
+            self._last_tok[slot] = st["last_tok"]
+            self._slot_blocks[slot] = st["blocks"]
+            self._slot_future[slot] = st["future"]
+            self._slot_prefix_hit[slot] = st["prefix_hit"]
+            self._slot_tokens_saved[slot] = st["tokens_saved"]
+            (self._slot_spec_degraded[slot], self._slot_spec_proposed[slot],
+             self._slot_spec_accepted[slot]) = st["spec"]
+            self._active[slot] = True
+            self._tables[slot, : len(st["blocks"])] = st["blocks"]
+        self._free = list(state["free"])
+        self._ref = np.asarray(state["ref"]).copy()
+        self._reserved_future = state["reserved"]
+        self._prefix_cache = collections.OrderedDict(state["prefix"])
+        n_active = int(self._active.sum())
+        self.stats["parked"] += n_active
+        self.stats["resumed"] += n_active
+        if self.cache is not None:
+            new_idx = np.where(self._active, self._len - 1, 0).astype(
+                np.int32)
+            rewind_cache_indices(self.cache, torch.from_numpy(new_idx))
+
+    def _go_dormant(self) -> None:
+        """Leave the mesh: no cache, no requests, an empty allocator (the
+        parameters were released by the move)."""
+        n = self.num_slots
+        self._queue.clear()
+        self._req = [None] * n
+        self._tokens = [[] for _ in range(n)]
+        self._latency = [[] for _ in range(n)]
+        self._tok_times = [[] for _ in range(n)]
+        self._len[:] = 0
+        self._active[:] = False
+        self._last_tok[:] = 0
+        self._free = list(range(self.pool_blocks - 1, 0, -1))
+        self._ref[:] = 0
+        self._reserved_future = 0
+        self._slot_blocks = [[] for _ in range(n)]
+        self._slot_future[:] = 0
+        self._parked_held.clear()
+        self._slot_prefix_hit[:] = False
+        self._slot_tokens_saved[:] = 0
+        self._tables[:] = 0
+        self._tables_dirty = True
+        self._prefix_cache.clear()
 
     def run(self, max_steps: int | None = None) -> list[Completion]:
         """Drain the queue; returns completions in finish order (typed
@@ -1770,6 +2077,8 @@ class ServingEngine:
         over the slot array, retire finished rows. Returns the requests
         completed during this step (possibly at admission, for 1-token
         budgets; typed shed / deadline / error resolutions ride along)."""
+        if self._dormant:
+            return []
         with self._mesh():
             self._plan_step()
             return self._step()

@@ -12,9 +12,17 @@ prefills ahead of the next token. This module splits the two:
   ``engine.prefill_request``). By default it shares the decode worker's
   model and pool and runs on the engine's stream, as colocated admission
   does; fetching the first token completes the package. With
-  ``prefill_env`` (a ``torch.device`` of this process) it is a SEPARATE
-  PARTITION: it holds its own params replica there, copied plainly from
-  the decode model, and prefills there.
+  ``prefill_env`` it is a SEPARATE PARTITION holding its own whole params
+  replica, moved from the decode model's placement by the redistribution
+  service (``redistribute.to_mesh`` with a whole spec; ``replica_plan``
+  keeps the plan): a ``torch.device`` of this process (beside a live
+  ``model`` axis too: the replica gathers every head), a ``MeshEnv`` over
+  the decode mesh's own ranks (each prefills on its replica), or a
+  ``MeshEnv`` of OTHER ranks. The last is remote: every rank runs the
+  engine in lock step, the decode mesh's ranks schedule, and the
+  partition's ranks serve the prefills its first rank commands (one
+  command a launch, one tick message a step, point to point), so they
+  never need the decode side's state.
 - **The decode worker** is a paged ``ServingEngine`` driven with an
   empty queue: it runs the decode / verify steps (speculation rides it
   unchanged) and splices handoffs.
@@ -25,11 +33,14 @@ prefills ahead of the next token. This module splits the two:
   ``stats["handoff_transfer_bytes"]`` stays 0. A separate partition's
   handoff moves exactly the private blocks' window ``[m bs, n_g bs)`` of
   the slot cache to the decode side (``_capacity_slice``), and a prefix
-  hit first moves the seed's occupied prefix out to the worker; both are
-  counted in ``handoff_transfer_bytes`` and
-  ``serve_handoff_transfer_bytes_total`` at the one site ``_put``, as
-  the JAX engine counts them (every leaf of what moves, the window's
-  K/V and scales and the cursors beside them).
+  hit first moves the seed's occupied prefix out to the worker; both
+  move by a redistribution plan (the decode side's heads split over
+  ``model``, the worker's whole) and are counted in
+  ``handoff_transfer_bytes`` and ``serve_handoff_transfer_bytes_total``
+  at the one site ``_count_transfer``, as the JAX engine counts them
+  (every leaf of what moves at its whole size, the window's K/V and
+  scales and the cursors beside them). From a remote partition the
+  window moves when the prefill ends and is counted at its handoff.
 - **Over a mesh** (tensor-parallel serving, ``build_engine(rules=)``)
   every rank runs the scheduler in lock step with the decode worker
   (``serving/engine.py``): each tick starts with rank 0's plan of the
@@ -61,10 +72,6 @@ launch, or a CUDA error, is no worker failure: it propagates. The port
 samples every request from one generator stream: a prefill-worker fault
 fires before the draw, so it leaves sampled output as a fault-free run
 would; a handoff fault fires after it, and its retry draws again.
-
-Waiting for ROADMAP A13 (the redistribution service): a prefill
-partition made of other ranks (a mesh), or one beside a live ``model``
-axis, whose replica and transfers move between ranks.
 """
 
 from __future__ import annotations
@@ -78,10 +85,21 @@ from typing import Any, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from frl_distributed_ml_scaffold_tpu_torch import faults
+from frl_distributed_ml_scaffold_tpu_torch import redistribute as rd
 from frl_distributed_ml_scaffold_tpu_torch.config.schema import ServingConfig
+from frl_distributed_ml_scaffold_tpu_torch.dist.initialize import (
+    process_index,
+)
+from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import (
+    MeshEnv,
+    mesh_context,
+    one_rank_mesh,
+)
 from frl_distributed_ml_scaffold_tpu_torch.models.generation import (
+    POOL_LEAF_OF,
     blocks_for_tokens,
     cache_capacity_axis,
     next_cache_bucket,
@@ -103,14 +121,6 @@ from frl_distributed_ml_scaffold_tpu_torch.utils.logging import get_logger
 #: ``latency``, preempts) ahead of every class to its right.
 SLO_CLASSES = ("latency", "standard", "best_effort")
 _RANK = {c: i for i, c in enumerate(SLO_CLASSES)}
-
-_PARTITION_TODO = (
-    "a prefill partition {what} moves its params replica and its "
-    "handoffs between ranks through the redistribution service, which is "
-    "not ported yet (ROADMAP A13); prefill_env takes a torch.device of "
-    "this process"
-)
-
 
 def _capacity_slice(cache: dict, start_tok: int, stop_tok: int,
                     cap: int) -> dict:
@@ -196,25 +206,93 @@ class _Package:
     t_ready: float
 
 
+def _slot_heads_axis(name: str, ndim: int) -> int | None:
+    """The heads axis of a slot-cache leaf: K/V ``[L, B, S, H, hd]`` at
+    ``ndim - 2``, scales ``[L, B, S, H]`` at ``ndim - 1``; the cursors
+    carry none."""
+    if name not in POOL_LEAF_OF:
+        return None
+    return ndim - 2 if name in ("cached_key", "cached_value") else ndim - 1
+
+
+def _ranks(env: MeshEnv) -> set[int]:
+    return {int(r) for r in env.ranks.flat}
+
+
 class PrefillWorker:
     """The prefill half of the disaggregated engine. Stateless across
     requests: every package it emits is self-contained, which is what
     makes a worker failure recoverable by re-queueing. It shares the
     decode worker's model and pool, or with ``partition`` (a
-    ``torch.device``) holds its own params replica there, a plain copy
-    of the decode model."""
+    ``torch.device`` of this process, or a ``MeshEnv``) holds its own
+    whole params replica there, moved from the decode model's placement
+    on ``decode_env`` by the redistribution service (``replica_plan``).
+    ``place_env`` is the mesh its trees are whole on, ``device`` where it
+    prefills; ``remote`` when the partition's ranks are not the decode
+    mesh's."""
 
     def __init__(self, model, *, sample_kw: dict, min_bucket: int,
                  seq_len: int, generator: torch.Generator | None = None,
-                 partition: torch.device | None = None):
+                 partition=None, decode_env: MeshEnv | None = None,
+                 rules=None, device=None):
         self.partition = partition
+        self.rules = rules
+        self.replica_plan = None
+        self.remote = False
+        self.device = model.device
+        self._no_decode_mesh = decode_env is None
+        self.place_env = decode_env if decode_env is not None else (
+            one_rank_mesh())
         if partition is not None:
-            model = copy.deepcopy(model).to(partition)
+            model = self._replica(model, partition, device)
         self.model = model
         self.seq_len = seq_len
         self.min_bucket = int(min_bucket)
         self._sample_kw = dict(sample_kw)
         self._generator = generator
+
+    def _replica(self, model, partition, device):
+        """The whole params replica: gathered from the decode placement
+        (``serving_specs`` over the decode engine's ``rules``) onto
+        ``place_env`` with a whole spec. A rank outside the partition
+        keeps none."""
+        from frl_distributed_ml_scaffold_tpu_torch.parallel.partition import (
+            serving_specs,
+        )
+
+        decode_env = self.place_env
+        if isinstance(partition, MeshEnv):
+            mine, theirs = _ranks(partition), _ranks(decode_env)
+            if mine != theirs and mine & theirs:
+                raise ValueError(
+                    f"prefill partition ranks {sorted(mine)} share some but "
+                    f"not all of the decode mesh's {sorted(theirs)}: a "
+                    "partition is the decode mesh's ranks or other ranks")
+            self.remote = not (mine & theirs)
+            if self.remote and self._no_decode_mesh:
+                raise ValueError(
+                    "a prefill partition of other ranks needs the decode "
+                    "engine built inside its mesh (mesh_context)")
+            self.place_env = partition
+            self.device = torch.device(device if device is not None
+                                       else model.device)
+        else:
+            self.device = torch.device(partition)
+        replica = copy.deepcopy(model).to(self.device)
+        specs = serving_specs(model, decode_env, self.rules)
+        meta = type(model)(model.config, model.policy, device="meta")
+        src = {k: rd.Abstract.of(p.shape, p.dtype,
+                                 rd.Placement(decode_env, specs[k]))
+               for k, p in meta.named_parameters()}
+        params = dict(replica.named_parameters())
+        placed, self.replica_plan = rd.to_mesh(
+            {k: p.data for k, p in params.items()}, src, self.place_env,
+            spec_of=lambda *_: (), donate=True, device=self.device)
+        with torch.no_grad():
+            for k, p in params.items():
+                p.data = (placed[k].to(self.device) if k in placed
+                          else p.data.new_empty(0))
+        return replica
 
     @property
     def separate(self) -> bool:
@@ -276,6 +354,7 @@ class DisaggServingEngine:
         handoff_retries: int | None = None,
         telemetry: MetricsRegistry | None = None,
         tracer: Tracer | None = None,
+        rules=None,
         device=None,
     ):
         serving = ServingConfig() if serving is None else serving
@@ -313,14 +392,21 @@ class DisaggServingEngine:
             ),
             speculate_window=speculate_window, draft_model=draft_model,
             draft_params=draft_params, telemetry=telemetry, tracer=tracer,
-            device=device,
+            rules=rules, device=device,
         )
+        if prefill_env is not None and not isinstance(prefill_env, MeshEnv):
+            prefill_env = torch.device(prefill_env)
         self.prefill_worker = PrefillWorker(
             self.decode.model, sample_kw=self.decode._sample_kw,
             min_bucket=self.decode.min_bucket, seq_len=self.decode.seq_len,
-            generator=generator,
-            partition=self._partition(prefill_env),
+            generator=generator, partition=prefill_env,
+            decode_env=self.decode._env, rules=rules, device=device,
         )
+        # A remote partition's ranks (not the decode mesh's) serve
+        # prefill commands; the last tick's pending count is theirs.
+        self._serves_prefills = (self.prefill_worker.remote
+                                 and self.decode._dormant)
+        self._remote_pending: int | None = None
 
         # Tenant registry and queues. Unknown tenants at submit() register
         # themselves with the default (standard, weight 1) contract.
@@ -381,22 +467,6 @@ class DisaggServingEngine:
         for spec in tenants or ():
             self.register_tenant(spec)
 
-    def _partition(self, prefill_env):
-        """``prefill_env`` as the worker's device: None (the decode
-        worker's partition) or a ``torch.device`` of this process. A
-        partition of other ranks (a mesh), or one beside a live ``model``
-        axis, raises, naming ROADMAP A13."""
-        if prefill_env is None:
-            return None
-        if not isinstance(prefill_env, (torch.device, str)):
-            raise NotImplementedError(
-                _PARTITION_TODO.format(what="made of other ranks"))
-        env = self.decode._env
-        if env is not None and env.axis_size("model") > 1:
-            raise NotImplementedError(
-                _PARTITION_TODO.format(what="beside a live model axis"))
-        return torch.device(prefill_env)
-
     # ------------------------------------------------------------- plumbing
 
     @property
@@ -456,6 +526,10 @@ class DisaggServingEngine:
 
     @property
     def pending(self) -> int:
+        if self._serves_prefills and self._remote_pending is not None:
+            return self._remote_pending
+        if self.decode._dormant and not self._serves_prefills:
+            return 0
         return (
             sum(len(q) for q in self._queues.values())
             + len(self._ready)
@@ -509,6 +583,7 @@ class DisaggServingEngine:
         if spec is None:
             spec = TenantSpec(name=tenant)
             self.register_tenant(spec)
+        self._remote_pending = None
         if deadline_s is None and spec.default_deadline_s:
             deadline_s = spec.default_deadline_s
         req = self.decode._new_request(
@@ -649,21 +724,22 @@ class DisaggServingEngine:
                 # The shared-prefix seed gathers from the decode pool; a
                 # separate partition takes only its occupied prefix.
                 seed_cache = self.decode._seed_for(req, res)
-                if seed_cache is not None and self.prefill_worker.separate:
-                    m_tok = res["m"] * self.decode.block_size
-                    s_c = self.decode._bucket_for(int(req.prompt.size))
-                    seed_cache = _capacity_pad(self._put(
-                        _capacity_slice(seed_cache, 0, m_tok, s_c),
-                        self.prefill_worker.partition), m_tok, s_c)
-                tok, slot_cache, _, m, _ = self.prefill_worker.prefill(
-                    req, res, block_size=self.decode.block_size,
-                    seed_cache=seed_cache,
-                )
-                # The prefill ran on the engine's stream: the token fetch
-                # waits for it, as colocated admission's does, and a
-                # prefill that failed on the device surfaces here, before
-                # any preemption could park a victim for it.
-                first = int(tok[0])
+                if self.prefill_worker.remote:
+                    first, slot_cache, m = self._remote_prefill(
+                        req, res, seed_cache)
+                else:
+                    if (seed_cache is not None
+                            and self.prefill_worker.separate):
+                        seed_cache = self._seed_out(req, res, seed_cache)
+                    tok, slot_cache, _, m, _ = self.prefill_worker.prefill(
+                        req, res, block_size=self.decode.block_size,
+                        seed_cache=seed_cache,
+                    )
+                    # The prefill ran on the engine's stream: the token
+                    # fetch waits for it, as colocated admission's does,
+                    # and a prefill that failed on the device surfaces
+                    # here, before any preemption could park a victim.
+                    first = int(tok[0])
             except Exception as e:
                 if is_device_failure(e):
                     raise
@@ -674,7 +750,7 @@ class DisaggServingEngine:
                     err or RuntimeError("prefill failed on another rank"),
                     site="prefill_worker")
                 continue
-            if self.decode._lockstep:
+            if self.decode._lockstep and not self.prefill_worker.remote:
                 first = int(self.decode._agree(tok)[0])
             self._seq += 1
             self._ready.append(_Package(
@@ -790,12 +866,143 @@ class DisaggServingEngine:
         self._stats["handoff_transfer_bytes"] += moved
         self._m_transfer.inc(moved)
 
-    def _put(self, cache: dict, device: torch.device) -> dict:
-        """Move a cache tree to ``device`` and count its bytes, every
-        leaf: the one site that prices the cross-partition traffic."""
-        self._count_transfer(sum(t.numel() * t.element_size()
-                                 for t in cache.values()))
-        return {k: t.to(device, copy=True) for k, t in cache.items()}
+    def _heads_split(self) -> bool:
+        """Whether the decode side's caches hold a slice of the heads."""
+        env = self.decode._env
+        m = 1 if env is None else env.axis_size("model")
+        return m > 1 and self.decode.model.config.num_heads % m == 0
+
+    def _abstract(self, tree: dict, *, split: bool) -> dict:
+        """A slot-cache tree's leaves as (whole shape, dtype): every
+        head where this rank holds a slice of them (``split``)."""
+        heads = self.decode.model.config.num_heads
+        out = {}
+        for k, t in tree.items():
+            shape = list(t.shape)
+            ax = _slot_heads_axis(k, t.dim())
+            if split and ax is not None and self._heads_split():
+                shape[ax] = heads
+            out[k] = (tuple(shape), rd.plan.dtype_name(t.dtype))
+        return out
+
+    def _move(self, tree: dict, abstract: dict, *, to_worker: bool) -> dict:
+        """Move a slot-cache tree between the decode side (heads split
+        over ``model`` where the pool splits them) and the worker (whole
+        on ``place_env``) by a redistribution plan; every rank of both
+        takes part. Returns this rank's tensors on its side's device."""
+        dec = (self.decode._env if self.decode._env is not None
+               else one_rank_mesh())
+        worker = rd.Placement(self.prefill_worker.place_env, ())
+        split = self._heads_split()
+        src, dst = {}, {}
+        for k, (shape, dtype) in abstract.items():
+            ax = _slot_heads_axis(k, len(shape))
+            spec = [None] * len(shape)
+            if split and ax is not None:
+                spec[ax] = "model"
+            d = rd.Placement(dec, tuple(spec))
+            src[k] = rd.Abstract.of(shape, dtype, d if to_worker else worker)
+            dst[k] = worker if to_worker else d
+        dev = (self.prefill_worker.device if to_worker
+               else self.decode.model.device)
+        out = rd.execute(rd.compile_tree_plan(src, dst), tree, donate=False,
+                         device=dev)
+        return {k: t.to(dev) for k, t in out.items()}
+
+    def _whole_bytes(self, abstract: dict) -> int:
+        return sum(int(np.prod(shape)) * rd.plan.itemsize(dtype)
+                   for shape, dtype in abstract.values())
+
+    def _seed_out(self, req: ServeRequest, res: dict, seed: dict | None,
+                  abstract: dict | None = None) -> dict:
+        """A prefix hit's seed, its occupied prefix moved out to the
+        worker (counted) and padded back to its bucket there."""
+        m_tok = res["m"] * self.decode.block_size
+        s_c = self.decode._bucket_for(int(req.prompt.size))
+        if abstract is None:
+            seed = _capacity_slice(seed, 0, m_tok, s_c)
+            abstract = self._abstract(seed, split=True)
+        if not self._serves_prefills:
+            self._count_transfer(self._whole_bytes(abstract))
+        return _capacity_pad(self._move(seed or {}, abstract,
+                                        to_worker=True), m_tok, s_c)
+
+    # ------------------------------------------------- a remote partition
+
+    def _decode_lead(self) -> int:
+        return int(self.decode._env.ranks.flat[0])
+
+    def _command(self, msg: dict) -> None:
+        """The decode mesh's first rank's message to every rank of the
+        remote partition."""
+        if process_index() == self._decode_lead():
+            for r in sorted(_ranks(self.prefill_worker.place_env)):
+                dist.send_object_list([msg], dst=r)
+
+    def _remote_prefill(self, req: ServeRequest, res: dict,
+                        seed: dict | None) -> tuple:
+        """The decode side of a remote prefill: command it, move the
+        seed out, take the partition's answer and move its window in
+        (counted at the handoff). Returns ``(first, window, m)``."""
+        seed_abs = None
+        if seed is not None:
+            m_tok = res["m"] * self.decode.block_size
+            s_c = self.decode._bucket_for(int(req.prompt.size))
+            seed = _capacity_slice(seed, 0, m_tok, s_c)
+            seed_abs = self._abstract(seed, split=True)
+        self._command({"op": "prefill", "id": req.id, "prompt": req.prompt,
+                       "new": req.max_new_tokens, "m": res["m"],
+                       "seed": seed_abs})
+        if seed is not None:
+            self._seed_out(req, res, seed, seed_abs)
+        box = [None]
+        dist.recv_object_list(
+            box, src=int(self.prefill_worker.place_env.ranks.flat[0]))
+        ans = box[0]
+        if ans["err"] is not None:
+            raise RuntimeError(f"remote prefill failed: {ans['err']}")
+        window = self._move({}, ans["window"], to_worker=False)
+        return ans["tok"], window, ans["m"]
+
+    def _serve_tick(self) -> list[Completion]:
+        """A remote partition rank's step: serve the decode side's
+        prefill commands until its tick message (which carries the
+        decode side's pending count)."""
+        pw, bs = self.prefill_worker, self.decode.block_size
+        lead = int(pw.place_env.ranks.flat[0])
+        decode_ranks = sorted(_ranks(self.decode._env))
+        while True:
+            box = [None]
+            dist.recv_object_list(box, src=self._decode_lead())
+            cmd = box[0]
+            if cmd["op"] == "tick":
+                self._remote_pending = cmd["pending"]
+                return []
+            req = ServeRequest(cmd["id"], np.asarray(cmd["prompt"]),
+                               cmd["new"])
+            res = {"m": cmd["m"]}
+            seed = None
+            if cmd["seed"] is not None:
+                seed = self._seed_out(req, res, {}, cmd["seed"])
+            window, ans = None, {"err": None}
+            try:
+                with mesh_context(None):
+                    tok, slot_cache, _, m, _ = pw.prefill(
+                        req, res, block_size=bs, seed_cache=seed)
+                n_g = blocks_for_tokens(int(req.prompt.size), bs)
+                cap = slot_cache["cached_key"].shape[2]
+                window = _capacity_slice(slot_cache, m * bs, n_g * bs, cap)
+                ans.update(tok=int(tok[0]), m=m,
+                           window=self._abstract(window, split=False))
+            except Exception as e:
+                if is_device_failure(e):
+                    raise
+                ans["err"] = f"{type(e).__name__}: {e}"
+            if process_index() == lead:
+                for r in decode_ranks:
+                    dist.send_object_list([ans], dst=r)
+            if window is not None:
+                self._move(window, ans["window"], to_worker=False)
 
     def _complete_handoff(self, pkg: _Package, slot: int) -> None:
         """Splice the package's private blocks into the pool (a table
@@ -807,18 +1014,24 @@ class DisaggServingEngine:
         t_h0 = time.perf_counter()
         try:
             faults.maybe_raise("serve.handoff", key=req.id)
-            slot_cache, sliced = pkg.slot_cache, False
-            if self.prefill_worker.separate:
+            slot_cache = pkg.slot_cache
+            sliced = self.prefill_worker.separate
+            if self.prefill_worker.remote:
+                # The window moved when the prefill ended.
+                self._count_transfer(self._whole_bytes(
+                    self._abstract(slot_cache, split=True)))
+            elif sliced:
                 # Exactly the private blocks that change owner: the
                 # [m bs, n_g bs) window (the shared prefix already lives
                 # in the decode pool; the bucket's tail carries nothing).
                 bs = self.decode.block_size
                 n_g = blocks_for_tokens(int(req.prompt.size), bs)
                 cap = slot_cache["cached_key"].shape[2]
-                slot_cache = self._put(
-                    _capacity_slice(slot_cache, pkg.m * bs, n_g * bs, cap),
-                    self.decode.model.device)
-                sliced = True
+                window = _capacity_slice(slot_cache, pkg.m * bs, n_g * bs,
+                                         cap)
+                abstract = self._abstract(window, split=False)
+                self._count_transfer(self._whole_bytes(abstract))
+                slot_cache = self._move(window, abstract, to_worker=False)
             self.decode.admit_handoff(
                 slot, req, res, slot_cache, pkg.tok,
                 m=pkg.m, prefill_s=prefill_s, sliced=sliced,
@@ -876,12 +1089,18 @@ class DisaggServingEngine:
         requests, launch at most ``prefill_max_per_tick`` prefills, then
         run ONE decode iteration. Returns completions, tenant-annotated,
         typed resolutions included."""
+        if self._serves_prefills:
+            return self._serve_tick()
+        if self.decode._dormant:
+            return []
         with self.decode._mesh():
             self.decode._plan_step(self._live_requests())
             self._fill_slots()
             self._launch_prefills()
             self._fill_slots()
             out = self.decode._step()
+        if self.prefill_worker.remote:
+            self._command({"op": "tick", "pending": self.pending})
         self.decode._m_queue.set(
             float(sum(len(q) for q in self._queues.values()))
         )

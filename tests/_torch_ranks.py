@@ -538,11 +538,380 @@ def mpmd_telemetry(config: str, overrides: list) -> dict:
             "coords": trainer.env.coords}
 
 
+def _env(n: int, kw: dict):
+    from frl_distributed_ml_scaffold_tpu_torch.config.schema import MeshConfig
+    from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import build_mesh
+
+    return build_mesh(MeshConfig(**kw), n)
+
+
+def redist_grid(cases: list) -> dict:
+    """The executor on each case (``{"name", "src", "dst"`` as ``(n,
+    mesh, spec)``, ``"shape"``, ``"dtypes"``, ``"limit"``, ``"naive"}``):
+    a seeded array of every dtype moved there and back (donated), each
+    rank's regions compared bit for bit; the plan's numbers, this rank's
+    sent bytes and scratch, and, where ``naive``, the naive reference's
+    result and sent bytes."""
+    from frl_distributed_ml_scaffold_tpu_torch import redistribute as rd
+    from frl_distributed_ml_scaffold_tpu_torch.redistribute import (
+        executor,
+    )
+
+    envs = {}
+    for case in cases:  # every rank builds every mesh, in one order
+        for n, kw, _ in (case["src"], case["dst"]):
+            key = (n, tuple(sorted(kw.items())))
+            if key not in envs:
+                envs[key] = _env(n, kw)
+    me = torch.distributed.get_rank()
+    out = {}
+    for case in cases:
+        (ns, ks, ss), (nd, kd, sd) = case["src"], case["dst"]
+        src = rd.Placement(envs[(ns, tuple(sorted(ks.items())))], ss)
+        dst = rd.Placement(envs[(nd, tuple(sorted(kd.items())))], sd)
+        shape = tuple(case["shape"])
+        rng = np.random.default_rng(7)
+        base = torch.from_numpy(rng.integers(-100, 100, size=shape)
+                                .astype(np.float32))
+        res = {"ok": [], "sent": [], "back_sent": [], "scratch": [],
+               "donated": [], "moved": [], "lower": [], "peak": [],
+               "back_moved": []}
+        for dtype in case["dtypes"]:
+            whole = base.to(getattr(torch, dtype))
+
+            def local(pl):
+                reg = pl.regions(shape).get(me)
+                return (None if reg is None else
+                        whole[tuple(slice(a, b) for a, b in reg)].clone())
+
+            def same(a, b):
+                return (a is None and b is None) or (
+                    a is not None and b is not None
+                    and a.shape == b.shape and torch.equal(
+                        a.contiguous().view(torch.uint8),
+                        b.contiguous().view(torch.uint8)))
+
+            x = local(src)
+            plan = rd.compile_tree_plan(
+                {"w": rd.Abstract.of(shape, dtype, src)}, {"w": dst},
+                scratch_limit_bytes=case.get("limit"))
+            y = rd.execute(plan, {"w": x}, donate=True,
+                           device="cpu").get("w")
+            res["donated"].append(
+                x is None or plan.leaves[0].kind == "identity"
+                or x.untyped_storage().nbytes() == 0)
+            ok = same(y, local(dst))
+            res["sent"].append(plan.executed_bytes_sent)
+            res["scratch"].append(plan.executed_scratch_bytes)
+            back = rd.compile_tree_plan(
+                {"w": rd.Abstract.of(shape, dtype, dst)}, {"w": src})
+            z = rd.execute(back, {"w": y}, donate=False,
+                           device="cpu").get("w")
+            res["back_sent"].append(back.executed_bytes_sent)
+            res["ok"].append(ok and same(z, local(src)))
+            res["kind"] = plan.leaves[0].kind
+            for key, v in (("moved", plan.bytes_moved),
+                           ("lower", plan.bytes_lower_bound),
+                           ("peak", plan.peak_scratch_bytes),
+                           ("back_moved", back.bytes_moved)):
+                res[key].append(v)
+            if case.get("naive") and plan.leaves[0].kind == "collective":
+                executor.NAIVE_GATHER_SCATTER = True
+                try:
+                    naive = rd.execute(plan, {"w": local(src)},
+                                       donate=False, device="cpu").get("w")
+                finally:
+                    executor.NAIVE_GATHER_SCATTER = False
+                res["naive_ok"] = same(naive, local(dst))
+                res["naive_sent"] = plan.executed_bytes_sent
+        out[case["name"]] = res
+    return out
+
+
+def redist_restore(config: str, save: list, restore: list, workdir: str,
+                   steps: int, torn_at: int = 0) -> dict:
+    """``steps`` steps of ``config`` saved on the mesh of ``save``
+    (overrides; a torn write at save ``torn_at`` when set), then restored
+    on the mesh of ``restore`` directly and through the redistribution
+    service: this rank's tensors both ways, the step, the plan's numbers,
+    the bytes this rank read and the payload's."""
+    from frl_distributed_ml_scaffold_tpu_torch import config as tconfig
+    from frl_distributed_ml_scaffold_tpu_torch import faults
+    from frl_distributed_ml_scaffold_tpu_torch.faults import FaultPlan
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.loop import Trainer
+
+    base = [f"workdir={workdir}", "checkpoint.enabled=true",
+            f"checkpoint.save_every={max(1, steps // 3)}",
+            "checkpoint.async_save=false", "checkpoint.max_to_keep=5",
+            f"trainer.total_steps={steps}", "trainer.log_every=100",
+            "trainer.eval_every=0"]
+    cfg = tconfig.apply_overrides(tconfig.get_config(config), base + save)
+    plan = (FaultPlan([dict(site="checkpoint.torn_write", at=torn_at)])
+            if torn_at else FaultPlan([]))
+    with faults.active(plan):
+        trainer = Trainer(cfg, device="cpu")
+        trainer.fit()
+        trainer.checkpointer.close()
+    out = {}
+    for name, extra in (("direct", []),
+                        ("via", ["checkpoint.restore_redistribute=true"])):
+        cfg = tconfig.apply_overrides(tconfig.get_config(config),
+                                      base + restore + extra)
+        t = Trainer(cfg, device="cpu")
+        ck = t.checkpointer
+        state = ck.restore_or_init(t)
+        out[name] = {"params": _numpy(state.params),
+                     "opt": _numpy({k: v for k, v in state.opt_state.items()
+                                    if isinstance(v, dict)}),
+                     "step": int(state.step),
+                     "uncommitted": ck.uncommitted_steps()}
+        if name == "via":
+            p = ck.last_restore_plan
+            out[name].update(
+                kinds=p.kinds(), moved=p.bytes_moved,
+                lower=p.bytes_lower_bound, peak=p.peak_scratch_bytes,
+                scratch=p.executed_scratch_bytes,
+                sent=p.executed_bytes_sent, read=ck.last_restore_read_bytes,
+                total=p.total_bytes, coords=t.env.coords)
+        ck.close()
+    return out
+
+
+def redist_restore_fails(config: str, save: list, restore: list,
+                         workdir: str, steps: int, fail_rank: int) -> dict:
+    """``redist_restore``'s save, then a restore through the service in
+    which the executor raises on ``fail_rank`` as its first move starts
+    (the plan's or a send's failure): every rank's outcome (what it
+    raised, or the step it restored) and the steps it judged corrupt.
+    The failing rank leaves the process group, as its process would on
+    exiting, so the others' sends fail instead of waiting."""
+    from frl_distributed_ml_scaffold_tpu_torch import config as tconfig
+    from frl_distributed_ml_scaffold_tpu_torch.redistribute import (
+        executor,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.trainer.loop import Trainer
+
+    base = [f"workdir={workdir}", "checkpoint.enabled=true",
+            f"checkpoint.save_every={max(1, steps // 2)}",
+            "checkpoint.async_save=false", f"trainer.total_steps={steps}",
+            "trainer.log_every=100", "trainer.eval_every=0"]
+    trainer = Trainer(tconfig.apply_overrides(tconfig.get_config(config),
+                                              base + save), device="cpu")
+    trainer.fit()
+    trainer.checkpointer.close()
+    t = Trainer(tconfig.apply_overrides(
+        tconfig.get_config(config),
+        base + restore + ["checkpoint.restore_redistribute=true"]),
+        device="cpu")
+    run_leaf = executor._run_leaf
+
+    def failing(plan, *args):
+        if plan.kind in ("collective", "chunked"):
+            raise RuntimeError("injected failure of the move")
+        return run_leaf(plan, *args)
+
+    if _RANK == fail_rank:
+        executor._run_leaf = failing
+    out = {}
+    try:
+        state = t.checkpointer.restore_or_init(t)
+        out["restored"] = int(state.step)
+    except Exception as e:  # noqa: BLE001 (the outcome under test)
+        out["raised"] = f"{type(e).__name__}: {e}"
+    finally:
+        executor._run_leaf = run_leaf
+    out["corrupt"] = list(t.checkpointer.corrupt_steps)
+    if _RANK == fail_rank:
+        torch.distributed.destroy_process_group()
+    return out
+
+
+def _serving_model(model_cfg: dict, state: dict, **kw):
+    from frl_distributed_ml_scaffold_tpu_torch.config.schema import GPTConfig
+    from frl_distributed_ml_scaffold_tpu_torch.models.gpt import GPT
+    from frl_distributed_ml_scaffold_tpu_torch.precision import get_policy
+
+    model = GPT(GPTConfig(**{**model_cfg, **kw}), get_policy("fp32"),
+                device="cpu")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    return model
+
+
+def _drive(eng, requests, steps: int):
+    for prompt, new in requests:
+        eng.submit(np.asarray(prompt, np.int32), new)
+    for _ in range(steps):
+        eng.step()
+
+
+def _done(done) -> dict:
+    return {c.id: (np.asarray(c.tokens), c.finish_reason) for c in done}
+
+
+def redist_serve(model_cfg: dict, state: dict, requests: list) -> dict:
+    """The serving seams on four ranks: the train-to-serve handoff of the
+    fsdp=2 model=2 training layout onto ``model=2`` over ranks 0-1
+    (``shard_params_for_serving(layout=)``) against the host path, then
+    a paged engine there; a live re-spread grow (model=2 over ranks 0-1
+    to model=4) and shrink (model=4 to model=2, the int form) mid-decode,
+    and the grow again over an int8 pool. Tokens by request id on every
+    rank, the plans' numbers and the engines' stats and counters; the
+    grow also for an engine built with no rules (its params whole on
+    every rank of the mesh)."""
+    from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
+        GPTConfig,
+        ParallelConfig,
+        ServingConfig,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import mesh_context
+    from frl_distributed_ml_scaffold_tpu_torch.models.gpt import (
+        TP_COMPUTE_WHOLE,
+        gpt_tp_rules,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.parallel.layout import (
+        StateLayout,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.parallel.partition import (
+        shard_params_for_serving,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.redistribute import (
+        executor,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.serving import build_engine
+
+    rules = gpt_tp_rules()
+    train_env = _env(4, dict(data=1, fsdp=2, model=2))
+    env2 = _env(2, dict(data=1, model=2))
+    env4 = _env(4, dict(data=1, model=4))
+    out = {}
+    paged = ServingConfig(kv_block_size=8)
+
+    # Seam 2: the handoff.
+    model = _serving_model(model_cfg, state)
+    shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
+    layout = StateLayout.build(
+        train_env, GPTConfig(**model_cfg),
+        ParallelConfig(param_sharding="fsdp", fsdp_min_size=16), shapes,
+        rules=rules, compute_whole=TP_COMPUTE_WHOLE)
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            p.data = layout.shard(k, p.data, layout.param[k])
+    host = _serving_model(model_cfg, state)
+    with mesh_context(env2):
+        shard_params_for_serving(host, env2, rules)
+    executor.reset_counters()
+    with mesh_context(env2):
+        eng = build_engine(model, serving=paged, rules=rules,
+                           layout=layout, num_slots=2, device="cpu")
+    out["handoff_equal"] = all(
+        torch.equal(a, b) for a, b in zip(model.parameters(),
+                                          host.parameters()))
+    out["handoff_sent"] = executor.sent_bytes["chunked"]
+    out["handoff_empty"] = all(p.numel() == 0 for p in model.parameters())
+    for prompt, new in requests:
+        eng.submit(np.asarray(prompt, np.int32), new)
+    out["handoff_done"] = _done(eng.run())
+
+    # Seam 3: grow model=2 (ranks 0-1; 2-3 dormant) to model=4, split by
+    # the TP rules, and with no rules (every param and the pool whole on
+    # every rank).
+    for name, quant, by in (("none", "none", rules), ("int8", "int8", rules),
+                            ("whole", "none", None)):
+        model = _serving_model(model_cfg, state, kv_cache_quant=quant)
+        with mesh_context(env2):
+            eng = build_engine(model, serving=paged, rules=by,
+                               num_slots=2, device="cpu")
+        _drive(eng, requests, 2)
+        plans = eng.respread_pool(env4)
+        res = {"heads": model.local_heads(),
+               "dormant_before": eng._dormant}
+        res["done"] = _done(eng.run())
+        res["stats"] = {k: eng.stats[k] for k in ("parked", "resumed",
+                                                  "respread")}
+        snap = eng.telemetry.snapshot()
+        res["counters"] = (snap["serve_pool_respread_total"],
+                           snap["serve_pool_respread_bytes_total"])
+        res["plans"] = {k: (p.bytes_moved, p.executed_bytes_sent,
+                            p.executed_scratch_bytes, p.peak_scratch_bytes,
+                            [l.path for l in p.leaves])
+                        for k, p in plans.items()}
+        out[f"grow_{name}"] = res
+
+    # Shrink: model=4 to model=2 by the int form; ranks 2-3 go dormant.
+    model = _serving_model(model_cfg, state)
+    with mesh_context(env4):
+        eng = build_engine(model, serving=paged, rules=rules, num_slots=2,
+                           device="cpu")
+    _drive(eng, requests, 1)
+    plans = eng.respread_pool(2)
+    out["shrink"] = {"done": _done(eng.run()),
+                     "dormant": eng._dormant,
+                     "empty": all(p.numel() == 0
+                                  for p in model.parameters()),
+                     "moved": {k: (p.bytes_moved, p.executed_bytes_sent)
+                               for k, p in plans.items()},
+                     "stats": {k: eng.stats[k] for k in ("parked",
+                                                         "resumed")}}
+    return out
+
+
+def redist_partition(model_cfg: dict, state: dict, requests: list) -> dict:
+    """The disaggregated engine with a separate prefill partition on four
+    ranks: ``remote`` decodes over model=2 on ranks 0-1 and prefills on a
+    partition of ranks 2-3 (a ``MeshEnv`` of other ranks); ``beside``
+    decodes over model=4 and prefills on a device of each rank, beside
+    the live ``model`` axis. Tokens by request id, the counted transfer
+    bytes and handoffs, the replica plan's numbers on this rank."""
+    from frl_distributed_ml_scaffold_tpu_torch.config.schema import (
+        MeshConfig,
+        ServingConfig,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.dist.mesh import (
+        MeshEnv,
+        mesh_context,
+    )
+    from frl_distributed_ml_scaffold_tpu_torch.models.gpt import gpt_tp_rules
+    from frl_distributed_ml_scaffold_tpu_torch.serving import build_engine
+
+    me = torch.distributed.get_rank()
+    env2 = _env(2, dict(data=1, model=2))
+    env4 = _env(4, dict(data=1, model=4))
+    others = MeshEnv(config=MeshConfig(data=2),
+                     ranks=np.arange(2, 4).reshape(1, 2, 1, 1, 1, 1),
+                     rank=me)
+    serving = ServingConfig(kv_block_size=8, disaggregate=True)
+    out = {}
+    for name, env, part in (("remote", env2, others),
+                            ("beside", env4, torch.device("cpu"))):
+        model = _serving_model(model_cfg, state)
+        with mesh_context(env):
+            eng = build_engine(model, serving=serving, rules=gpt_tp_rules(),
+                               num_slots=2, temperature=0.0,
+                               prefill_env=part, device="cpu")
+        pw = eng.prefill_worker
+        for prompt, new in requests:
+            eng.submit(np.asarray(prompt, np.int32), new)
+        done = eng.run()
+        plan = pw.replica_plan
+        out[name] = {"done": _done(done), "remote": pw.remote,
+                     "bytes": eng.stats["handoff_transfer_bytes"],
+                     "handoffs": eng.stats["handoffs"],
+                     "prefix_hits": sum(c.prefix_cache_hit for c in done),
+                     "replica_heads": (pw.model.local_heads()
+                                       if pw.model.wpe.numel() else 0),
+                     "replica": (plan.bytes_moved, plan.executed_bytes_sent,
+                                 plan.kinds())}
+    return out
+
+
 JOBS = {"collectives": collectives, "train": train,
         "checkpoint": checkpoint, "mpmd_telemetry": mpmd_telemetry,
         "dropout_rows": dropout_rows, "serve": serve,
         "saved_shapes": saved_shapes, "rings": rings,
         "seq_attention": seq_attention, "grads": grads,
+        "redist_grid": redist_grid, "redist_restore": redist_restore,
+        "redist_restore_fails": redist_restore_fails,
+        "redist_serve": redist_serve, "redist_partition": redist_partition,
         "rings_by_rank": lambda by_rank: rings(by_rank[_RANK])}
 
 

@@ -9,8 +9,9 @@ supervisor tier.
   with no step repeated or lost.
 - ``_child_command`` re-execs the port's launcher; on a re-formed world
   (a shrink, driven through ``supervise`` with recorded children) the
-  port's child carries no ``checkpoint.restore_redistribute``, where the
-  JAX supervisor's does, and the commands are otherwise the same; the
+  port's child, like the JAX supervisor's, ends with
+  ``checkpoint.restore_redistribute=true`` (a restore through the
+  redistribution service), and the commands are the same; the
   supervisor's Prometheus sidecar has the JAX supervisor's series.
 - A supervised ``mnist_mlp`` (children are real launcher processes)
   killed after step 9 and resumed: rc 0, steps [4, 8, 12] once each,
@@ -218,16 +219,17 @@ def test_reformed_child_and_sidecar_against_jax(tmp_path, monkeypatch):
     assert tcmds[0][3:7] == ["--config", "mnist_mlp", "--device", "cpu"]
     assert tcmds[0][-2:] == ["checkpoint.enabled=true",
                              "checkpoint.resume=true"]
-    # The world of one: rank 0, no coordinator, the plain restore.
+    # The world of one: rank 0, no coordinator, the restore through the
+    # redistribution service, as JAX's.
     assert "--coordinator" not in tcmds[1]
     assert tcmds[1][7:11] == ["--num-processes", "1", "--process-id", "0"]
-    assert not any("restore_redistribute" in a for a in tcmds[1])
+    assert not any("restore_redistribute" in a for a in tcmds[0])
+    assert tcmds[1][-1] == "checkpoint.restore_redistribute=true"
     assert jcmds[1][-1] == "checkpoint.restore_redistribute=true"
     swap = lambda c: [a.replace(jelastic.__name__.rsplit(".", 1)[0],  # noqa
                                 elastic.__name__.rsplit(".", 1)[0])
                       for a in c if "workdir=" not in a]
-    assert [swap(c) for c in jcmds] == [
-        swap(tcmds[0]), swap(tcmds[1]) + ["checkpoint.restore_redistribute=true"]]
+    assert [swap(c) for c in jcmds] == [swap(c) for c in tcmds]
     jseries, tseries = _series(jprom), _series(tprom)
     assert sorted(tseries) == sorted(jseries)
     for name in ("elastic_membership_changes_total", "elastic_shrinks_total",

@@ -58,6 +58,11 @@ def test_scans_cover_every_port_module():
     assert "frl_distributed_ml_scaffold_tpu_torch.ops.quantization" in _modules()
     assert PORT_DIR / "ops" / "quantization.py" in _sources()
     assert "frl_distributed_ml_scaffold_tpu_torch.serving.scheduler" in _modules()
+    for mod in ("plan", "executor"):
+        assert f"frl_distributed_ml_scaffold_tpu_torch.redistribute.{mod}" \
+            in _modules()
+        assert PORT_DIR / "redistribute" / f"{mod}.py" in _sources()
+    assert "frl_distributed_ml_scaffold_tpu_torch.redistribute" in _modules()
     assert PORT_DIR / "serving" / "scheduler.py" in _sources()
     for rel in ("checkpoint/flax_msgpack.py", "models/dropout.py"):
         name = port.__name__ + "." + rel[:-3].replace("/", ".")

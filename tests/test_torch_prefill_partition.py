@@ -16,7 +16,11 @@ the tiny GPT of ``_torch_parity``):
   prompt sharing a 2-block prefix moves the 2-block seed out and one
   private block back: the analytic window bytes, and the JAX engine's
   count, exactly;
-- a partition made of other ranks raises, naming ROADMAP A13.
+- a ``MeshEnv`` partition (here over the decode side's own one rank)
+  holds a whole replica moved by the redistribution service
+  (``replica_plan``) and serves the same tokens, its transfers counted
+  as the JAX engine counts them; a partition made of other ranks is
+  ``tests/test_torch_redistribute_ranks.py``'s.
 """
 
 import _torch_threads  # noqa: F401  (before any torch op)
@@ -134,8 +138,30 @@ def test_prefix_transfer_is_windowed(pair):
 
 
 def test_partition_of_other_ranks_raises(pair):
-    _, _, tm = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        DisaggServingEngine(
-            tm, serving=ServingConfig(kv_block_size=BS, disaggregate=True),
-            prefill_env=build_mesh(MeshConfig(data=1), 1), device="cpu")
+    """A ``MeshEnv`` partition serves (ROADMAP A13c's last seam, lifted):
+    the workload of ``test_prefix_transfer_is_windowed`` through a
+    partition over this process's one rank, against the JAX engine."""
+    jm, params, tm = pair
+    eng = DisaggServingEngine(
+        tm, serving=ServingConfig(kv_block_size=BS, disaggregate=True),
+        num_slots=2, temperature=0.0,
+        prefill_env=build_mesh(MeshConfig(data=1), 1), device="cpu")
+    pw = eng.prefill_worker
+    assert pw.separate and not pw.remote and pw.model is not tm
+    assert pw.replica_plan.bytes_moved == 0  # one rank: nothing moves
+    assert {l.kind for l in pw.replica_plan.leaves} == {"identity"}
+    jeng = _jax_engine(jm, params)
+    pre = np.arange(2 * BS, dtype=np.int32) % V
+    for p in (np.concatenate([pre, np.asarray([7, 9, 1], np.int32)]),
+              np.concatenate([pre, np.asarray([11, 3], np.int32)])):
+        rid = eng.submit(p, 4)
+        jeng.submit(p, 4)
+        done = {c.id: c for c in eng.run()}
+        jeng.run()
+        np.testing.assert_array_equal(done[rid].tokens, _solo(tm, p, 4))
+    assert done[rid].prefix_cache_hit
+    assert (eng.stats["handoff_transfer_bytes"]
+            == jeng.stats["handoff_transfer_bytes"]
+            == _window_bytes(3 * BS) + _window_bytes(2 * BS)
+            + _window_bytes(BS))
+    jeng.close()

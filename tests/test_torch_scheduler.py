@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import _torch_threads  # noqa: F401  (before any torch op)
 
+import jax
 import numpy as np
 import pytest
 
@@ -23,8 +24,12 @@ from _torch_parity import TINY, build_pair, jax_params, pallas_interpret
 
 from frl_distributed_ml_scaffold_tpu import faults as jax_faults
 from frl_distributed_ml_scaffold_tpu.config.schema import (
+    MeshConfig as JaxMeshConfig,
+)
+from frl_distributed_ml_scaffold_tpu.config.schema import (
     ServingConfig as JaxServingConfig,
 )
+from frl_distributed_ml_scaffold_tpu.dist.mesh import build_mesh as jbuild
 from frl_distributed_ml_scaffold_tpu.serving import (
     DisaggServingEngine as JaxDisagg,
 )
@@ -402,10 +407,17 @@ def test_build_engine_dispatches_on_disaggregate(pair):
 @pytest.mark.parametrize("case", ["partition", "rules", "respread",
                                   "bucketed", "zero_per_tick"])
 def test_disagg_refusals(pair, case):
-    """What stays refused: a prefill partition made of other ranks and
-    the pool's re-spread (the redistribution service, ROADMAP A13), and,
-    as in JAX, the bucketed cache and a zero launch budget. ``rules=``
-    with no current mesh places nothing and serves, as in JAX."""
+    """What stays refused, as in JAX: the bucketed cache and a zero
+    launch budget. ``rules=`` with no current mesh places nothing and
+    serves, as in JAX. A ``MeshEnv`` prefill partition serves (here over
+    this process's one rank; other ranks are
+    ``test_torch_redistribute_ranks.py``'s), token for token with the
+    JAX engine on a one-device prefill submesh. The decode worker's pool
+    re-spreads mid-decode onto a mesh of one rank (``respread_pool(1)``)
+    as the JAX one does: the same tokens, the pool unmoved, every slot
+    parked and resumed, the counter at one. (The JAX engine here holds
+    host params, which its plan's ``host`` kind places whole; the port's
+    are on their one rank already.)"""
     jm, params, tm = pair
     paged = ServingConfig(kv_block_size=8, disaggregate=True)
     if case == "rules":
@@ -414,16 +426,48 @@ def test_disagg_refusals(pair, case):
         (c,) = eng.run()
         assert c.ok and len(c.tokens) == 6
         return
-    if case in ("partition", "respread"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-            if case == "partition":
-                DisaggServingEngine(
-                    tm, serving=paged,
-                    prefill_env=build_mesh(MeshConfig(data=1), 1),
-                    device="cpu")
-            else:
-                build_engine(tm, serving=paged, device="cpu").decode \
-                    .respread_pool(2)
+    if case == "respread":
+        got = []
+        for eng in (JaxDisagg(jm, params, serving=JaxServingConfig(
+                        kv_block_size=8, disaggregate=True)),
+                    build_engine(tm, serving=paged, device="cpu")):
+            ids = [eng.submit(p, 6) for p in ([1, 2, 3, 4], [5, 6, 7])]
+            eng.step()
+            eng.step()
+            plans = eng.decode.respread_pool(1)
+            done = {c.id: c for c in eng.run()}
+            snap = eng.telemetry.snapshot()
+            got.append(([np.asarray(done[i].tokens) for i in ids],
+                        plans["cache"].bytes_moved,
+                        eng.decode.stats["parked"],
+                        eng.decode.stats["resumed"],
+                        snap["serve_pool_respread_total"]))
+            moved = {k: p.bytes_moved for k, p in plans.items()}
+        (jt, *jrest), (tt, *trest) = got
+        for a, b in zip(jt, tt):
+            np.testing.assert_array_equal(a, b)
+        assert trest == jrest == [0, 2, 2, 1]
+        assert moved == {"params": 0, "cache": 0}
+        return
+    if case == "partition":
+        eng = DisaggServingEngine(
+            tm, serving=paged, temperature=0.0,
+            prefill_env=build_mesh(MeshConfig(data=1), 1), device="cpu")
+        jeng = JaxDisagg(jm, params, temperature=0.0,
+                         serving=JaxServingConfig(kv_block_size=8,
+                                                  disaggregate=True),
+                         prefill_env=jbuild(JaxMeshConfig(data=1),
+                                            devices=[jax.devices()[1]]))
+        got = []
+        for e in (jeng, eng):
+            ids = [e.submit(p, 5) for p in ([1, 2, 3, 4], [5, 6, 7])]
+            done = {c.id: c for c in e.run()}
+            got.append(([np.asarray(done[i].tokens) for i in ids],
+                        e.stats["handoff_transfer_bytes"]))
+        for a, b in zip(got[0][0], got[1][0]):
+            np.testing.assert_array_equal(a, b)
+        assert got[0][1] == got[1][1] > 0
+        assert eng.prefill_worker.separate
         return
     kw = ({} if case == "bucketed"
           else {"kv_block_size": 8, "prefill_max_per_tick": 0})

@@ -152,10 +152,10 @@ def test_engine_refuses_zero_slots(pair):
         # Disaggregation without the paged cache, as JAX.
         {"disaggregate": True},
         {"max_queue_depth": -1},
-        # Ported with tensor-parallel serving: the separate prefill
-        # partition on a device of this process and the rules with no
-        # current mesh, which place nothing, as in JAX. A partition of
-        # other ranks waits for the redistribution (ROADMAP A13).
+        # Ported: the separate prefill partition on a device of this
+        # process or a mesh (its replica moved by the redistribution
+        # service), and the rules with no current mesh, which place
+        # nothing, as in JAX.
         {"disaggregate": True, "kv_block_size": 16, "prefill_env": "mesh"},
         {"rules": "gpt_tp_rules"},
     ],
@@ -164,20 +164,21 @@ def test_engine_refuses_zero_slots(pair):
 )
 def test_unported_serving_options_raise(pair, override):
     """The options the port refuses: those JAX refuses too, with JAX's
-    message, and those still to port, naming their ROADMAP item; the two
-    that tensor-parallel serving brought (a prefill partition on a
-    device, ``rules=``) serve."""
+    message; the ones ported since serve: a prefill partition on a device
+    or a mesh, and ``rules=``."""
     jm, params, tm = pair
     override = dict(override)
     kw = {k: override.pop(k) for k in ("prefill_env", "rules")
           if k in override}
     if "prefill_env" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-            build_engine(tm, serving=ServingConfig(**override), device="cpu",
-                         prefill_env=build_mesh(MeshConfig(data=1), 1))
-        eng = build_engine(tm, serving=ServingConfig(**override),
-                           device="cpu", prefill_env=torch.device("cpu"))
-        assert eng.prefill_worker.separate
+        for env in (build_mesh(MeshConfig(data=1), 1), torch.device("cpu")):
+            eng = build_engine(tm, serving=ServingConfig(**override),
+                               device="cpu", prefill_env=env)
+            assert eng.prefill_worker.separate
+            assert not eng.prefill_worker.remote
+            eng.submit([1, 2, 3], 3)
+            (c,) = eng.run()
+            assert c.ok and len(c.tokens) == 6
     if "rules" in kw:
         shapes = {k: p.shape for k, p in tm.named_parameters()}
         eng = build_engine(tm, serving=ServingConfig(**override),
